@@ -91,14 +91,6 @@ def llama_tiny() -> LlamaConfig:
     )
 
 
-def kernel_shapes(cfg: LlamaConfig) -> bool:
-    """True when every decode projection and the LM head have K and N
-    multiples of 128, the shapes the CUDA int8 kernel takes."""
-    dims = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size,
-            cfg.vocab_size)
-    return all(d % 128 == 0 for d in dims)
-
-
 # --- Init --------------------------------------------------------------------
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,

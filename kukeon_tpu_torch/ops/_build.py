@@ -1,13 +1,13 @@
-"""Build and load the port's CUDA kernels (plain C interface, ctypes).
+"""Build and load the port's CUDA kernel (plain C interface, ctypes).
 
-Each source under ``kukeon_tpu_torch/csrc/`` compiles with ``nvcc`` into
-its own shared library under ``kukeon_tpu_torch/_build/`` at first use.
-The file name carries a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads what is there. Nothing is built
-when a module is imported: hosts without ``nvcc`` (the CPU test hosts)
-import every module and only fail if a kernel is actually asked for.
+``kukeon_tpu_torch/csrc/int8_matmul.cu`` compiles with ``nvcc`` into a
+shared library under ``kukeon_tpu_torch/_build/`` at first use. The file
+name carries a hash of the source and the flags, so a changed source
+rebuilds and an unchanged one loads what is there. Nothing is built when a
+module is imported: hosts without ``nvcc`` (the CPU test hosts) import
+every module and only fail if the kernel is actually asked for.
 
-Run ``python -m kukeon_tpu_torch.ops._build`` to build every library and
+Run ``python -m kukeon_tpu_torch.ops._build`` to build the library and
 print ``ptxas`` register and shared-memory use.
 """
 
@@ -21,13 +21,12 @@ import shutil
 import subprocess
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("int8_matmul.cu",)
+SOURCE = "int8_matmul.cu"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -79,35 +78,18 @@ def build(source: str) -> tuple[Path, str, float]:
     return out, proc.stdout + proc.stderr, time.monotonic() - t0
 
 
-def build_all() -> dict[str, tuple[Path, str, float]]:
-    """Build every source at once, one nvcc process per source."""
-    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-        return dict(zip(SOURCES, pool.map(build, SOURCES)))
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-# C signature of every entry point, by library.
-_ENTRY_POINTS = {
-    "int8_matmul.cu": {
-        # h, q, s, out, ws, B, K, N, ks, transpose, is_bf16, stream
-        "kukeon_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    },
-}
-
-
 @functools.cache
-def load_library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if needed."""
-    path, _log, _secs = build(source)
+def load_int8_matmul() -> ctypes.CDLL:
+    """The loaded int8_matmul library, built first if needed."""
+    path, _log, _secs = build(SOURCE)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _ENTRY_POINTS[source].items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # h, q, s, out, ws, B, K, N, ks, transpose, is_bf16, stream
+    lib.kukeon_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.kukeon_int8_matmul.restype = ctypes.c_int
     return lib
 
 
 if __name__ == "__main__":
-    for src, (path, log, secs) in build_all().items():
-        print(f"{src} -> {path} ({secs:.1f} s)\n{log}")
+    path, log, secs = build(SOURCE)
+    print(f"{SOURCE} -> {path} ({secs:.1f} s)\n{log}")

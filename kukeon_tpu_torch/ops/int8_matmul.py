@@ -28,7 +28,6 @@ import torch
 from kukeon_tpu_torch.ops import _build
 
 MAX_B = 64
-_SOURCE = "int8_matmul.cu"
 # Enough blocks for two per SM on a 132-SM H100.
 _TARGET_BLOCKS = 264
 
@@ -100,7 +99,7 @@ def int8_matmul(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                          f"got K={K}, N={N}")
     if q.data_ptr() % 16:
         raise ValueError("int8_matmul kernel wants q 16-byte aligned")
-    lib = _build.load_library(_SOURCE)
+    lib = _build.load_int8_matmul()
     ks = k_slice(B, K, N, transpose)
     out = torch.empty((B, N), dtype=h.dtype, device=h.device)
     ws = torch.empty((K // ks, B, N), dtype=torch.float32, device=h.device)

@@ -136,23 +136,17 @@ class ServingEngine:
         eos_ids: tuple[int, ...] = (),
         decode_chunk: int = 16,
         seed: int = 0,
-        int8_pallas: bool | None = None,
         kv_cache_int8: bool = False,
         prefill_buckets: tuple[int, ...] | None = None,
         max_pending: int | None = None,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
-        # int8_pallas=None -> auto: int8 weights on a CUDA device go through
-        # the CUDA kernel whenever the model's shapes fit it. Explicit
-        # True/False wins either way.
-        if int8_pallas is None:
-            int8_pallas = cfg.int8_pallas or (
-                self.device.type == "cuda"
-                and llama._is_q(params["layers"]["wq"])
-                and llama.kernel_shapes(cfg))
-        if cfg.int8_pallas != int8_pallas:
-            cfg = dataclasses.replace(cfg, int8_pallas=int8_pallas)
+        # int8 weights on a CUDA device always decode through the kernel; a
+        # model whose dims it does not take fails at the kernel's shape check.
+        if (self.device.type == "cuda" and llama._is_q(params["layers"]["wq"])
+                and not cfg.int8_pallas):
+            cfg = dataclasses.replace(cfg, int8_pallas=True)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
         self.num_slots = num_slots
