@@ -1,12 +1,15 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
-against its plain version, check the 8B model, and serve.
+against its plain version, check the 8B model, serve, and train.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line with its wall time; any failure ends
 the run with a nonzero exit and no result line:
 
-  1. card     nvidia-smi name and power limit, versions, kernel build
+  1. card     nvidia-smi name and power limit, versions, and the build of
+              both CUDA sources (csrc/int8_matmul.cu, csrc/flash_attention.cu),
+              one nvcc each, started together; ptxas registers, shared
+              memory and spills for every kernel
   2. kernel   int8_matmul vs int8_matmul_reference at every llama3-8b decode
               shape (and the llama3-1b tied head, transposed), B in
               {1, 3, 4, 16, 64}; at B = 4: kernel, plain and library times
@@ -20,6 +23,16 @@ the run with a nonzero exit and no result line:
               torch.profiler over 4 more requests (device busy share,
               top kernels); then a short llama3-1b run, whose tied LM
               head takes the transposed kernel
+  5. flash    flash_attention vs flash_attention_reference: llama3-1b
+              training heads (B 4, S 2048, H 32, KV 8, D 64), llama3-8b heads
+              (B 1, S 1024, D 128), offset positions, KV = H, and an f32
+              case; at the llama3-1b shape: kernel, plain and library
+              (scaled_dot_product_attention) times beside the bound
+  6. train    the port's trainer through its entry point
+              (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
+              and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
+              and 8, then a resumed run of 2 more steps; the loss falls,
+              32 flash launches a step, restored params equal the saved ones
 
 The last lines: the nvidia-smi line, a {"kernels": [...]} line, and
 {"ok": true, "device": {...}}. Exits nonzero without a CUDA device, and
@@ -30,14 +43,20 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
+import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 # Peak HBM bandwidth by card (NVIDIA data sheets), bytes/s, and the dense
@@ -48,6 +67,17 @@ BF16_FLOPS = 989e12
 K1_REPLACES = "kukeon_tpu/ops/int8_matmul.py:40"      # _kernel
 K1T_REPLACES = "kukeon_tpu/ops/int8_matmul.py:46"     # _kernel_t
 K1_SOURCE = "kukeon_tpu_torch/csrc/int8_matmul.cu"
+K3_REPLACES = "kukeon_tpu/ops/flash_attention.py:36"  # _flash_kernel
+K3_SOURCE = "kukeon_tpu_torch/csrc/flash_attention.cu"
+# Flash cases: (label, B, S, H, KV, D, dtype, position offsets per batch row).
+FLASH_CASES = (
+    ("llama3-1b train", 4, 2048, 32, 8, 64, torch.bfloat16, None),
+    ("llama3-8b heads", 1, 1024, 32, 8, 128, torch.bfloat16, None),
+    ("offset positions", 2, 1024, 8, 2, 64, torch.bfloat16, (100, 7)),
+    ("KV = H", 2, 1024, 8, 8, 64, torch.bfloat16, None),
+    ("f32", 1, 256, 4, 2, 32, torch.float32, (5, )),
+)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_MORE = 4, 2048, 8, 2
 # (K, N) of the llama3-8b decode projections, with launches per step.
 SHAPES_8B = {"wq": (4096, 4096, 32), "wk": (4096, 1024, 32), "wv": (4096, 1024, 32),
              "wo": (4096, 4096, 32), "w_gate": (4096, 14336, 32),
@@ -228,6 +258,18 @@ def post(url: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
+def dev_us(e) -> float:
+    """Device time of a profiler row, in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_kernels(prof) -> list:
+    """The profiler's kernel rows (not the host-side operators, whose
+    device time repeats their kernels')."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+
+
 def profile_serving(engine, prompts, new: int) -> dict:
     """torch.profiler over requests submitted straight to the running
     engine: device busy share of the wall time, and the kernels that take
@@ -244,10 +286,7 @@ def profile_serving(engine, prompts, new: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages() if dev_us(e) > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     return {"wall_ms": round(wall_ms, 2), "device_busy_ms": round(busy_ms, 2),
@@ -326,12 +365,255 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
     return out
 
 
+def flash_within_tol(out: torch.Tensor, ref: torch.Tensor,
+                     v: torch.Tensor) -> tuple[bool, float, float]:
+    """Kernel vs plain version. f32: 2e-5 relative plus absolute (the same
+    math summed in another order). bf16: the two round p at different
+    places (the kernel casts the unnormalised p to bf16 and divides by the
+    f32 sum at the end; the plain version normalises, then casts), each a
+    relative 2^-8 on every weight of the average, and both round the
+    output: |err| <= 2^-7 (|ref| + max|v|), and the error's RMS within
+    2^-7 of the output's, which a systematic error of 1% would break."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    rel_rms = float(err.pow(2).mean().sqrt() / r.pow(2).mean().sqrt())
+    if ref.dtype == torch.float32:
+        ok = bool(torch.all(err <= 2e-5 * (r.abs() + 1)))
+    else:
+        ok = bool(torch.all(err <= 2.0 ** -7 * (r.abs() + v.float().abs().max())))
+        ok = ok and rel_rms <= 2.0 ** -7
+    return ok and bool(torch.isfinite(o).all()), float(err.max()), rel_rms
+
+
+def flash_flops(B: int, S: int, H: int, D: int) -> float:
+    """Operations of causal attention's two products: 2 B H S^2 D."""
+    return 2.0 * B * H * S * S * D
+
+
+def phase_flash(fa, bps: float, flush: torch.Tensor) -> dict:
+    """Hold the flash kernel against its plain version at every case; time
+    it at the llama3-1b training shape."""
+    import torch.nn.functional as F
+
+    from kukeon_tpu_torch.ops.attention import repeat_kv
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases, timing = [], None
+    for label, B, S, H, KV, D, dt, offsets in FLASH_CASES:
+        q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
+        k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dt)
+        v = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dt)
+        pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :].expand(B, S)
+        if offsets is not None:
+            pos = pos + torch.tensor(offsets, device="cuda", dtype=torch.int32)[:B, None]
+        pos = pos.contiguous()
+        out = fa.flash_attention(q, k, v, pos, pos)
+        ref = fa.flash_attention_reference(q, k, v, pos, pos)
+        torch.cuda.synchronize()
+        ok, ea, rel = flash_within_tol(out, ref, v)
+        cases.append({"case": label, "shape": [B, S, H, KV, D], "dtype": str(dt)[6:],
+                      "max_abs_err": ea, "rel_rms_err": rel})
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain version: "
+                                 f"{cases[-1]}")
+        if label != "llama3-1b train":
+            continue
+        n_rep = H // KV
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, repeat_kv(k, n_rep), repeat_kv(v, n_rep)))
+        timing = {
+            "ms": cold_median_ms(lambda: fa.flash_attention(q, k, v, pos, pos), flush),
+            "plain_ms": cold_median_ms(
+                lambda: fa.flash_attention_reference(q, k, v, pos, pos), flush),
+            "library_ms": cold_median_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), flush),
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True) on expanded K/V",
+            "max_abs_err": ea, "shape": [B, S, H, KV, D],
+        }
+        e = q.element_size()
+        t_bytes = (2 * B * S * H * D + 2 * B * S * KV * D) * e / bps * 1e3
+        t_ops = flash_flops(B, S, H, D) / BF16_FLOPS * 1e3
+        timing["bound_ms"], timing["bound_by"] = ((t_ops, "operations") if t_ops >= t_bytes
+                                                  else (t_bytes, "bytes"))
+        timing["tflops"] = flash_flops(B, S, H, D) / timing["ms"] / 1e9
+        del qt, kt, vt
+    return {"cases": cases, "timing": timing,
+            "tolerance": "bf16: |err| <= 2^-7 (|ref| + max|v|) and rms(err) <= 2^-7 "
+                         "rms(ref); f32: |err| <= 2e-5 (|ref| + 1)"}
+
+
+def zipf_dataset(path: str, n_tokens: int, seed: int) -> None:
+    """Token ids with a Zipf-like law over the first 4096 ids of the
+    vocabulary: a unigram the model can learn within a few steps."""
+    from kukeon_tpu_torch.training import TokenDataset
+
+    rng = np.random.default_rng(seed)
+    TokenDataset.write(path, (rng.zipf(1.2, n_tokens) - 1) % 4096)
+
+
+def profile_train_step(data: str) -> dict:
+    """torch.profiler over one llama3-1b train step (after two warm-up
+    steps), outside the CLI: device busy share of the step's wall time,
+    the flash kernel's device time, and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kukeon_tpu_torch.models import llama
+    from kukeon_tpu_torch.training import TokenDataset, batches, create_train_state
+    from kukeon_tpu_torch.training.train_step import make_optimizer, make_train_step
+
+    cfg = llama.llama3_1b()
+    opt = make_optimizer(3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    state, opt = create_train_state(cfg, torch.Generator(device="cuda").manual_seed(1),
+                                    "cuda", opt)
+    step = make_train_step(cfg, opt)
+    feed = batches(TokenDataset(data), TRAIN_B, TRAIN_S, num_steps=3, device="cuda")
+    for i, (_s, *batch) in enumerate(feed):
+        if i < 2:
+            state, loss = step(state, *batch)
+            float(loss)
+            continue
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            state, loss = step(state, *batch)
+            float(loss)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+
+    def kind(name: str) -> str:
+        low = name.lower()
+        if "flash_fwd" in name:
+            return "flash"
+        if any(w in low for w in ("gemm", "xmma", "nvjet", "cutlass")):
+            return "gemm_f32" if "f32f32_f32f32" in low or "sgemm" in low else "gemm_bf16"
+        return "softmax" if "softmax" in low else "other"
+
+    by_kind: dict[str, float] = {}
+    for e in kernels:
+        by_kind[kind(e.key)] = by_kind.get(kind(e.key), 0.0) + dev_us(e) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    return {"wall_ms": round(wall_ms, 2), "device_busy_ms": round(busy_ms, 2),
+            "device_idle_share": round(1 - busy_ms / wall_ms, 4),
+            "device_ms_by_kind": {k: round(v, 3) for k, v in sorted(by_kind.items())},
+            "top_device_ms": [[e.key[:70], round(dev_us(e) / 1e3, 3), e.count] for e in top]}
+
+
+def phase_train(fa) -> dict:
+    """The port's trainer, in process, through its entry point."""
+    import kukeon_tpu_torch.training as training
+    from kukeon_tpu_torch.models import llama
+    from kukeon_tpu_torch.training import cli
+    from kukeon_tpu_torch.training.train_step import tree_leaves
+
+    cfg = llama.llama3_1b()
+    saved, restored = {}, {}
+    real_save, real_restore = training.save_checkpoint, training.restore_checkpoint
+
+    def save(root, state):          # keeps a host copy of what was saved at the end
+        if state.step == TRAIN_STEPS and "params" not in saved:
+            saved["params"] = [t.detach().to("cpu", copy=True) for t in tree_leaves(state.params)]
+        return real_save(root, state)
+
+    def restore(root, template, step=None):
+        state = real_restore(root, template, step)
+        restored["step"] = state.step
+        restored["params"] = [t.detach().to("cpu", copy=True) for t in tree_leaves(state.params)]
+        return state
+
+    tmp = tempfile.mkdtemp(prefix="kukeon-train-")
+    try:
+        data = os.path.join(tmp, "tokens.bin")
+        zipf_dataset(data, 4_000_000, seed=0)
+        ckpt = os.path.join(tmp, "ckpt")
+        common = ["--dataset", data, "--model", "llama3-1b", "--batch", str(TRAIN_B),
+                  "--seq-len", str(TRAIN_S), "--lr", "3e-4", "--warmup-steps", "1",
+                  "--log-every", "1", "--ckpt-dir", ckpt, "--save-every", "4"]
+        training.save_checkpoint, training.restore_checkpoint = save, restore
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            fa.flash_attention.launches = 0
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(common + ["--steps", str(TRAIN_STEPS)])
+            torch.cuda.synchronize()
+            launches = fa.flash_attention.launches
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            first_log = buf.getvalue()
+            steps_saved = sorted(os.listdir(ckpt))
+            shutil.rmtree(os.path.join(ckpt, "step_00000004"))   # disk: keep the newest
+            gc.collect()
+            torch.cuda.empty_cache()
+            buf = io.StringIO()
+            fa.flash_attention.launches = 0
+            with contextlib.redirect_stdout(buf):
+                rc2 = cli.main(common + ["--steps", str(TRAIN_STEPS + TRAIN_MORE)])
+            torch.cuda.synchronize()
+            launches2 = fa.flash_attention.launches
+            second_log = buf.getvalue()
+        finally:
+            training.save_checkpoint, training.restore_checkpoint = real_save, real_restore
+        gc.collect()
+        torch.cuda.empty_cache()
+        prof = profile_train_step(data)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sys.stdout.write(first_log + second_log)
+
+    def parse(log):
+        rows = [ln.split() for ln in log.splitlines() if ln.startswith("step ")]
+        return {int(r[1]): (float(r[3]), float(r[4].lstrip("("))) for r in rows}
+
+    run1, run2 = parse(first_log), parse(second_log)
+    losses = [run1[i][0] for i in sorted(run1)] + [run2[i][0] for i in sorted(run2)]
+    if rc != 0 or rc2 != 0:
+        raise AssertionError(f"training exited {rc}, {rc2}")
+    if sorted(run1) != list(range(1, TRAIN_STEPS + 1)) or \
+            sorted(run2) != list(range(TRAIN_STEPS + 1, TRAIN_STEPS + TRAIN_MORE + 1)):
+        raise AssertionError(f"unexpected step lines: {sorted(run1)}, {sorted(run2)}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if steps_saved != ["step_00000004", "step_00000008"]:
+        raise AssertionError(f"checkpoints {steps_saved}, want steps 4 and 8")
+    if f"train: resumed from step {TRAIN_STEPS}" not in second_log or \
+            restored.get("step") != TRAIN_STEPS:
+        raise AssertionError(f"the second run did not resume at step {TRAIN_STEPS}")
+    if len(saved["params"]) != len(restored["params"]) or not all(
+            torch.equal(a, b) for a, b in zip(saved["params"], restored["params"])):
+        raise AssertionError("restored params differ from the saved ones")
+    per_step = 2 * cfg.num_layers       # forward + remat recompute, every layer
+    if launches != per_step * TRAIN_STEPS or launches2 != per_step * TRAIN_MORE:
+        raise AssertionError(f"flash launches {launches} and {launches2}, want "
+                             f"{per_step} a step")
+    tokens = TRAIN_B * TRAIN_S
+    step_ms = statistics.median(tokens / run1[i][1] * 1e3 for i in range(3, TRAIN_STEPS + 1))
+    flops = (6.0 * cfg.param_count() * tokens
+             + 3 * cfg.num_layers * flash_flops(TRAIN_B, TRAIN_S, cfg.num_heads, cfg.head_dim))
+    return {"model": "llama3-1b", "batch": TRAIN_B, "seq_len": TRAIN_S,
+            "steps": TRAIN_STEPS, "resumed_steps": TRAIN_MORE,
+            "params": cfg.param_count(), "losses": losses,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "step_ms_median_3_8": round(step_ms, 3),
+            "tokens_per_s": round(tokens / step_ms * 1e3, 1),
+            "mfu": round(flops / (step_ms / 1e3) / BF16_FLOPS, 4),
+            "mfu_flops_per_step": flops,
+            "peak_mem_gb": round(peak_gb, 2),
+            "flash_launches": launches, "flash_launches_per_step": launches // TRAIN_STEPS,
+            "flash_launches_resumed": launches2,
+            "resumed_from": restored["step"], "restored_params_bitwise_equal": True,
+            "profile": prof}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
         return 2
     from kukeon_tpu_torch.ops import _build
+    from kukeon_tpu_torch.ops import flash_attention as fa
     from kukeon_tpu_torch.ops import int8_matmul as k1
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -341,17 +623,25 @@ def main() -> int:
     bps = hbm_bps(name)
 
     with phase("card", {}) as p:
-        _path, log, secs = _build.build(_build.SOURCE)
+        t0 = time.monotonic()
+        built = _build.build_all()
         p.update(nvidia_smi=smi, device=name, torch=torch.__version__,
                  cuda=torch.version.cuda, python=sys.version.split()[0],
-                 hbm_bytes_per_s=bps, build_s=round(secs, 2),
-                 ptxas=[ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln])
+                 hbm_bytes_per_s=bps, build_wall_s=round(time.monotonic() - t0, 2),
+                 build_s={src: round(secs, 2) for src, (_p, _l, secs) in built.items()},
+                 tmp_free_gb=round(shutil.disk_usage(tempfile.gettempdir()).free / 1e9, 1),
+                 ptxas={src: [ln.strip() for ln in log.splitlines()
+                              if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+                        for src, (_p, log, _s) in built.items()})
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     with phase("kernel", {}) as p:
         p.update(phase_kernel(k1, bps, flush))
         kern = p
+    with phase("flash", {}) as p:
+        p.update(phase_flash(fa, bps, flush))
+        ft = p["timing"]
+        flash = p
     del flush
     with phase("model", {}) as p:
         p.update(phase_model(k1))
@@ -366,6 +656,11 @@ def main() -> int:
     with phase("serve_tied", {}) as p:
         p.update(serve_model(k1, "llama3-1b", max_seq_len=256, prompt_len=32, new=16))
         serve1 = p
+    with phase("train", {}) as p:
+        p.update(phase_train(fa))
+        p["flash_share_of_step"] = round(
+            ft["ms"] * p["flash_launches_per_step"] / p["step_ms_median_3_8"], 4)
+        train = p
     for label, run, key in (("llama3-8b", serve8, "k1"), ("llama3-1b", serve1, "k1t")):
         if run["launches"][key] <= 0:
             raise AssertionError(f"{label} serving launched no {key} kernel")
@@ -388,6 +683,13 @@ def main() -> int:
          "bound_by": tied["bound_by"], "library_ms": round(tied["library_ms"], 4),
          "library_ms_call": kern["library_call"],
          "unit": "llama3-1b tied LM head, B=4"},
+        {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": train["flash_launches"],
+         "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),
+         **{f: round(ft[f], 4) for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "bound_by": ft["bound_by"], "library_ms_call": ft["library_call"],
+         "unit": "one call at B=4 S=2048 H=32 KV=8 D=64 bf16 (llama3-1b training); "
+                 f"{train['flash_launches_per_step']} launches per train step"},
     ]
     # The serve phases' end-to-end numbers again, short, so that the last
     # lines of the output carry every number the run is quoted for.
@@ -396,7 +698,10 @@ def main() -> int:
         "llama3-8b": {**{k: serve8[k] for k in e2e_keys},
                       "bound_ms_per_decode_step": serve8["bound_ms_per_decode_step"],
                       "device_idle_share": serve8["profile"]["device_idle_share"]},
-        "llama3-1b": {k: serve1[k] for k in e2e_keys}}})
+        "llama3-1b": {k: serve1[k] for k in e2e_keys},
+        "train_llama3-1b": {k: train[k] for k in (
+            "step_ms_median_3_8", "tokens_per_s", "mfu", "peak_mem_gb", "first_loss",
+            "last_loss", "flash_launches_per_step", "flash_share_of_step")}}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from kukeon_tpu_torch.ops.attention import decode_gqa_attention, gqa_attention
 from kukeon_tpu_torch.ops.int8_matmul import int8_matmul
@@ -326,6 +327,21 @@ def layer_weights(params: Params, layer: int) -> dict:
             for name, w in params["layers"].items()}
 
 
+def layer_slices(params: Params) -> list[dict]:
+    """Every layer's weights (:func:`layer_weights` for all layers), cut
+    with one ``unbind`` per stacked leaf. Under autograd an unbind's
+    backward stacks the per-layer gradients once, where L index views would
+    each scatter into a zero tensor of the whole stacked shape."""
+    cols = {}
+    for name, w in params["layers"].items():
+        if _is_q(w):
+            cols[name] = [{"q": q, "s": s} for q, s in zip(w["q"].unbind(0), w["s"].unbind(0))]
+        else:
+            cols[name] = w.unbind(0)
+    n = len(next(iter(cols.values())))
+    return [{name: col[layer] for name, col in cols.items()} for layer in range(n)]
+
+
 def _mlp(x: torch.Tensor, w: dict, c: LlamaConfig, kernel: bool = False) -> torch.Tensor:
     h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
     gate = F.silu(_mm(h, w["w_gate"], kernel).float()).to(c.dtype)
@@ -369,6 +385,7 @@ def forward(
     cache: KVCache | None = None,
     attn_impl: str = "auto",
     logit_positions: torch.Tensor | None = None,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Run the decoder.
 
@@ -381,6 +398,10 @@ def forward(
         ``positions`` must equal ``cache.lengths[:, None] + arange(S)``.
       logit_positions: optional [B] sequence indices; the LM head then runs
         at only those positions and logits come back [B, 1, V].
+      remat: without a cache, run each block under non-reentrant
+        ``torch.utils.checkpoint``: its activations are recomputed in the
+        backward instead of kept (training; the reference checkpoints the
+        whole forward, with the same numbers).
 
     Returns:
       (logits [B, S, V] float32 — [B, 1, V] with ``logit_positions`` — and
@@ -395,10 +416,14 @@ def forward(
 
     offsets = cache.lengths if cache is not None else None
     rope = rope_tables(positions, c.head_dim, c.rope_theta)
-    for layer in range(c.num_layers):
-        w = layer_weights(params, layer)
+    for layer, w in enumerate(layer_slices(params)):
         if cache is None:
-            x = transformer_block(x, w, c, positions, attn_impl, rope)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    transformer_block, x, w, c, positions, attn_impl, rope,
+                    use_reentrant=False)
+            else:
+                x = transformer_block(x, w, c, positions, attn_impl, rope)
             continue
         h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
         q = _mm(h, w["wq"]).reshape(B, S, c.num_heads, c.head_dim)

@@ -1,19 +1,21 @@
-"""Build and load the port's CUDA kernel (plain C interface, ctypes).
+"""Build and load the port's CUDA kernels (plain C interface, ctypes).
 
-``kukeon_tpu_torch/csrc/int8_matmul.cu`` compiles with ``nvcc`` into a
-shared library under ``kukeon_tpu_torch/_build/`` at first use. The file
-name carries a hash of the source and the flags, so a changed source
-rebuilds and an unchanged one loads what is there. Nothing is built when a
-module is imported: hosts without ``nvcc`` (the CPU test hosts) import
-every module and only fail if the kernel is actually asked for.
+Each source under ``kukeon_tpu_torch/csrc/`` (``SOURCES``) compiles with
+``nvcc`` into its own shared library under ``kukeon_tpu_torch/_build/`` at
+first use. The file name carries a hash of the source and the flags, so a
+changed source rebuilds and an unchanged one loads what is there.
+:func:`build_all` starts one ``nvcc`` per source at once. Nothing is built
+when a module is imported: hosts without ``nvcc`` (the CPU test hosts)
+import every module and only fail if a kernel is actually asked for.
 
-Run ``python -m kukeon_tpu_torch.ops._build`` to build the library and
+Run ``python -m kukeon_tpu_torch.ops._build`` to build every library and
 print ``ptxas`` register and shared-memory use.
 """
 
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import functools
 import hashlib
 import os
@@ -26,7 +28,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCE = "int8_matmul.cu"
+INT8_MATMUL = "int8_matmul.cu"
+FLASH_ATTENTION = "flash_attention.cu"
+SOURCES = (INT8_MATMUL, FLASH_ATTENTION)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -78,10 +82,18 @@ def build(source: str) -> tuple[Path, str, float]:
     return out, proc.stdout + proc.stderr, time.monotonic() - t0
 
 
+def build_all() -> dict[str, tuple[Path, str, float]]:
+    """Build every source, one ``nvcc`` each, all started together:
+    {source: (path, nvcc log, seconds)}."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {src: pool.submit(build, src) for src in SOURCES}
+        return {src: f.result() for src, f in futures.items()}
+
+
 @functools.cache
 def load_int8_matmul() -> ctypes.CDLL:
     """The loaded int8_matmul library, built first if needed."""
-    path, _log, _secs = build(SOURCE)
+    path, _log, _secs = build(INT8_MATMUL)
     lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
     # h, q, s, out, ws, B, K, N, ks, transpose, is_bf16, stream
@@ -90,6 +102,19 @@ def load_int8_matmul() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def load_flash_attention() -> ctypes.CDLL:
+    """The loaded flash_attention library, built first if needed."""
+    path, _log, _secs = build(FLASH_ATTENTION)
+    lib = ctypes.CDLL(str(path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # q, k, v, o, q_pos, kv_pos, B, S, H, KV, D, strides (12 x int64), is_bf16, stream
+    lib.kukeon_flash_attention.argtypes = [P, P, P, P, P, P, I, I, I, I, I,
+                                           ctypes.POINTER(ctypes.c_longlong), I, P]
+    lib.kukeon_flash_attention.restype = ctypes.c_int
+    return lib
+
+
 if __name__ == "__main__":
-    path, log, secs = build(SOURCE)
-    print(f"{SOURCE} -> {path} ({secs:.1f} s)\n{log}")
+    for src, (path, log, secs) in build_all().items():
+        print(f"{src} -> {path} ({secs:.1f} s)\n{log}")

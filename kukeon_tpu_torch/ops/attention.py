@@ -7,9 +7,12 @@ and softmax are float32: where the reference asks XLA for an f32 result of
 a low-precision dot (``preferred_element_type``), the port upcasts the
 operands, which gives the same exact products and an f32 sum.
 
-Only the grouped einsum path is ported. The reference's flash dispatch
-(a Pallas kernel that engine prefill never reaches) and its ring/ulysses
-sequence-parallel paths raise ``NotImplementedError`` here.
+:func:`gqa_attention` dispatches as the reference does: the flash
+forward (:mod:`kukeon_tpu_torch.ops.flash_attention`, a CUDA kernel) for
+cacheless self-attention at S >= 1024 on the GPU, where the reference
+takes its Pallas kernel on the TPU, and the grouped einsum otherwise.
+Engine prefill always has a cache, so it never takes flash. The
+ring/ulysses sequence-parallel paths raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -166,19 +169,35 @@ def gqa_attention(
     """GQA attention entry point used by the model.
 
     q: [B, Sq, NH, D]; k, v: [B, Skv, NKV, D] with NH % NKV == 0.
-    ``impl``: "auto" and "reference" take the grouped einsum ("auto" picks
-    it everywhere, as the reference does off TPU).
+    ``impl``: "flash" forces the flash forward (full self-attention only);
+    "auto" takes it when ``kv_length`` is None, Sq >= 1024, the shape is
+    one :func:`flash_attention.supports` covers and q lies on the GPU (the
+    reference's rule, with the GPU in the TPU's place); "reference" and
+    every other case take the grouped einsum.
     """
-    if impl == "flash":
-        raise NotImplementedError(
-            "impl='flash' (the Pallas flash forward, kukeon_tpu/ops/"
-            "flash_attention.py) is not ported yet: ROADMAP.md B1, with "
-            "the training slice (A7)")
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"impl={impl!r} (sequence parallelism) is not ported yet: "
             "ROADMAP.md A13, multi-GPU")
-    if impl not in ("auto", "reference"):
+    if impl not in ("auto", "reference", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
+
+    from kukeon_tpu_torch.ops import flash_attention as fa   # it imports this module
+
+    if impl == "flash":
+        if kv_length is not None or not fa.supports(q.shape[1], k.shape[1]):
+            raise ValueError(
+                "impl='flash' requires full self-attention with Sq == Skv, "
+                "Sq >= 128, Sq a multiple of the 256 block, and no kv_length; "
+                f"got Sq={q.shape[1]}, Skv={k.shape[1]}, "
+                f"kv_length={'set' if kv_length is not None else 'None'}. "
+                "Use 'reference' or 'auto'."
+            )
+        use_flash = True
+    else:
+        use_flash = (impl == "auto" and kv_length is None and q.shape[1] >= 1024
+                     and fa.supports(q.shape[1], k.shape[1]) and q.device.type == "cuda")
+    if use_flash:
+        return fa.flash_attention(q, k, v, q_positions, kv_positions)
     mask = attention_mask(q_positions, kv_positions, kv_length)
     return attention_grouped(q, k, v, mask)

@@ -1,0 +1,180 @@
+"""Training step for the Llama family on one device, the port of
+``kukeon_tpu/training/train_step.py``.
+
+The JAX step is a jitted, donated GSPMD program over a mesh; the port's is
+eager PyTorch on one device. What it computes is the same: next-token
+cross entropy of ``llama.forward`` without a cache (attention through
+:func:`kukeon_tpu_torch.ops.attention.gqa_attention`, which takes the flash
+kernel on the GPU at S >= 1024), its gradients, and the optax chain of
+:func:`make_optimizer`, written out by hand. The update happens in place
+under ``torch.no_grad()``: the port's counterpart of ``donate_argnums``.
+
+Remat is non-reentrant ``torch.utils.checkpoint`` around each transformer
+block (the JAX step checkpoints the whole forward; both give the same
+numbers, and per-block remat bounds the memory).
+
+The MoE and pipeline train steps are not ported (ROADMAP A8, A13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, ClassVar
+
+import numpy as np
+import torch
+
+from kukeon_tpu_torch.models import llama
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any          # the model's parameter tree (llama layout)
+    opt_state: dict      # {"count": int, "mu": tree, "nu": tree}
+    step: int
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a nested dict, keys sorted at every level (JAX's
+    order for a dict pytree), so trees built in any key order line up."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy over masked positions.
+
+    logits: [B, S, V] f32; targets: [B, S] integer; mask: [B, S] {0,1}.
+    """
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    total = torch.sum(nll * mask)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    return total / denom
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule (exponent 1): linear from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then cosine down
+    to ``end_value`` at ``decay_steps``."""
+    alpha = end_value / peak_value if peak_value else 0.0
+    cos_steps = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - max(count, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, cos_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / cos_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
+    eps, eps_root=0, weight_decay))``, step by step:
+
+    1. g <- g / ||g|| * max_norm when the global norm ||g|| >= max_norm.
+    2. mu <- (1-b1) g + b1 mu; nu <- (1-b2) g^2 + b2 nu, kept in the param
+       dtype; u = mu_hat / (sqrt(nu_hat + eps_root) + eps) with the bias
+       corrections 1 - b^(count+1) (computed in f32, then cast).
+    3. u <- u + weight_decay * p on every leaf (optax's mask is None).
+    4. p <- p + (-lr(count)) u, the schedule read at the count *before* the
+       increment, so step 0 (lr 0) leaves every parameter as it was.
+
+    The constants are the JAX package's (``make_optimizer``). Python
+    scalars enter each leaf's arithmetic in the leaf's dtype, as JAX's
+    weakly typed constants do. One difference in bf16: the global norm sums
+    each leaf's squares into an f32 total, where optax rounds each leaf's
+    sum to bf16.
+    """
+
+    schedule: Callable[[int], float]
+    weight_decay: float = 0.1
+    b1: ClassVar[float] = 0.9
+    b2: ClassVar[float] = 0.95
+    eps: ClassVar[float] = 1e-8
+    eps_root: ClassVar[float] = 0.0
+    max_norm: ClassVar[float] = 1.0
+
+    def init(self, params) -> dict:
+        zeros = lambda p: torch.zeros_like(p, requires_grad=False)  # noqa: E731
+        return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+
+    @torch.no_grad()
+    def update_(self, grads: list[torch.Tensor], opt_state: dict, params) -> None:
+        """Apply one update in place to ``params`` and ``opt_state``;
+        ``grads`` in :func:`tree_leaves` order of ``params``."""
+        count = opt_state["count"]
+        sq = sum(torch.sum(torch.square(g), dtype=torch.float32) for g in grads)
+        norm = float(torch.sqrt(sq))
+        clip = norm >= self.max_norm
+        lr = -self.schedule(count)
+        bc1 = np.float32(1) - np.float32(self.b1) ** (count + 1)
+        bc2 = np.float32(1) - np.float32(self.b2) ** (count + 1)
+        for p, g, mu, nu in zip(tree_leaves(params), grads, tree_leaves(opt_state["mu"]),
+                                tree_leaves(opt_state["nu"])):
+            c = lambda x: torch.tensor(float(x), dtype=p.dtype)  # noqa: E731
+            if clip:
+                g = g / torch.tensor(norm, dtype=torch.float32).to(g.dtype) * c(self.max_norm)
+            mu.mul_(c(self.b1)).add_(g * c(1 - self.b1))
+            nu.mul_(c(self.b2)).add_(g * g * c(1 - self.b2))
+            u = (mu / c(bc1)) / (torch.sqrt(nu / c(bc2) + c(self.eps_root)) + c(self.eps))
+            u.add_(p * c(self.weight_decay))
+            u.mul_(torch.tensor(np.float32(lr)).to(p.dtype))
+            p.add_(u)
+        opt_state["count"] = count + 1
+
+
+def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
+                   warmup_steps: int = 100, total_steps: int = 10_000) -> AdamW:
+    schedule = warmup_cosine_decay_schedule(
+        0.0, learning_rate, warmup_steps, max(total_steps, warmup_steps + 1))
+    return AdamW(schedule, weight_decay=weight_decay)
+
+
+def create_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
+                       device: torch.device | str,
+                       optimizer: AdamW | None = None) -> tuple[TrainState, AdamW]:
+    """Random parameters (``llama.init_params`` on ``device``) and fresh
+    optimizer state."""
+    optimizer = optimizer or make_optimizer()
+    params = llama.init_params(cfg, generator, device)
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0), optimizer
+
+
+def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = True):
+    """``step(state, tokens, targets, mask) -> (state, loss)``: one forward,
+    backward and update, with params and moments updated in place. ``remat``
+    recomputes each block's activations in the backward."""
+
+    def train_step(state: TrainState, tokens, targets, mask):
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        positions = positions[None, :].expand(B, S).contiguous()
+        leaves = tree_leaves(state.params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            logits, _ = llama.forward(state.params, cfg, tokens, positions, remat=remat)
+            loss = cross_entropy_loss(logits, targets, mask)
+            del logits
+            grads = torch.autograd.grad(loss, leaves)
+        optimizer.update_(list(grads), state.opt_state, state.params)
+        state.step += 1
+        return state, loss.detach()
+
+    return train_step
