@@ -1,34 +1,49 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
-against its plain version, check the 8B model, serve, and train.
+against its plain version, check the 8B and Mixtral models, serve both,
+and train.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
 
-Phases, each printing one JSON line with its wall time; any failure ends
-the run with a nonzero exit and no result line:
+Phases, in the order they run, each printing one JSON line with its wall
+time; any failure ends the run with a nonzero exit and no result line:
 
-  1. card     nvidia-smi name and power limit, versions, and the build of
+  card        nvidia-smi name and power limit, versions, and the build of
               both CUDA sources (csrc/int8_matmul.cu, csrc/flash_attention.cu),
               one nvcc each, started together; ptxas registers, shared
               memory and spills for every kernel
-  2. kernel   int8_matmul vs int8_matmul_reference at every llama3-8b decode
+  kernel      int8_matmul vs int8_matmul_reference at every llama3-8b decode
               shape (and the llama3-1b tied head, transposed), B in
               {1, 3, 4, 16, 64}; at B = 4: kernel, plain and library times
               (CUDA events, median of 20 cold-L2 runs) beside the bound
-  3. model    llama3-8b int8 on the card: one prefill and one decode step
-              through the kernel and through the dequant product; logits
-              agree; the step makes 225 kernel launches
-  4. serve    the port's ServingCell("llama3-8b", dtype="int8", 4 slots,
-              max_seq_len 1024) over HTTP: 4 concurrent 128-token prompts,
-              64 greedy tokens each, a repeat for determinism, /readyz;
-              torch.profiler over 4 more requests (device busy share,
-              top kernels); then a short llama3-1b run, whose tied LM
-              head takes the transposed kernel
-  5. flash    flash_attention vs flash_attention_reference: llama3-1b
+  flash       flash_attention vs flash_attention_reference: llama3-1b
               training heads (B 4, S 2048, H 32, KV 8, D 64), llama3-8b heads
               (B 1, S 1024, D 128), offset positions, KV = H, and an f32
               case; at the llama3-1b shape: kernel, plain and library
               (scaled_dot_product_attention) times beside the bound
-  6. train    the port's trainer through its entry point
+  moe_kernel  int8_matmul_expert vs int8_matmul_expert_reference at both
+              Mixtral-8x7B expert shapes (E 8; K x N 4096 x 14336 and
+              14336 x 4096), C in {1, 3, 4, 16, 64}, and an f32 case; at
+              C = 4: kernel, plain and library times beside the bound
+  model       llama3-8b int8 on the card: one prefill and one decode step
+              through the kernel and through the dequant product; logits
+              agree; the step makes 225 kernel launches
+  serve       the port's ServingCell("llama3-8b", dtype="int8", 4 slots,
+              max_seq_len 1024) over HTTP: 4 concurrent 128-token prompts,
+              64 greedy tokens each, a repeat for determinism, /readyz;
+              torch.profiler over 4 more requests (device busy share, top
+              kernels and host operators)
+  serve_tied  a short llama3-1b run, whose tied LM head takes the
+              transposed kernel
+  moe_model   mixtral-8x7b int8 at full width and depth, drawn once on the
+              card by the serving cell of serve_moe: one prefill (B 4,
+              S 128) and one decode step through the kernels and through
+              the dequant products; the step makes 129 int8_matmul and 96
+              int8_matmul_expert launches; logits agree on rows routed
+              alike, and a routing flip happens only on a near tie
+  serve_moe   that ServingCell over HTTP: 4 concurrent 128-token prompts,
+              32 greedy tokens each, a repeat, /readyz, a profiled window
+  train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
               and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
               and 8, then a resumed run of 2 more steps; the loss falls,
@@ -41,7 +56,9 @@ in a directory that holds this file and nothing else of the repository.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -67,6 +84,7 @@ BF16_FLOPS = 989e12
 K1_REPLACES = "kukeon_tpu/ops/int8_matmul.py:40"      # _kernel
 K1T_REPLACES = "kukeon_tpu/ops/int8_matmul.py:46"     # _kernel_t
 K1_SOURCE = "kukeon_tpu_torch/csrc/int8_matmul.cu"
+K2_REPLACES = "kukeon_tpu/ops/int8_matmul.py:101"     # int8_matmul_expert
 K3_REPLACES = "kukeon_tpu/ops/flash_attention.py:36"  # _flash_kernel
 K3_SOURCE = "kukeon_tpu_torch/csrc/flash_attention.cu"
 # Flash cases: (label, B, S, H, KV, D, dtype, position offsets per batch row).
@@ -85,6 +103,15 @@ SHAPES_8B = {"wq": (4096, 4096, 32), "wk": (4096, 1024, 32), "wv": (4096, 1024, 
              "lm_head": (4096, 128256, 1)}
 TIED_1B = (2048, 128256)
 BATCHES = (1, 3, 4, 16, 64)
+# Mixtral-8x7B decode: (K, N, launches per step) of the trunk's int8_matmul
+# calls and of the expert stacks' int8_matmul_expert calls (E experts each).
+MOE_E = 8
+SHAPES_MIXTRAL = {"wq": (4096, 4096, 32), "wk": (4096, 1024, 32), "wv": (4096, 1024, 32),
+                  "wo": (4096, 4096, 32), "lm_head": (4096, 32000, 1)}
+SHAPES_MOE = {"w_gate": (4096, 14336, 32), "w_up": (4096, 14336, 32),
+              "w_down": (14336, 4096, 32)}
+PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_tied",
+          "moe_model", "serve_moe", "train")      # in the order they run
 
 
 def emit(obj) -> None:
@@ -127,12 +154,13 @@ def cold_median_ms(fn, flush: torch.Tensor, runs: int = 20, warm: int = 3) -> fl
     return statistics.median(times)
 
 
-def bound_ms(B: int, K: int, N: int, bps: float) -> tuple[float, str]:
-    """Least time for h[B,K] bf16 @ int8 [K,N] * s[N]: each input read
-    once, the bf16 output written once, over the peak HBM rate; or the
-    2BKN operations over the bf16 rate, whichever is larger."""
-    t_bytes = (K * N + 4 * N + 2 * B * K + 2 * B * N) / bps * 1e3
-    t_ops = 2 * B * K * N / BF16_FLOPS * 1e3
+def bound_ms(B: int, K: int, N: int, bps: float, E: int = 1) -> tuple[float, str]:
+    """Least time for h[B,K] bf16 @ int8 [K,N] * s[N] (E such products for
+    the experts): each input read once, the bf16 output written once, over
+    the peak HBM rate; or the 2BKN operations over the bf16 rate, whichever
+    is larger."""
+    t_bytes = E * (K * N + 4 * N + 2 * B * K + 2 * B * N) / bps * 1e3
+    t_ops = E * 2 * B * K * N / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -210,9 +238,86 @@ def phase_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
             "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), 2^-20 (f32)"}
 
 
-def phase_model(k1) -> dict:
-    import dataclasses
+def expert_library_call(x, q, s):
+    """The same grouped product through PyTorch: no single call computes it,
+    so E calls of torch._weight_int8pack_mm (q [N,K], scale in x's dtype)
+    where the installed build has it on CUDA, else dequant + torch.bmm."""
+    E = x.shape[0]
+    try:
+        q_nk = [q[e].T.contiguous() for e in range(E)]
+        s_x = [s[e].to(x.dtype) for e in range(E)]
+        torch._weight_int8pack_mm(x[0], q_nk[0], s_x[0])
+        torch.cuda.synchronize()
 
+        def run():
+            for e in range(E):
+                torch._weight_int8pack_mm(x[e], q_nk[e], s_x[e])
+        return run, f"torch._weight_int8pack_mm ({E} calls)"
+    except (RuntimeError, NotImplementedError, AttributeError):
+        return ((lambda: torch.bmm(x, q.to(x.dtype)) * s[:, None, :].to(x.dtype)),
+                "dequant+torch.bmm (3 calls)")
+
+
+def phase_moe_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
+    """Hold the grouped expert kernel against its plain version at both
+    Mixtral-8x7B expert shapes and every C; time it at C = 4."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst_abs, worst_rel, timings, lib_label = 0.0, 0.0, {}, None
+    for name in ("w_gate", "w_down"):
+        K, N, _n = SHAPES_MOE[name]
+        q = torch.randint(-127, 128, (MOE_E, K, N), generator=g, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand((MOE_E, N), generator=g, device="cuda") * 0.02 + 1e-3
+        for C in BATCHES:
+            x = torch.randn((MOE_E, C, K), generator=g, device="cuda").to(torch.bfloat16)
+            out = k1.int8_matmul_expert(x, q, s)
+            ref = k1.int8_matmul_expert_reference(x, q, s)
+            torch.cuda.synchronize()
+            ok, ea, er = within_tol(out, ref)
+            if not ok or not torch.isfinite(out).all():
+                raise AssertionError(f"int8_matmul_expert disagrees with its plain version "
+                                     f"at {name} C={C}: max abs {ea}, max rel {er}")
+            worst_abs, worst_rel = max(worst_abs, ea), max(worst_rel, er)
+            if C != 4:
+                continue
+            lib, lib_label = expert_library_call(x, q, s)
+            t = {"ms": cold_median_ms(lambda: k1.int8_matmul_expert(x, q, s), flush),
+                 "plain_ms": cold_median_ms(
+                     lambda: k1.int8_matmul_expert_reference(x, q, s), flush),
+                 "library_ms": cold_median_ms(lib, flush)}
+            t["bound_ms"], t["bound_by"] = bound_ms(4, K, N, bps, MOE_E)
+            t["max_abs_err"] = ea
+            timings[name] = t
+        del q, s
+    # f32 activations take the kernel's float path.
+    x = torch.randn((MOE_E, 4, 4096), generator=g, device="cuda")
+    q = torch.randint(-127, 128, (MOE_E, 4096, 1024), generator=g, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((MOE_E, 1024), generator=g, device="cuda") * 0.02
+    ok, ea32, _ = within_tol(k1.int8_matmul_expert(x, q, s),
+                             k1.int8_matmul_expert_reference(x, q, s))
+    if not ok:
+        raise AssertionError(f"int8_matmul_expert f32 path disagrees: max abs {ea32}")
+    timings["w_up"] = timings["w_gate"]
+    return {"timings": timings, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "f32_max_abs_err": ea32, "library_call": lib_label, "experts": MOE_E,
+            "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), 2^-20 (f32)"}
+
+
+def logits_agree(a: torch.Tensor, b: torch.Tensor, stage: str) -> dict:
+    """Kernel vs dequant logits [B, V]: cosine >= 0.999 per row and the
+    same top-1 on all rows but one."""
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError(f"{stage} logits not finite")
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    top1 = int((a.argmax(-1) == b.argmax(-1)).sum())
+    out = {"min_cosine": float(cos.min()), "top1_agree": f"{top1}/{a.shape[0]}"}
+    if float(cos.min()) < 0.999 or top1 < a.shape[0] - 1:
+        raise AssertionError(f"{stage}: kernel vs dequant logits {out}")
+    return out
+
+
+def phase_model(k1) -> dict:
     from kukeon_tpu_torch.models import convert, llama
 
     cfg = llama.llama3_8b()
@@ -238,16 +343,97 @@ def phase_model(k1) -> dict:
         raise AssertionError(f"decode step launches {launches}, want 225 with the kernel")
     out = {"decode_step_launches": launches[True]}
     for i, stage in enumerate(("prefill", "decode")):
-        a, b = logits[True][i], logits[False][i]
-        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            raise AssertionError(f"{stage} logits not finite")
-        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
-        top1 = int((a.argmax(-1) == b.argmax(-1)).sum())
-        out[stage] = {"min_cosine": float(cos.min()), "top1_agree": f"{top1}/{B}"}
-        if float(cos.min()) < 0.999 or top1 < B - 1:
-            raise AssertionError(f"{stage}: kernel vs dequant logits {out[stage]}")
+        out[stage] = logits_agree(logits[True][i], logits[False][i], stage)
     out["tolerance"] = "cosine >= 0.999 per row, same top-1 on >= 3 of 4 rows"
     del params
+    return out
+
+
+# A routing decision whose 2nd and 3rd router probabilities lie this close
+# is a near tie: the kernel and dequant paths differ by bf16 roundings
+# (relative 2^-8 a product, some 1e-2 after 32 layers), which move router
+# logits by ~1e-2 and a probability gap by ~1e-2 at most.
+NEAR_TIE = 0.02
+
+
+def phase_moe_model(k1, params) -> dict:
+    """mixtral-8x7b int8 (the serving cell's own weights): a prefill and a
+    decode step with the kernels on and off. The decode step's launches are
+    counted and the logits compared. Each layer's top-2 routing of the two
+    runs is compared too: at decode every row is its own token (full
+    capacity, no token sees another), so a row whose routing flips on a
+    near tie may leave the cosine bound; it must flip on a near tie, keep
+    its top-1, and every row routed alike must meet the bound."""
+    from kukeon_tpu_torch.models import llama, moe
+
+    cfg = moe.mixtral_8x7b()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, S = 4, 128
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")
+    pos = torch.arange(S, device="cuda")[None, :].expand(B, S)
+    nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device="cuda")
+    logits, launches, routes, wall = {}, {}, {}, {}
+    real_block = moe.moe_block
+    K = cfg.experts_per_token
+
+    def recording_block(h, w, c, inference=False, kernel=False):
+        probs = torch.softmax(h.reshape(-1, h.shape[-1]).float() @ w["router"], dim=-1)
+        top = torch.topk(probs, K + 1, dim=-1)
+        routes[flag].append((top.indices[:, :K].sort(-1)[0],
+                             top.values[:, K - 1] - top.values[:, K]))
+        return real_block(h, w, c, inference, kernel)
+
+    with torch.no_grad():
+        for flag in (True, False):
+            c = dataclasses.replace(cfg, int8_pallas=flag)
+            cache = llama.KVCache.create(c, B, 256, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            pre, cache = moe.forward(params, c, toks, pos, cache)
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            before = (k1.int8_matmul.launches, k1.int8_matmul_expert.launches)
+            routes[flag] = []
+            moe.moe_block = recording_block
+            try:
+                dec, cache = moe.forward(params, c, nxt, cache.lengths[:, None], cache)
+            finally:
+                moe.moe_block = real_block
+            torch.cuda.synchronize()
+            wall[flag] = {"prefill_ms": round((t1 - t0) * 1e3, 3),
+                          "decode_step_ms": round((time.monotonic() - t1) * 1e3, 3)}
+            launches[flag] = (k1.int8_matmul.launches - before[0],
+                              k1.int8_matmul_expert.launches - before[1])
+            logits[flag] = (pre[:, -1].float(), dec[:, 0].float())
+            del cache
+    if launches[True] != (129, 96) or launches[False] != (0, 0):
+        raise AssertionError(f"decode step launches (int8_matmul, int8_matmul_expert) "
+                             f"{launches}, want (129, 96) with the kernels")
+    first_flip = {}
+    for layer, ((ia, ga), (ib, gb)) in enumerate(zip(routes[True], routes[False])):
+        for row in torch.nonzero(~(ia == ib).all(-1)).flatten().tolist():
+            first_flip.setdefault(row, {"layer": layer, "gap_kernel": float(ga[row]),
+                                        "gap_dequant": float(gb[row])})
+    a, b = logits[True][1], logits[False][1]
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).tolist()
+    top1 = int((a.argmax(-1) == b.argmax(-1)).sum())
+    out = {"decode_step_launches": {"int8_matmul": 129, "int8_matmul_expert": 96},
+           "host_clock_ms": {"kernels": wall[True], "dequant": wall[False]},
+           "prefill": logits_agree(logits[True][0], logits[False][0], "prefill"),
+           "decode": {"cosine_per_row": cos, "top1_agree": f"{top1}/{B}",
+                      "first_routing_flip_by_row": first_flip},
+           "routing_agreement_per_layer": [float((ia == ib).all(-1).float().mean())
+                                           for (ia, _), (ib, _) in zip(routes[True],
+                                                                       routes[False])],
+           "tolerance": f"cosine >= 0.999 on every row routed alike at every layer; a row "
+                        f"that flips does so first where both runs' 2nd-3rd router "
+                        f"probability gap is <= {NEAR_TIE}; same top-1 on >= 3 of 4 rows"}
+    ok = (torch.isfinite(a).all() and torch.isfinite(b).all() and top1 >= B - 1
+          and all(cos[r] >= 0.999 for r in range(B) if r not in first_flip)
+          and all(max(f["gap_kernel"], f["gap_dequant"]) <= NEAR_TIE
+                  for f in first_flip.values()))
+    if not ok:
+        raise AssertionError(f"decode: kernel vs dequant {out}")
     return out
 
 
@@ -272,8 +458,8 @@ def device_kernels(prof) -> list:
 
 def profile_serving(engine, prompts, new: int) -> dict:
     """torch.profiler over requests submitted straight to the running
-    engine: device busy share of the wall time, and the kernels that take
-    the device time, by name."""
+    engine: device busy share of the wall time, the kernels that take the
+    device time, and the host operators that take the host's, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     from kukeon_tpu_torch.serving.sampling import SamplingParams
@@ -289,21 +475,33 @@ def profile_serving(engine, prompts, new: int) -> dict:
     kernels = device_kernels(prof)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     return {"wall_ms": round(wall_ms, 2), "device_busy_ms": round(busy_ms, 2),
             "device_idle_share": round(1 - busy_ms / wall_ms, 4),
-            "top_device_ms": [[e.key[:60], round(dev_us(e) / 1e3, 3), e.count] for e in top]}
+            "top_device_ms": [[e.key[:60], round(dev_us(e) / 1e3, 3), e.count] for e in top],
+            "top_host_self_ms": [[e.key[:60], round(e.self_cpu_time_total / 1e3, 3), e.count]
+                                 for e in host]}
+
+
+def make_cell(model: str, max_seq_len: int):
+    from kukeon_tpu_torch.runtime.serving_cell import ServingCell
+
+    return ServingCell(model, dtype="int8", num_slots=4, max_seq_len=max_seq_len,
+                       device="cuda")
 
 
 def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
-                requests: int = 4, profile_new: int = 0) -> dict:
-    """The port's main path: ServingCell over HTTP, int8 weights, 4 slots.
+                requests: int = 4, profile_new: int = 0, cell=None) -> dict:
+    """The port's main path: ServingCell over HTTP, int8 weights, 4 slots
+    (``cell``: one already built, whose boot is then only its warmup).
     Kernel counts are zeroed just before the requests and read just after."""
-    from kukeon_tpu_torch.runtime.serving_cell import ServingCell, serve
+    from kukeon_tpu_torch.runtime.serving_cell import serve
 
     t0 = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
-    cell = ServingCell(model, dtype="int8", num_slots=4, max_seq_len=max_seq_len,
-                       device="cuda")
+    cell = cell or make_cell(model, max_seq_len)
     cell.warmup(prompt_len)
     cell.engine.start()
     server = serve(cell)
@@ -318,6 +516,7 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
                    for _ in range(requests)]
         results = [None] * requests
         k1.int8_matmul.launches = k1.int8_matmul.launches_t = 0
+        k1.int8_matmul_expert.launches = 0
 
         def run(i):
             results[i] = post(base + "/v1/generate",
@@ -333,7 +532,7 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
         repeat = post(base + "/v1/generate", {"promptTokens": prompts[0], "maxNewTokens": new})
         torch.cuda.synchronize()
         launches = {"k1": k1.int8_matmul.launches - k1.int8_matmul.launches_t,
-                    "k1t": k1.int8_matmul.launches_t}
+                    "k1t": k1.int8_matmul.launches_t, "k2": k1.int8_matmul_expert.launches}
         prof = (profile_serving(cell.engine, prompts, profile_new)
                 if profile_new else None)
     finally:
@@ -607,7 +806,14 @@ def phase_train(fa) -> dict:
             "profile": prof}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                         + " (card always runs); a subset prints no result line")
+    phases = ap.parse_args(argv).phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
@@ -634,42 +840,78 @@ def main() -> int:
                               if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
                         for src, (_p, log, _s) in built.items()})
 
+    res = {}
+
+    def run(phase_name, fn):
+        if phase_name in phases:
+            with phase(phase_name, {}) as p:
+                p.update(fn())
+            res[phase_name] = p
+        gc.collect()
+        torch.cuda.empty_cache()
+
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    with phase("kernel", {}) as p:
-        p.update(phase_kernel(k1, bps, flush))
-        kern = p
-    with phase("flash", {}) as p:
-        p.update(phase_flash(fa, bps, flush))
-        ft = p["timing"]
-        flash = p
+    run("kernel", lambda: phase_kernel(k1, bps, flush))
+    run("flash", lambda: phase_flash(fa, bps, flush))
+    run("moe_kernel", lambda: phase_moe_kernel(k1, bps, flush))
     del flush
-    with phase("model", {}) as p:
-        p.update(phase_model(k1))
-    gc.collect()
-    torch.cuda.empty_cache()
-    with phase("serve", {}) as p:
-        p.update(serve_model(k1, "llama3-8b", max_seq_len=1024, prompt_len=128, new=64,
-                             profile_new=32))
-        p["bound_ms_per_decode_step"] = round(sum(
-            bound_ms(4, K, N, bps)[0] * n for K, N, n in SHAPES_8B.values()), 4)
-        serve8 = p
-    with phase("serve_tied", {}) as p:
-        p.update(serve_model(k1, "llama3-1b", max_seq_len=256, prompt_len=32, new=16))
-        serve1 = p
-    with phase("train", {}) as p:
-        p.update(phase_train(fa))
-        p["flash_share_of_step"] = round(
-            ft["ms"] * p["flash_launches_per_step"] / p["step_ms_median_3_8"], 4)
-        train = p
-    for label, run, key in (("llama3-8b", serve8, "k1"), ("llama3-1b", serve1, "k1t")):
-        if run["launches"][key] <= 0:
+    run("model", lambda: phase_model(k1))
+    run("serve", lambda: {
+        **serve_model(k1, "llama3-8b", max_seq_len=1024, prompt_len=128, new=64,
+                      profile_new=32),
+        "bound_ms_per_decode_step": round(sum(
+            bound_ms(4, K, N, bps)[0] * n for K, N, n in SHAPES_8B.values()), 4)})
+    run("serve_tied", lambda: serve_model(k1, "llama3-1b", max_seq_len=256, prompt_len=32,
+                                          new=16))
+    # One Mixtral-8x7B draw (46.7 GB of int8) serves both of its phases.
+    cell = {}
+    if "moe_model" in phases or "serve_moe" in phases:
+        t0 = time.monotonic()
+        cell["moe"] = make_cell("mixtral-8x7b", 1024)
+        cell["draw_s"] = round(time.monotonic() - t0, 3)
+    run("moe_model", lambda: {"draw_s": cell["draw_s"],
+                              **phase_moe_model(k1, cell["moe"].engine.params)})
+    run("serve_moe", lambda: {
+        **serve_model(k1, "mixtral-8x7b", max_seq_len=1024, prompt_len=128, new=32,
+                      profile_new=16, cell=cell["moe"]),
+        "bound_ms_per_decode_step": round(
+            sum(bound_ms(4, K, N, bps)[0] * n for K, N, n in SHAPES_MIXTRAL.values())
+            + sum(bound_ms(4, K, N, bps, MOE_E)[0] * n for K, N, n in SHAPES_MOE.values()),
+            4)})
+    cell.clear()
+
+    def train():
+        out = phase_train(fa)
+        if "flash" in res:
+            out["flash_share_of_step"] = round(res["flash"]["timing"]["ms"]
+                                               * out["flash_launches_per_step"]
+                                               / out["step_ms_median_3_8"], 4)
+        return out
+
+    run("train", train)
+    if set(phases) != set(PHASES):
+        print("chip_smoke: ran a subset of the phases; no result line", file=sys.stderr)
+        return 0
+
+    kern, flash, moe_kern = res["kernel"], res["flash"], res["moe_kernel"]
+    serve8, serve1, serve_moe, train = (res["serve"], res["serve_tied"], res["serve_moe"],
+                                        res["train"])
+    ft = flash["timing"]
+    for label, run_, key in (("llama3-8b", serve8, "k1"), ("llama3-1b", serve1, "k1t"),
+                             ("mixtral-8x7b", serve_moe, "k1"), ("mixtral-8x7b", serve_moe, "k2")):
+        if run_["launches"][key] <= 0:
             raise AssertionError(f"{label} serving launched no {key} kernel")
 
     # K1: one llama3-8b decode step's worth of calls at B = 4 (225 launches).
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms")
     t = kern["timings"]
     per_step = {f: round(sum(t[nm][f] * SHAPES_8B[nm][2] for nm in SHAPES_8B), 4)
-                for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for f in fields}
     tied = t["tied_head_1b"]
+    # K2: one mixtral-8x7b decode step's worth at C = 4 (96 launches).
+    tm = moe_kern["timings"]
+    per_step_moe = {f: round(sum(tm[nm][f] * SHAPES_MOE[nm][2] for nm in SHAPES_MOE), 4)
+                    for f in fields}
     kernels = [
         {"name": "int8_matmul", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": serve8["launches"]["k1"],
@@ -686,10 +928,18 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train["flash_launches"],
          "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),
-         **{f: round(ft[f], 4) for f in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f: round(ft[f], 4) for f in fields},
          "bound_by": ft["bound_by"], "library_ms_call": ft["library_call"],
          "unit": "one call at B=4 S=2048 H=32 KV=8 D=64 bf16 (llama3-1b training); "
                  f"{train['flash_launches_per_step']} launches per train step"},
+        {"name": "int8_matmul_expert", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K2_REPLACES, "launches": serve_moe["launches"]["k2"],
+         "max_abs_err": moe_kern["max_abs_err"], **per_step_moe,
+         "bound_by": tm["w_gate"]["bound_by"], "library_ms_call": moe_kern["library_call"],
+         "per_call": {nm: {f: round(tm[nm][f], 4) for f in fields}
+                      for nm in ("w_gate", "w_down")},
+         "unit": "one mixtral-8x7b decode step at C=4 (96 launches of E=8 experts); "
+                 "per_call: one launch"},
     ]
     # The serve phases' end-to-end numbers again, short, so that the last
     # lines of the output carry every number the run is quoted for.
@@ -699,6 +949,9 @@ def main() -> int:
                       "bound_ms_per_decode_step": serve8["bound_ms_per_decode_step"],
                       "device_idle_share": serve8["profile"]["device_idle_share"]},
         "llama3-1b": {k: serve1[k] for k in e2e_keys},
+        "mixtral-8x7b": {**{k: serve_moe[k] for k in e2e_keys + ("peak_mem_gb",)},
+                         "bound_ms_per_decode_step": serve_moe["bound_ms_per_decode_step"],
+                         "device_idle_share": serve_moe["profile"]["device_idle_share"]},
         "train_llama3-1b": {k: train[k] for k in (
             "step_ms_median_3_8", "tokens_per_s", "mfu", "peak_mem_gb", "first_loss",
             "last_loss", "flash_launches_per_step", "flash_share_of_step")}}})

@@ -2,7 +2,10 @@
 //
 // Replaces the Pallas kernels kukeon_tpu/ops/int8_matmul.py::_kernel
 // (h[B,K] @ q[K,N] * s[N]) and ::_kernel_t (h[B,K] @ q[N,K]^T * s[N], the
-// tied-embedding LM head). Same math: every product h*q is exact in f32,
+// tied-embedding LM head), and the MoE expert product
+// ::int8_matmul_expert (x[E,C,K] @ q[E,K,N] * s[E,N] -> [E,C,N]), which the
+// TPU runs as E launches of _kernel and this file runs as one launch with
+// the expert on a grid axis. Same math: every product h*q is exact in f32,
 // the sum accumulates in f32, the f32 per-column scale s[n] multiplies the
 // sum, and one cast produces the output in h's dtype (bf16, or f32).
 //
@@ -28,9 +31,18 @@
 //   atomics: results are bit-reproducible run to run.
 // - Rows of h are taken RB at a time (RB in {1,2,4,8}) as a grid axis, so
 //   B needs no padding; the accumulators of all RB rows stay in registers.
+// - Experts (kukeon_int8_matmul_expert): the grid's z axis is expert x
+//   row group, and every pointer steps by its expert's stride, so all E
+//   weight stacks stream in one launch (at decode, E*K*N bytes: 470 MB for
+//   a Mixtral-8x7B w_gate) and the reduce is one launch too. The workspace
+//   is [K/ks, E*C, N]: expert e's rows sit at e*C.., so the reduce is K1's
+//   with a per-expert scale row. The expert arithmetic is a template
+//   branch (GROUPED), so K1's instantiations compile to the code they had
+//   before the grouped form existed.
 //
-// C interface, loaded with ctypes: kukeon_int8_matmul(...) returns
-// cudaGetLastError() after both launches (0 = success).
+// C interface, loaded with ctypes: kukeon_int8_matmul(...) and
+// kukeon_int8_matmul_expert(...) return cudaGetLastError() after both
+// launches (0 = success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,19 +93,28 @@ __device__ __forceinline__ void stage_h(float (*h_s)[LD], const T* __restrict__ 
   }
 }
 
-// q[K,N]. Block (x, y, z) = (512-column tile, K slice, RB-row group). Warp w
-// takes rows k0+w, k0+w+8, ... of the slice; lane l owns columns
-// [16l, 16l+16) of the tile. Warps are summed in shared memory in order.
-template <typename T, int RB>
+// q[K,N]. Block (x, y, z) = (512-column tile, K slice, expert x RB-row
+// group). Warp w takes rows k0+w, k0+w+8, ... of the slice; lane l owns
+// columns [16l, 16l+16) of the tile. Warps are summed in shared memory in
+// order. GROUPED: expert e = z / groups reads h[e] ([B,K]) and q[e]
+// ([K,N]) and writes rows e*B.. of each workspace slice, which holds E*B
+// rows; otherwise z is the row group alone (E = 1).
+template <typename T, int RB, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
 int8_mm_kernel(const T* __restrict__ h, const int8_t* __restrict__ q,
-               float* __restrict__ ws, int B, int K, int N, int ks) {
+               float* __restrict__ ws, int B, int K, int N, int ks, int groups, int E) {
   __shared__ float h_s[RB][kMaxKs];
   __shared__ float red[kWarps][kNTile];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k0 = blockIdx.y * ks;
-  const int b0 = blockIdx.z * RB;
+  const int e = GROUPED ? blockIdx.z / groups : 0;
+  const int b0 = (GROUPED ? blockIdx.z % groups : blockIdx.z) * RB;
   const int n0 = blockIdx.x * kNTile + lane * kVec;
+  if (GROUPED) {
+    h += static_cast<size_t>(e) * B * K;
+    q += static_cast<size_t>(e) * K * N;
+  }
+  const int ws_rows = GROUPED ? E * B : B;
 
   stage_h<T, RB, kMaxKs, false>(h_s, h, B, K, b0, k0, ks);
   __syncthreads();
@@ -133,7 +154,7 @@ int8_mm_kernel(const T* __restrict__ h, const int8_t* __restrict__ q,
           float sum = 0.f;
 #pragma unroll
           for (int w2 = 0; w2 < kWarps; ++w2) sum += red[w2][c];
-          ws[(static_cast<size_t>(blockIdx.y) * B + b0 + r) * N + n] = sum;
+          ws[(static_cast<size_t>(blockIdx.y) * ws_rows + e * B + b0 + r) * N + n] = sum;
         }
       }
       __syncthreads();
@@ -214,20 +235,23 @@ int8_mm_t_kernel(const T* __restrict__ h, const int8_t* __restrict__ q,
   }
 }
 
-// out[b, n] = cast(sum over slices of ws[slice, b, n], in slice order, * s[n]).
-template <typename T>
+// out[e, b, n] = cast(sum over slices of ws[slice, e*B + b, n], in slice
+// order, * s[e, n]); E*B rows in all (GROUPED), else B rows and s[n].
+template <typename T, bool GROUPED>
 __global__ void reduce_scale_kernel(const float* __restrict__ ws, const float* __restrict__ s,
-                                    T* __restrict__ out, int B, int N, int splits) {
+                                    T* __restrict__ out, int B, int N, int splits, int E) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(B) * N;
+  const size_t per_expert = static_cast<size_t>(B) * N;
+  const size_t total = GROUPED ? per_expert * E : per_expert;
   if (idx >= total) return;
   float acc = 0.f;
   for (int sp = 0; sp < splits; ++sp) acc += ws[sp * total + idx];
-  out[idx] = from_f32<T>(acc * s[idx % N]);
+  const size_t col = GROUPED ? (idx / per_expert) * N + idx % N : idx % N;
+  out[idx] = from_f32<T>(acc * s[col]);
 }
 
 template <typename T, int RB>
-void launch_mm(const void* h, const void* q, void* ws, int B, int K, int N, int ks,
+void launch_mm(const void* h, const void* q, void* ws, int E, int B, int K, int N, int ks,
                bool transpose, cudaStream_t st) {
   const int splits = K / ks;
   const int groups = (B + RB - 1) / RB;
@@ -236,32 +260,49 @@ void launch_mm(const void* h, const void* q, void* ws, int B, int K, int N, int 
     int8_mm_t_kernel<T, RB><<<grid, kThreads, 0, st>>>(
         static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
         B, K, N, ks);
+  } else if (E > 1) {
+    const dim3 grid((N + kNTile - 1) / kNTile, splits, groups * E);
+    int8_mm_kernel<T, RB, true><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
+        B, K, N, ks, groups, E);
   } else {
     const dim3 grid((N + kNTile - 1) / kNTile, splits, groups);
-    int8_mm_kernel<T, RB><<<grid, kThreads, 0, st>>>(
+    int8_mm_kernel<T, RB, false><<<grid, kThreads, 0, st>>>(
         static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
-        B, K, N, ks);
+        B, K, N, ks, groups, 1);
   }
 }
 
+// E stacks of h [B,K] @ q [K,N] (transpose only with E = 1).
 template <typename T>
 void launch_all(const void* h, const void* q, const void* s, void* out, void* ws,
-                int B, int K, int N, int ks, bool transpose, cudaStream_t st) {
+                int E, int B, int K, int N, int ks, bool transpose, cudaStream_t st) {
   if (B == 1) {
-    launch_mm<T, 1>(h, q, ws, B, K, N, ks, transpose, st);
+    launch_mm<T, 1>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else if (B == 2) {
-    launch_mm<T, 2>(h, q, ws, B, K, N, ks, transpose, st);
+    launch_mm<T, 2>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else if (B <= 4) {
-    launch_mm<T, 4>(h, q, ws, B, K, N, ks, transpose, st);
+    launch_mm<T, 4>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else {
-    launch_mm<T, 8>(h, q, ws, B, K, N, ks, transpose, st);
+    launch_mm<T, 8>(h, q, ws, E, B, K, N, ks, transpose, st);
   }
-  const size_t total = static_cast<size_t>(B) * N;
+  const size_t total = static_cast<size_t>(E) * B * N;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  reduce_scale_kernel<T><<<blocks, threads, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(s), static_cast<T*>(out),
-      B, N, K / ks);
+  if (E > 1) {
+    reduce_scale_kernel<T, true><<<blocks, threads, 0, st>>>(
+        static_cast<const float*>(ws), static_cast<const float*>(s), static_cast<T*>(out),
+        B, N, K / ks, E);
+  } else {
+    reduce_scale_kernel<T, false><<<blocks, threads, 0, st>>>(
+        static_cast<const float*>(ws), static_cast<const float*>(s), static_cast<T*>(out),
+        B, N, K / ks, 1);
+  }
+}
+
+bool bad_dims(int B, int K, int N, int ks) {
+  return B < 1 || B > 64 || K % 128 || N % 128 || ks < 16 || ks > kMaxKs || ks % 16 ||
+         K % ks;
 }
 
 }  // namespace
@@ -272,15 +313,30 @@ void launch_all(const void* h, const void* q, const void* s, void* out, void* ws
 extern "C" int kukeon_int8_matmul(const void* h, const void* q, const void* s, void* out,
                                   void* ws, int B, int K, int N, int ks, int transpose,
                                   int is_bf16, void* stream) {
-  if (B < 1 || B > 64 || K % 128 || N % 128 || ks < 16 || ks > kMaxKs || ks % 16 ||
-      K % ks) {
+  if (bad_dims(B, K, N, ks)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    launch_all<__nv_bfloat16>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st);
+  } else {
+    launch_all<float>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [E,C,K] (bf16 when is_bf16, else f32), q int8 [E,K,N], s f32 [E,N],
+// out [E,C,N] in x's dtype, ws f32 [K/ks, E*C, N]. The same limits as above
+// with C in B's place; 1 <= E <= 1024.
+extern "C" int kukeon_int8_matmul_expert(const void* x, const void* q, const void* s,
+                                         void* out, void* ws, int E, int C, int K, int N,
+                                         int ks, int is_bf16, void* stream) {
+  if (E < 1 || E > 1024 || bad_dims(C, K, N, ks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    launch_all<__nv_bfloat16>(h, q, s, out, ws, B, K, N, ks, transpose != 0, st);
+    launch_all<__nv_bfloat16>(x, q, s, out, ws, E, C, K, N, ks, false, st);
   } else {
-    launch_all<float>(h, q, s, out, ws, B, K, N, ks, transpose != 0, st);
+    launch_all<float>(x, q, s, out, ws, E, C, K, N, ks, false, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

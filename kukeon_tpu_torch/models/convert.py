@@ -11,6 +11,8 @@ numpy dtype jax uses) and are reinterpreted bit for bit, without importing
 layer by layer, with the reference's recipe (normal draws scaled by
 ``fan_in ** -0.5``, then per-output-channel symmetric int8): an 8B tree in
 seconds, where drawing 8 B normals in numpy on the host takes minutes.
+:func:`init_quantized_moe_params_device` does the same for the MoE tree,
+one expert matrix at a time.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from kukeon_tpu_torch.models.llama import LlamaConfig, Params, _int8_sym
+from kukeon_tpu_torch.models.moe import MoEConfig
 
 
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -37,14 +40,15 @@ def params_from_numpy(tree: Any, device: torch.device | str,
     """Numpy tree -> torch tree on ``device``, same nesting and keys.
 
     ``dtype`` (optional) casts the floating leaves other than int8 scales
-    (norms, full-precision matrices) to the model's activation dtype — for
-    trees whose norms come as float32."""
+    and the MoE router (norms, full-precision matrices) to the model's
+    activation dtype — for trees whose norms come as float32. The router
+    stays float32, as the reference keeps it, so routing does not wobble."""
 
     def conv(node, key=None):
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}
         t = _tensor_from_numpy(np.asarray(node))
-        if dtype is not None and t.is_floating_point() and key != "s":
+        if dtype is not None and t.is_floating_point() and key not in ("s", "router"):
             t = t.to(dtype)
         return t.to(device)
 
@@ -56,38 +60,63 @@ def init_quantized_params_device(cfg: LlamaConfig, generator: torch.Generator,
     """Random int8 tree drawn on ``device`` one layer slice at a time, so
     peak memory beyond the int8 tree is one f32 layer matrix (the embedding
     is the largest: V x H). ``generator`` must live on ``device``."""
+    return _int8_tree(cfg, generator, device, experts=None)
+
+
+def init_quantized_moe_params_device(cfg: MoEConfig, generator: torch.Generator,
+                                     device: torch.device | str) -> Params:
+    """Random int8 MoE tree drawn on ``device`` one layer and one expert
+    matrix at a time, so peak memory beyond the int8 tree is one f32
+    matrix (at Mixtral-8x7B an expert matrix is 235 MB, where a whole
+    [L, E, H, I] f32 stack would be 60 GB). The router is drawn f32 and
+    stays so. ``generator`` must live on ``device``."""
+    return _int8_tree(cfg, generator, device, experts=cfg.num_experts)
+
+
+def _int8_tree(cfg, generator: torch.Generator, device, experts: int | None) -> Params:
+    """The Llama tree, or with ``experts`` the MoE tree (router [L, H, E]
+    f32 and expert stacks [L, E, K, N])."""
     c = cfg
     L, H, I, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
 
-    def q_leaf(shape, fan_in, axis):
+    def normal(shape, fan_in):
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-        qw, s = _int8_sym(w.mul_(fan_in ** -0.5), axis)
+        return w.mul_(fan_in ** -0.5)
+
+    def q_leaf(shape, fan_in, axis):
+        qw, s = _int8_sym(normal(shape, fan_in), axis)
         return qw, s.squeeze(axis)
 
-    def stacked(shape, fan_in):
-        """[L, *shape] int8, scale per output column (axis 1 of the layer
-        slice [K, N] is the reference's axis 1 of [L, K, N])."""
-        qs = torch.empty((L, *shape), dtype=torch.int8, device=device)
-        ss = torch.empty((L, shape[1]), dtype=torch.float32, device=device)
-        for layer in range(L):
-            qs[layer], ss[layer] = q_leaf(shape, fan_in, 0)
+    def stacked(shape, fan_in, lead=(L,)):
+        """[*lead, K, N] int8, scale per output column: the reference's axis
+        1 of [L, K, N] (axis 2 of [L, E, K, N]), one [K, N] slice at a time."""
+        qs = torch.empty((*lead, *shape), dtype=torch.int8, device=device)
+        ss = torch.empty((*lead, shape[1]), dtype=torch.float32, device=device)
+        for idx in np.ndindex(*lead):
+            qs[idx], ss[idx] = q_leaf(shape, fan_in, 0)
         return {"q": qs, "s": ss}
 
     eq, es = q_leaf((V, H), H, 1)
     ones = lambda *shape: torch.ones(shape, dtype=c.dtype, device=device)  # noqa: E731
+    layers = {
+        "attn_norm": ones(L, H),
+        "wq": stacked((H, c.q_dim), H),
+        "wk": stacked((H, c.kv_dim), H),
+        "wv": stacked((H, c.kv_dim), H),
+        "wo": stacked((c.q_dim, H), c.q_dim),
+        "mlp_norm": ones(L, H),
+    }
+    mlp = (L,) if experts is None else (L, experts)
+    if experts is not None:
+        layers["router"] = normal((L, H, experts), H)
+    layers.update({
+        "w_gate": stacked((H, I), H, mlp),
+        "w_up": stacked((H, I), H, mlp),
+        "w_down": stacked((I, H), I, mlp),
+    })
     params: Params = {
         "embed": {"q": eq, "s": es},                         # scale per vocab row
-        "layers": {
-            "attn_norm": ones(L, H),
-            "wq": stacked((H, c.q_dim), H),
-            "wk": stacked((H, c.kv_dim), H),
-            "wv": stacked((H, c.kv_dim), H),
-            "wo": stacked((c.q_dim, H), c.q_dim),
-            "mlp_norm": ones(L, H),
-            "w_gate": stacked((H, I), H),
-            "w_up": stacked((H, I), H),
-            "w_down": stacked((I, H), I),
-        },
+        "layers": layers,
         "final_norm": ones(H),
     }
     if not c.tie_embeddings:

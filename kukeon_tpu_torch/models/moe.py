@@ -1,0 +1,396 @@
+"""Mixtral-style sparse Mixture-of-Experts decoder, the port of
+``kukeon_tpu/models/moe.py``.
+
+The same attention trunk as :mod:`kukeon_tpu_torch.models.llama` (GQA,
+RoPE, RMSNorm, the shared :class:`~kukeon_tpu_torch.models.llama.KVCache`
+layout); a sparse-MoE SwiGLU replaces the dense MLP. Plain functions on
+tensors over the reference's stacked tree (``[L, ...]`` layers, experts on
+axis 1 of the expert stacks, int8 matrices as ``{"q", "s"}`` leaves), so a
+reference tree converted by :func:`kukeon_tpu_torch.models.convert.params_from_numpy`
+runs unchanged. The reference's ``lax.scan`` over layers is a Python loop;
+cache writes happen in place, as in the port's ``llama.forward``.
+
+Dense dispatch (GShard/Switch), as the reference: top-k routing, a
+static-capacity one-hot dispatch tensor, and two einsums around batched
+per-expert products. Every expert runs on every capacity slot, empty ones
+included. Overflow tokens (training capacity) fall through the residual.
+At decode, with ``cfg.int8_pallas``, int8 expert stacks go through
+:func:`~kukeon_tpu_torch.ops.int8_matmul.int8_matmul_expert` (the CUDA
+kernel, all experts in one launch) and the trunk through ``int8_matmul``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from kukeon_tpu_torch.models import llama
+from kukeon_tpu_torch.models.llama import KVCache, _cache_insert, _embed, _mm
+from kukeon_tpu_torch.ops.attention import decode_gqa_attention, gqa_attention
+from kukeon_tpu_torch.ops.int8_matmul import int8_matmul_expert
+from kukeon_tpu_torch.ops.norms import rms_norm
+from kukeon_tpu_torch.ops.rope import apply_rope, rope_tables
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    num_experts: int = 8
+    experts_per_token: int = 2
+    capacity_factor: float = 2.0
+    rope_theta: float = 1_000_000.0
+    rms_norm_eps: float = 1e-5
+    max_seq_len: int = 8192
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    router_z_coef: float = 1e-3
+    load_balance_coef: float = 1e-2
+    # Route int8 decode products (trunk through int8_matmul, expert stacks
+    # through int8_matmul_expert) through the CUDA kernels. The serving
+    # engine turns it on for int8 weights on a CUDA device. Prefill keeps
+    # the dequant products.
+    int8_pallas: bool = False
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        H, I, E = self.hidden_size, self.intermediate_size, self.num_experts
+        embed = self.vocab_size * H
+        attn = H * (self.q_dim + 2 * self.kv_dim) + self.q_dim * H
+        experts = 3 * E * H * I + H * E            # w_gate, w_up, w_down, router
+        norms = 2 * H
+        head = 0 if self.tie_embeddings else embed
+        return embed + self.num_layers * (attn + experts + norms) + H + head
+
+
+def mixtral_8x7b() -> MoEConfig:
+    """Mixtral-8x7B shapes (public architecture)."""
+    return MoEConfig()
+
+
+def moe_tiny() -> MoEConfig:
+    """Test-size config: fast on a CPU; 4 experts."""
+    return MoEConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=128,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+        num_experts=4, experts_per_token=2, capacity_factor=8.0,
+        rope_theta=10_000.0, max_seq_len=256, dtype=torch.float32,
+        tie_embeddings=True,
+    )
+
+
+def init_params(cfg: MoEConfig, generator: torch.Generator,
+                device: torch.device | str) -> Params:
+    """Random full-precision parameters in the reference layout:
+      embed [V, H]; layers: attn_norm/mlp_norm [L, H], wq [L, H, NH*D],
+      wk/wv [L, H, KV*D], wo [L, NH*D, H], router [L, H, E] (f32),
+      w_gate/w_up [L, E, H, I], w_down [L, E, I, H]; final_norm [H];
+      lm_head [H, V] (absent when tie_embeddings).
+    The draws differ from the reference's (torch's generator, not jax's);
+    parity tests convert the reference's tree instead."""
+    c = cfg
+
+    def normal(shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return w * fan_in ** -0.5
+
+    def dense(shape, fan_in):
+        return normal(shape, fan_in).to(c.dtype)
+
+    L, H, I, V, E = (c.num_layers, c.hidden_size, c.intermediate_size,
+                     c.vocab_size, c.num_experts)
+    ones = lambda *shape: torch.ones(shape, dtype=c.dtype, device=device)  # noqa: E731
+    params: Params = {
+        "embed": dense((V, H), H),
+        "layers": {
+            "attn_norm": ones(L, H),
+            "wq": dense((L, H, c.q_dim), H),
+            "wk": dense((L, H, c.kv_dim), H),
+            "wv": dense((L, H, c.kv_dim), H),
+            "wo": dense((L, c.q_dim, H), c.q_dim),
+            "mlp_norm": ones(L, H),
+            # f32: routing decisions must not wobble with the activation dtype.
+            "router": normal((L, H, E), H),
+            "w_gate": dense((L, E, H, I), H),
+            "w_up": dense((L, E, H, I), H),
+            "w_down": dense((L, E, I, H), I),
+        },
+        "final_norm": ones(H),
+    }
+    if not c.tie_embeddings:
+        params["lm_head"] = dense((H, V), H)
+    return params
+
+
+def quantize_params(params: Params) -> Params:
+    """Full-precision MoE tree -> int8 ({"q", "s"} leaves for every dense
+    matrix). Attention and embedding quantize as in the Llama tree; expert
+    stacks [L, E, in, out] per output channel along the contraction axis
+    (s: [L, E, out]). The router stays f32."""
+
+    def q(w, axis):
+        qw, s = llama._int8_sym(w, axis)
+        return {"q": qw, "s": s.squeeze(axis)}
+
+    L = params["layers"]
+    out: Params = {
+        "embed": q(params["embed"], 1),
+        "layers": {
+            "attn_norm": L["attn_norm"],
+            "wq": q(L["wq"], 1), "wk": q(L["wk"], 1), "wv": q(L["wv"], 1),
+            "wo": q(L["wo"], 1),
+            "mlp_norm": L["mlp_norm"],
+            "router": L["router"],
+            "w_gate": q(L["w_gate"], 2),       # [L, E, H, I] -> s [L, E, I]
+            "w_up": q(L["w_up"], 2),
+            "w_down": q(L["w_down"], 2),       # [L, E, I, H] -> s [L, E, H]
+        },
+        "final_norm": params["final_norm"],
+    }
+    if "lm_head" in params:
+        out["lm_head"] = q(params["lm_head"], 0)
+    return out
+
+
+def init_quantized_params_host(cfg: MoEConfig, seed: int = 0) -> Params:
+    """Random-init directly in int8 on the host (numpy), leaf by leaf: the
+    same draws, order and recipe as the reference's function of this name,
+    so the two packages get identical trees from one seed. Norms come as
+    float32 (``params_from_numpy(dtype=...)`` casts them)."""
+    c = cfg
+    rng = np.random.default_rng(seed)
+    L, H, I, V, E = (c.num_layers, c.hidden_size, c.intermediate_size,
+                     c.vocab_size, c.num_experts)
+    ndtype = np.float32
+
+    def q(shape, fan_in, axis):
+        w = rng.standard_normal(shape, np.float32) * (fan_in ** -0.5)
+        return llama.quantize_np(w, axis)
+
+    params: Params = {
+        "embed": q((V, H), H, 1),
+        "layers": {
+            "attn_norm": np.ones((L, H), ndtype),
+            "wq": q((L, H, c.q_dim), H, 1),
+            "wk": q((L, H, c.kv_dim), H, 1),
+            "wv": q((L, H, c.kv_dim), H, 1),
+            "wo": q((L, c.q_dim, H), c.q_dim, 1),
+            "mlp_norm": np.ones((L, H), ndtype),
+            "router": rng.standard_normal((L, H, E), np.float32) * (H ** -0.5),
+            "w_gate": q((L, E, H, I), H, 2),
+            "w_up": q((L, E, H, I), H, 2),
+            "w_down": q((L, E, I, H), I, 2),
+        },
+        "final_norm": np.ones((H,), ndtype),
+    }
+    if not c.tie_embeddings:
+        params["lm_head"] = q((H, V), H, 0)
+    return params
+
+
+def _expert_mm(x: torch.Tensor, w, eq: str, kernel: bool = False) -> torch.Tensor:
+    """Per-expert batched product ('ech,ehi->eci' or 'eci,eih->ech') for
+    plain or int8 ({"q","s"}) expert stacks. ``kernel=True`` routes int8
+    stacks through :func:`int8_matmul_expert` (both equations are
+    x [E, C, K] @ w [E, K, N]); otherwise dequant, product, scale in
+    ``x.dtype``, as the reference's einsum path."""
+    if llama._is_q(w):
+        if kernel:
+            return int8_matmul_expert(x.contiguous(), w["q"], w["s"])
+        raw = torch.einsum(eq, x, w["q"].to(x.dtype))
+        return raw * w["s"][:, None, :].to(x.dtype)
+    return torch.einsum(eq, x, w)
+
+
+def _capacity(cfg: MoEConfig, n_tokens: int, inference: bool = False) -> int:
+    """Per-expert token capacity. Training: the GShard drop policy
+    (capacity_factor x fair share). Inference: full capacity (C = N) for
+    decode-sized batches, and twice the training buffer for prefill."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    if inference:
+        if n_tokens <= 64:
+            return n_tokens
+        factor = max(cfg.capacity_factor, 2.0) * 2.0
+        return min(n_tokens, max(int(factor * n_tokens * K / E), K))
+    cap = int(cfg.capacity_factor * n_tokens * K / E)
+    return max(cap, K)
+
+
+def moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, inference: bool = False,
+              kernel: bool = False) -> tuple[torch.Tensor, dict]:
+    """Sparse-MoE SwiGLU over [B, S, H] -> ([B, S, H], aux losses), ``w``
+    one layer's weights. Router, softmax and aux losses in f32."""
+    c = cfg
+    B, S, H = h.shape
+    N = B * S
+    E, K = c.num_experts, c.experts_per_token
+    C = _capacity(c, N, inference)
+    x = h.reshape(N, H)
+
+    router_logits = x.float() @ w["router"]                          # [N, E]
+    probs = torch.softmax(router_logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1, sorted=True)   # [N, K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # Priority dispatch: choice 0 of every token before choice 1 (GShard),
+    # through a cumulative count over the flattened (K, N) order.
+    mask = F.one_hot(expert_idx.T, E).float()                        # [K, N, E]
+    flat = mask.reshape(K * N, E)
+    pos = torch.cumsum(flat, dim=0) - flat                           # tokens ahead
+    keep = (pos < C).float() * flat                                  # drop overflow
+    # One-hot of each slot; a position >= C (dropped) is an all-zero row,
+    # as jax.nn.one_hot gives (F.one_hot would raise).
+    slot = (pos.long()[..., None] == torch.arange(C, device=h.device)).float()
+    dispatch = (keep[..., None] * slot).reshape(K, N, E, C).sum(dim=0)  # [N, E, C]
+    combine = dispatch * (mask * gate_vals.T[..., None]).sum(dim=0)[..., None]
+
+    xe = torch.einsum("nec,nh->ech", dispatch, x.float()).to(c.dtype)   # [E, C, H]
+    gate = F.silu(_expert_mm(xe, w["w_gate"], "ech,ehi->eci", kernel).float()).to(c.dtype)
+    up = _expert_mm(xe, w["w_up"], "ech,ehi->eci", kernel)
+    ye = _expert_mm(gate * up, w["w_down"], "eci,eih->ech", kernel)     # [E, C, H]
+    y = torch.einsum("nec,ech->nh", combine.to(c.dtype), ye)
+
+    # Switch load balance over first choices, and the router z-loss.
+    f = mask[0].mean(dim=0)
+    p = probs.mean(dim=0)
+    lb = E * torch.sum(f * p)
+    z = torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
+    return y.reshape(B, S, H), {"load_balance": lb, "router_z": z}
+
+
+def _decode_forward(params: Params, c: MoEConfig, x: torch.Tensor,
+                    positions: torch.Tensor, cache: KVCache,
+                    B: int) -> tuple[torch.Tensor, KVCache]:
+    """Single-token decode (the port's ``llama._decode_forward`` with the
+    MoE block): caches read-only per layer, the new K/V of every layer
+    written once at the end, in place. The MoE block runs at N = B tokens
+    with full capacity. With ``cfg.int8_pallas`` every quantized product
+    goes through a kernel: at Mixtral-8x7B, 4 x 32 + 1 = 129 int8_matmul
+    and 3 x 32 = 96 int8_matmul_expert launches a step."""
+    offsets = cache.lengths
+    kern = c.int8_pallas
+    rope = rope_tables(positions, c.head_dim, c.rope_theta)
+    new_k, new_v = [], []
+    for layer in range(c.num_layers):
+        w = llama.layer_weights(params, layer)
+        h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
+        q = _mm(h, w["wq"], kern).reshape(B, 1, c.num_heads, c.head_dim)
+        k = _mm(h, w["wk"], kern).reshape(B, 1, c.num_kv_heads, c.head_dim)
+        v = _mm(h, w["wv"], kern).reshape(B, 1, c.num_kv_heads, c.head_dim)
+        q = apply_rope(q, positions, c.rope_theta, rope)
+        k = apply_rope(k, positions, c.rope_theta, rope)
+        attn = decode_gqa_attention(q, k, v, cache.k[layer], cache.v[layer], offsets)
+        x = x + _mm(attn.reshape(B, 1, c.q_dim), w["wo"], kern)
+        h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
+        y, _ = moe_block(h, w, c, inference=True, kernel=kern)
+        x = x + y
+        new_k.append(k)
+        new_v.append(v)
+
+    rows = torch.arange(B, device=x.device)
+    pos = torch.clamp(offsets, max=cache.max_len - 1)
+    cache.k[:, rows, pos] = torch.stack(new_k)[:, :, 0].to(cache.k.dtype)
+    cache.v[:, rows, pos] = torch.stack(new_v)[:, :, 0].to(cache.v.dtype)
+    cache.lengths = cache.lengths + 1
+
+    x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
+    return llama._logits(params, c, x, kern), cache
+
+
+def forward_with_aux(
+    params: Params,
+    cfg: MoEConfig,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    cache: KVCache | None = None,
+    attn_impl: str = "auto",
+    logit_positions: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, KVCache | None, dict]:
+    """Run the MoE decoder: (logits, cache, aux-loss dict).
+
+    Cache semantics as ``llama.forward`` (in place, new ``lengths``);
+    ``logit_positions`` [B] restricts the LM head to one position per row
+    (logits [B, 1, V]). A cache marks the inference path: expert capacity
+    takes the no-drop/wide policy of :func:`_capacity`. A quantized
+    (int8) KV cache is not supported: the reference's MoE ignores scales."""
+    c = cfg
+    B, S = tokens.shape
+    inference = cache is not None
+    x = _embed(params, tokens, c.dtype)
+
+    if cache is not None and S == 1 and attn_impl in ("auto", "reference"):
+        logits, cache = _decode_forward(params, c, x, positions, cache, B)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, cache, {"load_balance": zero, "router_z": zero.clone()}
+
+    offsets = cache.lengths if cache is not None else None
+    rope = rope_tables(positions, c.head_dim, c.rope_theta)
+    lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer, w in enumerate(llama.layer_slices(params)):
+        h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
+        q = _mm(h, w["wq"]).reshape(B, S, c.num_heads, c.head_dim)
+        k = _mm(h, w["wk"]).reshape(B, S, c.num_kv_heads, c.head_dim)
+        v = _mm(h, w["wv"]).reshape(B, S, c.num_kv_heads, c.head_dim)
+        q = apply_rope(q, positions, c.rope_theta, rope)
+        k = apply_rope(k, positions, c.rope_theta, rope)
+        if cache is not None:
+            ck, cv = cache.k[layer], cache.v[layer]
+            _cache_insert(ck, k, offsets)
+            _cache_insert(cv, v, offsets)
+            kv_positions = torch.arange(ck.shape[1], device=x.device)[None, :].expand(B, -1)
+            attn = gqa_attention(q, ck, cv, q_positions=positions,
+                                 kv_positions=kv_positions, kv_length=offsets + S,
+                                 impl=attn_impl)
+        else:
+            attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
+                                 impl=attn_impl)
+        x = x + _mm(attn.reshape(B, S, c.q_dim), w["wo"])
+        h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
+        y, aux = moe_block(h, w, c, inference=inference)
+        x = x + y
+        lb_sum = lb_sum + aux["load_balance"]
+        z_sum = z_sum + aux["router_z"]
+
+    if cache is not None:
+        cache.lengths = cache.lengths + S
+    x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
+    if logit_positions is not None:
+        idx = logit_positions.reshape(B, 1, 1).expand(B, 1, x.shape[-1])
+        x = torch.gather(x, 1, idx)
+    logits = llama._logits(params, c, x)
+    aux = {"load_balance": lb_sum / c.num_layers, "router_z": z_sum / c.num_layers}
+    return logits, cache, aux
+
+
+def forward(
+    params: Params,
+    cfg: MoEConfig,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    cache: KVCache | None = None,
+    attn_impl: str = "auto",
+    logit_positions: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, KVCache | None]:
+    """Serving-signature forward (drop-in for ``llama.forward``)."""
+    logits, cache, _ = forward_with_aux(params, cfg, tokens, positions, cache,
+                                        attn_impl, logit_positions)
+    return logits, cache

@@ -99,6 +99,9 @@ def load_int8_matmul() -> ctypes.CDLL:
     # h, q, s, out, ws, B, K, N, ks, transpose, is_bf16, stream
     lib.kukeon_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.kukeon_int8_matmul.restype = ctypes.c_int
+    # x, q, s, out, ws, E, C, K, N, ks, is_bf16, stream
+    lib.kukeon_int8_matmul_expert.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.kukeon_int8_matmul_expert.restype = ctypes.c_int
     return lib
 
 

@@ -1,24 +1,28 @@
 """Weight-only int8 matmul for decode, the port of
-``kukeon_tpu/ops/int8_matmul.py::int8_matmul``.
+``kukeon_tpu/ops/int8_matmul.py::int8_matmul`` and ``::int8_matmul_expert``.
 
 ``h [B, K] @ q [K, N] * s [N] -> [B, N]`` (or ``q [N, K]`` with
-``transpose=True``, the tied-embedding LM head). The product accumulates
-in f32, the f32 scale multiplies the sum, and one cast gives ``h.dtype``.
+``transpose=True``, the tied-embedding LM head), and per expert
+``x [E, C, K] @ q [E, K, N] * s [E, N] -> [E, C, N]`` (the MoE expert
+stacks). The product accumulates in f32, the f32 scale multiplies the sum,
+and one cast gives the activation dtype.
 
-Routes, by where the tensors lie:
+Routes, by where the tensors lie (the same for both functions, with C in
+B's place):
 
-- CPU: :func:`int8_matmul_reference`, the plain PyTorch version of the
-  kernel's math.
+- CPU: :func:`int8_matmul_reference` / :func:`int8_matmul_expert_reference`,
+  the plain PyTorch version of the kernel's math.
 - CUDA, B <= 64 (decode): the hand-written kernel in
-  ``kukeon_tpu_torch/csrc/int8_matmul.cu``, built at first use. K and N
-  must be multiples of 128; anything else raises. There is no fallback if
-  the build or the launch fails.
-- CUDA, B > 64 (prefill): dequantize then ``torch.matmul``, scale in
-  ``h.dtype`` — the large product the reference leaves to XLA.
+  ``kukeon_tpu_torch/csrc/int8_matmul.cu``, built at first use; all E
+  experts in one launch. K and N must be multiples of 128; anything else
+  raises. There is no fallback if the build or the launch fails.
+- CUDA, B > 64 (prefill): dequantize then ``torch.matmul``, scale in the
+  activation dtype — the large product the reference leaves to XLA.
 
-``int8_matmul.launches`` counts kernel launches (one per call that reached
-the kernel), so a run can show the decode path went through it;
-``int8_matmul.launches_t`` counts the transposed ones among them.
+``int8_matmul.launches`` and ``int8_matmul_expert.launches`` count kernel
+launches (one per call that reached the kernel), so a run can show the
+decode path went through them; ``int8_matmul.launches_t`` counts the
+transposed ones among the first.
 """
 
 from __future__ import annotations
@@ -39,6 +43,14 @@ def int8_matmul_reference(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     w = q.float()
     acc = h.float() @ (w.T if transpose else w)
     return (acc * s.float()).to(h.dtype)
+
+
+def int8_matmul_expert_reference(x: torch.Tensor, q: torch.Tensor,
+                                 s: torch.Tensor) -> torch.Tensor:
+    """The kernel's math per expert in plain PyTorch: f32 sum of exact
+    products, f32 scale, one cast to ``x.dtype``."""
+    acc = torch.bmm(x.float(), q.float())
+    return (acc * s.float()[:, None, :]).to(x.dtype)
 
 
 def _check(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -65,12 +77,13 @@ def _check(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return B, K, N
 
 
-def k_slice(B: int, K: int, N: int, transpose: bool) -> int:
+def k_slice(B: int, K: int, N: int, transpose: bool, E: int = 1) -> int:
     """Length of the K slice one block sums: the largest of 512/256/128/64
     that divides K and still gives the grid ``_TARGET_BLOCKS`` blocks (the
-    smallest that divides K when none does)."""
+    smallest that divides K when none does); ``E`` experts multiply the
+    grid."""
     rb = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
-    tiles = -(-N // (32 if transpose else 512)) * -(-B // rb)
+    tiles = -(-N // (32 if transpose else 512)) * -(-B // rb) * E
     cands = (512, 256, 128) if transpose else (512, 256, 128, 64)
     fits = [ks for ks in cands if K % ks == 0]
     for ks in fits:
@@ -117,3 +130,59 @@ def int8_matmul(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 int8_matmul.launches = 0      # every kernel launch
 int8_matmul.launches_t = 0    # the transposed (tied LM head) ones among them
+
+
+def _check_expert(x: torch.Tensor, q: torch.Tensor,
+                  s: torch.Tensor) -> tuple[int, int, int, int]:
+    if x.ndim != 3 or q.ndim != 3 or s.ndim != 2:
+        raise ValueError(f"int8_matmul_expert wants x [E,C,K], q [E,K,N], s [E,N]; got "
+                         f"{tuple(x.shape)}, {tuple(q.shape)}, {tuple(s.shape)}")
+    E, C, K = x.shape
+    N = q.shape[2]
+    if tuple(q.shape) != (E, K, N) or tuple(s.shape) != (E, N) or C < 1:
+        raise ValueError(f"int8_matmul_expert shape mismatch: x {tuple(x.shape)}, "
+                         f"q {tuple(q.shape)}, s {tuple(s.shape)}")
+    if q.dtype != torch.int8 or s.dtype != torch.float32:
+        raise ValueError(f"int8_matmul_expert wants q int8 and s float32; got "
+                         f"{q.dtype}, {s.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8_matmul_expert wants x bfloat16 or float32; got {x.dtype}")
+    if not (x.device == q.device == s.device):
+        raise ValueError(f"int8_matmul_expert operands on different devices: "
+                         f"{x.device}, {q.device}, {s.device}")
+    if not (x.is_contiguous() and q.is_contiguous() and s.is_contiguous()):
+        raise ValueError("int8_matmul_expert wants contiguous x, q and s")
+    return E, C, K, N
+
+
+def int8_matmul_expert(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Per-expert x [E, C, K] @ q [E, K, N] * s [E, N] -> [E, C, N]: the MoE
+    decode expert stacks (w_gate/w_up/w_down), all experts in one launch."""
+    E, C, K, N = _check_expert(x, q, s)
+    if x.device.type == "cpu":
+        return int8_matmul_expert_reference(x, q, s)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul_expert: unsupported device {x.device}")
+    if C > MAX_B:
+        return torch.bmm(x, q.to(x.dtype)) * s[:, None, :].to(x.dtype)
+    if K % 128 or N % 128:
+        raise ValueError(f"int8_matmul_expert kernel takes K and N multiples of 128; "
+                         f"got K={K}, N={N}")
+    if q.data_ptr() % 16:
+        raise ValueError("int8_matmul_expert kernel wants q 16-byte aligned")
+    lib = _build.load_int8_matmul()
+    ks = k_slice(C, K, N, False, E)
+    out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
+    ws = torch.empty((K // ks, E * C, N), dtype=torch.float32, device=x.device)
+    err = lib.kukeon_int8_matmul_expert(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        E, C, K, N, ks, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul_expert kernel launch failed: CUDA error {err} "
+                           f"(E={E}, C={C}, K={K}, N={N}, ks={ks})")
+    int8_matmul_expert.launches += 1
+    return out
+
+
+int8_matmul_expert.launches = 0

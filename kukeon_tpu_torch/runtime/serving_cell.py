@@ -16,9 +16,11 @@ An HTTP front end over the port's :class:`ServingEngine`:
 A full queue answers 429 with ``Retry-After``; a request the cell will
 not admit (not ready) answers 503. Run it as
 ``python -m kukeon_tpu_torch.runtime.serving_cell --model llama3-8b
---dtype int8``. Not ported yet (ROADMAP.md): checkpoints, streaming,
-stop strings, drain, metrics, traces, profiles, KV handoff, the watchdog,
-embedding cells, MoE models and multi-GPU.
+--dtype int8`` (or ``--model mixtral-8x7b``: the MoE family serves through
+the same engine with ``models/moe.py``'s forward, and refuses
+``--kv-cache-int8`` as the reference does). Not ported yet (ROADMAP.md):
+checkpoints, streaming, stop strings, drain, metrics, traces, profiles,
+KV handoff, the watchdog, embedding cells and multi-GPU.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from kukeon_tpu_torch.device import resolve_device
-from kukeon_tpu_torch.models import convert, llama
+from kukeon_tpu_torch.models import convert, llama, moe
 from kukeon_tpu_torch.serving.engine import (
     DeadlineExceeded,
     RejectedError,
@@ -49,7 +51,10 @@ MODELS = {
     "tiny": llama.llama_tiny,
     "llama3-1b": llama.llama3_1b,
     "llama3-8b": llama.llama3_8b,
+    "mixtral-tiny": moe.moe_tiny,
+    "mixtral-8x7b": moe.mixtral_8x7b,
 }
+MOE_MODELS = {"mixtral-tiny", "mixtral-8x7b"}
 
 
 class ServingCell:
@@ -75,7 +80,18 @@ class ServingCell:
             cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        if quantize:
+        forward_fn = None
+        if model in MOE_MODELS:
+            # The MoE decode ignores int8-KV scales (as the reference's):
+            # refuse the flag rather than serve garbage.
+            if kv_cache_int8:
+                raise SystemExit(f"model {model!r} does not support --kv-cache-int8 yet")
+            forward_fn = moe.forward
+            if quantize:
+                params = convert.init_quantized_moe_params_device(cfg, gen, self.device)
+            else:
+                params = moe.init_params(cfg, gen, self.device)
+        elif quantize:
             params = convert.init_quantized_params_device(cfg, gen, self.device)
         else:
             params = llama.init_params(cfg, gen, self.device)
@@ -85,7 +101,8 @@ class ServingCell:
             cfg, params, num_slots=num_slots,
             max_seq_len=max_seq_len or min(cfg.max_seq_len, 4096),
             kv_cache_int8=kv_cache_int8, decode_chunk=decode_chunk,
-            max_pending=max_pending, seed=seed, device=self.device)
+            max_pending=max_pending, seed=seed, device=self.device,
+            forward_fn=forward_fn)
         self.tokenizer = load_tokenizer(None)
         self.default_deadline_s = deadline_s
         self.started_at = time.time()

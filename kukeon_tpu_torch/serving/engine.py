@@ -17,7 +17,11 @@
   :meth:`_upload`, both counted in ``sync_stats``.
 - **int8 rule**: int8 weights on a CUDA device turn ``cfg.int8_pallas``
   on, so every decode projection and the decode LM head run through the
-  hand-written CUDA kernel (ops/int8_matmul.py).
+  hand-written CUDA kernel (ops/int8_matmul.py), and for the MoE family
+  every decode expert product through its grouped kernel.
+- **Model family**: ``forward_fn`` (default ``llama.forward``) runs the
+  model; ``models/moe.py``'s ``forward`` has the same signature and cache
+  layout, so the MoE family serves through the same programs.
 
 Python orchestrates: queueing, slot choice, emitting tokens. Not ported
 yet (ROADMAP.md): paged KV and preemption, the prefix cache, KV export and
@@ -117,7 +121,8 @@ def bucket_length(n: int, buckets: tuple[int, ...] = PREFILL_BUCKETS) -> int:
 
 
 class ServingEngine:
-    """Slot-based continuous-batching engine over the port's Llama.
+    """Slot-based continuous-batching engine over the port's Llama (or
+    any model whose forward has ``llama.forward``'s signature).
 
     Thread model: callers enqueue with :meth:`submit`; one driver (the
     thread of :meth:`start`, or the caller through :meth:`step`) runs
@@ -140,8 +145,10 @@ class ServingEngine:
         prefill_buckets: tuple[int, ...] | None = None,
         max_pending: int | None = None,
         device: str | torch.device | None = None,
+        forward_fn: Callable | None = None,
     ):
         self.device = resolve_device(device)
+        self._forward = forward_fn or llama.forward
         # int8 weights on a CUDA device always decode through the kernel; a
         # model whose dims it does not take fails at the kernel's shape check.
         if (self.device.type == "cuda" and llama._is_q(params["layers"]["wq"])
@@ -224,7 +231,7 @@ class ServingEngine:
         S = tokens.shape[1]
         positions = torch.arange(S, device=self.device)[None, :]
         cache = llama.KVCache.create(self.cfg, 1, S, device=self.device)
-        logits, cache = llama.forward(
+        logits, cache = self._forward(
             self.params, self.cfg, tokens, positions, cache,
             logit_positions=torch.full((1,), length - 1, device=self.device))
         return self._sample_one(logits[0, 0], sp), cache.k, cache.v
@@ -252,7 +259,7 @@ class ServingEngine:
         out = []
         for _ in range(k):
             before = st.cache.lengths
-            logits, cache = llama.forward(self.params, self.cfg, st.tokens[:, None],
+            logits, cache = self._forward(self.params, self.cfg, st.tokens[:, None],
                                           before[:, None], st.cache)
             cache.lengths = torch.where(st.active, cache.lengths, before)
             nxt = sample_per_slot(logits[:, 0, :], self._gen, temps, top_ks, top_ps,

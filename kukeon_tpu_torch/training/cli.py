@@ -10,7 +10,9 @@ which raises without a GPU; ``--device cpu`` runs the plain PyTorch path).
 Batches are memmapped and a pure function of (seed, step); the run resumes
 from the newest checkpoint in ``--ckpt-dir``. A mesh axis above 1
 (``--data``, ``--fsdp``, ``--tensor``, ``--seq``, ``--expert``,
-``--pipe``) and the ``mixtral-*`` models are not ported yet and raise.
+``--pipe``) and MoE training (``mixtral-*``: the port serves these models,
+but at full width their training state does not fit one GPU) are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.model.startswith("mixtral"):
         raise NotImplementedError(
-            f"--model {args.model}: MoE training is not ported yet (ROADMAP.md A8)")
+            f"--model {args.model}: MoE training is not ported yet (ROADMAP.md A13)")
     sharded = {a: getattr(args, a) for a in MESH_AXES if getattr(args, a) > 1}
     if sharded:
         raise NotImplementedError(

@@ -13,7 +13,7 @@ Remat is non-reentrant ``torch.utils.checkpoint`` around each transformer
 block (the JAX step checkpoints the whole forward; both give the same
 numbers, and per-block remat bounds the memory).
 
-The MoE and pipeline train steps are not ported (ROADMAP A8, A13).
+The MoE and pipeline train steps are not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
