@@ -11,20 +11,29 @@ time; any failure ends the run with a nonzero exit and no result line:
   card        nvidia-smi name and power limit, versions, and the build of
               both CUDA sources (csrc/int8_matmul.cu, csrc/flash_attention.cu),
               one nvcc each, started together; ptxas registers, shared
-              memory and spills for every kernel
+              memory and spills for every kernel; the count of HGMMA (wgmma)
+              and HMMA (mma.sync) instructions in each kernel's SASS
+              (cuobjdump), which shows the tensor-core path was compiled in
   kernel      int8_matmul vs int8_matmul_reference at every llama3-8b decode
               shape (and the llama3-1b tied head, transposed), B in
               {1, 3, 4, 16, 64}; at B = 4: kernel, plain and library times
               (CUDA events, median of 20 cold-L2 runs) beside the bound
   flash       flash_attention vs flash_attention_reference: llama3-1b
               training heads (B 4, S 2048, H 32, KV 8, D 64), llama3-8b heads
-              (B 1, S 1024, D 128), offset positions, KV = H, and an f32
-              case; at the llama3-1b shape: kernel, plain and library
-              (scaled_dot_product_attention) times beside the bound
+              (B 1, S 1024, D 128), offset positions, KV = H, a ragged S
+              (160), and an f32 case; at the llama3-1b shape: kernel, plain
+              and library (scaled_dot_product_attention) times beside the
+              bound, the kernels' device time (torch.profiler), and the
+              shares of the bf16 peak
   moe_kernel  int8_matmul_expert vs int8_matmul_expert_reference at both
               Mixtral-8x7B expert shapes (E 8; K x N 4096 x 14336 and
               14336 x 4096), C in {1, 3, 4, 16, 64}, and an f32 case; at
-              C = 4: kernel, plain and library times beside the bound
+              C = 4: kernel, plain and library times beside the bound with
+              every expert's rows filled, and with the rows of a decode step
+              (4 tokens routed top-2 of 8 from a seed: the experts no token
+              chose keep zero rows, their outputs must be exactly +0, and
+              the bound counts only the weights of the experts in use); the
+              device time of the kernel and of its reduce launch
   model       llama3-8b int8 on the card: one prefill and one decode step
               through the kernel and through the dequant product; logits
               agree; the step makes 225 kernel launches
@@ -93,8 +102,15 @@ FLASH_CASES = (
     ("llama3-8b heads", 1, 1024, 32, 8, 128, torch.bfloat16, None),
     ("offset positions", 2, 1024, 8, 2, 64, torch.bfloat16, (100, 7)),
     ("KV = H", 2, 1024, 8, 8, 64, torch.bfloat16, None),
+    ("ragged S", 2, 160, 8, 2, 64, torch.bfloat16, None),
     ("f32", 1, 256, 4, 2, 32, torch.float32, (5, )),
 )
+K3_DESIGN = ("persistent, wgmma + TMA: 128-row q tiles, producer warpgroup with a "
+             "3-stage (2 at D 128) K/V ring and double-buffered Q, two consumer "
+             "warpgroups taking turns on the tensor cores, P from registers, V MN-major")
+K2_DESIGN = ("bf16: zero-expert skip, 4-stage cp.async weight ring, mma.sync "
+             "m16n8k16 with exact prmt/fadd int8->bf16, fixed-order split-K reduce")
+MOE_TOKENS, MOE_TOP_K = 4, 2
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_MORE = 4, 2048, 8, 2
 # (K, N) of the llama3-8b decode projections, with launches per step.
 SHAPES_8B = {"wq": (4096, 4096, 32), "wk": (4096, 1024, 32), "wv": (4096, 1024, 32),
@@ -258,11 +274,37 @@ def expert_library_call(x, q, s):
                 "dequant+torch.bmm (3 calls)")
 
 
+def decode_routing(g: torch.Generator) -> list[int]:
+    """Tokens per expert at one Mixtral decode step: MOE_TOKENS tokens, each
+    routed to its top MOE_TOP_K of MOE_E experts by seeded router logits.
+    Dense dispatch fills an expert's first n slots (full capacity, C =
+    MOE_TOKENS) and leaves the rest, and every slot of an expert no token
+    chose, at exactly 0."""
+    logits = torch.randn((MOE_TOKENS, MOE_E), generator=g, device="cuda")
+    top = logits.topk(MOE_TOP_K, dim=-1).indices
+    return torch.bincount(top.flatten(), minlength=MOE_E).tolist()
+
+
+def kernel_device_ms(fn, calls: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches (torch.profiler over
+    ``calls`` calls back to back)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: round(dev_us(e) / 1e3 / calls, 4) for e in device_kernels(prof)}
+
+
 def phase_moe_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
     """Hold the grouped expert kernel against its plain version at both
-    Mixtral-8x7B expert shapes and every C; time it at C = 4."""
+    Mixtral-8x7B expert shapes and every C; time it at C = 4, every
+    expert's rows filled and with the rows of a routed decode step."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    worst_abs, worst_rel, timings, lib_label = 0.0, 0.0, {}, None
+    counts = decode_routing(g)
+    empty = [e for e in range(MOE_E) if counts[e] == 0]
+    worst_abs, worst_rel, timings, lib_label, split = 0.0, 0.0, {}, None, {}
     for name in ("w_gate", "w_down"):
         K, N, _n = SHAPES_MOE[name]
         q = torch.randint(-127, 128, (MOE_E, K, N), generator=g, device="cuda",
@@ -288,6 +330,31 @@ def phase_moe_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
             t["bound_ms"], t["bound_by"] = bound_ms(4, K, N, bps, MOE_E)
             t["max_abs_err"] = ea
             timings[name] = t
+            split[name] = kernel_device_ms(lambda: k1.int8_matmul_expert(x, q, s))
+        # The rows of a decode step: expert e's first counts[e] slots filled.
+        x = torch.zeros((MOE_E, MOE_TOKENS, K), device="cuda", dtype=torch.bfloat16)
+        for e, n in enumerate(counts):
+            x[e, :n] = torch.randn((n, K), generator=g, device="cuda").to(torch.bfloat16)
+        out = k1.int8_matmul_expert(x, q, s)
+        ref = k1.int8_matmul_expert_reference(x, q, s)
+        torch.cuda.synchronize()
+        ok, ea, er = within_tol(out, ref)
+        if not ok or not torch.isfinite(out).all():
+            raise AssertionError(f"int8_matmul_expert disagrees with its plain version at "
+                                 f"{name}, routed rows {counts}: max abs {ea}, max rel {er}")
+        for e, n in enumerate(counts):     # zero rows give exactly +0 (bits 0)
+            if not (torch.all(out[e, n:].view(torch.int16) == 0)
+                    and torch.all(ref[e, n:].view(torch.int16) == 0)):
+                raise AssertionError(f"int8_matmul_expert: zero rows of expert {e} at {name} "
+                                     f"are not +0 (routed rows {counts})")
+        lib, _ = expert_library_call(x, q, s)
+        t = {"ms": cold_median_ms(lambda: k1.int8_matmul_expert(x, q, s), flush),
+             "plain_ms": cold_median_ms(lambda: k1.int8_matmul_expert_reference(x, q, s), flush),
+             "library_ms": cold_median_ms(lib, flush)}
+        t["bound_ms"], t["bound_by"] = bound_ms(4, K, N, bps, MOE_E - len(empty))
+        t["max_abs_err"] = ea
+        t["empty_experts"] = len(empty)
+        timings[name + "_routed"] = t
         del q, s
     # f32 activations take the kernel's float path.
     x = torch.randn((MOE_E, 4, 4096), generator=g, device="cuda")
@@ -299,9 +366,13 @@ def phase_moe_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
     if not ok:
         raise AssertionError(f"int8_matmul_expert f32 path disagrees: max abs {ea32}")
     timings["w_up"] = timings["w_gate"]
+    timings["w_up_routed"] = timings["w_gate_routed"]
     return {"timings": timings, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "f32_max_abs_err": ea32, "library_call": lib_label, "experts": MOE_E,
-            "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), 2^-20 (f32)"}
+            "routing_tokens_per_expert": counts, "empty_experts": len(empty),
+            "device_ms_per_call_c4": split,
+            "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), 2^-20 (f32); "
+                         "zero rows exactly +0"}
 
 
 def logits_agree(a: torch.Tensor, b: torch.Tensor, stage: str) -> dict:
@@ -635,6 +706,14 @@ def phase_flash(fa, bps: float, flush: torch.Tensor) -> dict:
         timing["bound_ms"], timing["bound_by"] = ((t_ops, "operations") if t_ops >= t_bytes
                                                   else (t_bytes, "bytes"))
         timing["tflops"] = flash_flops(B, S, H, D) / timing["ms"] / 1e9
+        timing["peak_share"] = timing["tflops"] * 1e12 / BF16_FLOPS
+        # The kernels' own device time (the cold median above also holds
+        # whatever host time of the wrapper the L2 flush does not hide).
+        timing["device_ms_per_call"] = kernel_device_ms(
+            lambda: fa.flash_attention(q, k, v, pos, pos))
+        timing["device_ms"] = sum(timing["device_ms_per_call"].values())
+        timing["device_peak_share"] = (flash_flops(B, S, H, D) / (timing["device_ms"] / 1e3)
+                                       / BF16_FLOPS)
         del qt, kt, vt
     return {"cases": cases, "timing": timing,
             "tolerance": "bf16: |err| <= 2^-7 (|ref| + max|v|) and rms(err) <= 2^-7 "
@@ -806,6 +885,29 @@ def phase_train(fa) -> dict:
             "profile": prof}
 
 
+def sass_counts(built: dict) -> dict:
+    """{source: {kernel: {"HGMMA": n, "HMMA": n}}} from cuobjdump's SASS of
+    each built library: the tensor-core instructions each kernel holds."""
+    from kukeon_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = {}
+    for src, (path, _log, _secs) in built.items():
+        sass = subprocess.run([tool, "--dump-sass", str(path)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if op + "." in line:
+                        counts[fn][op] += 1
+        out[src] = {k: v for k, v in counts.items() if v["HGMMA"] or v["HMMA"]}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -837,8 +939,14 @@ def main(argv=None) -> int:
                  build_s={src: round(secs, 2) for src, (_p, _l, secs) in built.items()},
                  tmp_free_gb=round(shutil.disk_usage(tempfile.gettempdir()).free / 1e9, 1),
                  ptxas={src: [ln.strip() for ln in log.splitlines()
-                              if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
-                        for src, (_p, log, _s) in built.items()})
+                              if "Compiling entry" in ln or "registers" in ln or "spill" in ln
+                              or "warning" in ln]
+                        for src, (_p, log, _s) in built.items()},
+                 sass_tensor_core_ops=sass_counts(built))
+        flash_hgmma = sum(v["HGMMA"] for k, v in p["sass_tensor_core_ops"][
+            _build.FLASH_ATTENTION].items() if "flash_fwd_bf16" in k)
+        if flash_hgmma == 0:
+            raise AssertionError("the bf16 flash kernels hold no HGMMA instruction")
 
     res = {}
 
@@ -930,6 +1038,8 @@ def main(argv=None) -> int:
          "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),
          **{f: round(ft[f], 4) for f in fields},
          "bound_by": ft["bound_by"], "library_ms_call": ft["library_call"],
+         "peak_share": round(ft["peak_share"], 4), "device_ms": round(ft["device_ms"], 4),
+         "device_peak_share": round(ft["device_peak_share"], 4), "design": K3_DESIGN,
          "unit": "one call at B=4 S=2048 H=32 KV=8 D=64 bf16 (llama3-1b training); "
                  f"{train['flash_launches_per_step']} launches per train step"},
         {"name": "int8_matmul_expert", "route": "cuda", "source": K1_SOURCE,
@@ -937,9 +1047,13 @@ def main(argv=None) -> int:
          "max_abs_err": moe_kern["max_abs_err"], **per_step_moe,
          "bound_by": tm["w_gate"]["bound_by"], "library_ms_call": moe_kern["library_call"],
          "per_call": {nm: {f: round(tm[nm][f], 4) for f in fields}
-                      for nm in ("w_gate", "w_down")},
-         "unit": "one mixtral-8x7b decode step at C=4 (96 launches of E=8 experts); "
-                 "per_call: one launch"},
+                      for nm in ("w_gate", "w_down", "w_gate_routed", "w_down_routed")},
+         "device_ms_per_call": {nm: round(sum(moe_kern["device_ms_per_call_c4"][nm].values()), 4)
+                                for nm in ("w_gate", "w_down")},
+         "empty_experts_routed": moe_kern["empty_experts"], "design": K2_DESIGN,
+         "unit": "one mixtral-8x7b decode step at C=4 (96 launches of E=8 experts), every "
+                 "expert's rows filled; per_call: one launch, filled and with the rows of a "
+                 "routed decode step (its bound counts the experts in use)"},
     ]
     # The serve phases' end-to-end numbers again, short, so that the last
     # lines of the output carry every number the run is quoted for.

@@ -16,38 +16,57 @@
 // Bound. Causal attention does 2*B*H*S^2*D operations (the two products,
 // half of the S x S tiles) against 2*(B*S*H*D) + 2*(B*S*KV*D) elements of
 // q, k, v and o: at S = 2048, D = 64 that is ~750 operations a byte, so the
-// kernel is bound by the tensor cores, not by HBM. The design keeps the
-// S x S scores out of device memory and feeds both products to the tensor
-// cores:
-// - One block of 4 warps per (64-row q tile, head, batch row); each warp
-//   owns 16 query rows. Q is staged once through shared memory into
-//   mma fragments that stay in registers.
-// - The block first lists the kv tiles it must visit (a warp reduces each
-//   tile's 64 positions with shuffles): skipped tiles are never loaded,
-//   and a tile whose every kv position is <= every q position of the
-//   block skips the mask.
-// - K, V and kv-position tiles of 64 rows stream into shared memory with
-//   cp.async, two stages deep: the next tile loads while this one
-//   computes. Rows are padded by 16 bytes so that ldmatrix is free of bank
-//   conflicts.
-// - S = Q K^T and P V run on mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-//   K's and V's B fragments come from ldmatrix (.trans for V), and the f32
-//   score fragment is re-packed in registers as the bf16 A operand of P V
-//   (no shared-memory round trip).
+// kernel is bound by the tensor cores (989 TFLOP/s bf16 on an H100 SXM),
+// not by HBM. What keeps a kernel from that rate on Hopper: the legacy
+// mma.sync path, shared-memory traffic when small warp tiles each re-read
+// the K and V tiles, the softmax's exp2 (16 a clock per SM on the MUFU:
+// at D 64 as long as the two products of the same tile) in series with the
+// products, and a block's start and end (listing tiles, first loads,
+// stores) when one block fills an SM. The bf16 design:
+// - Persistent: one block an SM walks work tiles (128-row q tile, head,
+//   batch row), heaviest q tiles first, round robin over the blocks.
+// - Three warpgroups. Warpgroup 0 is the producer: it gives registers back
+//   (setmaxnreg) and one warp lists each work tile's kv tiles and issues
+//   every TMA load: the Q tile into one of two buffers, K and V tiles of
+//   128 kv rows into a ring of NS stages (3 at D <= 64, 2 at D = 128), with
+//   full/empty mbarriers. So the next work tile's list and loads run while
+//   the consumers finish this one. Warpgroups 1 and 2 consume, 64 q rows
+//   each.
+// - S = Q K^T on wgmma.m64n128k16 with Q and K read from shared memory as
+//   TMA wrote them (128-byte swizzle, 64-byte at D = 32); each K/V tile is
+//   read once per 64 q rows, straight from shared memory into the tensor
+//   cores.
+// - O += P V on wgmma with P from registers: the f32 score accumulator is
+//   re-packed as the bf16 A operand, so P never touches shared memory; V is
+//   the MN-major B operand (transposed by the instruction), so no
+//   transposed copy of V exists.
+// - The softmax runs in registers in the log2 domain: one FFMA (scale times
+//   log2 e folded in) and one ex2.approx an element. The two consumers take
+//   turns on the tensor cores (named barriers 1 and 2): one issues its S
+//   product of tile i and its P V of tile i-1 while the other runs its
+//   softmax; within a consumer the softmax of tile i also overlaps its own
+//   P V of tile i-1.
+// - Tensor maps are built per call on the host over the caller's strides
+//   ([B, S, H, D] as a 4-D map, D innermost, 64-row boxes), passed as
+//   __grid_constant__ CUtensorMap. cuTensorMapEncodeTiled is reached
+//   through cudaGetDriverEntryPoint, so the library links no -lcuda.
+// - A ragged last tile needs no padding: TMA zero-fills rows past S, kv
+//   rows past S are masked, q rows past S are not stored.
+// - The kv tiles a work tile visits follow the JAX predicate above, from
+//   the min and max position of every 64-row chunk (a first small launch,
+//   chunk_minmax_kernel); a tile whose every kv position is <= every q
+//   position of the work tile, and that lies inside S, skips the mask.
 // - K/V are read at their own head count: query head h reads kv head
 //   h / (H / KV), so grouped-query attention needs no expanded copy.
-// - Tensors are read through their strides ([B, S, H, D] with D
-//   contiguous), so the caller's layout needs no transpose.
-// - Q tiles with the most unmasked kv tiles launch first (causal balance).
-// Not done yet (later work): wgmma, TMA, warp specialisation, 128-row q
-// tiles (each K/V tile is read from shared memory once per 16 query rows).
 //
 // f32 inputs take a plain-FMA kernel (16-row tiles in shared memory); it
 // exists for the f32 models and tests, not for speed.
 //
 // C interface, loaded with ctypes: kukeon_flash_attention(...) returns
-// cudaGetLastError() after the launch (0 = success).
+// cudaGetLastError() after the launch (0 = success), or the error of the
+// tensor-map encoding or of the launch's set-up.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,10 +75,14 @@ namespace {
 
 constexpr float kNegInf = -1e30f;       // the JAX kernel's mask and initial max
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTile = 64;               // q rows per block, kv rows per tile
+constexpr int kBN = 128;                // kv rows per tile
+constexpr int kBox = 64;                // rows of a TMA box, of a consumer's q slice, of a
+                                        // position chunk
 constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = kWarps * 32;   // the f32 kernel's block
 constexpr int kMaxS = 1 << 16;          // bounds the kv-tile list in shared memory
+constexpr int kPosMin = -2147483647 - 1;
+constexpr int kPosMax = 2147483647;
 
 struct Params {
   const void* q;
@@ -72,10 +95,198 @@ struct Params {
   // Element strides (batch, seq, head) of q, k, v, o; D is contiguous.
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   float scale;
+  const int4* minmax;   // bf16: [B, n_c] (kv min, kv max, q min, q max) of 64-row chunks
 };
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---- bf16 kernel: shared-memory plan --------------------------------------
+
+template <int D>
+struct Plan {
+  // Consumer warpgroups, 64 q rows each. (Three at D 64, 160 registers
+  // each, spilled and ran 16% slower on the H100.)
+  static constexpr int NC = 2;
+  static constexpr int BM = kBox * NC;                // q rows per work tile
+  static constexpr int THREADS = 128 * (NC + 1);
+  // setmaxnreg split of the block's launch-time registers (65536 / THREADS
+  // = 168 a thread): the producer gives back, the consumers take.
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static constexpr int SW = D < 64 ? D : 64;          // columns per swizzle row
+  static constexpr int RB = SW * 2;                   // bytes per swizzle row
+  static constexpr int NCB = D / SW;                  // column blocks (2 at D = 128)
+  static constexpr int NS = D == 128 ? 2 : 3;         // K/V ring stages
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : 2;   // wgmma: 128B / 64B swizzle
+  static constexpr int Q_BYTES = BM * D * 2;          // one Q tile (two buffers)
+  static constexpr int T_BYTES = kBN * D * 2;         // one K or V tile
+  static constexpr int BAR_OFF = 2 * Q_BYTES + 2 * NS * T_BYTES;
+  // full[NS], empty[NS], q_full[2], q_empty[2]; then n_visit[2]
+  static constexpr int NV_OFF = BAR_OFF + 8 * (2 * NS + 4);
+  static constexpr int LIST_OFF = NV_OFF + 8;         // tiles[2][n_kt]
+  static size_t smem_bytes(int S) {
+    return 1024 + LIST_OFF + 8 * ((S + kBN - 1) / kBN);   // 1024: alignment slack
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// One TMA tile load of a 4-D map, coordinates innermost first.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin registers that an asynchronous wgmma reads or writes: the compiler
+// may not move their uses across this point or reuse them before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout in bits 62-63.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// d[64] (+)= A[64x16] (smem) * B[16x128] (smem); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[16] += A[64x16] (registers, bf16x2) * B[16x32] (smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[32] += A[64x16] (registers, bf16x2) * B[16x64] (smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A[64x16] (registers, bf16x2) * B[16x128] (smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n32(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n128(d, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -83,296 +294,394 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a * b: one 16x8x16 bf16 product, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory (lanes 8i..8i+7 give the row
-// addresses of matrix i).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed on the way in.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [0, 64) of a [S, D] slab (row stride `ld` elements) -> smem [64][LD],
-// asynchronously (cp.async, 16 bytes a thread per copy).
-template <int D, int LD>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long ld) {
-  constexpr int kChunks = D / 8;        // 16-byte chunks per row
-  static_assert(kTile * kChunks % kThreads == 0, "tile chunks split evenly");
+// S = Q K^T for one consumer's 64 rows and one 128-row kv tile: D/16
+// k-steps, Q and K K-major in swizzled shared memory (a k-step advances the
+// start address by 32 bytes inside the swizzle row).
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_base, uint32_t k_base) {
+  using P = Plan<D>;
 #pragma unroll
-  for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    cp_async16(dst + r * LD + c, src + r * ld + c);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t blk = kk * 16 / P::SW, within = (kk * 16 % P::SW) * 2;
+    const uint64_t da = make_desc(q_base + blk * P::BM * P::RB + within, 16, 8 * P::RB, P::LAYOUT);
+    const uint64_t db = make_desc(k_base + blk * kBN * P::RB + within, 16, 8 * P::RB, P::LAYOUT);
+    wgmma_ss_n128(s, da, db, kk > 0 ? 1 : 0);
   }
 }
 
-// min and max of 64 positions, computed by every warp (lane reads 2).
-__device__ __forceinline__ void warp_min_max(const int* pos, int lane, int& mn, int& mx) {
-  const int a = pos[lane], b = pos[lane + 32];
-  mn = min(a, b);
-  mx = max(a, b);
+// O += P V: 8 k-steps of 16 kv rows; V MN-major (column blocks LBO apart,
+// 8-row groups SBO apart).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[kBN / 16][4],
+                                         uint32_t v_base) {
+  using P = Plan<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint64_t db = make_desc(v_base + kk * 16 * P::RB, kBN * P::RB, 8 * P::RB, P::LAYOUT);
+    wgmma_pv<D>(o, pf[kk], db);
+  }
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's online-softmax step on the raw scores s (this thread holds
+// rows r, elements 0 and 1 of each n-tile, and r + 8, elements 2 and 3;
+// columns 8j + 2t and 8j + 2t + 1 of n-tile j): mask, update the running
+// max m (log2 domain, scale sl2 = log2(e) / sqrt(D) folded in), and turn s
+// into the unnormalised p = exp2(s * sl2 - m) in place, one FFMA and one
+// MUFU.EX2 an element. A masked score is set to -1e30 / sl2, which scales
+// to the JAX kernel's -1e30.
+__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2], bool visible, int k0,
+                                             const int* kvpos, int S, int qp0, int qp1,
+                                             float sl2, int t, float& m0, float& m1,
+                                             float& corr0, float& corr1, float& sum0,
+                                             float& sum1) {
+  if (!visible) {
+    const float masked = kNegInf / sl2;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = k0 + 8 * j + 2 * t;
+      const int kp0 = col < S ? __ldg(kvpos + col) : kPosMax;
+      const int kp1 = col + 1 < S ? __ldg(kvpos + col + 1) : kPosMax;
+      if (kp0 > qp0) s[4 * j + 0] = masked;
+      if (kp1 > qp0) s[4 * j + 1] = masked;
+      if (kp0 > qp1) s[4 * j + 2] = masked;
+      if (kp1 > qp1) s[4 * j + 3] = masked;
+    }
+  }
+  float mx0[4], mx1[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    mx0[j] = fmaxf(s[4 * j], s[4 * j + 1]);
+    mx1[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+  }
+#pragma unroll
+  for (int j = 4; j < kBN / 8; ++j) {
+    mx0[j % 4] = fmaxf(mx0[j % 4], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1[j % 4] = fmaxf(mx1[j % 4], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float mc0 = fmaxf(fmaxf(mx0[0], mx0[1]), fmaxf(mx0[2], mx0[3]));
+  float mc1 = fmaxf(fmaxf(mx1[0], mx1[1]), fmaxf(mx1[2], mx1[3]));
+  // The 4 threads of a quad hold one row's 128 columns.
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mc0 = fmaxf(mc0, __shfl_xor_sync(0xffffffffu, mc0, off));
+    mc1 = fmaxf(mc1, __shfl_xor_sync(0xffffffffu, mc1, off));
+  }
+  const float mn0 = fmaxf(m0, mc0 * sl2), mn1 = fmaxf(m1, mc1 * sl2);
+  corr0 = fast_exp2(m0 - mn0);
+  corr1 = fast_exp2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float sm0[4] = {0.f, 0.f, 0.f, 0.f}, sm1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    s[4 * j + 0] = fast_exp2(fmaf(s[4 * j + 0], sl2, -mn0));
+    s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], sl2, -mn0));
+    s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], sl2, -mn1));
+    s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], sl2, -mn1));
+    sm0[j % 4] += s[4 * j + 0] + s[4 * j + 1];
+    sm1[j % 4] += s[4 * j + 2] + s[4 * j + 3];
+  }
+  sum0 = (sm0[0] + sm0[1]) + (sm0[2] + sm0[3]);
+  sum1 = (sm1[0] + sm1[1]) + (sm1[2] + sm1[3]);
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+  }
+}
+
+// After the previous P V has landed: rescale O, add the tile's row sums,
+// and pack p as bf16 A fragments (n-tiles 2kk, 2kk+1 form k-step kk).
+template <int D>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[D / 2], uint32_t (&pf)[kBN / 16][4],
+                                                 const float (&s)[kBN / 2], float corr0,
+                                                 float corr1, float sum0, float sum1, float& l0,
+                                                 float& l1) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j + 0] *= corr0;
+    o[4 * j + 1] *= corr0;
+    o[4 * j + 2] *= corr1;
+    o[4 * j + 3] *= corr1;
+  }
+  l0 = l0 * corr0 + sum0;
+  l1 = l1 * corr1 + sum1;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// min and max of the q and kv positions of every 64-row chunk, rows past S
+// left out: out[b * n_c + c] = (kv min, kv max, q min, q max). One warp per
+// (chunk, batch row).
+__global__ void __launch_bounds__(32)
+chunk_minmax_kernel(const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+                    int4* __restrict__ out, int S, int n_c) {
+  int4 v = make_int4(kPosMax, kPosMin, kPosMax, kPosMin);
+#pragma unroll
+  for (int i = 0; i < kBox / 32; ++i) {
+    const int r = blockIdx.x * kBox + threadIdx.x + 32 * i;
+    if (r < S) {
+      const long long at = static_cast<long long>(blockIdx.y) * S + r;
+      const int kp = kv_pos[at], qp = q_pos[at];
+      v.x = min(v.x, kp);
+      v.y = max(v.y, kp);
+      v.z = min(v.z, qp);
+      v.w = max(v.w, qp);
+    }
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    v.x = min(v.x, __shfl_xor_sync(0xffffffffu, v.x, off));
+    v.y = max(v.y, __shfl_xor_sync(0xffffffffu, v.y, off));
+    v.z = min(v.z, __shfl_xor_sync(0xffffffffu, v.z, off));
+    v.w = max(v.w, __shfl_xor_sync(0xffffffffu, v.w, off));
   }
+  if (threadIdx.x == 0) out[static_cast<long long>(blockIdx.y) * n_c + blockIdx.x] = v;
 }
 
-template <int D>
-__host__ __device__ constexpr int tile_bytes() { return kTile * (D + 8) * 2; }
-
-// Dynamic shared memory of the bf16 kernel: two stages of (K, V, kv
-// positions), the q positions, and the list of the kv tiles to visit.
-template <int D>
-size_t bf16_smem_bytes(int S) {
-  return 4 * tile_bytes<D>() + 2 * kTile * 4 + kTile * 4 + (S / kTile) * 4;
+// Work tile w (heaviest q tiles first) -> q tile, head, batch row.
+__device__ __forceinline__ void work_tile(int w, int n_qt, int H, int B, int& qt, int& h,
+                                          int& b) {
+  qt = n_qt - 1 - w / (H * B);
+  h = w % H;
+  b = (w / H) % B;
 }
 
+// Persistent: one block an SM walks work tiles blockIdx.x, + gridDim.x, ...
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;             // padded smem row (elements)
-  constexpr int KS = D / 16;            // k-steps of Q K^T
-  constexpr int DT = D / 8;             // 8-column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem[];
-  // Stage st: K at smem + st * T, V at smem + (2 + st) * T, T = tile_bytes.
-  const auto k_s = [&](int st) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + st * tile_bytes<D>());
-  };
-  const auto v_s = [&](int st) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + (2 + st) * tile_bytes<D>());
-  };
-  int* kv_pos_base = reinterpret_cast<int*>(smem + 4 * tile_bytes<D>());
-  const auto kv_pos_s = [&](int st) { return kv_pos_base + st * kTile; };
-  int* q_pos_s = kv_pos_base + 2 * kTile;
-  int* tiles = q_pos_s + kTile;         // kv tiles to visit; bit 30: no mask needed
-  __shared__ int n_tiles;
+__global__ void __launch_bounds__(Plan<D>::THREADS, 1)
+flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v) {
+  using P = Plan<D>;
+  constexpr int NC = P::NC;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled TMA tiles want 1024-byte aligned addresses.
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const auto q_s = [&](int qb) { return base + qb * P::Q_BYTES; };
+  const auto k_s = [&](int st) { return base + 2 * P::Q_BYTES + st * P::T_BYTES; };
+  const auto v_s = [&](int st) { return base + 2 * P::Q_BYTES + (P::NS + st) * P::T_BYTES; };
+  const auto full_bar = [&](int st) { return base + P::BAR_OFF + 8 * st; };
+  const auto empty_bar = [&](int st) { return base + P::BAR_OFF + 8 * (P::NS + st); };
+  const auto q_full = [&](int qb) { return base + P::BAR_OFF + 8 * (2 * P::NS + qb); };
+  const auto q_empty = [&](int qb) { return base + P::BAR_OFF + 8 * (2 * P::NS + 2 + qb); };
+  volatile int* n_visit = reinterpret_cast<volatile int*>(smem + P::NV_OFF);
+  const int S = p.S;
+  const int n_kt = (S + kBN - 1) / kBN, n_qt = (S + P::BM - 1) / P::BM;
+  const int n_c = (S + kBox - 1) / kBox;
+  int* const tiles = reinterpret_cast<int*>(smem + P::LIST_OFF);   // [2][n_kt]; bit 30: no mask
+  const int T = n_qt * p.H * B;                    // work tiles
+  const int lane = threadIdx.x % 32;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;         // this thread's rows: r0 and r0 + 8
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb +
-                            q0 * p.q_ss + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  const int* qpos = p.q_pos + static_cast<long long>(b) * p.S;
-  const int* kvpos = p.kv_pos + static_cast<long long>(b) * p.S;
-  const int n_kt = p.S / kTile;
-
-  // Q tile -> registers (A fragments), staged through the second K buffer.
-  stage_tile<D, LD>(k_s(1), qg, p.q_ss);
-  cp_async_commit();
-  if (threadIdx.x < kTile) q_pos_s[threadIdx.x] = qpos[q0 + threadIdx.x];
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const __nv_bfloat16* base = k_s(1) + r0 * LD + kk * 16 + 2 * t;
-    qf[kk][0] = ld_u32(base);
-    qf[kk][1] = ld_u32(base + 8 * LD);
-    qf[kk][2] = ld_u32(base + 8);
-    qf[kk][3] = ld_u32(base + 8 * LD + 8);
-  }
-  const int qp0 = q_pos_s[r0], qp1 = q_pos_s[r0 + 8];
-  int q_min, q_max;
-  warp_min_max(q_pos_s, lane, q_min, q_max);
-
-  // The kv tiles this q tile visits, in order: skipped when every kv
-  // position exceeds every q position (the JAX predicate), unmasked when
-  // every kv position is <= every q position.
-  for (int kt = warp; kt < n_kt; kt += kWarps) {
-    int mn, mx;
-    warp_min_max(kvpos + kt * kTile, lane, mn, mx);
-    if (lane == 0) tiles[kt] = mn > q_max ? -1 : (kt | (mx <= q_min ? 1 << 30 : 0));
-  }
-  __syncthreads();
   if (threadIdx.x == 0) {
-    int n = 0;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      if (tiles[kt] >= 0) tiles[n++] = tiles[kt];
+    for (int st = 0; st < P::NS; ++st) {
+      mbar_init(full_bar(st), 1);
+      mbar_init(empty_bar(st), 128 * NC);   // every consumer thread releases
     }
-    n_tiles = n;
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), 128 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();                      // also: every warp has read Q out of k_s(1)
-  const int n_visit = n_tiles;
+  __syncthreads();
 
-  auto load_stage = [&](int i) {
-    const int k0 = (tiles[i] & ~(1 << 30)) * kTile;
-    const int st = i & 1;
-    stage_tile<D, LD>(k_s(st), kg + k0 * p.k_ss, p.k_ss);
-    stage_tile<D, LD>(v_s(st), vg + k0 * p.v_ss, p.v_ss);
-    if (threadIdx.x < kTile / 4) {
-      cp_async16(kv_pos_s(st) + 4 * threadIdx.x, kvpos + k0 + 4 * threadIdx.x);
-    }
-    cp_async_commit();
-  };
-
-  const float scale = p.scale * kLog2e; // exp(x) = exp2(x * log2 e)
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  if (n_visit > 0) load_stage(0);
-  for (int i = 0; i < n_visit; ++i) {
-    if (i + 1 < n_visit) {
-      load_stage(i + 1);                // the next tile streams in during this one
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = i & 1;
-    const bool visible = (tiles[i] >> 30) & 1;
-    const __nv_bfloat16* ks = k_s(st);
-    const __nv_bfloat16* vs = v_s(st);
-    const int* kps = kv_pos_s(st);
-
-    // s = Q K^T for this warp's 16 rows x 64 kv columns (8 n-tiles).
-    // B fragments of K come four 8x8 matrices at a time: rows 8nt..8nt+7,
-    // columns 16kk..16kk+31 (k-steps kk and kk+1).
-    float s[8][4];
-    const __nv_bfloat16* kb = ks + (lane & 7) * LD + (lane >> 3) * 8;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; kk += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, kb + nt * 8 * LD + kk * 16);
-        mma_bf16(s[nt], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[nt], qf[kk + 1], bk[2], bk[3]);
-      }
-    }
-
-    // Scale and mask (log2 domain), then the tile's row max.
-    if (visible) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] *= scale;
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool keep = kps[nt * 8 + 2 * t + (e & 1)] <= (e < 2 ? qp0 : qp1);
-          s[nt][e] = keep ? s[nt][e] * scale : kNegInf;
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: warp 0 lists each work tile's kv tiles and issues
+    // every TMA load; its other warps have nothing to do.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(P::PRODUCER_REGS));
+    if (threadIdx.x < 32) {
+      int it = 0;                                  // ring slots filled so far
+      for (int j = 0, w = blockIdx.x; w < T; ++j, w += gridDim.x) {
+        int qt, h, b;
+        work_tile(w, n_qt, p.H, B, qt, h, b);
+        const int qb = j & 1, kvh = h / (p.H / p.KV);
+        if (j >= 2) mbar_wait(q_empty(qb), ((j >> 1) & 1) ^ 1);
+        // The kv tiles to visit, in order: skipped when every kv position
+        // exceeds every q position of the q tile (the JAX predicate),
+        // unmasked when every kv position is <= every q position and the
+        // tile lies inside S.
+        const int4* mm = p.minmax + static_cast<long long>(b) * n_c;
+        int q_min = kPosMax, q_max = kPosMin;
+        for (int ci = qt * NC; ci < min(n_c, qt * NC + NC); ++ci) {
+          q_min = min(q_min, mm[ci].z);
+          q_max = max(q_max, mm[ci].w);
         }
-    }
-    float mc0 = kNegInf, mc1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mc0 = fmaxf(mc0, fmaxf(s[nt][0], s[nt][1]));
-      mc1 = fmaxf(mc1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    // The 4 threads of a quad hold one row's 64 columns.
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mc0 = fmaxf(mc0, __shfl_xor_sync(0xffffffffu, mc0, off));
-      mc1 = fmaxf(mc1, __shfl_xor_sync(0xffffffffu, mc1, off));
-    }
-    const float mn0 = fmaxf(m0, mc0), mn1 = fmaxf(m1, mc1);
-    const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = l0 * corr0 + sum0;
-    l1 = l1 * corr1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= corr0;
-      acc[dt][1] *= corr0;
-      acc[dt][2] *= corr1;
-      acc[dt][3] *= corr1;
-    }
-
-    // acc += bf16(p) V: the score fragments of n-tiles 2j, 2j+1 form the A
-    // operand of kv rows [16j, 16j+16).
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                             pack_bf16(s[2 * j][2], s[2 * j][3]),
-                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int mi = lane >> 3;         // which of the four 8x8 matrices
-      const __nv_bfloat16* vb = vs + (16 * j + (mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * 8;
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vb + dt * 8);
-        mma_bf16(acc[dt], a, bv[0], bv[1]);
-        mma_bf16(acc[dt + 1], a, bv[2], bv[3]);
+        int* list = tiles + qb * n_kt;
+        int n = 0;
+        for (int k0 = 0; k0 < n_kt; k0 += 32) {
+          const int kt = k0 + lane;
+          bool vis = false;
+          int entry = 0;
+          if (kt < n_kt) {
+            int4 kmm = mm[2 * kt];
+            if (2 * kt + 1 < n_c) {
+              const int4 hi = mm[2 * kt + 1];
+              kmm.x = min(kmm.x, hi.x);
+              kmm.y = max(kmm.y, hi.y);
+            }
+            vis = kmm.x <= q_max;
+            entry = kt | (kmm.y <= q_min && (kt + 1) * kBN <= S ? 1 << 30 : 0);
+          }
+          const unsigned ball = __ballot_sync(0xffffffffu, vis);
+          if (vis) list[n + __popc(ball & ((1u << lane) - 1))] = entry;
+          n += __popc(ball);
+        }
+        if (lane == 0) n_visit[qb] = n;
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) {                           // publishes the list with Q
+          mbar_expect_tx(q_full(qb), P::Q_BYTES);
+          for (int cb = 0; cb < P::NCB; ++cb) {
+            for (int r = 0; r < NC; ++r) {
+              tma_load_4d(q_s(qb) + (cb * P::BM + r * kBox) * P::RB, &tm_q, q_full(qb),
+                          cb * P::SW, h, qt * P::BM + r * kBox, b);
+            }
+          }
+          for (int i = 0; i < n; ++i, ++it) {
+            const int st = it % P::NS;
+            if (it >= P::NS) mbar_wait(empty_bar(st), ((it / P::NS) & 1) ^ 1);
+            const int k0 = (list[i] & ~(1 << 30)) * kBN;
+            mbar_expect_tx(full_bar(st), 2 * P::T_BYTES);
+            for (int cb = 0; cb < P::NCB; ++cb) {
+              for (int r = 0; r < kBN / kBox; ++r) {
+                const uint32_t off = (cb * kBN + r * kBox) * P::RB;
+                tma_load_4d(k_s(st) + off, &tm_k, full_bar(st), cb * P::SW, kvh,
+                            k0 + r * kBox, b);
+                tma_load_4d(v_s(st) + off, &tm_v, full_bar(st), cb * P::SW, kvh,
+                            k0 + r * kBox, b);
+              }
+            }
+          }
+        }
+        it = __shfl_sync(0xffffffffu, it, 0);
       }
     }
-    __syncthreads();                    // this stage is refilled two tiles on
-  }
+  } else {
+    // Consumer warpgroups 1..NC: 64 q rows each of every work tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(P::CONSUMER_REGS));
+    const int c = threadIdx.x / 128 - 1;
+    const int w4 = (threadIdx.x % 128) / 32, g = lane >> 2, t = lane & 3;
+    const float sl2 = p.scale * kLog2e;    // exp(x) = exp2(x * log2 e)
+    // Turns on the tensor cores, round robin: consumer c waits on named
+    // barrier 1 + c and hands over on the next one's; consumer 0 goes first.
+    const int my_turn = 1 + c, next_turn = 1 + (c + 1) % NC;
+    if (c == NC - 1) named_arrive(1);
+    int it = 0;
+    for (int j = 0, w = blockIdx.x; w < T; ++j, w += gridDim.x) {
+      int qt, h, b;
+      work_tile(w, n_qt, p.H, B, qt, h, b);
+      const int qb = j & 1;
+      const int row0 = qt * P::BM + c * kBox + w4 * 16 + g, row1 = row0 + 8;
+      const int* qpos = p.q_pos + static_cast<long long>(b) * S;
+      const int* kvpos = p.kv_pos + static_cast<long long>(b) * S;
+      const int qp0 = row0 < S ? qpos[row0] : kPosMin;
+      const int qp1 = row1 < S ? qpos[row1] : kPosMin;
+      const uint32_t q_mine = q_s(qb) + c * kBox * P::RB;
+      const int* list = tiles + qb * n_kt;
+      mbar_wait(q_full(qb), (j >> 1) & 1);
+      const int n = n_visit[qb];
 
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + (q0 + r0) * p.o_ss +
-                      h * p.o_sh + 2 * t;
+      float o[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    *reinterpret_cast<__nv_bfloat162*>(og + dt * 8) =
-        __floats2bfloat162_rn(acc[dt][0] / d0, acc[dt][1] / d0);
-    *reinterpret_cast<__nv_bfloat162*>(og + 8 * p.o_ss + dt * 8) =
-        __floats2bfloat162_rn(acc[dt][2] / d1, acc[dt][3] / d1);
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+      if (n > 0) {
+        float s[kBN / 2];
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+        uint32_t pf[kBN / 16][4];
+        float corr0, corr1, sum0, sum1;
+
+        int st = it % P::NS;
+        mbar_wait(full_bar(st), (it / P::NS) & 1);
+        named_sync(my_turn);
+        fence_regs(s);
+        wgmma_fence();
+        issue_qk<D>(s, q_mine, k_s(st));
+        wgmma_commit();
+        named_arrive(next_turn);
+        wgmma_wait<0>();
+        fence_regs(s);
+        softmax_tile(s, (list[0] >> 30) & 1, (list[0] & ~(1 << 30)) * kBN, kvpos, S, qp0, qp1,
+                     sl2, t, m0, m1, corr0, corr1, sum0, sum1);
+        rescale_and_pack<D>(o, pf, s, corr0, corr1, sum0, sum1, l0, l1);
+
+        for (int i = 1; i < n; ++i) {
+          const int prev = st;
+          st = (it + i) % P::NS;
+          mbar_wait(full_bar(st), ((it + i) / P::NS) & 1);
+          named_sync(my_turn);
+          fence_regs(o);
+          fence_regs(pf);
+          wgmma_fence();
+          issue_qk<D>(s, q_mine, k_s(st));          // S of tile i
+          wgmma_commit();
+          issue_pv<D>(o, pf, v_s(prev));             // P V of tile i - 1
+          wgmma_commit();
+          named_arrive(next_turn);
+          wgmma_wait<1>();                           // S has landed
+          fence_regs(s);
+          softmax_tile(s, (list[i] >> 30) & 1, (list[i] & ~(1 << 30)) * kBN, kvpos, S, qp0,
+                       qp1, sl2, t, m0, m1, corr0, corr1, sum0, sum1);
+          wgmma_wait<0>();                           // P V has landed
+          fence_regs(o);
+          fence_regs(pf);
+          mbar_arrive(empty_bar(prev));
+          rescale_and_pack<D>(o, pf, s, corr0, corr1, sum0, sum1, l0, l1);
+        }
+        named_sync(my_turn);
+        fence_regs(o);
+        fence_regs(pf);
+        wgmma_fence();
+        issue_pv<D>(o, pf, v_s(st));
+        wgmma_commit();
+        named_arrive(next_turn);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pf);
+        mbar_arrive(empty_bar(st));
+        it += n;
+      }
+      mbar_arrive(q_empty(qb));
+
+      const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+      __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh + 2 * t;
+      if (row0 < S) {
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<__nv_bfloat162*>(og + row0 * p.o_ss + 8 * jj) =
+              __floats2bfloat162_rn(o[4 * jj] / d0, o[4 * jj + 1] / d0);
+        }
+      }
+      if (row1 < S) {
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<__nv_bfloat162*>(og + row1 * p.o_ss + 8 * jj) =
+              __floats2bfloat162_rn(o[4 * jj + 2] / d1, o[4 * jj + 3] / d1);
+        }
+      }
+    }
+    if (c == 0) named_sync(1);                       // the last hand-over to consumer 0
   }
 }
 
 // f32: one block of 128 threads per (16-row q tile, head, batch row), kv
-// tiles of 16 rows, every product a plain FMA from shared memory.
+// tiles of 16 rows, every product a plain FMA from shared memory. Rows past
+// S read as zero, their kv positions as the largest int (masked), and are
+// not stored.
 constexpr int kTile32 = 16;
 
 template <int D>
@@ -386,43 +695,46 @@ flash_fwd_f32_kernel(const Params p) {
   __shared__ float m_s[kTile32], l_s[kTile32], corr_s[kTile32];
   __shared__ int q_pos_s[kTile32], kv_pos_s[kTile32];
 
+  const int S = p.S;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile32;
+  const int q_rows = min(kTile32, S - q0);
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
   const int tid = threadIdx.x;
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + q0 * p.q_ss + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  const int* qpos = p.q_pos + static_cast<long long>(b) * p.S;
-  const int* kvpos = p.kv_pos + static_cast<long long>(b) * p.S;
+  const int* qpos = p.q_pos + static_cast<long long>(b) * S;
+  const int* kvpos = p.kv_pos + static_cast<long long>(b) * S;
 
   for (int i = tid; i < kTile32 * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    q_s[r][c] = qg[r * p.q_ss + c];
+    q_s[r][c] = r < q_rows ? qg[r * p.q_ss + c] : 0.f;
     acc_s[r][c] = 0.f;
   }
   if (tid < kTile32) {
-    q_pos_s[tid] = qpos[q0 + tid];
+    q_pos_s[tid] = tid < q_rows ? qpos[q0 + tid] : kPosMin;
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
   __syncthreads();
   int q_max = q_pos_s[0];
-  for (int i = 1; i < kTile32; ++i) q_max = max(q_max, q_pos_s[i]);
+  for (int i = 1; i < q_rows; ++i) q_max = max(q_max, q_pos_s[i]);
 
-  for (int k0 = 0; k0 < p.S; k0 += kTile32) {
-    if (tid < kTile32) kv_pos_s[tid] = kvpos[k0 + tid];
+  for (int k0 = 0; k0 < S; k0 += kTile32) {
+    const int kv_rows = min(kTile32, S - k0);
+    if (tid < kTile32) kv_pos_s[tid] = tid < kv_rows ? kvpos[k0 + tid] : kPosMax;
     __syncthreads();
     int kv_min = kv_pos_s[0];
-    for (int i = 1; i < kTile32; ++i) kv_min = min(kv_min, kv_pos_s[i]);
+    for (int i = 1; i < kv_rows; ++i) kv_min = min(kv_min, kv_pos_s[i]);
     if (kv_min > q_max) {
       __syncthreads();
       continue;
     }
     for (int i = tid; i < kTile32 * D; i += kThreads) {
       const int r = i / D, c = i % D;
-      k_s[r][c] = kg[(k0 + r) * p.k_ss + c];
-      v_s[r][c] = vg[(k0 + r) * p.v_ss + c];
+      k_s[r][c] = r < kv_rows ? kg[(k0 + r) * p.k_ss + c] : 0.f;
+      v_s[r][c] = r < kv_rows ? vg[(k0 + r) * p.v_ss + c] : 0.f;
     }
     __syncthreads();
     for (int i = tid; i < kTile32 * kTile32; i += kThreads) {
@@ -460,27 +772,111 @@ flash_fwd_f32_kernel(const Params p) {
   }
 
   float* og = static_cast<float*>(p.o) + b * p.o_sb + q0 * p.o_ss + h * p.o_sh;
-  for (int i = tid; i < kTile32 * D; i += kThreads) {
+  for (int i = tid; i < q_rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
     og[r * p.o_ss + c] = acc_s[r][c] / fmaxf(l_s[r], 1e-30f);
   }
 }
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      f = nullptr;
+    }
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault) != cudaSuccess) {
+      f = nullptr;
+    }
+#endif
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
+// A bf16 [B, S, X, D] operand as a 4-D tensor map. `g` holds the geometry
+// the wrapper computed: dims (D, X, S, B), byte strides (X, S, B), box.
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, const long long* g) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g[0]), static_cast<cuuint64_t>(g[1]),
+                              static_cast<cuuint64_t>(g[2]), static_cast<cuuint64_t>(g[3])};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(g[4]), static_cast<cuuint64_t>(g[5]),
+                                 static_cast<cuuint64_t>(g[6])};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(g[7]), static_cast<cuuint32_t>(g[8]),
+                             static_cast<cuuint32_t>(g[9]), static_cast<cuuint32_t>(g[10])};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        box[0] * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
-cudaError_t launch(const Params& p, int B, bool is_bf16, cudaStream_t st) {
-  if (is_bf16) {
-    const dim3 grid(p.S / kTile, p.H, B);
-    // Dynamic shared memory above 48 KB (D = 128, or long S) needs the
-    // kernel's limit raised first; raise it once to the most any S takes.
-    static const cudaError_t raised = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bf16_smem_bytes<D>(kMaxS)));
-    if (raised != cudaSuccess) return raised;
-    flash_fwd_bf16_kernel<D><<<grid, kThreads, bf16_smem_bytes<D>(p.S), st>>>(p);
-  } else {
-    const dim3 grid(p.S / kTile32, p.H, B);
-    flash_fwd_f32_kernel<D><<<grid, kThreads, 0, st>>>(p);
+cudaError_t launch_bf16(const Params& p, int B, const void* q, const void* k, const void* v,
+                        const long long* tma, cudaStream_t st) {
+  using P = Plan<D>;
+  static int sms = 0;
+  static const cudaError_t ready = [] {
+    // Dynamic shared memory above 48 KB needs the kernel's limit raised
+    // first; raise it once to the most any S takes.
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(P::smem_bytes(kMaxS)));
+    if (e != cudaSuccess) return e;
+    // setmaxnreg moves registers between the warpgroups of the block's
+    // launch-time allocation: a kernel compiled to fewer registers than the
+    // split needs would wait forever in setmaxnreg.inc, so it never runs.
+    cudaFuncAttributes a;
+    e = cudaFuncGetAttributes(&a, flash_fwd_bf16_kernel<D>);
+    if (e != cudaSuccess) return e;
+    if (a.numRegs * P::THREADS < P::PRODUCER_REGS * 128 + P::CONSUMER_REGS * 128 * P::NC) {
+      return cudaErrorInvalidConfiguration;
+    }
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }();
+  if (ready != cudaSuccess) return ready;
+  for (int i = 0; i < 3; ++i) {          // the box the kernel's tiles assume
+    const long long* g = tma + 11 * i;
+    if (g[0] != D || g[7] != P::SW || g[8] != 1 || g[9] != kBox || g[10] != 1) {
+      return cudaErrorInvalidValue;
+    }
   }
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t e = encode_map(&maps[i], ptrs[i], tma + 11 * i);
+    if (e != cudaSuccess) return e;
+  }
+  const int n_c = (p.S + kBox - 1) / kBox;
+  chunk_minmax_kernel<<<dim3(n_c, B), 32, 0, st>>>(p.q_pos, p.kv_pos,
+                                                   const_cast<int4*>(p.minmax), p.S, n_c);
+  const long long work = static_cast<long long>((p.S + P::BM - 1) / P::BM) * p.H * B;
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  flash_fwd_bf16_kernel<D><<<grid, P::THREADS, P::smem_bytes(p.S), st>>>(p, B, maps[0],
+                                                                         maps[1], maps[2]);
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int B, bool is_bf16, const long long* tma, cudaStream_t st) {
+  if (is_bf16) return launch_bf16<D>(p, B, p.q, p.k, p.v, tma, st);
+  const dim3 grid((p.S + kTile32 - 1) / kTile32, p.H, B);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, 0, st>>>(p);
   return cudaSuccess;
 }
 
@@ -489,14 +885,18 @@ cudaError_t launch(const Params& p, int B, bool is_bf16, cudaStream_t st) {
 // q [B,S,H,D], k and v [B,S,KV,D], o [B,S,H,D], all bf16 (is_bf16) or all
 // f32, read and written through `strides`: 12 element strides, (batch, seq,
 // head) for q, k, v, o in that order; D is contiguous. q_pos and kv_pos are
-// int32 [B,S], contiguous and 16-byte aligned. S a multiple of 64 and at
-// most 65536, H a multiple of KV, D in {32, 64, 128}. For bf16 every row
-// start must be 16-byte aligned.
+// int32 [B,S], contiguous. 1 <= S <= 65536, H a multiple of KV, D in {32,
+// 64, 128}. For bf16, `tma` holds the tensor-map geometry of q, k and v
+// (11 int64 each: dims D, heads, S, B; byte strides of heads, S, B; box),
+// every byte stride and base address a multiple of 16, and `minmax` an
+// int32 workspace of B * ceil(S / 64) * 4 (16-byte aligned); both unused
+// for f32.
 extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                      const void* q_pos, const void* kv_pos, int B, int S,
-                                      int H, int KV, int D, const long long* strides,
+                                      const void* q_pos, const void* kv_pos, void* minmax,
+                                      int B, int S, int H, int KV, int D,
+                                      const long long* strides, const long long* tma,
                                       int is_bf16, void* stream) {
-  if (B < 1 || S < kTile || S % kTile || S > kMaxS || KV < 1 || H % KV) {
+  if (B < 1 || S < 1 || S > kMaxS || KV < 1 || H % KV) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -506,6 +906,7 @@ extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* 
   p.o = o;
   p.q_pos = static_cast<const int*>(q_pos);
   p.kv_pos = static_cast<const int*>(kv_pos);
+  p.minmax = static_cast<const int4*>(minmax);
   p.S = S;
   p.H = H;
   p.KV = KV;
@@ -517,9 +918,9 @@ extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch<32>(p, B, is_bf16 != 0, st); break;
-    case 64: err = launch<64>(p, B, is_bf16 != 0, st); break;
-    case 128: err = launch<128>(p, B, is_bf16 != 0, st); break;
+    case 32: err = launch<32>(p, B, is_bf16 != 0, tma, st); break;
+    case 64: err = launch<64>(p, B, is_bf16 != 0, tma, st); break;
+    case 128: err = launch<128>(p, B, is_bf16 != 0, tma, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -12,11 +12,24 @@ function computes, without the expanded copy.
 Routes, by where the tensors lie:
 
 - CPU: :func:`flash_attention_reference`, the plain PyTorch version.
-- CUDA: the hand-written kernel in ``kukeon_tpu_torch/csrc/flash_attention.cu``
-  (bf16 on the tensor cores, f32 with plain FMAs), built at first use.
-  D must be 32, 64 or 128 and S a multiple of 64 (at most 65536);
-  anything else raises, and so does a failed build or launch. There is
-  no fallback.
+- CUDA: the hand-written kernel in ``kukeon_tpu_torch/csrc/flash_attention.cu``,
+  built at first use. It replaces the Pallas ``_flash_kernel``. The work
+  is bound by the tensor cores (about 750 operations a byte at S 2048,
+  D 64), so bf16 takes a Hopper design: a persistent block on each SM
+  whose producer warpgroup lists each 128-row q tile's kv tiles and
+  streams Q, K and V tiles by TMA into shared-memory rings, ``wgmma`` for
+  both products (P from registers, V as an MN-major operand), and two
+  consumer warpgroups that take turns on the tensor cores so that one's
+  softmax hides behind the other's products. A first small launch takes
+  the min and max position of every 64-row chunk, from which the tile
+  lists follow. f32 runs a plain-FMA kernel, for the f32 models and
+  tests. D must be 32, 64 or 128 and S at least 128 and at most 65536; a
+  ragged last tile is fine (TMA zero-fills, the kernel masks). bf16
+  operands need every
+  stride and base address a multiple of 16 bytes: the tensor maps that
+  :func:`tma_geometry` describes are built per call over the caller's
+  strides. Anything else raises, and so does a failed build or launch.
+  There is no fallback.
 
 The backward is the JAX package's: no kernel, the reference attention
 recomputed under autograd (``_flash_bwd``), with the gradients of k and v
@@ -27,7 +40,8 @@ casts the *unnormalised* probabilities to ``v.dtype`` before the value
 product and divides by the f32 row sum at the end (as the JAX kernel
 does); the plain version normalises first, then casts.
 
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts calls that launched the kernel (the
+bf16 route's two launches count once).
 """
 
 from __future__ import annotations
@@ -39,7 +53,8 @@ import torch
 from kukeon_tpu_torch.ops import _build
 from kukeon_tpu_torch.ops.attention import attention_mask, attention_reference, repeat_kv
 
-TILE = 64
+BOX = 64             # rows of a TMA box and of a position chunk (bf16 kernel)
+MIN_S = 128
 MAX_S = 1 << 16
 HEAD_DIMS = (32, 64, 128)
 
@@ -80,6 +95,26 @@ def _check(q, k, v, q_positions, kv_positions) -> None:
         raise ValueError("flash_attention operands on different devices")
 
 
+def tma_geometry(shape: tuple[int, ...],
+                 strides: tuple[int, ...]) -> tuple[tuple[int, ...], tuple[int, ...],
+                                                    tuple[int, ...]]:
+    """The 4-D tensor map of a bf16 ``[B, S, X, D]`` operand (X heads) with
+    element ``strides`` and a contiguous D, as the bf16 kernel loads it:
+    (dims, byte strides, box), innermost first. dims ``(D, X, S, B)``;
+    byte strides of X, S and B; box ``(min(D, 64), 1, BOX, 1)``, one head
+    and 64 rows, the columns one swizzle row (128 bytes, 64 at D 32; D
+    128 takes two boxes a row block). TMA takes only byte strides that are
+    multiples of 16: anything else raises."""
+    B, S, X, D = shape
+    if strides[3] != 1:
+        raise ValueError("flash_attention kernel wants the head dim contiguous")
+    byte_strides = (strides[2] * 2, strides[1] * 2, strides[0] * 2)
+    if any(s % 16 for s in byte_strides):
+        raise ValueError(f"flash_attention kernel wants byte strides that are multiples of "
+                         f"16 (TMA); got {byte_strides} for strides {tuple(strides)}")
+    return (D, X, S, B), byte_strides, (min(D, 64), 1, BOX, 1)
+
+
 def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
     B, S, H, D = q.shape
     KV = k.shape[2]
@@ -87,26 +122,34 @@ def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
         raise ValueError(f"flash_attention kernel takes bfloat16 or float32; got {q.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes D in {HEAD_DIMS}; got {D}")
-    if S % TILE or S > MAX_S:
-        raise ValueError(f"flash_attention kernel takes S a multiple of {TILE} up to "
-                         f"{MAX_S}; got {S}")
+    if S < MIN_S or S > MAX_S:
+        raise ValueError(f"flash_attention kernel takes S >= {MIN_S} and <= {MAX_S}; got {S}")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    strides = []
+    strides, tma = [], []
     for t in (q, k, v, out):
         if t.stride(3) != 1:
             raise ValueError("flash_attention kernel wants the head dim contiguous")
-        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16
-                                          or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError("flash_attention kernel wants 16-byte aligned bf16 rows")
         strides += t.stride()[:3]
-    # Fresh int32 copies: the kernel copies kv positions 16 bytes at a time.
-    qp = torch.empty((B, S), dtype=torch.int32, device=q.device).copy_(q_positions)
-    kp = torch.empty((B, S), dtype=torch.int32, device=q.device).copy_(kv_positions)
+    if q.dtype == torch.bfloat16:
+        for t in (q, k, v):
+            if t.data_ptr() % 16:
+                raise ValueError("flash_attention kernel wants 16-byte aligned bf16 operands")
+            dims, byte_strides, box = tma_geometry(tuple(t.shape), t.stride())
+            tma += [*dims, *byte_strides, *box]
+    else:
+        tma = [0] * 33
+    qp, kp = (p if p.dtype == torch.int32 and p.is_contiguous() else
+              torch.empty((B, S), dtype=torch.int32, device=q.device).copy_(p)
+              for p in (q_positions, kv_positions))
+    # Per 64-row chunk: min and max of the kv and q positions (the kernel's
+    # first launch writes them, its second lists each q tile's kv tiles).
+    minmax = torch.empty((B, -(-S // BOX), 4), dtype=torch.int32, device=q.device)
     lib = _build.load_flash_attention()
     err = lib.kukeon_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp.data_ptr(),
-        kp.data_ptr(), B, S, H, KV, D, (ctypes.c_longlong * 12)(*strides),
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+        kp.data_ptr(), minmax.data_ptr(), B, S, H, KV, D, (ctypes.c_longlong * 12)(*strides),
+        (ctypes.c_longlong * 33)(*tma), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} "
                            f"(B={B}, S={S}, H={H}, KV={KV}, D={D}, {q.dtype})")
@@ -139,9 +182,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_q: int = 256, block_k: int = 256) -> torch.Tensor:
     """Position-masked flash attention. q [B, S, H, D]; k, v [B, S, KV, D]
     with H % KV == 0; positions [B, S]. ``block_q``/``block_k`` are the JAX
-    signature's and do not change the result (the kernel tiles by 64)."""
+    signature's and do not change the result (the kernel tiles by 128)."""
     del block_q, block_k
     _check(q, k, v, q_positions, kv_positions)
+    if q.device.type == "cuda" and not (torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _launch(q, k, v, q_positions, kv_positions)   # no graph to record
     return _FlashAttention.apply(q, k, v, q_positions, kv_positions)
 
 

@@ -19,6 +19,17 @@ B's place):
 - CUDA, B > 64 (prefill): dequantize then ``torch.matmul``, scale in the
   activation dtype — the large product the reference leaves to XLA.
 
+The kernels replace the Pallas ``_kernel``/``_kernel_t`` and the E
+launches of ``int8_matmul_expert``. Decode reads every weight byte once
+for a few rows, so HBM bandwidth bounds them. The bf16 expert product
+(the Mixtral decode path) has its own design against that bound: a block
+whose activation rows are all exactly 0 (an expert no token chose, under
+dense dispatch) reads no weights and writes +0, which is the full
+product's result bit for bit; the weights stream through a 4-stage
+``cp.async`` ring; and the product runs on ``mma.sync`` in bf16 with an
+exact int8-to-bf16 conversion of 2.5 ALU operations a weight. Its K
+slices (:func:`k_slice_expert`) go up to 2048.
+
 ``int8_matmul.launches`` and ``int8_matmul_expert.launches`` count kernel
 launches (one per call that reached the kernel), so a run can show the
 decode path went through them; ``int8_matmul.launches_t`` counts the
@@ -34,6 +45,9 @@ from kukeon_tpu_torch.ops import _build
 MAX_B = 64
 # Enough blocks for two per SM on a 132-SM H100.
 _TARGET_BLOCKS = 264
+# The bf16 expert kernel: about four waves of its two blocks an SM, so that
+# blocks that skip (no token) or finish early leave no long tail.
+_EXPERT_BLOCKS = 1024
 
 
 def int8_matmul_reference(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -88,6 +102,20 @@ def k_slice(B: int, K: int, N: int, transpose: bool, E: int = 1) -> int:
     fits = [ks for ks in cands if K % ks == 0]
     for ks in fits:
         if tiles * (K // ks) >= _TARGET_BLOCKS:
+            return ks
+    return fits[-1]
+
+
+def k_slice_expert(C: int, K: int, N: int, E: int) -> int:
+    """K slice of the bf16 expert kernel: the largest of 2048/1024/512/256/128
+    that divides K and still gives ``_EXPERT_BLOCKS`` blocks (128-column
+    tiles x 8-row groups x E experts x slices); the smallest that divides K
+    when none does. Longer slices stream more weights per block and leave
+    a smaller f32 workspace to reduce."""
+    tiles = (N // 128) * -(-C // 8) * E
+    fits = [ks for ks in (2048, 1024, 512, 256, 128) if K % ks == 0]
+    for ks in fits:
+        if tiles * (K // ks) >= _EXPERT_BLOCKS:
             return ks
     return fits[-1]
 
@@ -157,7 +185,9 @@ def _check_expert(x: torch.Tensor, q: torch.Tensor,
 
 def int8_matmul_expert(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Per-expert x [E, C, K] @ q [E, K, N] * s [E, N] -> [E, C, N]: the MoE
-    decode expert stacks (w_gate/w_up/w_down), all experts in one launch."""
+    decode expert stacks (w_gate/w_up/w_down), all experts in one launch.
+    On CUDA with bf16 x, rows of x that are exactly 0 cost no weight reads
+    (the kernel skips a block whose rows are all 0) and come out +0."""
     E, C, K, N = _check_expert(x, q, s)
     if x.device.type == "cpu":
         return int8_matmul_expert_reference(x, q, s)
@@ -168,16 +198,16 @@ def int8_matmul_expert(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tor
     if K % 128 or N % 128:
         raise ValueError(f"int8_matmul_expert kernel takes K and N multiples of 128; "
                          f"got K={K}, N={N}")
-    if q.data_ptr() % 16:
-        raise ValueError("int8_matmul_expert kernel wants q 16-byte aligned")
+    if q.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("int8_matmul_expert kernel wants x and q 16-byte aligned")
     lib = _build.load_int8_matmul()
-    ks = k_slice(C, K, N, False, E)
+    bf16 = x.dtype == torch.bfloat16
+    ks = k_slice_expert(C, K, N, E) if bf16 else k_slice(C, K, N, False, E)
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     ws = torch.empty((K // ks, E * C, N), dtype=torch.float32, device=x.device)
     err = lib.kukeon_int8_matmul_expert(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        E, C, K, N, ks, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        E, C, K, N, ks, int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul_expert kernel launch failed: CUDA error {err} "
                            f"(E={E}, C={C}, K={K}, N={N}, ks={ks})")

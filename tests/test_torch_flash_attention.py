@@ -71,6 +71,56 @@ def test_flash_forward_matches_pallas_interpret(case):
                                _jax_flash(q, k, v, pos, 128, block_k), **TOL)
 
 
+def test_flash_forward_matches_pallas_interpret_at_a_ragged_s():
+    """S = 160 (supports() admits it with one 160-row block; the CUDA kernel
+    runs it as a 128-row tile and a ragged one), B 2, GQA."""
+    B, S, H, KV, D = 2, 160, 4, 2, 32
+    assert tfa.supports(S, S) and jfa.supports(S, S)
+    q, k, v = _qkv(4, B, S, H, KV, D)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    np.testing.assert_allclose(_torch_flash(q, k, v, pos), _jax_flash(q, k, v, pos, 256, 256),
+                               **TOL)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "fused_qkv_slice", "heads_major", "d128",
+                                    "d32"])
+def test_tma_geometry_of_strided_views(layout):
+    """The tensor map the bf16 kernel loads an operand through: dims (D, X,
+    S, B), byte strides of X, S, B, and a box of one head, 64 rows and one
+    swizzle row of columns, for the views the callers pass."""
+    B, S, X, D = 2, 160, 4, 64
+    if layout == "contiguous":
+        t = torch.zeros(B, S, X, D, dtype=torch.bfloat16)
+    elif layout == "fused_qkv_slice":       # q of a fused [B, S, X + 2 KV, D] projection
+        t = torch.zeros(B, S, X + 4, D, dtype=torch.bfloat16)[:, :, :X]
+    elif layout == "heads_major":           # a [B, X, S, D] tensor seen as [B, S, X, D]
+        t = torch.zeros(B, X, S, D, dtype=torch.bfloat16).transpose(1, 2)
+    elif layout == "d128":
+        D = 128
+        t = torch.zeros(B, S, X, D, dtype=torch.bfloat16)
+    else:
+        D = 32
+        t = torch.zeros(B, S, X, D, dtype=torch.bfloat16)
+    dims, byte_strides, box = tfa.tma_geometry(tuple(t.shape), t.stride())
+    sb, ss, sx, sd = t.stride()
+    assert sd == 1
+    assert dims == (D, X, S, B)
+    assert byte_strides == (2 * sx, 2 * ss, 2 * sb)
+    assert box == (min(D, 64), 1, 64, 1)
+    assert all(b % 16 == 0 for b in byte_strides)
+
+
+def test_tma_geometry_refuses_strides_tma_cannot_take():
+    """A head stride of 36 bf16 (72 bytes) is not a multiple of 16 bytes, a
+    non-unit D stride is not a tile TMA can load: both raise."""
+    t = torch.zeros(1, 128, 2, 36, dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tfa.tma_geometry(tuple(t.shape), t.stride())
+    t = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="head dim contiguous"):
+        tfa.tma_geometry(tuple(t.shape), t.stride())
+
+
 @pytest.mark.parametrize("kv", [4, 2])
 def test_flash_gradients_match_jax_vjp(kv):
     """The backward recomputes the reference attention, as the JAX
@@ -142,7 +192,7 @@ def test_gqa_attention_dispatch_on_cpu():
 
 
 @pytest.mark.parametrize("shape, match", [((1, 128, 2, 48), "D in"),
-                                          ((1, 96, 2, 32), "multiple of 64")])
+                                          ((1, 96, 2, 32), "S >= 128")])
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(shape, match):
     """The wrapper's checks run before any build or launch, and raise:
     the kernel is never replaced by the plain version on a GPU."""

@@ -142,6 +142,18 @@ def test_k_slice_plan_for_experts(C, K, N, ks):
     assert got == ks and K % got == 0
 
 
+@pytest.mark.parametrize("C,K,N,ks", [
+    (4, 4096, 14336, 2048),    # Mixtral w_gate/w_up: 112 tiles x 8 experts x 2 slices
+    (4, 14336, 4096, 2048),    # w_down: 32 x 8 x 7 slices
+    (64, 14336, 4096, 2048),   # 8 row groups: 2048 tiles x 7 slices
+    (4, 4096, 1024, 256),      # 64 tiles need 16 slices for 1024 blocks
+    (4, 384, 256, 128),        # nothing reaches 1024 blocks: the smallest that divides K
+])
+def test_k_slice_plan_for_the_bf16_expert_kernel(C, K, N, ks):
+    got = tk.k_slice_expert(C, K, N, E=8)
+    assert got == ks and K % got == 0 and got % 128 == 0
+
+
 # --- configs and weights ----------------------------------------------------------------
 
 
@@ -254,6 +266,76 @@ def test_moe_block_matches_reference(trees, policy):
     np.testing.assert_allclose(_np(ty), np.asarray(jy), **BLOCK_TOL)
     for k in ("load_balance", "router_z"):
         np.testing.assert_allclose(float(taux[k]), float(jaux[k]), **BLOCK_TOL)
+
+
+# Router logits of 4 decode tokens over moe_tiny's 4 experts, each row's
+# 2nd and 3rd largest at least 0.5 apart: top-2 picks {0,1}, {1,0}, {1,2},
+# {0,2}, so expert 3 gets no token and experts 0, 1, 2 get 3, 3, 2 of the
+# 4 capacity slots.
+_DECODE_LOGITS = np.array([[3.0, 2.0, 0.0, -1.0],
+                           [2.0, 3.0, 0.5, -1.0],
+                           [0.1, 2.5, 1.5, -2.0],
+                           [3.0, 0.2, 1.0, -3.0]], np.float32)
+
+
+@pytest.mark.parametrize("weights", ["fp", "int8"])
+def test_decode_moe_block_leaves_unrouted_rows_exactly_zero(trees, weights, monkeypatch):
+    """The contract the grouped expert kernel's skip rests on. At a decode
+    step (N = C = 4, full capacity), dense dispatch leaves the rows of an
+    expert no token chose, and every empty slot of the others, exactly 0 in
+    both expert inputs: ``xe`` (w_gate, w_up) and ``gate * up`` (w_down,
+    silu(0) * 0 = 0), in the port and in the JAX ``moe_block`` alike; and
+    the plain version of the expert product gives exactly +0 on those rows."""
+    jcfg, tcfg, t = trees
+    jp, tp = t[weights]
+    E, N, H = tcfg.num_experts, 4, tcfg.hidden_size
+    router = np.zeros((H, E), np.float32)
+    router[np.arange(E), np.arange(E)] = 1.0          # logits = h[:, :E]
+    rng = np.random.default_rng(12)
+    h = rng.standard_normal((N, 1, H)).astype(np.float32)
+    h[:, 0, :E] = _DECODE_LOGITS
+    counts = np.bincount(np.argsort(-_DECODE_LOGITS, axis=1)[:, :2].ravel(), minlength=E)
+    assert counts.tolist() == [3, 3, 2, 0]
+    srt = np.sort(jax.nn.softmax(jnp.asarray(_DECODE_LOGITS), axis=-1), axis=-1)[:, ::-1]
+    assert np.min(srt[:, 1] - srt[:, 2]) >= 1e-4
+
+    jw = dict(jax.tree.map(lambda a: a[1], jp["layers"]), router=jnp.asarray(router))
+    tw = dict(tl.layer_weights(tp, 1), router=torch.from_numpy(router))
+    seen = {"jax": [], "torch": []}
+    real_j, real_t = jm._expert_mm, tm._expert_mm
+
+    def rec_j(x, w, eq, pallas=False):
+        seen["jax"].append(np.asarray(x))
+        return real_j(x, w, eq, pallas)
+
+    def rec_t(x, w, eq, kernel=False):
+        seen["torch"].append(x.detach().clone())
+        return real_t(x, w, eq, kernel)
+
+    monkeypatch.setattr(jm, "_expert_mm", rec_j)
+    monkeypatch.setattr(tm, "_expert_mm", rec_t)
+    jy, _ = jm.moe_block(jnp.asarray(h), jw, jcfg, inference=True)
+    ty, _ = tm.moe_block(torch.from_numpy(h), tw, tcfg, inference=True)
+    np.testing.assert_allclose(_np(ty), np.asarray(jy), **BLOCK_TOL)
+    assert len(seen["jax"]) == len(seen["torch"]) == 3      # w_gate, w_up, w_down
+    assert tm._capacity(tcfg, N, True) == N
+    for which in (0, 2):                                     # xe, gate * up
+        jx, tx = seen["jax"][which], seen["torch"][which].numpy()
+        assert tx.shape == jx.shape == (E, N, tx.shape[2])
+        for e in range(E):
+            assert np.all(tx[e, counts[e]:] == 0) and np.all(jx[e, counts[e]:] == 0), (which, e)
+            assert np.all(np.any(tx[e, :counts[e]] != 0, axis=-1)), (which, e)
+        np.testing.assert_allclose(tx, jx, **BLOCK_TOL)
+        xq = torch.from_numpy(tx)
+        K, Nout = xq.shape[2], (tcfg.intermediate_size if which == 0 else H)
+        q = torch.from_numpy(rng.integers(-127, 128, (E, K, Nout)).astype(np.int8))
+        s = torch.from_numpy((rng.random((E, Nout)) * 0.02 + 1e-3).astype(np.float32))
+        out = tk.int8_matmul_expert_reference(xq, q, s)
+        for e in range(E):
+            assert torch.all(out[e, counts[e]:].view(torch.int32) == 0), (which, e)
+        out_bf = tk.int8_matmul_expert_reference(xq.to(torch.bfloat16), q, s)
+        for e in range(E):
+            assert torch.all(out_bf[e, counts[e]:].view(torch.int16) == 0), (which, e)
 
 
 # --- forward ----------------------------------------------------------------------------
