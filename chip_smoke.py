@@ -17,7 +17,8 @@ time; any failure ends the run with a nonzero exit and no result line:
   kernel      int8_matmul vs int8_matmul_reference at every llama3-8b decode
               shape (and the llama3-1b tied head, transposed), B in
               {1, 3, 4, 16, 64}; at B = 4: kernel, plain and library times
-              (CUDA events, median of 20 cold-L2 runs) beside the bound
+              (CUDA events, median of 20 cold-L2 runs) beside the bound, and
+              the kernel's device time (torch.profiler, cold L2)
   flash       flash_attention vs flash_attention_reference: llama3-1b
               training heads (B 4, S 2048, H 32, KV 8, D 64), llama3-8b heads
               (B 1, S 1024, D 128), offset positions, KV = H, a ragged S
@@ -237,6 +238,8 @@ def phase_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
             lib, lib_label = library_call(h, q.T if transpose else q, s)
             t["library_ms"] = cold_median_ms(lib, flush)
             t["bound_ms"], t["bound_by"] = bound_ms(4, K, N, bps)
+            t["device_ms"] = sum(kernel_device_ms(
+                lambda: k1.int8_matmul(h, q, s, transpose=transpose), flush).values())
             t["max_abs_err"] = ea
             timings[name] = t
         del q, s
@@ -285,16 +288,21 @@ def decode_routing(g: torch.Generator) -> list[int]:
     return torch.bincount(top.flatten(), minlength=MOE_E).tolist()
 
 
-def kernel_device_ms(fn, calls: int = 5) -> dict:
-    """Device ms a call of each kernel ``fn`` launches (torch.profiler over
-    ``calls`` calls back to back)."""
+def kernel_device_ms(fn, flush: torch.Tensor, calls: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches: torch.profiler over
+    ``calls`` calls, each after the L2 cache is overwritten (as for
+    cold_median_ms), the overwrite's own kernel left out."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:48]: round(dev_us(e) / 1e3 / calls, 4) for e in device_kernels(prof)}
+    def rows(body) -> dict:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                body()
+            torch.cuda.synchronize()
+        return {e.key[:48]: round(dev_us(e) / 1e3 / calls, 4) for e in device_kernels(prof)}
+
+    drop = rows(flush.zero_)
+    return {k: v for k, v in rows(lambda: (flush.zero_(), fn())).items() if k not in drop}
 
 
 def phase_moe_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
@@ -330,7 +338,7 @@ def phase_moe_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
             t["bound_ms"], t["bound_by"] = bound_ms(4, K, N, bps, MOE_E)
             t["max_abs_err"] = ea
             timings[name] = t
-            split[name] = kernel_device_ms(lambda: k1.int8_matmul_expert(x, q, s))
+            split[name] = kernel_device_ms(lambda: k1.int8_matmul_expert(x, q, s), flush)
         # The rows of a decode step: expert e's first counts[e] slots filled.
         x = torch.zeros((MOE_E, MOE_TOKENS, K), device="cuda", dtype=torch.bfloat16)
         for e, n in enumerate(counts):
@@ -710,7 +718,7 @@ def phase_flash(fa, bps: float, flush: torch.Tensor) -> dict:
         # The kernels' own device time (the cold median above also holds
         # whatever host time of the wrapper the L2 flush does not hide).
         timing["device_ms_per_call"] = kernel_device_ms(
-            lambda: fa.flash_attention(q, k, v, pos, pos))
+            lambda: fa.flash_attention(q, k, v, pos, pos), flush)
         timing["device_ms"] = sum(timing["device_ms_per_call"].values())
         timing["device_peak_share"] = (flash_flops(B, S, H, D) / (timing["device_ms"] / 1e3)
                                        / BF16_FLOPS)
@@ -1025,13 +1033,14 @@ def main(argv=None) -> int:
          "replaces": K1_REPLACES, "launches": serve8["launches"]["k1"],
          "max_abs_err": kern["max_abs_err"], **per_step, "bound_by": "bytes",
          "library_ms_call": kern["library_call"],
+         "device_ms": round(sum(t[nm]["device_ms"] * SHAPES_8B[nm][2] for nm in SHAPES_8B), 4),
          "unit": "one llama3-8b decode step at B=4 (225 launches)"},
         {"name": "int8_matmul_transposed", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1T_REPLACES, "launches": serve1["launches"]["k1t"],
          "max_abs_err": tied["max_abs_err"], "ms": round(tied["ms"], 4),
          "plain_ms": round(tied["plain_ms"], 4), "bound_ms": round(tied["bound_ms"], 4),
          "bound_by": tied["bound_by"], "library_ms": round(tied["library_ms"], 4),
-         "library_ms_call": kern["library_call"],
+         "library_ms_call": kern["library_call"], "device_ms": round(tied["device_ms"], 4),
          "unit": "llama3-1b tied LM head, B=4"},
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train["flash_launches"],

@@ -46,8 +46,9 @@
 //   product of tile i and its P V of tile i-1 while the other runs its
 //   softmax; within a consumer the softmax of tile i also overlaps its own
 //   P V of tile i-1.
-// - Tensor maps are built per call on the host over the caller's strides
-//   ([B, S, H, D] as a 4-D map, D innermost, 64-row boxes), passed as
+// - Tensor maps are built per call on the host, in the launch, over the
+//   caller's strides ([B, S, H, D] as a 4-D map, D innermost, 64-row
+//   boxes), passed as
 //   __grid_constant__ CUtensorMap. cuTensorMapEncodeTiled is reached
 //   through cudaGetDriverEntryPoint, so the library links no -lcuda.
 // - A ragged last tile needs no padding: TMA zero-fills rows past S, kv
@@ -102,8 +103,7 @@ struct Params {
 
 template <int D>
 struct Plan {
-  // Consumer warpgroups, 64 q rows each. (Three at D 64, 160 registers
-  // each, spilled and ran 16% slower on the H100.)
+  // Consumer warpgroups, 64 q rows each.
   static constexpr int NC = 2;
   static constexpr int BM = kBox * NC;                // q rows per work tile
   static constexpr int THREADS = 128 * (NC + 1);
@@ -804,28 +804,33 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 [B, S, X, D] operand as a 4-D tensor map. `g` holds the geometry
-// the wrapper computed: dims (D, X, S, B), byte strides (X, S, B), box.
-cudaError_t encode_map(CUtensorMap* map, const void* ptr, const long long* g) {
+// A bf16 [B, S, X, D] operand (X heads) with element strides sb, ss, sh and
+// a contiguous D as a 4-D tensor map, innermost first: dims (D, X, S, B);
+// a box of P::SW columns (one swizzle row: 128 bytes, 64 at D 32; D 128
+// takes two boxes a row block), one head, 64 rows and one batch row. TMA
+// takes only byte strides that are multiples of 16; the wrapper checks them.
+template <int D>
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, int X, int S, int B, long long sb,
+                       long long ss, long long sh) {
+  using P = Plan<D>;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g[0]), static_cast<cuuint64_t>(g[1]),
-                              static_cast<cuuint64_t>(g[2]), static_cast<cuuint64_t>(g[3])};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(g[4]), static_cast<cuuint64_t>(g[5]),
-                                 static_cast<cuuint64_t>(g[6])};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(g[7]), static_cast<cuuint32_t>(g[8]),
-                             static_cast<cuuint32_t>(g[9]), static_cast<cuuint32_t>(g[10])};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(X),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {P::SW, 1, kBox, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        box[0] * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        P::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D>
-cudaError_t launch_bf16(const Params& p, int B, const void* q, const void* k, const void* v,
-                        const long long* tma, cudaStream_t st) {
+cudaError_t launch_bf16(const Params& p, int B, cudaStream_t st) {
   using P = Plan<D>;
   static int sms = 0;
   static const cudaError_t ready = [] {
@@ -850,18 +855,11 @@ cudaError_t launch_bf16(const Params& p, int B, const void* q, const void* k, co
     return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }();
   if (ready != cudaSuccess) return ready;
-  for (int i = 0; i < 3; ++i) {          // the box the kernel's tiles assume
-    const long long* g = tma + 11 * i;
-    if (g[0] != D || g[7] != P::SW || g[8] != 1 || g[9] != kBox || g[10] != 1) {
-      return cudaErrorInvalidValue;
-    }
-  }
   CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const cudaError_t e = encode_map(&maps[i], ptrs[i], tma + 11 * i);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = encode_map<D>(&maps[0], p.q, p.H, p.S, B, p.q_sb, p.q_ss, p.q_sh);
+  if (e == cudaSuccess) e = encode_map<D>(&maps[1], p.k, p.KV, p.S, B, p.k_sb, p.k_ss, p.k_sh);
+  if (e == cudaSuccess) e = encode_map<D>(&maps[2], p.v, p.KV, p.S, B, p.v_sb, p.v_ss, p.v_sh);
+  if (e != cudaSuccess) return e;
   const int n_c = (p.S + kBox - 1) / kBox;
   chunk_minmax_kernel<<<dim3(n_c, B), 32, 0, st>>>(p.q_pos, p.kv_pos,
                                                    const_cast<int4*>(p.minmax), p.S, n_c);
@@ -873,8 +871,8 @@ cudaError_t launch_bf16(const Params& p, int B, const void* q, const void* k, co
 }
 
 template <int D>
-cudaError_t launch(const Params& p, int B, bool is_bf16, const long long* tma, cudaStream_t st) {
-  if (is_bf16) return launch_bf16<D>(p, B, p.q, p.k, p.v, tma, st);
+cudaError_t launch(const Params& p, int B, bool is_bf16, cudaStream_t st) {
+  if (is_bf16) return launch_bf16<D>(p, B, st);
   const dim3 grid((p.S + kTile32 - 1) / kTile32, p.H, B);
   flash_fwd_f32_kernel<D><<<grid, kThreads, 0, st>>>(p);
   return cudaSuccess;
@@ -886,16 +884,14 @@ cudaError_t launch(const Params& p, int B, bool is_bf16, const long long* tma, c
 // f32, read and written through `strides`: 12 element strides, (batch, seq,
 // head) for q, k, v, o in that order; D is contiguous. q_pos and kv_pos are
 // int32 [B,S], contiguous. 1 <= S <= 65536, H a multiple of KV, D in {32,
-// 64, 128}. For bf16, `tma` holds the tensor-map geometry of q, k and v
-// (11 int64 each: dims D, heads, S, B; byte strides of heads, S, B; box),
-// every byte stride and base address a multiple of 16, and `minmax` an
-// int32 workspace of B * ceil(S / 64) * 4 (16-byte aligned); both unused
-// for f32.
+// 64, 128}. For bf16, q, k and v are read through tensor maps built here
+// from these strides, so every stride but D's and every base address is a
+// multiple of 16 bytes, and `minmax` is an int32 workspace of B *
+// ceil(S / 64) * 4 (16-byte aligned), unused for f32.
 extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* v, void* o,
                                       const void* q_pos, const void* kv_pos, void* minmax,
                                       int B, int S, int H, int KV, int D,
-                                      const long long* strides, const long long* tma,
-                                      int is_bf16, void* stream) {
+                                      const long long* strides, int is_bf16, void* stream) {
   if (B < 1 || S < 1 || S > kMaxS || KV < 1 || H % KV) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -918,9 +914,9 @@ extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch<32>(p, B, is_bf16 != 0, tma, st); break;
-    case 64: err = launch<64>(p, B, is_bf16 != 0, tma, st); break;
-    case 128: err = launch<128>(p, B, is_bf16 != 0, tma, st); break;
+    case 32: err = launch<32>(p, B, is_bf16 != 0, st); break;
+    case 64: err = launch<64>(p, B, is_bf16 != 0, st); break;
+    case 128: err = launch<128>(p, B, is_bf16 != 0, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -473,8 +473,8 @@ cudaError_t launch_expert_bf16(const void* x, const void* q, const void* s, void
 }
 
 template <typename T, int RB>
-void launch_mm(const void* h, const void* q, void* ws, int E, int B, int K, int N, int ks,
-               bool transpose, cudaStream_t st) {
+cudaError_t launch_mm(const void* h, const void* q, void* ws, int E, int B, int K, int N, int ks,
+                      bool transpose, cudaStream_t st) {
   const int splits = K / ks;
   const int groups = (B + RB - 1) / RB;
   if (transpose) {
@@ -484,12 +484,15 @@ void launch_mm(const void* h, const void* q, void* ws, int E, int B, int K, int 
         B, K, N, ks);
   } else if (E > 1) {
     // Experts take K1's body only with f32 activations; bf16 ones have
-    // int8_mm_expert_bf16_kernel, so no bf16 instantiation is built here.
+    // int8_mm_expert_bf16_kernel, so no bf16 instantiation is built here,
+    // and a bf16 call refuses rather than leave the workspace unwritten.
     if constexpr (std::is_same_v<T, float>) {
       const dim3 grid((N + kNTile - 1) / kNTile, splits, groups * E);
       int8_mm_kernel<T, RB, true><<<grid, kThreads, 0, st>>>(
           static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
           B, K, N, ks, groups, E);
+    } else {
+      return cudaErrorInvalidValue;
     }
   } else {
     const dim3 grid((N + kNTile - 1) / kNTile, splits, groups);
@@ -497,21 +500,24 @@ void launch_mm(const void* h, const void* q, void* ws, int E, int B, int K, int 
         static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
         B, K, N, ks, groups, 1);
   }
+  return cudaSuccess;
 }
 
 // E stacks of h [B,K] @ q [K,N] (transpose only with E = 1).
 template <typename T>
-void launch_all(const void* h, const void* q, const void* s, void* out, void* ws,
-                int E, int B, int K, int N, int ks, bool transpose, cudaStream_t st) {
+cudaError_t launch_all(const void* h, const void* q, const void* s, void* out, void* ws,
+                       int E, int B, int K, int N, int ks, bool transpose, cudaStream_t st) {
+  cudaError_t err;
   if (B == 1) {
-    launch_mm<T, 1>(h, q, ws, E, B, K, N, ks, transpose, st);
+    err = launch_mm<T, 1>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else if (B == 2) {
-    launch_mm<T, 2>(h, q, ws, E, B, K, N, ks, transpose, st);
+    err = launch_mm<T, 2>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else if (B <= 4) {
-    launch_mm<T, 4>(h, q, ws, E, B, K, N, ks, transpose, st);
+    err = launch_mm<T, 4>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else {
-    launch_mm<T, 8>(h, q, ws, E, B, K, N, ks, transpose, st);
+    err = launch_mm<T, 8>(h, q, ws, E, B, K, N, ks, transpose, st);
   }
+  if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(E) * B * N;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
@@ -524,6 +530,7 @@ void launch_all(const void* h, const void* q, const void* s, void* out, void* ws
         static_cast<const float*>(ws), static_cast<const float*>(s), static_cast<T*>(out),
         B, N, K / ks, 1);
   }
+  return cudaSuccess;
 }
 
 bool bad_dims(int B, int K, int N, int ks) {
@@ -541,11 +548,10 @@ extern "C" int kukeon_int8_matmul(const void* h, const void* q, const void* s, v
                                   int is_bf16, void* stream) {
   if (bad_dims(B, K, N, ks)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    launch_all<__nv_bfloat16>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st);
-  } else {
-    launch_all<float>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st);
-  }
+  const cudaError_t err =
+      is_bf16 ? launch_all<__nv_bfloat16>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st)
+              : launch_all<float>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,7 +574,8 @@ extern "C" int kukeon_int8_matmul_expert(const void* x, const void* q, const voi
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     if (bad_dims(C, K, N, ks)) return static_cast<int>(cudaErrorInvalidValue);
-    launch_all<float>(x, q, s, out, ws, E, C, K, N, ks, false, st);
+    const cudaError_t err = launch_all<float>(x, q, s, out, ws, E, C, K, N, ks, false, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -114,7 +114,7 @@ def load_flash_attention() -> ctypes.CDLL:
     # q, k, v, o, q_pos, kv_pos, tile min/max workspace, B, S, H, KV, D,
     # strides (12 x int64), tensor-map geometry (33 x int64), is_bf16, stream
     L = ctypes.POINTER(ctypes.c_longlong)
-    lib.kukeon_flash_attention.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, L, L, I, P]
+    lib.kukeon_flash_attention.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, L, I, P]
     lib.kukeon_flash_attention.restype = ctypes.c_int
     return lib
 

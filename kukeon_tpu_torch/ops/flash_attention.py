@@ -26,9 +26,9 @@ Routes, by where the tensors lie:
   tests. D must be 32, 64 or 128 and S at least 128 and at most 65536; a
   ragged last tile is fine (TMA zero-fills, the kernel masks). bf16
   operands need every
-  stride and base address a multiple of 16 bytes: the tensor maps that
-  :func:`tma_geometry` describes are built per call over the caller's
-  strides. Anything else raises, and so does a failed build or launch.
+  stride and base address a multiple of 16 bytes (:func:`check_tma_operand`):
+  the launch builds the tensor maps per call over the caller's strides.
+  Anything else raises, and so does a failed build or launch.
   There is no fallback.
 
 The backward is the JAX package's: no kernel, the reference attention
@@ -53,7 +53,7 @@ import torch
 from kukeon_tpu_torch.ops import _build
 from kukeon_tpu_torch.ops.attention import attention_mask, attention_reference, repeat_kv
 
-BOX = 64             # rows of a TMA box and of a position chunk (bf16 kernel)
+BOX = 64             # rows of a position chunk (bf16 kernel)
 MIN_S = 128
 MAX_S = 1 << 16
 HEAD_DIMS = (32, 64, 128)
@@ -95,24 +95,20 @@ def _check(q, k, v, q_positions, kv_positions) -> None:
         raise ValueError("flash_attention operands on different devices")
 
 
-def tma_geometry(shape: tuple[int, ...],
-                 strides: tuple[int, ...]) -> tuple[tuple[int, ...], tuple[int, ...],
-                                                    tuple[int, ...]]:
-    """The 4-D tensor map of a bf16 ``[B, S, X, D]`` operand (X heads) with
-    element ``strides`` and a contiguous D, as the bf16 kernel loads it:
-    (dims, byte strides, box), innermost first. dims ``(D, X, S, B)``;
-    byte strides of X, S and B; box ``(min(D, 64), 1, BOX, 1)``, one head
-    and 64 rows, the columns one swizzle row (128 bytes, 64 at D 32; D
-    128 takes two boxes a row block). TMA takes only byte strides that are
-    multiples of 16: anything else raises."""
-    B, S, X, D = shape
+def check_tma_operand(strides: tuple[int, ...], data_ptr: int) -> None:
+    """Raise unless the bf16 kernel can read a ``[B, S, X, D]`` operand with
+    these element ``strides`` at this address through a TMA tensor map: D
+    contiguous, and the byte strides of X, S and B and the base address
+    multiples of 16 (TMA's rule). The launch builds the maps (dims, box,
+    swizzle) from the same strides."""
     if strides[3] != 1:
         raise ValueError("flash_attention kernel wants the head dim contiguous")
     byte_strides = (strides[2] * 2, strides[1] * 2, strides[0] * 2)
     if any(s % 16 for s in byte_strides):
         raise ValueError(f"flash_attention kernel wants byte strides that are multiples of "
                          f"16 (TMA); got {byte_strides} for strides {tuple(strides)}")
-    return (D, X, S, B), byte_strides, (min(D, 64), 1, BOX, 1)
+    if data_ptr % 16:
+        raise ValueError("flash_attention kernel wants 16-byte aligned bf16 operands")
 
 
 def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
@@ -125,19 +121,14 @@ def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
     if S < MIN_S or S > MAX_S:
         raise ValueError(f"flash_attention kernel takes S >= {MIN_S} and <= {MAX_S}; got {S}")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    strides, tma = [], []
+    strides = []
     for t in (q, k, v, out):
         if t.stride(3) != 1:
             raise ValueError("flash_attention kernel wants the head dim contiguous")
         strides += t.stride()[:3]
     if q.dtype == torch.bfloat16:
         for t in (q, k, v):
-            if t.data_ptr() % 16:
-                raise ValueError("flash_attention kernel wants 16-byte aligned bf16 operands")
-            dims, byte_strides, box = tma_geometry(tuple(t.shape), t.stride())
-            tma += [*dims, *byte_strides, *box]
-    else:
-        tma = [0] * 33
+            check_tma_operand(t.stride(), t.data_ptr())
     qp, kp = (p if p.dtype == torch.int32 and p.is_contiguous() else
               torch.empty((B, S), dtype=torch.int32, device=q.device).copy_(p)
               for p in (q_positions, kv_positions))
@@ -148,8 +139,7 @@ def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
     err = lib.kukeon_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp.data_ptr(),
         kp.data_ptr(), minmax.data_ptr(), B, S, H, KV, D, (ctypes.c_longlong * 12)(*strides),
-        (ctypes.c_longlong * 33)(*tma), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} "
                            f"(B={B}, S={S}, H={H}, KV={KV}, D={D}, {q.dtype})")
@@ -185,9 +175,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     signature's and do not change the result (the kernel tiles by 128)."""
     del block_q, block_k
     _check(q, k, v, q_positions, kv_positions)
-    if q.device.type == "cuda" and not (torch.is_grad_enabled() and (
-            q.requires_grad or k.requires_grad or v.requires_grad)):
-        return _launch(q, k, v, q_positions, kv_positions)   # no graph to record
     return _FlashAttention.apply(q, k, v, q_positions, kv_positions)
 
 

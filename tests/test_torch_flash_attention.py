@@ -85,29 +85,31 @@ def test_flash_forward_matches_pallas_interpret_at_a_ragged_s():
 @pytest.mark.parametrize("layout", ["contiguous", "fused_qkv_slice", "heads_major", "d128",
                                     "d32"])
 def test_tma_geometry_of_strided_views(layout):
-    """The tensor map the bf16 kernel loads an operand through: dims (D, X,
-    S, B), byte strides of X, S, B, and a box of one head, 64 rows and one
-    swizzle row of columns, for the views the callers pass."""
+    """The views the callers pass are ones the bf16 kernel's tensor maps
+    can take: D contiguous, every other byte stride and the base address a
+    multiple of 16. The same view one element off its aligned base is
+    refused."""
     B, S, X, D = 2, 160, 4, 64
     if layout == "contiguous":
-        t = torch.zeros(B, S, X, D, dtype=torch.bfloat16)
+        shape, view = (B, S, X, D), lambda t: t
     elif layout == "fused_qkv_slice":       # q of a fused [B, S, X + 2 KV, D] projection
-        t = torch.zeros(B, S, X + 4, D, dtype=torch.bfloat16)[:, :, :X]
+        shape, view = (B, S, X + 4, D), lambda t: t[:, :, :X]
     elif layout == "heads_major":           # a [B, X, S, D] tensor seen as [B, S, X, D]
-        t = torch.zeros(B, X, S, D, dtype=torch.bfloat16).transpose(1, 2)
+        shape, view = (B, X, S, D), lambda t: t.transpose(1, 2)
     elif layout == "d128":
-        D = 128
-        t = torch.zeros(B, S, X, D, dtype=torch.bfloat16)
+        shape, view = (B, S, X, 128), lambda t: t
     else:
-        D = 32
-        t = torch.zeros(B, S, X, D, dtype=torch.bfloat16)
-    dims, byte_strides, box = tfa.tma_geometry(tuple(t.shape), t.stride())
-    sb, ss, sx, sd = t.stride()
-    assert sd == 1
-    assert dims == (D, X, S, B)
-    assert byte_strides == (2 * sx, 2 * ss, 2 * sb)
-    assert box == (min(D, 64), 1, 64, 1)
-    assert all(b % 16 == 0 for b in byte_strides)
+        shape, view = (B, S, X, 32), lambda t: t
+    n = int(np.prod(shape))
+    base = torch.zeros(n + 8, dtype=torch.bfloat16)
+    aligned = base[-(base.data_ptr() // 2) % 8:][:n]
+    assert aligned.data_ptr() % 16 == 0
+    t = view(aligned.view(shape))
+    assert t.shape[1:3] == (S, X) and t.stride(3) == 1
+    tfa.check_tma_operand(t.stride(), t.data_ptr())
+    off = view(base[(-(base.data_ptr() // 2) % 8 + 1):][:n].view(shape))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.check_tma_operand(off.stride(), off.data_ptr())
 
 
 def test_tma_geometry_refuses_strides_tma_cannot_take():
@@ -115,10 +117,10 @@ def test_tma_geometry_refuses_strides_tma_cannot_take():
     non-unit D stride is not a tile TMA can load: both raise."""
     t = torch.zeros(1, 128, 2, 36, dtype=torch.bfloat16)[..., :32]
     with pytest.raises(ValueError, match="multiples of 16"):
-        tfa.tma_geometry(tuple(t.shape), t.stride())
+        tfa.check_tma_operand(t.stride(), 0)
     t = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="head dim contiguous"):
-        tfa.tma_geometry(tuple(t.shape), t.stride())
+        tfa.check_tma_operand(t.stride(), 0)
 
 
 @pytest.mark.parametrize("kv", [4, 2])
