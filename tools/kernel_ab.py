@@ -7,6 +7,7 @@ with ``git archive`` and alternate:
 
     python3 tools/kernel_ab.py PARENT_DIR . . PARENT_DIR
 
+The flash phase runs only its timed case (the llama3-1b training shape).
 Every kernel goes through its checkout's public wrapper, so a cold median
 (CUDA events, L2 overwritten before each call) holds the same wrapper host
 time on both sides; the device time (torch.profiler, cold L2) holds the
@@ -35,21 +36,29 @@ def load_chip_smoke():
     return mod
 
 
-def summarise(cs, kern: dict, flash: dict, moe: dict) -> dict:
-    """Per-call and per-step numbers of the four kernels, ms."""
-    t = kern["timings"]
-    out = {"k1_step": {f: round(sum(t[nm][f] * n for nm, (_k, _n, n) in cs.SHAPES_8B.items()), 4)
-                       for f in ("ms", "device_ms", "bound_ms")},
-           "k1t": {f: round(t["tied_head_1b"][f], 4) for f in ("ms", "device_ms", "bound_ms")}}
-    ft = flash["timing"]
-    out["k3"] = {f: round(ft[f], 4) for f in ("ms", "device_ms", "library_ms", "bound_ms")}
-    tm, dev = moe["timings"], moe["device_ms_per_call_c4"]
-    out["k2"] = {nm: {"ms": round(tm[nm]["ms"], 4), "device_ms": round(sum(dev[nm].values()), 4),
-                      "bound_ms": round(tm[nm]["bound_ms"], 4),
-                      "routed_ms": round(tm[nm + "_routed"]["ms"], 4),
-                      "routed_bound_ms": round(tm[nm + "_routed"]["bound_ms"], 4)}
-                 for nm in ("w_gate", "w_down")}
-    out["k2"]["empty_experts"] = moe["empty_experts"]
+def summarise(cs, res: dict) -> dict:
+    """Per-call and per-step numbers, ms, of the kernels whose phase ran."""
+    out = {}
+    if "kernel" in res:
+        t = res["kernel"]["timings"]
+        out["k1_step"] = {f: round(sum(t[nm][f] * n for nm, (_k, _n, n) in cs.SHAPES_8B.items()),
+                                   4) for f in ("ms", "device_ms", "bound_ms")}
+        out["k1t"] = {f: round(t["tied_head_1b"][f], 4) for f in ("ms", "device_ms", "bound_ms")}
+    if "flash" in res:
+        ft = res["flash"]["timing"]
+        out["k3"] = {f: round(ft[f], 4) for f in ("ms", "device_ms", "library_ms", "bound_ms")}
+    if "moe_kernel" in res:
+        moe = res["moe_kernel"]
+        tm, dev = moe["timings"], moe["device_ms_per_call_c4"]
+        out["k2"] = {nm: {"ms": round(tm[nm]["ms"], 4),
+                          "device_ms": round(sum(dev[nm].values()), 4),
+                          "bound_ms": round(tm[nm]["bound_ms"], 4),
+                          "routed_ms": round(tm[nm + "_routed"]["ms"], 4),
+                          "routed_bound_ms": round(tm[nm + "_routed"]["bound_ms"], 4)}
+                     for nm in ("w_gate", "w_down")}
+        out["k2"]["empty_experts"] = moe["empty_experts"]
+    out["max_abs_err"] = {k: res[p]["max_abs_err"] for k, p in (("k1", "kernel"),
+                                                                ("k2", "moe_kernel")) if p in res}
     return out
 
 
@@ -66,6 +75,9 @@ def measure(tree: str) -> dict:
     if not os.path.abspath(k1.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {k1.__file__}, not the package under {tree}")
     cs = load_chip_smoke()
+    # Only the timed flash case: an older checkout may refuse the others
+    # (the ragged S 160 before its repair); chip_smoke.py checks them all.
+    cs.FLASH_CASES = tuple(c for c in cs.FLASH_CASES if c[0] == "llama3-1b train")
     torch.backends.cuda.matmul.allow_tf32 = False
     bps = cs.hbm_bps(torch.cuda.get_device_name(0))
     built = _build.build_all()
@@ -77,14 +89,12 @@ def measure(tree: str) -> dict:
             res[name] = fn(fa if name == "flash" else k1, bps, flush)
         except Exception as e:   # recorded, and the run exits nonzero
             errors[name] = f"{type(e).__name__}: {e}"
-    out = {"tree": tree, "build_s": {src: round(sec, 2) for src, (_p, _l, sec) in built.items()}}
+    out = {"tree": tree, "build_s": {src: round(sec, 2) for src, (_p, _l, sec) in built.items()},
+           **summarise(cs, res)}
+    if "flash" in res:
+        out["max_abs_err"]["k3"] = res["flash"]["cases"][0]["max_abs_err"]
     if errors:
         out["errors"] = errors
-    else:
-        out.update(summarise(cs, res["kernel"], res["flash"], res["moe_kernel"]))
-        out["max_abs_err"] = {"k1": res["kernel"]["max_abs_err"],
-                              "k3": max(c["max_abs_err"] for c in res["flash"]["cases"]),
-                              "k2": res["moe_kernel"]["max_abs_err"]}
     return out
 
 
