@@ -18,14 +18,18 @@ time; any failure ends the run with a nonzero exit and no result line:
               shape (and the llama3-1b tied head, transposed), B in
               {1, 3, 4, 16, 64}; at B = 4: kernel, plain and library times
               (CUDA events, median of 20 cold-L2 runs) beside the bound, and
-              the kernel's device time (torch.profiler, cold L2)
+              the kernel's device time by projection (torch.profiler, cold
+              L2); one bf16 call is one kernel launch (profiler), and a
+              second call at every 8B shape, B 4 and 64, is bit-identical
   flash       flash_attention vs flash_attention_reference: llama3-1b
               training heads (B 4, S 2048, H 32, KV 8, D 64), llama3-8b heads
               (B 1, S 1024, D 128), offset positions, KV = H, a ragged S
               (160), and an f32 case; at the llama3-1b shape: kernel, plain
               and library (scaled_dot_product_attention) times beside the
               bound, the kernels' device time (torch.profiler), and the
-              shares of the bf16 peak
+              shares of the bf16 peak; then S 8192 (B 1, H 8, KV 2, D 64)
+              in full and S 65792 (B 1, H 1, D 64, kv-tile lists past
+              shared memory) on three 256-row query slices against all keys
   moe_kernel  int8_matmul_expert vs int8_matmul_expert_reference at both
               Mixtral-8x7B expert shapes (E 8; K x N 4096 x 14336 and
               14336 x 4096), C in {1, 3, 4, 16, 64}, and an f32 case; at
@@ -45,6 +49,8 @@ time; any failure ends the run with a nonzero exit and no result line:
               kernels and host operators)
   serve_tied  a short llama3-1b run, whose tied LM head takes the
               transposed kernel
+  serve_tiny  short int8 runs of tiny and mixtral-tiny, whose dims off 128
+              take the reference's dequant fallback on the card
   moe_model   mixtral-8x7b int8 at full width and depth, drawn once on the
               card by the serving cell of serve_moe: one prefill (B 4,
               S 128) and one decode step through the kernels and through
@@ -109,6 +115,10 @@ FLASH_CASES = (
 K3_DESIGN = ("persistent, wgmma + TMA: 128-row q tiles, producer warpgroup with a "
              "3-stage (2 at D 128) K/V ring and double-buffered Q, two consumer "
              "warpgroups taking turns on the tensor cores, P from registers, V MN-major")
+K1_DESIGN = ("bf16: one launch; 128-column tiles x at most 8 K slices, 4-stage cp.async "
+             "ring of weights and rows of h, mma.sync m16n8k16 with exact prmt/fadd "
+             "int8->bf16; the slices of a tile form a cluster that sums them in slice "
+             "order through distributed shared memory")
 K2_DESIGN = ("bf16: zero-expert skip, 4-stage cp.async weight ring, mma.sync "
              "m16n8k16 with exact prmt/fadd int8->bf16, fixed-order split-K reduce")
 MOE_TOKENS, MOE_TOP_K = 4, 2
@@ -127,8 +137,13 @@ SHAPES_MIXTRAL = {"wq": (4096, 4096, 32), "wk": (4096, 1024, 32), "wv": (4096, 1
                   "wo": (4096, 4096, 32), "lm_head": (4096, 32000, 1)}
 SHAPES_MOE = {"w_gate": (4096, 14336, 32), "w_up": (4096, 14336, 32),
               "w_down": (14336, 4096, 32)}
+# Flash past the shape cases: (label, B, S, H, KV, D, query rows checked
+# per slice, or None for all). 65792 is the first S above 65536 that
+# supports() admits: the kernel's kv-tile lists leave shared memory.
+FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
+              ("S 65792", 1, 65792, 1, 1, 64, 256))
 PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_tied",
-          "moe_model", "serve_moe", "train")      # in the order they run
+          "serve_tiny", "moe_model", "serve_moe", "train")      # in the order they run
 
 
 def emit(obj) -> None:
@@ -257,6 +272,32 @@ def phase_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
             "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), 2^-20 (f32)"}
 
 
+def k1_one_launch(k1) -> dict:
+    """K1's bf16 route: a second call at every 8B shape (B 4 and 64) gives
+    the first call's bits (every sum in a fixed order), and one call is one
+    kernel launch in the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for name, (K, N, _n) in SHAPES_8B.items():
+        q = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        s = torch.rand(N, generator=g, device="cuda") * 0.02 + 1e-3
+        for B in (4, 64):
+            h = torch.randn((B, K), generator=g, device="cuda").to(torch.bfloat16)
+            first, second = k1.int8_matmul(h, q, s), k1.int8_matmul(h, q, s)
+            torch.cuda.synchronize()
+            if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
+                raise AssertionError(f"int8_matmul: a repeated call at {name} B={B} "
+                                     f"gave other bits")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k1.int8_matmul(h, q, s)
+        torch.cuda.synchronize()
+    kernels = {e.key[:60]: e.count for e in device_kernels(prof)}
+    if sum(kernels.values()) != 1:
+        raise AssertionError(f"one bf16 int8_matmul call launched {kernels}, want 1 kernel")
+    return {"kernels_per_call": kernels, "repeat_bit_identical": True}
+
+
 def expert_library_call(x, q, s):
     """The same grouped product through PyTorch: no single call computes it,
     so E calls of torch._weight_int8pack_mm (q [N,K], scale in x's dtype)
@@ -360,6 +401,8 @@ def phase_moe_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
              "plain_ms": cold_median_ms(lambda: k1.int8_matmul_expert_reference(x, q, s), flush),
              "library_ms": cold_median_ms(lib, flush)}
         t["bound_ms"], t["bound_by"] = bound_ms(4, K, N, bps, MOE_E - len(empty))
+        t["device_ms"] = sum(kernel_device_ms(lambda: k1.int8_matmul_expert(x, q, s),
+                                              flush).values())
         t["max_abs_err"] = ea
         t["empty_experts"] = len(empty)
         timings[name + "_routed"] = t
@@ -728,6 +771,42 @@ def phase_flash(fa, bps: float, flush: torch.Tensor) -> dict:
                          "rms(ref); f32: |err| <= 2e-5 (|ref| + 1)"}
 
 
+def flash_long(fa) -> list:
+    """The flash kernel past the shape cases (FLASH_LONG), against the
+    plain version on the query rows checked: all of them, or three slices
+    (start, middle, end) against every key, the same function restricted
+    to those rows, which keeps the plain version's f32 scores small."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = []
+    for label, B, S, H, KV, D, rows in FLASH_LONG:
+        q = torch.randn((B, S, H, D), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, S, KV, D), generator=g, device="cuda").to(torch.bfloat16)
+        pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :].expand(B, S).contiguous()
+        before = fa.flash_attention.launches
+        out = fa.flash_attention(q, k, v, pos, pos)
+        torch.cuda.synchronize()
+        if fa.flash_attention.launches != before + 1:
+            raise AssertionError(f"flash_attention at {label} launched no kernel")
+        starts = [0] if rows is None else [0, (S - rows) // 2, S - rows]
+        n = S if rows is None else rows
+        worst_abs, worst_rel = 0.0, 0.0
+        for a in starts:
+            ref = fa.flash_attention_reference(q[:, a:a + n], k, v, pos[:, a:a + n], pos)
+            ok, ea, rel = flash_within_tol(out[:, a:a + n], ref, v)
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees with its plain version at "
+                                     f"{label}, query rows {a}..{a + n}: max abs {ea}, "
+                                     f"rel rms {rel}")
+            worst_abs, worst_rel = max(worst_abs, ea), max(worst_rel, rel)
+            del ref
+        cases.append({"case": label, "shape": [B, S, H, KV, D], "query_rows_from": starts,
+                      "query_rows": n, "max_abs_err": worst_abs, "rel_rms_err": worst_rel})
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return cases
+
+
 def zipf_dataset(path: str, n_tokens: int, seed: int) -> None:
     """Token ids with a Zipf-like law over the first 4096 ids of the
     vocabulary: a unigram the model can learn within a few steps."""
@@ -955,6 +1034,10 @@ def main(argv=None) -> int:
             _build.FLASH_ATTENTION].items() if "flash_fwd_bf16" in k)
         if flash_hgmma == 0:
             raise AssertionError("the bf16 flash kernels hold no HGMMA instruction")
+        k1_hmma = sum(v["HMMA"] for k, v in p["sass_tensor_core_ops"][
+            _build.INT8_MATMUL].items() if "int8_mm_bf16" in k)
+        if k1_hmma == 0:
+            raise AssertionError("int8_mm_bf16_kernel holds no HMMA instruction")
 
     res = {}
 
@@ -967,8 +1050,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    run("kernel", lambda: phase_kernel(k1, bps, flush))
-    run("flash", lambda: phase_flash(fa, bps, flush))
+    run("kernel", lambda: {**phase_kernel(k1, bps, flush), **k1_one_launch(k1)})
+    run("flash", lambda: {**phase_flash(fa, bps, flush), "long_s": flash_long(fa)})
     run("moe_kernel", lambda: phase_moe_kernel(k1, bps, flush))
     del flush
     run("model", lambda: phase_model(k1))
@@ -979,6 +1062,8 @@ def main(argv=None) -> int:
             bound_ms(4, K, N, bps)[0] * n for K, N, n in SHAPES_8B.values()), 4)})
     run("serve_tied", lambda: serve_model(k1, "llama3-1b", max_seq_len=256, prompt_len=32,
                                           new=16))
+    run("serve_tiny", lambda: {m: serve_model(k1, m, max_seq_len=256, prompt_len=32, new=16)
+                               for m in ("tiny", "mixtral-tiny")})
     # One Mixtral-8x7B draw (46.7 GB of int8) serves both of its phases.
     cell = {}
     if "moe_model" in phases or "serve_moe" in phases:
@@ -1034,7 +1119,11 @@ def main(argv=None) -> int:
          "max_abs_err": kern["max_abs_err"], **per_step, "bound_by": "bytes",
          "library_ms_call": kern["library_call"],
          "device_ms": round(sum(t[nm]["device_ms"] * SHAPES_8B[nm][2] for nm in SHAPES_8B), 4),
-         "unit": "one llama3-8b decode step at B=4 (225 launches)"},
+         "device_ms_per_call": {nm: round(t[nm]["device_ms"], 4) for nm in SHAPES_8B},
+         "kernels_per_call": sum(kern["kernels_per_call"].values()),
+         "repeat_bit_identical": kern["repeat_bit_identical"], "design": K1_DESIGN,
+         "unit": "one llama3-8b decode step at B=4 (225 launches); device_ms_per_call: "
+                 "one call of each projection at B=4"},
         {"name": "int8_matmul_transposed", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1T_REPLACES, "launches": serve1["launches"]["k1t"],
          "max_abs_err": tied["max_abs_err"], "ms": round(tied["ms"], 4),

@@ -57,6 +57,10 @@
 //   the min and max position of every 64-row chunk (a first small launch,
 //   chunk_minmax_kernel); a tile whose every kv position is <= every q
 //   position of the work tile, and that lies inside S, skips the mask.
+//   Each block keeps two lists (this work tile's and the next one's): in
+//   shared memory up to 512 kv tiles (S 65536), past that in its own part
+//   of a global int32 workspace that the wrapper allocates, so S is bounded
+//   only by int32 arithmetic (2^30).
 // - K/V are read at their own head count: query head h reads kv head
 //   h / (H / KV), so grouped-query attention needs no expanded copy.
 //
@@ -81,7 +85,8 @@ constexpr int kBox = 64;                // rows of a TMA box, of a consumer's q 
                                         // position chunk
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;   // the f32 kernel's block
-constexpr int kMaxS = 1 << 16;          // bounds the kv-tile list in shared memory
+constexpr int kMaxS = 1 << 30;          // rows, tile counts and positions stay in int32
+constexpr int kSmemTiles = 512;         // kv-tile lists up to S 65536 live in shared memory
 constexpr int kPosMin = -2147483647 - 1;
 constexpr int kPosMax = 2147483647;
 
@@ -97,6 +102,7 @@ struct Params {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   float scale;
   const int4* minmax;   // bf16: [B, n_c] (kv min, kv max, q min, q max) of 64-row chunks
+  int* tile_list;       // bf16, n_kt > kSmemTiles: [grid][2][n_kt], the blocks' kv-tile lists
 };
 
 // ---- bf16 kernel: shared-memory plan --------------------------------------
@@ -121,9 +127,9 @@ struct Plan {
   static constexpr int BAR_OFF = 2 * Q_BYTES + 2 * NS * T_BYTES;
   // full[NS], empty[NS], q_full[2], q_empty[2]; then n_visit[2]
   static constexpr int NV_OFF = BAR_OFF + 8 * (2 * NS + 4);
-  static constexpr int LIST_OFF = NV_OFF + 8;         // tiles[2][n_kt]
-  static size_t smem_bytes(int S) {
-    return 1024 + LIST_OFF + 8 * ((S + kBN - 1) / kBN);   // 1024: alignment slack
+  static constexpr int LIST_OFF = NV_OFF + 8;         // tiles[2][list_tiles]
+  static size_t smem_bytes(int list_tiles) {
+    return 1024 + LIST_OFF + 8 * list_tiles;   // 1024: alignment slack
   }
 };
 
@@ -459,7 +465,8 @@ __device__ __forceinline__ void work_tile(int w, int n_qt, int H, int B, int& qt
 }
 
 // Persistent: one block an SM walks work tiles blockIdx.x, + gridDim.x, ...
-template <int D>
+// GLOBAL_LIST: the kv-tile lists live in p.tile_list, not in shared memory.
+template <int D, bool GLOBAL_LIST>
 __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
 flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -481,7 +488,9 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
   const int S = p.S;
   const int n_kt = (S + kBN - 1) / kBN, n_qt = (S + P::BM - 1) / P::BM;
   const int n_c = (S + kBox - 1) / kBox;
-  int* const tiles = reinterpret_cast<int*>(smem + P::LIST_OFF);   // [2][n_kt]; bit 30: no mask
+  // [2][n_kt]; bit 30: no mask.
+  int* const tiles = GLOBAL_LIST ? p.tile_list + static_cast<long long>(blockIdx.x) * 2 * n_kt
+                                 : reinterpret_cast<int*>(smem + P::LIST_OFF);
   const int T = n_qt * p.H * B;                    // work tiles
   const int lane = threadIdx.x % 32;
 
@@ -829,22 +838,22 @@ cudaError_t encode_map(CUtensorMap* map, const void* ptr, int X, int S, int B, l
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
-cudaError_t launch_bf16(const Params& p, int B, cudaStream_t st) {
+template <int D, bool GLOBAL_LIST>
+cudaError_t launch_bf16(const Params& p, int B, long long tile_list_len, cudaStream_t st) {
   using P = Plan<D>;
   static int sms = 0;
   static const cudaError_t ready = [] {
     // Dynamic shared memory above 48 KB needs the kernel's limit raised
     // first; raise it once to the most any S takes.
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(P::smem_bytes(kMaxS)));
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel<D, GLOBAL_LIST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(P::smem_bytes(GLOBAL_LIST ? 0 : kSmemTiles)));
     if (e != cudaSuccess) return e;
     // setmaxnreg moves registers between the warpgroups of the block's
     // launch-time allocation: a kernel compiled to fewer registers than the
     // split needs would wait forever in setmaxnreg.inc, so it never runs.
     cudaFuncAttributes a;
-    e = cudaFuncGetAttributes(&a, flash_fwd_bf16_kernel<D>);
+    e = cudaFuncGetAttributes(&a, flash_fwd_bf16_kernel<D, GLOBAL_LIST>);
     if (e != cudaSuccess) return e;
     if (a.numRegs * P::THREADS < P::PRODUCER_REGS * 128 + P::CONSUMER_REGS * 128 * P::NC) {
       return cudaErrorInvalidConfiguration;
@@ -855,6 +864,12 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t st) {
     return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }();
   if (ready != cudaSuccess) return ready;
+  const long long work = static_cast<long long>((p.S + P::BM - 1) / P::BM) * p.H * B;
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  const int n_kt = (p.S + kBN - 1) / kBN;
+  if (GLOBAL_LIST && (p.tile_list == nullptr || tile_list_len < 2LL * grid * n_kt)) {
+    return cudaErrorInvalidValue;
+  }
   CUtensorMap maps[3];
   cudaError_t e = encode_map<D>(&maps[0], p.q, p.H, p.S, B, p.q_sb, p.q_ss, p.q_sh);
   if (e == cudaSuccess) e = encode_map<D>(&maps[1], p.k, p.KV, p.S, B, p.k_sb, p.k_ss, p.k_sh);
@@ -863,16 +878,19 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t st) {
   const int n_c = (p.S + kBox - 1) / kBox;
   chunk_minmax_kernel<<<dim3(n_c, B), 32, 0, st>>>(p.q_pos, p.kv_pos,
                                                    const_cast<int4*>(p.minmax), p.S, n_c);
-  const long long work = static_cast<long long>((p.S + P::BM - 1) / P::BM) * p.H * B;
-  const int grid = static_cast<int>(work < sms ? work : sms);
-  flash_fwd_bf16_kernel<D><<<grid, P::THREADS, P::smem_bytes(p.S), st>>>(p, B, maps[0],
-                                                                         maps[1], maps[2]);
+  flash_fwd_bf16_kernel<D, GLOBAL_LIST><<<grid, P::THREADS,
+                                         P::smem_bytes(GLOBAL_LIST ? 0 : n_kt), st>>>(
+      p, B, maps[0], maps[1], maps[2]);
   return cudaSuccess;
 }
 
 template <int D>
-cudaError_t launch(const Params& p, int B, bool is_bf16, cudaStream_t st) {
-  if (is_bf16) return launch_bf16<D>(p, B, st);
+cudaError_t launch(const Params& p, int B, bool is_bf16, long long tile_list_len,
+                   cudaStream_t st) {
+  if (is_bf16) {
+    return (p.S + kBN - 1) / kBN > kSmemTiles ? launch_bf16<D, true>(p, B, tile_list_len, st)
+                                              : launch_bf16<D, false>(p, B, tile_list_len, st);
+  }
   const dim3 grid((p.S + kTile32 - 1) / kTile32, p.H, B);
   flash_fwd_f32_kernel<D><<<grid, kThreads, 0, st>>>(p);
   return cudaSuccess;
@@ -883,15 +901,19 @@ cudaError_t launch(const Params& p, int B, bool is_bf16, cudaStream_t st) {
 // q [B,S,H,D], k and v [B,S,KV,D], o [B,S,H,D], all bf16 (is_bf16) or all
 // f32, read and written through `strides`: 12 element strides, (batch, seq,
 // head) for q, k, v, o in that order; D is contiguous. q_pos and kv_pos are
-// int32 [B,S], contiguous. 1 <= S <= 65536, H a multiple of KV, D in {32,
+// int32 [B,S], contiguous. 1 <= S <= 2^30, H a multiple of KV, D in {32,
 // 64, 128}. For bf16, q, k and v are read through tensor maps built here
 // from these strides, so every stride but D's and every base address is a
 // multiple of 16 bytes, and `minmax` is an int32 workspace of B *
-// ceil(S / 64) * 4 (16-byte aligned), unused for f32.
+// ceil(S / 64) * 4 (16-byte aligned), unused for f32. Past S 65536 (more
+// than 512 kv tiles of 128 rows) the bf16 kernel keeps its kv-tile lists
+// in `tile_list`, an int32 workspace of tile_list_len >= 2 * ceil(S / 128)
+// for each SM; it is not read otherwise and may be null.
 extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* v, void* o,
                                       const void* q_pos, const void* kv_pos, void* minmax,
-                                      int B, int S, int H, int KV, int D,
-                                      const long long* strides, int is_bf16, void* stream) {
+                                      void* tile_list, long long tile_list_len, int B, int S,
+                                      int H, int KV, int D, const long long* strides,
+                                      int is_bf16, void* stream) {
   if (B < 1 || S < 1 || S > kMaxS || KV < 1 || H % KV) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -903,6 +925,7 @@ extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* 
   p.q_pos = static_cast<const int*>(q_pos);
   p.kv_pos = static_cast<const int*>(kv_pos);
   p.minmax = static_cast<const int4*>(minmax);
+  p.tile_list = static_cast<int*>(tile_list);
   p.S = S;
   p.H = H;
   p.KV = KV;
@@ -914,9 +937,9 @@ extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
-    case 32: err = launch<32>(p, B, is_bf16 != 0, st); break;
-    case 64: err = launch<64>(p, B, is_bf16 != 0, st); break;
-    case 128: err = launch<128>(p, B, is_bf16 != 0, st); break;
+    case 32: err = launch<32>(p, B, is_bf16 != 0, tile_list_len, st); break;
+    case 64: err = launch<64>(p, B, is_bf16 != 0, tile_list_len, st); break;
+    case 128: err = launch<128>(p, B, is_bf16 != 0, tile_list_len, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -10,66 +10,74 @@
 // sum, and one cast produces the output in h's dtype (bf16, or f32).
 //
 // Bound. Decode runs B <= 64 rows against weights read once per step, so
-// the kernel is bound by bytes, not operations:
+// the kernels are bound by bytes, not operations:
 //     bytes = K*N (int8 weights) + 4*N (scales) + e*B*K (h) + e*B*N (out),
 // e = 2 for bf16; at B = 4 the weights are > 99% of it, and the least time
 // is bytes / HBM bandwidth (3.35 TB/s on an H100 SXM). The operations,
 // 2*B*K*N, are far below the tensor cores' line at this B.
 //
-// Design against that bound:
-// - Each thread reads 16 contiguous int8 weights with one 16-byte load
-//   (along N for q[K,N], along K for q[N,K]); a warp's loads cover 512
-//   contiguous bytes, so every weight byte crosses HBM once, coalesced.
-// - The weights are converted to f32 in registers; no bf16 copy of the
-//   weights exists anywhere.
-// - The TPU kernel walks N tiles in order on one core. Hopper needs enough
-//   independent blocks for 132 SMs (wk/wv have N = 1024: 2 column tiles),
-//   so the grid splits N tiles *and* K slices. The K slice of h is staged
-//   in shared memory once per block.
-// - Each K slice writes f32 partial sums to a workspace; a second small
-//   kernel sums the slices in a fixed order, applies s and casts. No
-//   atomics: results are bit-reproducible run to run.
-// - Rows of h are taken RB at a time (RB in {1,2,4,8}) as a grid axis, so
-//   B needs no padding; the accumulators of all RB rows stay in registers.
-// - Experts with f32 activations (kukeon_int8_matmul_expert; the f32
-//   models and tests, not speed): K1's body with the grid's z axis expert x
-//   row group, every pointer stepping by its expert's stride, so all E
-//   weight stacks stream in one launch and the reduce is one launch too.
-//   The workspace is [K/ks, E*C, N]: expert e's rows sit at e*C.., so the
-//   reduce is K1's with a per-expert scale row. The expert arithmetic is a
-//   template branch (GROUPED), so K1's instantiations compile to the code
-//   they had before the grouped form existed.
-// - Experts with bf16 activations (the Mixtral decode path) take their own
-//   kernel, int8_mm_expert_bf16_kernel, the same workspace and reduce.
-//   At C = 4 the grouped product streams 470 MB of weights a call, and
-//   three things kept K1's body at 2.3x its bound: weights no token needs
-//   (dense dispatch leaves an expert that no token chose with activation
-//   rows that are exactly 0), the int8 -> f32 conversion (I2F runs at a
-//   quarter rate, about as fast as the bytes arrive) plus 4 FMAs a weight,
-//   and one 16-byte load in flight per thread. The bf16 design:
-//   * Zero-expert skip: a block first stages its activation rows (its
-//     expert, 8-row group and K slice); when every one is exactly 0 it
-//     loads no weights and writes +0 partials. That is the sum the full
-//     product gives (+0 products summed into +0; int8 weights and finite
-//     activations make no NaN), so the output is bit-identical.
-//   * The weights stream through a 4-stage cp.async ring in shared memory
-//     (16 KB stages of 128 k rows x 128 columns, 48 KB in flight per
-//     block, two blocks an SM), XOR-swizzled so that the fragment reads
-//     are free of bank conflicts.
-//   * The product runs on mma.sync.m16n8k16 in bf16, as the TPU kernel
-//     dequantises to bf16 for its matrix unit: weights are the A operand
-//     (16 output columns by 16 k), the activation rows the B operand (C
-//     padded to the mma's 8). int8 is exact in bf16 and every product is
-//     exact in the f32 accumulator. The conversion costs 2.5 ALU
-//     operations a weight (prmt into the f32 0x4B0000xx pattern, one
-//     fadd, a prmt that keeps the upper halves), not I2F.
-//   * Each warp sums one 16-row k step of every stage; the 8 warps are
-//     summed in shared memory in order, the K slices by the reduce kernel
-//     in order, as K1: no atomics, bit-reproducible.
+// K1 with bf16 activations (int8_mm_bf16_kernel; every llama3-8b and
+// Mixtral trunk decode projection). Three things held the f32-FMA body
+// below (still the f32 and transposed routes) at 3.6x its bound: the int8
+// -> f32 conversion (I2F runs at a quarter rate) plus RB FMAs a weight,
+// one 16-byte load in flight per thread, and a second launch that summed
+// the K slices' f32 partials. Against pure streaming reads of the same
+// tiles, what then remained lay at each block's end, where it streams
+// nothing: the sum across its warps (a shared-memory pass that was 16-way
+// bank-conflicted) and across the K slices (f32 partials through global
+// memory, a fence and an atomic, each a loaded round trip). The design:
+// - One block per (128-column tile, K slice, 8-row group of h): every row
+//   of q is read as whole 128-byte lines. The K slices of a (tile, row
+//   group), at most 8 (k_slice_bf16 in ops/int8_matmul.py: wq/wo 32 tiles
+//   x 4 slices, wk/wv 8 x 8, the MLP 112 or 32 tiles x 2 or 7, the head
+//   1002 x 2), form one thread block cluster.
+// - The weights stream through a 4-stage cp.async ring in shared memory
+//   (16 KB stages of 128 k rows x 128 columns, 48 KB in flight per block,
+//   two blocks an SM), XOR-swizzled so that the fragment reads are free of
+//   bank conflicts. Each stage also brings its 128 k of the rows of h, so
+//   a K slice of any length fits.
+// - The product runs on mma.sync.m16n8k16 in bf16, as the TPU kernel
+//   dequantises to bf16 for its matrix unit: weights are the A operand (16
+//   output columns by 16 k), the rows of h the B operand (padded to the
+//   mma's 8). int8 is exact in bf16 and every product is exact in the f32
+//   accumulator. The conversion costs 2.5 ALU operations a weight (prmt
+//   into the f32 0x4B0000xx pattern, one fadd, a prmt that keeps the upper
+//   halves), not I2F.
+// - One launch, no partials in global memory: each block sums its 8 warps
+//   in shared memory in order; after a cluster barrier, each block of the
+//   cluster takes a share of the outputs, reads the slices' sums through
+//   distributed shared memory in slice order, applies s in f32, casts once
+//   and writes out. Every sum has a fixed order, so the output is
+//   bit-identical run to run.
+// Rows of h past 8 take further 8-row groups on the grid (each re-reads
+// the weights; decode runs B = 4).
 //
-// C interface, loaded with ctypes: kukeon_int8_matmul(...) and
-// kukeon_int8_matmul_expert(...) return cudaGetLastError() after both
-// launches (0 = success), or the error of the launch's set-up.
+// The f32 and transposed routes keep the first design: one 16-byte
+// __ldg of int8 weights a thread a k row, f32 FMAs, N tiles x K slices
+// into an f32 workspace, and reduce_scale_kernel as a second launch that
+// sums the slices in a fixed order. Rows of h are taken RB at a time (RB
+// in {1,2,4,8}) as a grid axis; the accumulators of all RB rows stay in
+// registers. Experts with f32 activations take the same body with the
+// grid's z axis expert x row group (GROUPED), every pointer stepping by its
+// expert's stride.
+//
+// Experts with bf16 activations (the Mixtral decode path) take
+// int8_mm_expert_bf16_kernel, the design K1's bf16 kernel grew from: the
+// same tiles, ring and mma body, with each K slice of x staged once and
+// the slices summed by reduce_scale_kernel, a second launch. At C = 4 the
+// grouped product streams 470 MB of weights a call. On top of the body it
+// skips weights no token needs: a block first
+// stages its activation rows (its expert, 8-row group and K slice); when
+// every one is exactly 0 (dense dispatch leaves an expert that no token
+// chose with zero rows) it loads no weights and writes +0 partials. That
+// is the sum the full product gives (+0 products summed into +0; int8
+// weights and finite activations make no NaN), so the output is
+// bit-identical.
+//
+// C interface, loaded with ctypes: kukeon_int8_matmul(...),
+// kukeon_int8_matmul_bf16(...) and kukeon_int8_matmul_expert(...) return
+// cudaGetLastError() after their launches (0 = success), or the error of
+// the launch's set-up.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -472,6 +480,201 @@ cudaError_t launch_expert_bf16(const void* x, const void* q, const void* s, void
   return cudaSuccess;
 }
 
+// ---- K1, bf16 activations: one launch, the K slices summed in a cluster ---
+
+constexpr int kBThreads = 256;
+constexpr int kBNTile = 128;               // output columns per block
+constexpr int kBKStage = 128;              // k rows per ring stage
+constexpr int kBStages = 4;
+constexpr int kBRows = 8;                  // rows of h per block (the mma's n)
+constexpr int kBHld = kBKStage + 8;        // padded h row: the B fragment reads miss no bank twice
+constexpr int kBWBytes = kBKStage * kBNTile;                 // a stage's weights, 16 KB
+constexpr int kBStageBytes = kBWBytes + kBRows * kBHld * 2;  // and its rows of h
+constexpr int kBSmemBytes = kBStages * kBStageBytes;
+constexpr int kBMaxSplits = 8;             // K slices in a cluster: the portable cluster size
+constexpr int kBRedLd = kBNTile + 4;       // padded row of the warps' sums
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The float at `p` in this block's shared memory, read from the block of
+// cluster rank `rank` (the same offset in its shared memory).
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))),
+                 "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// h [B,K] bf16 @ q [K,N] int8 * s [N] -> out [B,N] bf16. Block (x, y, z) =
+// (128-column tile, K slice, 8-row group); the K/ks slices of a (tile, row
+// group) form one cluster, rank = slice. A ring stage holds 128 k rows x
+// 128 columns of q, row r's 16-byte chunk ch at chunk ch ^ 2((r/2)%4), then
+// the stage's 128 k of each row of h (rows past B are zero). Warp w takes
+// k rows [16w, 16w+16) of every stage. Lane (g, t) reads chunk g of rows
+// 2t, 2t+1, 2t+8, 2t+9: columns 16g..16g+15, which feed the A rows g and
+// g+8 of 8 mma tiles (tile j: columns 16g+2j, 16g+2j+1).
+__global__ void __launch_bounds__(kBThreads, 2)
+int8_mm_bf16_kernel(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ q,
+                    const float* __restrict__ s, __nv_bfloat16* __restrict__ out, int B, int K,
+                    int N, int ks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kBNTile;
+  const int k0 = blockIdx.y * ks;
+  const int b0 = blockIdx.z * kBRows;
+  const int rows = min(kBRows, B - b0);
+  const int8_t* qs = q + static_cast<size_t>(k0) * N + n0;
+  const __nv_bfloat16* hs = h + static_cast<size_t>(b0) * K + k0;
+
+  // Rows of h past B stay zero in every stage; the loop's first barrier
+  // publishes them.
+  for (int i = threadIdx.x; i < kBStages * kBRows * (kBKStage / 8); i += kBThreads) {
+    const int st = i / (kBRows * (kBKStage / 8)), r = i / (kBKStage / 8) % kBRows;
+    const int c = i % (kBKStage / 8);
+    if (r >= rows) {
+      *reinterpret_cast<int4*>(smem + st * kBStageBytes + kBWBytes + (r * kBHld + c * 8) * 2) =
+          make_int4(0, 0, 0, 0);
+    }
+  }
+
+  const int n_stages = ks / kBKStage;
+  const auto load_stage = [&](int i) {
+    unsigned char* dst = smem + (i % kBStages) * kBStageBytes;
+    const int8_t* src = qs + static_cast<size_t>(i) * kBKStage * N;
+#pragma unroll
+    for (int it = 0; it < kBWBytes / 16 / kBThreads; ++it) {
+      const int idx = threadIdx.x + it * kBThreads;
+      const int r = idx >> 3, ch = idx & 7;
+      cp_async16(dst + r * kBNTile + ((ch ^ (((r >> 1) & 3) << 1)) << 4),
+                 src + static_cast<size_t>(r) * N + ch * 16);
+    }
+    if (threadIdx.x < rows * (kBKStage / 8)) {
+      const int r = threadIdx.x / (kBKStage / 8), c = threadIdx.x % (kBKStage / 8);
+      cp_async16(dst + kBWBytes + (r * kBHld + c * 8) * 2,
+                 hs + static_cast<size_t>(r) * K + i * kBKStage + c * 8);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kBStages - 1; ++i) {
+    if (i < n_stages) load_stage(i);
+    cp_async_commit();
+  }
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+
+  const int rb = warp * 16;
+  const int rr[4] = {rb + 2 * t, rb + 2 * t + 1, rb + 2 * t + 8, rb + 2 * t + 9};
+  for (int i = 0; i < n_stages; ++i) {
+    cp_async_wait<kBStages - 2>();
+    __syncthreads();                     // stage i landed; stage i - 1 is free
+    if (i + kBStages - 1 < n_stages) load_stage(i + kBStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % kBStages) * kBStageBytes;
+    uint32_t w[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          st + rr[m] * kBNTile + ((g ^ (((rr[m] >> 1) & 3) << 1)) << 4));
+      w[m][0] = v.x ^ 0x80808080u;
+      w[m][1] = v.y ^ 0x80808080u;
+      w[m][2] = v.z ^ 0x80808080u;
+      w[m][3] = v.w ^ 0x80808080u;
+    }
+    const __nv_bfloat16* hb =
+        reinterpret_cast<const __nv_bfloat16*>(st + kBWBytes) + g * kBHld + rb + 2 * t;
+    const uint32_t b0r = *reinterpret_cast<const uint32_t*>(hb);
+    const uint32_t b1r = *reinterpret_cast<const uint32_t*>(hb + 8);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t byte = 2 * (j & 1);
+      const uint32_t a[4] = {i8x2_to_bf16x2(w[0][j >> 1], w[1][j >> 1], byte),
+                             i8x2_to_bf16x2(w[0][j >> 1], w[1][j >> 1], byte + 1),
+                             i8x2_to_bf16x2(w[2][j >> 1], w[3][j >> 1], byte),
+                             i8x2_to_bf16x2(w[2][j >> 1], w[3][j >> 1], byte + 1)};
+      mma_bf16(acc[j], a, b0r, b1r);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Sum the warps in order through red[warp][row][column] over the ring
+  // into this slice's part[row][column]. A lane holds columns 16g..16g+15
+  // of rows 2t and 2t+1: four float4 stores a row, rows padded to kBRedLd
+  // floats so that a quarter-warp's stores meet at most two to a bank.
+  float* red = reinterpret_cast<float*>(smem);
+  float* part = red + (kBThreads / 32) * kBRows * kBRedLd;
+  float* mine = red + (warp * kBRows + 2 * t) * kBRedLd + 16 * g;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    *reinterpret_cast<float4*>(mine + 4 * c) =
+        make_float4(acc[2 * c][0], acc[2 * c][2], acc[2 * c + 1][0], acc[2 * c + 1][2]);
+    *reinterpret_cast<float4*>(mine + kBRedLd + 4 * c) =
+        make_float4(acc[2 * c][1], acc[2 * c][3], acc[2 * c + 1][1], acc[2 * c + 1][3]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * kBNTile; i += kBThreads) {
+    const int r = i / kBNTile, n = i % kBNTile;
+    float sum = 0.f;
+#pragma unroll
+    for (int w2 = 0; w2 < kBThreads / 32; ++w2) sum += red[(w2 * kBRows + r) * kBRedLd + n];
+    part[i] = sum;
+  }
+
+  // Each block of the cluster finishes its share of the outputs: it sums
+  // the slices' parts in slice order through distributed shared memory,
+  // scales and casts once. The second barrier keeps every block's shared
+  // memory alive until the others have read it.
+  cluster_sync();
+  const int splits = gridDim.y;
+  for (int i = threadIdx.x + static_cast<int>(cluster_rank()) * kBThreads; i < rows * kBNTile;
+       i += kBThreads * splits) {
+    const int r = i / kBNTile, n = i % kBNTile;
+    float sum = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < splits; ++sp) sum += ld_cluster(part + i, sp);
+    out[static_cast<size_t>(b0 + r) * N + n0 + n] = __float2bfloat16_rn(sum * __ldg(s + n0 + n));
+  }
+  cluster_sync();
+}
+
+cudaError_t launch_bf16(const void* h, const void* q, const void* s, void* out, int B, int K,
+                        int N, int ks, cudaStream_t st) {
+  static const cudaError_t raised = cudaFuncSetAttribute(
+      int8_mm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmemBytes);
+  if (raised != cudaSuccess) return raised;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / kBNTile, K / ks, (B + kBRows - 1) / kBRows);
+  cfg.blockDim = dim3(kBThreads);
+  cfg.dynamicSmemBytes = kBSmemBytes;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = K / ks;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_mm_bf16_kernel, static_cast<const __nv_bfloat16*>(h),
+                            static_cast<const int8_t*>(q), static_cast<const float*>(s),
+                            static_cast<__nv_bfloat16*>(out), B, K, N, ks);
+}
+
 template <typename T, int RB>
 cudaError_t launch_mm(const void* h, const void* q, void* ws, int E, int B, int K, int N, int ks,
                       bool transpose, cudaStream_t st) {
@@ -482,23 +685,22 @@ cudaError_t launch_mm(const void* h, const void* q, void* ws, int E, int B, int 
     int8_mm_t_kernel<T, RB><<<grid, kThreads, 0, st>>>(
         static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
         B, K, N, ks);
-  } else if (E > 1) {
-    // Experts take K1's body only with f32 activations; bf16 ones have
-    // int8_mm_expert_bf16_kernel, so no bf16 instantiation is built here,
-    // and a bf16 call refuses rather than leave the workspace unwritten.
-    if constexpr (std::is_same_v<T, float>) {
-      const dim3 grid((N + kNTile - 1) / kNTile, splits, groups * E);
+  } else if constexpr (std::is_same_v<T, float>) {
+    const dim3 grid((N + kNTile - 1) / kNTile, splits, groups * E);
+    if (E > 1) {
       int8_mm_kernel<T, RB, true><<<grid, kThreads, 0, st>>>(
           static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
           B, K, N, ks, groups, E);
     } else {
-      return cudaErrorInvalidValue;
+      int8_mm_kernel<T, RB, false><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
+          B, K, N, ks, groups, 1);
     }
   } else {
-    const dim3 grid((N + kNTile - 1) / kNTile, splits, groups);
-    int8_mm_kernel<T, RB, false><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
-        B, K, N, ks, groups, 1);
+    // bf16 activations against q [K,N] take int8_mm_bf16_kernel (E = 1)
+    // or int8_mm_expert_bf16_kernel, so no bf16 instantiation is built
+    // here, and a call refuses rather than leave the workspace unwritten.
+    return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
@@ -542,7 +744,8 @@ bool bad_dims(int B, int K, int N, int ks) {
 
 // h [B,K] (bf16 when is_bf16, else f32), q int8 [K,N] or [N,K] (transpose),
 // s f32 [N], out [B,N] in h's dtype, ws f32 [K/ks, B, N]. K and N multiples
-// of 128 (so of 16), ks divides K and is at most 512, 1 <= B <= 64.
+// of 128 (so of 16), ks divides K and is at most 512, 1 <= B <= 64. bf16
+// only with transpose: bf16 against q [K,N] is kukeon_int8_matmul_bf16.
 extern "C" int kukeon_int8_matmul(const void* h, const void* q, const void* s, void* out,
                                   void* ws, int B, int K, int N, int ks, int transpose,
                                   int is_bf16, void* stream) {
@@ -551,6 +754,21 @@ extern "C" int kukeon_int8_matmul(const void* h, const void* q, const void* s, v
   const cudaError_t err =
       is_bf16 ? launch_all<__nv_bfloat16>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st)
               : launch_all<float>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h [B,K] bf16 @ q int8 [K,N] * s f32 [N] -> out [B,N] bf16 in one launch.
+// 1 <= B <= 64, K and N multiples of 128, ks a multiple of 128 that divides
+// K into at most 8 slices; h and q 16-byte aligned.
+extern "C" int kukeon_int8_matmul_bf16(const void* h, const void* q, const void* s, void* out,
+                                       int B, int K, int N, int ks, void* stream) {
+  if (B < 1 || B > 64 || K % 128 || N % 128 || ks < kBKStage || ks % kBKStage || K % ks ||
+      K / ks > kBMaxSplits) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = launch_bf16(h, q, s, out, B, K, N, ks,
+                                      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -99,6 +99,9 @@ def load_int8_matmul() -> ctypes.CDLL:
     # h, q, s, out, ws, B, K, N, ks, transpose, is_bf16, stream
     lib.kukeon_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.kukeon_int8_matmul.restype = ctypes.c_int
+    # h, q, s, out, B, K, N, ks, stream
+    lib.kukeon_int8_matmul_bf16.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.kukeon_int8_matmul_bf16.restype = ctypes.c_int
     # x, q, s, out, ws, E, C, K, N, ks, is_bf16, stream
     lib.kukeon_int8_matmul_expert.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.kukeon_int8_matmul_expert.restype = ctypes.c_int
@@ -111,10 +114,12 @@ def load_flash_attention() -> ctypes.CDLL:
     path, _log, _secs = build(FLASH_ATTENTION)
     lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
-    # q, k, v, o, q_pos, kv_pos, tile min/max workspace, B, S, H, KV, D,
-    # strides (12 x int64), tensor-map geometry (33 x int64), is_bf16, stream
+    # q, k, v, o, q_pos, kv_pos, tile min/max workspace, kv-tile list
+    # workspace and its length, B, S, H, KV, D, strides (12 x int64),
+    # is_bf16, stream
     L = ctypes.POINTER(ctypes.c_longlong)
-    lib.kukeon_flash_attention.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, L, I, P]
+    lib.kukeon_flash_attention.argtypes = [P, P, P, P, P, P, P, P, ctypes.c_longlong,
+                                           I, I, I, I, I, L, I, P]
     lib.kukeon_flash_attention.restype = ctypes.c_int
     return lib
 

@@ -23,9 +23,11 @@ Routes, by where the tensors lie:
   softmax hides behind the other's products. A first small launch takes
   the min and max position of every 64-row chunk, from which the tile
   lists follow. f32 runs a plain-FMA kernel, for the f32 models and
-  tests. D must be 32, 64 or 128 and S at least 128 and at most 65536; a
-  ragged last tile is fine (TMA zero-fills, the kernel masks). bf16
-  operands need every
+  tests. D must be 32, 64 or 128 and S at least 128 and at most 2^30; a
+  ragged last tile is fine (TMA zero-fills, the kernel masks). Past S
+  65536 (512 kv tiles) the kernel's kv-tile lists no longer fit shared
+  memory and go to an int32 workspace allocated here, one part per SM.
+  bf16 operands need every
   stride and base address a multiple of 16 bytes (:func:`check_tma_operand`):
   the launch builds the tensor maps per call over the caller's strides.
   Anything else raises, and so does a failed build or launch.
@@ -55,7 +57,8 @@ from kukeon_tpu_torch.ops.attention import attention_mask, attention_reference, 
 
 BOX = 64             # rows of a position chunk (bf16 kernel)
 MIN_S = 128
-MAX_S = 1 << 16
+MAX_S = 1 << 30
+SMEM_TILES = 512     # kv-tile lists of up to this many 128-row tiles stay in shared memory
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -135,11 +138,19 @@ def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
     # Per 64-row chunk: min and max of the kv and q positions (the kernel's
     # first launch writes them, its second lists each q tile's kv tiles).
     minmax = torch.empty((B, -(-S // BOX), 4), dtype=torch.int32, device=q.device)
+    n_kt = -(-S // 128)
+    tile_list = None
+    if q.dtype == torch.bfloat16 and n_kt > SMEM_TILES:
+        # One pair of lists for each persistent block (at most one an SM).
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        tile_list = torch.empty(sms * 2 * n_kt, dtype=torch.int32, device=q.device)
     lib = _build.load_flash_attention()
     err = lib.kukeon_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp.data_ptr(),
-        kp.data_ptr(), minmax.data_ptr(), B, S, H, KV, D, (ctypes.c_longlong * 12)(*strides),
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+        kp.data_ptr(), minmax.data_ptr(), None if tile_list is None else tile_list.data_ptr(),
+        0 if tile_list is None else tile_list.numel(), B, S, H, KV, D,
+        (ctypes.c_longlong * 12)(*strides), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} "
                            f"(B={B}, S={S}, H={H}, KV={KV}, D={D}, {q.dtype})")

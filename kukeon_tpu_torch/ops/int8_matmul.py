@@ -7,33 +7,43 @@
 stacks). The product accumulates in f32, the f32 scale multiplies the sum,
 and one cast gives the activation dtype.
 
-Routes, by where the tensors lie (the same for both functions, with C in
-B's place):
+Routes (:func:`_route`, the same for both functions, with C in B's place):
 
 - CPU: :func:`int8_matmul_reference` / :func:`int8_matmul_expert_reference`,
   the plain PyTorch version of the kernel's math.
-- CUDA, B <= 64 (decode): the hand-written kernel in
-  ``kukeon_tpu_torch/csrc/int8_matmul.cu``, built at first use; all E
-  experts in one launch. K and N must be multiples of 128; anything else
-  raises. There is no fallback if the build or the launch fails.
-- CUDA, B > 64 (prefill): dequantize then ``torch.matmul``, scale in the
-  activation dtype — the large product the reference leaves to XLA.
+- CUDA, B <= 64 and K and N multiples of 128 (decode): the hand-written
+  kernels in ``kukeon_tpu_torch/csrc/int8_matmul.cu``, built at first
+  use; all E experts in one launch. There is no fallback if the build or
+  the launch fails.
+- CUDA, anything else: the reference's own fallback
+  (:func:`int8_matmul_dequant`): dequantize, then ``torch.matmul``, scale
+  in the activation dtype. It takes prefill-sized batches, where the large
+  product is the reference's XLA one, and dims off 128 (the tiny models),
+  which the reference's rule sends there too. It launches none of the
+  kernels below and counts nothing.
 
 The kernels replace the Pallas ``_kernel``/``_kernel_t`` and the E
 launches of ``int8_matmul_expert``. Decode reads every weight byte once
-for a few rows, so HBM bandwidth bounds them. The bf16 expert product
-(the Mixtral decode path) has its own design against that bound: a block
-whose activation rows are all exactly 0 (an expert no token chose, under
-dense dispatch) reads no weights and writes +0, which is the full
-product's result bit for bit; the weights stream through a 4-stage
-``cp.async`` ring; and the product runs on ``mma.sync`` in bf16 with an
-exact int8-to-bf16 conversion of 2.5 ALU operations a weight. Its K
-slices (:func:`k_slice_expert`) go up to 2048.
+for a few rows, so HBM bandwidth bounds them. K1 with bf16 activations
+(the llama3-8b and Mixtral trunk projections) is one launch a call:
+128-column tiles by at most 8 K slices (:func:`k_slice_bf16`) stream the
+weights and the rows of h through a 4-stage ``cp.async`` ring, convert the
+weights to bf16 exactly in 2.5 ALU operations a weight, and multiply on
+``mma.sync``; the slices of a column tile form a thread block cluster,
+whose blocks sum them in slice order through distributed shared memory,
+scale and cast, so the output is bit-reproducible and no f32 partial
+reaches global memory. The bf16 expert product (the Mixtral decode path)
+has the same body with the slices summed by a second launch, plus a skip:
+a block whose activation rows are all exactly 0 (an expert no token
+chose, under dense dispatch) reads no weights and writes +0, the full
+product's result bit for bit; its K slices (:func:`k_slice_expert`) go up
+to 2048. The f32 and transposed routes keep the first design (f32 FMAs,
+K slices from :func:`k_slice`, a second launch for the sum).
 
-``int8_matmul.launches`` and ``int8_matmul_expert.launches`` count kernel
-launches (one per call that reached the kernel), so a run can show the
-decode path went through them; ``int8_matmul.launches_t`` counts the
-transposed ones among the first.
+``int8_matmul.launches`` and ``int8_matmul_expert.launches`` count calls
+that launched a kernel (one per call that reached the kernel), so a run
+can show the decode path went through them; ``int8_matmul.launches_t``
+counts the transposed ones among the first.
 """
 
 from __future__ import annotations
@@ -45,6 +55,10 @@ from kukeon_tpu_torch.ops import _build
 MAX_B = 64
 # Enough blocks for two per SM on a 132-SM H100.
 _TARGET_BLOCKS = 264
+# K1's bf16 kernel: about one block an SM, and at most 8 K slices (the
+# portable cluster size, over which the kernel sums the slices).
+_BF16_BLOCKS = 128
+_BF16_MAX_SPLITS = 8
 # The bf16 expert kernel: about four waves of its two blocks an SM, so that
 # blocks that skip (no token) or finish early leave no long tail.
 _EXPERT_BLOCKS = 1024
@@ -65,6 +79,31 @@ def int8_matmul_expert_reference(x: torch.Tensor, q: torch.Tensor,
     products, f32 scale, one cast to ``x.dtype``."""
     acc = torch.bmm(x.float(), q.float())
     return (acc * s.float()[:, None, :]).to(x.dtype)
+
+
+def int8_matmul_dequant(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                        *, transpose: bool = False) -> torch.Tensor:
+    """The reference's fallback: q cast to ``h.dtype``, one matmul in that
+    dtype, then the scale in that dtype."""
+    w = q.to(h.dtype)
+    return (h @ (w.T if transpose else w)) * s.to(h.dtype)
+
+
+def int8_matmul_expert_dequant(x: torch.Tensor, q: torch.Tensor,
+                               s: torch.Tensor) -> torch.Tensor:
+    """The reference's fallback per expert, in ``x.dtype`` throughout."""
+    return torch.bmm(x, q.to(x.dtype)) * s[:, None, :].to(x.dtype)
+
+
+def _route(device_type: str, B: int, K: int, N: int) -> str:
+    """Which route a call takes: "plain" (CPU), "kernel" (CUDA at decode
+    shapes the kernels take) or "dequant" (CUDA otherwise: the reference
+    falls back for B > 64 or K or N not a multiple of 128)."""
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"int8_matmul: unsupported device type {device_type}")
+    return "dequant" if B > MAX_B or K % 128 or N % 128 else "kernel"
 
 
 def _check(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -120,6 +159,20 @@ def k_slice_expert(C: int, K: int, N: int, E: int) -> int:
     return fits[-1]
 
 
+def k_slice_bf16(B: int, K: int, N: int) -> int:
+    """K slice of K1's bf16 kernel: a multiple of 128 that divides K into
+    at most 8 slices; the largest such up to 2048 that still gives
+    ``_BF16_BLOCKS`` blocks (128-column tiles x 8-row groups x slices),
+    else the smallest (the most blocks)."""
+    m = K // 128
+    fits = [128 * d for d in range(m, 0, -1) if m % d == 0 and m // d <= _BF16_MAX_SPLITS]
+    tiles = (N // 128) * -(-B // 8)
+    for ks in fits:
+        if ks <= 2048 and tiles * (K // ks) >= _BF16_BLOCKS:
+            return ks
+    return fits[-1]
+
+
 def int8_matmul(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                 *, transpose: bool = False) -> torch.Tensor:
     """h [B, K] @ int8 weights, dequantized on the fly.
@@ -128,26 +181,26 @@ def int8_matmul(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     ``transpose=True``:  q [N, K], s [N] -> out [B, N]
     """
     B, K, N = _check(h, q, s, transpose)
-    if h.device.type == "cpu":
+    route = _route(h.device.type, B, K, N)
+    if route == "plain":
         return int8_matmul_reference(h, q, s, transpose=transpose)
-    if h.device.type != "cuda":
-        raise ValueError(f"int8_matmul: unsupported device {h.device}")
-    if B > MAX_B:
-        w = q.to(h.dtype)
-        return (h @ (w.T if transpose else w)) * s.to(h.dtype)
-    if K % 128 or N % 128:
-        raise ValueError(f"int8_matmul kernel takes K and N multiples of 128; "
-                         f"got K={K}, N={N}")
-    if q.data_ptr() % 16:
-        raise ValueError("int8_matmul kernel wants q 16-byte aligned")
+    if route == "dequant":
+        return int8_matmul_dequant(h, q, s, transpose=transpose)
+    if q.data_ptr() % 16 or h.data_ptr() % 16:
+        raise ValueError("int8_matmul kernel wants h and q 16-byte aligned")
     lib = _build.load_int8_matmul()
-    ks = k_slice(B, K, N, transpose)
     out = torch.empty((B, N), dtype=h.dtype, device=h.device)
-    ws = torch.empty((K // ks, B, N), dtype=torch.float32, device=h.device)
-    err = lib.kukeon_int8_matmul(
-        h.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        B, K, N, ks, int(transpose), int(h.dtype == torch.bfloat16),
-        torch.cuda.current_stream(h.device).cuda_stream)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    if h.dtype == torch.bfloat16 and not transpose:
+        ks = k_slice_bf16(B, K, N)
+        err = lib.kukeon_int8_matmul_bf16(h.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                          out.data_ptr(), B, K, N, ks, stream)
+    else:
+        ks = k_slice(B, K, N, transpose)
+        ws = torch.empty((K // ks, B, N), dtype=torch.float32, device=h.device)
+        err = lib.kukeon_int8_matmul(
+            h.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            B, K, N, ks, int(transpose), int(h.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err} "
                            f"(B={B}, K={K}, N={N}, ks={ks}, transpose={transpose})")
@@ -189,15 +242,11 @@ def int8_matmul_expert(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tor
     On CUDA with bf16 x, rows of x that are exactly 0 cost no weight reads
     (the kernel skips a block whose rows are all 0) and come out +0."""
     E, C, K, N = _check_expert(x, q, s)
-    if x.device.type == "cpu":
+    route = _route(x.device.type, C, K, N)
+    if route == "plain":
         return int8_matmul_expert_reference(x, q, s)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_matmul_expert: unsupported device {x.device}")
-    if C > MAX_B:
-        return torch.bmm(x, q.to(x.dtype)) * s[:, None, :].to(x.dtype)
-    if K % 128 or N % 128:
-        raise ValueError(f"int8_matmul_expert kernel takes K and N multiples of 128; "
-                         f"got K={K}, N={N}")
+    if route == "dequant":
+        return int8_matmul_expert_dequant(x, q, s)
     if q.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError("int8_matmul_expert kernel wants x and q 16-byte aligned")
     lib = _build.load_int8_matmul()

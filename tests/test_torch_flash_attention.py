@@ -202,3 +202,56 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(shape, match):
     pos = torch.zeros(shape[:2], dtype=torch.int32)
     with pytest.raises(ValueError, match=match):
         tfa._launch(x, x, x, pos, pos)
+
+
+def test_max_s_admits_every_long_s_that_supports_admits():
+    """The kernel's bound sits far past what the JAX rule admits in use:
+    65792 (the first S above 65536 that ``supports`` takes) and longer."""
+    for S in (65536, 65792, 1 << 17, 1 << 20):
+        assert tfa.supports(S, S) and jfa.supports(S, S)
+        assert tfa.MIN_S <= S <= tfa.MAX_S
+
+
+class _FakeFlashLib:
+    """Stands in for the built library: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def kukeon_flash_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("S, listed", [(2048, False), (65792, True)])
+def test_wrapper_passes_long_s_to_the_kernel_with_a_tile_list(monkeypatch, S, listed):
+    """Past 512 kv tiles (S 65536) the wrapper gives the bf16 kernel a
+    kv-tile list workspace of two lists an SM; below, none. Nothing is
+    refused before the launch."""
+    from types import SimpleNamespace
+
+    lib = _FakeFlashLib()
+    monkeypatch.setattr(tfa._build, "load_flash_attention", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tfa.flash_attention, "launches", 0)
+    x = torch.zeros((1, S, 1, 32), dtype=torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32)[None, :]
+    out = tfa._launch(x, x, x, pos, pos)
+    assert out.shape == x.shape and tfa.flash_attention.launches == 1
+    (args,) = lib.calls
+    tile_list, tile_list_len, B, S_arg = args[7:11]
+    assert (B, S_arg) == (1, S)
+    if listed:
+        assert tile_list is not None and tile_list_len == 132 * 2 * -(-S // 128)
+    else:
+        assert tile_list is None and tile_list_len == 0
+
+
+def test_wrapper_refuses_s_past_max_s():
+    S = tfa.MAX_S + 256
+    x = torch.zeros((1, 1, 1, 32), dtype=torch.bfloat16).expand(1, S, 1, 32)
+    pos = torch.zeros((1, 1), dtype=torch.int32).expand(1, S)
+    with pytest.raises(ValueError, match="S >= 128 and <="):
+        tfa._launch(x, x, x, pos, pos)

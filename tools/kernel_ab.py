@@ -43,6 +43,8 @@ def summarise(cs, res: dict) -> dict:
         t = res["kernel"]["timings"]
         out["k1_step"] = {f: round(sum(t[nm][f] * n for nm, (_k, _n, n) in cs.SHAPES_8B.items()),
                                    4) for f in ("ms", "device_ms", "bound_ms")}
+        out["k1_device_ms_by_projection"] = {nm: round(t[nm]["device_ms"], 4)
+                                             for nm in cs.SHAPES_8B}
         out["k1t"] = {f: round(t["tied_head_1b"][f], 4) for f in ("ms", "device_ms", "bound_ms")}
     if "flash" in res:
         ft = res["flash"]["timing"]
@@ -54,6 +56,7 @@ def summarise(cs, res: dict) -> dict:
                           "device_ms": round(sum(dev[nm].values()), 4),
                           "bound_ms": round(tm[nm]["bound_ms"], 4),
                           "routed_ms": round(tm[nm + "_routed"]["ms"], 4),
+                          "routed_device_ms": round(tm[nm + "_routed"]["device_ms"], 4),
                           "routed_bound_ms": round(tm[nm + "_routed"]["bound_ms"], 4)}
                      for nm in ("w_gate", "w_down")}
         out["k2"]["empty_experts"] = moe["empty_experts"]
