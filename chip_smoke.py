@@ -15,12 +15,17 @@ time; any failure ends the run with a nonzero exit and no result line:
               and HMMA (mma.sync) instructions in each kernel's SASS
               (cuobjdump), which shows the tensor-core path was compiled in
   kernel      int8_matmul vs int8_matmul_reference at every llama3-8b decode
-              shape (and the llama3-1b tied head, transposed), B in
-              {1, 3, 4, 16, 64}; at B = 4: kernel, plain and library times
+              shape, and transposed (q [N,K]) at the llama3-1b tied head and
+              at (K, N) (4096, 4096), (4096, 1024) and (14336, 4096), B in
+              {1, 3, 4, 16, 64}; f32 h (the first design's kernels) at
+              4096 x 4096, B 4, and transposed at the tied head, every B;
+              at B = 4: kernel, plain and library times
               (CUDA events, median of 20 cold-L2 runs) beside the bound, and
               the kernel's device time by projection (torch.profiler, cold
-              L2); one bf16 call is one kernel launch (profiler), and a
-              second call at every 8B shape, B 4 and 64, is bit-identical
+              L2; the three extra transposed shapes: device time only); one
+              bf16 call is one kernel launch (profiler), and a second call
+              at every 8B shape and at the tied head, B 4 and 64, is
+              bit-identical
   flash       flash_attention vs flash_attention_reference: llama3-1b
               training heads (B 4, S 2048, H 32, KV 8, D 64), llama3-8b heads
               (B 1, S 1024, D 128), offset positions, KV = H, a ragged S
@@ -119,6 +124,11 @@ K1_DESIGN = ("bf16: one launch; 128-column tiles x at most 8 K slices, 4-stage c
              "ring of weights and rows of h, mma.sync m16n8k16 with exact prmt/fadd "
              "int8->bf16; the slices of a tile form a cluster that sums them in slice "
              "order through distributed shared memory")
+K1T_DESIGN = ("bf16: one launch; 128-row tiles of q x K slices (2 at the 1B head), the "
+              "rows of q as mma.sync m16n8k16's A operand as they lie, each warp summing "
+              "its own 16 columns over every k; K1's 4-stage cp.async ring and exact "
+              "prmt/fadd int8->bf16 (adjacent k of one row); slices summed in a cluster "
+              "in slice order through distributed shared memory")
 K2_DESIGN = ("bf16: zero-expert skip, 4-stage cp.async weight ring, mma.sync "
              "m16n8k16 with exact prmt/fadd int8->bf16, fixed-order split-K reduce")
 MOE_TOKENS, MOE_TOP_K = 4, 2
@@ -129,6 +139,9 @@ SHAPES_8B = {"wq": (4096, 4096, 32), "wk": (4096, 1024, 32), "wv": (4096, 1024, 
              "w_up": (4096, 14336, 32), "w_down": (14336, 4096, 32),
              "lm_head": (4096, 128256, 1)}
 TIED_1B = (2048, 128256)
+# More transposed (K, N), checked at every B: their K slices form clusters
+# of up to 8 blocks, where the 1B head takes 2.
+TIED_CHECKS = ((4096, 4096), (4096, 1024), (14336, 4096))
 BATCHES = (1, 3, 4, 16, 64)
 # Mixtral-8x7B decode: (K, N, launches per step) of the trunk's int8_matmul
 # calls and of the expert stacks' int8_matmul_expert calls (E experts each).
@@ -230,7 +243,8 @@ def phase_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
     cases = [(name, K, N, False) for name, (K, N, _n) in SHAPES_8B.items()
              if name not in ("wv", "wo", "w_up")]          # shapes repeat
     cases.append(("tied_head_1b", TIED_1B[0], TIED_1B[1], True))
-    worst_abs, worst_rel, timings, lib_label = 0.0, 0.0, {}, None
+    cases += [(f"tied_{K}x{N}", K, N, True) for K, N in TIED_CHECKS]
+    worst_abs, worst_rel, timings, lib_label, checks_ms = 0.0, 0.0, {}, None, {}
     for name, K, N, transpose in cases:
         qshape = (N, K) if transpose else (K, N)
         q = torch.randint(-127, 128, qshape, generator=g, device="cuda", dtype=torch.int8)
@@ -246,6 +260,10 @@ def phase_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
                                      f"{name} B={B}: max abs {ea}, max rel {er}")
             worst_abs, worst_rel = max(worst_abs, ea), max(worst_rel, er)
             if B != 4:
+                continue
+            if transpose and name != "tied_head_1b":
+                checks_ms[f"{K}x{N}"] = round(sum(kernel_device_ms(
+                    lambda: k1.int8_matmul(h, q, s, transpose=True), flush).values()), 4)
                 continue
             t = {"ms": cold_median_ms(lambda: k1.int8_matmul(h, q, s, transpose=transpose), flush),
                  "plain_ms": cold_median_ms(
@@ -265,37 +283,64 @@ def phase_kernel(k1, bps: float, flush: torch.Tensor) -> dict:
     ok, ea32, _ = within_tol(k1.int8_matmul(h, q, s), k1.int8_matmul_reference(h, q, s))
     if not ok:
         raise AssertionError(f"int8_matmul f32 path disagrees: max abs {ea32}")
+    # f32 with transpose=True (llama_tiny's tied head) keeps the first
+    # design's transposed kernel: held at the 1B head's q [N, K], every B.
+    q = torch.randint(-127, 128, (TIED_1B[1], TIED_1B[0]), generator=g, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(TIED_1B[1], generator=g, device="cuda") * 0.02 + 1e-3
+    ea32t = 0.0
+    for B in BATCHES:
+        h = torch.randn((B, TIED_1B[0]), generator=g, device="cuda")
+        out = k1.int8_matmul(h, q, s, transpose=True)
+        ok, ea, _ = within_tol(out, k1.int8_matmul_reference(h, q, s, transpose=True))
+        if not ok or not torch.isfinite(out).all():
+            raise AssertionError(f"int8_matmul f32 transposed path disagrees at B={B}: "
+                                 f"max abs {ea}")
+        ea32t = max(ea32t, ea)
+    del q, s
     for name in ("wv", "wo", "w_up"):
         timings[name] = timings[{"wv": "wk", "wo": "wq", "w_up": "w_gate"}[name]]
     return {"timings": timings, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
-            "f32_max_abs_err": ea32, "library_call": lib_label,
+            "f32_max_abs_err": ea32, "f32_transposed_max_abs_err": ea32t,
+            "library_call": lib_label, "transposed_device_ms_b4": checks_ms,
             "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), 2^-20 (f32)"}
 
 
 def k1_one_launch(k1) -> dict:
-    """K1's bf16 route: a second call at every 8B shape (B 4 and 64) gives
-    the first call's bits (every sum in a fixed order), and one call is one
-    kernel launch in the profiler."""
+    """The bf16 routes of K1 and K1t: a second call at every 8B shape and
+    at the 1B tied head (B 4 and 64) gives the first call's bits (every sum
+    in a fixed order), and one call of each is one kernel launch in the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    for name, (K, N, _n) in SHAPES_8B.items():
-        q = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    cases = [(name, K, N, False) for name, (K, N, _n) in SHAPES_8B.items()]
+    cases.append(("tied_head_1b", TIED_1B[0], TIED_1B[1], True))
+    per_call = {}
+    for name, K, N, transpose in cases:
+        q = torch.randint(-127, 128, (N, K) if transpose else (K, N), generator=g, device="cuda",
+                          dtype=torch.int8)
         s = torch.rand(N, generator=g, device="cuda") * 0.02 + 1e-3
         for B in (4, 64):
             h = torch.randn((B, K), generator=g, device="cuda").to(torch.bfloat16)
-            first, second = k1.int8_matmul(h, q, s), k1.int8_matmul(h, q, s)
+            first = k1.int8_matmul(h, q, s, transpose=transpose)
+            second = k1.int8_matmul(h, q, s, transpose=transpose)
             torch.cuda.synchronize()
             if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
                 raise AssertionError(f"int8_matmul: a repeated call at {name} B={B} "
                                      f"gave other bits")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        k1.int8_matmul(h, q, s)
-        torch.cuda.synchronize()
-    kernels = {e.key[:60]: e.count for e in device_kernels(prof)}
-    if sum(kernels.values()) != 1:
-        raise AssertionError(f"one bf16 int8_matmul call launched {kernels}, want 1 kernel")
-    return {"kernels_per_call": kernels, "repeat_bit_identical": True}
+        if name in ("lm_head", "tied_head_1b"):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                k1.int8_matmul(h, q, s, transpose=transpose)
+                torch.cuda.synchronize()
+            kernels = {e.key[:60]: e.count for e in device_kernels(prof)}
+            if sum(kernels.values()) != 1:
+                raise AssertionError(f"one bf16 int8_matmul call at {name} launched "
+                                     f"{kernels}, want 1 kernel")
+            per_call["t" if transpose else "k1"] = kernels
+        del q, s
+    return {"kernels_per_call": per_call["k1"], "kernels_per_call_t": per_call["t"],
+            "repeat_bit_identical": True}
 
 
 def expert_library_call(x, q, s):
@@ -1038,6 +1083,10 @@ def main(argv=None) -> int:
             _build.INT8_MATMUL].items() if "int8_mm_bf16" in k)
         if k1_hmma == 0:
             raise AssertionError("int8_mm_bf16_kernel holds no HMMA instruction")
+        k1t_hmma = sum(v["HMMA"] for k, v in p["sass_tensor_core_ops"][
+            _build.INT8_MATMUL].items() if "int8_mm_t_bf16" in k)
+        if k1t_hmma == 0:
+            raise AssertionError("int8_mm_t_bf16_kernel holds no HMMA instruction")
 
     res = {}
 
@@ -1130,7 +1179,12 @@ def main(argv=None) -> int:
          "plain_ms": round(tied["plain_ms"], 4), "bound_ms": round(tied["bound_ms"], 4),
          "bound_by": tied["bound_by"], "library_ms": round(tied["library_ms"], 4),
          "library_ms_call": kern["library_call"], "device_ms": round(tied["device_ms"], 4),
-         "unit": "llama3-1b tied LM head, B=4"},
+         "device_ms_transposed_b4": kern["transposed_device_ms_b4"],
+         "f32_max_abs_err": kern["f32_transposed_max_abs_err"],
+         "kernels_per_call": sum(kern["kernels_per_call_t"].values()),
+         "repeat_bit_identical": kern["repeat_bit_identical"], "design": K1T_DESIGN,
+         "unit": "llama3-1b tied LM head, B=4; device_ms_transposed_b4: one call at each "
+                 "further transposed (K x N), B=4"},
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": train["flash_launches"],
          "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),

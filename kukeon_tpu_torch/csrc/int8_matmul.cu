@@ -18,7 +18,7 @@
 //
 // K1 with bf16 activations (int8_mm_bf16_kernel; every llama3-8b and
 // Mixtral trunk decode projection). Three things held the f32-FMA body
-// below (still the f32 and transposed routes) at 3.6x its bound: the int8
+// below (still the f32 routes) at 3.6x its bound: the int8
 // -> f32 conversion (I2F runs at a quarter rate) plus RB FMAs a weight,
 // one 16-byte load in flight per thread, and a second launch that summed
 // the K slices' f32 partials. Against pure streaming reads of the same
@@ -52,11 +52,32 @@
 // Rows of h past 8 take further 8-row groups on the grid (each re-reads
 // the weights; decode runs B = 4).
 //
-// The f32 and transposed routes keep the first design: one 16-byte
-// __ldg of int8 weights a thread a k row, f32 FMAs, N tiles x K slices
-// into an f32 workspace, and reduce_scale_kernel as a second launch that
-// sums the slices in a fixed order. Rows of h are taken RB at a time (RB
-// in {1,2,4,8}) as a grid axis; the accumulators of all RB rows stay in
+// K1t with bf16 activations (int8_mm_t_bf16_kernel; the tied LM head of
+// llama3-1b, K 2048 x N 128256, 263 MB of weights a call) is the same
+// design turned to q [N,K], one launch, no workspace:
+// - The rows of q are the mma's A operand as they lie (M = output
+//   columns, k contiguous) and the rows of h its B operand, so neither is
+//   transposed. Within each 64 k, a lane takes 16 consecutive k of two
+//   rows of q (one 16-byte read each, enough for 4 mma steps) and the same
+//   16 k of a row of h; both operands see one permutation of k, which
+//   leaves the sum as it is. The conversion pairs adjacent k of one row.
+// - Warp w takes 16 rows of q and every k of a stage, so each output is
+//   summed in one warp: the block's end has no sum across warps.
+// - The same 4-stage ring (stages of 128 rows of q x 128 k, one 128-byte
+//   line a row, and that stage's 128 k of h), and the same cluster sum
+//   over at most 8 K slices (k_slice_t_bf16). At 74 registers three
+//   blocks fit an SM; the 1B head's 1002 tiles would be 2.5 waves of
+//   them, and its 2 slices of 1024 (5.1 waves, a short last one) run 3%
+//   faster than no split on an H100 (tools/k1t_sweep.py).
+// - The 8-row groups of h are the grid's x, so the groups of one tile run
+//   side by side and share its weights through L2.
+//
+// With f32 activations both layouts keep the first design (the tiny
+// models, whose f32 h the bf16 mma would round): one 16-byte __ldg of int8
+// weights a thread a k row, f32 FMAs, N tiles x K slices into an f32
+// workspace, and reduce_scale_kernel as a second launch that sums the
+// slices in a fixed order. Rows of h are taken RB at a time (RB in
+// {1,2,4,8}) as a grid axis; the accumulators of all RB rows stay in
 // registers. Experts with f32 activations take the same body with the
 // grid's z axis expert x row group (GROUPED), every pointer stepping by its
 // expert's stride.
@@ -74,16 +95,14 @@
 // weights and finite activations make no NaN), so the output is
 // bit-identical.
 //
-// C interface, loaded with ctypes: kukeon_int8_matmul(...),
-// kukeon_int8_matmul_bf16(...) and kukeon_int8_matmul_expert(...) return
-// cudaGetLastError() after their launches (0 = success), or the error of
-// the launch's set-up.
+// C interface, loaded with ctypes: kukeon_int8_matmul(...) (f32),
+// kukeon_int8_matmul_bf16(...), kukeon_int8_matmul_t_bf16(...) and
+// kukeon_int8_matmul_expert(...) return cudaGetLastError() after their
+// launches (0 = success), or the error of the launch's set-up.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -95,9 +114,6 @@ constexpr int kMaxKs = 512;              // largest K slice staged in shared mem
 constexpr int kRowsPerWarpT = 4;         // q[N,K]: output columns per warp
 constexpr int kNTileT = kWarps * kRowsPerWarpT;
 constexpr int kPadT = kMaxKs + kMaxKs / 4;  // padded h row, conflict-free float4 reads
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -117,16 +133,16 @@ __device__ __forceinline__ void unpack16(const int4 v, float w[kVec]) {
   }
 }
 
-// Stage h[b0 : b0+RB, k0 : k0+ks] as f32; rows past B are zero. The
-// transposed kernel pads 4 floats after every 16 so that lane i's float4
-// reads at i*20 words hit distinct banks.
-template <typename T, int RB, int LD, bool PAD>
-__device__ __forceinline__ void stage_h(float (*h_s)[LD], const T* __restrict__ h,
+// Stage h[b0 : b0+RB, k0 : k0+ks]; rows past B are zero. The transposed
+// kernel pads 4 floats after every 16 so that lane i's float4 reads at
+// i*20 words hit distinct banks.
+template <int RB, int LD, bool PAD>
+__device__ __forceinline__ void stage_h(float (*h_s)[LD], const float* __restrict__ h,
                                         int B, int K, int b0, int k0, int ks) {
   for (int i = threadIdx.x; i < RB * ks; i += kThreads) {
     const int r = i / ks, c = i % ks;
     const int cs = PAD ? c + (c / kVec) * 4 : c;
-    h_s[r][cs] = (b0 + r < B) ? to_f32(h[static_cast<size_t>(b0 + r) * K + k0 + c]) : 0.f;
+    h_s[r][cs] = (b0 + r < B) ? h[static_cast<size_t>(b0 + r) * K + k0 + c] : 0.f;
   }
 }
 
@@ -136,9 +152,9 @@ __device__ __forceinline__ void stage_h(float (*h_s)[LD], const T* __restrict__ 
 // order. GROUPED: expert e = z / groups reads h[e] ([B,K]) and q[e]
 // ([K,N]) and writes rows e*B.. of each workspace slice, which holds E*B
 // rows; otherwise z is the row group alone (E = 1).
-template <typename T, int RB, bool GROUPED>
+template <int RB, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
-int8_mm_kernel(const T* __restrict__ h, const int8_t* __restrict__ q,
+int8_mm_kernel(const float* __restrict__ h, const int8_t* __restrict__ q,
                float* __restrict__ ws, int B, int K, int N, int ks, int groups, int E) {
   __shared__ float h_s[RB][kMaxKs];
   __shared__ float red[kWarps][kNTile];
@@ -153,7 +169,7 @@ int8_mm_kernel(const T* __restrict__ h, const int8_t* __restrict__ q,
   }
   const int ws_rows = GROUPED ? E * B : B;
 
-  stage_h<T, RB, kMaxKs, false>(h_s, h, B, K, b0, k0, ks);
+  stage_h<RB, kMaxKs, false>(h_s, h, B, K, b0, k0, ks);
   __syncthreads();
 
   float acc[RB][kVec];
@@ -203,9 +219,9 @@ int8_mm_kernel(const T* __restrict__ h, const int8_t* __restrict__ q,
 // Warp w owns rows n of q; lane l reads q[n, k0+16l : k0+16l+16] for each
 // of its 4 rows (4 loads in flight), then a fixed-order shuffle tree sums
 // the lanes.
-template <typename T, int RB>
+template <int RB>
 __global__ void __launch_bounds__(kThreads)
-int8_mm_t_kernel(const T* __restrict__ h, const int8_t* __restrict__ q,
+int8_mm_t_kernel(const float* __restrict__ h, const int8_t* __restrict__ q,
                  float* __restrict__ ws, int B, int K, int N, int ks) {
   __shared__ __align__(16) float h_s[RB][kPadT];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -213,7 +229,7 @@ int8_mm_t_kernel(const T* __restrict__ h, const int8_t* __restrict__ q,
   const int b0 = blockIdx.z * RB;
   const int nb = blockIdx.x * kNTileT + warp * kRowsPerWarpT;
 
-  stage_h<T, RB, kPadT, true>(h_s, h, B, K, b0, k0, ks);
+  stage_h<RB, kPadT, true>(h_s, h, B, K, b0, k0, ks);
   __syncthreads();
 
   float acc[kRowsPerWarpT][RB];
@@ -516,6 +532,52 @@ __device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
   return v;
 }
 
+// Rows of h past `rows` are zero in every stage of the ring: no stage
+// load writes them. The main loop's first barrier publishes them.
+__device__ __forceinline__ void zero_h_padding(unsigned char* smem, int rows) {
+  for (int i = threadIdx.x; i < kBStages * kBRows * (kBKStage / 8); i += kBThreads) {
+    const int st = i / (kBRows * (kBKStage / 8)), r = i / (kBKStage / 8) % kBRows;
+    const int c = i % (kBKStage / 8);
+    if (r >= rows) {
+      *reinterpret_cast<int4*>(smem + st * kBStageBytes + kBWBytes + (r * kBHld + c * 8) * 2) =
+          make_int4(0, 0, 0, 0);
+    }
+  }
+}
+
+// Stage i's 128 k of the `rows` rows of h (row stride K from hs), behind
+// the stage's weights at dst.
+__device__ __forceinline__ void load_h_stage(unsigned char* dst, const __nv_bfloat16* hs, int K,
+                                             int rows, int i) {
+  if (threadIdx.x < rows * (kBKStage / 8)) {
+    const int r = threadIdx.x / (kBKStage / 8), c = threadIdx.x % (kBKStage / 8);
+    cp_async16(dst + kBWBytes + (r * kBHld + c * 8) * 2,
+               hs + static_cast<size_t>(r) * K + i * kBKStage + c * 8);
+  }
+}
+
+// The end of a cluster of K slices: each block finishes its share of the
+// outputs. It sums the slices' part[row][column] (rows ld floats apart)
+// in slice order through distributed shared memory, scales and casts
+// once. The second barrier keeps every block's shared memory alive until
+// the others have read it.
+__device__ __forceinline__ void cluster_finish(const float* part, int ld, int rows,
+                                               const float* __restrict__ s,
+                                               __nv_bfloat16* __restrict__ out, int b0, int n0,
+                                               int N) {
+  cluster_sync();
+  const int splits = gridDim.y;
+  for (int i = threadIdx.x + static_cast<int>(cluster_rank()) * kBThreads; i < rows * kBNTile;
+       i += kBThreads * splits) {
+    const int r = i / kBNTile, n = i % kBNTile;
+    float sum = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < splits; ++sp) sum += ld_cluster(part + r * ld + n, sp);
+    out[static_cast<size_t>(b0 + r) * N + n0 + n] = __float2bfloat16_rn(sum * __ldg(s + n0 + n));
+  }
+  cluster_sync();
+}
+
 // h [B,K] bf16 @ q [K,N] int8 * s [N] -> out [B,N] bf16. Block (x, y, z) =
 // (128-column tile, K slice, 8-row group); the K/ks slices of a (tile, row
 // group) form one cluster, rank = slice. A ring stage holds 128 k rows x
@@ -538,16 +600,7 @@ int8_mm_bf16_kernel(const __nv_bfloat16* __restrict__ h, const int8_t* __restric
   const int8_t* qs = q + static_cast<size_t>(k0) * N + n0;
   const __nv_bfloat16* hs = h + static_cast<size_t>(b0) * K + k0;
 
-  // Rows of h past B stay zero in every stage; the loop's first barrier
-  // publishes them.
-  for (int i = threadIdx.x; i < kBStages * kBRows * (kBKStage / 8); i += kBThreads) {
-    const int st = i / (kBRows * (kBKStage / 8)), r = i / (kBKStage / 8) % kBRows;
-    const int c = i % (kBKStage / 8);
-    if (r >= rows) {
-      *reinterpret_cast<int4*>(smem + st * kBStageBytes + kBWBytes + (r * kBHld + c * 8) * 2) =
-          make_int4(0, 0, 0, 0);
-    }
-  }
+  zero_h_padding(smem, rows);
 
   const int n_stages = ks / kBKStage;
   const auto load_stage = [&](int i) {
@@ -560,11 +613,7 @@ int8_mm_bf16_kernel(const __nv_bfloat16* __restrict__ h, const int8_t* __restric
       cp_async16(dst + r * kBNTile + ((ch ^ (((r >> 1) & 3) << 1)) << 4),
                  src + static_cast<size_t>(r) * N + ch * 16);
     }
-    if (threadIdx.x < rows * (kBKStage / 8)) {
-      const int r = threadIdx.x / (kBKStage / 8), c = threadIdx.x % (kBKStage / 8);
-      cp_async16(dst + kBWBytes + (r * kBHld + c * 8) * 2,
-                 hs + static_cast<size_t>(r) * K + i * kBKStage + c * 8);
-    }
+    load_h_stage(dst, hs, K, rows, i);
   };
 #pragma unroll
   for (int i = 0; i < kBStages - 1; ++i) {
@@ -635,104 +684,194 @@ int8_mm_bf16_kernel(const __nv_bfloat16* __restrict__ h, const int8_t* __restric
     for (int w2 = 0; w2 < kBThreads / 32; ++w2) sum += red[(w2 * kBRows + r) * kBRedLd + n];
     part[i] = sum;
   }
-
-  // Each block of the cluster finishes its share of the outputs: it sums
-  // the slices' parts in slice order through distributed shared memory,
-  // scales and casts once. The second barrier keeps every block's shared
-  // memory alive until the others have read it.
-  cluster_sync();
-  const int splits = gridDim.y;
-  for (int i = threadIdx.x + static_cast<int>(cluster_rank()) * kBThreads; i < rows * kBNTile;
-       i += kBThreads * splits) {
-    const int r = i / kBNTile, n = i % kBNTile;
-    float sum = 0.f;
-#pragma unroll 4
-    for (int sp = 0; sp < splits; ++sp) sum += ld_cluster(part + i, sp);
-    out[static_cast<size_t>(b0 + r) * N + n0 + n] = __float2bfloat16_rn(sum * __ldg(s + n0 + n));
-  }
-  cluster_sync();
+  cluster_finish(part, kBNTile, rows, s, out, b0, n0, N);
 }
 
-cudaError_t launch_bf16(const void* h, const void* q, const void* s, void* out, int B, int K,
-                        int N, int ks, cudaStream_t st) {
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      int8_mm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmemBytes);
-  if (raised != cudaSuccess) return raised;
+// ---- K1t, bf16 activations: q [N,K] as the mma's A operand, one launch ----
+
+// Byte `i` and byte `i + 1` of a word of int8 weights, flipped to
+// excess-128 -> one bf16 pair (lo from byte i), exactly, as
+// i8x2_to_bf16x2 does for one byte of two words.
+__device__ __forceinline__ uint32_t i8pair_to_bf16x2(uint32_t w, uint32_t i) {
+  const float lo = __uint_as_float(prmt(w, 0x4B000000u, 0x7540u | i)) - 8388736.f;
+  const float hi = __uint_as_float(prmt(w, 0x4B000000u, 0x7540u | (i + 1))) - 8388736.f;
+  return prmt(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
+// h [B,K] bf16 @ q [N,K]^T int8 * s [N] -> out [B,N] bf16. Block (x, y, z)
+// = (8-row group, K slice, 128-row tile of q): the row groups of a tile
+// are neighbours on the grid, so they meet its weights in L2. The K/ks
+// slices of a (row group, tile) form one cluster, rank = slice. A ring
+// stage holds the stage's 128 k of the tile's 128 rows of q, one 128-byte
+// line a row, row r's 16-byte chunk ch at chunk ch ^ 4(r%2), then the
+// stage's 128 k of each row of h (rows past B are zero), as in
+// int8_mm_bf16_kernel. The rows of q are the mma's A operand as they lie
+// (M = output columns, k contiguous) and the rows of h its B operand.
+// Warp w takes rows [16w, 16w+16) of the tile and every k of a stage, so
+// each output is summed in one warp. In each 64 k of a stage, lane (g, t)
+// takes k [16t, 16t+16): chunk t of the group in rows g and g+8 of its
+// warp's 16 (one 16-byte read each) and the same 16 k of row g of h. Mma
+// step j of the group takes the lane's k 4j..4j+3 in the places of the
+// mma's k 2t, 2t+1, 2t+8, 2t+9: one permutation of k for both operands,
+// so the sum is unchanged.
+__global__ void __launch_bounds__(kBThreads, 2)
+int8_mm_t_bf16_kernel(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ q,
+                      const float* __restrict__ s, __nv_bfloat16* __restrict__ out, int B,
+                      int K, int N, int ks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int b0 = blockIdx.x * kBRows;
+  const int k0 = blockIdx.y * ks;
+  const int n0 = blockIdx.z * kBNTile;
+  const int rows = min(kBRows, B - b0);
+  const int8_t* qs = q + static_cast<size_t>(n0) * K + k0;
+  const __nv_bfloat16* hs = h + static_cast<size_t>(b0) * K + k0;
+
+  zero_h_padding(smem, rows);
+
+  const int n_stages = ks / kBKStage;
+  const auto load_stage = [&](int i) {
+    unsigned char* dst = smem + (i % kBStages) * kBStageBytes;
+    const int8_t* src = qs + i * kBKStage;
+#pragma unroll
+    for (int it = 0; it < kBWBytes / 16 / kBThreads; ++it) {
+      const int idx = threadIdx.x + it * kBThreads;
+      const int r = idx >> 3, ch = idx & 7;
+      cp_async16(dst + r * kBKStage + ((ch ^ ((r & 1) << 2)) << 4),
+                 src + static_cast<size_t>(r) * K + ch * 16);
+    }
+    load_h_stage(dst, hs, K, rows, i);
+  };
+#pragma unroll
+  for (int i = 0; i < kBStages - 1; ++i) {
+    if (i < n_stages) load_stage(i);
+    cp_async_commit();
+  }
+
+  // One accumulator for each 64 k of a stage: two independent mma chains.
+  float acc[2][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[c][v] = 0.f;
+
+  const int r0 = warp * 16 + g;            // and r0 + 8, of the same parity
+  const int swz = (g & 1) << 2;
+  for (int i = 0; i < n_stages; ++i) {
+    cp_async_wait<kBStages - 2>();
+    __syncthreads();                     // stage i landed; stage i - 1 is free
+    if (i + kBStages - 1 < n_stages) load_stage(i + kBStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % kBStages) * kBStageBytes;
+    const __nv_bfloat16* hrow = reinterpret_cast<const __nv_bfloat16*>(st + kBWBytes) + g * kBHld;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int ch = ((4 * c + t) ^ swz) << 4;
+      const uint4 lo = *reinterpret_cast<const uint4*>(st + r0 * kBKStage + ch);
+      const uint4 hi = *reinterpret_cast<const uint4*>(st + (r0 + 8) * kBKStage + ch);
+      const uint4 h0 = *reinterpret_cast<const uint4*>(hrow + 64 * c + 16 * t);
+      const uint4 h1 = *reinterpret_cast<const uint4*>(hrow + 64 * c + 16 * t + 8);
+      const uint32_t wl[4] = {lo.x ^ 0x80808080u, lo.y ^ 0x80808080u, lo.z ^ 0x80808080u,
+                              lo.w ^ 0x80808080u};
+      const uint32_t wh[4] = {hi.x ^ 0x80808080u, hi.y ^ 0x80808080u, hi.z ^ 0x80808080u,
+                              hi.w ^ 0x80808080u};
+      const uint32_t hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t a[4] = {i8pair_to_bf16x2(wl[j], 0), i8pair_to_bf16x2(wh[j], 0),
+                               i8pair_to_bf16x2(wl[j], 2), i8pair_to_bf16x2(wh[j], 2)};
+        mma_bf16(acc[c], a, hv[2 * j], hv[2 * j + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // This slice's sums, part[row of h][column], over the ring: a lane holds
+  // columns 16w+g and 16w+g+8 of rows 2t and 2t+1; rows padded to kBRedLd
+  // floats, so that a warp's stores meet no bank twice.
+  float* part = reinterpret_cast<float*>(smem);
+  float* mine = part + 2 * t * kBRedLd + warp * 16 + g;
+  mine[0] = acc[0][0] + acc[1][0];
+  mine[kBRedLd] = acc[0][1] + acc[1][1];
+  mine[8] = acc[0][2] + acc[1][2];
+  mine[kBRedLd + 8] = acc[0][3] + acc[1][3];
+  cluster_finish(part, kBRedLd, rows, s, out, b0, n0, N);
+}
+
+// Both bf16 cluster kernels: (h, q, s, out, B, K, N, ks).
+using Bf16Kernel = decltype(&int8_mm_bf16_kernel);
+
+// Lets a bf16 cluster kernel take its kBSmemBytes of dynamic shared memory.
+cudaError_t allow_smem(Bf16Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmemBytes);
+}
+
+// One launch of a bf16 kernel whose K slices (grid y) form a cluster.
+cudaError_t launch_cluster(Bf16Kernel kernel, dim3 grid, const void* h, const void* q,
+                           const void* s, void* out, int B, int K, int N, int ks,
+                           cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / kBNTile, K / ks, (B + kBRows - 1) / kBRows);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(kBThreads);
   cfg.dynamicSmemBytes = kBSmemBytes;
   cfg.stream = st;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = K / ks;
+  cluster.val.clusterDim.y = grid.y;
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, int8_mm_bf16_kernel, static_cast<const __nv_bfloat16*>(h),
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(h),
                             static_cast<const int8_t*>(q), static_cast<const float*>(s),
                             static_cast<__nv_bfloat16*>(out), B, K, N, ks);
 }
 
-template <typename T, int RB>
-cudaError_t launch_mm(const void* h, const void* q, void* ws, int E, int B, int K, int N, int ks,
-                      bool transpose, cudaStream_t st) {
+template <int RB>
+void launch_mm(const float* h, const int8_t* q, float* ws, int E, int B, int K, int N, int ks,
+               bool transpose, cudaStream_t st) {
   const int splits = K / ks;
   const int groups = (B + RB - 1) / RB;
   if (transpose) {
     const dim3 grid((N + kNTileT - 1) / kNTileT, splits, groups);
-    int8_mm_t_kernel<T, RB><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
-        B, K, N, ks);
-  } else if constexpr (std::is_same_v<T, float>) {
+    int8_mm_t_kernel<RB><<<grid, kThreads, 0, st>>>(h, q, ws, B, K, N, ks);
+  } else {
     const dim3 grid((N + kNTile - 1) / kNTile, splits, groups * E);
     if (E > 1) {
-      int8_mm_kernel<T, RB, true><<<grid, kThreads, 0, st>>>(
-          static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
-          B, K, N, ks, groups, E);
+      int8_mm_kernel<RB, true><<<grid, kThreads, 0, st>>>(h, q, ws, B, K, N, ks, groups, E);
     } else {
-      int8_mm_kernel<T, RB, false><<<grid, kThreads, 0, st>>>(
-          static_cast<const T*>(h), static_cast<const int8_t*>(q), static_cast<float*>(ws),
-          B, K, N, ks, groups, 1);
+      int8_mm_kernel<RB, false><<<grid, kThreads, 0, st>>>(h, q, ws, B, K, N, ks, groups, 1);
     }
-  } else {
-    // bf16 activations against q [K,N] take int8_mm_bf16_kernel (E = 1)
-    // or int8_mm_expert_bf16_kernel, so no bf16 instantiation is built
-    // here, and a call refuses rather than leave the workspace unwritten.
-    return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
 }
 
-// E stacks of h [B,K] @ q [K,N] (transpose only with E = 1).
-template <typename T>
-cudaError_t launch_all(const void* h, const void* q, const void* s, void* out, void* ws,
-                       int E, int B, int K, int N, int ks, bool transpose, cudaStream_t st) {
-  cudaError_t err;
+// E stacks of f32 h [B,K] @ q [K,N] (transpose only with E = 1).
+void launch_all(const void* hv, const void* qv, const void* s, void* out, void* wsv, int E,
+                int B, int K, int N, int ks, bool transpose, cudaStream_t st) {
+  const float* h = static_cast<const float*>(hv);
+  const int8_t* q = static_cast<const int8_t*>(qv);
+  float* ws = static_cast<float*>(wsv);
   if (B == 1) {
-    err = launch_mm<T, 1>(h, q, ws, E, B, K, N, ks, transpose, st);
+    launch_mm<1>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else if (B == 2) {
-    err = launch_mm<T, 2>(h, q, ws, E, B, K, N, ks, transpose, st);
+    launch_mm<2>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else if (B <= 4) {
-    err = launch_mm<T, 4>(h, q, ws, E, B, K, N, ks, transpose, st);
+    launch_mm<4>(h, q, ws, E, B, K, N, ks, transpose, st);
   } else {
-    err = launch_mm<T, 8>(h, q, ws, E, B, K, N, ks, transpose, st);
+    launch_mm<8>(h, q, ws, E, B, K, N, ks, transpose, st);
   }
-  if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(E) * B * N;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
   if (E > 1) {
-    reduce_scale_kernel<T, true><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(ws), static_cast<const float*>(s), static_cast<T*>(out),
-        B, N, K / ks, E);
+    reduce_scale_kernel<float, true><<<blocks, threads, 0, st>>>(
+        ws, static_cast<const float*>(s), static_cast<float*>(out), B, N, K / ks, E);
   } else {
-    reduce_scale_kernel<T, false><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(ws), static_cast<const float*>(s), static_cast<T*>(out),
-        B, N, K / ks, 1);
+    reduce_scale_kernel<float, false><<<blocks, threads, 0, st>>>(
+        ws, static_cast<const float*>(s), static_cast<float*>(out), B, N, K / ks, 1);
   }
-  return cudaSuccess;
 }
 
 bool bad_dims(int B, int K, int N, int ks) {
@@ -740,44 +879,67 @@ bool bad_dims(int B, int K, int N, int ks) {
          K % ks;
 }
 
+// What both bf16 cluster kernels take: 1 <= B <= 64, K and N multiples of
+// 128, ks a multiple of 128 that divides K into at most 8 slices, h and q
+// 16-byte aligned.
+bool bad_bf16_dims(const void* h, const void* q, int B, int K, int N, int ks) {
+  return B < 1 || B > 64 || K % 128 || N % 128 || ks < kBKStage || ks % kBKStage || K % ks ||
+         K / ks > kBMaxSplits || reinterpret_cast<uintptr_t>(h) % 16 ||
+         reinterpret_cast<uintptr_t>(q) % 16;
+}
+
 }  // namespace
 
-// h [B,K] (bf16 when is_bf16, else f32), q int8 [K,N] or [N,K] (transpose),
-// s f32 [N], out [B,N] in h's dtype, ws f32 [K/ks, B, N]. K and N multiples
-// of 128 (so of 16), ks divides K and is at most 512, 1 <= B <= 64. bf16
-// only with transpose: bf16 against q [K,N] is kukeon_int8_matmul_bf16.
+// h f32 [B,K], q int8 [K,N] or [N,K] (transpose), s f32 [N], out f32 [B,N],
+// ws f32 [K/ks, B, N]. K and N multiples of 128 (so of 16), ks divides K and
+// is at most 512, 1 <= B <= 64. bf16 h takes kukeon_int8_matmul_bf16 or
+// kukeon_int8_matmul_t_bf16.
 extern "C" int kukeon_int8_matmul(const void* h, const void* q, const void* s, void* out,
                                   void* ws, int B, int K, int N, int ks, int transpose,
-                                  int is_bf16, void* stream) {
+                                  void* stream) {
   if (bad_dims(B, K, N, ks)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st)
-              : launch_all<float>(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0, st);
+  launch_all(h, q, s, out, ws, 1, B, K, N, ks, transpose != 0,
+             static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h [B,K] bf16 @ q int8 [K,N] * s f32 [N] -> out [B,N] bf16 in one launch
+// (bad_bf16_dims says what it takes).
+extern "C" int kukeon_int8_matmul_bf16(const void* h, const void* q, const void* s, void* out,
+                                       int B, int K, int N, int ks, void* stream) {
+  if (bad_bf16_dims(h, q, B, K, N, ks)) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t raised = allow_smem(int8_mm_bf16_kernel);
+  if (raised != cudaSuccess) return static_cast<int>(raised);
+  const cudaError_t err = launch_cluster(
+      int8_mm_bf16_kernel, dim3(N / kBNTile, K / ks, (B + kBRows - 1) / kBRows), h, q, s, out,
+      B, K, N, ks, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// h [B,K] bf16 @ q int8 [K,N] * s f32 [N] -> out [B,N] bf16 in one launch.
-// 1 <= B <= 64, K and N multiples of 128, ks a multiple of 128 that divides
-// K into at most 8 slices; h and q 16-byte aligned.
-extern "C" int kukeon_int8_matmul_bf16(const void* h, const void* q, const void* s, void* out,
-                                       int B, int K, int N, int ks, void* stream) {
-  if (B < 1 || B > 64 || K % 128 || N % 128 || ks < kBKStage || ks % kBKStage || K % ks ||
-      K / ks > kBMaxSplits) {
+// h [B,K] bf16 @ q int8 [N,K]^T * s f32 [N] -> out [B,N] bf16 in one launch
+// (the tied LM head): what kukeon_int8_matmul_bf16 takes, with N/128 at
+// most 65535 (the grid's z).
+extern "C" int kukeon_int8_matmul_t_bf16(const void* h, const void* q, const void* s,
+                                         void* out, int B, int K, int N, int ks,
+                                         void* stream) {
+  if (bad_bf16_dims(h, q, B, K, N, ks) || N / kBNTile > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = launch_bf16(h, q, s, out, B, K, N, ks,
-                                      static_cast<cudaStream_t>(stream));
+  static const cudaError_t raised = allow_smem(int8_mm_t_bf16_kernel);
+  if (raised != cudaSuccess) return static_cast<int>(raised);
+  const cudaError_t err = launch_cluster(
+      int8_mm_t_bf16_kernel, dim3((B + kBRows - 1) / kBRows, K / ks, N / kBNTile), h, q, s,
+      out, B, K, N, ks, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x [E,C,K] (bf16 when is_bf16, else f32), q int8 [E,K,N], s f32 [E,N],
 // out [E,C,N] in x's dtype, ws f32 [K/ks, E*C, N]; 1 <= E <= 1024. f32:
-// the same limits as above with C in B's place. bf16: 1 <= C <= 64, K and
-// N multiples of 128, ks a multiple of 128 that divides K, at most 2048;
-// x, q 16-byte aligned.
+// the same limits as kukeon_int8_matmul with C in B's place. bf16: 1 <= C
+// <= 64, K and N multiples of 128, ks a multiple of 128 that divides K, at
+// most 2048; x, q 16-byte aligned.
 extern "C" int kukeon_int8_matmul_expert(const void* x, const void* q, const void* s,
                                          void* out, void* ws, int E, int C, int K, int N,
                                          int ks, int is_bf16, void* stream) {
@@ -792,8 +954,7 @@ extern "C" int kukeon_int8_matmul_expert(const void* x, const void* q, const voi
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     if (bad_dims(C, K, N, ks)) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t err = launch_all<float>(x, q, s, out, ws, E, C, K, N, ks, false, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    launch_all(x, q, s, out, ws, E, C, K, N, ks, false, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

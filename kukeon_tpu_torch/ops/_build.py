@@ -96,12 +96,13 @@ def load_int8_matmul() -> ctypes.CDLL:
     path, _log, _secs = build(INT8_MATMUL)
     lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
-    # h, q, s, out, ws, B, K, N, ks, transpose, is_bf16, stream
-    lib.kukeon_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+    # h, q, s, out, ws, B, K, N, ks, transpose, stream (f32 h)
+    lib.kukeon_int8_matmul.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     lib.kukeon_int8_matmul.restype = ctypes.c_int
-    # h, q, s, out, B, K, N, ks, stream
-    lib.kukeon_int8_matmul_bf16.argtypes = [P, P, P, P, I, I, I, I, P]
-    lib.kukeon_int8_matmul_bf16.restype = ctypes.c_int
+    # h, q, s, out, B, K, N, ks, stream (bf16 h; q [K,N], and q [N,K] for _t)
+    for entry in (lib.kukeon_int8_matmul_bf16, lib.kukeon_int8_matmul_t_bf16):
+        entry.argtypes = [P, P, P, P, I, I, I, I, P]
+        entry.restype = ctypes.c_int
     # x, q, s, out, ws, E, C, K, N, ks, is_bf16, stream
     lib.kukeon_int8_matmul_expert.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.kukeon_int8_matmul_expert.restype = ctypes.c_int

@@ -24,21 +24,27 @@ Routes (:func:`_route`, the same for both functions, with C in B's place):
 
 The kernels replace the Pallas ``_kernel``/``_kernel_t`` and the E
 launches of ``int8_matmul_expert``. Decode reads every weight byte once
-for a few rows, so HBM bandwidth bounds them. K1 with bf16 activations
-(the llama3-8b and Mixtral trunk projections) is one launch a call:
-128-column tiles by at most 8 K slices (:func:`k_slice_bf16`) stream the
-weights and the rows of h through a 4-stage ``cp.async`` ring, convert the
-weights to bf16 exactly in 2.5 ALU operations a weight, and multiply on
-``mma.sync``; the slices of a column tile form a thread block cluster,
-whose blocks sum them in slice order through distributed shared memory,
-scale and cast, so the output is bit-reproducible and no f32 partial
-reaches global memory. The bf16 expert product (the Mixtral decode path)
-has the same body with the slices summed by a second launch, plus a skip:
-a block whose activation rows are all exactly 0 (an expert no token
-chose, under dense dispatch) reads no weights and writes +0, the full
-product's result bit for bit; its K slices (:func:`k_slice_expert`) go up
-to 2048. The f32 and transposed routes keep the first design (f32 FMAs,
-K slices from :func:`k_slice`, a second launch for the sum).
+for a few rows, so HBM bandwidth bounds them. :func:`_kernel_entry` names
+the C entry a call takes. K1 with bf16 activations (the llama3-8b and
+Mixtral trunk projections) is one launch a call: 128-column tiles by at
+most 8 K slices (:func:`k_slice_bf16`) stream the weights and the rows of
+h through a 4-stage ``cp.async`` ring, convert the weights to bf16
+exactly in 2.5 ALU operations a weight, and multiply on ``mma.sync``; the
+slices of a column tile form a thread block cluster, whose blocks sum them
+in slice order through distributed shared memory, scale and cast, so the
+output is bit-reproducible and no f32 partial reaches global memory. K1t
+with bf16 activations (the tied LM head, ``q [N, K]``) is the same design
+on 128-row tiles of q, one launch a call: the rows of q are the mma's A
+operand as they lie, each warp sums its own 16 output columns over every
+k, and the K slices (:func:`k_slice_t_bf16`; 2 at the llama3-1b head) are
+summed in a cluster. The bf16 expert product (the Mixtral decode path)
+has K1's body with the slices summed by a second launch, plus a skip: a
+block whose activation rows are all exactly 0 (an expert no token chose,
+under dense dispatch) reads no weights and writes +0, the full product's
+result bit for bit; its K slices (:func:`k_slice_expert`) go up to 2048.
+With f32 activations (the tiny models; the bf16 mma would round f32 h)
+both layouts keep the first design: f32 FMAs, K slices from
+:func:`k_slice`, a second launch for the sum.
 
 ``int8_matmul.launches`` and ``int8_matmul_expert.launches`` count calls
 that launched a kernel (one per call that reached the kernel), so a run
@@ -59,6 +65,11 @@ _TARGET_BLOCKS = 264
 # portable cluster size, over which the kernel sums the slices).
 _BF16_BLOCKS = 128
 _BF16_MAX_SPLITS = 8
+# K1t's bf16 kernel (74 registers, three blocks an SM): four waves of three
+# blocks on a 132-SM H100, so that the last wave's tail is short. At the
+# llama3-1b head, B 4, 2 slices (2004 blocks) run under 1 slice (1002) in
+# every alternating pair on an H100 (tools/kernel_ab.py --k1t-slices).
+_T_BF16_BLOCKS = 1584
 # The bf16 expert kernel: about four waves of its two blocks an SM, so that
 # blocks that skip (no token) or finish early leave no long tail.
 _EXPERT_BLOCKS = 1024
@@ -159,18 +170,44 @@ def k_slice_expert(C: int, K: int, N: int, E: int) -> int:
     return fits[-1]
 
 
-def k_slice_bf16(B: int, K: int, N: int) -> int:
-    """K slice of K1's bf16 kernel: a multiple of 128 that divides K into
-    at most 8 slices; the largest such up to 2048 that still gives
-    ``_BF16_BLOCKS`` blocks (128-column tiles x 8-row groups x slices),
-    else the smallest (the most blocks)."""
+def _cluster_slice(tiles: int, K: int, target: int, longest: int) -> int:
+    """K slice of a bf16 cluster kernel: a multiple of 128 that divides K
+    into at most 8 slices; the longest such up to ``longest`` whose
+    ``tiles`` x slices reach ``target`` blocks, else the shortest (the most
+    blocks)."""
     m = K // 128
     fits = [128 * d for d in range(m, 0, -1) if m % d == 0 and m // d <= _BF16_MAX_SPLITS]
-    tiles = (N // 128) * -(-B // 8)
     for ks in fits:
-        if ks <= 2048 and tiles * (K // ks) >= _BF16_BLOCKS:
+        if ks <= longest and tiles * (K // ks) >= target:
             return ks
     return fits[-1]
+
+
+def k_slice_bf16(B: int, K: int, N: int) -> int:
+    """K slice of K1's bf16 kernel: up to 2048 long, for ``_BF16_BLOCKS``
+    blocks of 128-column tiles x 8-row groups x slices."""
+    return _cluster_slice((N // 128) * -(-B // 8), K, _BF16_BLOCKS, 2048)
+
+
+def k_slice_t_bf16(B: int, K: int, N: int) -> int:
+    """K slice of K1t's bf16 kernel: any length (each ring stage brings its
+    own 128 k of h), for ``_T_BF16_BLOCKS`` blocks of 128-row tiles of q x
+    8-row groups x slices. The llama3-1b head (1002 tiles) takes 2 slices
+    at B <= 8 and none past (more row groups)."""
+    return _cluster_slice((N // 128) * -(-B // 8), K, _T_BF16_BLOCKS, K)
+
+
+def _kernel_entry(dtype: torch.dtype, transpose: bool):
+    """The C entry of ``csrc/int8_matmul.cu`` that a kernel call takes, and
+    the plan of its K slices: bf16 h has a one-launch kernel for each layout
+    of q, planned by ``k_slice_t_bf16`` or ``k_slice_bf16``; f32 h takes the
+    first design for both layouts, with no plan here (None: ``k_slice`` and
+    a workspace)."""
+    if dtype == torch.bfloat16:
+        if transpose:
+            return "kukeon_int8_matmul_t_bf16", k_slice_t_bf16
+        return "kukeon_int8_matmul_bf16", k_slice_bf16
+    return "kukeon_int8_matmul", None
 
 
 def int8_matmul(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -186,21 +223,28 @@ def int8_matmul(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         return int8_matmul_reference(h, q, s, transpose=transpose)
     if route == "dequant":
         return int8_matmul_dequant(h, q, s, transpose=transpose)
+    return _launch(h, q, s, transpose)
+
+
+def _launch(h: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+            transpose: bool) -> torch.Tensor:
+    """One kernel call (the "kernel" route), counted."""
+    B, K = h.shape
+    N = q.shape[0] if transpose else q.shape[1]
     if q.data_ptr() % 16 or h.data_ptr() % 16:
         raise ValueError("int8_matmul kernel wants h and q 16-byte aligned")
     lib = _build.load_int8_matmul()
     out = torch.empty((B, N), dtype=h.dtype, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    if h.dtype == torch.bfloat16 and not transpose:
-        ks = k_slice_bf16(B, K, N)
-        err = lib.kukeon_int8_matmul_bf16(h.data_ptr(), q.data_ptr(), s.data_ptr(),
-                                          out.data_ptr(), B, K, N, ks, stream)
-    else:
+    entry, plan = _kernel_entry(h.dtype, transpose)
+    ptrs = (h.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr())
+    if plan is None:
         ks = k_slice(B, K, N, transpose)
         ws = torch.empty((K // ks, B, N), dtype=torch.float32, device=h.device)
-        err = lib.kukeon_int8_matmul(
-            h.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            B, K, N, ks, int(transpose), int(h.dtype == torch.bfloat16), stream)
+        err = getattr(lib, entry)(*ptrs, ws.data_ptr(), B, K, N, ks, int(transpose), stream)
+    else:
+        ks = plan(B, K, N)
+        err = getattr(lib, entry)(*ptrs, B, K, N, ks, stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err} "
                            f"(B={B}, K={K}, N={N}, ks={ks}, transpose={transpose})")

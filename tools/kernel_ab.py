@@ -14,6 +14,17 @@ time on both sides; the device time (torch.profiler, cold L2) holds the
 kernels alone. Prints the nvidia-smi line, then one JSON line a run;
 exits nonzero if a phase failed (a kernel disagreeing with its plain
 version included). Needs a GPU.
+
+``--k1t-slices`` times this checkout's K1t bf16 kernel instead, at the
+llama3-1b tied head, B 4 and 64, at each K slice given, through the built
+library's C entry (so the plan is bypassed, not edited):
+
+    python3 tools/kernel_ab.py --k1t-slices 2048,1024 --rounds 6
+
+The slices alternate within each round, so drift across the call falls on
+each alike. Each reading is the profiler's device time of 5 cold-L2 calls,
+after the output is held against the plain version; a streaming read of
+the same weights (``q.view(int32).max()``) opens each round as a yardstick.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ def summarise(cs, res: dict) -> dict:
         out["k1_device_ms_by_projection"] = {nm: round(t[nm]["device_ms"], 4)
                                              for nm in cs.SHAPES_8B}
         out["k1t"] = {f: round(t["tied_head_1b"][f], 4) for f in ("ms", "device_ms", "bound_ms")}
+        out["k1t_device_ms_by_shape"] = res["kernel"]["transposed_device_ms_b4"]
     if "flash" in res:
         ft = res["flash"]["timing"]
         out["k3"] = {f: round(ft[f], 4) for f in ("ms", "device_ms", "library_ms", "bound_ms")}
@@ -101,17 +113,68 @@ def measure(tree: str) -> dict:
     return out
 
 
+def k1t_slices(slices: list[int], rounds: int) -> int:
+    """Device ms of K1t's bf16 kernel at each K slice, alternating; one JSON
+    line a reading. Nonzero if a slice disagrees with the plain version."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from kukeon_tpu_torch.ops import _build
+    from kukeon_tpu_torch.ops import int8_matmul as k1
+
+    cs = load_chip_smoke()
+    lib = _build.load_int8_matmul()
+    K, N = cs.TIED_1B
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randint(-127, 128, (N, K), generator=g, device="cuda", dtype=torch.int8)
+    s = torch.rand(N, generator=g, device="cuda") * 0.02 + 1e-3
+    rows = {B: torch.randn((B, K), generator=g, device="cuda").to(torch.bfloat16)
+            for B in (4, 64)}
+    refs = {B: k1.int8_matmul_reference(h, q, s, transpose=True) for B, h in rows.items()}
+    failed = False
+    for r in range(1, rounds + 1):
+        read = sum(cs.kernel_device_ms(q.view(torch.int32).max, flush).values())
+        print(json.dumps({"round": r, "case": "streaming read of q",
+                          "device_ms": round(read, 4)}), flush=True)
+        for B, h in rows.items():
+            out = torch.empty((B, N), dtype=torch.bfloat16, device="cuda")
+            for ks in slices:
+                def call():
+                    err = lib.kukeon_int8_matmul_t_bf16(
+                        h.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), B, K, N, ks,
+                        torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"K1t launch failed: CUDA error {err} (B={B}, ks={ks})")
+                out.zero_()
+                call()
+                torch.cuda.synchronize()
+                ok = cs.within_tol(out, refs[B])[0]
+                failed = failed or not ok
+                dev = sum(cs.kernel_device_ms(call, flush).values())
+                print(json.dumps({"round": r, "B": B, "ks": ks, "slices": K // ks,
+                                  "plan": k1.k_slice_t_bf16(B, K, N) == ks, "ok": ok,
+                                  "device_ms": round(dev, 4)}), flush=True)
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("trees", nargs="+", help="checkout directories, measured in this order")
+    ap.add_argument("trees", nargs="*", help="checkout directories, measured in this order")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--k1t-slices", help="comma-separated K slices: time K1t at each instead")
+    ap.add_argument("--rounds", type=int, default=6, help="rounds of --k1t-slices")
     args = ap.parse_args(argv)
     if args.one:
         print(json.dumps(measure(args.trees[0])), flush=True)
         return 0
+    if not args.trees and not args.k1t_slices:
+        ap.error("give checkout directories or --k1t-slices")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
           flush=True)
+    if args.k1t_slices:
+        return k1t_slices([int(ks) for ks in args.k1t_slices.split(",")], args.rounds)
     failed = False
     for i, tree in enumerate(args.trees, 1):
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
