@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
-against its plain version, check the 8B and Mixtral models, serve both,
-and train.
+against its plain version, check the 8B and Mixtral models and their
+decode graphs, serve both, and train.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -48,12 +48,15 @@ time; any failure ends the run with a nonzero exit and no result line:
               through the kernel and through the dequant product; logits
               agree; the step makes 225 kernel launches
   serve       the port's ServingCell("llama3-8b", dtype="int8", 4 slots,
-              max_seq_len 1024) over HTTP: 4 concurrent 128-token prompts,
-              64 greedy tokens each, a repeat for determinism, /readyz;
-              torch.profiler over 4 more requests (device busy share, top
-              kernels and host operators)
+              max_seq_len 1024) over HTTP, its warmup capturing the decode
+              graphs (precompile: capture s, pool bytes): 4 concurrent
+              128-token prompts, 64 greedy tokens each, a repeat for
+              determinism, /readyz; then torch.profiler over 4 more HTTP
+              requests: device busy share, top kernels and host operators,
+              and the launches inside the graph replays (K1 225 a decode
+              step, one cudaGraphLaunch a chunk); no capture after warmup
   serve_tied  a short llama3-1b run, whose tied LM head takes the
-              transposed kernel
+              transposed kernel (K1t 1 and K1 112 a step)
   serve_tiny  short int8 runs of tiny and mixtral-tiny, whose dims off 128
               take the reference's dequant fallback on the card
   moe_model   mixtral-8x7b int8 at full width and depth, drawn once on the
@@ -62,13 +65,31 @@ time; any failure ends the run with a nonzero exit and no result line:
               the dequant products; the step makes 129 int8_matmul and 96
               int8_matmul_expert launches; logits agree on rows routed
               alike, and a routing flip happens only on a near tie
+  graph_decode  llama3-8b (drawn here) and that mixtral-8x7b, 4 slots
+              decoding 128-token prompts: the engine state is saved, a
+              4-step program replays, the state is put back and the same
+              program runs op by op; tokens, lengths and the KV rows
+              written are bitwise equal, greedy and for a stochastic key
+              (temperature, top-k and top-p) from the same generator state;
+              then a 16-step replay timed: host ms of the replay call, CUDA
+              events around it, and its kernels' device ms (profiler)
   serve_moe   that ServingCell over HTTP: 4 concurrent 128-token prompts,
               32 greedy tokens each, a repeat, /readyz, a profiled window
+              (K1 129 and K2 96 a decode step inside the replays)
   train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
               and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
               and 8, then a resumed run of 2 more steps; the loss falls,
               32 flash launches a step, restored params equal the saved ones
+
+Serving decodes through CUDA graph replays, where the kernels' Python
+launch counters move only while a graph is captured. So a serve phase
+counts its kernels from what torch.profiler sees inside the replays of its
+profiled HTTP window (a fresh profile: every count starts at 0), checks
+them against each program's launches recorded at capture times its
+replays, and holds the wrappers' counters at 0 across its traffic (no
+capture after warmup). The kernels line's ``launches`` are those profiler
+counts.
 
 The last lines: the nvidia-smi line, a {"kernels": [...]} line, and
 {"ok": true, "device": {...}}. Exits nonzero without a CUDA device, and
@@ -156,7 +177,15 @@ SHAPES_MOE = {"w_gate": (4096, 14336, 32), "w_up": (4096, 14336, 32),
 FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
               ("S 65792", 1, 65792, 1, 1, 64, 256))
 PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_tied",
-          "serve_tiny", "moe_model", "serve_moe", "train")      # in the order they run
+          "serve_tiny", "moe_model", "graph_decode", "serve_moe", "train")   # in run order
+# Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
+STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
+                 "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
+                 "mixtral-8x7b": {"k1": 129, "k1t": 0, "k2": 96}}
+# Kernel names in the profiler, and the programs' launch counters, by key.
+KERNEL_NAMES = {"k1": "int8_mm_bf16_kernel", "k1t": "int8_mm_t_bf16_kernel",
+                "k2": "int8_mm_expert_bf16_kernel"}
+COUNTERS = {"k1": "int8_matmul", "k1t": "int8_matmul_transposed", "k2": "int8_matmul_expert"}
 
 
 def emit(obj) -> None:
@@ -623,30 +652,58 @@ def device_kernels(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
 
 
-def profile_serving(engine, prompts, new: int) -> dict:
-    """torch.profiler over requests submitted straight to the running
-    engine: device busy share of the wall time, the kernels that take the
-    device time, and the host operators that take the host's, by name."""
+def post_all(base: str, prompts: list, new: int) -> list:
+    """The prompts as concurrent HTTP requests, ``new`` greedy tokens each."""
+    results = [None] * len(prompts)
+
+    def run(i):
+        results[i] = post(base + "/v1/generate", {"promptTokens": prompts[i], "maxNewTokens": new})
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results
+
+
+def profile_serving(base: str, engine, prompts, new: int) -> dict:
+    """torch.profiler over HTTP requests to the running cell: device busy
+    share of the wall time, the kernels that take the device time, the
+    host operators that take the host's, and the kernel launches inside
+    the decode graphs' replays, against each program's launches recorded
+    at capture times its replays in the window."""
     from torch.profiler import ProfilerActivity, profile
 
-    from kukeon_tpu_torch.serving.sampling import SamplingParams
-
+    stats = engine.program_stats
+    before = {"steps": stats["steps"], "replays": stats["replays"],
+              "by_key": dict(stats["replays_by_key"])}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        reqs = [engine.submit(p, SamplingParams(max_new_tokens=new)) for p in prompts]
-        for r in reqs:
-            r.done.wait(600)
+        results = post_all(base, prompts, new)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    if any(r is None or r["numTokens"] != new for r in results):
+        raise AssertionError(f"a profiled request came back wrong: {results}")
 
+    rows = prof.key_averages()
     kernels = device_kernels(prof)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CPU),
+    host = sorted((e for e in rows if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    steps = stats["steps"] - before["steps"]
+    replays = stats["replays"] - before["replays"]
+    seen = {k: sum(e.count for e in kernels if name in e.key) for k, name in KERNEL_NAMES.items()}
+    by_capture = {k: sum((n - before["by_key"].get(key, 0)) * stats["launches_by_key"][key][c]
+                         for key, n in stats["replays_by_key"].items())
+                  for k, c in COUNTERS.items()}
     return {"wall_ms": round(wall_ms, 2), "device_busy_ms": round(busy_ms, 2),
             "device_idle_share": round(1 - busy_ms / wall_ms, 4),
+            "decode_steps": steps, "replays": replays,
+            "graph_launches": sum(e.count for e in rows if "cudaGraphLaunch" in e.key),
+            "launches": seen, "launches_capture_x_replays": by_capture,
+            "launches_per_step": {k: round(v / max(steps, 1), 3) for k, v in seen.items()},
             "top_device_ms": [[e.key[:60], round(dev_us(e) / 1e3, 3), e.count] for e in top],
             "top_host_self_ms": [[e.key[:60], round(e.self_cpu_time_total / 1e3, 3), e.count]
                                  for e in host]}
@@ -660,48 +717,42 @@ def make_cell(model: str, max_seq_len: int):
 
 
 def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
-                requests: int = 4, profile_new: int = 0, cell=None) -> dict:
+                requests: int = 4, profile_new: int = 8, cell=None) -> dict:
     """The port's main path: ServingCell over HTTP, int8 weights, 4 slots
-    (``cell``: one already built, whose boot is then only its warmup).
-    Kernel counts are zeroed just before the requests and read just after."""
+    (``cell``: one already built, whose boot is then only its warmup). The
+    warmup captures the decode graphs; the kernels' launch counters are
+    zeroed just after it and must stay 0 (no capture for this traffic).
+    The launches inside the replays are counted in the profiled window."""
     from kukeon_tpu_torch.runtime.serving_cell import serve
 
     t0 = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
     cell = cell or make_cell(model, max_seq_len)
+    t_draw = time.monotonic()
     cell.warmup(prompt_len)
     cell.engine.start()
     server = serve(cell)
     cell.mark_ready()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     boot_s = time.monotonic() - t0
+    stats = cell.engine.program_stats
+    captures = stats["captures"]
     try:
         with urllib.request.urlopen(base + "/readyz", timeout=30) as r:
             ready = r.status
         g = torch.Generator().manual_seed(7)
         prompts = [torch.randint(0, cell.cfg.vocab_size, (prompt_len,), generator=g).tolist()
                    for _ in range(requests)]
-        results = [None] * requests
         k1.int8_matmul.launches = k1.int8_matmul.launches_t = 0
         k1.int8_matmul_expert.launches = 0
-
-        def run(i):
-            results[i] = post(base + "/v1/generate",
-                              {"promptTokens": prompts[i], "maxNewTokens": new})
-
         t1 = time.monotonic()
-        threads = [threading.Thread(target=run, args=(i,)) for i in range(requests)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
+        results = post_all(base, prompts, new)
         wall = time.monotonic() - t1
         repeat = post(base + "/v1/generate", {"promptTokens": prompts[0], "maxNewTokens": new})
         torch.cuda.synchronize()
-        launches = {"k1": k1.int8_matmul.launches - k1.int8_matmul.launches_t,
-                    "k1t": k1.int8_matmul.launches_t, "k2": k1.int8_matmul_expert.launches}
-        prof = (profile_serving(cell.engine, prompts, profile_new)
-                if profile_new else None)
+        prof = profile_serving(base, cell.engine, prompts, profile_new)
+        outside = {"k1": k1.int8_matmul.launches - k1.int8_matmul.launches_t,
+                   "k1t": k1.int8_matmul.launches_t, "k2": k1.int8_matmul_expert.launches}
     finally:
         server.shutdown()
         server.server_close()
@@ -713,22 +764,147 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
             raise AssertionError(f"request {i} came back wrong: {r}")
     if repeat["tokens"] != results[0]["tokens"]:
         raise AssertionError("the same prompt sent twice gave different tokens")
+    if stats["captures"] != captures or any(outside.values()):
+        raise AssertionError(f"{model}: a decode program was captured after warmup "
+                             f"({captures} -> {stats['captures']} captures; wrapper counts "
+                             f"{outside})")
+    if prof["replays"] <= 0 or prof["graph_launches"] != prof["replays"]:
+        raise AssertionError(f"{model}: {prof['replays']} program replays but "
+                             f"{prof['graph_launches']} cudaGraphLaunch calls profiled")
+    want = STEP_LAUNCHES.get(model)      # the bf16 models (tiny ones run f32 kernels)
+    if want is not None and prof["launches"] != prof["launches_capture_x_replays"]:
+        raise AssertionError(f"{model}: the profiler saw {prof['launches']} kernel launches in "
+                             f"the replays, the captures record "
+                             f"{prof['launches_capture_x_replays']}")
+    if want is not None and prof["launches_per_step"] != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"{model}: {prof['launches_per_step']} kernel launches a decode "
+                             f"step in the replays, want {want}")
     step_ms = [(r["seconds"] - r["ttftSeconds"]) / (new - 1) * 1e3 for r in results]
     out = {
         "model": model, "requests": requests, "prompt_len": prompt_len, "new_tokens": new,
-        "boot_s": round(boot_s, 3),
+        "boot_s": round(boot_s, 3), "draw_s": round(t_draw - t0, 3),
+        "precompile_s": cell.boot_s["precompile"], "warmup_s": cell.boot_s["warmup"],
+        "capture_s": round(stats["capture_s"], 3), "captures": stats["captures"],
+        "programs": sorted(stats["launches_by_key"]),
+        "pool_bytes": stats.get("pool_bytes", 0),
         "decode_tok_s": round(requests * new / wall, 2),
         "ttft_ms": sorted(round(r["ttftSeconds"] * 1e3, 2) for r in results),
         "ms_per_decode_step": round(statistics.median(step_ms), 3),
-        "launches": launches, "repeat_identical": True, "readyz": ready,
+        "launches": prof["launches"], "launch_count_method": "profiler, in the replays",
+        "repeat_identical": True, "readyz": ready,
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        "profile": prof,
     }
-    if prof is not None:
-        out["profile"] = prof
     del cell
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits, for a bitwise comparison (floats as integers)."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.view(torch.int16)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def replay_timing(progs, key, runs: int = 3) -> dict:
+    """One program's replay, each run from the same saved state: the host
+    time of the replay call, CUDA events before and after it (device time,
+    plus whatever of the launch the device waits for), and the kernels'
+    own device time in one replay (torch.profiler), all ms; the program's
+    graph nodes a step follow as kernels over steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    snap = progs.snapshot(key[0])
+    host, dev = [], []
+    for _ in range(runs):
+        progs.restore(snap)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        t0 = time.monotonic()
+        progs.run(key)
+        host.append((time.monotonic() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b))
+    progs.restore(snap)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        progs.run(key)
+        torch.cuda.synchronize()
+    progs.restore(snap)
+    torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    k = key[0]
+    return {"key": list(key), "replay_call_host_ms": round(statistics.median(host), 3),
+            "replay_event_ms": round(statistics.median(dev), 3),
+            "kernel_device_ms": round(sum(dev_us(e) for e in kernels) / 1e3, 3),
+            "kernels_per_step": sum(e.count for e in kernels) / k,
+            "event_ms_per_step": round(statistics.median(dev) / k, 3)}
+
+
+def graph_decode_check(cell, prompt_len: int = 128) -> dict:
+    """Replay against eager of one decode program on the same state: 4
+    slots decoding 128-token prompts; the state is saved, the 4-step program
+    replays, the state is put back, the same program runs op by op; the
+    tokens, lengths and KV rows written must be bitwise equal. Greedy, and
+    a stochastic key (temperature 0.8, top-k 40, top-p 0.9 in every slot)
+    from the same generator state. The engine's state is left as found."""
+    from kukeon_tpu_torch.serving.programs import program_key
+    from kukeon_tpu_torch.serving.sampling import SamplingParams
+
+    eng = cell.engine
+    cell.warmup(prompt_len)
+    g = torch.Generator().manual_seed(11)
+    reqs = [eng.submit(torch.randint(0, cell.cfg.vocab_size, (prompt_len,), generator=g).numpy(),
+                       SamplingParams(max_new_tokens=256))
+            for _ in range(eng.num_slots)]
+    with torch.no_grad():
+        eng.step()          # prefill + insert every slot, one chunk enqueued
+        eng.step()          # a second chunk
+        torch.cuda.synchronize()
+        progs, st = eng._programs, eng.state
+        out = {}
+        for label, key in (("greedy", program_key(4, False, False)),
+                           ("stochastic", program_key(4, True, True))):
+            if key[2]:
+                st.temps.fill_(0.8)
+                st.top_ks.fill_(40)
+                st.top_ps.fill_(0.9)
+            progs.build(key)
+            snap = progs.snapshot(4)
+            runs = {}
+            for how in ("replay", "eager"):
+                progs.restore(snap)
+                if how == "replay":
+                    progs.run(key)
+                else:
+                    progs.run_eager(key)
+                torch.cuda.synchronize()
+                runs[how] = {"tokens": progs.output(4).clone(),
+                             "lengths": st.cache.lengths.clone(),
+                             **progs.written_rows(snap)}
+            progs.restore(snap)
+            diff = [n for n in runs["replay"]
+                    if not torch.equal(_bits(runs["replay"][n]), _bits(runs["eager"][n]))]
+            if diff:
+                raise AssertionError(f"{label} program {key}: replay and eager differ in {diff}")
+            advanced = runs["replay"]["lengths"] - snap["lengths"]
+            if not torch.all(advanced == 4):
+                raise AssertionError(f"{label}: lengths advanced by {advanced.tolist()}, want 4")
+            out[label] = {"key": list(key), "bitwise_equal": ["tokens", "lengths", "k", "v"],
+                          "tokens": runs["replay"]["tokens"].tolist()}
+        out["replay_16"] = replay_timing(progs, program_key(16, False, False))
+        eng._sampling_dirty = True      # the next chunk uploads the slots' own arrays
+    for r in reqs:
+        r.cancel()
+    while not all(r.done.is_set() for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    return {**out, "captures": eng.program_stats["captures"],
+            "capture_s": round(eng.program_stats["capture_s"], 3)}
 
 
 def flash_within_tol(out: torch.Tensor, ref: torch.Tensor,
@@ -1113,14 +1289,25 @@ def main(argv=None) -> int:
                                           new=16))
     run("serve_tiny", lambda: {m: serve_model(k1, m, max_seq_len=256, prompt_len=32, new=16)
                                for m in ("tiny", "mixtral-tiny")})
-    # One Mixtral-8x7B draw (46.7 GB of int8) serves both of its phases.
+    # One Mixtral-8x7B draw (46.7 GB of int8) serves its three phases.
     cell = {}
-    if "moe_model" in phases or "serve_moe" in phases:
+    if {"moe_model", "graph_decode", "serve_moe"} & set(phases):
         t0 = time.monotonic()
         cell["moe"] = make_cell("mixtral-8x7b", 1024)
         cell["draw_s"] = round(time.monotonic() - t0, 3)
     run("moe_model", lambda: {"draw_s": cell["draw_s"],
                               **phase_moe_model(k1, cell["moe"].engine.params)})
+
+    def graph_decode():
+        dense = make_cell("llama3-8b", 1024)
+        out = {"llama3-8b": graph_decode_check(dense)}
+        del dense
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["mixtral-8x7b"] = graph_decode_check(cell["moe"])
+        return out
+
+    run("graph_decode", graph_decode)
     run("serve_moe", lambda: {
         **serve_model(k1, "mixtral-8x7b", max_seq_len=1024, prompt_len=128, new=32,
                       profile_new=16, cell=cell["moe"]),
@@ -1151,6 +1338,7 @@ def main(argv=None) -> int:
                              ("mixtral-8x7b", serve_moe, "k1"), ("mixtral-8x7b", serve_moe, "k2")):
         if run_["launches"][key] <= 0:
             raise AssertionError(f"{label} serving launched no {key} kernel")
+    gd = res["graph_decode"]
 
     # K1: one llama3-8b decode step's worth of calls at B = 4 (225 launches).
     fields = ("ms", "plain_ms", "library_ms", "bound_ms")
@@ -1209,15 +1397,19 @@ def main(argv=None) -> int:
     ]
     # The serve phases' end-to-end numbers again, short, so that the last
     # lines of the output carry every number the run is quoted for.
-    e2e_keys = ("decode_tok_s", "ttft_ms", "ms_per_decode_step", "launches")
+    e2e_keys = ("decode_tok_s", "ttft_ms", "ms_per_decode_step", "launches", "capture_s",
+                "pool_bytes")
     emit({"end_to_end": {
         "llama3-8b": {**{k: serve8[k] for k in e2e_keys},
                       "bound_ms_per_decode_step": serve8["bound_ms_per_decode_step"],
                       "device_idle_share": serve8["profile"]["device_idle_share"]},
-        "llama3-1b": {k: serve1[k] for k in e2e_keys},
+        "llama3-1b": {**{k: serve1[k] for k in e2e_keys},
+                      "device_idle_share": serve1["profile"]["device_idle_share"]},
         "mixtral-8x7b": {**{k: serve_moe[k] for k in e2e_keys + ("peak_mem_gb",)},
                          "bound_ms_per_decode_step": serve_moe["bound_ms_per_decode_step"],
                          "device_idle_share": serve_moe["profile"]["device_idle_share"]},
+        "graph_decode_bitwise": {m: sorted(v for v in gd[m] if v in ("greedy", "stochastic"))
+                                 for m in ("llama3-8b", "mixtral-8x7b")},
         "train_llama3-1b": {k: train[k] for k in (
             "step_ms_median_3_8", "tokens_per_s", "mfu", "peak_mem_gb", "first_loss",
             "last_loss", "flash_launches_per_step", "flash_share_of_step")}}})

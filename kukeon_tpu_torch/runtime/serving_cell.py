@@ -106,10 +106,19 @@ class ServingCell:
         self.tokenizer = load_tokenizer(None)
         self.default_deadline_s = deadline_s
         self.started_at = time.time()
+        self.boot_s: dict[str, float] = {}
         self._ready = threading.Event()
 
     def warmup(self, prompt_len: int = 64):
+        """Capture the decode programs (``engine.precompile``), then run one
+        request through them, as the reference cell does; ``/readyz`` turns
+        200 only at :meth:`mark_ready`, after both."""
+        t0 = time.monotonic()
+        self.engine.precompile((prompt_len,))
+        t1 = time.monotonic()
         self.engine.warmup(prompt_len)
+        self.boot_s["precompile"] = round(t1 - t0, 3)
+        self.boot_s["warmup"] = round(time.monotonic() - t1, 3)
 
     def mark_ready(self):
         self._ready.set()
@@ -175,6 +184,10 @@ class ServingCell:
             "int8Kernel": eng.cfg.int8_pallas,
             "kvCacheInt8": eng.kv_cache_int8,
             "decodeChunk": eng.decode_chunk,
+            "decodePrograms": {"captures": eng.program_stats["captures"],
+                               "replays": eng.program_stats["replays"],
+                               "captureSeconds": round(eng.program_stats["capture_s"], 3)},
+            "bootSeconds": self.boot_s,
             "uptimeSeconds": round(time.time() - self.started_at, 1),
             "ready": ready,
             **({"unreadyReason": why} if why else {}),

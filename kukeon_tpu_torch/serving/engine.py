@@ -4,11 +4,17 @@
 - **Slot-based decode batch**: a fixed [B_slots] batch over a fixed-shape
   KV cache [L, B, S_max, KV, D], updated in place (the reference donates it
   to its jitted programs instead).
-- **Three programs, as plain methods**: :meth:`_prefill` runs a request at
-  a bucketed length into a fresh KV block, :meth:`_insert` copies the block
-  into a decode slot, :meth:`_decode_chunk` runs K decode steps — a Python
-  loop that keeps tokens on the device — and returns one [B, K] token
-  block.
+- **Three programs**: :meth:`_prefill` runs a request at a bucketed
+  length into a fresh KV block and :meth:`_insert` copies the block into a
+  decode slot, both eagerly; :meth:`_decode_chunk` runs K decode steps
+  through a decode program (``serving/programs.py``): on CUDA one replay
+  of a CUDA graph captured once per (K, sampling branches), on the CPU the
+  same program eagerly. It returns one [B, K] token block.
+- **Static state**: the decode state (KV cache, lengths, tokens, active
+  slots, sampling arrays) is allocated once and only ever written in
+  place, since the graphs read those very tensors. :meth:`precompile`
+  captures the greedy programs of every chunk size, as the reference's
+  compiles them.
 - **One blocking fetch per chunk**: the token block is copied to pinned
   host memory without blocking right after the chunk is enqueued, and the
   driver waits on it only after the *next* chunk is enqueued (the
@@ -24,9 +30,10 @@
   layout, so the MoE family serves through the same programs.
 
 Python orchestrates: queueing, slot choice, emitting tokens. Not ported
-yet (ROADMAP.md): paged KV and preemption, the prefix cache, KV export and
-import, the metrics registry, tracing, timers, the flight recorder, tuning
-profiles, async weight load, meshes and sharding.
+yet (ROADMAP.md): compiled prefill and insert, paged KV and preemption, the
+prefix cache, KV export and import, the metrics registry, tracing, timers,
+the flight recorder, tuning profiles, async weight load, meshes and
+sharding.
 """
 
 from __future__ import annotations
@@ -43,6 +50,12 @@ import torch
 
 from kukeon_tpu_torch.device import resolve_device
 from kukeon_tpu_torch.models import llama
+from kukeon_tpu_torch.serving.programs import (
+    DecodePrograms,
+    DecodeState,
+    chunk_sizes,
+    program_key,
+)
 from kukeon_tpu_torch.serving.sampling import (
     SamplingParams,
     branch_flags,
@@ -64,15 +77,6 @@ class RejectedError(RuntimeError):
 
 class DeadlineExceeded(RuntimeError):
     """A request's deadline passed before it finished generating."""
-
-
-@dataclasses.dataclass
-class DecodeState:
-    """Whole-engine decode state, on the device."""
-
-    cache: llama.KVCache          # [L, B, S_max, KV, D] + lengths [B]
-    tokens: torch.Tensor          # [B] int64: last emitted token per slot
-    active: torch.Tensor          # [B] bool: slot currently generating
 
 
 @dataclasses.dataclass
@@ -170,15 +174,18 @@ class ServingEngine:
         # tests can hold the decode loop to <= 1 blocking fetch per chunk.
         self.sync_stats = {"fetches": 0, "uploads": 0, "chunks": 0,
                            "fetch_s": 0.0, "upload_s": 0.0}
-        self.state = self._init_state()
+        # Allocated once: the decode programs read these very tensors.
+        self.state = DecodeState.create(cfg, num_slots, self.max_seq_len,
+                                        self.kv_cache_int8, self.device)
+        self._programs = DecodePrograms(self._forward, self.params, cfg, self.state,
+                                        self._gen)
 
         self._requests: dict[int, Request] = {}
         self._slot_req: list[Request | None] = [None] * num_slots
         self._slot_len: list[int] = [0] * num_slots    # host-side cache lengths
         self._inflight: _InflightChunk | None = None
-        # Device sampling arrays plus the host copies that decide the
-        # sampler's branches; re-uploaded only when slot composition changes.
-        self._sampling_dev: tuple | None = None
+        # The sampler's branches, from the host copies of the sampling
+        # arrays; both re-uploaded only when slot composition changes.
         self._sampling_flags = (False, False)
         self._sampling_dirty = True
         self._pending: queue.Queue[Request] = queue.Queue()
@@ -196,14 +203,11 @@ class ServingEngine:
 
     # --- programs ----------------------------------------------------------
 
-    def _init_state(self) -> DecodeState:
-        cache = llama.KVCache.create(self.cfg, self.num_slots, self.max_seq_len,
-                                     quantized=self.kv_cache_int8, device=self.device)
-        return DecodeState(
-            cache=cache,
-            tokens=torch.zeros((self.num_slots,), dtype=torch.int64, device=self.device),
-            active=torch.zeros((self.num_slots,), dtype=torch.bool, device=self.device),
-        )
+    @property
+    def program_stats(self) -> dict:
+        """The decode programs' counters (``DecodePrograms.stats``) plus
+        ``pool_bytes``, the device memory :meth:`precompile` reserved."""
+        return self._programs.stats
 
     def _h2d(self, x: torch.Tensor) -> torch.Tensor:
         """Host tensor -> device without waiting for queued device work
@@ -252,21 +256,34 @@ class ServingEngine:
         self.state.tokens[slot] = token
         self.state.active[slot] = True
 
-    def _decode_chunk(self, k: int, temps, top_ks, top_ps, flags) -> torch.Tensor:
-        """K decode steps over every slot -> tokens [B, K] on the device.
-        Inactive slots neither advance their length nor change token."""
-        st = self.state
-        out = []
-        for _ in range(k):
-            before = st.cache.lengths
-            logits, cache = self._forward(self.params, self.cfg, st.tokens[:, None],
-                                          before[:, None], st.cache)
-            cache.lengths = torch.where(st.active, cache.lengths, before)
-            nxt = sample_per_slot(logits[:, 0, :], self._gen, temps, top_ks, top_ps,
-                                  needs_filter=flags[0], any_stochastic=flags[1])
-            st.tokens = torch.where(st.active, nxt, st.tokens)
-            out.append(st.tokens)
-        return torch.stack(out, dim=1)
+    def _decode_chunk(self, k: int, flags: tuple[bool, bool]) -> torch.Tensor:
+        """K decode steps over every slot -> the program's static tokens
+        [B, K] on the device. Inactive slots neither advance their length
+        nor change token."""
+        return self._programs.run(program_key(k, *flags))
+
+    @torch.no_grad()
+    def precompile(self, prompt_lens: tuple[int, ...] = (64,)) -> None:
+        """Capture the greedy decode program of every chunk size the
+        reference compiles (``chunk_sizes``), the counterpart of the
+        reference's ``precompile``. Stochastic programs are captured at
+        their first use. ``prompt_lens`` names the prefill buckets the
+        reference compiles too; the port's prefill and insert stay eager
+        (ROADMAP A14b). Call it before :meth:`start`: a capture must not
+        meet the driver's launches. A key already built is kept."""
+        del prompt_lens
+        if self._running:
+            raise RuntimeError("precompile() before start(): the driver thread is running")
+        cuda = self.device.type == "cuda"
+        if cuda:        # each capture empties the cache too: count from an empty one
+            torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device) if cuda else 0
+        for k in chunk_sizes(self.decode_chunk):
+            self._programs.build(program_key(k, False, False))
+        if cuda:
+            self._programs.stats["pool_bytes"] = (
+                self._programs.stats.get("pool_bytes", 0)
+                + torch.cuda.memory_reserved(self.device) - reserved)
 
     # --- counted transfer seams -------------------------------------------
 
@@ -281,10 +298,15 @@ class ServingEngine:
         self.sync_stats["fetch_s"] += time.monotonic() - t0
         return out
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        """Host->device array, counted and timed."""
+    def _upload(self, x: np.ndarray, into: torch.Tensor | None = None) -> torch.Tensor:
+        """Host->device array, counted and timed; ``into``: a static device
+        buffer to copy it into (without waiting for queued device work)."""
         t0 = time.monotonic()
-        out = self._h2d(torch.from_numpy(np.ascontiguousarray(x)))
+        host = torch.from_numpy(np.ascontiguousarray(x))
+        if into is None:
+            out = self._h2d(host)
+        else:
+            out = into.copy_(host.pin_memory() if into.is_cuda else host, non_blocking=True)
         self.sync_stats["uploads"] += 1
         self.sync_stats["upload_s"] += time.monotonic() - t0
         return out
@@ -395,8 +417,8 @@ class ServingEngine:
                 traceback.print_exc()
                 self.error = e
                 self._fail_all(e)
-                # The state may be half-written: start it over.
-                self.state = self._init_state()
+                # The state may be half-written: start it over, in place.
+                self.state.reset()
                 self._slot_req = [None] * self.num_slots
                 self._slot_len = [0] * self.num_slots
                 self._inflight = None
@@ -483,10 +505,10 @@ class ServingEngine:
           3. enqueue the next decode chunk for the active slots;
           4. fetch and emit the PREVIOUS chunk's tokens (double buffering).
 
-        The reference enqueues the chunk before the first-token fetch,
-        which costs it nothing: a jitted dispatch returns at once. Here
-        enqueueing a chunk is the host running K eager decode steps, so
-        the first tokens are fetched first, or TTFT would include them.
+        The reference enqueues the chunk before the first-token fetch.
+        Here the first tokens are fetched first: the blocking fetch would
+        otherwise queue behind the whole chunk on the one stream, and TTFT
+        would include it.
 
         Returns True if any work was done.
         """
@@ -551,23 +573,27 @@ class ServingEngine:
             size *= 4
         return size
 
-    def _sampling_dev_arrays(self):
-        if self._sampling_dev is None or self._sampling_dirty:
+    def _upload_sampling(self) -> None:
+        """Copy the slots' sampling arrays into the static buffers, when the
+        slot composition changed since the last upload."""
+        if self._sampling_dirty:
             temps, top_ks, top_ps = slot_sampling_arrays(
                 self._active_requests(), self.num_slots)
-            self._sampling_dev = (self._upload(temps), self._upload(top_ks.astype(np.int64)),
-                                  self._upload(top_ps))
+            st = self.state
+            self._upload(temps, st.temps)
+            self._upload(top_ks.astype(np.int64), st.top_ks)
+            self._upload(top_ps, st.top_ps)
             self._sampling_flags = branch_flags(temps, top_ks, top_ps)
             self._sampling_dirty = False
-        return self._sampling_dev
 
     def _dispatch_decode_chunk(self) -> _InflightChunk:
         k = self._chunk_size()
-        temps, top_ks, top_ps = self._sampling_dev_arrays()
-        toks = self._decode_chunk(k, temps, top_ks, top_ps, self._sampling_flags)
+        self._upload_sampling()
+        toks = self._decode_chunk(k, self._sampling_flags)
         self.sync_stats["chunks"] += 1
-        # Start the device->host copy now; the driver waits on it only after
-        # the next chunk is enqueued.
+        # Start the device->host copy now, behind the replay on the same
+        # stream; the driver waits on it only after the next chunk is
+        # enqueued, which overwrites the static output.
         ready = None
         if toks.is_cuda:
             host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
@@ -575,7 +601,7 @@ class ServingEngine:
             ready = torch.cuda.Event()
             ready.record()
         else:
-            host = toks
+            host = toks.clone()
         return _InflightChunk(host=host, ready=ready, k=k, slots=self._active_requests())
 
     def _flush_inflight(self):

@@ -270,7 +270,8 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "kukeon_tpu" or m.startswith("kukeon_tpu."))
 assert not leaked, leaked
-assert len(names) >= 24, names
+assert len(names) >= 25, names
+assert "kukeon_tpu_torch.serving.programs" in names, names
 print("ok", len(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
