@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, check the 8B and Mixtral models and their
-decode graphs, serve both, and train.
+decode and prefill graphs, serve both (and agent sessions through the
+prefix cache), and train.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -49,12 +50,14 @@ time; any failure ends the run with a nonzero exit and no result line:
               agree; the step makes 225 kernel launches
   serve       the port's ServingCell("llama3-8b", dtype="int8", 4 slots,
               max_seq_len 1024) over HTTP, its warmup capturing the decode
-              graphs (precompile: capture s, pool bytes): 4 concurrent
-              128-token prompts, 64 greedy tokens each, a repeat for
-              determinism, /readyz; then torch.profiler over 4 more HTTP
+              graphs and the 128 bucket's prefill graph (precompile: capture
+              s, pool bytes, and the prefill programs' static bytes): 4
+              concurrent 128-token prompts, 64 greedy tokens each, a repeat
+              for determinism, /readyz; then torch.profiler over 4 more HTTP
               requests: device busy share, top kernels and host operators,
               and the launches inside the graph replays (K1 225 a decode
-              step, one cudaGraphLaunch a chunk); no capture after warmup
+              step, one cudaGraphLaunch a chunk and one a prefill); no
+              capture after warmup
   serve_tied  a short llama3-1b run, whose tied LM head takes the
               transposed kernel (K1t 1 and K1 112 a step)
   serve_tiny  short int8 runs of tiny and mixtral-tiny, whose dims off 128
@@ -73,9 +76,24 @@ time; any failure ends the run with a nonzero exit and no result line:
               (temperature, top-k and top-p) from the same generator state;
               then a 16-step replay timed: host ms of the replay call, CUDA
               events around it, and its kernels' device ms (profiler)
+  graph_prefill  the same two models: a prefill program (prefill, first
+              token's sample and insert, one graph) replayed and run op by
+              op from one saved state, at bucket 128 greedy and with a
+              stochastic key, and a prefill_ext at (Pb 512, S_tail 64)
+              over a stored 400-token prefix; first token, the slot's K/V
+              rows, length, token, active, the KV block and the generator
+              state bitwise equal; a prefix hit's first-token logits
+              against a full prefill of the same prompt (logits_agree)
   serve_moe   that ServingCell over HTTP: 4 concurrent 128-token prompts,
               32 greedy tokens each, a repeat, /readyz, a profiled window
               (K1 129 and K2 96 a decode step inside the replays)
+  serve_prefix  llama3-8b int8, 4 slots, max_seq_len 1024, over HTTP: four
+              agent sessions (prefixId sess-0..3), six turns each, 384
+              tokens the first and each later turn the previous prompt, its
+              32 generated tokens and a 32-token user message; the same
+              prompts again without prefixId (the control); TTFT per turn
+              and arm, 20 hits and 4 misses, no capture in the measured
+              traffic, hit tokens against the control's
   train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
               and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
@@ -177,7 +195,8 @@ SHAPES_MOE = {"w_gate": (4096, 14336, 32), "w_up": (4096, 14336, 32),
 FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
               ("S 65792", 1, 65792, 1, 1, 64, 256))
 PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_tied",
-          "serve_tiny", "moe_model", "graph_decode", "serve_moe", "train")   # in run order
+          "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "serve_moe",
+          "serve_prefix", "train")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
 STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
                  "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
@@ -654,12 +673,17 @@ def device_kernels(prof) -> list:
 
 def post_all(base: str, prompts: list, new: int) -> list:
     """The prompts as concurrent HTTP requests, ``new`` greedy tokens each."""
-    results = [None] * len(prompts)
+    return post_bodies(base, [{"promptTokens": p, "maxNewTokens": new} for p in prompts])
+
+
+def post_bodies(base: str, bodies: list) -> list:
+    """The generate bodies as concurrent HTTP requests -> their answers."""
+    results = [None] * len(bodies)
 
     def run(i):
-        results[i] = post(base + "/v1/generate", {"promptTokens": prompts[i], "maxNewTokens": new})
+        results[i] = post(base + "/v1/generate", bodies[i])
 
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
     for t in threads:
         t.start()
     for t in threads:
@@ -672,12 +696,14 @@ def profile_serving(base: str, engine, prompts, new: int) -> dict:
     share of the wall time, the kernels that take the device time, the
     host operators that take the host's, and the kernel launches inside
     the decode graphs' replays, against each program's launches recorded
-    at capture times its replays in the window."""
+    at capture times its replays in the window; and the prefill programs'
+    replays (one ``cudaGraphLaunch`` each, prefill and insert together)."""
     from torch.profiler import ProfilerActivity, profile
 
     stats = engine.program_stats
     before = {"steps": stats["steps"], "replays": stats["replays"],
-              "by_key": dict(stats["replays_by_key"])}
+              "by_key": dict(stats["replays_by_key"]),
+              "prefill_replays": stats["prefill"]["replays"]}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         results = post_all(base, prompts, new)
@@ -701,6 +727,7 @@ def profile_serving(base: str, engine, prompts, new: int) -> dict:
     return {"wall_ms": round(wall_ms, 2), "device_busy_ms": round(busy_ms, 2),
             "device_idle_share": round(1 - busy_ms / wall_ms, 4),
             "decode_steps": steps, "replays": replays,
+            "prefill_replays": stats["prefill"]["replays"] - before["prefill_replays"],
             "graph_launches": sum(e.count for e in rows if "cudaGraphLaunch" in e.key),
             "launches": seen, "launches_capture_x_replays": by_capture,
             "launches_per_step": {k: round(v / max(steps, 1), 3) for k, v in seen.items()},
@@ -720,9 +747,11 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
                 requests: int = 4, profile_new: int = 8, cell=None) -> dict:
     """The port's main path: ServingCell over HTTP, int8 weights, 4 slots
     (``cell``: one already built, whose boot is then only its warmup). The
-    warmup captures the decode graphs; the kernels' launch counters are
-    zeroed just after it and must stay 0 (no capture for this traffic).
-    The launches inside the replays are counted in the profiled window."""
+    warmup captures the decode graphs and the prompt bucket's prefill; the
+    kernels' launch counters are zeroed just after it and must stay 0, as
+    must both programs' capture counts (no capture for this traffic). The
+    launches inside the replays are counted in the profiled window, where
+    every prefill must be one graph replay."""
     from kukeon_tpu_torch.runtime.serving_cell import serve
 
     t0 = time.monotonic()
@@ -736,7 +765,9 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
     base = f"http://127.0.0.1:{server.server_address[1]}"
     boot_s = time.monotonic() - t0
     stats = cell.engine.program_stats
-    captures = stats["captures"]
+    pstats = stats["prefill"]
+    captures = (stats["captures"], pstats["captures"])
+    after_warmup = (stats["captures_after_warmup"], pstats["captures_after_warmup"])
     try:
         with urllib.request.urlopen(base + "/readyz", timeout=30) as r:
             ready = r.status
@@ -764,12 +795,15 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
             raise AssertionError(f"request {i} came back wrong: {r}")
     if repeat["tokens"] != results[0]["tokens"]:
         raise AssertionError("the same prompt sent twice gave different tokens")
-    if stats["captures"] != captures or any(outside.values()):
-        raise AssertionError(f"{model}: a decode program was captured after warmup "
-                             f"({captures} -> {stats['captures']} captures; wrapper counts "
+    now = (stats["captures"], pstats["captures"])
+    if now != captures or any(outside.values()):
+        raise AssertionError(f"{model}: a program was captured after warmup ((decode, "
+                             f"prefill) captures {captures} -> {now}; wrapper counts "
                              f"{outside})")
-    if prof["replays"] <= 0 or prof["graph_launches"] != prof["replays"]:
-        raise AssertionError(f"{model}: {prof['replays']} program replays but "
+    if (prof["replays"] <= 0 or prof["prefill_replays"] != requests
+            or prof["graph_launches"] != prof["replays"] + prof["prefill_replays"]):
+        raise AssertionError(f"{model}: {prof['replays']} decode and {prof['prefill_replays']} "
+                             f"prefill replays ({requests} requests) but "
                              f"{prof['graph_launches']} cudaGraphLaunch calls profiled")
     want = STEP_LAUNCHES.get(model)      # the bf16 models (tiny ones run f32 kernels)
     if want is not None and prof["launches"] != prof["launches_capture_x_replays"]:
@@ -786,7 +820,14 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
         "precompile_s": cell.boot_s["precompile"], "warmup_s": cell.boot_s["warmup"],
         "capture_s": round(stats["capture_s"], 3), "captures": stats["captures"],
         "programs": sorted(stats["launches_by_key"]),
-        "pool_bytes": stats.get("pool_bytes", 0),
+        "pool_bytes": stats["pool_bytes"],
+        "prefill": {"captures": pstats["captures"], "capture_s": round(pstats["capture_s"], 3),
+                    "pool_bytes": pstats["pool_bytes"], "static_bytes": pstats["static_bytes"],
+                    "programs": sorted(pstats["launches_by_key"]),
+                    "replays_per_prefill": prof["prefill_replays"] / requests},
+        "captures_after_warmup_in_traffic": {
+            "decode": stats["captures_after_warmup"] - after_warmup[0],
+            "prefill": pstats["captures_after_warmup"] - after_warmup[1]},
         "decode_tok_s": round(requests * new / wall, 2),
         "ttft_ms": sorted(round(r["ttftSeconds"] * 1e3, 2) for r in results),
         "ms_per_decode_step": round(statistics.median(step_ms), 3),
@@ -905,6 +946,244 @@ def graph_decode_check(cell, prompt_len: int = 128) -> dict:
     torch.cuda.synchronize()
     return {**out, "captures": eng.program_stats["captures"],
             "capture_s": round(eng.program_stats["capture_s"], 3)}
+
+
+def graph_prefill_check(cell) -> dict:
+    """Replay against eager of the prefill programs (prefill, sampling and
+    insert, one graph) on the same state: the inputs of a request are
+    staged for slot 1, the state is saved, the program replays, the state
+    is put back and the same program runs op by op; the first token, the
+    slot's K and V rows, its length, token and active, the KV block and
+    the generator state must be bitwise equal. At bucket 128 greedy and
+    with a stochastic key (temperature 0.8, top-k 40, top-p 0.9), and a
+    ``prefill_ext`` at (Pb 512, S_tail 64) over a stored 400-token prefix.
+    Then a prefix hit's first-token logits against a full prefill of the
+    same prompt (``logits_agree``). The engine's state is left as found."""
+    from kukeon_tpu_torch.serving.engine import Request
+    from kukeon_tpu_torch.serving.sampling import SamplingParams
+
+    eng = cell.engine
+    cell.warmup(128)
+    progs = eng._prefill_programs
+    g = torch.Generator().manual_seed(13)
+
+    def prompt(n):
+        return torch.randint(0, cell.cfg.vocab_size, (n,), generator=g).numpy().astype(np.int32)
+
+    stored, tail = prompt(400), prompt(50)
+    seed = eng.submit(stored, SamplingParams(max_new_tokens=1), prefix_id="graph-prefill")
+    while not seed.done.is_set():
+        eng.step()
+    grown = np.concatenate([stored, tail])
+    cases = (("bucket 128 greedy", Request(-1, prompt(100), SamplingParams())),
+             ("bucket 128 stochastic", Request(-2, prompt(100), SamplingParams(
+                 temperature=0.8, top_k=40, top_p=0.9))),
+             ("prefill_ext 512 + 64", Request(-3, grown, SamplingParams(),
+                                              prefix_id="graph-prefill")))
+    out = {}
+    with torch.no_grad():
+        for label, req in cases:
+            key = eng._stage_prefill(req, 1)
+            t0 = time.monotonic()
+            progs.build(key)
+            build_s = time.monotonic() - t0
+            snap = progs.snapshot_key(key)
+            runs = {}
+            for how in ("replay", "eager"):
+                progs.restore(snap)
+                if how == "replay":
+                    progs.run(key)
+                else:
+                    progs.run_eager(key)
+                torch.cuda.synchronize()
+                runs[how] = progs.snapshot_key(key)
+            progs.restore(snap)
+            a, b = runs["replay"], runs["eager"]
+            flat = {n: (a[n], b[n]) for n in ("lengths", "tokens", "active", "block_k",
+                                               "block_v", "gen")}
+            flat.update({f"kv_{n}": (a["kv"][n], b["kv"][n]) for n in a["kv"]})
+            diff = [n for n, (x, y) in flat.items() if not torch.equal(_bits(x), _bits(y))]
+            if diff:
+                raise AssertionError(f"{label} {key}: replay and eager differ in {diff}")
+            if int(a["lengths"][1]) != req.prompt.size or not bool(a["active"][1]):
+                raise AssertionError(f"{label}: slot 1 length {int(a['lengths'][1])}, "
+                                     f"active {bool(a['active'][1])}")
+            out[label] = {"key": list(key), "bitwise_equal": sorted(flat),
+                          "first_token": int(a["tokens"][1]), "build_s": round(build_s, 3),
+                          "launches_at_capture": progs.stats["launches_by_key"][str(key)]}
+        logits = {}
+        for label, pid in (("hit", "graph-prefill"), ("full", None)):
+            key = eng._stage_prefill(Request(-4, grown, SamplingParams(), prefix_id=pid), 1)
+            snap = progs.snapshot_key(key)
+            logits[label] = progs.logits(key).float()
+            progs.restore(snap)
+            out[f"{label}_key"] = list(key)
+        torch.cuda.synchronize()
+    out["hit_vs_full_logits"] = logits_agree(logits["hit"], logits["full"],
+                                             "prefix hit vs full prefill")
+    out["tolerance"] = "replay vs eager bitwise; hit vs full: logits_agree (cosine >= 0.999)"
+    st = progs.stats
+    return {**out, "prefill_captures": st["captures"], "capture_s": round(st["capture_s"], 3),
+            "pool_bytes": st["pool_bytes"], "static_bytes": st["static_bytes"]}
+
+
+# serve_prefix: agent sessions, each turn the previous prompt plus the
+# turn's generated tokens plus a user message.
+PREFIX_SESSIONS, PREFIX_TURNS, PREFIX_FIRST, PREFIX_USER, PREFIX_NEW = 4, 6, 384, 32, 32
+# A greedy divergence between a prefix hit and a full prefill is a near
+# tie when the full prefill's logit gap between the two tokens is at most
+# this share of its top logit's magnitude (bf16 rounds each product to
+# 2^-8 relative; the two paths round the prefix's rows differently).
+NEAR_TIE_SHARE = 0.02
+
+
+def converse(base: str, prefix_id: str | None, first: list | None = None,
+             users: list | None = None, prompts: list | None = None) -> tuple[list, list]:
+    """Sessions over HTTP, turn t of every session submitted together ->
+    (prompts [session][turn], answers [session][turn]). Each session grows
+    from its ``first`` prompt by its answers and ``users`` messages, or
+    sends the given ``prompts``. The device drains between turns, as an
+    agent's own work between turns would let it: the engine's last decode
+    chunk of a turn overshoots the requests' ends, and a turn sent at once
+    would wait behind it."""
+    n = len(prompts or first)
+    sent = [[None] * PREFIX_TURNS for _ in range(n)]
+    answers = [[None] * PREFIX_TURNS for _ in range(n)]
+    cur = list(first or [])
+    for t in range(PREFIX_TURNS):
+        bodies = []
+        for i in range(n):
+            sent[i][t] = prompts[i][t] if prompts else cur[i]
+            body = {"promptTokens": sent[i][t], "maxNewTokens": PREFIX_NEW}
+            if prefix_id:
+                body["prefixId"] = f"{prefix_id}-{i}"
+            bodies.append(body)
+        for i, r in enumerate(post_bodies(base, bodies)):
+            if r is None or r["numTokens"] != PREFIX_NEW:
+                raise AssertionError(f"session {i} turn {t + 1} came back wrong: {r}")
+            answers[i][t] = r
+            if not prompts:
+                cur[i] = cur[i] + r["tokens"] + users[i][t]
+        torch.cuda.synchronize()
+    return sent, answers
+
+
+def divergence(cell, prompt: list, want: list, got: list) -> dict | None:
+    """The first position where ``got`` leaves ``want`` (the full
+    prefill's greedy tokens), with the full prefill's logits there: the
+    gap between its token and the hit's, and that gap's share of its top
+    logit. None if they agree."""
+    from kukeon_tpu_torch.models import llama
+
+    j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if j is None:
+        return None
+    dev = cell.engine.device
+    toks = torch.tensor([prompt + want[:j]], device=dev)
+    pos = torch.arange(toks.shape[1], device=dev)[None, :]
+    with torch.no_grad():
+        logits, _ = llama.forward(cell.engine.params, cell.engine.cfg, toks, pos,
+                                  logit_positions=torch.tensor([toks.shape[1] - 1], device=dev))
+    row = logits[0, 0].float()
+    gap = float(row[want[j]] - row[got[j]])
+    return {"position": j, "full_token": want[j], "hit_token": got[j],
+            "logit_gap": round(gap, 5), "gap_share": round(gap / float(row.abs().max()), 5)}
+
+
+def serve_prefix() -> dict:
+    """llama3-8b int8, 4 slots, max_seq_len 1024, over HTTP: four agent
+    sessions (prefixId sess-0..3) of six turns, 384 tokens the first, 32
+    generated and a 32-token user message added each turn (704 the last),
+    turn t of all four submitted together; then the same prompts without
+    prefixId (the control). One session of each arm runs first, unmeasured,
+    to capture the keys the traffic takes. Reports TTFT per turn and arm,
+    the cache's hits and misses (4 and 20 over the measured sessions), the
+    captures after warmup, and per session and turn whether the hit's
+    greedy tokens equal the control's, with the first diverging position
+    and the full prefill's logit gap there. Turn 1 is a full prefill in
+    both arms and must be equal; turn 2, the first hit, must be equal or
+    diverge at a near tie (NEAR_TIE_SHARE). Later turns read a prefix
+    built by a chain of hits, whose roundings add up: reported only."""
+    from kukeon_tpu_torch.runtime.serving_cell import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    cell = make_cell("llama3-8b", 1024)
+    t0 = time.monotonic()
+    cell.warmup(PREFIX_FIRST)
+    boot_s = time.monotonic() - t0
+    eng = cell.engine
+    eng.start()
+    server = serve(cell)
+    cell.mark_ready()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    g = torch.Generator().manual_seed(17)
+
+    def rand(n):
+        return torch.randint(0, cell.cfg.vocab_size, (n,), generator=g).tolist()
+
+    def sessions(n):
+        return ([rand(PREFIX_FIRST) for _ in range(n)],
+                [[rand(PREFIX_USER) for _ in range(PREFIX_TURNS)] for _ in range(n)])
+
+    stats, pstats = eng.program_stats, eng.program_stats["prefill"]
+    try:
+        warm = {"prefix": converse(base, "warm", *sessions(1)),
+                "control": converse(base, None, *sessions(1))}
+        captures = (stats["captures"], pstats["captures"])
+        hits0, misses0 = eng.prefix_hits, eng.prefix_misses
+        prompts, hit = converse(base, "sess", *sessions(PREFIX_SESSIONS))
+        counts = {"hits": eng.prefix_hits - hits0, "misses": eng.prefix_misses - misses0}
+        _, control = converse(base, None, prompts=prompts)
+        now = (stats["captures"], pstats["captures"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.stop()
+    if counts != {"hits": PREFIX_SESSIONS * (PREFIX_TURNS - 1), "misses": PREFIX_SESSIONS}:
+        raise AssertionError(f"prefix cache {counts}, want 20 hits and 4 misses")
+    if now != captures:
+        raise AssertionError(f"(decode, prefill) captures {captures} -> {now} in the "
+                             "measured traffic")
+    agree, diverged = [], []
+    for i in range(PREFIX_SESSIONS):
+        for t in range(PREFIX_TURNS):
+            a, b = control[i][t]["tokens"], hit[i][t]["tokens"]
+            agree.append(a == b)
+            if a != b:
+                d = divergence(cell, prompts[i][t], a, b)
+                diverged.append({"session": i, "turn": t + 1, **d})
+                if t == 0 or (t == 1 and d["gap_share"] > NEAR_TIE_SHARE):
+                    raise AssertionError(f"hit vs full prefill: {diverged[-1]}")
+
+    def ttft(ans):
+        return [[round(ans[i][t]["ttftSeconds"] * 1e3, 2) for i in range(PREFIX_SESSIONS)]
+                for t in range(PREFIX_TURNS)]
+
+    out = {"model": "llama3-8b", "sessions": PREFIX_SESSIONS, "turns": PREFIX_TURNS,
+           "prompt_lens": [len(p) for p in prompts[0]], "boot_s": round(boot_s, 3),
+           "prefix_cache": counts, "cache_stats": cell.stats()["prefixCache"],
+           "ttft_ms_by_turn": {"prefix": ttft(hit), "control": ttft(control)},
+           "ttft_ms_median_by_turn": {
+               arm: [statistics.median(row) for row in ttft(ans)]
+               for arm, ans in (("prefix", hit), ("control", control))},
+           "ttft_ms_warm_session": {arm: [round(a["ttftSeconds"] * 1e3, 2) for a in w[1][0]]
+                                    for arm, w in warm.items()},
+           "captures_after_warmup": {"decode": stats["captures_after_warmup"],
+                                     "prefill": pstats["captures_after_warmup"]},
+           "prefill_programs": sorted(pstats["launches_by_key"]),
+           "prefill_capture_s": round(pstats["capture_s"], 3),
+           "prefill_pool_bytes": pstats["pool_bytes"],
+           "turns_equal_to_control": f"{sum(agree)}/{len(agree)}",
+           "first_hit_turn_equal": [hit[i][1]["tokens"] == control[i][1]["tokens"]
+                                    for i in range(PREFIX_SESSIONS)],
+           "diverged": diverged,
+           "tolerance": f"turn 1 equal; turn 2 equal or diverging at a near tie (gap <= "
+                        f"{NEAR_TIE_SHARE} x the top logit); later turns reported",
+           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2)}
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def flash_within_tol(out: torch.Tensor, ref: torch.Tensor,
@@ -1289,25 +1568,31 @@ def main(argv=None) -> int:
                                           new=16))
     run("serve_tiny", lambda: {m: serve_model(k1, m, max_seq_len=256, prompt_len=32, new=16)
                                for m in ("tiny", "mixtral-tiny")})
-    # One Mixtral-8x7B draw (46.7 GB of int8) serves its three phases.
+    # One Mixtral-8x7B draw (46.7 GB of int8) serves its four phases, and
+    # one llama3-8b draw both graph phases.
     cell = {}
-    if {"moe_model", "graph_decode", "serve_moe"} & set(phases):
+    if {"moe_model", "graph_decode", "graph_prefill", "serve_moe"} & set(phases):
         t0 = time.monotonic()
         cell["moe"] = make_cell("mixtral-8x7b", 1024)
         cell["draw_s"] = round(time.monotonic() - t0, 3)
     run("moe_model", lambda: {"draw_s": cell["draw_s"],
                               **phase_moe_model(k1, cell["moe"].engine.params)})
 
-    def graph_decode():
-        dense = make_cell("llama3-8b", 1024)
-        out = {"llama3-8b": graph_decode_check(dense)}
-        del dense
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["mixtral-8x7b"] = graph_decode_check(cell["moe"])
+    def dense():
+        if "dense" not in cell:
+            cell["dense"] = make_cell("llama3-8b", 1024)
+        return cell["dense"]
+
+    def graph_phase(check):
+        out = {"llama3-8b": check(dense())}
+        out["mixtral-8x7b"] = check(cell["moe"])
         return out
 
-    run("graph_decode", graph_decode)
+    run("graph_decode", lambda: graph_phase(graph_decode_check))
+    run("graph_prefill", lambda: graph_phase(graph_prefill_check))
+    cell.pop("dense", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     run("serve_moe", lambda: {
         **serve_model(k1, "mixtral-8x7b", max_seq_len=1024, prompt_len=128, new=32,
                       profile_new=16, cell=cell["moe"]),
@@ -1316,6 +1601,7 @@ def main(argv=None) -> int:
             + sum(bound_ms(4, K, N, bps, MOE_E)[0] * n for K, N, n in SHAPES_MOE.values()),
             4)})
     cell.clear()
+    run("serve_prefix", serve_prefix)
 
     def train():
         out = phase_train(fa)
@@ -1338,7 +1624,7 @@ def main(argv=None) -> int:
                              ("mixtral-8x7b", serve_moe, "k1"), ("mixtral-8x7b", serve_moe, "k2")):
         if run_["launches"][key] <= 0:
             raise AssertionError(f"{label} serving launched no {key} kernel")
-    gd = res["graph_decode"]
+    gd, gp, sp = res["graph_decode"], res["graph_prefill"], res["serve_prefix"]
 
     # K1: one llama3-8b decode step's worth of calls at B = 4 (225 launches).
     fields = ("ms", "plain_ms", "library_ms", "bound_ms")
@@ -1398,7 +1684,7 @@ def main(argv=None) -> int:
     # The serve phases' end-to-end numbers again, short, so that the last
     # lines of the output carry every number the run is quoted for.
     e2e_keys = ("decode_tok_s", "ttft_ms", "ms_per_decode_step", "launches", "capture_s",
-                "pool_bytes")
+                "pool_bytes", "prefill")
     emit({"end_to_end": {
         "llama3-8b": {**{k: serve8[k] for k in e2e_keys},
                       "bound_ms_per_decode_step": serve8["bound_ms_per_decode_step"],
@@ -1410,6 +1696,12 @@ def main(argv=None) -> int:
                          "device_idle_share": serve_moe["profile"]["device_idle_share"]},
         "graph_decode_bitwise": {m: sorted(v for v in gd[m] if v in ("greedy", "stochastic"))
                                  for m in ("llama3-8b", "mixtral-8x7b")},
+        "graph_prefill_bitwise": {m: sorted(k for k, v in gp[m].items()
+                                            if isinstance(v, dict) and "bitwise_equal" in v)
+                                  for m in ("llama3-8b", "mixtral-8x7b")},
+        "serve_prefix_llama3-8b": {k: sp[k] for k in (
+            "prefix_cache", "ttft_ms_median_by_turn", "captures_after_warmup",
+            "turns_equal_to_control", "first_hit_turn_equal")},
         "train_llama3-1b": {k: train[k] for k in (
             "step_ms_median_3_8", "tokens_per_s", "mfu", "peak_mem_gb", "first_loss",
             "last_loss", "flash_launches_per_step", "flash_share_of_step")}}})

@@ -8,13 +8,16 @@ An HTTP front end over the port's :class:`ServingEngine`:
   POST /v1/generate         -> {"promptTokens": [...] | "prompt": "text",
                                 "maxNewTokens": N, "temperature": T,
                                 "topK": K, "topP": P, "stopTokens": [...],
-                                "deadlineS": D}
+                                "deadlineS": D, "prefixId": "session"}
                                => {"tokens": [...], "text": "...",
                                    "numTokens": n, "seconds": s,
                                    "ttftSeconds": t}
 
 A full queue answers 429 with ``Retry-After``; a request the cell will
-not admit (not ready) answers 503. Run it as
+not admit (not ready) answers 503. ``prefixId`` names an agent session:
+a prompt that extends the session's previous prompt prefills only its
+new tail (the engine's prefix cache; ``/v1/stats`` reports
+``prefixCache``). Run it as
 ``python -m kukeon_tpu_torch.runtime.serving_cell --model llama3-8b
 --dtype int8`` (or ``--model mixtral-8x7b``: the MoE family serves through
 the same engine with ``models/moe.py``'s forward, and refuses
@@ -110,9 +113,10 @@ class ServingCell:
         self._ready = threading.Event()
 
     def warmup(self, prompt_len: int = 64):
-        """Capture the decode programs (``engine.precompile``), then run one
-        request through them, as the reference cell does; ``/readyz`` turns
-        200 only at :meth:`mark_ready`, after both."""
+        """Capture the decode programs and the prefill of ``prompt_len``'s
+        bucket (``engine.precompile``), then run one request through them,
+        as the reference cell does; ``/readyz`` turns 200 only at
+        :meth:`mark_ready`, after both."""
         t0 = time.monotonic()
         self.engine.precompile((prompt_len,))
         t1 = time.monotonic()
@@ -140,16 +144,19 @@ class ServingCell:
             max_new_tokens=int(req.get("maxNewTokens", 128)),
             stop_tokens=tuple(int(t) for t in req.get("stopTokens", [])),
         )
+        prefix_id = req.get("prefixId")
+        if prefix_id is not None and not isinstance(prefix_id, str):
+            raise ValueError("prefixId must be a string")
         deadline_s = req.get("deadlineS", self.default_deadline_s)
         if deadline_s is not None:
             deadline_s = float(deadline_s)
             if deadline_s <= 0:
                 raise ValueError("deadlineS must be positive")
-        return prompt, sp, deadline_s
+        return prompt, sp, prefix_id, deadline_s
 
     def generate(self, req: dict) -> dict:
-        prompt, sp, deadline_s = self._parse_generate(req)
-        r = self.engine.submit(prompt, sp, deadline_s=deadline_s)
+        prompt, sp, prefix_id, deadline_s = self._parse_generate(req)
+        r = self.engine.submit(prompt, sp, prefix_id=prefix_id, deadline_s=deadline_s)
         if self.engine.running:
             r.done.wait()
         else:
@@ -184,14 +191,23 @@ class ServingCell:
             "int8Kernel": eng.cfg.int8_pallas,
             "kvCacheInt8": eng.kv_cache_int8,
             "decodeChunk": eng.decode_chunk,
-            "decodePrograms": {"captures": eng.program_stats["captures"],
-                               "replays": eng.program_stats["replays"],
-                               "captureSeconds": round(eng.program_stats["capture_s"], 3)},
+            "decodePrograms": _program_counters(eng.program_stats),
+            "prefillPrograms": {**_program_counters(eng.program_stats["prefill"]),
+                                "staticBytes": eng.program_stats["prefill"]["static_bytes"]},
+            "prefixCache": {"hits": eng.prefix_hits, "misses": eng.prefix_misses,
+                            "entries": len(eng._prefix_cache)},
             "bootSeconds": self.boot_s,
             "uptimeSeconds": round(time.time() - self.started_at, 1),
             "ready": ready,
             **({"unreadyReason": why} if why else {}),
         }
+
+
+def _program_counters(stats: dict) -> dict:
+    return {"captures": stats["captures"], "replays": stats["replays"],
+            "captureSeconds": round(stats["capture_s"], 3),
+            "capturesAfterWarmup": stats["captures_after_warmup"],
+            "poolBytes": stats["pool_bytes"]}
 
 
 def make_handler(cell: ServingCell):

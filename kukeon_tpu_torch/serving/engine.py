@@ -4,17 +4,26 @@
 - **Slot-based decode batch**: a fixed [B_slots] batch over a fixed-shape
   KV cache [L, B, S_max, KV, D], updated in place (the reference donates it
   to its jitted programs instead).
-- **Three programs**: :meth:`_prefill` runs a request at a bucketed
-  length into a fresh KV block and :meth:`_insert` copies the block into a
-  decode slot, both eagerly; :meth:`_decode_chunk` runs K decode steps
-  through a decode program (``serving/programs.py``): on CUDA one replay
-  of a CUDA graph captured once per (K, sampling branches), on the CPU the
-  same program eagerly. It returns one [B, K] token block.
+- **Programs** (``serving/programs.py``): on CUDA each is one replay of a
+  CUDA graph captured once per key, on the CPU the same body eagerly.
+  :meth:`_dispatch_prefill` runs a request's prefill at a bucketed length
+  (or, on a prefix-cache hit, ``prefill_ext`` over the prompt's new tail
+  against the stored prefix block) with the first token's sample and the
+  insert into its decode slot, one program; :meth:`_decode_chunk` runs K
+  decode steps and returns one [B, K] token block.
 - **Static state**: the decode state (KV cache, lengths, tokens, active
-  slots, sampling arrays) is allocated once and only ever written in
-  place, since the graphs read those very tensors. :meth:`precompile`
-  captures the greedy programs of every chunk size, as the reference's
-  compiles them.
+  slots, sampling arrays) and the prefill programs' packed inputs and KV
+  block are allocated once and only ever written in place, since the
+  graphs read those very tensors. :meth:`precompile` captures the greedy
+  decode programs of every chunk size and the greedy prefill of every
+  bucket it is given, as the reference's compiles them; any other key is
+  captured at its first use.
+- **Prefix cache** (contiguous layout): a request with a ``prefix_id``
+  whose stored prompt is a strict prefix of its own prefills only the
+  new tail; the prompt's full-precision KV block is stored under the id
+  either way (LRU, bounded by ``prefix_cache_size`` entries and
+  ``prefix_cache_bytes``), as the reference's ``_prefix_lookup``/
+  ``_prefix_store``.
 - **One blocking fetch per chunk**: the token block is copied to pinned
   host memory without blocking right after the chunk is enqueued, and the
   driver waits on it only after the *next* chunk is enqueued (the
@@ -30,16 +39,17 @@
   layout, so the MoE family serves through the same programs.
 
 Python orchestrates: queueing, slot choice, emitting tokens. Not ported
-yet (ROADMAP.md): compiled prefill and insert, paged KV and preemption, the
-prefix cache, KV export and import, the metrics registry, tracing, timers,
-the flight recorder, tuning profiles, async weight load, meshes and
-sharding.
+yet (ROADMAP.md): paged KV, its prefix cache and preemption, KV export and
+import, the metrics registry, tracing, timers, the flight recorder, tuning
+profiles, async weight load, meshes and sharding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
+from collections import OrderedDict
 import threading
 import time
 import traceback
@@ -53,13 +63,15 @@ from kukeon_tpu_torch.models import llama
 from kukeon_tpu_torch.serving.programs import (
     DecodePrograms,
     DecodeState,
+    PrefillPrograms,
     chunk_sizes,
+    pack_prefill_inputs,
+    prefill_key,
     program_key,
 )
 from kukeon_tpu_torch.serving.sampling import (
     SamplingParams,
     branch_flags,
-    sample_per_slot,
     slot_sampling_arrays,
 )
 
@@ -98,12 +110,29 @@ class Request:
     cancelled: bool = False
     deadline: float | None = None     # absolute monotonic time, None = none
     timed_out: bool = False
+    # Prefix caching: requests with the same prefix_id reuse the stored KV
+    # of the longest earlier prompt that is a strict prefix of theirs.
+    prefix_id: str | None = None
 
     def cancel(self) -> None:
         """Ask the engine to stop generating for this request. Only sets a
         flag; the driver releases the slot (or completes the queued
         request) on its next step."""
         self.cancelled = True
+
+
+@dataclasses.dataclass
+class _CachedPrefix:
+    """Stored prompt KV for one prefix_id (device tensors of their own)."""
+
+    tokens: np.ndarray               # the exact prompt this KV encodes (int32)
+    kv_k: torch.Tensor               # [L, 1, Pb, KV, D], Pb a canonical bucket
+    kv_v: torch.Tensor
+    length: int                      # valid positions in the block
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.kv_k, self.kv_v))
 
 
 @dataclasses.dataclass
@@ -150,6 +179,8 @@ class ServingEngine:
         max_pending: int | None = None,
         device: str | torch.device | None = None,
         forward_fn: Callable | None = None,
+        prefix_cache_size: int = 8,
+        prefix_cache_bytes: int = 2 << 30,
     ):
         self.device = resolve_device(device)
         self._forward = forward_fn or llama.forward
@@ -179,6 +210,18 @@ class ServingEngine:
                                         self.kv_cache_int8, self.device)
         self._programs = DecodePrograms(self._forward, self.params, cfg, self.state,
                                         self._gen)
+        self._prefill_programs = PrefillPrograms(
+            self._forward, self.params, cfg, self.state, self._gen,
+            functools.partial(bucket_length, buckets=self.prefill_buckets),
+            pool=self._programs.pool)
+        self.program_stats = self._programs.stats
+        self.program_stats["prefill"] = self._prefill_programs.stats
+        # Prefix cache: prefix_id -> stored prompt KV (LRU, the loop's thread only).
+        self._prefix_cache: OrderedDict[str, _CachedPrefix] = OrderedDict()
+        self._prefix_cache_size = max(0, prefix_cache_size)
+        self._prefix_cache_bytes = max(0, prefix_cache_bytes)
+        self.prefix_hits = 0
+        self.prefix_misses = 0
 
         self._requests: dict[int, Request] = {}
         self._slot_req: list[Request | None] = [None] * num_slots
@@ -203,58 +246,61 @@ class ServingEngine:
 
     # --- programs ----------------------------------------------------------
 
-    @property
-    def program_stats(self) -> dict:
-        """The decode programs' counters (``DecodePrograms.stats``) plus
-        ``pool_bytes``, the device memory :meth:`precompile` reserved."""
-        return self._programs.stats
+    # ``program_stats`` (set in __init__): the decode programs' counters
+    # (``DecodePrograms.stats``), and under "prefill" the prefill programs'
+    # (``PrefillPrograms.stats``); both live dicts.
 
-    def _h2d(self, x: torch.Tensor) -> torch.Tensor:
-        """Host tensor -> device without waiting for queued device work
-        (pinned staging, non-blocking copy on the current stream)."""
-        if self.device.type == "cuda":
-            return x.pin_memory().to(self.device, non_blocking=True)
-        return x
+    def _stage_prefill(self, req: Request, slot: int):
+        """Look the request's prefix up and write its prefill inputs into the
+        static buffers: one upload, and on a hit the stored block. Returns
+        the prefill program's key."""
+        n = req.prompt.size
+        cached = self._prefix_lookup(req)
+        if cached is not None:
+            self.prefix_hits += 1
+            tokens, plen = req.prompt[cached.length:], cached.length
+            self._prefill_programs.load_prefix(cached.kv_k, cached.kv_v)
+        else:
+            if req.prefix_id is not None:
+                self.prefix_misses += 1
+            tokens, plen = req.prompt, 0
+        bucket = min(self._bucket(tokens.size), self.max_seq_len)
+        packed = pack_prefill_inputs(tokens, bucket, n, slot, plen, req.sampling)
+        self._upload(packed, self._prefill_programs.inputs[:packed.size])
+        return prefill_key(bucket, req.sampling,
+                           cached.kv_k.shape[2] if cached is not None else None)
 
-    def _sample_one(self, logits: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
-        """First token of a prefill: [V] logits -> 0-d device tensor."""
-        if sp.temperature <= 0:
-            return torch.argmax(logits)
-        return sample_per_slot(
-            logits[None, :], self._gen,
-            self._h2d(torch.tensor([sp.temperature], dtype=torch.float32)),
-            self._h2d(torch.tensor([sp.top_k], dtype=torch.int64)),
-            self._h2d(torch.tensor([sp.top_p], dtype=torch.float32)),
-            needs_filter=sp.top_k > 0 or sp.top_p < 1.0,
-            any_stochastic=True)[0]
+    def _prefix_lookup(self, req: Request) -> _CachedPrefix | None:
+        """Stored prefix usable for this request: its tokens must be a
+        strict prefix of the prompt (equal would leave nothing to prefill,
+        and the stored block carries no logits)."""
+        if req.prefix_id is None:
+            return None
+        e = self._prefix_cache.get(req.prefix_id)
+        if (e is not None and req.prompt.size > e.length
+                and np.array_equal(req.prompt[:e.length], e.tokens)):
+            self._prefix_cache.move_to_end(req.prefix_id)
+            return e
+        return None
 
-    def _prefill(self, tokens: torch.Tensor, length: int, sp: SamplingParams):
-        """tokens [1, S_bucket] -> (first sampled token, kv block k, v
-        [L, 1, S_bucket, KV, D]). The LM head runs at the last prompt
-        position only."""
-        S = tokens.shape[1]
-        positions = torch.arange(S, device=self.device)[None, :]
-        cache = llama.KVCache.create(self.cfg, 1, S, device=self.device)
-        logits, cache = self._forward(
-            self.params, self.cfg, tokens, positions, cache,
-            logit_positions=torch.full((1,), length - 1, device=self.device))
-        return self._sample_one(logits[0, 0], sp), cache.k, cache.v
-
-    def _insert(self, kv_k, kv_v, length: int, slot: int, token) -> None:
-        """Copy a prefill's KV block into ``slot`` (in place) and activate
-        it. A quantized cache quantizes the block here, once."""
-        c = self.state.cache
-        S = kv_k.shape[2]
-        if c.quantized:
-            kv_k, ks = llama.quantize_kv(kv_k)      # [L, 1, S, KV(, D)]
-            kv_v, vs = llama.quantize_kv(kv_v)
-            c.k_scale[:, slot, :S] = ks[:, 0]
-            c.v_scale[:, slot, :S] = vs[:, 0]
-        c.k[:, slot, :S] = kv_k[:, 0]
-        c.v[:, slot, :S] = kv_v[:, 0]
-        c.lengths[slot] = length
-        self.state.tokens[slot] = token
-        self.state.active[slot] = True
+    def _prefix_store(self, prefix_id: str, prompt: np.ndarray, kv_k: torch.Tensor,
+                      kv_v: torch.Tensor) -> None:
+        """Store copies of the prompt's KV block (``kv_k``/``kv_v`` may be
+        views of the programs' static block) under ``prefix_id``."""
+        if self._prefix_cache_size == 0 or self._prefix_cache_bytes == 0:
+            return
+        self._prefix_cache[prefix_id] = _CachedPrefix(
+            tokens=prompt.copy(), kv_k=kv_k.clone(), kv_v=kv_v.clone(),
+            length=int(prompt.size))
+        self._prefix_cache.move_to_end(prefix_id)
+        # Evict LRU-first past either bound. An entry that alone exceeds the
+        # byte budget evicts itself too: keeping it would pin more device
+        # memory than the operator allowed.
+        while self._prefix_cache and (
+                len(self._prefix_cache) > self._prefix_cache_size
+                or sum(e.nbytes for e in self._prefix_cache.values())
+                > self._prefix_cache_bytes):
+            self._prefix_cache.popitem(last=False)
 
     def _decode_chunk(self, k: int, flags: tuple[bool, bool]) -> torch.Tensor:
         """K decode steps over every slot -> the program's static tokens
@@ -265,25 +311,29 @@ class ServingEngine:
     @torch.no_grad()
     def precompile(self, prompt_lens: tuple[int, ...] = (64,)) -> None:
         """Capture the greedy decode program of every chunk size the
-        reference compiles (``chunk_sizes``), the counterpart of the
-        reference's ``precompile``. Stochastic programs are captured at
-        their first use. ``prompt_lens`` names the prefill buckets the
-        reference compiles too; the port's prefill and insert stay eager
-        (ROADMAP A14b). Call it before :meth:`start`: a capture must not
-        meet the driver's launches. A key already built is kept."""
-        del prompt_lens
+        reference compiles (``chunk_sizes``) and the greedy prefill (with
+        its insert) of the bucket of every length in ``prompt_lens``, the
+        counterpart of the reference's ``precompile``. Other keys are
+        captured at their first use. Call it before :meth:`start`: a capture
+        must not meet the loop's launches. A key already built is kept;
+        captures from here to the end of :meth:`warmup` do not count as
+        after warmup."""
         if self._running:
             raise RuntimeError("precompile() before start(): the driver thread is running")
-        cuda = self.device.type == "cuda"
-        if cuda:        # each capture empties the cache too: count from an empty one
-            torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device) if cuda else 0
+        self._programs.warm = self._prefill_programs.warm = False
         for k in chunk_sizes(self.decode_chunk):
             self._programs.build(program_key(k, False, False))
-        if cuda:
-            self._programs.stats["pool_bytes"] = (
-                self._programs.stats.get("pool_bytes", 0)
-                + torch.cuda.memory_reserved(self.device) - reserved)
+        buckets = sorted({min(self._bucket(max(1, n)), self.max_seq_len) for n in prompt_lens})
+        for S in buckets:
+            key = prefill_key(S, SamplingParams())
+            if key not in self._prefill_programs.keys():
+                # A capture's warm-up run needs valid inputs: half the
+                # bucket of token 0 into slot 0 (the reference lowers at
+                # length S // 2); the capture puts back what it writes.
+                packed = pack_prefill_inputs(np.zeros((0,), np.int64), S, max(1, S // 2),
+                                             0, 0, SamplingParams())
+                self._upload(packed, self._prefill_programs.inputs[:packed.size])
+                self._prefill_programs.build(key)
 
     # --- counted transfer seams -------------------------------------------
 
@@ -298,15 +348,12 @@ class ServingEngine:
         self.sync_stats["fetch_s"] += time.monotonic() - t0
         return out
 
-    def _upload(self, x: np.ndarray, into: torch.Tensor | None = None) -> torch.Tensor:
-        """Host->device array, counted and timed; ``into``: a static device
-        buffer to copy it into (without waiting for queued device work)."""
+    def _upload(self, x: np.ndarray, into: torch.Tensor) -> torch.Tensor:
+        """Host array -> the static device buffer ``into``, counted and timed
+        (pinned staging, a copy that waits for no queued device work)."""
         t0 = time.monotonic()
         host = torch.from_numpy(np.ascontiguousarray(x))
-        if into is None:
-            out = self._h2d(host)
-        else:
-            out = into.copy_(host.pin_memory() if into.is_cuda else host, non_blocking=True)
+        out = into.copy_(host.pin_memory() if into.is_cuda else host, non_blocking=True)
         self.sync_stats["uploads"] += 1
         self.sync_stats["upload_s"] += time.monotonic() - t0
         return out
@@ -321,6 +368,7 @@ class ServingEngine:
         prompt: np.ndarray | list[int],
         sampling: SamplingParams | None = None,
         emit: Callable[[int, bool], None] | None = None,
+        prefix_id: str | None = None,
         deadline_s: float | None = None,
     ) -> Request:
         prompt = np.asarray(prompt, np.int32)
@@ -344,7 +392,7 @@ class ServingEngine:
                     "shedding load", retry_after_s=self.retry_after_s)
             req = Request(id=self._next_id, prompt=prompt,
                           sampling=sampling or SamplingParams(), emit=emit,
-                          submitted_at=now,
+                          submitted_at=now, prefix_id=prefix_id,
                           deadline=now + deadline_s if deadline_s is not None else None)
             self._next_id += 1
             self._requests[req.id] = req
@@ -379,6 +427,7 @@ class ServingEngine:
                           dataclasses.replace(sp, max_new_tokens=2))
         while not req.done.is_set():
             self.step()
+        self._programs.warm = self._prefill_programs.warm = True
 
     def start(self):
         """Run the engine loop on a background thread."""
@@ -416,9 +465,11 @@ class ServingEngine:
             except Exception as e:  # noqa: BLE001 — the driver thread must not die silently
                 traceback.print_exc()
                 self.error = e
-                self._fail_all(e)
-                # The state may be half-written: start it over, in place.
+                # The state may be half-written: start it over, in place,
+                # before the failed callers wake.
                 self.state.reset()
+                self._prefill_programs.reset()
+                self._fail_all(e)
                 self._slot_req = [None] * self.num_slots
                 self._slot_len = [0] * self.num_slots
                 self._inflight = None
@@ -524,15 +575,18 @@ class ServingEngine:
                 self._pending_n -= 1
             slot = free.pop(0)
             try:
-                prefills.append(self._dispatch_prefill(req, slot))
+                self._dispatch_prefill(req, slot)
+                prefills.append((slot, req))
             except Exception as e:
                 self._finish(req, e)
                 raise
             did_work = True
 
         if prefills:
-            firsts = self._fetch(torch.stack([f for _, f in prefills]))
-            for (req, _), first in zip(prefills, firsts):
+            # Each first token is read back from its slot's token: the
+            # prefills of one step share the programs' static buffers.
+            firsts = self._fetch(torch.stack([self.state.tokens[slot] for slot, _ in prefills]))
+            for (_, req), first in zip(prefills, firsts):
                 self._emit(req, int(first))
         new_inflight = None
         if self._active_requests():
@@ -544,18 +598,19 @@ class ServingEngine:
         self._inflight = new_inflight
         return did_work
 
-    def _dispatch_prefill(self, req: Request, slot: int):
-        n = req.prompt.size
-        bucket = min(self._bucket(n), self.max_seq_len)
-        tokens = np.zeros((1, bucket), np.int64)
-        tokens[0, :n] = req.prompt
-        first, kv_k, kv_v = self._prefill(self._upload(tokens), n, req.sampling)
-        self._insert(kv_k, kv_v, n, slot, first)
+    def _dispatch_prefill(self, req: Request, slot: int) -> None:
+        """Enqueue the request's prefill and insert into ``slot``, one
+        program run (``prefill``, or ``prefill_ext`` over the new tail on a
+        prefix hit); the prompt's KV block is then stored under its
+        ``prefix_id``. The first token lands in ``state.tokens[slot]``."""
+        key = self._stage_prefill(req, slot)
+        self._prefill_programs.run(key)
+        if req.prefix_id is not None:
+            self._prefix_store(req.prefix_id, req.prompt, *self._prefill_programs.block(key))
         req.slot = slot
         self._slot_req[slot] = req
-        self._slot_len[slot] = n + 1   # prompt + the first generated token's kv-to-be
+        self._slot_len[slot] = req.prompt.size + 1   # prompt + the first token's kv-to-be
         self._sampling_dirty = True
-        return req, first
 
     def _chunk_size(self) -> int:
         """Largest safe K: at most decode_chunk, bounded by cache capacity,

@@ -1,19 +1,20 @@
-"""Decode programs, the port of the reference's compiled decode:
-``_build_programs`` (``kukeon_tpu/serving/engine.py:732``) and its
-``decode_chunk_fn`` (``:831``), which ``precompile`` (``:1264``) compiles
-for every chunk size.
+"""Decode and prefill programs, the port of the reference's compiled
+programs: ``_build_programs`` (``kukeon_tpu/serving/engine.py:732``) with
+its ``prefill`` (``:753``), ``prefill_ext`` (``:764``), ``insert``
+(``:804``) and ``decode_chunk_fn`` (``:831``), which ``precompile``
+(``:1264``) compiles by prompt bucket and chunk size.
 
-The reference jits ``decode_chunk_fn``, a ``lax.scan`` of K decode steps,
-once per K and donates the decode state to it. Here a decode program is K
-steps of the engine's forward that read and write only static buffers the
-engine owns (:class:`DecodeState`): the KV cache ``k``/``v`` (and the
-scales of an int8 cache), ``lengths``, ``tokens``, ``active``, the three
-sampling arrays, and a ``[B, K]`` token output for each K. Every write is
-a ``copy_`` into its buffer, or the forward's in-place row write into the
-cache, with inactive slots masked as before.
+The reference jits each program once per shape and donates the decode
+state to it. Here a program reads and writes only static buffers the
+engine owns: the decode state (:class:`DecodeState`: the KV cache ``k``/
+``v`` and the scales of an int8 cache, ``lengths``, ``tokens``,
+``active``, the three sampling arrays), a ``[B, K]`` token output for
+each decode K, and the prefill programs' packed inputs and KV block
+(:class:`PrefillPrograms`). Every write is a ``copy_``/``index_copy_``
+into its buffer, or the forward's in-place row write into a cache.
 
 - **CUDA**: each program is captured once as a CUDA graph
-  (:meth:`DecodePrograms.build`) and every chunk after is one
+  (:meth:`_Programs.build`) and every run after is one
   ``cudaGraphLaunch``. All programs share one memory pool
   (``torch.cuda.graph_pool_handle()``): they never run at once, and their
   outputs live in the static buffers, not in the pool. A stochastic
@@ -24,19 +25,23 @@ cache, with inactive slots masked as before.
 - **CPU** (tests, when the caller asks for it): the same program runs
   eagerly on the same static buffers.
 
-Keys are ``(k, needs_filter, any_stochastic)``. The reference has one
-program for every sampling mix (``lax.cond`` inside); a graph cannot
+Decode keys are ``(k, needs_filter, any_stochastic)``. The reference has
+one program for every sampling mix (``lax.cond`` inside); a graph cannot
 branch, so the two branch flags of :func:`sample_per_slot` pick the
 program instead. A mix with no stochastic slot never filters, so every
-greedy mix shares ``(k, False, False)``.
+greedy mix shares ``(k, False, False)``. Prefill keys are ``("prefill",
+S, needs_filter, any_stochastic)`` and ``("prefill_ext", Pb, S,
+needs_filter, any_stochastic)``; each prefill program ends with the
+reference's ``insert`` of its block into the request's slot, so one
+request's prefill and insert are one replay.
 
 Before a capture the program runs once eagerly on a side stream, under
 ``torch.cuda.set_sync_debug_mode("error")``: that builds the kernels and
 cuBLAS handles, and an op that would synchronise the host (``.item()``,
 ``nonzero``, boolean indexing, ``F.one_hot`` without ``num_classes``)
-raises there with its stack. The rows that run writes are saved before
-and put back after (:meth:`DecodePrograms.snapshot`), so capturing
-changes no state, even mid-traffic.
+raises there with its stack. What that run writes is saved before and put
+back after (``snapshot``/``restore``), so capturing changes no state,
+even mid-traffic.
 """
 
 from __future__ import annotations
@@ -45,13 +50,18 @@ import dataclasses
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
-from kukeon_tpu_torch.models.llama import KVCache
+from kukeon_tpu_torch.models.llama import KVCache, quantize_kv
 from kukeon_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_expert
-from kukeon_tpu_torch.serving.sampling import sample_per_slot
+from kukeon_tpu_torch.serving.sampling import SamplingParams, sample_per_slot
 
 Key = tuple[int, bool, bool]
+PrefillKey = tuple
+# The prefill programs' packed inputs: this header, then the prompt's
+# (or tail's) tokens, zero-padded to the bucket. All of it is one upload.
+HEADER = 6      # length, slot, plen, top_k, temperature, top_p (floats as f64 bits)
 
 
 def chunk_sizes(decode_chunk: int) -> list[int]:
@@ -67,6 +77,31 @@ def chunk_sizes(decode_chunk: int) -> list[int]:
 
 def program_key(k: int, needs_filter: bool, any_stochastic: bool) -> Key:
     return (k, bool(needs_filter and any_stochastic), bool(any_stochastic))
+
+
+def prefill_key(bucket: int, sp: SamplingParams, prefix_bucket: int | None = None
+                ) -> PrefillKey:
+    """The prefill program of one request: ``("prefill", bucket, nf, st)``,
+    or with a stored prefix block of ``prefix_bucket`` rows
+    ``("prefill_ext", prefix_bucket, bucket, nf, st)``; the branch flags
+    of its sampling as :func:`program_key` takes them."""
+    flags = program_key(bucket, sp.top_k > 0 or sp.top_p < 1.0, sp.temperature > 0)[1:]
+    if prefix_bucket is None:
+        return ("prefill", bucket, *flags)
+    return ("prefill_ext", prefix_bucket, bucket, *flags)
+
+
+def pack_prefill_inputs(tokens: np.ndarray, bucket: int, length: int, slot: int,
+                        plen: int, sp: SamplingParams) -> np.ndarray:
+    """The packed prefill inputs, int64 [HEADER + bucket]: ``length`` is the
+    whole prompt's, ``plen`` the stored prefix's (0 without one), and
+    ``tokens`` the rows the program runs (the prompt, or its tail past
+    ``plen``), zero-padded to ``bucket``."""
+    out = np.zeros((HEADER + bucket,), np.int64)
+    out[:4] = (length, slot, plen, sp.top_k)
+    out[4:HEADER] = np.array([sp.temperature, sp.top_p], np.float64).view(np.int64)
+    out[HEADER:HEADER + tokens.size] = tokens
+    return out
 
 
 @dataclasses.dataclass
@@ -128,31 +163,125 @@ def _kernel_counts() -> dict[str, int]:
             "int8_matmul_expert": int8_matmul_expert.launches}
 
 
-class DecodePrograms:
-    """The engine's decode programs over one :class:`DecodeState`.
+class _Programs:
+    """What the decode and prefill programs share: one program per key,
+    built once (:meth:`build`) and run by :meth:`_launch`.
 
     ``stats``: ``captures`` (programs built: one capture each on CUDA),
-    ``capture_s``, ``replays`` and ``steps`` (chunks run and the decode
-    steps in them), ``replays_by_key``, and ``launches_by_key`` (each
-    program's kernel launches in one run, counted by the kernels' wrappers
-    while it was captured)."""
+    ``capture_s``, ``captures_after_warmup`` (built while ``warm`` is set:
+    the engine sets it once its warmup is done), ``pool_bytes`` (the
+    device memory the captures reserved, each measured between emptied
+    caches), ``replays``, ``replays_by_key``, and ``launches_by_key``
+    (each program's kernel launches in one run, counted by the kernels'
+    wrappers while it was captured)."""
+
+    kind = "program"
 
     def __init__(self, forward: Callable, params, cfg, state: DecodeState,
-                 generator: torch.Generator):
+                 generator: torch.Generator, pool=None):
         self._forward = forward
         self._params = params
         self._cfg = cfg
         self.state = state
         self._gen = generator
         self.device = state.tokens.device
-        self._programs: dict[Key, _Program] = {}
-        self._outputs: dict[int, torch.Tensor] = {}
-        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-        self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0, "steps": 0,
-                      "replays_by_key": {}, "launches_by_key": {}}
+        self._programs: dict = {}
+        self.pool = pool
+        if pool is None and self.device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+        self.warm = False
+        self.stats = {"captures": 0, "capture_s": 0.0, "captures_after_warmup": 0,
+                      "pool_bytes": 0, "replays": 0, "replays_by_key": {},
+                      "launches_by_key": {}}
 
-    def keys(self) -> list[Key]:
+    def keys(self) -> list:
         return sorted(self._programs)
+
+    def run_eager(self, key):
+        raise NotImplementedError
+
+    def snapshot_key(self, key) -> dict:
+        """What one run of ``key`` writes, saved (see ``restore``)."""
+        raise NotImplementedError
+
+    def restore(self, snap: dict) -> None:
+        raise NotImplementedError
+
+    def _launch(self, key) -> None:
+        """Run the program of ``key`` (built at first use): one graph replay
+        on CUDA, the eager body on the CPU."""
+        prog = self._programs.get(key) or self.build(key)
+        if prog.graph is not None:
+            prog.graph.replay()
+        else:
+            self.run_eager(key)
+        s = self.stats
+        s["replays"] += 1
+        s["replays_by_key"][str(key)] = s["replays_by_key"].get(str(key), 0) + 1
+
+    def build(self, key) -> _Program:
+        """Capture the program of ``key`` (CUDA) or register it (CPU); a
+        key already built is returned as it is. A capture reads the static
+        inputs as they stand: its warm-up run needs them valid."""
+        if key in self._programs:
+            return self._programs[key]
+        t0 = time.monotonic()
+        s = self.stats
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            prog = self._capture(key)
+            torch.cuda.empty_cache()
+            s["pool_bytes"] += torch.cuda.memory_reserved(self.device) - reserved
+        else:
+            prog = _Program(None, {n: 0 for n in _kernel_counts()})
+        self._programs[key] = prog
+        s["captures"] += 1
+        s["captures_after_warmup"] += self.warm
+        s["capture_s"] += time.monotonic() - t0
+        s["launches_by_key"][str(key)] = prog.launches
+        return prog
+
+    def _capture(self, key) -> _Program:
+        cur = torch.cuda.current_stream(self.device)
+        snap = self.snapshot_key(key)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        mode = torch.cuda.get_sync_debug_mode()
+        try:
+            with torch.cuda.stream(side):
+                torch.cuda.set_sync_debug_mode("error")
+                self.run_eager(key)
+        except RuntimeError as e:
+            raise RuntimeError(f"{self.kind} program {key}: its warm-up run failed: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        cur.wait_stream(side)
+        self.restore(snap)
+        graph = torch.cuda.CUDAGraph()
+        if key[-1]:                                 # any_stochastic
+            graph.register_generator_state(self._gen)
+        before = _kernel_counts()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.run_eager(key)
+        except RuntimeError as e:
+            raise RuntimeError(f"{self.kind} program {key} failed to capture: {e}") from e
+        after = _kernel_counts()
+        return _Program(graph, {n: after[n] - before[n] for n in after})
+
+
+class DecodePrograms(_Programs):
+    """The engine's decode programs over one :class:`DecodeState`; ``stats``
+    also counts ``steps`` (the decode steps of the chunks run)."""
+
+    kind = "decode"
+
+    def __init__(self, forward: Callable, params, cfg, state: DecodeState,
+                 generator: torch.Generator, pool=None):
+        super().__init__(forward, params, cfg, state, generator, pool)
+        self._outputs: dict[int, torch.Tensor] = {}
+        self.stats["steps"] = 0
 
     def output(self, k: int) -> torch.Tensor:
         """The static [B, k] token output of every k-step program."""
@@ -183,62 +312,16 @@ class DecodePrograms:
     def run(self, key: Key) -> torch.Tensor:
         """Run the program of ``key`` (built at first use): one graph replay
         on CUDA, the eager body on the CPU. Returns the static [B, k] output."""
-        prog = self._programs.get(key) or self.build(key)
-        if prog.graph is not None:
-            prog.graph.replay()
-        else:
-            self.run_eager(key)
-        s = self.stats
-        s["replays"] += 1
-        s["steps"] += key[0]
-        s["replays_by_key"][str(key)] = s["replays_by_key"].get(str(key), 0) + 1
+        self._launch(key)
+        self.stats["steps"] += key[0]
         return self._outputs[key[0]]
 
     def build(self, key: Key) -> _Program:
-        """Capture the program of ``key`` (CUDA) or register it (CPU); a
-        key already built is returned as it is."""
-        if key in self._programs:
-            return self._programs[key]
-        t0 = time.monotonic()
         self.output(key[0])
-        if self.device.type == "cuda":
-            prog = self._capture(key)
-        else:
-            prog = _Program(None, {n: 0 for n in _kernel_counts()})
-        self._programs[key] = prog
-        s = self.stats
-        s["captures"] += 1
-        s["capture_s"] += time.monotonic() - t0
-        s["launches_by_key"][str(key)] = prog.launches
-        return prog
+        return super().build(key)
 
-    def _capture(self, key: Key) -> _Program:
-        cur = torch.cuda.current_stream(self.device)
-        snap = self.snapshot(key[0])
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        mode = torch.cuda.get_sync_debug_mode()
-        try:
-            with torch.cuda.stream(side):
-                torch.cuda.set_sync_debug_mode("error")
-                self.run_eager(key)
-        except RuntimeError as e:
-            raise RuntimeError(f"decode program {key}: its warm-up run failed: {e}") from e
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        cur.wait_stream(side)
-        self.restore(snap)
-        graph = torch.cuda.CUDAGraph()
-        if key[2]:
-            graph.register_generator_state(self._gen)
-        before = _kernel_counts()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                self.run_eager(key)
-        except RuntimeError as e:
-            raise RuntimeError(f"decode program {key} failed to capture: {e}") from e
-        after = _kernel_counts()
-        return _Program(graph, {n: after[n] - before[n] for n in after})
+    def snapshot_key(self, key: Key) -> dict:
+        return self.snapshot(key[0])
 
     def snapshot(self, k: int) -> dict:
         """What a k-step program writes, saved: every slot's cache rows at
@@ -268,3 +351,146 @@ class DecodePrograms:
         """The cache rows a snapshot covers, as they are now."""
         return {n: t[:, snap["slots"], snap["rows"]].clone()
                 for n, t in self.state.cache_rows().items()}
+
+
+class PrefillPrograms(_Programs):
+    """The engine's prefill programs: ``prefill`` and ``prefill_ext``, each
+    followed by ``insert``, over the packed ``inputs`` (int64 [HEADER +
+    S_max]) and the KV ``block_k``/``block_v`` ([L, 1, S_max, KV, D], the
+    model dtype), allocated once at the cache's length; a key runs on
+    views of them. The block is a prefill's output (what the prefix cache
+    stores, full precision), and a ``prefill_ext``'s input (the stored
+    prefix, written in by :meth:`load_prefix`) and output. ``bucket``:
+    the engine's bucket rule, which re-buckets a ``prefill_ext`` block to
+    ``min(bucket(Pb + S), S_max)`` rows as the reference does.
+
+    ``stats`` adds ``static_bytes``, the inputs' and the block's bytes."""
+
+    kind = "prefill"
+
+    def __init__(self, forward: Callable, params, cfg, state: DecodeState,
+                 generator: torch.Generator, bucket: Callable[[int], int], pool=None):
+        super().__init__(forward, params, cfg, state, generator, pool)
+        self._bucket = bucket
+        S = state.cache.max_len
+        shape = (cfg.num_layers, 1, S, cfg.num_kv_heads, cfg.head_dim)
+        self.inputs = torch.zeros((HEADER + S,), dtype=torch.int64, device=self.device)
+        self.block_k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.block_v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.stats["static_bytes"] = sum(t.numel() * t.element_size() for t in self.buffers().values())
+
+    def buffers(self) -> dict[str, torch.Tensor]:
+        return {"inputs": self.inputs, "block_k": self.block_k, "block_v": self.block_v}
+
+    def reset(self) -> None:
+        """Zero every static buffer, in place (the graphs read these very
+        tensors)."""
+        for t in self.buffers().values():
+            t.zero_()
+
+    def block_len(self, key: PrefillKey) -> int:
+        """Rows of the block a program leaves: its bucket, or for
+        ``prefill_ext`` the canonical ``min(bucket(Pb + S), S_max)``."""
+        if key[0] == "prefill":
+            return key[1]
+        return min(self._bucket(key[1] + key[2]), self.state.cache.max_len)
+
+    def block(self, key: PrefillKey) -> tuple[torch.Tensor, torch.Tensor]:
+        """Views of the block a run of ``key`` left (copy before the next)."""
+        n = self.block_len(key)
+        return self.block_k[:, :, :n], self.block_v[:, :, :n]
+
+    def load_prefix(self, kv_k: torch.Tensor, kv_v: torch.Tensor) -> None:
+        """Write a stored prefix block [L, 1, Pb, KV, D] into the block, the
+        input of a ``prefill_ext`` of that ``Pb``."""
+        Pb = kv_k.shape[2]
+        self.block_k[:, :, :Pb].copy_(kv_k)
+        self.block_v[:, :, :Pb].copy_(kv_v)
+
+    def run(self, key: PrefillKey) -> None:
+        """Run the program of ``key`` (built at first use) on the staged
+        inputs: one graph replay on CUDA, the eager body on the CPU. The
+        first token lands in ``state.tokens[slot]``."""
+        self._launch(key)
+
+    def logits(self, key: PrefillKey) -> torch.Tensor:
+        """The forward of ``key`` on the staged inputs -> the last prompt
+        position's logits [1, V] f32; the block holds the prompt's KV after.
+
+        ``prefill``: the forward writes the block's first S rows in place.
+        ``prefill_ext``: a fresh [L, 1, Pb + S] cache takes the stored
+        prefix, the tail runs at positions plen.. against it, and its first
+        ``block_len`` rows (zero-padded) go back to the block."""
+        inp = self.inputs
+        length, plen = inp[0:1], inp[2:3]
+        if key[0] == "prefill":
+            Pb, S = 0, key[1]
+            cache = KVCache(k=self.block_k[:, :, :S], v=self.block_v[:, :, :S], lengths=plen)
+        else:
+            Pb, S = key[1], key[2]
+            cache = KVCache.create(self._cfg, 1, Pb + S, device=self.device)
+            cache.k[:, :, :Pb].copy_(self.block_k[:, :, :Pb])
+            cache.v[:, :, :Pb].copy_(self.block_v[:, :, :Pb])
+            cache.lengths = plen
+        tokens = inp[HEADER:HEADER + S][None, :]
+        positions = plen[:, None] + torch.arange(S, device=self.device)[None, :]
+        logits, cache = self._forward(self._params, self._cfg, tokens, positions, cache,
+                                      logit_positions=length - plen - 1)
+        if Pb:
+            n = self.block_len(key)
+            keep = min(Pb + S, n)
+            for out, t in ((self.block_k, cache.k), (self.block_v, cache.v)):
+                out[:, :, :keep].copy_(t[:, :, :keep])
+                out[:, :, keep:n].zero_()
+        return logits[:, 0, :]
+
+    def run_eager(self, key: PrefillKey) -> None:
+        """The program of ``key``, launched op by op: the forward
+        (:meth:`logits`), the first token's sample, then the reference's
+        ``insert``: the block into the slot's first rows (quantized here
+        for an int8 cache), the slot's length and token, and active."""
+        inp = self.inputs
+        length, slot, top_k = inp[0:1], inp[1:2], inp[3:4]
+        temp, top_p = inp[4:HEADER].view(torch.float64).float().split(1)
+        first = sample_per_slot(self.logits(key), self._gen, temp, top_k, top_p,
+                                needs_filter=key[-2], any_stochastic=key[-1])
+        st = self.state
+        c = st.cache
+        n = self.block_len(key)
+        kv_k, kv_v = self.block(key)
+        if c.quantized:
+            kv_k, ks = quantize_kv(kv_k)            # [L, 1, n, KV(, D)]
+            kv_v, vs = quantize_kv(kv_v)
+            c.k_scale[:, :, :n].index_copy_(1, slot, ks)
+            c.v_scale[:, :, :n].index_copy_(1, slot, vs)
+        c.k[:, :, :n].index_copy_(1, slot, kv_k.to(c.k.dtype))
+        c.v[:, :, :n].index_copy_(1, slot, kv_v.to(c.v.dtype))
+        c.lengths.index_copy_(0, slot, length)
+        st.tokens.index_copy_(0, slot, first)
+        st.active.index_fill_(0, slot, True)
+
+    def snapshot_key(self, key: PrefillKey) -> dict:
+        """What a run of ``key`` writes, saved: the staged slot's first
+        ``block_len`` cache rows, lengths, tokens, active, the block's rows
+        (a ``prefill_ext``'s input too) and the generator state."""
+        n = self.block_len(key)
+        slot = self.inputs[1:2].clone()
+        st = self.state
+        return {"slot": slot, "rows": n,
+                "kv": {name: t[:, :, :n].index_select(1, slot)
+                       for name, t in st.cache_rows().items()},
+                "lengths": st.cache.lengths.clone(), "tokens": st.tokens.clone(),
+                "active": st.active.clone(), "block_k": self.block_k[:, :, :n].clone(),
+                "block_v": self.block_v[:, :, :n].clone(), "gen": self._gen.get_state()}
+
+    def restore(self, snap: dict) -> None:
+        """Put back what :meth:`snapshot_key` saved, in place."""
+        st, n = self.state, snap["rows"]
+        for name, t in st.cache_rows().items():
+            t[:, :, :n].index_copy_(1, snap["slot"], snap["kv"][name])
+        st.cache.lengths.copy_(snap["lengths"])
+        st.tokens.copy_(snap["tokens"])
+        st.active.copy_(snap["active"])
+        self.block_k[:, :, :n].copy_(snap["block_k"])
+        self.block_v[:, :, :n].copy_(snap["block_v"])
+        self._gen.set_state(snap["gen"])

@@ -8,10 +8,10 @@ alternate:
 
 Prints the nvidia-smi line, then one JSON line a run: for llama3-8b
 (``serve``) and mixtral-8x7b (``serve_moe``), ms a decode step, decode
-tok/s, TTFT and the profiled window's device idle share, as each
-checkout's script measures them (the same definitions at the parent of
-the decode graphs and after). Each run's whole output goes to
-``chiprun_out/serve_ab/run<i>.log``. Exits nonzero if a run failed.
+tok/s, TTFT, capture seconds and pool bytes, peak memory, the prefill
+programs' counters where the checkout has them, and the profiled
+window's device idle share, as each checkout's script measures them.
+Each run's whole output goes to ``chiprun_out/serve_ab/run<i>.log``. Exits nonzero if a run failed.
 Needs a GPU.
 """
 
@@ -24,7 +24,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = ("ms_per_decode_step", "decode_tok_s", "ttft_ms", "capture_s", "pool_bytes",
-        "peak_mem_gb")
+        "peak_mem_gb", "prefill")
 
 
 def summary(phase: dict) -> dict:
