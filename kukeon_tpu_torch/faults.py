@@ -1,7 +1,9 @@
 """Fault injection for the port: named failure points armed via the
 environment, the port's own copy of what training checkpoints need from
 ``kukeon_tpu/faults.py`` (same variable, same syntax, same exception name).
-The port's points are ``checkpoint.save`` and ``checkpoint.load``.
+The port's points are ``checkpoint.save`` and ``checkpoint.load``
+(training), ``engine.prefill`` and ``engine.decode`` (the serving
+engine's dispatches) and ``kv.alloc`` (the paged KV allocator).
 
     from kukeon_tpu_torch import faults
     faults.maybe_fail("checkpoint.save")        # raises iff armed

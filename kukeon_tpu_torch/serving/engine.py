@@ -38,10 +38,21 @@
   model; ``models/moe.py``'s ``forward`` has the same signature and cache
   layout, so the MoE family serves through the same programs.
 
+- **Paged KV** (``kv_page_tokens > 0``, the reference's paged engine):
+  the cache is a pool of fixed-size pages (``serving/kv_pages.py`` keeps
+  the books) and a static block table maps each slot's rows to pages; a
+  request holds only the pages its rows need, so the pool can be smaller
+  than ``num_slots * max_seq_len``. Under pressure the engine flushes the
+  chunk in flight, evicts prefix entries, preempts the latest-submitted
+  request (it re-prefills ``prompt + generated`` when resumed, ahead of
+  new admissions) and at last finishes a lone request at its current
+  length; a request no page can be found for on an idle engine is shed
+  (429). Prefix entries are shared refcounted pages, not copies.
+
 Python orchestrates: queueing, slot choice, emitting tokens. Not ported
-yet (ROADMAP.md): paged KV, its prefix cache and preemption, KV export and
-import, the metrics registry, tracing, timers, the flight recorder, tuning
-profiles, async weight load, meshes and sharding.
+yet (ROADMAP.md): KV export and import, the metrics registry, tracing,
+timers, the flight recorder, tuning profiles, async weight load, meshes
+and sharding.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import queue
-from collections import OrderedDict
+from collections import OrderedDict, deque
 import threading
 import time
 import traceback
@@ -58,8 +69,15 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.device import resolve_device
 from kukeon_tpu_torch.models import llama
+from kukeon_tpu_torch.serving.kv_pages import (
+    SCRATCH_PAGE,
+    PageAllocator,
+    PagePoolExhausted,
+    SharedPrefix,
+)
 from kukeon_tpu_torch.serving.programs import (
     DecodePrograms,
     DecodeState,
@@ -113,6 +131,10 @@ class Request:
     # Prefix caching: requests with the same prefix_id reuse the stored KV
     # of the longest earlier prompt that is a strict prefix of theirs.
     prefix_id: str | None = None
+    # Paged KV: times this request lost its slot and pages to pressure; a
+    # preempted request waits in the resume queue and re-prefills
+    # prompt + generated when it is seated again.
+    preemptions: int = 0
 
     def cancel(self) -> None:
         """Ask the engine to stop generating for this request. Only sets a
@@ -181,6 +203,8 @@ class ServingEngine:
         forward_fn: Callable | None = None,
         prefix_cache_size: int = 8,
         prefix_cache_bytes: int = 2 << 30,
+        kv_page_tokens: int = 0,
+        kv_pool_pages: int | None = None,
     ):
         self.device = resolve_device(device)
         self._forward = forward_fn or llama.forward
@@ -198,6 +222,33 @@ class ServingEngine:
         self.kv_cache_int8 = bool(kv_cache_int8)
         self.prefill_buckets = (tuple(sorted({int(b) for b in prefill_buckets}))
                                 if prefill_buckets else PREFILL_BUCKETS)
+        # Paged KV (serving/kv_pages.py): pages of ``kv_page_tokens`` rows
+        # replace the slot-contiguous reservation. The page size must tile
+        # max_seq_len and every bucket below it, or an insert would split
+        # a page between slots.
+        self.page_tokens = int(kv_page_tokens or 0)
+        self.paged = self.page_tokens > 0
+        self._pool: PageAllocator | None = None
+        self.max_pages_per_slot = self.kv_pool_pages = 0
+        if self.paged:
+            pt = self.page_tokens
+            if self.max_seq_len % pt:
+                raise ValueError(f"kv_page_tokens {pt} must divide max_seq_len "
+                                 f"{self.max_seq_len}")
+            bad = [b for b in self.prefill_buckets if b < self.max_seq_len and b % pt]
+            if bad:
+                raise ValueError(f"kv_page_tokens {pt} must divide every prefill bucket "
+                                 f"below max_seq_len; offending buckets: {bad}")
+            self.max_pages_per_slot = self.max_seq_len // pt
+            self.kv_pool_pages = int(kv_pool_pages or num_slots * self.max_pages_per_slot)
+            self._pool = PageAllocator(self.kv_pool_pages, pt)
+            # One page's bytes (K + V, and the scales of an int8 pool): what
+            # a prefix entry pins against prefix_cache_bytes.
+            row = cfg.num_layers * cfg.num_kv_heads * cfg.head_dim
+            itemsize = 1 if self.kv_cache_int8 else torch.finfo(cfg.dtype).bits // 8
+            self._page_bytes = 2 * pt * row * itemsize
+            if self.kv_cache_int8:
+                self._page_bytes += 2 * pt * cfg.num_layers * cfg.num_kv_heads * 4
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # Transfer-counting seam: every blocking device->host read goes
@@ -207,7 +258,8 @@ class ServingEngine:
                            "fetch_s": 0.0, "upload_s": 0.0}
         # Allocated once: the decode programs read these very tensors.
         self.state = DecodeState.create(cfg, num_slots, self.max_seq_len,
-                                        self.kv_cache_int8, self.device)
+                                        self.kv_cache_int8, self.device,
+                                        self.page_tokens, self.kv_pool_pages)
         self._programs = DecodePrograms(self._forward, self.params, cfg, self.state,
                                         self._gen)
         self._prefill_programs = PrefillPrograms(
@@ -216,6 +268,7 @@ class ServingEngine:
             pool=self._programs.pool)
         self.program_stats = self._programs.stats
         self.program_stats["prefill"] = self._prefill_programs.stats
+        self.program_stats["view_bytes"] = self.state.view_bytes()
         # Prefix cache: prefix_id -> stored prompt KV (LRU, the loop's thread only).
         self._prefix_cache: OrderedDict[str, _CachedPrefix] = OrderedDict()
         self._prefix_cache_size = max(0, prefix_cache_size)
@@ -231,6 +284,18 @@ class ServingEngine:
         # arrays; both re-uploaded only when slot composition changes.
         self._sampling_flags = (False, False)
         self._sampling_dirty = True
+        # Paged block table: host truth [B, max_pages] (released slots
+        # zeroed, so their stray writes land in scratch), uploaded into
+        # ``state.bt`` only when a slot's pages changed.
+        self._bt = np.zeros((num_slots, self.max_pages_per_slot), np.int64)
+        self._bt_dirty = True
+        self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
+        # Device length each slot's dispatched work will have reached: what
+        # page growth is planned against.
+        self._slot_disp: list[int] = [0] * num_slots
+        # Preempted requests, seated again before anything pending.
+        self._resume: deque[Request] = deque()
+        self.preemptions = 0
         self._pending: queue.Queue[Request] = queue.Queue()
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -241,7 +306,7 @@ class ServingEngine:
         self.error: Exception | None = None
         self.max_pending = max_pending
         self.retry_after_s = 1.0
-        self.shed_stats = {"rejected": 0, "timed_out": 0}
+        self.shed_stats = {"rejected": 0, "timed_out": 0, "kv_exhausted": 0}
         self.tokens_total = 0
 
     # --- programs ----------------------------------------------------------
@@ -269,6 +334,32 @@ class ServingEngine:
         self._upload(packed, self._prefill_programs.inputs[:packed.size])
         return prefill_key(bucket, req.sampling,
                            cached.kv_k.shape[2] if cached is not None else None)
+
+    def _stage_prefill_paged(self, req: Request, slot: int, seq: np.ndarray,
+                             cached: SharedPrefix | None, pages: list[int]):
+        """The paged counterpart of :meth:`_stage_prefill` for ``seq`` (the
+        prompt, or a resumed request's prompt + generated) into ``pages``
+        (the shared prefix pages first): one upload of the tokens and the
+        page ids. The block's rows past the shared pages go to their private
+        pages; shared pages and bucket padding go to scratch."""
+        pt, n = self.page_tokens, int(seq.size)
+        mp = self.max_pages_per_slot
+        if cached is not None:
+            plen, Pb = cached.length, min(self._bucket(cached.length), self.max_seq_len)
+            tokens = seq[plen:]
+            gather = np.full((Pb // pt,), SCRATCH_PAGE, np.int64)
+            gather[:len(cached.pages)] = cached.pages
+        else:
+            plen, Pb, tokens, gather = 0, None, seq, np.zeros((0,), np.int64)
+        bucket = min(self._bucket(tokens.size), self.max_seq_len)
+        key = prefill_key(bucket, req.sampling, Pb, paged=True)
+        ids = np.full((self._prefill_programs.block_len(key) // pt,), SCRATCH_PAGE, np.int64)
+        first = plen // pt
+        ids[first:-(-n // pt)] = pages[first:-(-n // pt)]
+        packed = pack_prefill_inputs(tokens, self.max_seq_len, n, slot, plen, req.sampling,
+                                     pages=(gather, ids, mp))
+        self._upload(packed, self._prefill_programs.inputs)
+        return key
 
     def _prefix_lookup(self, req: Request) -> _CachedPrefix | None:
         """Stored prefix usable for this request: its tokens must be a
@@ -302,6 +393,62 @@ class ServingEngine:
                 > self._prefix_cache_bytes):
             self._prefix_cache.popitem(last=False)
 
+    # --- paged prefix cache (shared refcounted pages, no copies) -----------
+
+    def _prefix_shared_pages(self) -> int:
+        """Distinct pool pages pinned by prefix entries."""
+        if not self.paged:
+            return 0
+        return len({p for e in self._prefix_cache.values() for p in e.pages})
+
+    def _prefix_lookup_paged(self, req: Request, seq: np.ndarray) -> SharedPrefix | None:
+        """Usable stored prefix for ``seq``: its page-aligned tokens must be
+        a strict prefix (equal would leave nothing to prefill)."""
+        if req.prefix_id is None:
+            return None
+        e = self._prefix_cache.get(req.prefix_id)
+        if (e is not None and e.length > 0 and seq.size > e.length
+                and np.array_equal(seq[:e.length], e.tokens)):
+            self._prefix_cache.move_to_end(req.prefix_id)
+            return e
+        return None
+
+    def _prefix_store_paged(self, prefix_id: str, seq: np.ndarray, pages: list[int]) -> None:
+        """Point ``prefix_id`` at the slot's full prompt pages: a refcount
+        bump, not a copy. The trailing partial page is left out: the slot's
+        decode writes into it."""
+        if self._prefix_cache_size == 0 or self._prefix_cache_bytes == 0:
+            return
+        full = int(seq.size) // self.page_tokens
+        if full == 0:
+            return
+        entry_pages = list(pages[:full])
+        self._pool.ref(entry_pages)
+        old = self._prefix_cache.pop(prefix_id, None)
+        if old is not None:
+            self._pool.unref(old.pages)
+        self._prefix_cache[prefix_id] = SharedPrefix(
+            tokens=np.asarray(seq[:full * self.page_tokens]).copy(), pages=entry_pages,
+            length=full * self.page_tokens)
+        while self._prefix_cache and (
+                len(self._prefix_cache) > self._prefix_cache_size
+                or sum(e.nbytes(self._page_bytes) for e in self._prefix_cache.values())
+                > self._prefix_cache_bytes):
+            _, e = self._prefix_cache.popitem(last=False)
+            self._pool.unref(e.pages)
+
+    def _reclaim_prefix_pages(self, need: int) -> bool:
+        """Evict prefix entries LRU-first until ``need`` pages are free;
+        True when they are. Only entries whose pages the cache alone holds
+        are evicted: one a live slot also holds would free nothing now."""
+        while self._pool.free < need and self._prefix_cache:
+            victim = next((key for key, e in self._prefix_cache.items()
+                           if all(self._pool.refcount(p) == 1 for p in e.pages)), None)
+            if victim is None:
+                break
+            self._pool.unref(self._prefix_cache.pop(victim).pages)
+        return self._pool.free >= need
+
     def _decode_chunk(self, k: int, flags: tuple[bool, bool]) -> torch.Tensor:
         """K decode steps over every slot -> the program's static tokens
         [B, K] on the device. Inactive slots neither advance their length
@@ -325,13 +472,17 @@ class ServingEngine:
             self._programs.build(program_key(k, False, False))
         buckets = sorted({min(self._bucket(max(1, n)), self.max_seq_len) for n in prompt_lens})
         for S in buckets:
-            key = prefill_key(S, SamplingParams())
+            key = prefill_key(S, SamplingParams(), paged=self.paged)
             if key not in self._prefill_programs.keys():
                 # A capture's warm-up run needs valid inputs: half the
                 # bucket of token 0 into slot 0 (the reference lowers at
-                # length S // 2); the capture puts back what it writes.
-                packed = pack_prefill_inputs(np.zeros((0,), np.int64), S, max(1, S // 2),
-                                             0, 0, SamplingParams())
+                # length S // 2), paged into scratch pages only; the
+                # capture puts back what it writes.
+                none = np.zeros((0,), np.int64)
+                packed = pack_prefill_inputs(
+                    none, self.max_seq_len if self.paged else S, max(1, S // 2), 0, 0,
+                    SamplingParams(),
+                    pages=(none, none, self.max_pages_per_slot) if self.paged else None)
                 self._upload(packed, self._prefill_programs.inputs[:packed.size])
                 self._prefill_programs.build(key)
 
@@ -381,6 +532,11 @@ class ServingEngine:
             # On a GPU an out-of-range id is a device-side assert that
             # poisons the CUDA context; reject it here.
             raise ValueError(f"prompt token ids must lie in [0, {self.cfg.vocab_size})")
+        if self.paged and self._pool.pages_for(prompt.size + 1) > self._pool.num_pages:
+            # Even an empty pool could never hold it: waiting would deadlock.
+            raise ValueError(
+                f"prompt needs {self._pool.pages_for(prompt.size + 1)} KV pages but the "
+                f"pool holds {self._pool.num_pages} (kv_page_tokens={self.page_tokens})")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("deadline_s must be positive")
         now = time.monotonic()
@@ -403,7 +559,9 @@ class ServingEngine:
 
     @property
     def queue_depth(self) -> int:
-        return self._pending_n
+        """Requests waiting for a slot: fresh ones and preempted ones. The
+        admission bound (max_pending) counts only the former."""
+        return self._pending_n + len(self._resume)
 
     def generate(self, prompt, sampling: SamplingParams | None = None) -> list[int]:
         """Blocking convenience wrapper: submit, then drive (or wait for the
@@ -452,7 +610,7 @@ class ServingEngine:
     # --- driver ------------------------------------------------------------
 
     def _idle_locked(self) -> bool:
-        return (self._pending_n == 0 and self._inflight is None
+        return (self._pending_n == 0 and not self._resume and self._inflight is None
                 and all(r is None for r in self._slot_req))
 
     def _loop(self):
@@ -474,6 +632,15 @@ class ServingEngine:
                 self._slot_len = [0] * self.num_slots
                 self._inflight = None
                 self._sampling_dirty = True
+                if self.paged:
+                    # The pool was zeroed: every page and prefix entry
+                    # pointing into it is void. Start the books over.
+                    self._pool = PageAllocator(self.kv_pool_pages, self.page_tokens)
+                    self._slot_pages = [[] for _ in range(self.num_slots)]
+                    self._slot_disp = [0] * self.num_slots
+                    self._bt[:] = SCRATCH_PAGE
+                    self._bt_dirty = True
+                    self._prefix_cache.clear()
 
     def _finish(self, req: Request, outcome_error: Exception | None = None) -> None:
         """Terminal event of a request that holds no slot."""
@@ -492,6 +659,8 @@ class ServingEngine:
         for slot, req in self._active_requests():
             self._slot_req[slot] = None
             self._finish(req, exc)
+        while self._resume:
+            self._finish(self._resume.popleft(), exc)
         while True:
             try:
                 req = self._pending.get_nowait()
@@ -523,6 +692,12 @@ class ServingEngine:
             elif self._expired(req, now):
                 req.error = self._timeout_error(req, now)
                 self._release_slot(req, terminal=True)
+                did = True
+        # Preempted requests waiting to resume keep their deadlines too.
+        for req in list(self._resume):
+            if req.cancelled or self._expired(req, now):
+                self._resume.remove(req)
+                self._finish(req, None if req.cancelled else self._timeout_error(req, now))
                 did = True
         kept: list[Request] = []
         while True:
@@ -567,16 +742,23 @@ class ServingEngine:
         prefills = []
         free = self._free_slots()
         while free:
-            try:
-                req = self._pending.get_nowait()
-            except queue.Empty:
+            req = self._pop_waiting()
+            if req is None:
                 break
-            with self._lock:
-                self._pending_n -= 1
             slot = free.pop(0)
             try:
                 self._dispatch_prefill(req, slot)
                 prefills.append((slot, req))
+            except PagePoolExhausted as e:
+                # No pages for it now. With work in flight pages will free:
+                # it waits at the front. An otherwise idle engine would
+                # never free any: shed it (429) rather than deadlock.
+                if self._active_requests() or prefills or self._inflight is not None:
+                    self._resume.appendleft(req)
+                else:
+                    self._shed_kv_exhausted(req, e)
+                did_work = True
+                break
             except Exception as e:
                 self._finish(req, e)
                 raise
@@ -598,11 +780,34 @@ class ServingEngine:
         self._inflight = new_inflight
         return did_work
 
+    def _pop_waiting(self) -> Request | None:
+        """The next request to seat: a preempted one before any pending."""
+        if self._resume:
+            return self._resume.popleft()
+        try:
+            req = self._pending.get_nowait()
+        except queue.Empty:
+            return None
+        with self._lock:
+            self._pending_n -= 1
+        return req
+
+    def _shed_kv_exhausted(self, req: Request, cause: Exception) -> None:
+        """Shed a request no page can be found for while nothing in flight
+        would free one (the injected ``kv.alloc`` fault too): RejectedError
+        with Retry-After, so the cell answers 429."""
+        self.shed_stats["kv_exhausted"] += 1
+        self._finish(req, RejectedError(f"KV page pool exhausted: {cause}",
+                                        retry_after_s=self.retry_after_s))
+
     def _dispatch_prefill(self, req: Request, slot: int) -> None:
         """Enqueue the request's prefill and insert into ``slot``, one
         program run (``prefill``, or ``prefill_ext`` over the new tail on a
         prefix hit); the prompt's KV block is then stored under its
         ``prefix_id``. The first token lands in ``state.tokens[slot]``."""
+        faults.maybe_fail("engine.prefill")
+        if self.paged:
+            return self._dispatch_prefill_paged(req, slot)
         key = self._stage_prefill(req, slot)
         self._prefill_programs.run(key)
         if req.prefix_id is not None:
@@ -612,12 +817,59 @@ class ServingEngine:
         self._slot_len[slot] = req.prompt.size + 1   # prompt + the first token's kv-to-be
         self._sampling_dirty = True
 
+    def _dispatch_prefill_paged(self, req: Request, slot: int) -> None:
+        """Paged admission: allocate the sequence's pages (evicting prefix
+        entries if the pool is short), run the paged prefill (over the
+        shared prefix pages on a hit) with its insert into the pool, and
+        seat the slot. A preempted request re-enters here with ``prompt +
+        generated``: its KV was reclaimed, so the whole context re-prefills
+        and its first token continues the generation."""
+        seq = (req.prompt if not req.generated else
+               np.concatenate([req.prompt, np.asarray(req.generated, np.int32)]))
+        n = int(seq.size)
+        cached = self._prefix_lookup_paged(req, seq)
+
+        def private() -> int:                # pages covering positions [0, n]
+            return n // self.page_tokens + 1 - (len(cached.pages) if cached else 0)
+
+        try:
+            priv = self._pool.alloc(private())
+        except PagePoolExhausted:
+            if not self._reclaim_prefix_pages(private()):
+                raise
+            # Eviction may have taken the entry to share; nothing is held
+            # yet, so look again.
+            cached = self._prefix_lookup_paged(req, seq)
+            priv = self._pool.alloc(private())
+        shared = list(cached.pages) if cached is not None else []
+        self._pool.ref(shared)               # the slot holds them too
+        pages = shared + priv
+        if cached is not None:
+            self.prefix_hits += 1
+        elif req.prefix_id is not None:
+            self.prefix_misses += 1
+        key = self._stage_prefill_paged(req, slot, seq, cached, pages)
+        self._prefill_programs.run(key)
+        self._slot_pages[slot] = pages
+        self._bt[slot, :] = SCRATCH_PAGE
+        self._bt[slot, :len(pages)] = pages
+        self._bt_dirty = True
+        self._slot_disp[slot] = n
+        if req.prefix_id is not None and cached is None:
+            # Store on a miss only: pointing a hit's entry at this
+            # session's prompt would fold its private tail into the entry.
+            self._prefix_store_paged(req.prefix_id, seq, pages)
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._slot_len[slot] = n + 1
+        self._sampling_dirty = True
+
     def _chunk_size(self) -> int:
         """Largest safe K: at most decode_chunk, bounded by cache capacity,
         rounded down to a power of 4; 4 at most while a waiting request
-        could take a free slot."""
+        (pending or preempted) could take a free slot."""
         k = self.decode_chunk
-        if not self._pending.empty() and self._free_slots():
+        if (not self._pending.empty() or self._resume) and self._free_slots():
             k = min(k, 4)
         inflight_k = self._inflight.k if self._inflight is not None else 0
         for slot, _req in self._active_requests():
@@ -641,10 +893,92 @@ class ServingEngine:
             self._sampling_flags = branch_flags(temps, top_ks, top_ps)
             self._sampling_dirty = False
 
-    def _dispatch_decode_chunk(self) -> _InflightChunk:
+    def _preempt_victim(self, exclude: int) -> int | None:
+        """Slot of the latest-submitted seated request other than
+        ``exclude``: the oldest requests keep their progress."""
+        victim, latest = None, -1.0
+        for slot, req in self._active_requests():
+            if slot != exclude and not req.done.is_set() and req.submitted_at >= latest:
+                victim, latest = slot, req.submitted_at
+        return victim
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Take a seated request's slot and pages: it waits in the resume
+        queue and re-prefills prompt + generated when seated again. The
+        caller flushed the chunk in flight, so every token decoded for it
+        has been emitted; only its KV is lost."""
+        req = self._slot_req[slot]
+        self.preemptions += 1
+        req.preemptions += 1
+        self._slot_req[slot] = None
+        self._sampling_dirty = True
+        self.state.active[slot] = False
+        self._free_pages(slot)
+        self._slot_len[slot] = 0
+        req.slot = -1
+        self._resume.append(req)
+
+    def _free_pages(self, slot: int) -> None:
+        """Drop the slot's page references and zero its block-table row, so
+        a write still in flight for it lands in scratch."""
+        self._pool.unref(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self._slot_disp[slot] = 0
+        self._bt[slot, :] = SCRATCH_PAGE
+        self._bt_dirty = True
+
+    def _ensure_decode_pages(self, k: int) -> None:
+        """Grow every seated slot's pages to cover the next ``k`` decode
+        steps, under pressure in this order: flush the chunk in flight (a
+        request it finishes frees its pages), evict prefix entries, preempt
+        the latest-submitted other request, and for a lone request finish
+        it at its current length."""
+        for slot, req in self._active_requests():
+            if self._slot_req[slot] is not req or req.done.is_set():
+                continue            # preempted or finished meanwhile
+            # Never past the request's own final length: rows an
+            # overshooting chunk writes past its last page land in scratch.
+            limit = min(self.max_seq_len, int(req.prompt.size) + req.sampling.max_new_tokens)
+            need = min(self._pool.pages_for(min(self._slot_disp[slot] + k, limit)),
+                       self.max_pages_per_slot)
+            while need > len(self._slot_pages[slot]):
+                delta = need - len(self._slot_pages[slot])
+                try:
+                    got = self._pool.alloc(delta)
+                except PagePoolExhausted:
+                    if self._inflight is not None:
+                        self._flush_inflight()
+                        self._inflight = None
+                        if req.done.is_set():
+                            break
+                        continue
+                    if self._reclaim_prefix_pages(delta):
+                        continue
+                    victim = self._preempt_victim(exclude=slot)
+                    if victim is not None:
+                        self._preempt_slot(victim)
+                        continue
+                    self._release_slot(req, terminal=True)
+                    break
+                base = len(self._slot_pages[slot])
+                self._slot_pages[slot].extend(got)
+                self._bt[slot, base:base + len(got)] = got
+                self._bt_dirty = True
+
+    def _dispatch_decode_chunk(self) -> _InflightChunk | None:
+        faults.maybe_fail("engine.decode")
         k = self._chunk_size()
+        if self.paged:
+            self._ensure_decode_pages(k)
+            if not self._active_requests():
+                return None         # pressure handling emptied the batch
+            if self._bt_dirty:
+                self._upload(self._bt, self.state.bt)
+                self._bt_dirty = False
         self._upload_sampling()
         toks = self._decode_chunk(k, self._sampling_flags)
+        for slot, _req in self._active_requests():
+            self._slot_disp[slot] += k
         self.sync_stats["chunks"] += 1
         # Start the device->host copy now, behind the replay on the same
         # stream; the driver waits on it only after the next chunk is
@@ -696,6 +1030,9 @@ class ServingEngine:
         self._slot_req[req.slot] = None
         self._sampling_dirty = True
         self.state.active[req.slot] = False
+        if self.paged:
+            # Pages a prefix entry or another session also holds stay.
+            self._free_pages(req.slot)
         with self._lock:
             self._requests.pop(req.id, None)
         if terminal and req.emit:

@@ -35,6 +35,23 @@ needs_filter, any_stochastic)``; each prefill program ends with the
 reference's ``insert`` of its block into the request's slot, so one
 request's prefill and insert are one replay.
 
+**Paged layout** (``kv_page_tokens > 0``, the reference's
+``decode_chunk_paged`` ``:929``, ``insert_paged`` ``:891`` and
+``gather_block`` ``:871``): the cache is a pool ``[L, P + 1, page_tokens,
+KV, D]`` (page 0 is scratch), ``lengths`` stay per slot, and a static
+block table ``bt`` ``[B, max_pages]`` maps each slot's rows to pages. A
+decode program gathers every slot's pages once into the static dense
+view ``[L, B, S_max, KV, D]`` the forward already speaks, runs its K
+steps there, and scatters the K new rows of each slot back to their
+(page, offset) homes in one flat write; released slots' table rows are
+zero, so their stray rows land in scratch. Paged prefill keys are
+``("prefill_paged", S, nf, st)`` and ``("prefill_ext_paged", Pb, S, nf,
+st)``: the block is scattered into the pool by page ids (shared pages
+and padding to scratch, an int8 pool quantized at insert), and a
+``prefill_ext_paged`` first gathers the shared prefix pages into the
+block (dequantized for an int8 pool). The page ids ride in the packed
+inputs, after the tokens.
+
 Before a capture the program runs once eagerly on a side stream, under
 ``torch.cuda.set_sync_debug_mode("error")``: that builds the kernels and
 cuBLAS handles, and an op that would synchronise the host (``.item()``,
@@ -79,76 +96,136 @@ def program_key(k: int, needs_filter: bool, any_stochastic: bool) -> Key:
     return (k, bool(needs_filter and any_stochastic), bool(any_stochastic))
 
 
-def prefill_key(bucket: int, sp: SamplingParams, prefix_bucket: int | None = None
-                ) -> PrefillKey:
+def prefill_key(bucket: int, sp: SamplingParams, prefix_bucket: int | None = None,
+                paged: bool = False) -> PrefillKey:
     """The prefill program of one request: ``("prefill", bucket, nf, st)``,
     or with a stored prefix block of ``prefix_bucket`` rows
     ``("prefill_ext", prefix_bucket, bucket, nf, st)``; the branch flags
-    of its sampling as :func:`program_key` takes them."""
+    of its sampling as :func:`program_key` takes them. ``paged``: the
+    ``_paged`` kinds, which insert into the page pool."""
     flags = program_key(bucket, sp.top_k > 0 or sp.top_p < 1.0, sp.temperature > 0)[1:]
+    suffix = "_paged" if paged else ""
     if prefix_bucket is None:
-        return ("prefill", bucket, *flags)
-    return ("prefill_ext", prefix_bucket, bucket, *flags)
+        return ("prefill" + suffix, bucket, *flags)
+    return ("prefill_ext" + suffix, prefix_bucket, bucket, *flags)
 
 
 def pack_prefill_inputs(tokens: np.ndarray, bucket: int, length: int, slot: int,
-                        plen: int, sp: SamplingParams) -> np.ndarray:
+                        plen: int, sp: SamplingParams,
+                        pages: tuple[np.ndarray, np.ndarray, int] | None = None
+                        ) -> np.ndarray:
     """The packed prefill inputs, int64 [HEADER + bucket]: ``length`` is the
     whole prompt's, ``plen`` the stored prefix's (0 without one), and
     ``tokens`` the rows the program runs (the prompt, or its tail past
-    ``plen``), zero-padded to ``bucket``."""
-    out = np.zeros((HEADER + bucket,), np.int64)
+    ``plen``), zero-padded to ``bucket``. ``pages``: the paged layout's
+    (gather ids, insert ids, max_pages), each list zero-padded to
+    max_pages after the token rows (the paged engine packs S_max of them,
+    so the ids sit at fixed offsets)."""
+    mp = pages[2] if pages is not None else 0
+    out = np.zeros((HEADER + bucket + 2 * mp,), np.int64)
     out[:4] = (length, slot, plen, sp.top_k)
     out[4:HEADER] = np.array([sp.temperature, sp.top_p], np.float64).view(np.int64)
     out[HEADER:HEADER + tokens.size] = tokens
+    if pages is not None:
+        gather, insert, _ = pages
+        at = HEADER + bucket
+        out[at:at + gather.size] = gather
+        out[at + mp:at + mp + insert.size] = insert
+    return out
+
+
+def _rows(c: KVCache) -> dict[str, torch.Tensor]:
+    out = {"k": c.k, "v": c.v}
+    if c.quantized:
+        out.update(k_scale=c.k_scale, v_scale=c.v_scale)
     return out
 
 
 @dataclasses.dataclass
 class DecodeState:
     """Whole-engine decode state: static device buffers that the engine
-    writes in place and every decode program reads."""
+    writes in place and every decode program reads. Paged (``bt`` set):
+    ``cache`` is the page pool [L, P + 1, page_tokens, KV, D] with
+    per-slot ``lengths`` [B], ``bt`` the block table and ``view`` the
+    dense view a decode chunk runs on (its lengths unused)."""
 
-    cache: KVCache                # [L, B, S_max, KV, D] + lengths [B]
+    cache: KVCache                # [L, B, S_max, KV, D] (or the pool) + lengths [B]
     tokens: torch.Tensor          # [B] int64: last emitted token per slot
     active: torch.Tensor          # [B] bool: slot currently generating
     temps: torch.Tensor           # [B] f32 sampling arrays (slot_sampling_arrays)
     top_ks: torch.Tensor          # [B] int64
     top_ps: torch.Tensor          # [B] f32
+    bt: torch.Tensor | None = None      # paged: [B, max_pages] int64 page ids
+    view: KVCache | None = None         # paged: [L, B, S_max, KV, D]
 
     @staticmethod
     def create(cfg, num_slots: int, max_len: int, quantized: bool,
-               device: torch.device) -> "DecodeState":
+               device: torch.device, page_tokens: int = 0,
+               pool_pages: int = 0) -> "DecodeState":
         B = num_slots
+        bt = view = None
+        if page_tokens:
+            cache = KVCache.create(cfg, pool_pages + 1, page_tokens, quantized=quantized,
+                                   device=device)
+            cache.lengths = torch.zeros((B,), dtype=torch.int64, device=device)
+            bt = torch.zeros((B, max_len // page_tokens), dtype=torch.int64, device=device)
+            view = KVCache.create(cfg, B, max_len, quantized=quantized, device=device)
+        else:
+            cache = KVCache.create(cfg, B, max_len, quantized=quantized, device=device)
         return DecodeState(
-            cache=KVCache.create(cfg, B, max_len, quantized=quantized, device=device),
+            cache=cache,
             tokens=torch.zeros((B,), dtype=torch.int64, device=device),
             active=torch.zeros((B,), dtype=torch.bool, device=device),
             temps=torch.zeros((B,), dtype=torch.float32, device=device),
             top_ks=torch.zeros((B,), dtype=torch.int64, device=device),
             top_ps=torch.ones((B,), dtype=torch.float32, device=device),
+            bt=bt, view=view,
         )
+
+    @property
+    def paged(self) -> bool:
+        return self.bt is not None
+
+    @property
+    def page_tokens(self) -> int:
+        return self.cache.k.shape[2] if self.paged else 0
+
+    @property
+    def max_len(self) -> int:
+        """Rows a slot can hold (S_max)."""
+        return (self.view if self.paged else self.cache).max_len
 
     def cache_rows(self) -> dict[str, torch.Tensor]:
         """The buffers a decode step writes one row of per slot: k and v,
-        and the scales of an int8 cache, each [L, B, S_max, ...]."""
-        c = self.cache
-        out = {"k": c.k, "v": c.v}
-        if c.quantized:
-            out.update(k_scale=c.k_scale, v_scale=c.v_scale)
-        return out
+        and the scales of an int8 cache, each [L, B, S_max, ...] (paged:
+        the pool's, [L, P + 1, page_tokens, ...])."""
+        return _rows(self.cache)
+
+    def view_bytes(self) -> int:
+        """Bytes of the paged layout's dense view (0 on the legacy one)."""
+        return sum(t.numel() * t.element_size() for t in _rows(self.view).values()
+                   ) if self.paged else 0
 
     def buffers(self) -> dict[str, torch.Tensor]:
         """Every static buffer by name."""
-        return {**self.cache_rows(), "lengths": self.cache.lengths, "tokens": self.tokens,
-                "active": self.active, "temps": self.temps, "top_ks": self.top_ks,
-                "top_ps": self.top_ps}
+        out = {**self.cache_rows(), "lengths": self.cache.lengths, "tokens": self.tokens,
+               "active": self.active, "temps": self.temps, "top_ks": self.top_ks,
+               "top_ps": self.top_ps}
+        if self.paged:
+            out["bt"] = self.bt
+            out.update({f"view_{n}": t for n, t in _rows(self.view).items()})
+        return out
 
     def reset(self) -> None:
         """Back to the state :meth:`create` gives, in place: the graphs keep
         reading these very tensors."""
         for name, t in self.buffers().items():
             t.fill_(1 if name == "top_ps" else 0)
+
+
+def _flat(pool: torch.Tensor) -> torch.Tensor:
+    """A page pool [L, P + 1, pt, ...] as flat rows [L, (P + 1) * pt, ...]."""
+    return pool.view(pool.shape[0], -1, *pool.shape[3:])
 
 
 @dataclasses.dataclass
@@ -292,22 +369,52 @@ class DecodePrograms(_Programs):
 
     def run_eager(self, key: Key) -> torch.Tensor:
         """The program of ``key``, launched op by op: the body every capture
-        records (and the warm-up before it). Returns the static output."""
+        records (and the warm-up before it). Returns the static output.
+        Paged: the slots' pages are gathered into the dense view first, and
+        the chunk's new rows scattered back to the pool after."""
         k, needs_filter, any_stochastic = key
         st, out = self.state, self.output(k)
         lengths = st.cache.lengths
+        cache = st.cache
+        if st.paged:
+            start = lengths.clone()
+            idx = st.bt.reshape(-1)
+            for pool, view in zip(st.cache_rows().values(), _rows(st.view).values()):
+                torch.index_select(pool, 1, idx, out=view.view(
+                    pool.shape[0], idx.numel(), *pool.shape[2:]))
+            cache = st.view
         for i in range(k):
             # The forward gets a shallow copy of the cache: it writes the
             # new K/V rows in place and returns new lengths, which land in
             # the static buffer below, masked.
             logits, moved = self._forward(self._params, self._cfg, st.tokens[:, None],
-                                          lengths[:, None], dataclasses.replace(st.cache))
+                                          lengths[:, None],
+                                          dataclasses.replace(cache, lengths=lengths))
             nxt = sample_per_slot(logits[:, 0, :], self._gen, st.temps, st.top_ks, st.top_ps,
                                   needs_filter=needs_filter, any_stochastic=any_stochastic)
             lengths.copy_(torch.where(st.active, moved.lengths, lengths))
             st.tokens.copy_(torch.where(st.active, nxt, st.tokens))
             out[:, i].copy_(st.tokens)
+        if st.paged:
+            pos, dest = self.pool_dest(start, k)
+            slots = torch.arange(pos.shape[0], device=self.device)[:, None]
+            for pool, view in zip(st.cache_rows().values(), _rows(st.view).values()):
+                rows = view[:, slots, pos]                       # [L, B, K, ...]
+                _flat(pool).index_copy_(1, dest, rows.reshape(
+                    rows.shape[0], -1, *rows.shape[3:]))
         return out
+
+    def pool_dest(self, start: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Paged: the positions [B, k] a k-step chunk writes from lengths
+        ``start`` (clamped to S_max - 1, as the forward clamps them) and
+        their flat pool rows [B * k], ``bt[b, pos // pt] * pt + pos % pt``
+        (page 0, scratch, for a zeroed table row)."""
+        st = self.state
+        pt = st.page_tokens
+        pos = torch.clamp(start[:, None] + torch.arange(k, device=self.device),
+                          max=st.max_len - 1)
+        page = torch.gather(st.bt, 1, pos // pt)
+        return pos, (page * pt + pos % pt).reshape(-1)
 
     def run(self, key: Key) -> torch.Tensor:
         """Run the program of ``key`` (built at first use): one graph replay
@@ -325,30 +432,46 @@ class DecodePrograms(_Programs):
 
     def snapshot(self, k: int) -> dict:
         """What a k-step program writes, saved: every slot's cache rows at
-        its length and the k - 1 after (clamped as the forward clamps them),
-        lengths, tokens, the [B, k] output and the generator state."""
+        its length and the k - 1 after (clamped as the forward clamps them;
+        paged: the pool rows they scatter to, and the block table), lengths,
+        tokens, the [B, k] output and the generator state. The paged dense
+        view is not saved: every run gathers it afresh."""
         st = self.state
         c = st.cache
+        snap = {"lengths": c.lengths.clone(), "tokens": st.tokens.clone(),
+                "out": self.output(k).clone(), "gen": self._gen.get_state()}
+        if st.paged:
+            _, dest = self.pool_dest(c.lengths, k)
+            return {**snap, "dest": dest, "bt": st.bt.clone(),
+                    "kv": {n: _flat(t)[:, dest].clone() for n, t in st.cache_rows().items()}}
         rows = torch.clamp(c.lengths[:, None] + torch.arange(k, device=self.device),
                            max=c.max_len - 1)
         slots = torch.arange(rows.shape[0], device=self.device)[:, None]
         kv = {n: t[:, slots, rows].clone() for n, t in self.state.cache_rows().items()}
-        return {"slots": slots, "rows": rows, "kv": kv, "lengths": c.lengths.clone(),
-                "tokens": st.tokens.clone(), "out": self.output(k).clone(),
-                "gen": self._gen.get_state()}
+        return {**snap, "slots": slots, "rows": rows, "kv": kv}
 
     def restore(self, snap: dict) -> None:
         """Put back what :meth:`snapshot` saved, in place."""
         st = self.state
         for n, t in self.state.cache_rows().items():
-            t[:, snap["slots"], snap["rows"]] = snap["kv"][n]
+            if st.paged:
+                _flat(t).index_copy_(1, snap["dest"], snap["kv"][n])
+            else:
+                t[:, snap["slots"], snap["rows"]] = snap["kv"][n]
+        if st.paged:
+            st.bt.copy_(snap["bt"])
         st.cache.lengths.copy_(snap["lengths"])
         st.tokens.copy_(snap["tokens"])
         self.output(snap["out"].shape[1]).copy_(snap["out"])
         self._gen.set_state(snap["gen"])
 
     def written_rows(self, snap: dict) -> dict[str, torch.Tensor]:
-        """The cache rows a snapshot covers, as they are now."""
+        """The cache rows a snapshot covers, as they are now. Paged: the
+        pool rows outside page 0, whose duplicate stray writes land in no
+        fixed order."""
+        if self.state.paged:
+            dest = snap["dest"][snap["dest"] >= self.state.page_tokens]
+            return {n: _flat(t)[:, dest].clone() for n, t in self.state.cache_rows().items()}
         return {n: t[:, snap["slots"], snap["rows"]].clone()
                 for n, t in self.state.cache_rows().items()}
 
@@ -372,9 +495,12 @@ class PrefillPrograms(_Programs):
                  generator: torch.Generator, bucket: Callable[[int], int], pool=None):
         super().__init__(forward, params, cfg, state, generator, pool)
         self._bucket = bucket
-        S = state.cache.max_len
+        S = state.max_len
         shape = (cfg.num_layers, 1, S, cfg.num_kv_heads, cfg.head_dim)
-        self.inputs = torch.zeros((HEADER + S,), dtype=torch.int64, device=self.device)
+        # Paged: the gather ids, then the insert ids, after the tokens.
+        self.max_pages = state.bt.shape[1] if state.paged else 0
+        self.inputs = torch.zeros((HEADER + S + 2 * self.max_pages,), dtype=torch.int64,
+                                  device=self.device)
         self.block_k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
         self.block_v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
         self.stats["static_bytes"] = sum(t.numel() * t.element_size() for t in self.buffers().values())
@@ -391,9 +517,14 @@ class PrefillPrograms(_Programs):
     def block_len(self, key: PrefillKey) -> int:
         """Rows of the block a program leaves: its bucket, or for
         ``prefill_ext`` the canonical ``min(bucket(Pb + S), S_max)``."""
-        if key[0] == "prefill":
+        if key[0] in ("prefill", "prefill_paged"):
             return key[1]
-        return min(self._bucket(key[1] + key[2]), self.state.cache.max_len)
+        return min(self._bucket(key[1] + key[2]), self.state.max_len)
+
+    def page_ids(self, which: str, n: int) -> torch.Tensor:
+        """Paged: the first ``n`` staged ``"gather"`` or ``"insert"`` page ids."""
+        at = HEADER + self.state.max_len + (self.max_pages if which == "insert" else 0)
+        return self.inputs[at:at + n]
 
     def block(self, key: PrefillKey) -> tuple[torch.Tensor, torch.Tensor]:
         """Views of the block a run of ``key`` left (copy before the next)."""
@@ -423,7 +554,9 @@ class PrefillPrograms(_Programs):
         ``block_len`` rows (zero-padded) go back to the block."""
         inp = self.inputs
         length, plen = inp[0:1], inp[2:3]
-        if key[0] == "prefill":
+        if key[0] == "prefill_ext_paged":
+            self._gather_prefix(key[1])
+        if key[0] in ("prefill", "prefill_paged"):
             Pb, S = 0, key[1]
             cache = KVCache(k=self.block_k[:, :, :S], v=self.block_v[:, :, :S], lengths=plen)
         else:
@@ -444,11 +577,27 @@ class PrefillPrograms(_Programs):
                 out[:, :, keep:n].zero_()
         return logits[:, 0, :]
 
+    def _gather_prefix(self, Pb: int) -> None:
+        """Paged ``gather_block``: the staged gather ids' pool pages into the
+        block's first ``Pb`` rows, dequantized from an int8 pool (f32
+        product, cast down, as the reference)."""
+        pool, pt = self.state.cache, self.state.page_tokens
+        gid = self.page_ids("gather", Pb // pt)
+        L = self._cfg.num_layers
+        for out, t, sc in ((self.block_k, pool.k, pool.k_scale),
+                           (self.block_v, pool.v, pool.v_scale)):
+            rows = t.index_select(1, gid).reshape(L, 1, Pb, *t.shape[3:])
+            if sc is not None:
+                scale = sc.index_select(1, gid).reshape(L, 1, Pb, -1)
+                rows = (rows.float() * scale[..., None].float()).to(self._cfg.dtype)
+            out[:, :, :Pb].copy_(rows)
+
     def run_eager(self, key: PrefillKey) -> None:
         """The program of ``key``, launched op by op: the forward
         (:meth:`logits`), the first token's sample, then the reference's
         ``insert``: the block into the slot's first rows (quantized here
-        for an int8 cache), the slot's length and token, and active."""
+        for an int8 cache; paged, ``insert_paged``: into the pool pages of
+        the staged insert ids), the slot's length and token, and active."""
         inp = self.inputs
         length, slot, top_k = inp[0:1], inp[1:2], inp[3:4]
         temp, top_p = inp[4:HEADER].view(torch.float64).float().split(1)
@@ -458,13 +607,22 @@ class PrefillPrograms(_Programs):
         c = st.cache
         n = self.block_len(key)
         kv_k, kv_v = self.block(key)
+        ks = vs = None
         if c.quantized:
             kv_k, ks = quantize_kv(kv_k)            # [L, 1, n, KV(, D)]
             kv_v, vs = quantize_kv(kv_v)
-            c.k_scale[:, :, :n].index_copy_(1, slot, ks)
-            c.v_scale[:, :, :n].index_copy_(1, slot, vs)
-        c.k[:, :, :n].index_copy_(1, slot, kv_k.to(c.k.dtype))
-        c.v[:, :, :n].index_copy_(1, slot, kv_v.to(c.v.dtype))
+        if st.paged:
+            ids = self.page_ids("insert", n // st.page_tokens)
+            L, pt = c.k.shape[0], st.page_tokens
+            for pool, x in ((c.k, kv_k), (c.v, kv_v), (c.k_scale, ks), (c.v_scale, vs)):
+                if x is not None:
+                    pool.index_copy_(1, ids, x.reshape(L, -1, pt, *x.shape[3:]).to(pool.dtype))
+        else:
+            if c.quantized:
+                c.k_scale[:, :, :n].index_copy_(1, slot, ks)
+                c.v_scale[:, :, :n].index_copy_(1, slot, vs)
+            c.k[:, :, :n].index_copy_(1, slot, kv_k.to(c.k.dtype))
+            c.v[:, :, :n].index_copy_(1, slot, kv_v.to(c.v.dtype))
         c.lengths.index_copy_(0, slot, length)
         st.tokens.index_copy_(0, slot, first)
         st.active.index_fill_(0, slot, True)
@@ -476,18 +634,25 @@ class PrefillPrograms(_Programs):
         n = self.block_len(key)
         slot = self.inputs[1:2].clone()
         st = self.state
-        return {"slot": slot, "rows": n,
-                "kv": {name: t[:, :, :n].index_select(1, slot)
-                       for name, t in st.cache_rows().items()},
+        snap = {"slot": slot, "rows": n,
                 "lengths": st.cache.lengths.clone(), "tokens": st.tokens.clone(),
                 "active": st.active.clone(), "block_k": self.block_k[:, :, :n].clone(),
                 "block_v": self.block_v[:, :, :n].clone(), "gen": self._gen.get_state()}
+        if st.paged:
+            ids = self.page_ids("insert", n // st.page_tokens).clone()
+            return {**snap, "ids": ids,
+                    "kv": {name: t.index_select(1, ids) for name, t in st.cache_rows().items()}}
+        return {**snap, "kv": {name: t[:, :, :n].index_select(1, slot)
+                               for name, t in st.cache_rows().items()}}
 
     def restore(self, snap: dict) -> None:
         """Put back what :meth:`snapshot_key` saved, in place."""
         st, n = self.state, snap["rows"]
         for name, t in st.cache_rows().items():
-            t[:, :, :n].index_copy_(1, snap["slot"], snap["kv"][name])
+            if st.paged:
+                t.index_copy_(1, snap["ids"], snap["kv"][name])
+            else:
+                t[:, :, :n].index_copy_(1, snap["slot"], snap["kv"][name])
         st.cache.lengths.copy_(snap["lengths"])
         st.tokens.copy_(snap["tokens"])
         st.active.copy_(snap["active"])

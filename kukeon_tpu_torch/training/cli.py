@@ -55,7 +55,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.model.startswith("mixtral"):
         raise NotImplementedError(
-            f"--model {args.model}: MoE training is not ported yet (ROADMAP.md A13)")
+            f"--model {args.model}: MoE training is not ported yet (ROADMAP.md A15)")
     sharded = {a: getattr(args, a) for a in MESH_AXES if getattr(args, a) > 1}
     if sharded:
         raise NotImplementedError(

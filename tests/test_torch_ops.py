@@ -272,6 +272,7 @@ leaked = sorted(m for m in sys.modules if m == "kukeon_tpu" or m.startswith("kuk
 assert not leaked, leaked
 assert len(names) >= 25, names
 assert "kukeon_tpu_torch.serving.programs" in names, names
+assert "kukeon_tpu_torch.serving.kv_pages" in names, names
 print("ok", len(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
