@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, check the 8B and Mixtral models and their
 decode and prefill graphs (legacy and paged KV), serve both (streamed,
-agent sessions through the prefix cache, and the paged KV cache), and
-train.
+agent sessions through the prefix cache, the paged KV cache, and the KV
+handoff between a prefill and a decode cell), and train.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -106,7 +106,9 @@ time; any failure ends the run with a nonzero exit and no result line:
               second engine on the same weights with the paged KV cache
               (pages of 64): the same tokens, the same launches a step;
               both engines' 16-step decode program replayed in turns
-              (legacy, paged, paged, legacy)
+              (legacy, paged, paged, legacy); then one KV handoff: the
+              legacy engine exports the first prompt, the paged engine
+              imports it, and its greedy tokens are the legacy cell's
   serve_prefix  llama3-8b int8, 4 slots, max_seq_len 1024, over HTTP: four
               agent sessions (prefixId sess-0..3), six turns each, 384
               tokens the first and each later turn the previous prompt, its
@@ -127,6 +129,26 @@ time; any failure ends the run with a nonzero exit and no result line:
               tokens both times, no capture, the 16-slot arm preempting;
               tokens/s, TTFT p50/p95, ms a step, hits, preemptions, peak
               pages in use, pool and view bytes
+  serve_disagg  the KV handoff, both hops driven as the reference's
+              gateway drives them (/v1/kv/export, then /v1/kv/import):
+              (a) llama3-8b int8 drawn again from serve's seed, a legacy
+              prefill cell and two decode cells (legacy, and paged with
+              pages of 64), 4 slots and max_seq_len 1024 each: serve's 4
+              prompts handed off into each decode cell, JSON and ndjson,
+              give serve's greedy tokens; each export moves 131,072 bytes
+              a prompt token (bf16); no capture in the traffic; a profiled
+              handoff into each decode cell launches K1 in its replays as
+              the captures record; (b) the reference's disagg arm
+              (bench.py:505-521) at 8B: 16 streamed sessions on one
+              prefixId, a 256-token prefix, tails of 32 and 128, 16 and 64
+              greedy tokens, through a paged cell with 8 slots on a
+              64-page pool as the mixed arm, then as the decode cell
+              behind the legacy prefill cell; each arm first runs 3
+              sessions to capture its keys (as the reference warms), then
+              all 16 measured: client TTFT p50/p95 to the first ndjson
+              line, tokens/s, export ms, wire bytes and import to first
+              line (p50), the decode engine's 16-step replay ms a step,
+              prefix hits, no capture, the warm sessions' tokens again
   train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
               and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
@@ -229,7 +251,7 @@ FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
               ("S 65792", 1, 65792, 1, 1, 64, 256))
 PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_tied",
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
-          "serve_moe", "serve_prefix", "serve_paged", "train")   # in run order
+          "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "train")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
 STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
                  "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
@@ -769,16 +791,19 @@ def profile_serving(base: str, engine, prompts, new: int) -> dict:
                                  for e in host]}
 
 
-def make_cell(model: str, max_seq_len: int, kv_page_tokens: int = 0):
+def make_cell(model: str, max_seq_len: int, kv_page_tokens: int = 0, role: str = "mixed"):
     from kukeon_tpu_torch.runtime.serving_cell import ServingCell
 
     return ServingCell(model, dtype="int8", num_slots=4, max_seq_len=max_seq_len,
-                       device="cuda", kv_page_tokens=kv_page_tokens)
+                       device="cuda", kv_page_tokens=kv_page_tokens, role=role)
 
 
-def paged_twin(cell, kv_page_tokens: int = 64):
-    """A cell over ``cell``'s weights (no second draw) whose engine keeps
-    the paged KV layout: 4 slots, the pool of the legacy cache's rows."""
+def twin_cell(cell, kv_page_tokens: int = 64, role: str | None = None,
+              num_slots: int | None = None, kv_pool_pages: int | None = None):
+    """A cell over ``cell``'s weights (no second draw), with an engine of
+    its own: by default the paged KV layout (pages of 64) at ``cell``'s
+    slots and the pool of its legacy cache's rows; ``kv_page_tokens`` 0
+    keeps the legacy layout."""
     import copy
 
     from kukeon_tpu_torch.models import moe
@@ -788,12 +813,14 @@ def paged_twin(cell, kv_page_tokens: int = 64):
     old = cell.engine
     twin = copy.copy(cell)
     twin.engine = ServingEngine(
-        cell.cfg, old.params, num_slots=old.num_slots, max_seq_len=old.max_seq_len,
-        decode_chunk=old.decode_chunk, max_pending=old.max_pending, device="cuda",
+        cell.cfg, old.params, num_slots=num_slots or old.num_slots,
+        max_seq_len=old.max_seq_len, decode_chunk=old.decode_chunk,
+        max_pending=old.max_pending, device="cuda",
         forward_fn=moe.forward if cell.model_name in MOE_MODELS else None,
-        kv_page_tokens=kv_page_tokens)
+        kv_page_tokens=kv_page_tokens, kv_pool_pages=kv_pool_pages)
     twin.boot_s = {}
-    twin._ready = threading.Event()
+    twin.role = role or cell.role
+    twin._init_lifecycle()
     return twin
 
 
@@ -853,9 +880,11 @@ def stream_stop_check(base: str, cell, prompt: list, answer: dict) -> dict:
             "joined_text_equal": True, "free_slots_after": free, "wall_s": round(wall, 3)}
 
 
-# Greedy tokens of each serve run's 4 requests, by label: serve_paged and
-# the paged serve_moe check hold theirs to the legacy layout's.
+# Greedy tokens of each serve run's 4 requests, and their prompts, by
+# label: serve_paged, the paged serve_moe check and serve_disagg hold theirs
+# to the legacy layout's.
 SERVED_TOKENS: dict = {}
+SERVED_PROMPTS: dict = {}
 
 
 def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
@@ -944,6 +973,7 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
                              f"step in the replays, want {want}")
     step_ms = [(r["seconds"] - r["ttftSeconds"]) / (new - 1) * 1e3 for r in results]
     SERVED_TOKENS[label or model] = [r["tokens"] for r in results]
+    SERVED_PROMPTS[label or model] = prompts
     eng = cell.engine
     out = {
         "model": model, "requests": requests, "prompt_len": prompt_len, "new_tokens": new,
@@ -1465,6 +1495,433 @@ def serve_paged(k1) -> dict:
                          "new_tokens": ARM_NEW, "page_tokens": ARM_PAGE,
                          "slots": ARM_SLOTS, "pool_pages": ARM_POOL,
                          "source": "bench.py:340-400"}}
+
+
+# serve_disagg: the KV handoff between a prefill cell and a decode cell,
+# both hops driven as the reference's gateway drives them
+# (kukeon_tpu/gateway/cell.py:465-600). KV bytes a prompt token moves:
+# L 32 x (K, V) x KV 8 x D 128 x bf16, for llama3-8b and Mixtral alike.
+KV_BYTES_PER_TOKEN = 131072
+# (b): the reference's disagg arm (bench.py:505-521) at 8B: sessions on one
+# prefixId, a shared prefix, tails and greedy budgets alternating; an arm's
+# decode side has 8 slots on a 64-page pool of 64 rows.
+DISAGG_SESSIONS, DISAGG_PREFIX, DISAGG_TAILS, DISAGG_NEW = 16, 256, (32, 128), (16, 64)
+DISAGG_SLOTS, DISAGG_PAGE, DISAGG_POOL = 8, 64, 64
+
+
+def engine_handoff(src, dst, prompt: list, want: list) -> dict:
+    """One KV handoff between two engines, stepped here: ``src`` exports
+    ``prompt`` (its prefill alone), ``dst`` imports the payload; the
+    greedy tokens must be ``want`` and the rows KV_BYTES_PER_TOKEN a
+    token."""
+    from kukeon_tpu_torch.serving.sampling import SamplingParams
+
+    sp = SamplingParams(max_new_tokens=len(want))
+    prompt = np.asarray(prompt, np.int32)
+    # The export and insert-only programs of the prompt's bucket, captured
+    # first, as a prefill and a decode cell's warmup would.
+    tc = time.monotonic()
+    src.precompile((prompt.size,), export=True)
+    dst.precompile((prompt.size,), imports=True)
+    t0 = time.monotonic()
+    r = src.submit(prompt, sp, export=True)
+    while not r.done.is_set():
+        src.step()
+    export_s = time.monotonic() - t0
+    if r.error is not None:
+        raise AssertionError(f"export failed: {r.error}")
+    p = r.export_payload
+    nbytes = sum(t.numel() * t.element_size() for t in (p["k"], p["v"]))
+    if nbytes != KV_BYTES_PER_TOKEN * prompt.size or p["k"].dtype != torch.bfloat16:
+        raise AssertionError(f"export of {prompt.size} tokens: {nbytes} bytes of "
+                             f"{p['k'].dtype}, want {KV_BYTES_PER_TOKEN} a token in bf16")
+    t1 = time.monotonic()
+    r2 = dst.submit(prompt, sp, kv_import={k: p[k] for k in ("token", "length", "k", "v")})
+    while not r2.done.is_set():
+        dst.step()
+    while dst.step():                    # the chunk still in flight
+        pass
+    if r2.error is not None or r2.generated != want:
+        raise AssertionError(f"handoff: {r2.error or r2.generated} against {want}")
+    return {"prompt_len": int(prompt.size), "tokens": len(want), "tokens_equal": True,
+            "kv_bytes": nbytes, "capture_s": round(t0 - tc, 3),
+            "wall_s": round(time.monotonic() - tc, 3), "export_ms": round(export_s * 1e3, 2),
+            "import_to_first_token_ms": round((r2.first_token_at - t1) * 1e3, 2),
+            "importer_prefill_keys": sorted(dst.program_stats["prefill"]["launches_by_key"])}
+
+
+def post_bytes(url: str, body: bytes) -> bytes:
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.read()
+
+
+def http_handoff(prefill: str, decode: str, body: dict, stream: bool) -> dict:
+    """Both hops of one request over HTTP, as the reference's gateway
+    drives them: ``/v1/kv/export`` on the prefill cell, then its header
+    (plus ``stream``) and raw rows to the decode cell's ``/v1/kv/import``.
+    -> the tokens, the export's header and wire bytes, and client times:
+    the export, the import to its first line, and start to first line."""
+    t0 = time.monotonic()
+    data = post_bytes(prefill + "/v1/kv/export", json.dumps(body).encode())
+    t1 = time.monotonic()
+    nl = data.find(b"\n")
+    header = json.loads(data[:nl])
+    if header.get("done"):
+        raise AssertionError(f"an export's first token ended the request: {header}")
+    imp = urllib.request.Request(
+        decode + "/v1/kv/import", data=json.dumps({**header, "stream": stream}).encode()
+        + data[nl:], headers={"Content-Type": "application/x-kukeon-kv"})
+    with urllib.request.urlopen(imp, timeout=600) as r:
+        first = r.readline()
+        t2 = time.monotonic()
+        rest = r.read()
+    if stream:
+        recs = [json.loads(x) for x in (first + rest).splitlines() if x.strip()]
+        tokens = [x["token"] for x in recs if "token" in x]
+        if not recs[-1].get("done") or recs[-1]["tokens"] != tokens:
+            raise AssertionError(f"an import stream ended {recs[-1]}")
+    else:
+        tokens = json.loads(first + rest)["tokens"]
+    return {"tokens": tokens, "header": header, "wire_bytes": len(data) - nl - 1,
+            "export_s": t1 - t0, "import_first_s": t2 - t1, "ttft_s": t2 - t0}
+
+
+def stream_generate(base: str, body: dict) -> dict:
+    """A streamed ``/v1/generate`` -> its tokens and the time to its first
+    line (the client's TTFT)."""
+    req = urllib.request.Request(base + "/v1/generate",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        first = r.readline()
+        ttft = time.monotonic() - t0
+        rest = r.read()
+    recs = [json.loads(x) for x in (first + rest).splitlines() if x.strip()]
+    if not recs[-1].get("done"):
+        raise AssertionError(f"a stream ended {recs[-1]}")
+    return {"tokens": recs[-1]["tokens"], "ttft_s": ttft}
+
+
+def concurrently(fn, n: int, first_alone: bool = False) -> tuple[list, float]:
+    """``fn(i)`` for i < n on threads -> (results, wall s). ``first_alone``:
+    request 0 runs until its first line (it opens the shared context), then
+    the others start together."""
+    results, errors = [None] * n, []
+    opened = threading.Event()
+
+    def run(i):
+        try:
+            results[i] = fn(i, opened)
+        except Exception as e:  # noqa: BLE001 — raised below, in the caller
+            errors.append(e)
+            opened.set()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    threads[0].start()
+    if first_alone:
+        opened.wait(600)
+    for t in threads[1:]:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    return results, time.monotonic() - t0
+
+
+def serve_cells(cells: list, prompt_len: int) -> list:
+    """Warm each cell (its role's programs captured; a cell warmed before
+    only captures its role's keys for ``prompt_len``), start its engine and
+    HTTP server -> the servers."""
+    from kukeon_tpu_torch.runtime.serving_cell import serve
+
+    servers = []
+    for c in cells:
+        if c.boot_s:
+            c.engine.precompile((prompt_len,), export=c.role == "prefill",
+                                imports=c.role == "decode")
+        else:
+            c.warmup(prompt_len)
+        c.engine.start()
+        servers.append(serve(c))
+        c.mark_ready()
+    return servers
+
+
+def stop_cells(cells: list, servers: list) -> None:
+    for srv in servers:
+        srv.shutdown()
+        srv.server_close()
+    for c in cells:
+        c.engine.stop()
+
+
+def captures(cells: list) -> list:
+    return [(c.engine.program_stats["captures"], c.engine.program_stats["prefill"]["captures"])
+            for c in cells]
+
+
+def launches_by_capture(cells: list, before: list) -> dict:
+    """Each kernel's launches the cells' programs recorded at capture,
+    times their replays since ``before`` (each cell's replays_by_key of
+    its decode and prefill programs)."""
+    out = {k: 0 for k in COUNTERS}
+    for c, b in zip(cells, before):
+        for stats, seen in ((c.engine.program_stats, b[0]),
+                            (c.engine.program_stats["prefill"], b[1])):
+            for key, n in stats["replays_by_key"].items():
+                for k, name in COUNTERS.items():
+                    out[k] += (n - seen.get(key, 0)) * stats["launches_by_key"][key][name]
+    return out
+
+
+def replays_now(cells: list) -> list:
+    return [(dict(c.engine.program_stats["replays_by_key"]),
+             dict(c.engine.program_stats["prefill"]["replays_by_key"])) for c in cells]
+
+
+def disagg_parity(k1, pre) -> dict:
+    """(a) llama3-8b int8, the ``serve`` phase's weights (``pre``, a legacy
+    ``prefill`` cell drawn again from its seed) and its 4 prompts: ``pre``
+    exports, a legacy and a paged ``decode`` cell (pages of 64) on the same
+    weights import, half the requests streamed; every answer is
+    ``serve``'s greedy tokens, every export carries KV_BYTES_PER_TOKEN a
+    prompt token, no program is captured in the traffic; then a profiled
+    two-token handoff into each decode cell, whose replays must launch K1
+    as their captures record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts, want = SERVED_PROMPTS["llama3-8b"], SERVED_TOKENS["llama3-8b"]
+    new = len(want[0])
+    t0 = time.monotonic()
+    decode = {"legacy": twin_cell(pre, 0, role="decode"),
+              "paged": twin_cell(pre, DISAGG_PAGE, role="decode")}
+    cells = [pre, *decode.values()]
+    servers = serve_cells(cells, len(prompts[0]))
+    boot_s = time.monotonic() - t0
+    base = dict(zip(("prefill", "legacy", "paged"),
+                    (f"http://127.0.0.1:{s.server_address[1]}" for s in servers)))
+    try:
+        before = captures(cells)
+        # Every prompt into both decode cells at once, odd ones streamed.
+        jobs = [(layout, i) for layout in decode for i in range(len(prompts))]
+        res, wall = concurrently(lambda j, _o: http_handoff(
+            base["prefill"], base[jobs[j][0]],
+            {"promptTokens": prompts[jobs[j][1]], "maxNewTokens": new}, jobs[j][1] % 2 == 1),
+            len(jobs))
+        rounds = {"wall_s": round(wall, 3)}
+        for (layout, i), r in zip(jobs, res):
+            if r["tokens"] != want[i]:
+                raise AssertionError(f"handoff into the {layout} cell (stream {i % 2}), "
+                                     f"prompt {i}: {r['tokens']} against serve's {want[i]}")
+            n, h = len(prompts[i]), r["header"]
+            if (h["kBytes"] + h["vBytes"] != KV_BYTES_PER_TOKEN * n
+                    or r["wire_bytes"] != KV_BYTES_PER_TOKEN * n
+                    or h["dtype"] != "bfloat16" or h["length"] != n):
+                raise AssertionError(f"export of {n} tokens: {h}")
+            got = rounds.setdefault(layout, {"export_ms": [], "ndjson_import_first_line_ms": [],
+                                             "ndjson_ttft_ms": []})
+            got["export_ms"].append(round(r["export_s"] * 1e3, 2))
+            if i % 2:
+                got["ndjson_import_first_line_ms"].append(round(r["import_first_s"] * 1e3, 2))
+                got["ndjson_ttft_ms"].append(round(r["ttft_s"] * 1e3, 2))
+        # Each prompt alone, into the paged cell: one handoff's own costs.
+        alone = [http_handoff(base["prefill"], base["paged"],
+                              {"promptTokens": p, "maxNewTokens": 2}, True) for p in prompts]
+        if [r["tokens"] for r in alone] != [w[:2] for w in want]:
+            raise AssertionError(f"handoffs alone: {[r['tokens'] for r in alone]}")
+        rounds["alone_into_paged"] = {
+            key: [round(r[f] * 1e3, 2) for r in alone]
+            for key, f in (("export_ms", "export_s"), ("import_first_line_ms", "import_first_s"),
+                           ("ttft_ms", "ttft_s"))}
+        if captures(cells) != before:
+            raise AssertionError(f"(decode, prefill) captures by cell {before} -> "
+                                 f"{captures(cells)} in the handoff traffic")
+        # The profiled window: a two-token handoff into each decode cell
+        # (two 16-step chunks each: the one that emits, and the one behind).
+        k1.int8_matmul.launches = k1.int8_matmul.launches_t = 0
+        k1.int8_matmul_expert.launches = 0
+
+        def window():
+            seen0 = replays_now(cells)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                short = [http_handoff(base["prefill"], base[layout],
+                                      {"promptTokens": prompts[0], "maxNewTokens": 2}, True)
+                         for layout in decode]
+                torch.cuda.synchronize()
+            # The raw events' names (the profiler's own tables take tens of
+            # seconds to build over ~150,000 kernels).
+            names = [e.name() for e in prof.profiler.kineto_results.events()]
+            return {"short": short, "expect": launches_by_capture(cells, seen0),
+                    "seen": {k: sum(kernel in n for n in names)
+                             for k, kernel in KERNEL_NAMES.items()}}
+
+        t1 = time.monotonic()
+        w = window()
+        retried = None
+        if w["seen"] != w["expect"]:
+            # The profiler drops kernel records now and then (a window
+            # short by under one step, as serve_model sees): once more,
+            # and the second window is held to the same gate.
+            retried = {k: w[k] for k in ("seen", "expect")}
+            w = window()
+        profile_s = time.monotonic() - t1
+        short, seen, expect = w["short"], w["seen"], w["expect"]
+        outside = {"k1": k1.int8_matmul.launches - k1.int8_matmul.launches_t,
+                   "k1t": k1.int8_matmul.launches_t, "k2": k1.int8_matmul_expert.launches}
+        keys = {name: sorted(c.engine.program_stats["prefill"]["launches_by_key"])
+                for name, c in zip(base, cells)}
+    finally:
+        stop_cells(cells, servers)
+    if any(r["tokens"] != want[0][:2] for r in short):
+        raise AssertionError(f"profiled handoffs: {[r['tokens'] for r in short]}")
+    if seen["k1"] <= 0 or seen != expect or any(outside.values()):
+        raise AssertionError(f"decode cells' replays: the profiler saw {seen} launches, the "
+                             f"captures record {expect}; wrapper counts {outside}")
+    del decode, cells
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"boot_s": round(boot_s, 3), "prompts": len(prompts), "prompt_len": len(prompts[0]),
+            "new_tokens": new, "tokens_equal_serve": True,
+            "kv_bytes_per_token": KV_BYTES_PER_TOKEN, "rounds": rounds,
+            "launches": seen, "launch_count_method": "profiler, in the replays",
+            **({"profile_window_retried": retried} if retried else {}),
+            "profile_s": round(profile_s, 3), "prefill_keys": keys}
+
+
+def disagg_workload(vocab: int) -> list:
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(1, vocab, DISAGG_PREFIX).tolist()
+    return [(prefix + rng.integers(1, vocab, DISAGG_TAILS[i % 2]).tolist(), DISAGG_NEW[i % 2])
+            for i in range(DISAGG_SESSIONS)]
+
+
+def settle(cells: list) -> None:
+    """Wait until the cells' engines hold no request (a stream's last line
+    can reach the client before the engine releases its slot)."""
+    for c in cells:
+        for _ in range(1000):
+            if not c.engine._requests and not any(c.engine._slot_req):
+                break
+            time.sleep(0.01)
+
+
+def disagg_arm(arm: str, cells: list, workload: list) -> dict:
+    """(b) One arm: its first 3 sessions to capture its keys (as the
+    reference warms), then all of them measured, session 0 first (it opens
+    the shared context) and the others together, streamed; the warm
+    sessions' tokens again, no capture in the measured pass. ``mixed``:
+    one cell; ``disagg``: a prefill and a decode cell."""
+    servers = serve_cells(cells, DISAGG_PREFIX + DISAGG_TAILS[0])
+    urls = [f"http://127.0.0.1:{s.server_address[1]}" for s in servers]
+
+    def session(i, opened):
+        body = {"promptTokens": workload[i][0], "maxNewTokens": workload[i][1],
+                "prefixId": "agent"}
+        if arm == "mixed":
+            out = stream_generate(urls[0], body)
+        else:
+            out = http_handoff(urls[0], urls[1], body, True)
+        opened.set()
+        if len(out["tokens"]) != workload[i][1]:
+            raise AssertionError(f"{arm} session {i}: {len(out['tokens'])} tokens")
+        return out
+
+    try:
+        warm, _ = concurrently(session, 3, first_alone=True)
+        settle(cells)
+        forget_prefixes(cells)
+        before = captures(cells)
+        hits = [(c.engine.prefix_hits, c.engine.prefix_misses) for c in cells]
+        res, wall = concurrently(session, len(workload), first_alone=True)
+        after = captures(cells)
+    finally:
+        stop_cells(cells, servers)
+    if after != before:
+        raise AssertionError(f"{arm} arm: (decode, prefill) captures by cell {before} -> "
+                             f"{after} in the measured pass")
+    if [r["tokens"] for r in res[:3]] != [r["tokens"] for r in warm]:
+        raise AssertionError(f"{arm} arm: the warm and measured passes gave different tokens")
+    ttft = sorted(r["ttft_s"] * 1e3 for r in res)
+    tokens = sum(len(r["tokens"]) for r in res)
+    out = {"cells": [{"role": c.role, "slots": c.engine.num_slots,
+                      "kv_page_tokens": c.engine.page_tokens,
+                      "prefix_hits": c.engine.prefix_hits - h[0],
+                      "prefix_misses": c.engine.prefix_misses - h[1]}
+                     for c, h in zip(cells, hits)],
+           "wall_s": round(wall, 3), "tokens": tokens, "tok_per_s": round(tokens / wall, 2),
+           "ttft_ms_p50": round(statistics.median(ttft), 2),
+           "ttft_ms_p95": round(ttft[min(len(ttft) - 1, math.ceil(0.95 * len(ttft)) - 1)], 2),
+           "captures_in_measured_pass": 0,
+           "session_tokens": [r["tokens"] for r in res]}
+    if arm == "disagg":
+        out.update(
+            export_ms_p50=round(statistics.median(r["export_s"] for r in res) * 1e3, 2),
+            wire_bytes_p50=statistics.median(r["wire_bytes"] for r in res),
+            import_first_line_ms_p50=round(
+                statistics.median(r["import_first_s"] for r in res) * 1e3, 2))
+    return out
+
+
+def forget_prefixes(cells: list) -> None:
+    """Empty the cells' prefix caches (paged: free the pages they pin)."""
+    for c in cells:
+        eng = c.engine
+        if eng.paged:
+            eng._reclaim_prefix_pages(eng._pool.num_pages)
+        else:
+            eng._prefix_cache.clear()
+
+
+def program_key_16():
+    from kukeon_tpu_torch.serving.programs import program_key
+
+    return program_key(16, False, False)
+
+
+def serve_disagg(k1) -> dict:
+    """The KV handoff (disaggregated serving) on llama3-8b int8, one draw:
+    (a) parity against the ``serve`` phase (``disagg_parity``); (b) the
+    reference's disagg arm scaled to 8B on one card: a paged cell with 8
+    slots on a 64-page pool serves the sessions as the ``mixed`` arm, then
+    as the ``decode`` cell of the ``disagg`` arm behind (a)'s legacy
+    ``prefill`` cell, whose prefix cache takes the sessions' prefixId (the
+    two arms' decode side is one engine; only its role and the route
+    change)."""
+    if "llama3-8b" not in SERVED_TOKENS:
+        raise AssertionError("serve_disagg compares with the serve phase's tokens: run serve")
+    t0 = time.monotonic()
+    pre = make_cell("llama3-8b", 1024, role="prefill")
+    parity = disagg_parity(k1, pre)
+    parity_s = time.monotonic() - t0
+    workload = disagg_workload(pre.cfg.vocab_size)
+    side = twin_cell(pre, DISAGG_PAGE, role="mixed", num_slots=DISAGG_SLOTS,
+                     kv_pool_pages=DISAGG_POOL)
+    arms = {"mixed": disagg_arm("mixed", [side], workload)}
+    settle([side])
+    forget_prefixes([side])
+    side.role = "decode"
+    arms["disagg"] = disagg_arm("disagg", [pre, side], workload)
+    # Both arms' decode side is this one engine: its 16-step replay alone.
+    with torch.no_grad():
+        step = replay_timing(side.engine._programs, program_key_16())
+    for arm in arms.values():
+        arm.update(decode_replay_event_ms_per_step=step["event_ms_per_step"],
+                   decode_replay_kernel_device_ms_per_step=round(
+                       step["kernel_device_ms"] / 16, 3))
+    del pre, side
+    same = sum(a == b for a, b in zip(arms["mixed"].pop("session_tokens"),
+                                      arms["disagg"].pop("session_tokens")))
+    return {"parity": parity, "parity_s": round(parity_s, 3), "arms": arms,
+            "sessions_with_equal_tokens_across_arms": same,
+            "workload": {"sessions": DISAGG_SESSIONS, "prefix": DISAGG_PREFIX,
+                         "tails": DISAGG_TAILS, "new_tokens": DISAGG_NEW,
+                         "decode_slots": DISAGG_SLOTS, "page_tokens": DISAGG_PAGE,
+                         "pool_pages": DISAGG_POOL, "prefix_id": "agent",
+                         "warm_sessions": 3, "source": "bench.py:505-521, scaled to 8B"}}
 
 
 # serve_prefix: agent sessions, each turn the previous prompt plus the
@@ -2040,7 +2497,7 @@ def main(argv=None) -> int:
                           profile_new=16, cell=cell["moe"])
         # The same drawn weights behind a paged engine: the same tokens, and
         # the same kernels a step inside its replays.
-        twin = paged_twin(cell["moe"])
+        twin = twin_cell(cell["moe"])
         paged = serve_model(k1, "mixtral-8x7b", max_seq_len=1024, prompt_len=128, new=32,
                             profile_new=16, cell=twin, label="mixtral-8x7b paged")
         if SERVED_TOKENS["mixtral-8x7b paged"] != SERVED_TOKENS["mixtral-8x7b"]:
@@ -2052,7 +2509,13 @@ def main(argv=None) -> int:
             turns = [[arm, replay_timing(eng._programs, program_key(16, False, False))]
                      for arm, eng in (("legacy", cell["moe"].engine), ("paged", twin.engine),
                                       ("paged", twin.engine), ("legacy", cell["moe"].engine))]
+        # One KV handoff on the same weights: the legacy engine exports the
+        # first prompt, the paged engine imports it.
+        handoff = engine_handoff(cell["moe"].engine, twin.engine,
+                                 SERVED_PROMPTS["mixtral-8x7b"][0],
+                                 SERVED_TOKENS["mixtral-8x7b"][0])
         del twin
+        out["handoff_legacy_to_paged"] = handoff
         out["paged"] = {k: paged[k] for k in (
             "kv_page_tokens", "kv_pool_pages", "view_bytes", "ttft_ms", "ms_per_decode_step",
             "decode_tok_s", "launches", "pool_bytes", "prefill",
@@ -2071,6 +2534,7 @@ def main(argv=None) -> int:
     cell.clear()
     run("serve_prefix", serve_prefix)
     run("serve_paged", lambda: serve_paged(k1))
+    run("serve_disagg", lambda: serve_disagg(k1))
 
     def train():
         out = phase_train(fa)
@@ -2094,7 +2558,7 @@ def main(argv=None) -> int:
         if run_["launches"][key] <= 0:
             raise AssertionError(f"{label} serving launched no {key} kernel")
     gd, gp, sp = res["graph_decode"], res["graph_prefill"], res["serve_prefix"]
-    gpg, spg = res["graph_paged"]["llama3-8b"], res["serve_paged"]
+    gpg, spg, sdg = res["graph_paged"]["llama3-8b"], res["serve_paged"], res["serve_disagg"]
 
     # K1: one llama3-8b decode step's worth of calls at B = 4 (225 launches).
     fields = ("ms", "plain_ms", "library_ms", "bound_ms")
@@ -2110,6 +2574,7 @@ def main(argv=None) -> int:
         {"name": "int8_matmul", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": serve8["launches"]["k1"],
          "launches_paged": spg["layout_check"]["launches"]["k1"],
+         "launches_disagg": sdg["parity"]["launches"]["k1"],
          "max_abs_err": kern["max_abs_err"], **per_step, "bound_by": "bytes",
          "library_ms_call": kern["library_call"],
          "device_ms": round(sum(t[nm]["device_ms"] * SHAPES_8B[nm][2] for nm in SHAPES_8B), 4),
@@ -2191,6 +2656,11 @@ def main(argv=None) -> int:
         "mixtral-8x7b_paged": {k: serve_moe["paged"][k] for k in (
             "ms_per_decode_step", "ttft_ms", "launches_per_step", "view_bytes",
             "replay_16_in_turns")},
+        "mixtral-8x7b_handoff": serve_moe["handoff_legacy_to_paged"],
+        "serve_disagg_llama3-8b": {
+            "parity": {k: sdg["parity"][k] for k in ("tokens_equal_serve", "launches",
+                                                     "kv_bytes_per_token", "rounds")},
+            "arms": sdg["arms"], "wall_s": sdg["wall_s"]},
         "train_llama3-1b": {k: train[k] for k in (
             "step_ms_median_3_8", "tokens_per_s", "mfu", "peak_mem_gb", "first_loss",
             "last_loss", "flash_launches_per_step", "flash_share_of_step")}}})

@@ -1,9 +1,11 @@
 """Fault injection for the port: named failure points armed via the
 environment, the port's own copy of what training checkpoints need from
 ``kukeon_tpu/faults.py`` (same variable, same syntax, same exception name).
-The port's points are ``checkpoint.save`` and ``checkpoint.load``
-(training), ``engine.prefill`` and ``engine.decode`` (the serving
-engine's dispatches) and ``kv.alloc`` (the paged KV allocator).
+The port's points are :data:`POINTS`, a subset of the reference's list
+(``kukeon_tpu/faults.py:51-57``): ``checkpoint.save`` and
+``checkpoint.load`` (training), ``engine.prefill`` and ``engine.decode``
+(the serving engine's dispatches), ``kv.alloc`` (the paged KV allocator)
+and ``kv.handoff`` (the serving cell's KV import).
 
     from kukeon_tpu_torch import faults
     faults.maybe_fail("checkpoint.save")        # raises iff armed
@@ -26,6 +28,18 @@ import random
 import threading
 
 ENV = "KUKEON_FAULTS"
+
+# Every point the port threads a maybe_fail through; the guard test greps
+# the port's call sites against this list.
+POINTS = (
+    "engine.prefill",
+    "engine.decode",
+    "kv.alloc",
+    "kv.handoff",
+    "checkpoint.save",
+    "checkpoint.load",
+)
+
 
 class FaultInjected(RuntimeError):
     """Raised by an armed fault point (the injected failure)."""

@@ -48,11 +48,18 @@
   new admissions) and at last finishes a lone request at its current
   length; a request no page can be found for on an idle engine is shed
   (429). Prefix entries are shared refcounted pages, not copies.
+- **KV handoff** (disaggregated serving, the reference's
+  ``_dispatch_prefill_export``/``_finish_export``/``_dispatch_import``):
+  ``submit(export=True)`` runs the prefill alone, seats no slot and takes
+  no page, and hands the first token and the prompt's KV rows back on
+  ``export_payload`` (fetched through :meth:`_fetch`);
+  ``submit(kv_import=...)`` seats such a block into a decode slot through
+  an insert-only program, on either layout, and emits its first token
+  without a prefill. A preempted import re-prefills like any request.
 
 Python orchestrates: queueing, slot choice, emitting tokens. Not ported
-yet (ROADMAP.md): KV export and import, the metrics registry, tracing,
-timers, the flight recorder, tuning profiles, async weight load, meshes
-and sharding.
+yet (ROADMAP.md): the metrics registry, tracing, timers, the flight
+recorder, tuning profiles, async weight load, meshes and sharding.
 """
 
 from __future__ import annotations
@@ -83,6 +90,7 @@ from kukeon_tpu_torch.serving.programs import (
     DecodeState,
     PrefillPrograms,
     chunk_sizes,
+    insert_key,
     pack_prefill_inputs,
     prefill_key,
     program_key,
@@ -135,6 +143,16 @@ class Request:
     # preempted request waits in the resume queue and re-prefills
     # prompt + generated when it is seated again.
     preemptions: int = 0
+    # KV handoff. ``export``: run the prefill only, seat no slot and take no
+    # page; the first token and the prompt's KV rows come back on
+    # ``export_payload`` ({"token", "length", "k", "v", "pageTokens"}, k
+    # and v host tensors [L, 1, length, KV, D]). ``kv_import``: {"token",
+    # "length", "k", "v"} from an export; the request is seated with that
+    # block and token, without a prefill (a preempted one re-prefills
+    # prompt + generated like any other).
+    export: bool = False
+    export_payload: dict | None = None
+    kv_import: dict | None = None
 
     def cancel(self) -> None:
         """Ask the engine to stop generating for this request. Only sets a
@@ -155,6 +173,19 @@ class _CachedPrefix:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (self.kv_k, self.kv_v))
+
+
+@dataclasses.dataclass
+class _Export:
+    """A dispatched export whose first token and KV rows are in flight to
+    host memory (copies started right after its program)."""
+
+    req: Request
+    first: torch.Tensor                       # [1] int64, host
+    k: torch.Tensor                           # [L, 1, n, KV, D], host
+    v: torch.Tensor
+    ready: Any                                # CUDA event, None on the CPU
+    length: int
 
 
 @dataclasses.dataclass
@@ -315,25 +346,28 @@ class ServingEngine:
     # (``DecodePrograms.stats``), and under "prefill" the prefill programs'
     # (``PrefillPrograms.stats``); both live dicts.
 
-    def _stage_prefill(self, req: Request, slot: int):
+    def _stage_prefill(self, req: Request, slot: int, export: bool = False):
         """Look the request's prefix up and write its prefill inputs into the
         static buffers: one upload, and on a hit the stored block. Returns
-        the prefill program's key."""
+        the prefill program's key (``export``: the export kinds, whose
+        ``slot`` is unused). A paged engine's export takes no part in the
+        prefix cache (the reference's ``:2202``)."""
         n = req.prompt.size
-        cached = self._prefix_lookup(req)
+        cached = None if self.paged else self._prefix_lookup(req)
         if cached is not None:
             self.prefix_hits += 1
             tokens, plen = req.prompt[cached.length:], cached.length
             self._prefill_programs.load_prefix(cached.kv_k, cached.kv_v)
         else:
-            if req.prefix_id is not None:
+            if req.prefix_id is not None and not self.paged:
                 self.prefix_misses += 1
             tokens, plen = req.prompt, 0
         bucket = min(self._bucket(tokens.size), self.max_seq_len)
         packed = pack_prefill_inputs(tokens, bucket, n, slot, plen, req.sampling)
         self._upload(packed, self._prefill_programs.inputs[:packed.size])
         return prefill_key(bucket, req.sampling,
-                           cached.kv_k.shape[2] if cached is not None else None)
+                           cached.kv_k.shape[2] if cached is not None else None,
+                           export=export)
 
     def _stage_prefill_paged(self, req: Request, slot: int, seq: np.ndarray,
                              cached: SharedPrefix | None, pages: list[int]):
@@ -456,23 +490,31 @@ class ServingEngine:
         return self._programs.run(program_key(k, *flags))
 
     @torch.no_grad()
-    def precompile(self, prompt_lens: tuple[int, ...] = (64,)) -> None:
+    def precompile(self, prompt_lens: tuple[int, ...] = (64,), *, export: bool = False,
+                   imports: bool = False) -> None:
         """Capture the greedy decode program of every chunk size the
         reference compiles (``chunk_sizes``) and the greedy prefill (with
         its insert) of the bucket of every length in ``prompt_lens``, the
-        counterpart of the reference's ``precompile``. Other keys are
-        captured at their first use. Call it before :meth:`start`: a capture
-        must not meet the loop's launches. A key already built is kept;
-        captures from here to the end of :meth:`warmup` do not count as
-        after warmup."""
+        counterpart of the reference's ``precompile``; ``export`` and
+        ``imports`` also capture each bucket's greedy export and its
+        insert-only program (what a prefill and a decode cell serve). Other
+        keys are captured at their first use. Call it before :meth:`start`:
+        a capture must not meet the loop's launches. A key already built is
+        kept; captures from here to the end of :meth:`warmup` do not count
+        as after warmup."""
         if self._running:
             raise RuntimeError("precompile() before start(): the driver thread is running")
         self._programs.warm = self._prefill_programs.warm = False
         for k in chunk_sizes(self.decode_chunk):
             self._programs.build(program_key(k, False, False))
         buckets = sorted({min(self._bucket(max(1, n)), self.max_seq_len) for n in prompt_lens})
-        for S in buckets:
-            key = prefill_key(S, SamplingParams(), paged=self.paged)
+        keys = [prefill_key(S, SamplingParams(), paged=self.paged) for S in buckets]
+        if export:
+            keys += [prefill_key(S, SamplingParams(), export=True) for S in buckets]
+        if imports:
+            keys += [insert_key(S, self.paged) for S in buckets]
+        for key in keys:
+            S = self._prefill_programs.block_len(key)
             if key not in self._prefill_programs.keys():
                 # A capture's warm-up run needs valid inputs: half the
                 # bucket of token 0 into slot 0 (the reference lowers at
@@ -488,22 +530,26 @@ class ServingEngine:
 
     # --- counted transfer seams -------------------------------------------
 
-    def _fetch(self, x: torch.Tensor, ready=None) -> np.ndarray:
-        """Blocking device->host read, counted and timed. ``x`` may be a
-        host tensor whose copy is in flight behind the CUDA event ``ready``."""
+    def _fetch(self, x: torch.Tensor, ready=None, as_tensor: bool = False):
+        """Blocking device->host read, counted and timed -> a numpy array
+        (``as_tensor``: a host tensor, for bf16, which numpy lacks). ``x``
+        may be a host tensor whose copy is in flight behind the CUDA event
+        ``ready``."""
         t0 = time.monotonic()
         if ready is not None:
             ready.synchronize()
-        out = x.cpu().numpy()
+        out = x.cpu() if as_tensor else x.cpu().numpy()
         self.sync_stats["fetches"] += 1
         self.sync_stats["fetch_s"] += time.monotonic() - t0
         return out
 
-    def _upload(self, x: np.ndarray, into: torch.Tensor) -> torch.Tensor:
-        """Host array -> the static device buffer ``into``, counted and timed
-        (pinned staging, a copy that waits for no queued device work)."""
+    def _upload(self, x: np.ndarray | torch.Tensor, into: torch.Tensor) -> torch.Tensor:
+        """Host array (or host tensor) -> the static device buffer ``into``,
+        counted and timed (pinned staging, a copy that waits for no queued
+        device work)."""
         t0 = time.monotonic()
-        host = torch.from_numpy(np.ascontiguousarray(x))
+        host = (x.contiguous() if isinstance(x, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(x)))
         out = into.copy_(host.pin_memory() if into.is_cuda else host, non_blocking=True)
         self.sync_stats["uploads"] += 1
         self.sync_stats["upload_s"] += time.monotonic() - t0
@@ -521,7 +567,14 @@ class ServingEngine:
         emit: Callable[[int, bool], None] | None = None,
         prefix_id: str | None = None,
         deadline_s: float | None = None,
+        export: bool = False,
+        kv_import: dict | None = None,
     ) -> Request:
+        """Queue one request. ``export``: prefill only, for a KV handoff
+        (the payload lands on ``Request.export_payload``); ``kv_import``:
+        seat an exported block ({"token", "length", "k", "v"}, k and v
+        [L, 1, length, KV, D] host tensors or arrays) instead of a
+        prefill."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")
@@ -532,7 +585,12 @@ class ServingEngine:
             # On a GPU an out-of-range id is a device-side assert that
             # poisons the CUDA context; reject it here.
             raise ValueError(f"prompt token ids must lie in [0, {self.cfg.vocab_size})")
-        if self.paged and self._pool.pages_for(prompt.size + 1) > self._pool.num_pages:
+        if export and kv_import is not None:
+            raise ValueError("a request cannot both export and import KV")
+        if kv_import is not None:
+            self._check_import(kv_import, prompt.size)
+        if self.paged and not export and \
+                self._pool.pages_for(prompt.size + 1) > self._pool.num_pages:
             # Even an empty pool could never hold it: waiting would deadlock.
             raise ValueError(
                 f"prompt needs {self._pool.pages_for(prompt.size + 1)} KV pages but the "
@@ -549,13 +607,30 @@ class ServingEngine:
             req = Request(id=self._next_id, prompt=prompt,
                           sampling=sampling or SamplingParams(), emit=emit,
                           submitted_at=now, prefix_id=prefix_id,
-                          deadline=now + deadline_s if deadline_s is not None else None)
+                          deadline=now + deadline_s if deadline_s is not None else None,
+                          export=export, kv_import=kv_import)
             self._next_id += 1
             self._requests[req.id] = req
             self._pending_n += 1
             self._pending.put(req)
             self._work.notify()
         return req
+
+    def _check_import(self, imp: dict, n: int) -> None:
+        """The reference's length rule (the block covers exactly the prompt
+        rows), and the block's shape against this engine's model."""
+        if int(imp["length"]) != n:
+            raise ValueError(
+                f"kv_import length {imp['length']} != prompt length {n}: the imported "
+                "block must cover exactly the prompt rows")
+        cfg = self.cfg
+        want = (cfg.num_layers, 1, n, cfg.num_kv_heads, cfg.head_dim)
+        for name in ("k", "v"):
+            if tuple(imp[name].shape) != want:
+                raise ValueError(f"kv_import {name} has shape {tuple(imp[name].shape)}; "
+                                 f"this engine's block is {want}")
+        if not 0 <= int(imp["token"]) < cfg.vocab_size:
+            raise ValueError(f"kv_import token must lie in [0, {cfg.vocab_size})")
 
     @property
     def queue_depth(self) -> int:
@@ -726,29 +801,47 @@ class ServingEngine:
     def step(self) -> bool:
         """One scheduler iteration:
 
-          1. prefill + insert for every free slot with a waiting request;
+          1. prefill + insert for every free slot with a waiting request (an
+             import: the insert of its block, its first token emitted now;
+             an export: its prefill alone, taking no slot);
           2. fetch and emit the prefills' first tokens (one stacked fetch);
           3. enqueue the next decode chunk for the active slots;
-          4. fetch and emit the PREVIOUS chunk's tokens (double buffering).
+          4. finish the exports (their first tokens and KV rows fetched);
+          5. fetch and emit the PREVIOUS chunk's tokens (double buffering).
 
         The reference enqueues the chunk before the first-token fetch.
         Here the first tokens are fetched first: the blocking fetch would
         otherwise queue behind the whole chunk on the one stream, and TTFT
-        would include it.
+        would include it. The exports finish after the chunk's dispatch, as
+        the reference's (``:1847-1853``): their host copies were started
+        at their dispatch, ahead of the chunk on the stream.
 
         Returns True if any work was done.
         """
         did_work = self._sweep()
         prefills = []
+        exports: list[_Export] = []
         free = self._free_slots()
         while free:
             req = self._pop_waiting()
             if req is None:
                 break
+            if req.export:
+                # Prefill only: no slot, no pages, so a prefill cell drains
+                # export bursts whatever its decode slots hold.
+                try:
+                    exports.append(self._dispatch_prefill_export(req))
+                except Exception as e:
+                    self._finish(req, e)
+                    for exp in exports:
+                        self._finish(exp.req, e)
+                    raise
+                did_work = True
+                continue
             slot = free.pop(0)
             try:
-                self._dispatch_prefill(req, slot)
-                prefills.append((slot, req))
+                if self._dispatch_prefill(req, slot):
+                    prefills.append((slot, req))
             except PagePoolExhausted as e:
                 # No pages for it now. With work in flight pages will free:
                 # it waits at the front. An otherwise idle engine would
@@ -761,19 +854,31 @@ class ServingEngine:
                 break
             except Exception as e:
                 self._finish(req, e)
+                for exp in exports:
+                    self._finish(exp.req, e)
                 raise
             did_work = True
 
-        if prefills:
-            # Each first token is read back from its slot's token: the
-            # prefills of one step share the programs' static buffers.
-            firsts = self._fetch(torch.stack([self.state.tokens[slot] for slot, _ in prefills]))
-            for (_, req), first in zip(prefills, firsts):
-                self._emit(req, int(first))
         new_inflight = None
-        if self._active_requests():
-            new_inflight = self._dispatch_decode_chunk()
-            did_work = True
+        try:
+            if prefills:
+                # Each first token is read back from its slot's token: the
+                # prefills of one step share the programs' static buffers.
+                firsts = self._fetch(torch.stack([self.state.tokens[slot]
+                                                  for slot, _ in prefills]))
+                for (_, req), first in zip(prefills, firsts):
+                    self._emit(req, int(first))
+            if self._active_requests():
+                new_inflight = self._dispatch_decode_chunk()
+                did_work = True
+        except Exception as e:
+            # Dispatched exports hold no slot and sit in no queue: the
+            # error path cannot find them, so fail them here.
+            for exp in exports:
+                self._finish(exp.req, e)
+            raise
+        for exp in exports:
+            self._finish_export(exp)
         if self._inflight is not None:
             self._flush_inflight()
             did_work = True
@@ -800,14 +905,22 @@ class ServingEngine:
         self._finish(req, RejectedError(f"KV page pool exhausted: {cause}",
                                         retry_after_s=self.retry_after_s))
 
-    def _dispatch_prefill(self, req: Request, slot: int) -> None:
+    def _dispatch_prefill(self, req: Request, slot: int) -> bool:
         """Enqueue the request's prefill and insert into ``slot``, one
         program run (``prefill``, or ``prefill_ext`` over the new tail on a
         prefix hit); the prompt's KV block is then stored under its
-        ``prefix_id``. The first token lands in ``state.tokens[slot]``."""
+        ``prefix_id``. The first token lands in ``state.tokens[slot]``.
+        A KV import is seated by :meth:`_dispatch_import` instead, which
+        emits its first token itself: False then (nothing to fetch)."""
         faults.maybe_fail("engine.prefill")
+        if req.kv_import is not None and not req.generated:
+            # A preempted import re-enters with ``generated`` set and takes
+            # the re-prefill below: its imported block is stale by then.
+            self._dispatch_import(req, slot)
+            return False
         if self.paged:
-            return self._dispatch_prefill_paged(req, slot)
+            self._dispatch_prefill_paged(req, slot)
+            return True
         key = self._stage_prefill(req, slot)
         self._prefill_programs.run(key)
         if req.prefix_id is not None:
@@ -816,6 +929,111 @@ class ServingEngine:
         self._slot_req[slot] = req
         self._slot_len[slot] = req.prompt.size + 1   # prompt + the first token's kv-to-be
         self._sampling_dirty = True
+        return True
+
+    # --- KV handoff: export and import ------------------------------------
+
+    def _dispatch_prefill_export(self, req: Request) -> _Export:
+        """The reference's ``_dispatch_prefill_export`` (``:2186``): the
+        export program of the prompt (a ``prefill_ext`` over a legacy
+        engine's prefix hit), which leaves the block and the first token in
+        the programs' static buffers and touches no slot, block table or
+        page; then copies of the token and the prompt's rows start toward
+        host memory, before the next program can overwrite them."""
+        faults.maybe_fail("engine.prefill")
+        n = int(req.prompt.size)
+        key = self._stage_prefill(req, 0, export=True)
+        progs = self._prefill_programs
+        progs.run(key)
+        kv_k, kv_v = progs.block(key)
+        if req.prefix_id is not None and not self.paged:
+            self._prefix_store(req.prefix_id, req.prompt, kv_k, kv_v)
+        rows = [progs.first, kv_k[:, :, :n], kv_v[:, :, :n]]
+        ready = None
+        if progs.first.is_cuda:
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in rows]
+            for h, t in zip(host, rows):
+                h.copy_(t, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            host = [t.clone() for t in rows]
+        return _Export(req, *host, ready=ready, length=n)
+
+    def _finish_export(self, exp: _Export) -> None:
+        """The reference's ``_finish_export`` (``:2232``): the first token
+        and the KV rows through the counted :meth:`_fetch` seam, then the
+        request completes with its payload, the first token emitted as
+        terminal. A failed fetch fails this request only."""
+        req = exp.req
+        try:
+            first = int(self._fetch(exp.first, exp.ready)[0])
+            k = self._fetch(exp.k, as_tensor=True)
+            v = self._fetch(exp.v, as_tensor=True)
+        except Exception as e:  # noqa: BLE001 — fail this request, keep serving
+            self._finish(req, e)
+            return
+        req.export_payload = {"token": first, "length": exp.length, "k": k, "v": v,
+                              "pageTokens": self.page_tokens}
+        with self._lock:
+            self._requests.pop(req.id, None)
+        if req.emit:
+            try:
+                req.emit(first, True)
+            except Exception:  # noqa: BLE001 — a bad sink must not stop the driver
+                pass
+        req.done.set()
+
+    def _dispatch_import(self, req: Request, slot: int) -> None:
+        """The reference's ``_dispatch_import`` (``:2263``): seat an
+        exported block in ``slot`` without a prefill. The rows go up
+        (cast to this engine's dtype, padded or cut to its bucket) into the
+        programs' block, and the insert-only program puts them into the
+        slot (paged: into ``n // pt + 1`` fresh pages, reclaiming prefix
+        pages when the pool is short); the imported first token is then
+        emitted as if this engine had sampled it. ``PagePoolExhausted``
+        reaches step()'s admission, which parks or sheds it as any
+        prefill."""
+        imp = req.kv_import
+        n, first = int(imp["length"]), int(imp["token"])
+        bucket = min(self._bucket(n), self.max_seq_len)
+        key = insert_key(bucket, self.paged)
+        progs = self._prefill_programs
+        if self.paged:
+            pt = self.page_tokens
+            need = n // pt + 1                 # pages covering positions [0, n]
+            try:
+                pages = self._pool.alloc(need)
+            except PagePoolExhausted:
+                if not self._reclaim_prefix_pages(need):
+                    raise
+                pages = self._pool.alloc(need)
+            ids = np.full((bucket // pt,), SCRATCH_PAGE, np.int64)
+            ids[:-(-n // pt)] = pages[:-(-n // pt)]
+            packed = pack_prefill_inputs(np.array([first]), self.max_seq_len, n, slot, 0,
+                                         req.sampling, pages=(np.zeros((0,), np.int64), ids,
+                                                              self.max_pages_per_slot))
+        else:
+            packed = pack_prefill_inputs(np.array([first]), bucket, n, slot, 0, req.sampling)
+        self._upload(packed, progs.inputs[:packed.size])
+        rows = min(n, bucket)
+        for name, block in (("k", progs.block_k), ("v", progs.block_v)):
+            x = imp[name]
+            x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+            self._upload(x[:, :, :rows].to(self.cfg.dtype), block[:, :, :rows])
+            block[:, :, rows:bucket].zero_()
+        progs.run(key)
+        if self.paged:
+            self._slot_pages[slot] = pages
+            self._bt[slot, :] = SCRATCH_PAGE
+            self._bt[slot, :len(pages)] = pages
+            self._bt_dirty = True
+            self._slot_disp[slot] = n
+        req.slot = slot
+        self._slot_req[slot] = req
+        self._slot_len[slot] = n + 1
+        self._sampling_dirty = True
+        self._emit(req, first)
 
     def _dispatch_prefill_paged(self, req: Request, slot: int) -> None:
         """Paged admission: allocate the sequence's pages (evicting prefix

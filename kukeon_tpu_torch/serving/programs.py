@@ -2,7 +2,9 @@
 programs: ``_build_programs`` (``kukeon_tpu/serving/engine.py:732``) with
 its ``prefill`` (``:753``), ``prefill_ext`` (``:764``), ``insert``
 (``:804``) and ``decode_chunk_fn`` (``:831``), which ``precompile``
-(``:1264``) compiles by prompt bucket and chunk size.
+(``:1264``) compiles by prompt bucket and chunk size, and the programs the
+KV handoff runs (``_dispatch_prefill_export`` ``:2186``, ``_dispatch_import``
+``:2263``).
 
 The reference jits each program once per shape and donates the decode
 state to it. Here a program reads and writes only static buffers the
@@ -34,6 +36,16 @@ S, needs_filter, any_stochastic)`` and ``("prefill_ext", Pb, S,
 needs_filter, any_stochastic)``; each prefill program ends with the
 reference's ``insert`` of its block into the request's slot, so one
 request's prefill and insert are one replay.
+
+**KV handoff** (disaggregated serving): an export runs the prefill (or
+``prefill_ext``) and the first token's sample with no insert, keys
+``("prefill_export", S, nf, st)`` and ``("prefill_ext_export", Pb, S, nf,
+st)``; it leaves the block in ``block_k``/``block_v`` and the token in
+``first`` and touches no slot, block table or page. An import runs an
+insert alone, keys ``("insert", S)`` and ``("insert_paged", S)``: the
+block uploaded into ``block_k``/``block_v`` goes into the staged slot
+(paged: its pages; an int8 cache quantized at insert), with the first
+token taken from the inputs, where the tokens would sit.
 
 **Paged layout** (``kv_page_tokens > 0``, the reference's
 ``decode_chunk_paged`` ``:929``, ``insert_paged`` ``:891`` and
@@ -97,17 +109,23 @@ def program_key(k: int, needs_filter: bool, any_stochastic: bool) -> Key:
 
 
 def prefill_key(bucket: int, sp: SamplingParams, prefix_bucket: int | None = None,
-                paged: bool = False) -> PrefillKey:
+                paged: bool = False, export: bool = False) -> PrefillKey:
     """The prefill program of one request: ``("prefill", bucket, nf, st)``,
     or with a stored prefix block of ``prefix_bucket`` rows
     ``("prefill_ext", prefix_bucket, bucket, nf, st)``; the branch flags
     of its sampling as :func:`program_key` takes them. ``paged``: the
-    ``_paged`` kinds, which insert into the page pool."""
+    ``_paged`` kinds, which insert into the page pool; ``export``: the
+    ``_export`` kinds, which insert nowhere (either layout)."""
     flags = program_key(bucket, sp.top_k > 0 or sp.top_p < 1.0, sp.temperature > 0)[1:]
-    suffix = "_paged" if paged else ""
+    suffix = "_export" if export else "_paged" if paged else ""
     if prefix_bucket is None:
         return ("prefill" + suffix, bucket, *flags)
     return ("prefill_ext" + suffix, prefix_bucket, bucket, *flags)
+
+
+def insert_key(bucket: int, paged: bool = False) -> PrefillKey:
+    """The insert-only program of a KV import at ``bucket`` rows."""
+    return ("insert_paged" if paged else "insert", bucket)
 
 
 def pack_prefill_inputs(tokens: np.ndarray, bucket: int, length: int, slot: int,
@@ -277,6 +295,10 @@ class _Programs:
     def run_eager(self, key):
         raise NotImplementedError
 
+    def stochastic(self, key) -> bool:
+        """Whether the program of ``key`` draws from the generator."""
+        return bool(key[-1])
+
     def snapshot_key(self, key) -> dict:
         """What one run of ``key`` writes, saved (see ``restore``)."""
         raise NotImplementedError
@@ -336,7 +358,7 @@ class _Programs:
         cur.wait_stream(side)
         self.restore(snap)
         graph = torch.cuda.CUDAGraph()
-        if key[-1]:                                 # any_stochastic
+        if self.stochastic(key):
             graph.register_generator_state(self._gen)
         before = _kernel_counts()
         try:
@@ -476,6 +498,17 @@ class DecodePrograms(_Programs):
                 for n, t in self.state.cache_rows().items()}
 
 
+INSERT_KINDS = ("insert", "insert_paged")
+
+
+def _is_ext(key: PrefillKey) -> bool:
+    return key[0].startswith("prefill_ext")
+
+
+def _is_export(key: PrefillKey) -> bool:
+    return key[0].endswith("_export")
+
+
 class PrefillPrograms(_Programs):
     """The engine's prefill programs: ``prefill`` and ``prefill_ext``, each
     followed by ``insert``, over the packed ``inputs`` (int64 [HEADER +
@@ -486,6 +519,11 @@ class PrefillPrograms(_Programs):
     prefix, written in by :meth:`load_prefix`) and output. ``bucket``:
     the engine's bucket rule, which re-buckets a ``prefill_ext`` block to
     ``min(bucket(Pb + S), S_max)`` rows as the reference does.
+
+    The KV handoff's programs run on the same buffers: an export key
+    leaves its block and its first token (``first``, int64 [1]) and
+    inserts nowhere; an insert-only key inserts the block an import
+    uploaded, with the first token from the inputs.
 
     ``stats`` adds ``static_bytes``, the inputs' and the block's bytes."""
 
@@ -503,10 +541,12 @@ class PrefillPrograms(_Programs):
                                   device=self.device)
         self.block_k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
         self.block_v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.first = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self.stats["static_bytes"] = sum(t.numel() * t.element_size() for t in self.buffers().values())
 
     def buffers(self) -> dict[str, torch.Tensor]:
-        return {"inputs": self.inputs, "block_k": self.block_k, "block_v": self.block_v}
+        return {"inputs": self.inputs, "block_k": self.block_k, "block_v": self.block_v,
+                "first": self.first}
 
     def reset(self) -> None:
         """Zero every static buffer, in place (the graphs read these very
@@ -514,10 +554,14 @@ class PrefillPrograms(_Programs):
         for t in self.buffers().values():
             t.zero_()
 
+    def stochastic(self, key: PrefillKey) -> bool:
+        return key[0] not in INSERT_KINDS and bool(key[-1])
+
     def block_len(self, key: PrefillKey) -> int:
-        """Rows of the block a program leaves: its bucket, or for
-        ``prefill_ext`` the canonical ``min(bucket(Pb + S), S_max)``."""
-        if key[0] in ("prefill", "prefill_paged"):
+        """Rows of the block a program leaves (or an insert-only program
+        inserts): its bucket, or for ``prefill_ext`` the canonical
+        ``min(bucket(Pb + S), S_max)``."""
+        if not _is_ext(key):
             return key[1]
         return min(self._bucket(key[1] + key[2]), self.state.max_len)
 
@@ -541,7 +585,8 @@ class PrefillPrograms(_Programs):
     def run(self, key: PrefillKey) -> None:
         """Run the program of ``key`` (built at first use) on the staged
         inputs: one graph replay on CUDA, the eager body on the CPU. The
-        first token lands in ``state.tokens[slot]``."""
+        first token lands in ``state.tokens[slot]`` (an export's in
+        ``first``)."""
         self._launch(key)
 
     def logits(self, key: PrefillKey) -> torch.Tensor:
@@ -556,7 +601,7 @@ class PrefillPrograms(_Programs):
         length, plen = inp[0:1], inp[2:3]
         if key[0] == "prefill_ext_paged":
             self._gather_prefix(key[1])
-        if key[0] in ("prefill", "prefill_paged"):
+        if not _is_ext(key):
             Pb, S = 0, key[1]
             cache = KVCache(k=self.block_k[:, :, :S], v=self.block_v[:, :, :S], lengths=plen)
         else:
@@ -594,15 +639,30 @@ class PrefillPrograms(_Programs):
 
     def run_eager(self, key: PrefillKey) -> None:
         """The program of ``key``, launched op by op: the forward
-        (:meth:`logits`), the first token's sample, then the reference's
-        ``insert``: the block into the slot's first rows (quantized here
-        for an int8 cache; paged, ``insert_paged``: into the pool pages of
-        the staged insert ids), the slot's length and token, and active."""
+        (:meth:`logits`) and the first token's sample, then the insert
+        (:meth:`_insert`). An export key stops after the sample, with the
+        token in ``first``; an insert-only key is the insert alone, of the
+        token staged where the tokens sit."""
         inp = self.inputs
-        length, slot, top_k = inp[0:1], inp[1:2], inp[3:4]
-        temp, top_p = inp[4:HEADER].view(torch.float64).float().split(1)
-        first = sample_per_slot(self.logits(key), self._gen, temp, top_k, top_p,
-                                needs_filter=key[-2], any_stochastic=key[-1])
+        if key[0] in INSERT_KINDS:
+            first = inp[HEADER:HEADER + 1]
+        else:
+            top_k = inp[3:4]
+            temp, top_p = inp[4:HEADER].view(torch.float64).float().split(1)
+            first = sample_per_slot(self.logits(key), self._gen, temp, top_k, top_p,
+                                    needs_filter=key[-2], any_stochastic=key[-1])
+            if _is_export(key):
+                self.first.copy_(first)
+                return
+        self._insert(key, first)
+
+    def _insert(self, key: PrefillKey, first: torch.Tensor) -> None:
+        """The reference's ``insert``: the block into the staged slot's
+        first rows (quantized here for an int8 cache; paged,
+        ``insert_paged``: into the pool pages of the staged insert ids),
+        the slot's length and token, and active."""
+        inp = self.inputs
+        length, slot = inp[0:1], inp[1:2]
         st = self.state
         c = st.cache
         n = self.block_len(key)
@@ -628,16 +688,20 @@ class PrefillPrograms(_Programs):
         st.active.index_fill_(0, slot, True)
 
     def snapshot_key(self, key: PrefillKey) -> dict:
-        """What a run of ``key`` writes, saved: the staged slot's first
-        ``block_len`` cache rows, lengths, tokens, active, the block's rows
-        (a ``prefill_ext``'s input too) and the generator state."""
+        """What a run of ``key`` writes, saved: the block's rows (a
+        ``prefill_ext``'s input too), ``first`` and the generator state, and
+        unless it is an export the staged slot's first ``block_len`` cache
+        rows (paged: the staged insert pages), lengths, tokens and active."""
         n = self.block_len(key)
-        slot = self.inputs[1:2].clone()
         st = self.state
-        snap = {"slot": slot, "rows": n,
-                "lengths": st.cache.lengths.clone(), "tokens": st.tokens.clone(),
-                "active": st.active.clone(), "block_k": self.block_k[:, :, :n].clone(),
-                "block_v": self.block_v[:, :, :n].clone(), "gen": self._gen.get_state()}
+        snap = {"rows": n, "block_k": self.block_k[:, :, :n].clone(),
+                "block_v": self.block_v[:, :, :n].clone(), "first": self.first.clone(),
+                "gen": self._gen.get_state()}
+        if _is_export(key):
+            return snap
+        slot = self.inputs[1:2].clone()
+        snap.update(slot=slot, lengths=st.cache.lengths.clone(), tokens=st.tokens.clone(),
+                    active=st.active.clone())
         if st.paged:
             ids = self.page_ids("insert", n // st.page_tokens).clone()
             return {**snap, "ids": ids,
@@ -648,14 +712,16 @@ class PrefillPrograms(_Programs):
     def restore(self, snap: dict) -> None:
         """Put back what :meth:`snapshot_key` saved, in place."""
         st, n = self.state, snap["rows"]
-        for name, t in st.cache_rows().items():
-            if st.paged:
-                t.index_copy_(1, snap["ids"], snap["kv"][name])
-            else:
-                t[:, :, :n].index_copy_(1, snap["slot"], snap["kv"][name])
-        st.cache.lengths.copy_(snap["lengths"])
-        st.tokens.copy_(snap["tokens"])
-        st.active.copy_(snap["active"])
+        if "kv" in snap:
+            for name, t in st.cache_rows().items():
+                if st.paged:
+                    t.index_copy_(1, snap["ids"], snap["kv"][name])
+                else:
+                    t[:, :, :n].index_copy_(1, snap["slot"], snap["kv"][name])
+            st.cache.lengths.copy_(snap["lengths"])
+            st.tokens.copy_(snap["tokens"])
+            st.active.copy_(snap["active"])
         self.block_k[:, :, :n].copy_(snap["block_k"])
         self.block_v[:, :, :n].copy_(snap["block_v"])
+        self.first.copy_(snap["first"])
         self._gen.set_state(snap["gen"])
