@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, check the 8B and Mixtral models and their
 decode and prefill graphs (legacy and paged KV), serve both (streamed,
-agent sessions through the prefix cache, the paged KV cache, and the KV
+observed through the cell's metrics, traces, timers and profiler, agent
+sessions through the prefix cache, the paged KV cache, and the KV
 handoff between a prefill and a decode cell), and train.
 
     python3 chip_smoke.py
@@ -63,6 +64,22 @@ time; any failure ends the run with a nonzero exit and no result line:
               every id): the records' joined text equals the non-streamed
               answer cut there, the terminal record says stopped, and
               every slot is free again
+  serve_obs   the cell's instruments on serve's cell (no new draw): serve's
+              prompts with a traceparent each, 32 tokens, plus one
+              stochastic request whose keys are captured at first use, while
+              a thread scrapes /metrics every 10 ms and the CUDA runtime
+              probe runs; then the greedy prompts under torch.profiler.
+              Every scrape parses; request, token and TTFT-count deltas
+              equal what was sent; kukeon_compiles_total moves by the
+              stochastic keys' captures alone; the decode dispatch counter
+              by the replays the profiler saw; the program seconds cover
+              the profiled device time; the decode bandwidth gauge within
+              20% of the bound over the timers' ms a step, below 1; the
+              peak-memory gauge equals max_memory_allocated; each span's
+              events submitted..finished and the timeline's trace ids; a
+              POST /v1/profile capture on disk; the probe answers ok; each
+              key captured mid-traffic replays bitwise as it runs eagerly.
+              Prints the scrape ms under traffic and the probe's seconds
   serve_tied  a short llama3-1b run, whose tied LM head takes the
               transposed kernel (K1t 1 and K1 112 a step)
   serve_tiny  short int8 runs of tiny and mixtral-tiny, whose dims off 128
@@ -179,6 +196,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -249,7 +267,7 @@ SHAPES_MOE = {"w_gate": (4096, 14336, 32), "w_up": (4096, 14336, 32),
 # supports() admits: the kernel's kv-tile lists leave shared memory.
 FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
               ("S 65792", 1, 65792, 1, 1, 64, 256))
-PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_tied",
+PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs", "serve_tied",
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
           "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "train")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
@@ -707,9 +725,9 @@ def phase_moe_model(k1, params) -> dict:
     return out
 
 
-def post(url: str, body: dict) -> dict:
+def post(url: str, body: dict, headers: dict | None = None) -> dict:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=600) as r:
         return json.loads(r.read())
 
@@ -731,12 +749,14 @@ def post_all(base: str, prompts: list, new: int) -> list:
     return post_bodies(base, [{"promptTokens": p, "maxNewTokens": new} for p in prompts])
 
 
-def post_bodies(base: str, bodies: list) -> list:
-    """The generate bodies as concurrent HTTP requests -> their answers."""
+def post_bodies(base: str, bodies: list, traceparents: list | None = None) -> list:
+    """The generate bodies as concurrent HTTP requests -> their answers
+    (``traceparents``: each request's ``traceparent`` header)."""
     results = [None] * len(bodies)
 
     def run(i):
-        results[i] = post(base + "/v1/generate", bodies[i])
+        results[i] = post(base + "/v1/generate", bodies[i],
+                          {"traceparent": traceparents[i]} if traceparents else None)
 
     threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
     for t in threads:
@@ -807,20 +827,24 @@ def twin_cell(cell, kv_page_tokens: int = 64, role: str | None = None,
     import copy
 
     from kukeon_tpu_torch.models import moe
+    from kukeon_tpu_torch.obs import Registry, SloTracker
     from kukeon_tpu_torch.runtime.serving_cell import MOE_MODELS
     from kukeon_tpu_torch.serving.engine import ServingEngine
 
     old = cell.engine
     twin = copy.copy(cell)
+    registry = Registry()
     twin.engine = ServingEngine(
         cell.cfg, old.params, num_slots=num_slots or old.num_slots,
         max_seq_len=old.max_seq_len, decode_chunk=old.decode_chunk,
         max_pending=old.max_pending, device="cuda",
         forward_fn=moe.forward if cell.model_name in MOE_MODELS else None,
-        kv_page_tokens=kv_page_tokens, kv_pool_pages=kv_pool_pages)
+        kv_page_tokens=kv_page_tokens, kv_pool_pages=kv_pool_pages, registry=registry)
     twin.boot_s = {}
     twin.role = role or cell.role
     twin._init_lifecycle()
+    twin._init_cell_obs(registry, kind="decoder")
+    twin.slo = SloTracker(registry, cell.slo.objectives)
     return twin
 
 
@@ -889,9 +913,10 @@ SERVED_PROMPTS: dict = {}
 
 def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
                 requests: int = 4, profile_new: int = 8, cell=None, label: str | None = None,
-                stream_stop: bool = False) -> dict:
+                stream_stop: bool = False, keep: dict | None = None) -> dict:
     """The port's main path: ServingCell over HTTP, int8 weights, 4 slots
-    (``cell``: one already built, whose boot is then only its warmup). The
+    (``cell``: one already built, whose boot is then only its warmup;
+    ``keep``: the cell is left there under ``label or model``). The
     warmup captures the decode graphs and the prompt bucket's prefill; the
     kernels' launch counters are zeroed just after it and must stay 0, as
     must both programs' capture counts (no capture for this traffic). The
@@ -1002,10 +1027,307 @@ def serve_model(k1, model: str, *, max_seq_len: int, prompt_len: int, new: int,
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
         "profile": prof,
     }
+    if keep is not None:
+        keep[label or model] = cell
     del cell
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+_LABEL_RE = re.compile(r'([a-zA-Z0-9_]+)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_metrics(text: str) -> dict:
+    """A /metrics body -> {(sample name, sorted label pairs): value}, its
+    sample lines (comment lines skipped)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        name, _, labels = head.partition("{")
+        out[(name, tuple(sorted(_LABEL_RE.findall(labels))))] = float(value)
+    return out
+
+
+def metric(m: dict, name: str, **labels) -> float:
+    """One sample of a parsed scrape (0 when absent)."""
+    return m.get((name, tuple(sorted((k, str(v)) for k, v in labels.items()))), 0.0)
+
+
+def metric_sum(m: dict, name: str) -> float:
+    """The sum of a family's samples over every label set."""
+    return sum(v for (n, _labels), v in m.items() if n == name)
+
+
+def scrape(base: str) -> tuple[dict, float]:
+    """GET /metrics -> (its parsed samples, the request's ms)."""
+    t0 = time.monotonic()
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        if r.status != 200:
+            raise AssertionError(f"/metrics answered {r.status}")
+        text = r.read().decode()
+    ms = (time.monotonic() - t0) * 1e3
+    return parse_metrics(text), ms
+
+
+def get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+class Scraper(threading.Thread):
+    """GET /metrics every ``every_s`` until stopped: each scrape's ms, and
+    every failure (status, parse, connection) as a string."""
+
+    def __init__(self, base: str, every_s: float = 0.01):
+        super().__init__(daemon=True, name="metrics-scraper")
+        self.base, self.every_s = base, every_s
+        self.ms: list[float] = []
+        self.failures: list[str] = []
+        self._halt = threading.Event()
+
+    def run(self):
+        while not self._halt.wait(self.every_s):
+            try:
+                self.ms.append(scrape(self.base)[1])
+            except Exception as e:  # noqa: BLE001 — recorded, gated by the phase
+                self.failures.append(f"{type(e).__name__}: {e}")
+
+    def stop(self):
+        self._halt.set()
+
+
+def wait_idle(eng) -> None:
+    """Until the engine holds no request and no chunk in flight (so every
+    program's end mark is settled)."""
+    for _ in range(1000):
+        if not eng._requests and eng._inflight is None:
+            return
+        time.sleep(0.01)
+    raise AssertionError("the engine did not go idle")
+
+
+SPAN_EVENTS = ["submitted", "admitted", "prefill_dispatched", "first_token", "finished"]
+
+
+def serve_obs(cell, bps: float) -> dict:
+    """The serving cell's instruments on ``serve``'s llama3-8b int8 cell
+    (drawn and warmed there; no new model). (a) ``serve``'s prompts with a
+    ``traceparent`` each, plus one stochastic request whose keys are
+    captured at first use, while a thread scrapes /metrics every 10 ms and
+    the CUDA runtime probe runs; (b) the greedy prompts again under
+    torch.profiler. Gates: every scrape answers and parses; the requests,
+    tokens and TTFT-count deltas equal what was sent; the compile counter
+    moves by the captures of the stochastic request's keys alone; the
+    decode dispatch counter by the replays the profiler saw; the program
+    seconds cover the profiled device time; the decode bandwidth gauge
+    within 20% of the bound over the timers' own ms a step, below 1; the
+    peak-memory gauge equal to torch.cuda.max_memory_allocated; the
+    request's span events and the timeline's trace ids; a profile capture
+    on disk; the probe's ``ok``; each newly captured decode key's replay
+    equal to its eager run bitwise."""
+    import uuid
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from kukeon_tpu_torch.runtime.devices import probe_cuda_runtime
+    from kukeon_tpu_torch.runtime.serving_cell import serve
+
+    if cell is None:                     # a phase subset without serve
+        cell = make_cell("llama3-8b", 1024)
+        cell.warmup(128)
+    eng = cell.engine
+    stats, pstats = eng.program_stats, eng.program_stats["prefill"]
+    prompts = SERVED_PROMPTS.get("llama3-8b")
+    if prompts is None:
+        g = torch.Generator().manual_seed(7)
+        prompts = [torch.randint(0, cell.cfg.vocab_size, (128,), generator=g).tolist()
+                   for _ in range(4)]
+    new = 32
+    bound = sum(bound_ms(4, K, N, bps)[0] * n for K, N, n in SHAPES_8B.values())
+    parent = uuid.uuid4().hex[:16]
+
+    def traced(n: int) -> list:
+        return [uuid.uuid4().hex for _ in range(n)]
+
+    greedy = [{"promptTokens": p, "maxNewTokens": new} for p in prompts]
+    stochastic = {"promptTokens": prompts[0], "maxNewTokens": new, "temperature": 0.8,
+                  "topK": 40, "topP": 0.9}
+    eng.start()
+    server = serve(cell)
+    cell.mark_ready()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    scraper = Scraper(base)
+    probe: dict = {}
+
+    def run_probe():
+        t0 = time.monotonic()
+        probe["verdict"] = probe_cuda_runtime(timeout_s=120)
+        probe["s"] = round(time.monotonic() - t0, 3)
+
+    try:
+        # (a) traffic, a first-use capture, the scrape thread and the probe.
+        m0, _ = scrape(base)
+        keys0 = (set(eng._programs.keys()), set(eng._prefill_programs.keys()))
+        caps0 = stats["captures"] + pstats["captures"]
+        tids = traced(len(greedy) + 1)
+        prober = threading.Thread(target=run_probe, daemon=True)
+        scraper.start()
+        prober.start()
+        t0 = time.monotonic()
+        res_a = post_bodies(base, greedy + [stochastic],
+                            [f"00-{t}-{parent}-01" for t in tids])
+        wall_a = time.monotonic() - t0
+        prober.join(timeout=180)
+        scraper.stop()
+        scraper.join(timeout=60)
+        wait_idle(eng)
+        m1, _ = scrape(base)
+        new_decode = sorted(set(eng._programs.keys()) - keys0[0])
+        new_prefill = sorted(set(eng._prefill_programs.keys()) - keys0[1], key=str)
+        caps1 = stats["captures"] + pstats["captures"]
+        # (b) the greedy traffic again, profiled.
+        tids_b = traced(len(greedy))
+        before = (stats["replays"], pstats["replays"])
+        m2, _ = scrape(base)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res_b = post_bodies(base, greedy, [f"00-{t}-{parent}-01" for t in tids_b])
+            torch.cuda.synchronize()
+        wait_idle(eng)
+        m3, _ = scrape(base)
+        # The raw events (the profiler's tables take long over ~40k kernels).
+        events = prof.profiler.kineto_results.events()
+        graph_launches = sum(e.name() == "cudaGraphLaunch" for e in events)
+        device_s = sum(e.duration_ns() for e in events
+                       if e.device_type() == torch.autograd.DeviceType.CUDA
+                       and not e.name().startswith(("Memcpy", "Memset"))) / 1e9
+        decode_replays = stats["replays"] - before[0]
+        prefill_replays = pstats["replays"] - before[1]
+        # Memory: the scrape, then the allocator's own peak, nothing in flight.
+        m4, scrape_idle_ms = scrape(base)
+        peak = torch.cuda.max_memory_allocated(eng.device)
+        steps = stats["steps"]
+        spans = {t: get_json(base + f"/v1/trace?trace_id={t}")["spans"] for t in tids}
+        timeline = get_json(base + "/v1/timeline?n=512")
+        # An on-demand profile while one request runs.
+        t0 = time.monotonic()
+        started = post(base + "/v1/profile", {"durationMs": 500})
+        post(base + "/v1/generate", {"promptTokens": prompts[0], "maxNewTokens": 8})
+        capture = None
+        for _ in range(600):
+            capture = next((c for c in get_json(base + "/v1/profile")["captures"]
+                            if c["name"] == started["capture"]["name"]), None)
+            if capture is not None and capture["state"] != "running":
+                break
+            time.sleep(0.05)
+        profile_s = time.monotonic() - t0
+        wait_idle(eng)
+    finally:
+        scraper.stop()
+        server.shutdown()
+        server.server_close()
+        eng.stop()
+
+    sent_a, sent_b = len(greedy) + 1, len(greedy)
+    for label, res, n in (("a", res_a, sent_a), ("b", res_b, sent_b)):
+        if len(res) != n or any(r is None or r["numTokens"] != new for r in res):
+            raise AssertionError(f"window {label}: a request came back wrong: {res}")
+    deltas = {}
+    for label, ma, mb, n in (("a", m0, m1, sent_a), ("b", m2, m3, sent_b)):
+        d = {"requests_ok": metric(mb, "kukeon_engine_requests_total", outcome="ok")
+             - metric(ma, "kukeon_engine_requests_total", outcome="ok"),
+             "tokens": metric(mb, "kukeon_engine_tokens_total")
+             - metric(ma, "kukeon_engine_tokens_total"),
+             "ttft_count": metric(mb, "kukeon_engine_ttft_seconds_count")
+             - metric(ma, "kukeon_engine_ttft_seconds_count"),
+             "compiles": metric_sum(mb, "kukeon_compiles_total")
+             - metric_sum(ma, "kukeon_compiles_total")}
+        if (d["requests_ok"], d["tokens"], d["ttft_count"]) != (n, n * new, n):
+            raise AssertionError(f"window {label}: deltas {d}, sent {n} requests of {new} tokens")
+        deltas[label] = d
+    if scraper.failures or len(scraper.ms) < 10:
+        raise AssertionError(f"/metrics under traffic: {len(scraper.ms)} scrapes, failures "
+                             f"{scraper.failures[:5]}")
+    if (not new_decode and not new_prefill) or not all(k[2] for k in new_decode) \
+            or not all(k[-1] for k in new_prefill):
+        raise AssertionError(f"first-use captures {new_decode} {new_prefill}: want the "
+                             "stochastic request's keys, and only those")
+    if deltas["a"]["compiles"] != caps1 - caps0 or deltas["b"]["compiles"] != 0:
+        raise AssertionError(f"kukeon_compiles_total moved {deltas['a']['compiles']} and "
+                             f"{deltas['b']['compiles']}; the captures {caps1 - caps0} and 0")
+    d_dispatch = (metric(m3, "kukeon_program_dispatch_total", program="decode_chunk")
+                  - metric(m2, "kukeon_program_dispatch_total", program="decode_chunk"))
+    if not (d_dispatch == decode_replays == graph_launches - prefill_replays > 0) \
+            or prefill_replays != sent_b:
+        raise AssertionError(f"decode dispatches {d_dispatch}, replays {decode_replays}, "
+                             f"profiled cudaGraphLaunch {graph_launches} with "
+                             f"{prefill_replays} prefill replays")
+    d_seconds = sum(v - m2.get(k, 0.0) for k, v in m3.items()
+                    if k[0] == "kukeon_program_seconds_sum")
+    if d_seconds < device_s:
+        raise AssertionError(f"program seconds {d_seconds} under the profiled device time "
+                             f"{device_s}")
+    busy = metric(m4, "kukeon_program_seconds_sum", program="decode_chunk")
+    settled = metric(m4, "kukeon_program_seconds_count", program="decode_chunk")
+    dispatched = metric(m4, "kukeon_program_dispatch_total", program="decode_chunk")
+    util = metric(m4, "kukeon_program_membw_util", program="decode_chunk")
+    mfu = metric(m4, "kukeon_program_mfu", program="decode_chunk")
+    timer_ms_step = busy * 1e3 / steps
+    expected = bound / timer_ms_step
+    if settled != dispatched or not (0.8 <= util / expected <= 1.2) or not 0 < util < 1:
+        raise AssertionError(f"decode_chunk: membw_util {util} against {bound} ms / "
+                             f"{timer_ms_step} ms a step = {expected} ({settled} of "
+                             f"{dispatched} dispatches settled)")
+    hbm_peak = metric(m4, "kukeon_hbm_bytes_peak", device=eng.device.index or 0)
+    if hbm_peak != peak:
+        raise AssertionError(f"kukeon_hbm_bytes_peak {hbm_peak}, max_memory_allocated {peak}")
+    for t in tids:
+        ss = spans[t]
+        if len(ss) != 1 or ss[0].get("parentSpanId") != parent or ss[0]["outcome"] != "ok" \
+                or [e["event"] for e in ss[0]["events"]] != SPAN_EVENTS:
+            raise AssertionError(f"/v1/trace?trace_id={t}: {ss}")
+    seen = {t for s in timeline["steps"] for t in s.get("traces", [])}
+    if not set(tids) <= seen:
+        raise AssertionError(f"/v1/timeline names {len(set(tids) & seen)} of the "
+                             f"{len(tids)} traces")
+    if capture is None or capture["state"] != "done" or not capture.get("sizeBytes"):
+        raise AssertionError(f"POST /v1/profile: {capture}")
+    shutil.rmtree(capture["path"], ignore_errors=True)
+    if probe.get("verdict", ("none",))[0] != "ok":
+        raise AssertionError(f"probe_cuda_runtime while serving: {probe}")
+    # The keys captured mid-traffic: replay against eager, bitwise.
+    with seated(cell):
+        bitwise = [decode_replay_vs_eager(eng, key)["key"] for key in new_decode]
+    ms = sorted(scraper.ms)
+    return {
+        "model": "llama3-8b", "requests": [sent_a, sent_b], "new_tokens": new,
+        "wall_a_s": round(wall_a, 3), "deltas": deltas,
+        "scrape_ms_under_traffic": {"n": len(ms), "median": round(statistics.median(ms), 3),
+                                    "p95": round(ms[int(0.95 * (len(ms) - 1))], 3),
+                                    "max": round(ms[-1], 3)},
+        "scrape_ms_idle": round(scrape_idle_ms, 3),
+        "captured_mid_traffic": {"decode": [list(k) for k in new_decode],
+                                 "prefill": [list(k) for k in new_prefill]},
+        "replay_equals_eager_bitwise": bitwise,
+        "profiled": {"decode_replays": decode_replays, "prefill_replays": prefill_replays,
+                     "cuda_graph_launches": graph_launches,
+                     "dispatch_delta": d_dispatch, "program_seconds_delta": round(d_seconds, 6),
+                     "device_s": round(device_s, 6)},
+        "decode_chunk": {"membw_util": round(util, 6), "mfu": round(mfu, 6),
+                         "timer_ms_per_step": round(timer_ms_step, 4),
+                         "bound_ms_per_step": round(bound, 4),
+                         "expected_membw_util": round(expected, 6),
+                         "ratio": round(util / expected, 4), "steps": steps,
+                         "dispatches": dispatched},
+        "hbm_bytes_peak": hbm_peak,
+        "hbm_bytes_in_use": metric(m4, "kukeon_hbm_bytes_in_use", device=eng.device.index or 0),
+        "hbm_bytes_limit": metric(m4, "kukeon_hbm_bytes_limit", device=eng.device.index or 0),
+        "span_events": SPAN_EVENTS, "timeline_steps": len(timeline["steps"]),
+        "profile_capture": {"bytes": capture["sizeBytes"], "s": round(profile_s, 3)},
+        "probe": {"verdict": list(probe["verdict"]), "s": probe["s"]},
+    }
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -1064,6 +1386,23 @@ def graph_decode_check(cell, prompt_len: int = 128) -> dict:
 
     eng = cell.engine
     cell.warmup(prompt_len)
+    with seated(cell, prompt_len):
+        out = {label: decode_replay_vs_eager(eng, key)
+               for label, key in (("greedy", program_key(4, False, False)),
+                                  ("stochastic", program_key(4, True, True)))}
+        with torch.no_grad():
+            out["replay_16"] = replay_timing(eng._programs, program_key(16, False, False))
+    return {**out, "captures": eng.program_stats["captures"],
+            "capture_s": round(eng.program_stats["capture_s"], 3)}
+
+
+@contextlib.contextmanager
+def seated(cell, prompt_len: int = 128):
+    """Every slot of ``cell``'s engine (its driver thread stopped) decoding
+    a 128-token prompt, two chunks in; cancelled and drained after."""
+    from kukeon_tpu_torch.serving.sampling import SamplingParams
+
+    eng = cell.engine
     g = torch.Generator().manual_seed(11)
     reqs = [eng.submit(torch.randint(0, cell.cfg.vocab_size, (prompt_len,), generator=g).numpy(),
                        SamplingParams(max_new_tokens=256))
@@ -1072,46 +1411,52 @@ def graph_decode_check(cell, prompt_len: int = 128) -> dict:
         eng.step()          # prefill + insert every slot, one chunk enqueued
         eng.step()          # a second chunk
         torch.cuda.synchronize()
-        progs, st = eng._programs, eng.state
-        out = {}
-        for label, key in (("greedy", program_key(4, False, False)),
-                           ("stochastic", program_key(4, True, True))):
-            if key[2]:
-                st.temps.fill_(0.8)
-                st.top_ks.fill_(40)
-                st.top_ps.fill_(0.9)
-            progs.build(key)
-            snap = progs.snapshot(4)
-            runs = {}
-            for how in ("replay", "eager"):
-                progs.restore(snap)
-                if how == "replay":
-                    progs.run(key)
-                else:
-                    progs.run_eager(key)
-                torch.cuda.synchronize()
-                runs[how] = {"tokens": progs.output(4).clone(),
-                             "lengths": st.cache.lengths.clone(),
-                             **progs.written_rows(snap)}
-            progs.restore(snap)
-            diff = [n for n in runs["replay"]
-                    if not torch.equal(_bits(runs["replay"][n]), _bits(runs["eager"][n]))]
-            if diff:
-                raise AssertionError(f"{label} program {key}: replay and eager differ in {diff}")
-            advanced = runs["replay"]["lengths"] - snap["lengths"]
-            if not torch.all(advanced == 4):
-                raise AssertionError(f"{label}: lengths advanced by {advanced.tolist()}, want 4")
-            out[label] = {"key": list(key), "bitwise_equal": ["tokens", "lengths", "k", "v"],
-                          "tokens": runs["replay"]["tokens"].tolist()}
-        out["replay_16"] = replay_timing(progs, program_key(16, False, False))
+    try:
+        yield reqs
+    finally:
         eng._sampling_dirty = True      # the next chunk uploads the slots' own arrays
-    for r in reqs:
-        r.cancel()
-    while not all(r.done.is_set() for r in reqs):
-        eng.step()
-    torch.cuda.synchronize()
-    return {**out, "captures": eng.program_stats["captures"],
-            "capture_s": round(eng.program_stats["capture_s"], 3)}
+        for r in reqs:
+            r.cancel()
+        while not all(r.done.is_set() for r in reqs):
+            eng.step()
+        torch.cuda.synchronize()
+
+
+@torch.no_grad()
+def decode_replay_vs_eager(eng, key) -> dict:
+    """One decode program's replay against its eager run from one saved
+    state (slots seated): the tokens, lengths and KV rows written must be
+    bitwise equal. A stochastic key runs with temperature 0.8, top-k 40 and
+    top-p 0.9 in every slot, both runs from the same generator state. The
+    state is put back."""
+    progs, st = eng._programs, eng.state
+    k = key[0]
+    if key[2]:
+        st.temps.fill_(0.8)
+        st.top_ks.fill_(40)
+        st.top_ps.fill_(0.9)
+    progs.build(key)
+    snap = progs.snapshot(k)
+    runs = {}
+    for how in ("replay", "eager"):
+        progs.restore(snap)
+        if how == "replay":
+            progs.run(key)
+        else:
+            progs.run_eager(key)
+        torch.cuda.synchronize()
+        runs[how] = {"tokens": progs.output(k).clone(), "lengths": st.cache.lengths.clone(),
+                     **progs.written_rows(snap)}
+    progs.restore(snap)
+    diff = [n for n in runs["replay"]
+            if not torch.equal(_bits(runs["replay"][n]), _bits(runs["eager"][n]))]
+    if diff:
+        raise AssertionError(f"program {key}: replay and eager differ in {diff}")
+    advanced = runs["replay"]["lengths"] - snap["lengths"]
+    if not torch.all(advanced == k):
+        raise AssertionError(f"{key}: lengths advanced by {advanced.tolist()}, want {k}")
+    return {"key": list(key), "bitwise_equal": ["tokens", "lengths", "k", "v"],
+            "tokens": runs["replay"]["tokens"].tolist()}
 
 
 def graph_prefill_check(cell) -> dict:
@@ -2456,11 +2801,15 @@ def main(argv=None) -> int:
     run("moe_kernel", lambda: phase_moe_kernel(k1, bps, flush))
     del flush
     run("model", lambda: phase_model(k1))
+    kept = {}
     run("serve", lambda: {
         **serve_model(k1, "llama3-8b", max_seq_len=1024, prompt_len=128, new=64,
-                      profile_new=32, stream_stop=True),
+                      profile_new=32, stream_stop=True,
+                      keep=kept if "serve_obs" in phases else None),
         "bound_ms_per_decode_step": round(sum(
             bound_ms(4, K, N, bps)[0] * n for K, N, n in SHAPES_8B.values()), 4)})
+    run("serve_obs", lambda: serve_obs(kept.pop("llama3-8b", None), bps))
+    kept.clear()
     run("serve_tied", lambda: serve_model(k1, "llama3-1b", max_seq_len=256, prompt_len=32,
                                           new=16))
     run("serve_tiny", lambda: {m: serve_model(k1, m, max_seq_len=256, prompt_len=32, new=16)
@@ -2640,6 +2989,9 @@ def main(argv=None) -> int:
             "prefix_cache", "ttft_ms_median_by_turn", "captures_after_warmup",
             "turns_equal_to_control", "first_hit_turn_equal")},
         "serve_stream_stop": serve8["stream_stop"],
+        "serve_obs_llama3-8b": {k: res["serve_obs"][k] for k in (
+            "scrape_ms_under_traffic", "captured_mid_traffic", "decode_chunk",
+            "hbm_bytes_peak", "probe")},
         "graph_paged_bitwise": {kv: {"prefill": sorted(gpg[kv]["prefill"]),
                                      "decode": sorted(k for k in gpg[kv]["decode"]
                                                       if k != "replay_16")}

@@ -4,8 +4,12 @@ environment, the port's own copy of what training checkpoints need from
 The port's points are :data:`POINTS`, a subset of the reference's list
 (``kukeon_tpu/faults.py:51-57``): ``checkpoint.save`` and
 ``checkpoint.load`` (training), ``engine.prefill`` and ``engine.decode``
-(the serving engine's dispatches), ``kv.alloc`` (the paged KV allocator)
-and ``kv.handoff`` (the serving cell's KV import).
+(the serving engine's dispatches), ``engine.fetch`` (its blocking
+readback), ``kv.alloc`` (the paged KV allocator), ``kv.handoff`` (the
+serving cell's KV import), ``cell.http`` (the cell's generate and KV
+routes), ``devices.probe_wedged`` (the CUDA runtime probe reports a
+wedged runtime) and ``profile.capture`` (an on-demand profile fails to
+start).
 
     from kukeon_tpu_torch import faults
     faults.maybe_fail("checkpoint.save")        # raises iff armed
@@ -34,10 +38,14 @@ ENV = "KUKEON_FAULTS"
 POINTS = (
     "engine.prefill",
     "engine.decode",
+    "engine.fetch",
     "kv.alloc",
     "kv.handoff",
+    "cell.http",
     "checkpoint.save",
     "checkpoint.load",
+    "devices.probe_wedged",
+    "profile.capture",
 )
 
 

@@ -6,6 +6,14 @@ An HTTP front end over the port's :class:`ServingEngine`:
   GET  /readyz              -> readiness (503 warming up or draining)
   GET  /v1/stats            -> role, slots, queue, in-flight and token
                                counters, draining
+  GET  /metrics             -> Prometheus text (format 0.0.4): the engine's
+                               and the cell's families, SLO burn rates
+  GET  /v1/trace            -> finished spans: ?n=K newest (default 50),
+                               ?trace_id=, ?request_id= (400 on a bad int)
+  GET  /v1/timeline         -> the flight recorder's newest ?n= step records
+  GET  /v1/profile          -> the profiler spool's captures
+  POST /v1/profile          -> {"durationMs": D}: a torch.profiler capture
+                               in the background (409 while one runs)
   POST /drain               -> stop admitting, finish in-flight work, stop
                                the engine (then the process exits 0)
   POST /v1/kv/export        -> generate body in, KV handoff body out
@@ -54,9 +62,28 @@ admission, waits for in-flight HTTP requests and engine requests (at most
 ``KUKEON_DRAIN_TIMEOUT_S``, default 30 s), stops the engine and fires
 ``on_drained``, which :func:`main` points at the server's shutdown.
 
-The ``traceparent`` header is not read (tracing is not ported). Not ported
-yet (ROADMAP.md): checkpoints, metrics, traces, tuning profiles, the
-watchdog, embedding cells and multi-GPU.
+**Observability** (the reference's, ``obs/``): one registry holds the
+engine's and the cell's families (info, uptime, ready, draining, HTTP
+in-flight, the watchdog's counters, cold-start phases) and the SLO
+tracker's burn rates (``--slo-ttft-p95-ms``, ``--slo-availability``), so
+the reference's daemon scrapes, autoscales and federates a port cell as a
+JAX one. A ``traceparent`` header on ``/v1/generate`` (streamed too) and
+``/v1/kv/export|import`` joins the request's span to the caller's trace.
+``KUKEON_TRACE_SAMPLE`` sets the tail sampler's keep probability,
+``KUKEON_PROFILE_DIR`` (and ``KUKEON_PROFILE_KEEP``) the profile spool,
+``KUKEON_PEAK_FLOPS``/``KUKEON_PEAK_HBM_BPS`` the peaks the utilization
+gauges divide by (read at boot). ``{"layers": true}`` on ``POST
+/v1/profile`` answers 400: the per-layer profile is ROADMAP A12d.
+
+**Watchdog** (the reference's ``EngineWatchdog``): under :func:`main`,
+when work has waited ``KUKEON_WATCHDOG_S`` (default 120; 0 disables)
+without engine progress, a throwaway process probes the CUDA runtime
+(``runtime/devices.py``, killed after
+``KUKEON_WATCHDOG_PROBE_TIMEOUT_S``); a ``wedged`` verdict turns the cell
+unready and exits :data:`WEDGED_EXIT_CODE` (86) for the restart policy.
+
+Not ported yet (ROADMAP.md): checkpoints, tuning profiles and the layer
+profile (A12d), embedding cells and multi-GPU.
 """
 
 from __future__ import annotations
@@ -73,6 +100,7 @@ import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 import torch
@@ -80,6 +108,16 @@ import torch
 from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.device import resolve_device
 from kukeon_tpu_torch.models import convert, llama, moe
+from kukeon_tpu_torch.obs import (
+    ProfileBusy,
+    ProfileSpool,
+    Registry,
+    SloObjectives,
+    SloTracker,
+    expo,
+)
+from kukeon_tpu_torch.obs import trace as obs_trace
+from kukeon_tpu_torch.runtime.devices import probe_cuda_runtime
 from kukeon_tpu_torch.serving.engine import (
     DeadlineExceeded,
     RejectedError,
@@ -98,6 +136,16 @@ MODELS = {
 MOE_MODELS = {"mixtral-tiny", "mixtral-8x7b"}
 ROLES = ("mixed", "prefill", "decode")
 DRAIN_TIMEOUT_ENV = "KUKEON_DRAIN_TIMEOUT_S"
+WATCHDOG_ENV = "KUKEON_WATCHDOG_S"
+WATCHDOG_PROBE_TIMEOUT_ENV = "KUKEON_WATCHDOG_PROBE_TIMEOUT_S"
+# The exit of a cell whose CUDA runtime the watchdog found wedged: nonzero,
+# so a restart policy restarts it, and the reference's code, so an operator
+# greps one number for both packages.
+WEDGED_EXIT_CODE = 86
+
+# Module import: the zero point of the cold-start breakdown finish_boot
+# exports (``python -m`` imports it at process start).
+_PROC_T0 = time.monotonic()
 
 
 class LifecycleMixin:
@@ -203,7 +251,10 @@ class ServingCell(LifecycleMixin):
                  decode_chunk: int = 16, max_pending: int | None = None,
                  deadline_s: float | None = None,
                  device: str | torch.device | None = None,
-                 kv_page_tokens: int = 0, role: str = "mixed"):
+                 kv_page_tokens: int = 0, role: str = "mixed",
+                 slo_ttft_p95_ms: float | None = None,
+                 slo_availability: float | None = None):
+        self._boot_marks: dict[str, float] = {"init_entry": time.monotonic()}
         if model not in MODELS:
             raise SystemExit(f"unknown model {model!r}; known: {sorted(MODELS)}")
         if role not in ROLES:
@@ -235,17 +286,60 @@ class ServingCell(LifecycleMixin):
             params = llama.init_params(cfg, gen, self.device)
         self.model_name = model
         self.cfg = cfg
+        # One registry for the whole cell: the engine's families and the
+        # cell's land in one /metrics.
+        registry = Registry()
         self.engine = ServingEngine(
             cfg, params, num_slots=num_slots,
             max_seq_len=max_seq_len or min(cfg.max_seq_len, 4096),
             kv_cache_int8=kv_cache_int8, decode_chunk=decode_chunk,
             max_pending=max_pending, seed=seed, device=self.device,
-            forward_fn=forward_fn, kv_page_tokens=kv_page_tokens)
+            forward_fn=forward_fn, kv_page_tokens=kv_page_tokens, registry=registry)
         self.tokenizer = load_tokenizer(None)
         self.default_deadline_s = deadline_s
         self.started_at = time.time()
         self.boot_s: dict[str, float] = {}
         self._init_lifecycle()
+        self._init_cell_obs(registry, kind="decoder")
+        # Burn rates and error budget from the engine's own requests counter
+        # and TTFT histogram, at scrape time; unset objectives take the
+        # reference's loose defaults.
+        d = SloObjectives()
+        self.slo = SloTracker(registry, SloObjectives(
+            availability=slo_availability or d.availability,
+            ttft_p95_ms=slo_ttft_p95_ms or d.ttft_p95_ms))
+        self._boot_marks["init_exit"] = time.monotonic()
+
+    def _init_cell_obs(self, registry: Registry, kind: str) -> None:
+        """The cell's families on the one registry ``GET /metrics`` renders
+        (the reference's ``_init_cell_obs``): identity, uptime, readiness,
+        drain and HTTP in-flight gauges (scrape-time callables), the
+        watchdog's counters declared at zero, the profiler spool, and the
+        flight recorder (the engine's ring)."""
+        self.registry = registry
+        registry.gauge("kukeon_cell_info", "Static cell identity (value always 1).",
+                       labels=("model", "kind")).set(1, model=self.model_name, kind=kind)
+        registry.gauge("kukeon_cell_uptime_seconds",
+                       "Seconds since cell construction.").set_function(
+            lambda: time.time() - self.started_at)
+        registry.gauge("kukeon_cell_ready",
+                       "1 while admitting requests (readyz).").set_function(
+            lambda: 1.0 if self.readiness()[0] else 0.0)
+        registry.gauge("kukeon_cell_draining",
+                       "1 while a drain is in progress.").set_function(
+            lambda: 1.0 if self.draining else 0.0)
+        registry.gauge("kukeon_cell_http_inflight",
+                       "HTTP requests currently being served.").set_function(
+            lambda: float(self._inflight))
+        registry.counter("kukeon_watchdog_probes_total",
+                         "CUDA runtime probes fired after an engine stall.",
+                         labels=("verdict",))
+        registry.counter("kukeon_watchdog_trips_total",
+                         "Wedged verdicts (the cell exits for restart right after).")
+        engine = self.engine
+        self.profiler = ProfileSpool(registry=registry, cuda=engine.device.type == "cuda",
+                                     guard=engine._programs.capture_lock)
+        self.recorder = engine.recorder
 
     def warmup(self, prompt_len: int = 64):
         """Capture the decode programs and the prefill of ``prompt_len``'s
@@ -257,9 +351,50 @@ class ServingCell(LifecycleMixin):
         self.engine.precompile((prompt_len,), export=self.role == "prefill",
                                imports=self.role == "decode")
         t1 = time.monotonic()
+        self._boot_marks.setdefault("compile_done", t1)
         self.engine.warmup(prompt_len)
+        t2 = time.monotonic()
+        self._boot_marks.setdefault("warmup_done", t2)
         self.boot_s["precompile"] = round(t1 - t0, 3)
-        self.boot_s["warmup"] = round(time.monotonic() - t1, 3)
+        self.boot_s["warmup"] = round(t2 - t1, 3)
+
+    def finish_boot(self) -> dict[str, float]:
+        """Close the cold-start record (the reference's ``finish_boot``):
+        the boot phases (imports, init, compile, warmup, serve; the first
+        two measured from this module's import) on
+        ``kukeon_cold_start_seconds`` and
+        ``kukeon_cold_start_phase_seconds{phase=}``, and a
+        ``component="boot"`` span in the trace ring. Called once, right
+        before the cell goes ready."""
+        now = time.monotonic()
+        m = self._boot_marks
+        phases: dict[str, float] = {
+            "imports": m["init_entry"] - _PROC_T0,
+            "init": m.get("init_exit", m["init_entry"]) - m["init_entry"],
+        }
+        if "compile_done" in m:
+            phases["compile"] = m["compile_done"] - m.get("init_exit", m["init_entry"])
+            phases["warmup"] = m.get("warmup_done", m["compile_done"]) - m["compile_done"]
+        total = now - _PROC_T0
+        phases["serve"] = max(0.0, total - sum(phases.values()))
+        reg = self.registry
+        reg.gauge("kukeon_cold_start_seconds",
+                  "Process start -> ready wall time (the rolling-restart and "
+                  "autoscaling latency floor).").set(total)
+        g = reg.gauge("kukeon_cold_start_phase_seconds",
+                      "Cold-start breakdown by boot phase.", labels=("phase",))
+        for phase, dt in phases.items():
+            g.set(dt, phase=phase)
+        # Each event marks where its phase begins, so the span's phases
+        # mirror the gauges; the tail gap covers warmup and serve.
+        span = self.engine.tracer.begin(-2, 0, component="boot", start_mono=_PROC_T0)
+        span.event("boot_imports", at=_PROC_T0)
+        span.event("boot_init", at=m["init_entry"])
+        if "compile_done" in m:
+            span.event("boot_compile", at=m.get("init_exit", m["init_entry"]))
+            span.event("boot_warmup", at=m["compile_done"])
+        self.engine.tracer.finish(span, "ok")
+        return phases
 
     def _parse_generate(self, req: dict):
         if "promptTokens" in req:
@@ -290,21 +425,23 @@ class ServingCell(LifecycleMixin):
                 raise ValueError("deadlineS must be positive")
         return prompt, sp, list(stops), prefix_id, deadline_s
 
-    def _submit(self, req: dict):
+    def _submit(self, req: dict, trace_ctx=None):
         """Parse and submit one generate body -> (request, its event queue,
-        stop strings, submit time)."""
+        stop strings, submit time). ``trace_ctx``: a parsed
+        ``traceparent``, the trace the request's span joins."""
         prompt, sp, stops, prefix_id, deadline_s = self._parse_generate(req)
         events: queue.Queue = queue.Queue()
         t0 = time.monotonic()
         r = self.engine.submit(prompt, sp, emit=lambda tok, done: events.put((tok, done)),
-                               prefix_id=prefix_id, deadline_s=deadline_s)
+                               prefix_id=prefix_id, deadline_s=deadline_s,
+                               trace_ctx=trace_ctx)
         return r, events, stops, t0
 
-    def generate(self, req: dict) -> dict:
+    def generate(self, req: dict, trace_ctx=None) -> dict:
         """Non-streaming generation: the terminal record of the stream (one
         machinery for both modes, stop strings included), plus the time to
         the first token."""
-        r, events, stops, t0 = self._submit(req)
+        r, events, stops, t0 = self._submit(req, trace_ctx)
         out = None
         for out in self._stream_events(r, events, stops, t0):
             pass
@@ -317,10 +454,10 @@ class ServingCell(LifecycleMixin):
         return {**{k: out[k] for k in ("tokens", "text", "numTokens", "seconds")},
                 "ttftSeconds": round(r.first_token_at - r.submitted_at, 4)}
 
-    def generate_stream(self, req: dict):
+    def generate_stream(self, req: dict, trace_ctx=None):
         """Streaming generation: one record a token as the engine emits it,
         then the terminal record (``_stream_events``)."""
-        r, events, stops, t0 = self._submit(req)
+        r, events, stops, t0 = self._submit(req, trace_ctx)
         yield from self._stream_events(r, events, stops, t0)
 
     def _stream_events(self, r, events: queue.Queue, stops: list[str], t0: float, *,
@@ -394,7 +531,7 @@ class ServingCell(LifecycleMixin):
 
     # --- disaggregated serving: KV handoff --------------------------------
 
-    def kv_export(self, req: dict) -> bytes:
+    def kv_export(self, req: dict, trace_ctx=None) -> bytes:
         """``POST /v1/kv/export`` (the reference's ``kv_export``,
         ``:834-891``): the prompt's prefill only, no decode slot taken; the
         KV block in the handoff wire format, its header carrying the first
@@ -404,7 +541,8 @@ class ServingCell(LifecycleMixin):
         prompt, sp, stops, prefix_id, deadline_s = self._parse_generate(req)
         events: queue.Queue = queue.Queue()
         r = self.engine.submit(prompt, sp, emit=lambda tok, done: events.put((tok, done)),
-                               prefix_id=prefix_id, deadline_s=deadline_s, export=True)
+                               prefix_id=prefix_id, deadline_s=deadline_s,
+                               trace_ctx=trace_ctx, export=True)
         if not self.engine.running:              # no driver thread: drive here
             while not r.done.is_set():
                 self.engine.step()
@@ -440,7 +578,8 @@ class ServingCell(LifecycleMixin):
         }
         return pack_kv(header, p["k"], p["v"])
 
-    def kv_import_stream(self, header: dict, k: torch.Tensor, v: torch.Tensor):
+    def kv_import_stream(self, header: dict, k: torch.Tensor, v: torch.Tensor,
+                         trace_ctx=None):
         """``POST /v1/kv/import`` (the reference's ``kv_import_stream``,
         ``:893-957``): seat an exported block in this cell's decode batch
         and stream the continuation. The handed-off first token goes out
@@ -474,15 +613,17 @@ class ServingCell(LifecycleMixin):
         events: queue.Queue = queue.Queue()
         r = self.engine.submit(prompt, sp, emit=lambda tok, done: events.put((tok, done)),
                                prefix_id=prefix_id, deadline_s=deadline_s,
+                               trace_ctx=trace_ctx,
                                kv_import={"token": first, "length": n, "k": k, "v": v})
         yield {"token": first, "text": emitted}
         yield from self._stream_events(r, events, stops, t0, tokens=tokens, emitted=emitted,
                                        skip_first=True)
 
-    def kv_import(self, header: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    def kv_import(self, header: dict, k: torch.Tensor, v: torch.Tensor,
+                  trace_ctx=None) -> dict:
         """The non-streamed import: the stream's terminal record."""
         out = None
-        for out in self.kv_import_stream(header, k, v):
+        for out in self.kv_import_stream(header, k, v, trace_ctx):
             pass
         if out.get("timedOut"):
             raise DeadlineExceeded(out["error"])
@@ -500,7 +641,11 @@ class ServingCell(LifecycleMixin):
         self.engine.stop()
 
     def stats(self) -> dict:
+        """The JSON view; uptime and generated tokens read the registry's
+        instruments, as the reference's do (one source of truth, two
+        presentations)."""
         eng = self.engine
+        reg = self.registry
         ready, why = self.readiness()
         return {
             "model": self.model_name,
@@ -515,7 +660,7 @@ class ServingCell(LifecycleMixin):
             # what shows a drain going idle.
             "inflight": len(eng._requests),
             "maxPending": eng.max_pending,
-            "generatedTokens": eng.tokens_total,
+            "generatedTokens": int(eng.registry.get("kukeon_engine_tokens_total").value()),
             "rejected": eng.shed_stats["rejected"],
             "timedOut": eng.shed_stats["timed_out"],
             "int8Kernel": eng.cfg.int8_pallas,
@@ -534,11 +679,75 @@ class ServingCell(LifecycleMixin):
                         "shedKvExhausted": eng.shed_stats["kv_exhausted"],
                         "viewBytes": eng.program_stats["view_bytes"]},
             "bootSeconds": self.boot_s,
-            "uptimeSeconds": round(time.time() - self.started_at, 1),
+            "uptimeSeconds": round(reg.get("kukeon_cell_uptime_seconds").value(), 1),
             "ready": ready,
             "draining": self.draining,
             **({"unreadyReason": why} if why else {}),
         }
+
+
+class EngineWatchdog(threading.Thread):
+    """Turns a wedged CUDA runtime behind a stuck engine into a restart, the
+    port of the reference's ``EngineWatchdog``
+    (``kukeon_tpu/runtime/serving_cell.py:1211-1285``).
+
+    A hung CUDA context blocks the engine's driver thread inside a device
+    call; nothing in Python times out, and the cell stays Ready serving
+    nobody. The watchdog reads the engine's progress heartbeat
+    (``stalled_s()``); once work has been outstanding with no progress past
+    ``stall_budget_s`` it consults ``probe`` (default
+    :func:`~kukeon_tpu_torch.runtime.devices.probe_cuda_runtime`, a killable
+    subprocess, so it answers even while this process's runtime hangs). A
+    ``wedged`` verdict trips it: ``on_wedged`` runs (under :func:`main`: the
+    cell turns unready and exits :data:`WEDGED_EXIT_CODE`). Any other
+    verdict re-arms the budget: a long capture or a giant prefill is slow,
+    not wedged."""
+
+    def __init__(self, engine, *, stall_budget_s: float, probe=None, on_wedged=None,
+                 interval_s: float | None = None, probe_timeout_s: float = 20.0,
+                 registry: Registry | None = None):
+        super().__init__(daemon=True, name="cuda-watchdog")
+        self.engine = engine
+        self.stall_budget_s = stall_budget_s
+        self.probe = probe
+        self.on_wedged = on_wedged
+        self.interval_s = (interval_s if interval_s is not None
+                           else max(0.5, stall_budget_s / 4))
+        self.probe_timeout_s = probe_timeout_s
+        self.tripped = False
+        self.last_verdict: tuple[str, str] | None = None
+        self.probes = 0
+        self._halt = threading.Event()
+        reg = registry if registry is not None else Registry()
+        self._m_probes = reg.counter("kukeon_watchdog_probes_total",
+                                     "CUDA runtime probes fired after an engine stall.",
+                                     labels=("verdict",))
+        self._m_trips = reg.counter("kukeon_watchdog_trips_total",
+                                    "Wedged verdicts (the cell exits for restart right after).")
+
+    def stop(self):
+        self._halt.set()
+
+    def run(self):
+        probe = self.probe or probe_cuda_runtime
+        while not self._halt.wait(self.interval_s):
+            if self.engine.stalled_s() < self.stall_budget_s:
+                continue
+            self.probes += 1
+            status, detail = probe(timeout_s=self.probe_timeout_s)
+            self.last_verdict = (status, detail)
+            self._m_probes.inc(verdict=status)
+            if status == "wedged":
+                self.tripped = True
+                self._m_trips.inc()
+                if self.on_wedged is not None:
+                    self.on_wedged(detail)
+                return
+            # The runtime answers: the stall is compute or host side. The
+            # probe counts as progress, so the next probe waits a whole
+            # budget (the heartbeat is _lock-guarded engine state).
+            with self.engine._lock:
+                self.engine.last_progress = time.monotonic()
 
 
 def _trailing_fffd(s: str) -> int:
@@ -626,6 +835,9 @@ def make_handler(cell: ServingCell):
         def _send(self, code: int, obj: dict, headers: dict[str, str] | None = None):
             self._send_bytes(code, json.dumps(obj).encode(), "application/json", headers)
 
+        def _send_text(self, code: int, text: str, content_type: str):
+            self._send_bytes(code, text.encode(), content_type)
+
         def _send_bytes(self, code: int, body: bytes, content_type: str,
                         headers: dict[str, str] | None = None):
             self.send_response(code)
@@ -637,20 +849,86 @@ def make_handler(cell: ServingCell):
             self.wfile.write(body)
 
         def do_GET(self):
-            if self.path in ("/healthz", "/v1/health"):
+            parts = urlsplit(self.path)
+            path = parts.path
+            if path in ("/healthz", "/v1/health"):
                 self._send(200, {"status": "ok", "model": cell.model_name})
-            elif self.path == "/readyz":
+            elif path == "/readyz":
                 ok, why = cell.readiness()
                 self._send(200 if ok else 503,
                            {"ready": True} if ok else {"ready": False, "reason": why})
-            elif self.path == "/v1/stats":
+            elif path == "/v1/stats":
                 self._send(200, cell.stats())
+            elif path == "/metrics":
+                self._send_text(200, expo.render(cell.registry), expo.CONTENT_TYPE)
+            elif path == "/v1/trace":
+                self._trace(parse_qs(parts.query))
+            elif path == "/v1/timeline":
+                try:
+                    n = int(parse_qs(parts.query).get("n", ["50"])[0])
+                except ValueError:
+                    self._send(400, {"error": "n must be an integer"})
+                    return
+                rec = cell.recorder
+                self._send(200, {"steps": rec.snapshot(n), "dropped": rec.dropped,
+                                 "capacity": rec.capacity})
+            elif path == "/v1/profile":
+                prof = cell.profiler
+                self._send(200, {"captures": prof.list(), "dir": prof.base_dir,
+                                 "keep": prof.keep})
             else:
                 self._send(404, {"error": f"no route {self.path}"})
+
+        def _trace(self, q: dict):
+            """``/v1/trace``: one trace's spans (``trace_id``, oldest
+            first, what the reference's daemon unions across cells), one
+            request's (``request_id``), or the newest ``n``."""
+            tracer = cell.engine.tracer
+            if "trace_id" in q:
+                self._send(200, {"spans": tracer.for_trace(q["trace_id"][0])})
+                return
+            if "request_id" in q:
+                try:
+                    rid = int(q["request_id"][0])
+                except ValueError:
+                    self._send(400, {"error": "request_id must be an integer"})
+                    return
+                self._send(200, {"spans": tracer.for_request(rid)})
+                return
+            try:
+                n = int(q.get("n", ["50"])[0])
+            except ValueError:
+                self._send(400, {"error": "n must be an integer"})
+                return
+            self._send(200, {"spans": tracer.recent(n)})
+
+        def _profile(self):
+            """``POST /v1/profile`` {"durationMs": D}: start a capture
+            (exempt from admission: a draining or overloaded cell is when
+            an operator wants a trace); 409 while one runs. The per-layer
+            profile (``"layers"``) is not ported yet."""
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                if req.get("layers"):
+                    self._send(400, {"error": "per-layer profiles (\"layers\") are not "
+                                              "ported yet (ROADMAP A12d)"})
+                    return
+                rec = cell.profiler.start(float(req.get("durationMs", 1000)))
+                self._send(200, {"started": True, "capture": rec})
+            except ProfileBusy as e:
+                self._send(409, {"error": str(e)})
+            except (ValueError, TypeError) as e:
+                self._send(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — the server must keep serving
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
         def do_POST(self):
             if self.path == "/drain":
                 self._send(200, {"draining": True, "started": cell.begin_drain()})
+                return
+            if self.path == "/v1/profile":
+                self._profile()
                 return
             routes = ("/v1/generate", "/v1/kv/export", "/v1/kv/import")
             if self.path not in routes:
@@ -659,8 +937,14 @@ def make_handler(cell: ServingCell):
                 return
             tracked = False
             try:
+                faults.maybe_fail("cell.http")
                 n = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(n)
+                # A caller's trace context (the gateway sends one): the
+                # request's span joins its trace; a malformed header roots a
+                # fresh trace instead.
+                ctx = obs_trace.parse_traceparent(
+                    self.headers.get(obs_trace.TRACEPARENT_HEADER))
                 # Lifecycle admission first (503); the engine's queue-full
                 # shedding fires inside submit (429). A cell without the
                 # lifecycle (a test double) is held to its readiness.
@@ -673,19 +957,19 @@ def make_handler(cell: ServingCell):
                                         retry_after_s=5.0)
                 if self.path == "/v1/kv/export":
                     req = json.loads(body or b"{}")
-                    self._send_bytes(200, cell.kv_export(req), KV_CONTENT_TYPE)
+                    self._send_bytes(200, cell.kv_export(req, trace_ctx=ctx), KV_CONTENT_TYPE)
                 elif self.path == "/v1/kv/import":
                     header, k, v = unpack_kv(body)
                     if header.get("stream"):
-                        self._stream(cell.kv_import_stream(header, k, v))
+                        self._stream(cell.kv_import_stream(header, k, v, trace_ctx=ctx))
                     else:
-                        self._send(200, cell.kv_import(header, k, v))
+                        self._send(200, cell.kv_import(header, k, v, trace_ctx=ctx))
                 else:
                     req = json.loads(body or b"{}")
                     if req.get("stream"):
-                        self._stream(cell.generate_stream(req))
+                        self._stream(cell.generate_stream(req, trace_ctx=ctx))
                     else:
-                        self._send(200, cell.generate(req))
+                        self._send(200, cell.generate(req, trace_ctx=ctx))
             except RejectedError as e:
                 self._reject(e)
             except DeadlineExceeded as e:
@@ -772,6 +1056,10 @@ def main(argv=None) -> int:
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--max-pending", type=int, default=64)
     ap.add_argument("--deadline-s", type=float, default=0.0)
+    # SLO objectives: the kukeon_slo_* burn-rate gauges on /metrics. 0 = the
+    # loose defaults.
+    ap.add_argument("--slo-ttft-p95-ms", type=float, default=0.0)
+    ap.add_argument("--slo-availability", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
@@ -782,7 +1070,9 @@ def main(argv=None) -> int:
         dtype=args.dtype, seed=args.seed, kv_cache_int8=args.kv_cache_int8,
         decode_chunk=args.decode_chunk, max_pending=args.max_pending or None,
         deadline_s=args.deadline_s or None, device=args.device,
-        kv_page_tokens=args.kv_page_tokens, role=args.role)
+        kv_page_tokens=args.kv_page_tokens, role=args.role,
+        slo_ttft_p95_ms=args.slo_ttft_p95_ms or None,
+        slo_availability=args.slo_availability or None)
     # Warmup before the driver thread starts: step() is single-driver.
     if not args.no_warmup:
         cell.warmup()
@@ -792,13 +1082,33 @@ def main(argv=None) -> int:
     cell.on_drained = server.shutdown
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, lambda *_a: cell.begin_drain())
+    # The cold-start record lands on /metrics and in the trace ring.
+    cell.finish_boot()
     cell.mark_ready()
+    # A stall past the budget that the probe confirms as a wedged CUDA
+    # runtime exits WEDGED_EXIT_CODE, for the restart policy.
+    watchdog = None
+    budget = float(os.environ.get(WATCHDOG_ENV, "120") or 0)
+    if budget > 0:
+        def _wedged(detail: str):
+            cell.mark_unready(f"CUDA runtime wedged: {detail}")
+            print(f"serving-cell: watchdog tripped — {detail}; exiting "
+                  f"{WEDGED_EXIT_CODE} for restart", file=sys.stderr, flush=True)
+            os._exit(WEDGED_EXIT_CODE)
+
+        watchdog = EngineWatchdog(
+            cell.engine, stall_budget_s=budget, on_wedged=_wedged,
+            probe_timeout_s=float(os.environ.get(WATCHDOG_PROBE_TIMEOUT_ENV, "20") or 20),
+            registry=cell.registry)
+        watchdog.start()
     print(f"serving-cell: {args.model} ready on {args.host}:{args.port}", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        if watchdog is not None:
+            watchdog.stop()
         cell.engine.stop()
     return 0
 

@@ -57,9 +57,20 @@
   an insert-only program, on either layout, and emits its first token
   without a prefill. A preempted import re-prefills like any request.
 
+- **Observability** (``obs/``, the reference's instruments by name, type
+  and labels): the engine's families on its registry (``registry=``, the
+  cell passes its own so one ``/metrics`` holds both), a trace span per
+  request (``submit(trace_ctx=)`` joins a caller's trace) stamped at the
+  reference's sites, TTFT and e2e exemplars, the program timers (marked
+  at every run in ``serving/programs.py``, settled only in :meth:`_fetch`
+  after its readback, so no new host sync), the compile tracker, device
+  memory from the caching allocator's counters, one flight-recorder
+  record a step that did work, and the progress heartbeat
+  (``last_progress``, :meth:`stalled_s`) the cell's watchdog reads.
+
 Python orchestrates: queueing, slot choice, emitting tokens. Not ported
-yet (ROADMAP.md): the metrics registry, tracing, timers, the flight
-recorder, tuning profiles, async weight load, meshes and sharding.
+yet (ROADMAP.md): tuning profiles and the per-layer profile (A12d), async
+weight load, meshes and sharding.
 """
 
 from __future__ import annotations
@@ -68,6 +79,7 @@ import dataclasses
 import functools
 import queue
 from collections import OrderedDict, deque
+from collections.abc import Mapping
 import threading
 import time
 import traceback
@@ -79,6 +91,17 @@ import torch
 from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.device import resolve_device
 from kukeon_tpu_torch.models import llama
+from kukeon_tpu_torch.obs import (
+    CompileTracker,
+    FlightRecorder,
+    ProgramTimers,
+    Registry,
+    Tracer,
+    device_memory_collector,
+    device_peaks,
+    faults_collector,
+    program_cost,
+)
 from kukeon_tpu_torch.serving.kv_pages import (
     SCRATCH_PAGE,
     PageAllocator,
@@ -94,6 +117,7 @@ from kukeon_tpu_torch.serving.programs import (
     pack_prefill_inputs,
     prefill_key,
     program_key,
+    program_labels,
 )
 from kukeon_tpu_torch.serving.sampling import (
     SamplingParams,
@@ -102,6 +126,28 @@ from kukeon_tpu_torch.serving.sampling import (
 )
 
 PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+class _CounterMapView(Mapping):
+    """Read-only dict view over a labelled registry counter (the
+    reference's ``shed_stats``): every reader of the dict keeps working
+    while the registry is the one source of truth ``/metrics`` scrapes."""
+
+    def __init__(self, counter, label: str, keys: tuple[str, ...]):
+        self._counter = counter
+        self._label = label
+        self._keys = keys
+
+    def __getitem__(self, key: str) -> int:
+        if key not in self._keys:
+            raise KeyError(key)
+        return int(self._counter.value(**{self._label: key}))
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self) -> int:
+        return len(self._keys)
 
 
 class RejectedError(RuntimeError):
@@ -132,6 +178,9 @@ class Request:
     submitted_at: float = 0.0
     first_token_at: float = 0.0
     last_token_at: float = 0.0
+    # The request's trace span (obs/trace.py): the driver stamps lifecycle
+    # events on it; /v1/trace exports it.
+    trace: Any = None
     done: threading.Event = dataclasses.field(default_factory=threading.Event)
     cancelled: bool = False
     deadline: float | None = None     # absolute monotonic time, None = none
@@ -213,8 +262,9 @@ class ServingEngine:
     Thread model: callers enqueue with :meth:`submit`; one driver (the
     thread of :meth:`start`, or the caller through :meth:`step`) runs
     prefill and decode. ``_lock`` guards the admission state
-    (``_pending_n``, ``_next_id``, ``_requests``, ``_running``) and is the
-    lock of the ``_work`` condition the idle driver sleeps on.
+    (``_pending_n``, ``_next_id``, ``_requests``, ``_running``,
+    ``last_progress``) and is the lock of the ``_work`` condition the idle
+    driver sleeps on. Scrapes read the instruments from other threads.
     """
 
     def __init__(
@@ -236,6 +286,7 @@ class ServingEngine:
         prefix_cache_bytes: int = 2 << 30,
         kv_page_tokens: int = 0,
         kv_pool_pages: int | None = None,
+        registry: Registry | None = None,
     ):
         self.device = resolve_device(device)
         self._forward = forward_fn or llama.forward
@@ -287,16 +338,20 @@ class ServingEngine:
         # tests can hold the decode loop to <= 1 blocking fetch per chunk.
         self.sync_stats = {"fetches": 0, "uploads": 0, "chunks": 0,
                            "fetch_s": 0.0, "upload_s": 0.0}
+        self._init_obs(registry, max_pending, int8_weights=llama._is_q(params["layers"]["wq"]))
         # Allocated once: the decode programs read these very tensors.
         self.state = DecodeState.create(cfg, num_slots, self.max_seq_len,
                                         self.kv_cache_int8, self.device,
                                         self.page_tokens, self.kv_pool_pages)
+        instruments = {"timers": self.timers, "compiles": self.compiles,
+                       "cost": self._program_cost}
         self._programs = DecodePrograms(self._forward, self.params, cfg, self.state,
-                                        self._gen)
+                                        self._gen, **instruments)
         self._prefill_programs = PrefillPrograms(
             self._forward, self.params, cfg, self.state, self._gen,
             functools.partial(bucket_length, buckets=self.prefill_buckets),
-            pool=self._programs.pool)
+            pool=self._programs.pool, capture_lock=self._programs.capture_lock,
+            **instruments)
         self.program_stats = self._programs.stats
         self.program_stats["prefill"] = self._prefill_programs.stats
         self.program_stats["view_bytes"] = self.state.view_bytes()
@@ -326,7 +381,6 @@ class ServingEngine:
         self._slot_disp: list[int] = [0] * num_slots
         # Preempted requests, seated again before anything pending.
         self._resume: deque[Request] = deque()
-        self.preemptions = 0
         self._pending: queue.Queue[Request] = queue.Queue()
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -337,8 +391,177 @@ class ServingEngine:
         self.error: Exception | None = None
         self.max_pending = max_pending
         self.retry_after_s = 1.0
-        self.shed_stats = {"rejected": 0, "timed_out": 0, "kv_exhausted": 0}
-        self.tokens_total = 0
+        # Progress heartbeat for the watchdog: bumped on submit and at the
+        # end of every step() that did work. A hung CUDA context blocks the
+        # driver inside a device call, so it goes stale while work is
+        # queued: what stalled_s() reports.
+        self.last_progress = time.monotonic()   # guarded-by: _lock
+
+    # --- observability (obs/) ---------------------------------------------
+
+    def _init_obs(self, registry: Registry | None, max_pending: int | None,
+                  int8_weights: bool) -> None:
+        """The reference's engine instruments (``kukeon_tpu/serving/
+        engine.py:550-645``), by name, type and labels. The registry is the
+        engine's own unless the cell passes one; gauges are scrape-time
+        callables over the driver's state."""
+        self.registry = reg = registry or Registry()
+        self.tracer = Tracer()
+        self._m_queue_wait = reg.histogram(
+            "kukeon_engine_queue_wait_seconds",
+            "Submit -> dequeued-for-a-slot wait.")
+        self._m_prefill = reg.histogram(
+            "kukeon_engine_prefill_seconds",
+            "Prefill dispatch latency by padded prompt bucket.",
+            labels=("bucket",))
+        self._m_ttft = reg.histogram(
+            "kukeon_engine_ttft_seconds",
+            "Submit -> first token emitted (time to first token).")
+        self._m_itl = reg.histogram(
+            "kukeon_engine_inter_token_seconds",
+            "Gap between consecutive emitted tokens of one request.")
+        self._m_e2e = reg.histogram(
+            "kukeon_engine_e2e_seconds",
+            "Submit -> terminal event (any outcome).")
+        self._m_tokens = reg.counter(
+            "kukeon_engine_tokens_total", "Tokens emitted.")
+        self._m_requests = reg.counter(
+            "kukeon_engine_requests_total",
+            "Requests reaching a terminal event, by outcome.",
+            labels=("outcome",))
+        self._m_shed = reg.counter(
+            "kukeon_engine_shed_total",
+            "Load-shedding events (rejected = queue full at submit, "
+            "timed_out = deadline expired).", labels=("reason",))
+        self.shed_stats = _CounterMapView(
+            self._m_shed, "reason", ("rejected", "timed_out", "kv_exhausted"))
+        # Paged-KV telemetry, declared in every mode so the scrape schema is
+        # stable; a legacy engine reports a 0-page pool.
+        reg.gauge("kukeon_kv_pages_total",
+                  "Usable KV pool pages (0 = legacy contiguous layout)."
+                  ).set(self.kv_pool_pages)
+        reg.gauge("kukeon_kv_pages_in_use",
+                  "KV pool pages currently allocated.").set_function(
+            lambda: float(self._pool.in_use) if self._pool else 0.0)
+        reg.gauge("kukeon_kv_prefix_shared_pages",
+                  "Distinct pool pages pinned by prefix-cache entries "
+                  "(shared read-only across sessions).").set_function(
+            self._prefix_shared_pages)
+        self._m_preempt = reg.counter(
+            "kukeon_preemptions_total",
+            "In-flight requests preempted (pages reclaimed, request "
+            "requeued ahead of new admissions), by reason.",
+            labels=("reason",))
+        reg.gauge("kukeon_engine_mesh_chips",
+                  "Devices in this engine's serving mesh (1 = single device)."
+                  ).set(1)
+        reg.gauge("kukeon_engine_slots_total",
+                  "Decode slots in the fixed batch.").set(self.num_slots)
+        reg.gauge("kukeon_engine_slots_free",
+                  "Slots with no active request.").set_function(
+            lambda: len(self._free_slots()))
+        reg.gauge("kukeon_engine_queue_depth",
+                  "Requests waiting for a slot (admitted-not-yet-slotted "
+                  "plus preempted-awaiting-resume).").set_function(
+            lambda: self._pending_n + len(self._resume))
+        reg.gauge("kukeon_engine_max_pending",
+                  "Admission bound (-1 = unbounded).").set(
+            -1 if max_pending is None else max_pending)
+        reg.register_collector(self._obs_collect)
+        reg.register_collector(faults_collector)
+        reg.register_collector(device_memory_collector(self.device))
+        self.compiles = CompileTracker(reg)
+        # Peaks and the end-mark event ring are read at boot: a scrape may
+        # land mid-capture, when no CUDA call may come from another thread.
+        self.timers = ProgramTimers(reg, peaks=device_peaks(self.device))
+        if self.device.type == "cuda":
+            self.timers.arm_events(self.device)
+        self._program_cost = functools.partial(
+            program_cost, self.cfg, num_slots=self.num_slots,
+            max_seq_len=self.max_seq_len, int8_weights=int8_weights,
+            kv_cache_int8=self.kv_cache_int8)
+        self.recorder = FlightRecorder(registry=reg)
+        # Step-local counters the flight recorder takes at the end of each
+        # working step (driver thread only).
+        self._step_tokens = 0
+        self._step_preempts = 0
+
+    @property
+    def tokens_total(self) -> int:
+        """Tokens emitted since boot (``kukeon_engine_tokens_total``)."""
+        return int(self._m_tokens.value())
+
+    @property
+    def preemptions(self) -> int:
+        """Requests preempted since boot (``kukeon_preemptions_total``)."""
+        return int(self._m_preempt.value(reason="kv_pressure"))
+
+    def _obs_collect(self):
+        """Scrape-time counter families sourced from the live dicts the
+        hot path already maintains (``sync_stats`` is bumped inside
+        :meth:`_fetch`/:meth:`_upload` with no lock; mirroring it here keeps
+        the decode loop's instrumentation at zero)."""
+        s = self.sync_stats
+        yield ("kukeon_engine_host_sync_total", "counter",
+               "Blocking host<->device transfers (fetch = device->host "
+               "readback, upload = host->device array).",
+               [({"kind": "fetch"}, float(s["fetches"])),
+                ({"kind": "upload"}, float(s["uploads"]))])
+        yield ("kukeon_engine_host_sync_seconds_total", "counter",
+               "Wall time spent blocked in host<->device transfers.",
+               [({"kind": "fetch"}, float(s["fetch_s"])),
+                ({"kind": "upload"}, float(s["upload_s"]))])
+        yield ("kukeon_engine_decode_chunks_total", "counter",
+               "Dispatched multi-step decode chunks.",
+               [({}, float(s["chunks"]))])
+        # The reference's streamed-checkpoint boot accounting: the port has
+        # no streamed boot yet (ROADMAP A10), so these read 0, as the
+        # reference's do on a non-streamed boot.
+        yield ("kukeon_checkpoint_load_bytes_total", "counter",
+               "Checkpoint bytes streamed host->device during boot.",
+               [({}, 0.0)])
+        yield ("kukeon_checkpoint_load_seconds", "counter",
+               "Streamed checkpoint load wall time by pipeline stage "
+               "(disk = reader-thread file reads, cast = host dtype "
+               "casts/quantize, upload = device copies). Stages run "
+               "concurrently: their sum exceeds the load wall clock.",
+               [({"stage": "disk"}, 0.0), ({"stage": "cast"}, 0.0),
+                ({"stage": "upload"}, 0.0)])
+        yield ("kukeon_engine_prefix_cache_total", "counter",
+               "Prefix-KV cache lookups by result.",
+               [({"result": "hit"}, float(self.prefix_hits)),
+                ({"result": "miss"}, float(self.prefix_misses))])
+        ss = self.tracer.sample_stats
+        yield ("kukeon_trace_tail_sampled_total", "counter",
+               "Tail-sampler verdicts on finished trace spans (error/"
+               "preempted/retried/slow spans are always kept).",
+               [({"decision": "kept"}, float(ss["kept"])),
+                ({"decision": "dropped"}, float(ss["dropped"]))])
+
+    def _observe_terminal(self, req: Request, outcome: str) -> None:
+        """A request's terminal event on every instrument at once: the e2e
+        histogram, the outcome counter and its trace span. Exactly one a
+        request (``Tracer.finish`` keeps the first verdict)."""
+        if req.submitted_at:
+            self._m_e2e.observe(
+                time.monotonic() - req.submitted_at,
+                exemplar=req.trace.trace_id if req.trace is not None else None)
+        self._m_requests.inc(outcome=outcome)
+        if req.trace is not None:
+            self.tracer.finish(
+                req.trace, outcome, tokens=len(req.generated),
+                error=(f"{type(req.error).__name__}: {req.error}"
+                       if req.error is not None else None))
+
+    def _note_prefill(self, req: Request, key: tuple, t0: float) -> None:
+        """A prefill (or export) dispatched: its tokens on the prefill timer,
+        its dispatch latency by the bucket of the rows it ran, its span
+        event."""
+        bucket = key[2] if key[0].startswith("prefill_ext") else key[1]
+        self.timers.note_tokens("prefill", bucket)
+        self._m_prefill.observe(time.monotonic() - t0, bucket=str(bucket))
+        if req.trace is not None:
+            req.trace.event("prefill_dispatched")
 
     # --- programs ----------------------------------------------------------
 
@@ -513,6 +736,13 @@ class ServingEngine:
             keys += [prefill_key(S, SamplingParams(), export=True) for S in buckets]
         if imports:
             keys += [insert_key(S, self.paged) for S in buckets]
+        # The per-dispatch cost gauges, as the reference's precompile notes
+        # them: the largest chunk size's and bucket's win (exports share
+        # the prefill label and keep the fused prefill's).
+        for key in [program_key(k, False, False) for k in chunk_sizes(self.decode_chunk)] + [
+                key for key in keys if not key[0].endswith("_export")]:
+            label = program_labels(key, self.paged)[0]
+            self.timers.set_cost(label, *self._program_cost(label, key))
         for key in keys:
             S = self._prefill_programs.block_len(key)
             if key not in self._prefill_programs.keys():
@@ -534,13 +764,16 @@ class ServingEngine:
         """Blocking device->host read, counted and timed -> a numpy array
         (``as_tensor``: a host tensor, for bf16, which numpy lacks). ``x``
         may be a host tensor whose copy is in flight behind the CUDA event
-        ``ready``."""
+        ``ready``. After the read, the program timers retire the marks
+        whose end events are done (non-blocking queries: still one sync)."""
+        faults.maybe_fail("engine.fetch")
         t0 = time.monotonic()
         if ready is not None:
             ready.synchronize()
         out = x.cpu() if as_tensor else x.cpu().numpy()
         self.sync_stats["fetches"] += 1
         self.sync_stats["fetch_s"] += time.monotonic() - t0
+        self.timers.settle()
         return out
 
     def _upload(self, x: np.ndarray | torch.Tensor, into: torch.Tensor) -> torch.Tensor:
@@ -567,14 +800,16 @@ class ServingEngine:
         emit: Callable[[int, bool], None] | None = None,
         prefix_id: str | None = None,
         deadline_s: float | None = None,
+        trace_ctx=None,
         export: bool = False,
         kv_import: dict | None = None,
     ) -> Request:
-        """Queue one request. ``export``: prefill only, for a KV handoff
-        (the payload lands on ``Request.export_payload``); ``kv_import``:
-        seat an exported block ({"token", "length", "k", "v"}, k and v
-        [L, 1, length, KV, D] host tensors or arrays) instead of a
-        prefill."""
+        """Queue one request. ``trace_ctx`` (a parsed ``traceparent``): the
+        request's span joins that trace. ``export``: prefill only, for a
+        KV handoff (the payload lands on ``Request.export_payload``);
+        ``kv_import``: seat an exported block ({"token", "length", "k",
+        "v"}, k and v [L, 1, length, KV, D] host tensors or arrays) instead
+        of a prefill."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")
@@ -598,22 +833,33 @@ class ServingEngine:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("deadline_s must be positive")
         now = time.monotonic()
+        shed_depth = None
         with self._lock:
             if self.max_pending is not None and self._pending_n >= self.max_pending:
-                self.shed_stats["rejected"] += 1
-                raise RejectedError(
-                    f"pending queue full ({self._pending_n}/{self.max_pending}); "
-                    "shedding load", retry_after_s=self.retry_after_s)
-            req = Request(id=self._next_id, prompt=prompt,
-                          sampling=sampling or SamplingParams(), emit=emit,
-                          submitted_at=now, prefix_id=prefix_id,
-                          deadline=now + deadline_s if deadline_s is not None else None,
-                          export=export, kv_import=kv_import)
-            self._next_id += 1
-            self._requests[req.id] = req
-            self._pending_n += 1
-            self._pending.put(req)
-            self._work.notify()
+                shed_depth = self._pending_n
+            else:
+                req = Request(id=self._next_id, prompt=prompt,
+                              sampling=sampling or SamplingParams(), emit=emit,
+                              submitted_at=now, prefix_id=prefix_id,
+                              deadline=now + deadline_s if deadline_s is not None else None,
+                              export=export, kv_import=kv_import)
+                # The span exists before the driver can pop the request.
+                req.trace = self.tracer.begin(req.id, int(prompt.size), trace_ctx=trace_ctx)
+                self._next_id += 1
+                self._requests[req.id] = req
+                self._pending_n += 1
+                self.last_progress = now
+                self._pending.put(req)
+                self._work.notify()
+        if shed_depth is not None:
+            # A shed leaves a zero-length span (id -1: it never got one) in
+            # the caller's trace, so the shed hop shows in /v1/trace too.
+            self._m_shed.inc(reason="rejected")
+            self._m_requests.inc(outcome="shed")
+            self.tracer.finish(self.tracer.begin(-1, int(prompt.size), trace_ctx=trace_ctx),
+                               "shed")
+            raise RejectedError(f"pending queue full ({shed_depth}/{self.max_pending}); "
+                                "shedding load", retry_after_s=self.retry_after_s)
         return req
 
     def _check_import(self, imp: dict, n: int) -> None:
@@ -637,6 +883,14 @@ class ServingEngine:
         """Requests waiting for a slot: fresh ones and preempted ones. The
         admission bound (max_pending) counts only the former."""
         return self._pending_n + len(self._resume)
+
+    def stalled_s(self) -> float:
+        """Seconds since the engine last made progress WHILE work is
+        outstanding; 0.0 when idle (an idle engine is never stalled)."""
+        if self._pending_n == 0 and not self._resume and not any(
+                r is not None for r in self._slot_req):
+            return 0.0
+        return max(0.0, time.monotonic() - self.last_progress)
 
     def generate(self, prompt, sampling: SamplingParams | None = None) -> list[int]:
         """Blocking convenience wrapper: submit, then drive (or wait for the
@@ -718,10 +972,15 @@ class ServingEngine:
                     self._prefix_cache.clear()
 
     def _finish(self, req: Request, outcome_error: Exception | None = None) -> None:
-        """Terminal event of a request that holds no slot."""
+        """Terminal event of a request that holds no slot: its outcome is a
+        shed (a RejectedError), a timeout, an error, or a cancel."""
         req.error = req.error or outcome_error
         with self._lock:
             self._requests.pop(req.id, None)
+        self._observe_terminal(
+            req, "shed" if isinstance(req.error, RejectedError) else
+            "timeout" if req.timed_out else "error" if req.error is not None else
+            "cancelled" if req.cancelled else "ok")
         if req.emit:
             try:
                 req.emit(-1, True)
@@ -749,7 +1008,7 @@ class ServingEngine:
         return req.deadline is not None and now >= req.deadline
 
     def _timeout_error(self, req: Request, now: float) -> DeadlineExceeded:
-        self.shed_stats["timed_out"] += 1
+        self._m_shed.inc(reason="timed_out")
         req.timed_out = True
         return DeadlineExceeded(
             f"request {req.id} deadline exceeded after {now - req.submitted_at:.2f}s "
@@ -816,16 +1075,27 @@ class ServingEngine:
         the reference's (``:1847-1853``): their host copies were started
         at their dispatch, ahead of the chunk on the stream.
 
-        Returns True if any work was done.
+        Returns True if any work was done; such a step leaves one record in
+        the flight recorder and bumps the progress heartbeat.
         """
+        # Flight-recorder baselines (driver thread only: plain reads).
+        step_t0 = time.monotonic()
+        fetches0, uploads0 = self.sync_stats["fetches"], self.sync_stats["uploads"]
+        busy0 = self.timers.busy_seconds()
+        self._step_tokens = 0
+        self._step_preempts = 0
         did_work = self._sweep()
         prefills = []
         exports: list[_Export] = []
         free = self._free_slots()
         while free:
-            req = self._pop_waiting()
+            req, resumed = self._pop_waiting()
             if req is None:
                 break
+            if not resumed:
+                self._m_queue_wait.observe(time.monotonic() - req.submitted_at)
+            if req.trace is not None:
+                req.trace.event("admitted")
             if req.export:
                 # Prefill only: no slot, no pages, so a prefill cell drains
                 # export bursts whatever its decode slots hold.
@@ -883,25 +1153,57 @@ class ServingEngine:
             self._flush_inflight()
             did_work = True
         self._inflight = new_inflight
+        if did_work:
+            self._record_step(step_t0, fetches0, uploads0, busy0, len(prefills), new_inflight)
+            with self._lock:
+                self.last_progress = time.monotonic()
         return did_work
 
-    def _pop_waiting(self) -> Request | None:
-        """The next request to seat: a preempted one before any pending."""
+    def _record_step(self, step_t0: float, fetches0: int, uploads0: int, busy0: dict,
+                     prefills: int, inflight: _InflightChunk | None) -> None:
+        """One flight-recorder record for a step that did work (the
+        reference's ``_record_step``): occupancy, chunk size, tokens,
+        transfer deltas, per-program wall-time deltas, preemptions and the
+        trace ids of everything seated."""
+        seated = self._active_requests()
+        programs = {}
+        for name, busy in self.timers.busy_seconds().items():
+            dt = busy - busy0.get(name, 0.0)
+            if dt > 0.0:
+                programs[name] = round(dt, 6)
+        self.recorder.record({
+            "wall_s": round(time.monotonic() - step_t0, 6),
+            "occupancy": len(seated),
+            "slots": self.num_slots,
+            "queue_depth": self._pending_n + len(self._resume),
+            "prefills": prefills,
+            "chunk_k": inflight.k if inflight is not None else 0,
+            "tokens": self._step_tokens,
+            "fetches": self.sync_stats["fetches"] - fetches0,
+            "uploads": self.sync_stats["uploads"] - uploads0,
+            "preemptions": self._step_preempts,
+            "programs": programs,
+            "traces": [req.trace.trace_id for _slot, req in seated if req.trace is not None],
+        })
+
+    def _pop_waiting(self) -> tuple[Request | None, bool]:
+        """(the next request to seat, whether it was preempted): a preempted
+        one before any pending."""
         if self._resume:
-            return self._resume.popleft()
+            return self._resume.popleft(), True
         try:
             req = self._pending.get_nowait()
         except queue.Empty:
-            return None
+            return None, False
         with self._lock:
             self._pending_n -= 1
-        return req
+        return req, False
 
     def _shed_kv_exhausted(self, req: Request, cause: Exception) -> None:
         """Shed a request no page can be found for while nothing in flight
         would free one (the injected ``kv.alloc`` fault too): RejectedError
         with Retry-After, so the cell answers 429."""
-        self.shed_stats["kv_exhausted"] += 1
+        self._m_shed.inc(reason="kv_exhausted")
         self._finish(req, RejectedError(f"KV page pool exhausted: {cause}",
                                         retry_after_s=self.retry_after_s))
 
@@ -918,13 +1220,15 @@ class ServingEngine:
             # the re-prefill below: its imported block is stale by then.
             self._dispatch_import(req, slot)
             return False
+        t0 = time.monotonic()
         if self.paged:
-            self._dispatch_prefill_paged(req, slot)
+            self._note_prefill(req, self._dispatch_prefill_paged(req, slot), t0)
             return True
         key = self._stage_prefill(req, slot)
         self._prefill_programs.run(key)
         if req.prefix_id is not None:
             self._prefix_store(req.prefix_id, req.prompt, *self._prefill_programs.block(key))
+        self._note_prefill(req, key, t0)
         req.slot = slot
         self._slot_req[slot] = req
         self._slot_len[slot] = req.prompt.size + 1   # prompt + the first token's kv-to-be
@@ -941,6 +1245,7 @@ class ServingEngine:
         page; then copies of the token and the prompt's rows start toward
         host memory, before the next program can overwrite them."""
         faults.maybe_fail("engine.prefill")
+        t0 = time.monotonic()
         n = int(req.prompt.size)
         key = self._stage_prefill(req, 0, export=True)
         progs = self._prefill_programs
@@ -948,6 +1253,7 @@ class ServingEngine:
         kv_k, kv_v = progs.block(key)
         if req.prefix_id is not None and not self.paged:
             self._prefix_store(req.prefix_id, req.prompt, kv_k, kv_v)
+        self._note_prefill(req, key, t0)
         rows = [progs.first, kv_k[:, :, :n], kv_v[:, :, :n]]
         ready = None
         if progs.first.is_cuda:
@@ -975,8 +1281,11 @@ class ServingEngine:
             return
         req.export_payload = {"token": first, "length": exp.length, "k": k, "v": v,
                               "pageTokens": self.page_tokens}
+        if req.trace is not None:
+            req.trace.event("kv_exported", bytes=_nbytes(k) + _nbytes(v))
         with self._lock:
             self._requests.pop(req.id, None)
+        self._observe_terminal(req, "ok")
         if req.emit:
             try:
                 req.emit(first, True)
@@ -1033,15 +1342,19 @@ class ServingEngine:
         self._slot_req[slot] = req
         self._slot_len[slot] = n + 1
         self._sampling_dirty = True
+        if req.trace is not None:
+            req.trace.event("kv_imported", bytes=_nbytes(imp["k"]) + _nbytes(imp["v"]),
+                            pages=len(self._slot_pages[slot]) if self.paged else 0)
         self._emit(req, first)
 
-    def _dispatch_prefill_paged(self, req: Request, slot: int) -> None:
+    def _dispatch_prefill_paged(self, req: Request, slot: int) -> tuple:
         """Paged admission: allocate the sequence's pages (evicting prefix
         entries if the pool is short), run the paged prefill (over the
         shared prefix pages on a hit) with its insert into the pool, and
-        seat the slot. A preempted request re-enters here with ``prompt +
-        generated``: its KV was reclaimed, so the whole context re-prefills
-        and its first token continues the generation."""
+        seat the slot -> the prefill's key. A preempted request re-enters
+        here with ``prompt + generated``: its KV was reclaimed, so the
+        whole context re-prefills and its first token continues the
+        generation."""
         seq = (req.prompt if not req.generated else
                np.concatenate([req.prompt, np.asarray(req.generated, np.int32)]))
         n = int(seq.size)
@@ -1081,6 +1394,7 @@ class ServingEngine:
         self._slot_req[slot] = req
         self._slot_len[slot] = n + 1
         self._sampling_dirty = True
+        return key
 
     def _chunk_size(self) -> int:
         """Largest safe K: at most decode_chunk, bounded by cache capacity,
@@ -1126,8 +1440,11 @@ class ServingEngine:
         caller flushed the chunk in flight, so every token decoded for it
         has been emitted; only its KV is lost."""
         req = self._slot_req[slot]
-        self.preemptions += 1
+        self._m_preempt.inc(reason="kv_pressure")
+        self._step_preempts += 1
         req.preemptions += 1
+        if req.trace is not None:
+            req.trace.event("preempted")
         self._slot_req[slot] = None
         self._sampling_dirty = True
         self.state.active[slot] = False
@@ -1195,9 +1512,14 @@ class ServingEngine:
                 self._bt_dirty = False
         self._upload_sampling()
         toks = self._decode_chunk(k, self._sampling_flags)
-        for slot, _req in self._active_requests():
+        active = self._active_requests()
+        for slot, req in active:
             self._slot_disp[slot] += k
+            if req.trace is not None:
+                req.trace.decode_chunks += 1
         self.sync_stats["chunks"] += 1
+        self.timers.note_tokens("decode_chunk_paged" if self.paged else "decode_chunk",
+                                len(active) * k)
         # Start the device->host copy now, behind the replay on the same
         # stream; the driver waits on it only after the next chunk is
         # enqueued, which overwrites the static output.
@@ -1226,11 +1548,23 @@ class ServingEngine:
                     break
 
     def _emit(self, req: Request, token: int):
+        """Hand one token to the request: TTFT (with its trace id as the
+        exemplar) and ``first_token`` at the first, the inter-token gap
+        after; the time is when the port emits it (a step's first tokens
+        are fetched before the next chunk is enqueued)."""
         now = time.monotonic()
         if not req.generated:
             req.first_token_at = now
+            self._m_ttft.observe(
+                now - req.submitted_at,
+                exemplar=req.trace.trace_id if req.trace is not None else None)
+            if req.trace is not None:
+                req.trace.event("first_token")
+        elif req.last_token_at:
+            self._m_itl.observe(now - req.last_token_at)
         req.last_token_at = now
-        self.tokens_total += 1
+        self._m_tokens.inc()
+        self._step_tokens += 1
         req.generated.append(token)
         finished = (token in self.eos_ids
                     or token in req.sampling.stop_tokens
@@ -1253,9 +1587,17 @@ class ServingEngine:
             self._free_pages(req.slot)
         with self._lock:
             self._requests.pop(req.id, None)
+        self._observe_terminal(
+            req, "timeout" if terminal and req.timed_out else
+            "cancelled" if terminal and req.cancelled else "ok")
         if terminal and req.emit:
             req.emit(-1, True)
         req.done.set()
+
+
+def _nbytes(x) -> int:
+    """Bytes of a tensor or a numpy array."""
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else int(x.nbytes)
 
 
 def _to_device(tree, device: torch.device):

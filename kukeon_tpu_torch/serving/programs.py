@@ -64,6 +64,20 @@ and padding to scratch, an int8 pool quantized at insert), and a
 block (dequantized for an int8 pool). The page ids ride in the packed
 inputs, after the tokens.
 
+**Instruments** (the engine's obs layer, when it passes them): every run
+is marked on the engine's :class:`ProgramTimers` (dispatch counted, and on
+CUDA an end event recorded behind the replay, which the engine's
+``_fetch`` settles), and every build is counted on its
+:class:`CompileTracker`. The labels are the reference's, by
+:func:`program_labels`: a fused prefill key (``prefill``,
+``prefill_paged``, ``prefill_export``) times as ``prefill`` and a
+``prefill_ext*`` key as ``prefill_ext`` (the insert it holds is not timed
+apart), the insert-only keys as ``insert`` or ``insert_paged``, a decode
+key as ``decode_chunk`` or, paged, ``decode_chunk_paged``; builds count
+as ``prefill`` (every prefill and export kind), ``insert`` or ``decode``.
+Captures hold ``capture_lock``, which the cell's profiler also takes
+around its start and stop.
+
 Before a capture the program runs once eagerly on a side stream, under
 ``torch.cuda.set_sync_debug_mode("error")``: that builds the kernels and
 cuBLAS handles, and an op that would synchronise the host (``.item()``,
@@ -76,6 +90,7 @@ even mid-traffic.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable
 
@@ -126,6 +141,18 @@ def prefill_key(bucket: int, sp: SamplingParams, prefix_bucket: int | None = Non
 def insert_key(bucket: int, paged: bool = False) -> PrefillKey:
     """The insert-only program of a KV import at ``bucket`` rows."""
     return ("insert_paged" if paged else "insert", bucket)
+
+
+def program_labels(key, paged: bool) -> tuple[str, str]:
+    """(timer label, compile label) of the program of ``key``: the
+    reference's program names (``obs/profile.py`` ``PROGRAMS``) and its
+    coarse ``prefill|insert|decode``. ``paged``: the engine's layout
+    (a decode key does not say it)."""
+    if isinstance(key[0], int):
+        return ("decode_chunk_paged" if paged else "decode_chunk"), "decode"
+    if key[0] in INSERT_KINDS:
+        return key[0], "insert"
+    return ("prefill_ext" if _is_ext(key) else "prefill"), "prefill"
 
 
 def pack_prefill_inputs(tokens: np.ndarray, bucket: int, length: int, slot: int,
@@ -268,12 +295,19 @@ class _Programs:
     device memory the captures reserved, each measured between emptied
     caches), ``replays``, ``replays_by_key``, and ``launches_by_key``
     (each program's kernel launches in one run, counted by the kernels'
-    wrappers while it was captured)."""
+    wrappers while it was captured).
+
+    ``timers`` (a ``ProgramTimers``), ``compiles`` (a ``CompileTracker``)
+    and ``cost`` (``(timer label, key) -> (FLOPs, bytes)``, each run's
+    cost on its timer mark) are the engine's instruments.
+    ``capture_lock``: held by every capture (shared by the decode and the
+    prefill programs of one engine)."""
 
     kind = "program"
 
     def __init__(self, forward: Callable, params, cfg, state: DecodeState,
-                 generator: torch.Generator, pool=None):
+                 generator: torch.Generator, pool=None, *, timers=None, compiles=None,
+                 cost: Callable | None = None, capture_lock: threading.Lock | None = None):
         self._forward = forward
         self._params = params
         self._cfg = cfg
@@ -284,6 +318,11 @@ class _Programs:
         self.pool = pool
         if pool is None and self.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
+        self._timers = timers
+        self._compiles = compiles
+        self._cost = cost
+        self._key_cost: dict = {}
+        self.capture_lock = capture_lock or threading.Lock()
         self.warm = False
         self.stats = {"captures": 0, "capture_s": 0.0, "captures_after_warmup": 0,
                       "pool_bytes": 0, "replays": 0, "replays_by_key": {},
@@ -310,10 +349,18 @@ class _Programs:
         """Run the program of ``key`` (built at first use): one graph replay
         on CUDA, the eager body on the CPU."""
         prog = self._programs.get(key) or self.build(key)
+        t0 = time.monotonic()
+        ready = None
         if prog.graph is not None:
             prog.graph.replay()
+            if self._timers is not None:
+                ready = self._timers.end_event()
+                ready.record()
         else:
             self.run_eager(key)
+        if self._timers is not None:
+            self._timers.track(program_labels(key, self.state.paged)[0]).dispatched(
+                t0, ready, self._key_cost.get(key))
         s = self.stats
         s["replays"] += 1
         s["replays_by_key"][str(key)] = s["replays_by_key"].get(str(key), 0) + 1
@@ -327,18 +374,25 @@ class _Programs:
         t0 = time.monotonic()
         s = self.stats
         if self.device.type == "cuda":
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-            prog = self._capture(key)
-            torch.cuda.empty_cache()
-            s["pool_bytes"] += torch.cuda.memory_reserved(self.device) - reserved
+            with self.capture_lock:
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
+                prog = self._capture(key)
+                torch.cuda.empty_cache()
+                s["pool_bytes"] += torch.cuda.memory_reserved(self.device) - reserved
         else:
             prog = _Program(None, {n: 0 for n in _kernel_counts()})
         self._programs[key] = prog
+        secs = time.monotonic() - t0
         s["captures"] += 1
         s["captures_after_warmup"] += self.warm
-        s["capture_s"] += time.monotonic() - t0
+        s["capture_s"] += secs
         s["launches_by_key"][str(key)] = prog.launches
+        label, coarse = program_labels(key, self.state.paged)
+        if self._compiles is not None:
+            self._compiles.note_build(coarse, secs)
+        if self._cost is not None:
+            self._key_cost[key] = self._cost(label, key)
         return prog
 
     def _capture(self, key) -> _Program:
@@ -377,8 +431,8 @@ class DecodePrograms(_Programs):
     kind = "decode"
 
     def __init__(self, forward: Callable, params, cfg, state: DecodeState,
-                 generator: torch.Generator, pool=None):
-        super().__init__(forward, params, cfg, state, generator, pool)
+                 generator: torch.Generator, pool=None, **instruments):
+        super().__init__(forward, params, cfg, state, generator, pool, **instruments)
         self._outputs: dict[int, torch.Tensor] = {}
         self.stats["steps"] = 0
 
@@ -530,8 +584,9 @@ class PrefillPrograms(_Programs):
     kind = "prefill"
 
     def __init__(self, forward: Callable, params, cfg, state: DecodeState,
-                 generator: torch.Generator, bucket: Callable[[int], int], pool=None):
-        super().__init__(forward, params, cfg, state, generator, pool)
+                 generator: torch.Generator, bucket: Callable[[int], int], pool=None,
+                 **instruments):
+        super().__init__(forward, params, cfg, state, generator, pool, **instruments)
         self._bucket = bucket
         S = state.max_len
         shape = (cfg.num_layers, 1, S, cfg.num_kv_heads, cfg.head_dim)

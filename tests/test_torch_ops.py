@@ -273,6 +273,9 @@ assert not leaked, leaked
 assert len(names) >= 25, names
 assert "kukeon_tpu_torch.serving.programs" in names, names
 assert "kukeon_tpu_torch.serving.kv_pages" in names, names
+for mod in ("obs", "obs.registry", "obs.expo", "obs.trace", "obs.slo", "obs.device",
+            "obs.profile", "runtime.devices"):
+    assert "kukeon_tpu_torch." + mod in names, (mod, names)
 print("ok", len(names))
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

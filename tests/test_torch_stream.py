@@ -135,7 +135,7 @@ def test_stream_deltas_survive_split_utf8_codepoint(cells):
     class FakeEngine:
         running = True          # the consumer reads straight off the queue
 
-        def submit(self, prompt, sp, emit=None, prefix_id=None, deadline_s=None):
+        def submit(self, prompt, sp, emit=None, prefix_id=None, deadline_s=None, trace_ctx=None):
             r = FakeReq()
             for i, tok in enumerate(script):
                 emit(tok, i == len(script) - 1)
@@ -230,7 +230,7 @@ def test_ndjson_error_after_headers_stays_in_band():
         def readiness(self):
             return True, None
 
-        def generate_stream(self, req):
+        def generate_stream(self, req, trace_ctx=None):
             yield {"token": 1, "text": "a"}
             raise RuntimeError("device lost mid-stream")
 
