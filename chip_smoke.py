@@ -3,7 +3,8 @@ against its plain version, check the 8B and Mixtral models and their
 decode and prefill graphs (legacy and paged KV), serve both (streamed,
 observed through the cell's metrics, traces, timers and profiler, agent
 sessions through the prefix cache, the paged KV cache, and the KV
-handoff between a prefill and a decode cell), and train.
+handoff between a prefill and a decode cell), serve bge-base embeddings,
+and train Llama and Mixtral.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -30,11 +31,12 @@ time; any failure ends the run with a nonzero exit and no result line:
               at every 8B shape and at the tied head, B 4 and 64, is
               bit-identical
   flash       flash_attention vs flash_attention_reference: llama3-1b
-              training heads (B 4, S 2048, H 32, KV 8, D 64), llama3-8b heads
-              (B 1, S 1024, D 128), offset positions, KV = H, a ragged S
-              (160), and an f32 case; at the llama3-1b shape: kernel, plain
-              and library (scaled_dot_product_attention) times beside the
-              bound, the kernels' device time (torch.profiler), and the
+              training heads (B 4, S 2048, H 32, KV 8, D 64), Mixtral's
+              training heads (B 2, S 2048, H 32, KV 8, D 128), llama3-8b
+              heads (B 1, S 1024, D 128), offset positions, KV = H, a ragged
+              S (160), and an f32 case; at both training shapes: kernel,
+              plain and library (scaled_dot_product_attention) times beside
+              the bound, the kernels' device time (torch.profiler), and the
               shares of the bf16 peak; then S 8192 (B 1, H 8, KV 2, D 64)
               in full and S 65792 (B 1, H 1, D 64, kv-tile lists past
               shared memory) on three 256-row query slices against all keys
@@ -166,11 +168,26 @@ time; any failure ends the run with a nonzero exit and no result line:
               line, tokens/s, export ms, wire bytes and import to first
               line (p50), the decode engine's 16-step replay ms a step,
               prefix hits, no capture, the warm sessions' tokens again
+  serve_embed  the port's EmbeddingCell("bge-base") at full width and
+              depth, bf16, 16-row grids, over HTTP: 64 inputTokens sequences
+              of 8-512 tokens over every length bucket, in bursts of 16
+              (a warm pass, then a timed one: seq/s, burst latency p50),
+              and a few "inputs" strings; every vector of unit norm, each
+              within cosine 0.999 of the port's f32 forward of the same
+              weights, one sequence alone and inside a padded grid within
+              cosine 0.9999, and /metrics counting the sequences
   train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
               and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
               and 8, then a resumed run of 2 more steps; the loss falls,
               32 flash launches a step, restored params equal the saved ones
+  train_moe   Mixtral-8x7B at full width and 4 layers (6.07 B parameters),
+              bf16, B 2, S 2048, 6 steps through create_moe_train_state and
+              make_moe_train_step: a no-grad forward with the reference
+              attention first (its loss within 1e-2 of step 1's), the
+              losses finite and falling, 8 flash launches a step; step ms,
+              tok/s, peak memory and mfu; then the CLI's mixtral-tiny branch,
+              4 steps and 2 resumed from its checkpoint, gated as train
 
 Serving decodes through CUDA graph replays, where the kernels' Python
 launch counters move only while a graph is captured. So a serve phase
@@ -223,6 +240,7 @@ K3_SOURCE = "kukeon_tpu_torch/csrc/flash_attention.cu"
 # Flash cases: (label, B, S, H, KV, D, dtype, position offsets per batch row).
 FLASH_CASES = (
     ("llama3-1b train", 4, 2048, 32, 8, 64, torch.bfloat16, None),
+    ("mixtral train", 2, 2048, 32, 8, 128, torch.bfloat16, None),
     ("llama3-8b heads", 1, 1024, 32, 8, 128, torch.bfloat16, None),
     ("offset positions", 2, 1024, 8, 2, 64, torch.bfloat16, (100, 7)),
     ("KV = H", 2, 1024, 8, 8, 64, torch.bfloat16, None),
@@ -245,6 +263,13 @@ K2_DESIGN = ("bf16: zero-expert skip, 4-stage cp.async weight ring, mma.sync "
              "m16n8k16 with exact prmt/fadd int8->bf16, fixed-order split-K reduce")
 MOE_TOKENS, MOE_TOP_K = 4, 2
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_MORE = 4, 2048, 8, 2
+# train_moe: Mixtral-8x7B at full width, cut to MOE_TRAIN_LAYERS layers
+# (bf16 params, grads and both moments: 8 bytes a parameter, 48.5 GB at 4
+# layers), and the CLI's mixtral-tiny run.
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 2, 2048, 6
+TINY_MOE_B, TINY_MOE_S, TINY_MOE_STEPS, TINY_MOE_MORE = 4, 128, 4, 2
+# serve_embed: bge-base's grid rows and traffic.
+EMBED_GRID, EMBED_SEQS, EMBED_BURST = 16, 64, 16
 # (K, N) of the llama3-8b decode projections, with launches per step.
 SHAPES_8B = {"wq": (4096, 4096, 32), "wk": (4096, 1024, 32), "wv": (4096, 1024, 32),
              "wo": (4096, 4096, 32), "w_gate": (4096, 14336, 32),
@@ -269,7 +294,8 @@ FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
               ("S 65792", 1, 65792, 1, 1, 64, 256))
 PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs", "serve_tied",
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
-          "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "train")   # in run order
+          "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed", "train",
+          "train_moe")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
 STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
                  "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
@@ -843,7 +869,7 @@ def twin_cell(cell, kv_page_tokens: int = 64, role: str | None = None,
     twin.boot_s = {}
     twin.role = role or cell.role
     twin._init_lifecycle()
-    twin._init_cell_obs(registry, kind="decoder")
+    twin._init_cell_obs(registry, "decoder", twin.engine.device, twin.engine)
     twin.slo = SloTracker(registry, cell.slo.objectives)
     return twin
 
@@ -2453,15 +2479,19 @@ def flash_flops(B: int, S: int, H: int, D: int) -> float:
     return 2.0 * B * H * S * S * D
 
 
+# The flash cases timed, and the key of each one's timing in the phase.
+FLASH_TIMED = {"llama3-1b train": "timing", "mixtral train": "timing_mixtral_train"}
+
+
 def phase_flash(fa, bps: float, flush: torch.Tensor) -> dict:
     """Hold the flash kernel against its plain version at every case; time
-    it at the llama3-1b training shape."""
+    it at the llama3-1b and the Mixtral training shapes."""
     import torch.nn.functional as F
 
     from kukeon_tpu_torch.ops.attention import repeat_kv
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    cases, timing = [], None
+    cases, timings = [], {}
     for label, B, S, H, KV, D, dt, offsets in FLASH_CASES:
         q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dt)
         k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(dt)
@@ -2479,7 +2509,7 @@ def phase_flash(fa, bps: float, flush: torch.Tensor) -> dict:
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain version: "
                                  f"{cases[-1]}")
-        if label != "llama3-1b train":
+        if label not in FLASH_TIMED:
             continue
         n_rep = H // KV
         qt, kt, vt = (x.transpose(1, 2) for x in (q, repeat_kv(k, n_rep), repeat_kv(v, n_rep)))
@@ -2507,8 +2537,9 @@ def phase_flash(fa, bps: float, flush: torch.Tensor) -> dict:
         timing["device_ms"] = sum(timing["device_ms_per_call"].values())
         timing["device_peak_share"] = (flash_flops(B, S, H, D) / (timing["device_ms"] / 1e3)
                                        / BF16_FLOPS)
+        timings[FLASH_TIMED[label]] = timing
         del qt, kt, vt
-    return {"cases": cases, "timing": timing,
+    return {"cases": cases, **timings,
             "tolerance": "bf16: |err| <= 2^-7 (|ref| + max|v|) and rms(err) <= 2^-7 "
                          "rms(ref); f32: |err| <= 2e-5 (|ref| + 1)"}
 
@@ -2549,13 +2580,118 @@ def flash_long(fa) -> list:
     return cases
 
 
-def zipf_dataset(path: str, n_tokens: int, seed: int) -> None:
-    """Token ids with a Zipf-like law over the first 4096 ids of the
-    vocabulary: a unigram the model can learn within a few steps."""
+def embed_lengths(rng: np.random.Generator) -> list:
+    """EMBED_SEQS lengths from 8 to 512, spread over every length bucket
+    (an equal share in each bucket's range), in a random order."""
+    from kukeon_tpu_torch.serving.embedding import EMBED_BUCKETS
+
+    lo = [8] + [b + 1 for b in EMBED_BUCKETS[:-1]]
+    per = -(-EMBED_SEQS // len(EMBED_BUCKETS))
+    lengths = np.concatenate([rng.integers(a, b + 1, per) for a, b in zip(lo, EMBED_BUCKETS)])
+    lengths[0], lengths[1] = 8, 512
+    return [int(n) for n in rng.permutation(lengths[:EMBED_SEQS])]
+
+
+def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.sum(a * b, axis=-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def serve_embed() -> dict:
+    """bge-base behind the port's EmbeddingCell over HTTP (module docstring)."""
+    from kukeon_tpu_torch.models import bert
+    from kukeon_tpu_torch.runtime.serving_cell import EmbeddingCell, serve
+    from kukeon_tpu_torch.serving import EmbeddingEngine
+
+    t0 = time.monotonic()
+    cell = EmbeddingCell("bge-base", batch_size=EMBED_GRID, device="cuda")
+    cell.warmup()
+    boot_s = time.monotonic() - t0
+    server = serve(cell)
+    cell.mark_ready()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    cfg = cell.cfg
+    try:
+        rng = np.random.default_rng(13)
+        lengths = embed_lengths(rng)
+        seqs = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lengths]
+        bursts = [seqs[i:i + EMBED_BURST] for i in range(0, len(seqs), EMBED_BURST)]
+        passes = {}
+        for name in ("warm", "timed"):
+            vecs, burst_ms = [], []
+            t0 = time.monotonic()
+            for burst in bursts:
+                t1 = time.monotonic()
+                out = post(base + "/v1/embed", {"inputTokens": burst})
+                burst_ms.append((time.monotonic() - t1) * 1e3)
+                if out["numSequences"] != len(burst) or out["dim"] != cfg.hidden_size:
+                    raise AssertionError(f"/v1/embed answered {out['numSequences']} vectors "
+                                         f"of {out['dim']}")
+                vecs.extend(out["embeddings"])
+            passes[name] = {"wall_s": time.monotonic() - t0, "burst_ms": burst_ms,
+                            "vecs": np.array(vecs, np.float32)}
+        vecs = passes["timed"]["vecs"]
+        texts = ["an agent's tool call", "the same agent, another call",
+                 "a much longer string of text for the byte tokenizer to embed, " * 4]
+        text_out = post(base + "/v1/embed", {"inputs": texts})
+        text_vecs = np.array(text_out["embeddings"], np.float32)
+        # The shortest sequence of a burst that reached the 512 bucket,
+        # alone: its grid is its own bucket, 15 rows padded.
+        burst = next(b for b in bursts if max(len(x) for x in b) > 256)
+        k = min(range(len(burst)), key=lambda i: len(burst[i]))
+        alone = np.array(post(base + "/v1/embed", {"inputTokens": [burst[k]]})["embeddings"][0],
+                         np.float32)
+        in_grid = vecs[bursts.index(burst) * EMBED_BURST + k]
+        m, _ms = scrape(base)
+        sent = 2 * len(seqs) + len(texts) + 1
+        counted = metric(m, "kukeon_embed_sequences_total")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # The port's own f32 forward of the same weights, on the card.
+    f32 = EmbeddingEngine(dataclasses.replace(cfg, dtype=torch.float32),
+                          {g: {n: t.float() for n, t in tree.items()}
+                           for g, tree in cell.engine.params.items()},
+                          batch_size=EMBED_GRID, device="cuda")
+    want = f32.embed_batch([np.asarray(x, np.int32) for x in seqs])
+    del f32, cell
+    norms = np.linalg.norm(np.concatenate([vecs, text_vecs, alone[None]]), axis=-1)
+    cos_f32 = cosines(vecs, want)
+    cos_alone = float(cosines(alone[None], in_grid[None])[0])
+    repeat_equal = bool(np.array_equal(passes["warm"]["vecs"], vecs))
+    if not np.all(np.abs(norms - 1) <= 1e-3):
+        raise AssertionError(f"bge-base: vectors off unit norm: {norms.min()}..{norms.max()}")
+    if cos_f32.min() < 0.999:
+        raise AssertionError(f"bge-base bf16 against f32: cosine {cos_f32.min()} < 0.999")
+    if cos_alone < 0.9999:
+        raise AssertionError(f"bge-base: one sequence alone against in a padded grid: "
+                             f"cosine {cos_alone} < 0.9999")
+    if counted != sent:
+        raise AssertionError(f"/metrics counts {counted} sequences, {sent} were sent")
+    timed = passes["timed"]
+    return {"model": "bge-base", "dtype": "bfloat16", "params": cfg.param_count(),
+            "grid_rows": EMBED_GRID, "sequences": len(seqs), "burst": EMBED_BURST,
+            "lengths": lengths, "tokens": int(sum(lengths)), "boot_s": round(boot_s, 3),
+            "seq_per_s": round(len(seqs) / timed["wall_s"], 1),
+            "tokens_per_s": round(sum(lengths) / timed["wall_s"], 1),
+            "burst_ms": [round(x, 3) for x in timed["burst_ms"]],
+            "burst_ms_p50": round(statistics.median(timed["burst_ms"]), 3),
+            "warm_pass_burst_ms": [round(x, 3) for x in passes["warm"]["burst_ms"]],
+            "repeat_bitwise_equal": repeat_equal,
+            "norm_err_max": float(np.abs(norms - 1).max()),
+            "cosine_to_f32_min": float(cos_f32.min()),
+            "alone_vs_in_grid": {"length": len(burst[k]), "grid_len": 512,
+                                 "cosine": cos_alone},
+            "metrics_sequences_total": counted}
+
+
+def zipf_dataset(path: str, n_tokens: int, seed: int, vocab: int = 4096) -> None:
+    """Token ids with a Zipf-like law over the first min(4096, vocab) ids
+    of the vocabulary: a unigram the model can learn within a few steps."""
     from kukeon_tpu_torch.training import TokenDataset
 
     rng = np.random.default_rng(seed)
-    TokenDataset.write(path, (rng.zipf(1.2, n_tokens) - 1) % 4096)
+    TokenDataset.write(path, (rng.zipf(1.2, n_tokens) - 1) % min(4096, vocab))
 
 
 def profile_train_step(data: str) -> dict:
@@ -2586,6 +2722,12 @@ def profile_train_step(data: str) -> dict:
             float(loss)
             torch.cuda.synchronize()
             wall_ms = (time.monotonic() - t0) * 1e3
+    return step_breakdown(prof, wall_ms)
+
+
+def step_breakdown(prof, wall_ms: float) -> dict:
+    """A profiled train step: device busy and idle share of its wall time,
+    device ms by kernel kind, and the kernels that take the most."""
     kernels = device_kernels(prof)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
 
@@ -2607,19 +2749,23 @@ def profile_train_step(data: str) -> dict:
             "top_device_ms": [[e.key[:70], round(dev_us(e) / 1e3, 3), e.count] for e in top]}
 
 
-def phase_train(fa) -> dict:
-    """The port's trainer, in process, through its entry point."""
+def cli_train_twice(fa, common: list, steps: int, more: int) -> dict:
+    """The training CLI (``common`` holds ``--ckpt-dir``) for ``steps``
+    steps, then again to ``steps + more``, resuming: each run's log and
+    flash launches (the counter set to 0 just before it), the first run's
+    peak memory and checkpoints (all but the newest deleted after it), and
+    host copies of the params saved at ``steps`` and of those the second run
+    restored."""
     import kukeon_tpu_torch.training as training
-    from kukeon_tpu_torch.models import llama
     from kukeon_tpu_torch.training import cli
     from kukeon_tpu_torch.training.train_step import tree_leaves
 
-    cfg = llama.llama3_1b()
+    ckpt = common[common.index("--ckpt-dir") + 1]
     saved, restored = {}, {}
     real_save, real_restore = training.save_checkpoint, training.restore_checkpoint
 
     def save(root, state):          # keeps a host copy of what was saved at the end
-        if state.step == TRAIN_STEPS and "params" not in saved:
+        if state.step == steps and "params" not in saved:
             saved["params"] = [t.detach().to("cpu", copy=True) for t in tree_leaves(state.params)]
         return real_save(root, state)
 
@@ -2629,68 +2775,85 @@ def phase_train(fa) -> dict:
         restored["params"] = [t.detach().to("cpu", copy=True) for t in tree_leaves(state.params)]
         return state
 
-    tmp = tempfile.mkdtemp(prefix="kukeon-train-")
+    out = {}
+    training.save_checkpoint, training.restore_checkpoint = save, restore
     try:
-        data = os.path.join(tmp, "tokens.bin")
-        zipf_dataset(data, 4_000_000, seed=0)
-        ckpt = os.path.join(tmp, "ckpt")
-        common = ["--dataset", data, "--model", "llama3-1b", "--batch", str(TRAIN_B),
-                  "--seq-len", str(TRAIN_S), "--lr", "3e-4", "--warmup-steps", "1",
-                  "--log-every", "1", "--ckpt-dir", ckpt, "--save-every", "4"]
-        training.save_checkpoint, training.restore_checkpoint = save, restore
-        try:
+        for run, total in (("first", steps), ("second", steps + more)):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             buf = io.StringIO()
             fa.flash_attention.launches = 0
             with contextlib.redirect_stdout(buf):
-                rc = cli.main(common + ["--steps", str(TRAIN_STEPS)])
+                rc = cli.main(common + ["--steps", str(total)])
             torch.cuda.synchronize()
-            launches = fa.flash_attention.launches
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            first_log = buf.getvalue()
-            steps_saved = sorted(os.listdir(ckpt))
-            shutil.rmtree(os.path.join(ckpt, "step_00000004"))   # disk: keep the newest
-            gc.collect()
-            torch.cuda.empty_cache()
-            buf = io.StringIO()
-            fa.flash_attention.launches = 0
-            with contextlib.redirect_stdout(buf):
-                rc2 = cli.main(common + ["--steps", str(TRAIN_STEPS + TRAIN_MORE)])
-            torch.cuda.synchronize()
-            launches2 = fa.flash_attention.launches
-            second_log = buf.getvalue()
-        finally:
-            training.save_checkpoint, training.restore_checkpoint = real_save, real_restore
+            out[run] = {"rc": rc, "log": buf.getvalue(),
+                        "launches": fa.flash_attention.launches,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if run == "first":
+                out["steps_saved"] = sorted(os.listdir(ckpt))
+                for d in out["steps_saved"][:-1]:          # disk: keep the newest
+                    shutil.rmtree(os.path.join(ckpt, d))
+    finally:
+        training.save_checkpoint, training.restore_checkpoint = real_save, real_restore
+    out["saved"], out["restored"] = saved, restored
+    sys.stdout.write(out["first"]["log"] + out["second"]["log"])
+    return out
+
+
+def check_cli_runs(r: dict, steps: int, more: int, saves: list) -> tuple[dict, dict, list]:
+    """Gate :func:`cli_train_twice`'s runs: exit 0, the step lines of both
+    runs, finite and falling losses, the checkpoints ``saves``, the resume
+    at ``steps`` and the restored params equal to the saved ones. Returns
+    each run's {step: (loss, tok/s)} and the losses in order."""
+
+    def parse(log):
+        rows = [ln.split() for ln in log.splitlines() if ln.startswith("step ")]
+        # "step N loss X [lb=Y] (T tok/s)": the tok/s is the next to last field.
+        return {int(row[1]): (float(row[3]), float(row[-2].lstrip("("))) for row in rows}
+
+    run1, run2 = parse(r["first"]["log"]), parse(r["second"]["log"])
+    losses = [run1[i][0] for i in sorted(run1)] + [run2[i][0] for i in sorted(run2)]
+    if r["first"]["rc"] != 0 or r["second"]["rc"] != 0:
+        raise AssertionError(f"training exited {r['first']['rc']}, {r['second']['rc']}")
+    if sorted(run1) != list(range(1, steps + 1)) or \
+            sorted(run2) != list(range(steps + 1, steps + more + 1)):
+        raise AssertionError(f"unexpected step lines: {sorted(run1)}, {sorted(run2)}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if r["steps_saved"] != [f"step_{s:08d}" for s in saves]:
+        raise AssertionError(f"checkpoints {r['steps_saved']}, want steps {saves}")
+    if f"train: resumed from step {steps}" not in r["second"]["log"] or \
+            r["restored"].get("step") != steps:
+        raise AssertionError(f"the second run did not resume at step {steps}")
+    saved, restored = r["saved"]["params"], r["restored"]["params"]
+    if len(saved) != len(restored) or not all(
+            torch.equal(a, b) for a, b in zip(saved, restored)):
+        raise AssertionError("restored params differ from the saved ones")
+    return run1, run2, losses
+
+
+def phase_train(fa) -> dict:
+    """The port's trainer, in process, through its entry point."""
+    from kukeon_tpu_torch.models import llama
+
+    cfg = llama.llama3_1b()
+    tmp = tempfile.mkdtemp(prefix="kukeon-train-")
+    try:
+        data = os.path.join(tmp, "tokens.bin")
+        zipf_dataset(data, 4_000_000, seed=0)
+        common = ["--dataset", data, "--model", "llama3-1b", "--batch", str(TRAIN_B),
+                  "--seq-len", str(TRAIN_S), "--lr", "3e-4", "--warmup-steps", "1",
+                  "--log-every", "1", "--ckpt-dir", os.path.join(tmp, "ckpt"),
+                  "--save-every", "4"]
+        r = cli_train_twice(fa, common, TRAIN_STEPS, TRAIN_MORE)
         gc.collect()
         torch.cuda.empty_cache()
         prof = profile_train_step(data)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    sys.stdout.write(first_log + second_log)
-
-    def parse(log):
-        rows = [ln.split() for ln in log.splitlines() if ln.startswith("step ")]
-        return {int(r[1]): (float(r[3]), float(r[4].lstrip("("))) for r in rows}
-
-    run1, run2 = parse(first_log), parse(second_log)
-    losses = [run1[i][0] for i in sorted(run1)] + [run2[i][0] for i in sorted(run2)]
-    if rc != 0 or rc2 != 0:
-        raise AssertionError(f"training exited {rc}, {rc2}")
-    if sorted(run1) != list(range(1, TRAIN_STEPS + 1)) or \
-            sorted(run2) != list(range(TRAIN_STEPS + 1, TRAIN_STEPS + TRAIN_MORE + 1)):
-        raise AssertionError(f"unexpected step lines: {sorted(run1)}, {sorted(run2)}")
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
-    if steps_saved != ["step_00000004", "step_00000008"]:
-        raise AssertionError(f"checkpoints {steps_saved}, want steps 4 and 8")
-    if f"train: resumed from step {TRAIN_STEPS}" not in second_log or \
-            restored.get("step") != TRAIN_STEPS:
-        raise AssertionError(f"the second run did not resume at step {TRAIN_STEPS}")
-    if len(saved["params"]) != len(restored["params"]) or not all(
-            torch.equal(a, b) for a, b in zip(saved["params"], restored["params"])):
-        raise AssertionError("restored params differ from the saved ones")
+    run1, _run2, losses = check_cli_runs(r, TRAIN_STEPS, TRAIN_MORE, [4, 8])
+    launches, launches2 = r["first"]["launches"], r["second"]["launches"]
     per_step = 2 * cfg.num_layers       # forward + remat recompute, every layer
     if launches != per_step * TRAIN_STEPS or launches2 != per_step * TRAIN_MORE:
         raise AssertionError(f"flash launches {launches} and {launches2}, want "
@@ -2707,11 +2870,157 @@ def phase_train(fa) -> dict:
             "tokens_per_s": round(tokens / step_ms * 1e3, 1),
             "mfu": round(flops / (step_ms / 1e3) / BF16_FLOPS, 4),
             "mfu_flops_per_step": flops,
-            "peak_mem_gb": round(peak_gb, 2),
+            "peak_mem_gb": round(r["first"]["peak_gb"], 2),
             "flash_launches": launches, "flash_launches_per_step": launches // TRAIN_STEPS,
             "flash_launches_resumed": launches2,
-            "resumed_from": restored["step"], "restored_params_bitwise_equal": True,
+            "resumed_from": r["restored"]["step"], "restored_params_bitwise_equal": True,
             "profile": prof}
+
+
+def moe_active_params(cfg) -> int:
+    """Parameters a token's forward multiplies by: attention, the router and
+    its top-k experts in every layer, and the LM head (the embedding is a
+    lookup)."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    attn = H * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * H
+    experts = cfg.experts_per_token * 3 * H * I
+    return cfg.num_layers * (attn + experts + H * cfg.num_experts) + H * cfg.vocab_size
+
+
+def phase_train_moe(fa) -> dict:
+    """MoE training: Mixtral-8x7B at full width and MOE_TRAIN_LAYERS layers
+    through create_moe_train_state and make_moe_train_step (the CLI has no
+    depth flag), then the CLI's mixtral-tiny branch with a resume."""
+    from kukeon_tpu_torch.models import moe
+    from kukeon_tpu_torch.training import (
+        TokenDataset,
+        batches,
+        create_moe_train_state,
+        make_moe_train_step,
+    )
+    from kukeon_tpu_torch.training.train_step import cross_entropy_loss, make_optimizer
+
+    cfg = dataclasses.replace(moe.mixtral_8x7b(), num_layers=MOE_TRAIN_LAYERS)
+    B, S, steps = MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    print(f"train_moe: {free_gb:.2f} GB free on the card at the start", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="kukeon-train-moe-")
+    try:
+        data = os.path.join(tmp, "tokens.bin")
+        zipf_dataset(data, 1_000_000, seed=1, vocab=cfg.vocab_size)
+        opt = make_optimizer(3e-4, warmup_steps=1, total_steps=steps)
+        t0 = time.monotonic()
+        state, opt = create_moe_train_state(cfg, torch.Generator(device="cuda").manual_seed(2),
+                                            "cuda", opt)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        step = make_moe_train_step(cfg, opt)
+        feed = list(batches(TokenDataset(data), B, S, num_steps=steps, seed=0, device="cuda"))
+
+        # The same params and first batch through the reference attention,
+        # no grad: the loss step 1 must report.
+        _s, tok, tgt, mask = feed[0]
+        pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :].expand(B, S).contiguous()
+        with torch.no_grad():
+            logits, _, aux = moe.forward_with_aux(state.params, cfg, tok, pos,
+                                                  attn_impl="reference")
+            ref_loss = float(cross_entropy_loss(logits, tgt, mask)
+                             + cfg.load_balance_coef * aux["load_balance"]
+                             + cfg.router_z_coef * aux["router_z"])
+            del logits, aux
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rows, step_ms, per_step = [], [], []
+        fa.flash_attention.launches = 0
+        for _s, tok, tgt, mask in feed:
+            before = fa.flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = step(state, tok, tgt, mask)
+            rows.append({k: float(v) for k, v in m.items()})     # waits for the device
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            per_step.append(fa.flash_attention.launches - before)
+            print(f"train_moe: step {len(rows)} loss {rows[-1]['loss']:.4f} "
+                  f"lb={rows[-1]['load_balance']:.3f} ({step_ms[-1]:.1f} ms)", flush=True)
+        launches = fa.flash_attention.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # One more step (the last batch again) under the profiler.
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            state, m = step(state, tok, tgt, mask)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        profiled = step_breakdown(prof, wall_ms)
+        del state, opt, step, feed, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tiny = os.path.join(tmp, "tiny.bin")
+        zipf_dataset(tiny, 200_000, seed=2, vocab=moe.moe_tiny().vocab_size)
+        common = ["--dataset", tiny, "--model", "mixtral-tiny", "--batch", str(TINY_MOE_B),
+                  "--seq-len", str(TINY_MOE_S), "--lr", "3e-3", "--warmup-steps", "1",
+                  "--log-every", "1", "--ckpt-dir", os.path.join(tmp, "ckpt"),
+                  "--save-every", "2"]
+        r = cli_train_twice(fa, common, TINY_MOE_STEPS, TINY_MOE_MORE)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    losses = [row["loss"] for row in rows]
+    if not all(math.isfinite(v) for row in rows for v in row.values()) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"mixtral train: the loss did not fall: {rows}")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if rel > 1e-2:
+        raise AssertionError(f"mixtral train: step 1's loss {losses[0]} is {rel:.4f} "
+                             f"relative from the reference attention's {ref_loss}")
+    want = 2 * cfg.num_layers       # forward + remat recompute, every layer
+    if per_step != [want] * steps or launches != want * steps:
+        raise AssertionError(f"mixtral train: flash launches {per_step}, want {want} a step")
+    _run1, _run2, tiny_losses = check_cli_runs(r, TINY_MOE_STEPS, TINY_MOE_MORE, [2, 4])
+    if not all("lb=" in ln for ln in (r["first"]["log"] + r["second"]["log"]).splitlines()
+               if ln.startswith("step ")):
+        raise AssertionError("mixtral-tiny step lines carry no lb=")
+
+    tokens = B * S
+    ms = statistics.median(step_ms[2:])
+    active = moe_active_params(cfg)
+    attn_flops = 3 * cfg.num_layers * flash_flops(B, S, cfg.num_heads, cfg.head_dim)
+    flops = 6.0 * active * tokens + attn_flops
+    # The dense dispatch runs every expert on all E·C capacity slots,
+    # empty ones included, where the active count has K·N.
+    C = moe._capacity(cfg, tokens)
+    slot_flops = (6.0 * cfg.num_layers * cfg.num_experts * C
+                  * 3 * cfg.hidden_size * cfg.intermediate_size)
+    return {"model": f"mixtral-8x7b, {cfg.num_layers} layers", "batch": B, "seq_len": S,
+            "steps": steps, "params": cfg.param_count(), "active_params": active,
+            "free_gb_at_start": round(free_gb, 2), "init_s": round(init_s, 3),
+            "reference_attention_loss": ref_loss, "step1_loss": losses[0],
+            "step1_rel_diff": rel, "metrics": rows, "losses": losses,
+            "step_ms": [round(x, 3) for x in step_ms],
+            "step_ms_median_3_6": round(ms, 3),
+            "tokens_per_s": round(tokens / ms * 1e3, 1),
+            "mfu": round(flops / (ms / 1e3) / BF16_FLOPS, 4),
+            "mfu_formula": "(6 * active_params * B * S + 3 * L * 2 * B * H * S^2 * D) / step "
+                           "/ 989e12; active: attention, router, top-2 of 8 experts, LM head",
+            "mfu_flops_per_step": flops,
+            "expert_slot_flops_per_step": slot_flops,
+            "expert_active_flops_per_step": (6.0 * cfg.num_layers * cfg.experts_per_token
+                                             * tokens * 3 * cfg.hidden_size
+                                             * cfg.intermediate_size),
+            "capacity": C, "peak_mem_gb": round(peak_gb, 2), "profile": profiled,
+            "flash_launches": launches, "flash_launches_per_step": per_step,
+            "tiny_cli": {"losses": tiny_losses, "resumed_from": r["restored"]["step"],
+                         "restored_params_bitwise_equal": True,
+                         "flash_launches": [r["first"]["launches"], r["second"]["launches"]]}}
 
 
 def sass_counts(built: dict) -> dict:
@@ -2893,7 +3202,18 @@ def main(argv=None) -> int:
                                                / out["step_ms_median_3_8"], 4)
         return out
 
+    run("serve_embed", serve_embed)
     run("train", train)
+
+    def train_moe():
+        out = phase_train_moe(fa)
+        if "flash" in res:
+            out["flash_share_of_step"] = round(
+                res["flash"]["timing_mixtral_train"]["ms"] * out["flash_launches_per_step"][0]
+                / out["step_ms_median_3_6"], 4)
+        return out
+
+    run("train_moe", train_moe)
     if set(phases) != set(PHASES):
         print("chip_smoke: ran a subset of the phases; no result line", file=sys.stderr)
         return 0
@@ -2901,7 +3221,8 @@ def main(argv=None) -> int:
     kern, flash, moe_kern = res["kernel"], res["flash"], res["moe_kernel"]
     serve8, serve1, serve_moe, train = (res["serve"], res["serve_tied"], res["serve_moe"],
                                         res["train"])
-    ft = flash["timing"]
+    train_moe, embed = res["train_moe"], res["serve_embed"]
+    ft, fm = flash["timing"], flash["timing_mixtral_train"]
     for label, run_, key in (("llama3-8b", serve8, "k1"), ("llama3-1b", serve1, "k1t"),
                              ("mixtral-8x7b", serve_moe, "k1"), ("mixtral-8x7b", serve_moe, "k2")):
         if run_["launches"][key] <= 0:
@@ -2945,14 +3266,24 @@ def main(argv=None) -> int:
          "unit": "llama3-1b tied LM head, B=4; device_ms_transposed_b4: one call at each "
                  "further transposed (K x N), B=4"},
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
-         "replaces": K3_REPLACES, "launches": train["flash_launches"],
+         "replaces": K3_REPLACES,
+         "launches": train["flash_launches"] + train_moe["flash_launches"],
+         "launches_train": train["flash_launches"],
+         "launches_train_moe": train_moe["flash_launches"],
          "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),
          **{f: round(ft[f], 4) for f in fields},
          "bound_by": ft["bound_by"], "library_ms_call": ft["library_call"],
          "peak_share": round(ft["peak_share"], 4), "device_ms": round(ft["device_ms"], 4),
-         "device_peak_share": round(ft["device_peak_share"], 4), "design": K3_DESIGN,
-         "unit": "one call at B=4 S=2048 H=32 KV=8 D=64 bf16 (llama3-1b training); "
-                 f"{train['flash_launches_per_step']} launches per train step"},
+         "device_peak_share": round(ft["device_peak_share"], 4),
+         "mixtral_train": {**{f: round(fm[f], 4) for f in fields},
+                           "bound_by": fm["bound_by"], "max_abs_err": fm["max_abs_err"],
+                           "device_ms": round(fm["device_ms"], 4),
+                           "device_peak_share": round(fm["device_peak_share"], 4)},
+         "design": K3_DESIGN,
+         "unit": "one call at B=4 S=2048 H=32 KV=8 D=64 bf16 (llama3-1b training), "
+                 f"{train['flash_launches_per_step']} launches per train step; mixtral_train: "
+                 "one call at B=2 S=2048 H=32 KV=8 D=128, "
+                 f"{train_moe['flash_launches_per_step'][0]} launches per MoE train step"},
         {"name": "int8_matmul_expert", "route": "cuda", "source": K1_SOURCE,
          "replaces": K2_REPLACES, "launches": serve_moe["launches"]["k2"],
          "launches_paged": serve_moe["paged"]["launches"]["k2"],
@@ -3015,7 +3346,13 @@ def main(argv=None) -> int:
             "arms": sdg["arms"], "wall_s": sdg["wall_s"]},
         "train_llama3-1b": {k: train[k] for k in (
             "step_ms_median_3_8", "tokens_per_s", "mfu", "peak_mem_gb", "first_loss",
-            "last_loss", "flash_launches_per_step", "flash_share_of_step")}}})
+            "last_loss", "flash_launches_per_step", "flash_share_of_step")},
+        "train_moe_mixtral-8x7b_4_layers": {k: train_moe[k] for k in (
+            "step_ms_median_3_6", "tokens_per_s", "mfu", "peak_mem_gb", "losses",
+            "step1_rel_diff", "flash_launches_per_step")},
+        "serve_embed_bge-base": {k: embed[k] for k in (
+            "seq_per_s", "tokens_per_s", "burst_ms_p50", "cosine_to_f32_min",
+            "alone_vs_in_grid")}}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

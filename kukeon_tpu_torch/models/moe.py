@@ -17,6 +17,11 @@ included. Overflow tokens (training capacity) fall through the residual.
 At decode, with ``cfg.int8_pallas``, int8 expert stacks go through
 :func:`~kukeon_tpu_torch.ops.int8_matmul.int8_matmul_expert` (the CUDA
 kernel, all experts in one launch) and the trunk through ``int8_matmul``.
+
+Training (the reference's ``forward_with_aux`` under ``jax.value_and_grad``)
+runs the no-cache path, with ``remat=True`` each block under non-reentrant
+``torch.utils.checkpoint``; the block returns its aux losses beside its
+output, so their gradients reach the router through the recompute.
 """
 
 from __future__ import annotations
@@ -315,6 +320,32 @@ def _decode_forward(params: Params, c: MoEConfig, x: torch.Tensor,
     return llama._logits(params, c, x, kern), cache
 
 
+def moe_transformer_block(
+    x: torch.Tensor,
+    w: dict,
+    cfg: MoEConfig,
+    positions: torch.Tensor,
+    attn_impl: str,
+    rope: tuple[torch.Tensor, torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One no-cache MoE block over [B, S, H] with the training capacity:
+    (output, load balance, router z), the unit that ``remat`` recomputes."""
+    c = cfg
+    B, S = x.shape[:2]
+    h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
+    q = _mm(h, w["wq"]).reshape(B, S, c.num_heads, c.head_dim)
+    k = _mm(h, w["wk"]).reshape(B, S, c.num_kv_heads, c.head_dim)
+    v = _mm(h, w["wv"]).reshape(B, S, c.num_kv_heads, c.head_dim)
+    q = apply_rope(q, positions, c.rope_theta, rope)
+    k = apply_rope(k, positions, c.rope_theta, rope)
+    attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
+                         impl=attn_impl)
+    x = x + _mm(attn.reshape(B, S, c.q_dim), w["wo"])
+    h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
+    y, aux = moe_block(h, w, c)
+    return x + y, aux["load_balance"], aux["router_z"]
+
+
 def forward_with_aux(
     params: Params,
     cfg: MoEConfig,
@@ -323,6 +354,7 @@ def forward_with_aux(
     cache: KVCache | None = None,
     attn_impl: str = "auto",
     logit_positions: torch.Tensor | None = None,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, KVCache | None, dict]:
     """Run the MoE decoder: (logits, cache, aux-loss dict).
 
@@ -330,10 +362,12 @@ def forward_with_aux(
     ``logit_positions`` [B] restricts the LM head to one position per row
     (logits [B, 1, V]). A cache marks the inference path: expert capacity
     takes the no-drop/wide policy of :func:`_capacity`. A quantized
-    (int8) KV cache is not supported: the reference's MoE ignores scales."""
+    (int8) KV cache is not supported: the reference's MoE ignores scales.
+    ``remat``: without a cache, run each block under non-reentrant
+    ``torch.utils.checkpoint`` (training; the reference checkpoints the
+    whole forward, with the same numbers)."""
     c = cfg
     B, S = tokens.shape
-    inference = cache is not None
     x = _embed(params, tokens, c.dtype)
 
     if cache is not None and S == 1 and attn_impl in ("auto", "reference"):
@@ -346,26 +380,32 @@ def forward_with_aux(
     lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, w in enumerate(llama.layer_slices(params)):
+        if cache is None:
+            if remat:
+                x, lb, z = torch.utils.checkpoint.checkpoint(
+                    moe_transformer_block, x, w, c, positions, attn_impl, rope,
+                    use_reentrant=False)
+            else:
+                x, lb, z = moe_transformer_block(x, w, c, positions, attn_impl, rope)
+            lb_sum = lb_sum + lb
+            z_sum = z_sum + z
+            continue
         h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
         q = _mm(h, w["wq"]).reshape(B, S, c.num_heads, c.head_dim)
         k = _mm(h, w["wk"]).reshape(B, S, c.num_kv_heads, c.head_dim)
         v = _mm(h, w["wv"]).reshape(B, S, c.num_kv_heads, c.head_dim)
         q = apply_rope(q, positions, c.rope_theta, rope)
         k = apply_rope(k, positions, c.rope_theta, rope)
-        if cache is not None:
-            ck, cv = cache.k[layer], cache.v[layer]
-            _cache_insert(ck, k, offsets)
-            _cache_insert(cv, v, offsets)
-            kv_positions = torch.arange(ck.shape[1], device=x.device)[None, :].expand(B, -1)
-            attn = gqa_attention(q, ck, cv, q_positions=positions,
-                                 kv_positions=kv_positions, kv_length=offsets + S,
-                                 impl=attn_impl)
-        else:
-            attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
-                                 impl=attn_impl)
+        ck, cv = cache.k[layer], cache.v[layer]
+        _cache_insert(ck, k, offsets)
+        _cache_insert(cv, v, offsets)
+        kv_positions = torch.arange(ck.shape[1], device=x.device)[None, :].expand(B, -1)
+        attn = gqa_attention(q, ck, cv, q_positions=positions,
+                             kv_positions=kv_positions, kv_length=offsets + S,
+                             impl=attn_impl)
         x = x + _mm(attn.reshape(B, S, c.q_dim), w["wo"])
         h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
-        y, aux = moe_block(h, w, c, inference=inference)
+        y, aux = moe_block(h, w, c, inference=True)
         x = x + y
         lb_sum = lb_sum + aux["load_balance"]
         z_sum = z_sum + aux["router_z"]

@@ -82,8 +82,18 @@ without engine progress, a throwaway process probes the CUDA runtime
 ``KUKEON_WATCHDOG_PROBE_TIMEOUT_S``); a ``wedged`` verdict turns the cell
 unready and exits :data:`WEDGED_EXIT_CODE` (86) for the restart policy.
 
-Not ported yet (ROADMAP.md): checkpoints, tuning profiles and the layer
-profile (A12d), embedding cells and multi-GPU.
+**Embedding cells** (the reference's ``EmbeddingCell``): ``--model
+bge-base`` (or ``bge-tiny``) serves the BERT encoder behind ``POST
+/v1/embed`` instead of ``/v1/generate``, with the same health, readiness,
+drain, ``/metrics`` and ``/v1/timeline`` surfaces:
+
+  POST /v1/embed            -> {"inputTokens": [[...], ...] | "inputs":
+                                "text" | ["text", ...]}
+                               => {"embeddings": [[...], ...], "dim": H,
+                                   "numSequences": n, "seconds": s}
+
+Not ported yet (ROADMAP.md): checkpoints (A10), tuning profiles and the
+layer profile (A12d), and multi-GPU (A13).
 """
 
 from __future__ import annotations
@@ -107,17 +117,21 @@ import torch
 
 from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.device import resolve_device
-from kukeon_tpu_torch.models import convert, llama, moe
+from kukeon_tpu_torch.models import bert, convert, llama, moe
 from kukeon_tpu_torch.obs import (
+    FlightRecorder,
     ProfileBusy,
     ProfileSpool,
     Registry,
     SloObjectives,
     SloTracker,
+    device_memory_collector,
     expo,
+    faults_collector,
 )
 from kukeon_tpu_torch.obs import trace as obs_trace
 from kukeon_tpu_torch.runtime.devices import probe_cuda_runtime
+from kukeon_tpu_torch.serving.embedding import EmbeddingEngine
 from kukeon_tpu_torch.serving.engine import (
     DeadlineExceeded,
     RejectedError,
@@ -134,6 +148,10 @@ MODELS = {
     "mixtral-8x7b": moe.mixtral_8x7b,
 }
 MOE_MODELS = {"mixtral-tiny", "mixtral-8x7b"}
+EMBEDDING_MODELS = {
+    "bge-base": bert.bge_base,
+    "bge-tiny": bert.bge_tiny,
+}
 ROLES = ("mixed", "prefill", "decode")
 DRAIN_TIMEOUT_ENV = "KUKEON_DRAIN_TIMEOUT_S"
 WATCHDOG_ENV = "KUKEON_WATCHDOG_S"
@@ -149,9 +167,10 @@ _PROC_T0 = time.monotonic()
 
 
 class LifecycleMixin:
-    """Readiness and drain, the port of the reference's ``LifecycleMixin``
-    (``kukeon_tpu/runtime/serving_cell.py:92-260``) with plain
-    ``threading`` (the reference's ``sanitize`` proxies aside).
+    """Readiness, drain and the cell's observability families, the port of
+    the reference's ``LifecycleMixin`` (``kukeon_tpu/runtime/serving_cell.py:92-260``)
+    with plain ``threading`` (the reference's ``sanitize`` proxies aside);
+    both cell flavours share it.
 
     States: warming up (unready) -> ready -> draining (unready, in-flight
     finishing) -> drained. The HTTP handler enforces admission. Locks:
@@ -236,6 +255,48 @@ class LifecycleMixin:
     def _shutdown_engine(self):
         pass
 
+    def _init_cell_obs(self, registry: Registry, kind: str, device: torch.device,
+                       engine: ServingEngine | None = None) -> None:
+        """The cell's families on the one registry ``GET /metrics`` renders
+        (the reference's ``_init_cell_obs``, shared by both cell flavours):
+        identity, uptime, readiness, drain and HTTP in-flight gauges
+        (scrape-time callables), the watchdog's counters declared at zero,
+        the profiler spool, and the flight recorder. A decoder cell passes
+        its ``engine``: the recorder is the engine's ring, the spool holds
+        the engine's capture lock, and the engine has registered the fault
+        and device-memory collectors. Without one (the embedding cell) the
+        cell registers those and keeps a ring of its own."""
+        self.registry = registry
+        registry.gauge("kukeon_cell_info", "Static cell identity (value always 1).",
+                       labels=("model", "kind")).set(1, model=self.model_name, kind=kind)
+        registry.gauge("kukeon_cell_uptime_seconds",
+                       "Seconds since cell construction.").set_function(
+            lambda: time.time() - self.started_at)
+        registry.gauge("kukeon_cell_ready",
+                       "1 while admitting requests (readyz).").set_function(
+            lambda: 1.0 if self.readiness()[0] else 0.0)
+        registry.gauge("kukeon_cell_draining",
+                       "1 while a drain is in progress.").set_function(
+            lambda: 1.0 if self.draining else 0.0)
+        registry.gauge("kukeon_cell_http_inflight",
+                       "HTTP requests currently being served.").set_function(
+            lambda: float(self._inflight))
+        registry.counter("kukeon_watchdog_probes_total",
+                         "CUDA runtime probes fired after an engine stall.",
+                         labels=("verdict",))
+        registry.counter("kukeon_watchdog_trips_total",
+                         "Wedged verdicts (the cell exits for restart right after).")
+        cuda = device.type == "cuda"
+        if engine is not None:
+            self.profiler = ProfileSpool(registry=registry, cuda=cuda,
+                                         guard=engine._programs.capture_lock)
+            self.recorder = engine.recorder
+        else:
+            registry.register_collector(faults_collector)
+            registry.register_collector(device_memory_collector(device))
+            self.profiler = ProfileSpool(registry=registry, cuda=cuda)
+            self.recorder = FlightRecorder(registry=registry)
+
 
 class ServingCell(LifecycleMixin):
     """One model behind one engine. ``dtype="int8"`` serves per-channel
@@ -300,7 +361,7 @@ class ServingCell(LifecycleMixin):
         self.started_at = time.time()
         self.boot_s: dict[str, float] = {}
         self._init_lifecycle()
-        self._init_cell_obs(registry, kind="decoder")
+        self._init_cell_obs(registry, "decoder", self.device, self.engine)
         # Burn rates and error budget from the engine's own requests counter
         # and TTFT histogram, at scrape time; unset objectives take the
         # reference's loose defaults.
@@ -309,37 +370,6 @@ class ServingCell(LifecycleMixin):
             availability=slo_availability or d.availability,
             ttft_p95_ms=slo_ttft_p95_ms or d.ttft_p95_ms))
         self._boot_marks["init_exit"] = time.monotonic()
-
-    def _init_cell_obs(self, registry: Registry, kind: str) -> None:
-        """The cell's families on the one registry ``GET /metrics`` renders
-        (the reference's ``_init_cell_obs``): identity, uptime, readiness,
-        drain and HTTP in-flight gauges (scrape-time callables), the
-        watchdog's counters declared at zero, the profiler spool, and the
-        flight recorder (the engine's ring)."""
-        self.registry = registry
-        registry.gauge("kukeon_cell_info", "Static cell identity (value always 1).",
-                       labels=("model", "kind")).set(1, model=self.model_name, kind=kind)
-        registry.gauge("kukeon_cell_uptime_seconds",
-                       "Seconds since cell construction.").set_function(
-            lambda: time.time() - self.started_at)
-        registry.gauge("kukeon_cell_ready",
-                       "1 while admitting requests (readyz).").set_function(
-            lambda: 1.0 if self.readiness()[0] else 0.0)
-        registry.gauge("kukeon_cell_draining",
-                       "1 while a drain is in progress.").set_function(
-            lambda: 1.0 if self.draining else 0.0)
-        registry.gauge("kukeon_cell_http_inflight",
-                       "HTTP requests currently being served.").set_function(
-            lambda: float(self._inflight))
-        registry.counter("kukeon_watchdog_probes_total",
-                         "CUDA runtime probes fired after an engine stall.",
-                         labels=("verdict",))
-        registry.counter("kukeon_watchdog_trips_total",
-                         "Wedged verdicts (the cell exits for restart right after).")
-        engine = self.engine
-        self.profiler = ProfileSpool(registry=registry, cuda=engine.device.type == "cuda",
-                                     guard=engine._programs.capture_lock)
-        self.recorder = engine.recorder
 
     def warmup(self, prompt_len: int = 64):
         """Capture the decode programs and the prefill of ``prompt_len``'s
@@ -686,6 +716,101 @@ class ServingCell(LifecycleMixin):
         }
 
 
+class EmbeddingCell(LifecycleMixin):
+    """Embedding-model serving cell (bge-base), the port of the reference's
+    ``EmbeddingCell`` (``kukeon_tpu/runtime/serving_cell.py:1079-1206``):
+    ``/v1/embed`` instead of ``/v1/generate``, and the same health, stats
+    and metrics seams as the decoder cell, so a reconciler treats both
+    flavours alike. Weights are random, drawn on the device from ``seed``;
+    ``dtype`` (``"bfloat16"``, ``"float32"``) overrides the model's."""
+
+    def __init__(self, model: str, *, batch_size: int = 16, pooling: str = "cls",
+                 checkpoint: str | None = None, dtype: str | None = None, seed: int = 0,
+                 device: str | torch.device | None = None):
+        if model not in EMBEDDING_MODELS:
+            raise SystemExit(f"unknown embedding model {model!r}; known: "
+                             f"{sorted(EMBEDDING_MODELS)}")
+        if checkpoint:
+            raise NotImplementedError(
+                f"checkpoint={checkpoint!r}: loading checkpoints is not ported yet "
+                "(ROADMAP.md A10)")
+        self.device = resolve_device(device)
+        cfg = EMBEDDING_MODELS[model]()
+        if dtype:
+            cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        params = bert.init_params(cfg, gen, self.device)
+        self.model_name = model
+        self.cfg = cfg
+        self.engine = EmbeddingEngine(cfg, params, batch_size=batch_size, pooling=pooling,
+                                      device=self.device)
+        self.tokenizer = load_tokenizer(None)
+        self.started_at = time.time()
+        self._stats_lock = threading.Lock()
+        self.total_sequences = 0   # guarded-by: _stats_lock
+        self._init_lifecycle()
+        self._init_cell_obs(Registry(), "embedding", self.device)
+        self.registry.gauge("kukeon_embed_batch_size",
+                            "Embedding micro-batch grid size.").set(batch_size)
+        self.registry.register_collector(self._obs_collect)
+
+    def _obs_collect(self):
+        yield ("kukeon_embed_sequences_total", "counter", "Sequences embedded since boot.",
+               [({}, float(self.total_sequences))])
+
+    def warmup(self, prompt_len: int = 64):
+        self.engine.warmup((prompt_len,))
+
+    def embed(self, req: dict) -> dict:
+        """``POST /v1/embed``: ``inputTokens`` (a list of token lists) or
+        ``inputs`` (a string or a list of them, through the tokenizer);
+        one flight-recorder entry per call."""
+        if "inputTokens" in req:
+            prompts = [np.asarray(p, np.int32) for p in req["inputTokens"]]
+        elif "inputs" in req:
+            texts = req["inputs"]
+            if isinstance(texts, str):
+                texts = [texts]
+            prompts = [np.asarray(self.tokenizer.encode(x) or [1], np.int32) for x in texts]
+        else:
+            raise ValueError("need inputs or inputTokens")
+        t0 = time.monotonic()
+        vecs = self.engine.embed_batch(prompts)
+        dt = time.monotonic() - t0
+        with self._stats_lock:
+            self.total_sequences += len(prompts)
+        self.recorder.record({
+            "wall_s": round(dt, 6),
+            "occupancy": len(prompts),
+            "tokens": int(sum(p.size for p in prompts)),
+            "programs": {"embed": round(dt, 6)},
+            "traces": [],
+        })
+        return {
+            "embeddings": [v.tolist() for v in vecs],
+            "dim": int(vecs.shape[1]) if len(prompts) else self.cfg.hidden_size,
+            "numSequences": len(prompts),
+            "seconds": round(dt, 4),
+        }
+
+    def stats(self) -> dict:
+        ready, why = self.readiness()
+        return {
+            "model": self.model_name,
+            "kind": "embedding",
+            "devices": [torch.cuda.get_device_name(self.device)
+                        if self.device.type == "cuda" else "cpu"],
+            "batchSize": self.engine.batch_size,
+            "uptimeSeconds": round(
+                self.registry.get("kukeon_cell_uptime_seconds").value(), 1),
+            "totalSequences": self.total_sequences,
+            "ready": ready,
+            "draining": self.draining,
+            **({"unreadyReason": why} if why else {}),
+        }
+
+
 class EngineWatchdog(threading.Thread):
     """Turns a wedged CUDA runtime behind a stuck engine into a restart, the
     port of the reference's ``EngineWatchdog``
@@ -827,7 +952,7 @@ def _program_counters(stats: dict) -> dict:
             "poolBytes": stats["pool_bytes"]}
 
 
-def make_handler(cell: ServingCell):
+def make_handler(cell: ServingCell | EmbeddingCell):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *a):
             sys.stderr.write("serving-cell: " + fmt % a + "\n")
@@ -883,7 +1008,10 @@ def make_handler(cell: ServingCell):
             """``/v1/trace``: one trace's spans (``trace_id``, oldest
             first, what the reference's daemon unions across cells), one
             request's (``request_id``), or the newest ``n``."""
-            tracer = cell.engine.tracer
+            tracer = getattr(cell.engine, "tracer", None)
+            if tracer is None:
+                self._send(404, {"error": "this cell records no request traces"})
+                return
             if "trace_id" in q:
                 self._send(200, {"spans": tracer.for_trace(q["trace_id"][0])})
                 return
@@ -925,12 +1053,20 @@ def make_handler(cell: ServingCell):
 
         def do_POST(self):
             if self.path == "/drain":
-                self._send(200, {"draining": True, "started": cell.begin_drain()})
+                # Counted in flight until its answer is written: an idle
+                # cell's drain ends the process at once, and the handler
+                # threads are daemons that exit would cut mid-response.
+                cell._inflight_inc()
+                try:
+                    self._send(200, {"draining": True, "started": cell.begin_drain()})
+                finally:
+                    cell._inflight_dec()
                 return
             if self.path == "/v1/profile":
                 self._profile()
                 return
-            routes = ("/v1/generate", "/v1/kv/export", "/v1/kv/import")
+            routes = (("/v1/embed",) if isinstance(cell, EmbeddingCell)
+                      else ("/v1/generate", "/v1/kv/export", "/v1/kv/import"))
             if self.path not in routes:
                 self._send(404, {"error": f"no route {self.path}; this cell serves "
                                           f"{['/drain', *routes]}"})
@@ -955,7 +1091,9 @@ def make_handler(cell: ServingCell):
                 elif not cell.readiness()[0]:
                     raise RejectedError(f"not admitting requests: {cell.readiness()[1]}",
                                         retry_after_s=5.0)
-                if self.path == "/v1/kv/export":
+                if self.path == "/v1/embed":
+                    self._send(200, cell.embed(json.loads(body or b"{}")))
+                elif self.path == "/v1/kv/export":
                     req = json.loads(body or b"{}")
                     self._send_bytes(200, cell.kv_export(req, trace_ctx=ctx), KV_CONTENT_TYPE)
                 elif self.path == "/v1/kv/import":
@@ -1026,7 +1164,7 @@ def make_handler(cell: ServingCell):
     return Handler
 
 
-def serve(cell: ServingCell, host: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
+def serve(cell: ServingCell | EmbeddingCell, host: str = "127.0.0.1", port: int = 0) -> ThreadingHTTPServer:
     """Bind the cell's HTTP server (port 0 = any free port) and run it on a
     daemon thread; ``server.shutdown()`` stops it."""
     server = ThreadingHTTPServer((host, port), make_handler(cell))
@@ -1038,10 +1176,11 @@ def serve(cell: ServingCell, host: str = "127.0.0.1", port: int = 0) -> Threadin
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kukeon-serving-cell-torch")
-    ap.add_argument("--model", required=True, choices=sorted(MODELS))
+    ap.add_argument("--model", required=True, choices=sorted({**MODELS, **EMBEDDING_MODELS}))
     ap.add_argument("--port", type=int, default=9000)
     ap.add_argument("--host", default="127.0.0.1")
-    ap.add_argument("--num-slots", type=int, default=8)
+    ap.add_argument("--num-slots", type=int, default=8,
+                    help="decode slots; an embedding cell's micro-batch grid size")
     ap.add_argument("--max-seq-len", type=int, default=None)
     ap.add_argument("--dtype", default=None)
     ap.add_argument("--kv-cache-int8", action="store_true")
@@ -1065,31 +1204,41 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    cell = ServingCell(
-        args.model, num_slots=args.num_slots, max_seq_len=args.max_seq_len,
-        dtype=args.dtype, seed=args.seed, kv_cache_int8=args.kv_cache_int8,
-        decode_chunk=args.decode_chunk, max_pending=args.max_pending or None,
-        deadline_s=args.deadline_s or None, device=args.device,
-        kv_page_tokens=args.kv_page_tokens, role=args.role,
-        slo_ttft_p95_ms=args.slo_ttft_p95_ms or None,
-        slo_availability=args.slo_availability or None)
-    # Warmup before the driver thread starts: step() is single-driver.
-    if not args.no_warmup:
-        cell.warmup()
-    cell.engine.start()
+    embedding = args.model in EMBEDDING_MODELS
+    if embedding:
+        cell = EmbeddingCell(args.model, batch_size=args.num_slots, dtype=args.dtype,
+                             seed=args.seed, device=args.device)
+        if not args.no_warmup:
+            cell.warmup()
+    else:
+        cell = ServingCell(
+            args.model, num_slots=args.num_slots, max_seq_len=args.max_seq_len,
+            dtype=args.dtype, seed=args.seed, kv_cache_int8=args.kv_cache_int8,
+            decode_chunk=args.decode_chunk, max_pending=args.max_pending or None,
+            deadline_s=args.deadline_s or None, device=args.device,
+            kv_page_tokens=args.kv_page_tokens, role=args.role,
+            slo_ttft_p95_ms=args.slo_ttft_p95_ms or None,
+            slo_availability=args.slo_availability or None)
+        # Warmup before the driver thread starts: step() is single-driver.
+        if not args.no_warmup:
+            cell.warmup()
+        cell.engine.start()
     server = ThreadingHTTPServer((args.host, args.port), make_handler(cell))
     # A finished drain (POST /drain, or SIGTERM) ends serve_forever: exit 0.
     cell.on_drained = server.shutdown
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, lambda *_a: cell.begin_drain())
-    # The cold-start record lands on /metrics and in the trace ring.
-    cell.finish_boot()
+    if not embedding:
+        # The cold-start record lands on /metrics and in the trace ring.
+        cell.finish_boot()
     cell.mark_ready()
     # A stall past the budget that the probe confirms as a wedged CUDA
-    # runtime exits WEDGED_EXIT_CODE, for the restart policy.
+    # runtime exits WEDGED_EXIT_CODE, for the restart policy. The embedding
+    # cell has no engine thread to stall, and no watchdog (as the
+    # reference's).
     watchdog = None
     budget = float(os.environ.get(WATCHDOG_ENV, "120") or 0)
-    if budget > 0:
+    if budget > 0 and not embedding:
         def _wedged(detail: str):
             cell.mark_unready(f"CUDA runtime wedged: {detail}")
             print(f"serving-cell: watchdog tripped — {detail}; exiting "
@@ -1101,7 +1250,9 @@ def main(argv=None) -> int:
             probe_timeout_s=float(os.environ.get(WATCHDOG_PROBE_TIMEOUT_ENV, "20") or 20),
             registry=cell.registry)
         watchdog.start()
-    print(f"serving-cell: {args.model} ready on {args.host}:{args.port}", flush=True)
+    # The bound port: --port 0 takes any free one.
+    print(f"serving-cell: {args.model} ready on {args.host}:{server.server_address[1]}",
+          flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -1109,7 +1260,8 @@ def main(argv=None) -> int:
     finally:
         if watchdog is not None:
             watchdog.stop()
-        cell.engine.stop()
+        if not embedding:
+            cell.engine.stop()
     return 0
 
 

@@ -1,5 +1,6 @@
 """Serving of the port: torch counterparts of ``kukeon_tpu/serving``."""
 
+from kukeon_tpu_torch.serving.embedding import EMBED_BUCKETS, EmbeddingEngine
 from kukeon_tpu_torch.serving.engine import (
     PREFILL_BUCKETS,
     DeadlineExceeded,
@@ -11,6 +12,6 @@ from kukeon_tpu_torch.serving.engine import (
 from kukeon_tpu_torch.serving.sampling import SamplingParams
 
 __all__ = [
-    "PREFILL_BUCKETS", "DeadlineExceeded", "RejectedError", "Request",
-    "SamplingParams", "ServingEngine", "bucket_length",
+    "EMBED_BUCKETS", "PREFILL_BUCKETS", "DeadlineExceeded", "EmbeddingEngine",
+    "RejectedError", "Request", "SamplingParams", "ServingEngine", "bucket_length",
 ]

@@ -8,11 +8,14 @@ data pipeline + train step + checkpoints, on one device.
 The flags are the JAX entry point's, plus ``--device`` (default ``cuda``,
 which raises without a GPU; ``--device cpu`` runs the plain PyTorch path).
 Batches are memmapped and a pure function of (seed, step); the run resumes
-from the newest checkpoint in ``--ckpt-dir``. A mesh axis above 1
-(``--data``, ``--fsdp``, ``--tensor``, ``--seq``, ``--expert``,
-``--pipe``) and MoE training (``mixtral-*``: the port serves these models,
-but at full width their training state does not fit one GPU) are not
-ported yet and raise.
+from the newest checkpoint in ``--ckpt-dir``. ``mixtral-*`` trains the MoE
+family through :func:`~kukeon_tpu_torch.training.train_step.make_moe_train_step`
+and prints the load-balance loss on each step line (``lb=``); at full
+depth, Mixtral-8x7B's training state (about 374 GB) does not fit one GPU
+and the run fails with CUDA's out-of-memory error, as the reference's does
+on a chip too small. A mesh axis above 1 (``--data``, ``--fsdp``,
+``--tensor``, ``--seq``, ``--expert``, ``--pipe``) is not ported yet and
+raises (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import time
 import torch
 
 from kukeon_tpu_torch.device import resolve_device
-from kukeon_tpu_torch.models import llama
+from kukeon_tpu_torch.models import llama, moe
 
 MESH_AXES = ("data", "fsdp", "tensor", "seq", "expert", "pipe")
 
@@ -53,9 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.model.startswith("mixtral"):
-        raise NotImplementedError(
-            f"--model {args.model}: MoE training is not ported yet (ROADMAP.md A15)")
     sharded = {a: getattr(args, a) for a in MESH_AXES if getattr(args, a) > 1}
     if sharded:
         raise NotImplementedError(
@@ -66,15 +66,20 @@ def main(argv=None) -> int:
     from kukeon_tpu_torch.training import (
         TokenDataset,
         batches,
+        create_moe_train_state,
         create_train_state,
         latest_step,
+        make_moe_train_step,
+        make_train_step,
         restore_checkpoint,
         save_checkpoint,
     )
-    from kukeon_tpu_torch.training.train_step import make_optimizer, make_train_step
+    from kukeon_tpu_torch.training.train_step import make_optimizer
 
+    is_moe = args.model.startswith("mixtral")
     cfgs = {"tiny": llama.llama_tiny, "llama3-1b": llama.llama3_1b,
-            "llama3-8b": llama.llama3_8b}
+            "llama3-8b": llama.llama3_8b,
+            "mixtral-tiny": moe.moe_tiny, "mixtral-8x7b": moe.mixtral_8x7b}
     cfg = cfgs[args.model]()
     print(f"train: model={args.model} device={device} "
           f"batch={args.batch} seq={args.seq_len}", flush=True)
@@ -85,8 +90,12 @@ def main(argv=None) -> int:
         total_steps=max(args.steps, args.warmup_steps + 1),
     )
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    state, optimizer = create_train_state(cfg, generator, device, optimizer)
-    step_fn = make_train_step(cfg, optimizer)
+    if is_moe:
+        state, optimizer = create_moe_train_state(cfg, generator, device, optimizer)
+        step_fn = make_moe_train_step(cfg, optimizer)
+    else:
+        state, optimizer = create_train_state(cfg, generator, device, optimizer)
+        step_fn = make_train_step(cfg, optimizer)
 
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
@@ -101,13 +110,14 @@ def main(argv=None) -> int:
         ds, args.batch, args.seq_len, start_step=start,
         num_steps=args.steps - start, seed=args.seed, device=device,
     ):
-        state, loss = step_fn(state, tok, tgt, mask)
+        state, out = step_fn(state, tok, tgt, mask)
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
-            loss = float(loss)          # waits for the device
+            loss = float(out["loss"] if is_moe else out)    # waits for the device
             dt = time.monotonic() - t0
             window = step + 1 - last_logged   # may be < log_every at the tail
             tput = args.batch * args.seq_len * window / max(dt, 1e-9)
-            print(f"step {step + 1} loss {loss:.4f} ({tput:.0f} tok/s)", flush=True)
+            extra = f" lb={float(out['load_balance']):.3f}" if is_moe else ""
+            print(f"step {step + 1} loss {loss:.4f}{extra} ({tput:.0f} tok/s)", flush=True)
             t0 = time.monotonic()
             last_logged = step + 1
         if (args.ckpt_dir and args.save_every

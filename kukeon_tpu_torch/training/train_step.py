@@ -13,7 +13,10 @@ Remat is non-reentrant ``torch.utils.checkpoint`` around each transformer
 block (the JAX step checkpoints the whole forward; both give the same
 numbers, and per-block remat bounds the memory).
 
-The MoE and pipeline train steps are not ported (ROADMAP A13).
+The MoE step (:func:`make_moe_train_step`) adds the Switch load-balance
+loss and the router z-loss of ``moe.forward_with_aux`` to the cross
+entropy, with the training capacity (the GShard drops). The pipeline step
+is not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Any, Callable, ClassVar
 import numpy as np
 import torch
 
-from kukeon_tpu_torch.models import llama
+from kukeon_tpu_torch.models import llama, moe
 
 
 @dataclasses.dataclass
@@ -156,10 +159,10 @@ def create_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
     return TrainState(params=params, opt_state=optimizer.init(params), step=0), optimizer
 
 
-def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = True):
-    """``step(state, tokens, targets, mask) -> (state, loss)``: one forward,
-    backward and update, with params and moments updated in place. ``remat``
-    recomputes each block's activations in the backward."""
+def _make_step(optimizer: AdamW, loss_fn):
+    """``step(state, tokens, targets, mask) -> (state, out)``: ``loss_fn(params,
+    tokens, targets, mask, positions) -> (loss, out)`` under autograd, its
+    gradients, and the optimizer's update in place of params and moments."""
 
     def train_step(state: TrainState, tokens, targets, mask):
         B, S = tokens.shape
@@ -169,12 +172,51 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = T
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
-            logits, _ = llama.forward(state.params, cfg, tokens, positions, remat=remat)
-            loss = cross_entropy_loss(logits, targets, mask)
-            del logits
+            loss, out = loss_fn(state.params, tokens, targets, mask, positions)
             grads = torch.autograd.grad(loss, leaves)
         optimizer.update_(list(grads), state.opt_state, state.params)
         state.step += 1
-        return state, loss.detach()
+        return state, out
 
     return train_step
+
+
+def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = True):
+    """``step(state, tokens, targets, mask) -> (state, loss)``: one forward,
+    backward and update, with params and moments updated in place. ``remat``
+    recomputes each block's activations in the backward."""
+
+    def loss_fn(params, tokens, targets, mask, positions):
+        logits, _ = llama.forward(params, cfg, tokens, positions, remat=remat)
+        loss = cross_entropy_loss(logits, targets, mask)
+        return loss, loss.detach()
+
+    return _make_step(optimizer, loss_fn)
+
+
+def create_moe_train_state(cfg: moe.MoEConfig, generator: torch.Generator,
+                           device: torch.device | str,
+                           optimizer: AdamW | None = None) -> tuple[TrainState, AdamW]:
+    """:func:`create_train_state` for the MoE tree (``moe.init_params``).
+    The router stays f32, and so do its moments."""
+    optimizer = optimizer or make_optimizer()
+    params = moe.init_params(cfg, generator, device)
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0), optimizer
+
+
+def make_moe_train_step(cfg: moe.MoEConfig, optimizer: AdamW, *, remat: bool = True):
+    """``step(state, tokens, targets, mask) -> (state, metrics)``: the MoE
+    step, ``loss = ce + load_balance_coef * load_balance + router_z_coef *
+    router_z`` (the aux terms averaged over layers), with ``metrics``
+    {"loss", "ce", "load_balance", "router_z"} as detached scalars."""
+
+    def loss_fn(params, tokens, targets, mask, positions):
+        logits, _, aux = moe.forward_with_aux(params, cfg, tokens, positions, remat=remat)
+        ce = cross_entropy_loss(logits, targets, mask)
+        loss = (ce + cfg.load_balance_coef * aux["load_balance"]
+                + cfg.router_z_coef * aux["router_z"])
+        metrics = {"loss": loss, "ce": ce, "load_balance": aux["load_balance"],
+                   "router_z": aux["router_z"]}
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    return _make_step(optimizer, loss_fn)

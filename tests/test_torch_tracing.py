@@ -73,6 +73,19 @@ def _wait_spans(tracer, trace_id, n=1, timeout=10.0):
     return spans
 
 
+def _wait_gateway_span(tracer, route, timeout=10.0):
+    """The gateway finishes its span only after it writes the response,
+    so the client can read the response before the span is in the ring."""
+    deadline = time.monotonic() + timeout
+    while True:
+        span = next((s for s in tracer.recent(10) if s["component"] == "gateway"
+                     and s.get("attrs", {}).get("route") == route), None)
+        if span is not None or time.monotonic() >= deadline:
+            assert span is not None, f"no gateway span for {route} within {timeout} s"
+            return span
+        time.sleep(0.01)
+
+
 # --- context plumbing and the tracer ---------------------------------------------
 
 
@@ -310,8 +323,7 @@ def test_disagg_handoff_is_one_trace_with_both_hops():
         status, raw = _post(gw_srv.server_address[1], "/v1/generate",
                             {**body, "prefixId": "sess-1"})
         assert status == 200 and json.loads(raw)["tokens"] == ref["tokens"]
-        gspan = next(s for s in gw.tracer.recent(10) if s["component"] == "gateway"
-                     and s.get("attrs", {}).get("route") == "/v1/generate")
+        gspan = _wait_gateway_span(gw.tracer, "/v1/generate")
         trace_id = gspan["traceId"]
         pspans = _wait_spans(cells[0].engine.tracer, trace_id)
         dspans = _wait_spans(cells[1].engine.tracer, trace_id)
