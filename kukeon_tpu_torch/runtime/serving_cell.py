@@ -92,8 +92,19 @@ drain, ``/metrics`` and ``/v1/timeline`` surfaces:
                                => {"embeddings": [[...], ...], "dim": H,
                                    "numSequences": n, "seconds": s}
 
-Not ported yet (ROADMAP.md): checkpoints (A10), tuning profiles and the
-layer profile (A12d), and multi-GPU (A13).
+**Checkpoints** (the reference's ``_load_checkpoint``): ``--checkpoint
+DIR`` serves real weights, the format chosen as the reference chooses it:
+a kukeon int8 checkpoint (``kukeon_quant.json``) through
+``checkpoints.load_quantized``; an HF directory (``config.json`` and
+safetensors) through ``hf_convert.load_params_quantized`` under ``--dtype
+int8``, else ``hf_convert.load_params``; for the MoE family
+``hf_convert.load_moe_params``, quantized on the host under ``--dtype
+int8``. The config comes from the checkpoint, and a ``tokenizer.json``
+beside the weights replaces the byte tokenizer. Weights are read into host
+memory and moved to the device whole.
+
+Not ported yet (ROADMAP.md): the streamed boot and orbax checkpoints
+(A10b), tuning profiles and the layer profile (A12d), and multi-GPU (A13).
 """
 
 from __future__ import annotations
@@ -117,7 +128,7 @@ import torch
 
 from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.device import resolve_device
-from kukeon_tpu_torch.models import bert, convert, llama, moe
+from kukeon_tpu_torch.models import bert, checkpoints, convert, hf_convert, llama, moe
 from kukeon_tpu_torch.obs import (
     FlightRecorder,
     ProfileBusy,
@@ -300,14 +311,18 @@ class LifecycleMixin:
 
 class ServingCell(LifecycleMixin):
     """One model behind one engine. ``dtype="int8"`` serves per-channel
-    int8 weights (random, drawn on the device from ``seed``); another dtype
-    name (``"bfloat16"``, ``"float32"``) sets the weight and activation
-    dtype. ``role``: ``mixed``, ``prefill`` or ``decode``, what a gateway
-    routes on (every role keeps the whole engine: a prefill cell can decode
-    locally, a decode cell re-prefill a preempted import)."""
+    int8 weights (random, drawn on the device from ``seed``, or quantized
+    from ``checkpoint``); another dtype name (``"bfloat16"``,
+    ``"float32"``) sets the weight and activation dtype. ``checkpoint``: a
+    kukeon int8 or HF directory (:meth:`_load_checkpoint`) whose weights
+    and config replace the preset's. ``role``: ``mixed``, ``prefill`` or
+    ``decode``, what a gateway routes on (every role keeps the whole
+    engine: a prefill cell can decode locally, a decode cell re-prefill a
+    preempted import)."""
 
     def __init__(self, model: str, *, num_slots: int = 8,
                  max_seq_len: int | None = None, dtype: str | None = None,
+                 checkpoint: str | None = None,
                  seed: int = 0, kv_cache_int8: bool = False,
                  decode_chunk: int = 16, max_pending: int | None = None,
                  deadline_s: float | None = None,
@@ -337,10 +352,20 @@ class ServingCell(LifecycleMixin):
             if kv_cache_int8:
                 raise SystemExit(f"model {model!r} does not support --kv-cache-int8 yet")
             forward_fn = moe.forward
-            if quantize:
+            if checkpoint:
+                params, cfg = hf_convert.load_moe_params(checkpoint, dtype=cfg.dtype)
+                if max_seq_len:
+                    cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
+                if quantize:
+                    # On the host, before the engine moves the tree: a
+                    # Mixtral-8x7B bf16 tree would not fit on the card.
+                    params = moe.quantize_params(params)
+            elif quantize:
                 params = convert.init_quantized_moe_params_device(cfg, gen, self.device)
             else:
                 params = moe.init_params(cfg, gen, self.device)
+        elif checkpoint:
+            params, cfg = self._load_checkpoint(checkpoint, cfg, quantize)
         elif quantize:
             params = convert.init_quantized_params_device(cfg, gen, self.device)
         else:
@@ -356,7 +381,7 @@ class ServingCell(LifecycleMixin):
             kv_cache_int8=kv_cache_int8, decode_chunk=decode_chunk,
             max_pending=max_pending, seed=seed, device=self.device,
             forward_fn=forward_fn, kv_page_tokens=kv_page_tokens, registry=registry)
-        self.tokenizer = load_tokenizer(None)
+        self.tokenizer = load_tokenizer(checkpoint)
         self.default_deadline_s = deadline_s
         self.started_at = time.time()
         self.boot_s: dict[str, float] = {}
@@ -370,6 +395,30 @@ class ServingCell(LifecycleMixin):
             availability=slo_availability or d.availability,
             ttft_p95_ms=slo_ttft_p95_ms or d.ttft_p95_ms))
         self._boot_marks["init_exit"] = time.monotonic()
+
+    @staticmethod
+    def _load_checkpoint(path: str, cfg, quantize: bool = False):
+        """(params, cfg) of a Llama checkpoint, CPU tensors, from, in the
+        reference's order of precedence:
+
+        - a kukeon int8 checkpoint (the ``kukeon_quant.json`` manifest):
+          no quantization work at load;
+        - an HF directory (``config.json`` and safetensors): quantized on
+          the host one tensor at a time when ``quantize``, so the
+          full-precision tree is never materialized;
+        - anything else is an orbax checkpoint, which is not ported yet.
+
+        ``cfg`` gives the activation dtype; the rest of the config comes
+        from the checkpoint."""
+        if checkpoints.is_quantized_checkpoint(path):
+            return checkpoints.load_quantized(path, dtype=cfg.dtype)
+        if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
+            if quantize:
+                return hf_convert.load_params_quantized(path, dtype=cfg.dtype)
+            return hf_convert.load_params(path, dtype=cfg.dtype)
+        raise SystemExit(f"checkpoint {path!r} is neither a kukeon int8 checkpoint "
+                         f"({checkpoints.QUANT_MANIFEST}) nor an HF directory (config.json); "
+                         "orbax checkpoints are not ported yet (ROADMAP.md A10b)")
 
     def warmup(self, prompt_len: int = 64):
         """Capture the decode programs and the prefill of ``prompt_len``'s
@@ -731,9 +780,10 @@ class EmbeddingCell(LifecycleMixin):
             raise SystemExit(f"unknown embedding model {model!r}; known: "
                              f"{sorted(EMBEDDING_MODELS)}")
         if checkpoint:
+            # The reference's embedding checkpoints are orbax ones.
             raise NotImplementedError(
-                f"checkpoint={checkpoint!r}: loading checkpoints is not ported yet "
-                "(ROADMAP.md A10)")
+                f"checkpoint={checkpoint!r}: orbax checkpoints are not ported yet "
+                "(ROADMAP.md A10b)")
         self.device = resolve_device(device)
         cfg = EMBEDDING_MODELS[model]()
         if dtype:
@@ -1183,6 +1233,9 @@ def main(argv=None) -> int:
                     help="decode slots; an embedding cell's micro-batch grid size")
     ap.add_argument("--max-seq-len", type=int, default=None)
     ap.add_argument("--dtype", default=None)
+    ap.add_argument("--checkpoint", default=None,
+                    help="a kukeon int8 checkpoint or an HF safetensors directory "
+                         "(absent: random weights from --seed)")
     ap.add_argument("--kv-cache-int8", action="store_true")
     ap.add_argument("--decode-chunk", type=int, default=16)
     ap.add_argument("--kv-page-tokens", type=int, default=0,
@@ -1207,13 +1260,14 @@ def main(argv=None) -> int:
     embedding = args.model in EMBEDDING_MODELS
     if embedding:
         cell = EmbeddingCell(args.model, batch_size=args.num_slots, dtype=args.dtype,
-                             seed=args.seed, device=args.device)
+                             checkpoint=args.checkpoint, seed=args.seed, device=args.device)
         if not args.no_warmup:
             cell.warmup()
     else:
         cell = ServingCell(
             args.model, num_slots=args.num_slots, max_seq_len=args.max_seq_len,
-            dtype=args.dtype, seed=args.seed, kv_cache_int8=args.kv_cache_int8,
+            dtype=args.dtype, checkpoint=args.checkpoint, seed=args.seed,
+            kv_cache_int8=args.kv_cache_int8,
             decode_chunk=args.decode_chunk, max_pending=args.max_pending or None,
             deadline_s=args.deadline_s or None, device=args.device,
             kv_page_tokens=args.kv_page_tokens, role=args.role,

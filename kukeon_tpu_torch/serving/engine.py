@@ -515,7 +515,7 @@ class ServingEngine:
                "Dispatched multi-step decode chunks.",
                [({}, float(s["chunks"]))])
         # The reference's streamed-checkpoint boot accounting: the port has
-        # no streamed boot yet (ROADMAP A10), so these read 0, as the
+        # no streamed boot yet (ROADMAP A10b), so these read 0, as the
         # reference's do on a non-streamed boot.
         yield ("kukeon_checkpoint_load_bytes_total", "counter",
                "Checkpoint bytes streamed host->device during boot.",
