@@ -3,9 +3,12 @@ against its plain version, check the 8B and Mixtral models and their
 decode and prefill graphs (legacy and paged KV), serve both (streamed,
 observed through the cell's metrics, traces, timers and profiler, agent
 sessions through the prefix cache, the paged KV cache, and the KV
-handoff between a prefill and a decode cell), serve llama3-1b from the
-checkpoints the port writes and reads itself, serve bge-base embeddings,
-and train Llama and Mixtral.
+handoff between a prefill and a decode cell), boot llama3-8b from a
+checkpoint streamed onto the card while its programs are captured, sweep
+two decode chunks into a tuning profile that a cell boots from, profile
+that cell layer by layer, serve llama3-1b from the checkpoints the port
+writes and reads itself, serve bge-base embeddings, and train Llama and
+Mixtral.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -83,6 +86,31 @@ time; any failure ends the run with a nonzero exit and no result line:
               POST /v1/profile capture on disk; the probe answers ok; each
               key captured mid-traffic replays bitwise as it runs eagerly.
               Prints the scrape ms under traffic and the probe's seconds
+  serve_stream  serve's llama3-8b int8 tree (serve's cell, kept) saved as a
+              kukeon int8 checkpoint (~8 GB) into a temporary directory
+              (its free space printed first), then a ServingCell booted
+              with checkpoint=dir: reader threads stream the leaves, the
+              engine's load thread copies them onto the card, its warmup
+              captures meanwhile; serve's traffic through it must give
+              serve's greedy tokens with 225 K1 a step in its profiled
+              replays, and kukeon_checkpoint_load_bytes_total must equal
+              the tree's leaf bytes. Reports the save, construction to
+              ready, the load's disk/cast/upload seconds, the engine's boot
+              marks and the share of the load the captures overlapped (a
+              report: it depends on the disk). The directory is removed
+  serve_tune  the tuning profile and the layer profile on serve's weights:
+              tools/autotune.py's sweep over two arms (decode chunk 16
+              and 64, each a cell over serve's weights with serve's
+              traffic, tokens equal to serve's), the winner saved with
+              tuning.save into this run's profile file (KUKEON_TUNE_PATH
+              and KUKEON_LAYER_PROFILE_PATH point into a temporary
+              directory for the whole run); a cell built with every lever
+              None takes the winner's levers and gives serve's tokens; POST
+              /v1/profile {"layers": true} on it persists a 34-component
+              profile without error. Reports each arm, the layers' decode
+              times and their sum beside the cell's ms a step (HTTP) and a
+              16-step replay timed alone. The profile file is removed, so
+              later phases boot untuned
   serve_tied  a short llama3-1b run, whose tied LM head takes the
               transposed kernel (K1t 1 and K1 112 a step)
   serve_ckpt  serving from checkpoints: a llama3-1b HF checkpoint at full
@@ -101,9 +129,15 @@ time; any failure ends the run with a nonzero exit and no result line:
               directory and an engine over (a)'s card-side tree give the
               same greedy tokens; (d) a bf16 cell booted from the directory
               gives the tokens of an engine over load_params of it in
-              memory. Seconds to write, load and save, bytes on disk, and
-              each cell's seconds from construction to ready; the directory
-              is removed at the end
+              memory. The three cells boot through the stream: each one's
+              load-bytes counter must equal its leaf bytes; then the same
+              three booted on the trees the materialized loaders gave
+              above (the whole tree in host memory first) must give the
+              same tokens. Seconds to write, load and save, bytes on disk,
+              each cell's seconds from construction to ready (streamed;
+              materialized: the loader's seconds plus the cell's) and each
+              streamed boot's stages and marks; the directory is removed
+              at the end
   serve_tiny  short int8 runs of tiny and mixtral-tiny, whose dims off 128
               take the reference's dequant fallback on the card
   moe_model   mixtral-8x7b int8 at full width and depth, drawn once on the
@@ -316,8 +350,8 @@ SHAPES_MOE = {"w_gate": (4096, 14336, 32), "w_up": (4096, 14336, 32),
 # supports() admits: the kernel's kv-tile lists leave shared memory.
 FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
               ("S 65792", 1, 65792, 1, 1, 64, 256))
-PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs", "serve_tied",
-          "serve_ckpt", "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
+PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs",
+          "serve_stream", "serve_tune", "serve_tied", "serve_ckpt", "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
           "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed", "train",
           "train_moe")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
@@ -869,11 +903,13 @@ def make_cell(model: str, max_seq_len: int, kv_page_tokens: int = 0, role: str =
 
 
 def twin_cell(cell, kv_page_tokens: int = 64, role: str | None = None,
-              num_slots: int | None = None, kv_pool_pages: int | None = None):
+              num_slots: int | None = None, kv_pool_pages: int | None = None,
+              decode_chunk: int | None = None, kv_cache_int8: bool = False):
     """A cell over ``cell``'s weights (no second draw), with an engine of
     its own: by default the paged KV layout (pages of 64) at ``cell``'s
     slots and the pool of its legacy cache's rows; ``kv_page_tokens`` 0
-    keeps the legacy layout."""
+    keeps the legacy layout; ``decode_chunk`` (default ``cell``'s) and
+    ``kv_cache_int8`` as given."""
     import copy
 
     from kukeon_tpu_torch.models import moe
@@ -886,8 +922,8 @@ def twin_cell(cell, kv_page_tokens: int = 64, role: str | None = None,
     registry = Registry()
     twin.engine = ServingEngine(
         cell.cfg, old.params, num_slots=num_slots or old.num_slots,
-        max_seq_len=old.max_seq_len, decode_chunk=old.decode_chunk,
-        max_pending=old.max_pending, device="cuda",
+        max_seq_len=old.max_seq_len, decode_chunk=decode_chunk or old.decode_chunk,
+        kv_cache_int8=kv_cache_int8, max_pending=old.max_pending, device="cuda",
         forward_fn=moe.forward if cell.model_name in MOE_MODELS else None,
         kv_page_tokens=kv_page_tokens, kv_pool_pages=kv_pool_pages, registry=registry)
     twin.boot_s = {}
@@ -2645,9 +2681,12 @@ def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def optional_packages() -> dict:
     """Which of the packages the port does not rely on import on this
     machine, each tried in a child process so that this one never loads
-    them (a loaded ml_dtypes would give numpy a bfloat16)."""
+    them (a loaded ml_dtypes would give numpy a bfloat16): the
+    safetensors, tokenizers and ml_dtypes the reference reads checkpoints
+    with, and what an orbax reader (ROADMAP A10c) could stand on."""
     code = ("import importlib, json\nout = {}\n"
-            "for m in ('safetensors', 'tokenizers', 'ml_dtypes'):\n"
+            "for m in ('safetensors', 'tokenizers', 'ml_dtypes', 'zstandard', 'tensorstore',"
+            " 'orbax.checkpoint'):\n"
             "    try:\n        importlib.import_module(m)\n        out[m] = True\n"
             "    except Exception:\n        out[m] = False\n"
             "print(json.dumps(out))")
@@ -2682,10 +2721,42 @@ def flat_leaves(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def cell_tokens(make, prompts: list, new: int) -> tuple[list, float]:
+def boot_report(cell, t0: float, ready_s: float) -> dict:
+    """A checkpoint cell's boot: seconds from its construction (``t0``) to
+    ready, the streamed load's stage seconds (disk and cast summed over the
+    reader threads, upload on the engine's load thread; they overlap), the
+    engine's boot marks in seconds after ``t0``, the
+    ``kukeon_checkpoint_load_bytes_total`` its /metrics renders, and the
+    bytes of its weight tree's leaves (which that counter must equal on a
+    streamed boot)."""
+    from kukeon_tpu_torch.obs import expo
+
+    eng = cell.engine
+    cs = eng._ckpt_stream.stat_snapshot() if eng._ckpt_stream is not None else {}
+    m = parse_metrics(expo.render(cell.registry))
+    return {"ready_s": round(ready_s, 3), "streamed": eng._ckpt_stream is not None,
+            "stages_s": {"disk": round(cs.get("disk_s", 0.0), 3),
+                         "cast": round(cs.get("cast_s", 0.0), 3),
+                         "upload": round(eng.load_stats["upload_s"], 3)},
+            "marks_s": {k: round(v - t0, 3) for k, v in sorted(eng.boot_marks.items(),
+                                                                key=lambda kv: kv[1])},
+            "load_bytes_counter": int(metric(m, "kukeon_checkpoint_load_bytes_total")),
+            "leaf_bytes": sum(t.numel() * t.element_size()
+                              for t in flat_leaves(eng.params).values())}
+
+
+def check_streamed(report: dict, what: str) -> None:
+    """A streamed boot's gate: the load-bytes counter equals the leaves'."""
+    if not report["streamed"] or report["load_bytes_counter"] != report["leaf_bytes"]:
+        raise AssertionError(f"{what}: streamed {report['streamed']}, "
+                             f"kukeon_checkpoint_load_bytes_total "
+                             f"{report['load_bytes_counter']}, leaf bytes {report['leaf_bytes']}")
+
+
+def cell_tokens(make, prompts: list, new: int) -> tuple[list, dict]:
     """A cell from ``make()`` over HTTP: warmed, started and ready, then
-    the prompts as concurrent requests -> (their greedy tokens, seconds
-    from the cell's construction to ready)."""
+    the prompts as concurrent requests -> (their greedy tokens, its
+    :func:`boot_report`)."""
     from kukeon_tpu_torch.runtime.serving_cell import serve
 
     t0 = time.monotonic()
@@ -2695,6 +2766,7 @@ def cell_tokens(make, prompts: list, new: int) -> tuple[list, float]:
     server = serve(cell)
     cell.mark_ready()
     ready_s = time.monotonic() - t0
+    report = boot_report(cell, t0, ready_s)
     try:
         results = post_all(f"http://127.0.0.1:{server.server_address[1]}", prompts, new)
     finally:
@@ -2706,7 +2778,7 @@ def cell_tokens(make, prompts: list, new: int) -> tuple[list, float]:
     del cell
     gc.collect()
     torch.cuda.empty_cache()
-    return [r["tokens"] for r in results], ready_s
+    return [r["tokens"] for r in results], report
 
 
 def engine_tokens(cfg, params, prompts: list, new: int, max_seq_len: int) -> list:
@@ -2750,7 +2822,9 @@ def serve_ckpt(k1) -> dict:
     quantized directory, and an engine over (a)'s card-side tree give the
     same greedy tokens on ``serve_tied``'s prompts; (d) a bf16 cell booted
     from the directory gives the tokens of an engine over ``load_params``
-    of it in memory. The directory is removed at the end."""
+    of it in memory. Each cell boots through the stream, then again on the
+    tree its materialized loader gave (to ready: the loader's seconds plus
+    the cell's). The directory is removed at the end."""
     from kukeon_tpu_torch.models import checkpoints, hf_convert, llama
     from kukeon_tpu_torch.runtime.serving_cell import ServingCell
 
@@ -2794,8 +2868,6 @@ def serve_ckpt(k1) -> dict:
         out["quant_bytes"] = dir_bytes(qdir)
         back, _ = timed("load_quantized", lambda: checkpoints.load_quantized(qdir))
         out["b_leaves_bitwise"] = tree_bitwise_equal(host_q, back, "(b) save/load quantized")
-        del back, host_q
-        gc.collect()
         # (c) three routes to one int8 tree give one set of tokens.
         g = torch.Generator().manual_seed(7)
         prompts = [torch.randint(0, cfg.vocab_size, (CKPT_PROMPT,), generator=g).tolist()
@@ -2806,11 +2878,12 @@ def serve_ckpt(k1) -> dict:
         construct_s = time.monotonic() - t0
         served = serve_model(k1, CKPT_MODEL, max_seq_len=CKPT_SEQ, prompt_len=CKPT_PROMPT,
                              new=CKPT_NEW, cell=cell, label="llama3-1b ckpt")
+        boot = {"hf_int8": boot_report(cell, t0, construct_s + served["boot_s"])}
         del cell
         if SERVED_PROMPTS["llama3-1b ckpt"] != prompts:
             raise AssertionError("serve_model drew other prompts than serve_tied's")
         tokens_hf = SERVED_TOKENS["llama3-1b ckpt"]
-        tokens_q, ready_q = cell_tokens(lambda: ServingCell(
+        tokens_q, boot["quantized"] = cell_tokens(lambda: ServingCell(
             CKPT_MODEL, checkpoint=qdir, num_slots=4, max_seq_len=CKPT_SEQ, device="cuda"),
             prompts, CKPT_NEW)
         tokens_mem = engine_tokens(qcfg, card_q, prompts, CKPT_NEW, CKPT_SEQ)
@@ -2821,23 +2894,47 @@ def serve_ckpt(k1) -> dict:
             raise AssertionError(f"(c) greedy tokens differ: HF int8 cell {tokens_hf}, "
                                  f"quantized cell {tokens_q}, engine {tokens_mem}")
         # (d) bf16 from the HF directory against the same weights in memory.
-        tokens_bf16, ready_bf16 = cell_tokens(lambda: ServingCell(
+        tokens_bf16, boot["hf_bf16"] = cell_tokens(lambda: ServingCell(
             CKPT_MODEL, checkpoint=hf, num_slots=4, max_seq_len=CKPT_SEQ, device="cuda"),
             prompts, CKPT_NEW)
         bf16, bcfg = timed("load_hf_bf16", lambda: hf_convert.load_params(hf))
         tokens_bf16_mem = engine_tokens(bcfg, bf16, prompts, CKPT_NEW, CKPT_SEQ)
-        del bf16
         if tokens_bf16 != tokens_bf16_mem:
             raise AssertionError(f"(d) bf16 greedy tokens differ: cell {tokens_bf16}, "
                                  f"engine {tokens_bf16_mem}")
+        for fmt, report in boot.items():
+            check_streamed(report, f"serve_ckpt {fmt} cell")
+        # The same three cells booted the materialized way (the whole tree
+        # in host memory first, then the engine): each cell boots on the
+        # tree its materialized loader gave above, and its to-ready time is
+        # that load's seconds plus the cell's own; the streamed boots'
+        # comparison, with the same tokens.
+        materialized = {}
+        for fmt, tree, tcfg, kw, want in (
+                ("hf_int8", host_q, qcfg, {"checkpoint": hf, "dtype": "int8"}, tokens_hf),
+                ("quantized", back, qcfg, {"checkpoint": qdir}, tokens_q),
+                ("hf_bf16", bf16, bcfg, {"checkpoint": hf}, tokens_bf16)):
+            got, report = cell_tokens(lambda tree=tree, tcfg=tcfg, kw=kw: materialized_cell(
+                tree, tcfg, CKPT_MODEL, num_slots=4, max_seq_len=CKPT_SEQ, device="cuda",
+                **kw), prompts, CKPT_NEW)
+            if got != want or report["streamed"]:
+                raise AssertionError(f"serve_ckpt {fmt}: the materialized boot's tokens "
+                                     f"{got} against the streamed boot's {want}")
+            load_s = seconds[{"hf_int8": "load_hf_int8", "quantized": "load_quantized",
+                              "hf_bf16": "load_hf_bf16"}[fmt]]
+            materialized[fmt] = {"ready_s": round(load_s + report["ready_s"], 3),
+                                 "load_s": load_s, "cell_s": report["ready_s"]}
+        del host_q, back, bf16
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     out.update({
         "seconds": seconds,
-        "ready_s": {"hf_int8": round(construct_s + served["boot_s"], 3),
-                    "quantized": round(ready_q, 3), "hf_bf16": round(ready_bf16, 3)},
+        "ready_s": {fmt: report["ready_s"] for fmt, report in boot.items()},
+        "ready_s_materialized": {fmt: m["ready_s"] for fmt, m in materialized.items()},
+        "materialized": materialized,
+        "boot": boot,
         "c_tokens_equal": True, "d_tokens_equal": True, "tokens_hf_int8": tokens_hf,
         "tokens_bf16_first": tokens_bf16[0],
         **{k: served[k] for k in ("ms_per_decode_step", "decode_tok_s", "ttft_ms",
@@ -2846,6 +2943,191 @@ def serve_ckpt(k1) -> dict:
         "dir_removed": not os.path.exists(root),
     })
     return out
+
+
+def overlap_share(marks: dict) -> float | None:
+    """The share of the load (first leaf to its last copy done) that ran
+    while the programs were being captured, from an engine's boot marks."""
+    if not {"capture_start", "capture_end", "load_start", "load_done"} <= marks.keys():
+        return None
+    load = marks["load_done"] - marks["load_start"]
+    both = (min(marks["capture_end"], marks["load_done"])
+            - max(marks["capture_start"], marks["load_start"]))
+    return round(max(0.0, both) / load, 4) if load > 0 else None
+
+
+def serve_stream(k1, pre) -> dict:
+    """The streamed boot at 8B: ``serve``'s llama3-8b int8 tree (``pre``,
+    serve's kept cell) saved as a kukeon int8 checkpoint into a temporary
+    directory, then a ServingCell booted with ``checkpoint=dir`` (the
+    stream: reader threads, the engine's load thread, the captures
+    meanwhile) and served ``serve``'s traffic through ``serve_model``: its
+    greedy tokens must be ``serve``'s, 225 K1 a decode step in its
+    profiled replays, and ``kukeon_checkpoint_load_bytes_total`` the tree's
+    leaf bytes. Reports the temp dir's free space, the save, construction
+    to ready, the load's stages and the engine's boot marks (how much of
+    the load the captures hid: a report, not a gate). The directory is
+    removed at the end."""
+    from kukeon_tpu_torch.models import checkpoints
+    from kukeon_tpu_torch.runtime.serving_cell import ServingCell
+
+    root = tempfile.mkdtemp(prefix="kukeon-stream-")
+    free_gb = round(shutil.disk_usage(root).free / 1e9, 1)
+    emit({"serve_stream_tmp_free_gb": free_gb, "dir": root})
+    try:
+        t0 = time.monotonic()
+        checkpoints.save_quantized(root, pre.engine.params, pre.cfg)
+        save_s = time.monotonic() - t0
+        nbytes = dir_bytes(root)
+        t0 = time.monotonic()
+        cell = ServingCell("llama3-8b", checkpoint=root, num_slots=4, max_seq_len=1024,
+                           device="cuda")
+        construct_s = time.monotonic() - t0
+        served = serve_model(k1, "llama3-8b", max_seq_len=1024, prompt_len=128, new=64,
+                             profile_new=8, cell=cell, label="llama3-8b stream")
+        boot = boot_report(cell, t0, construct_s + served["boot_s"])
+        del cell
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_streamed(boot, "serve_stream")
+    if SERVED_TOKENS["llama3-8b stream"] != SERVED_TOKENS["llama3-8b"]:
+        raise AssertionError("serve_stream: the streamed cell's greedy tokens differ from serve's")
+    return {"tmp_free_gb": free_gb, "save_s": round(save_s, 3), "checkpoint_bytes": nbytes,
+            "construct_s": round(construct_s, 3), **boot,
+            "capture_overlap_share_of_load": overlap_share(boot["marks_s"]),
+            "tokens_equal_serve": True,
+            **{k: served[k] for k in ("ms_per_decode_step", "decode_tok_s", "ttft_ms", "launches",
+                                      "capture_s", "peak_mem_gb")},
+            "launches_per_step": served["profile"]["launches_per_step"],
+            "dir_removed": not os.path.exists(root)}
+
+
+def load_autotune():
+    """``tools/autotune.py`` as a module (tools/ is no package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "autotune.py")
+    spec = importlib.util.spec_from_file_location("autotune", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def serve_tune(pre) -> dict:
+    """The tuning profile and the layer profile at 8B, on ``serve``'s
+    weights: a 2-arm sweep through ``tools/autotune.py``'s code (decode
+    chunk 16 against 64, each arm a cell over ``pre``'s weights with
+    ``serve``'s traffic, tokens equal to ``serve``'s), the winner saved with
+    ``tuning.save`` into this run's profile file, then a cell built with
+    every lever left None (drawn from ``serve``'s seed): it must take the
+    winner's levers and answer ``serve``'s prompts with ``serve``'s greedy
+    tokens. On that cell, ``POST /v1/profile {"layers": true}`` must
+    persist a profile of 34 components and no error; the sum of the
+    layers' decode times is reported beside the cell's measured decode
+    step (HTTP) and a 16-step decode replay, timed alone. The profile file
+    is removed at the end, so later phases boot untuned."""
+    from kukeon_tpu_torch.runtime.serving_cell import ServingCell, serve
+    from kukeon_tpu_torch.serving import tuning
+    from kukeon_tpu_torch.serving.programs import program_key
+
+    autotune = load_autotune()
+    prompts, want = SERVED_PROMPTS["llama3-8b"], SERVED_TOKENS["llama3-8b"]
+    arms = [(f"chunk{c}", {"decode_chunk": c, "kv_cache_int8": False, "kv_page_tokens": 0})
+            for c in (16, 64)]
+    results, best = autotune.sweep(
+        lambda lv: twin_cell(pre, kv_page_tokens=lv["kv_page_tokens"],
+                             decode_chunk=lv["decode_chunk"], kv_cache_int8=lv["kv_cache_int8"]),
+        arms, prompts, 64)
+    bad = {n: r.get("error") for n, r in results.items() if r.get("tokens") != want}
+    if best is None or bad:
+        raise AssertionError(f"serve_tune: arms failed or gave other tokens than serve's: {bad}")
+    path = autotune.save_winner("llama3-8b", torch.device("cuda"), results[best])
+    key = tuning.profile_key("llama3-8b", "gpu", 1)
+    try:
+        t0 = time.monotonic()
+        cell = ServingCell("llama3-8b", dtype="int8", num_slots=4, max_seq_len=1024,
+                           device="cuda")
+        eng = cell.engine
+        levers = results[best]["levers"]
+        took = {"decode_chunk": eng.decode_chunk, "kv_cache_int8": eng.kv_cache_int8,
+                "kv_page_tokens": eng.page_tokens}
+        if eng.tune is None or took != {k: levers[k] for k in took}:
+            raise AssertionError(f"serve_tune: the untuned cell took {took} "
+                                 f"(profile {eng.tune}), the winner is {levers}")
+        cell.warmup(len(prompts[0]))
+        eng.start()
+        server = serve(cell)
+        cell.mark_ready()
+        ready_s = time.monotonic() - t0
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            answers = post_all(base, prompts, 64)
+            stats_tuning = get_json(base + "/v1/stats")["tuning"]
+            t1 = time.monotonic()
+            prof = post(base + "/v1/profile", {"layers": True, "prefillLen": 128,
+                                               "decodeBatch": eng.num_slots})
+            profile_s = time.monotonic() - t1
+        finally:
+            server.shutdown()
+            server.server_close()
+            eng.stop()
+        if [a["tokens"] for a in answers] != want:
+            raise AssertionError("serve_tune: the tuned cell's greedy tokens differ from serve's")
+        stored = tuning.load_layer_profile("llama3-8b", "gpu", 1)
+        names = [c["name"] for c in prof["components"]]
+        if (prof["errors"] or len(names) != 34 or prof.get("key") != key or stored is None
+                or stored["components"] != prof["components"] or not stats_tuning["fromProfile"]):
+            raise AssertionError(f"serve_tune: layer profile errors {prof['errors']} "
+                                 f"({[c for c in prof['components'] if 'error' in c][:3]}), "
+                                 f"{len(names)} components, key {prof.get('key')}, "
+                                 f"stored {stored is not None}, tuning {stats_tuning}")
+        with seated(cell, 128), torch.no_grad():
+            replay = replay_timing(eng._programs, program_key(16, False, False))
+    finally:
+        os.remove(path)
+    layers = [c for c in prof["components"] if c["name"].startswith("layer")]
+    decode_ms = {c["name"]: c["decode"]["wall_s"] * 1e3 for c in prof["components"]}
+    step_ms = [(a["seconds"] - a["ttftSeconds"]) / 63 * 1e3 for a in answers]
+    del cell, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "arms": {n: {k: v for k, v in r.items() if k != "tokens"} for n, r in results.items()},
+        "winner": best, "profile_key": key, "tuned_cell_levers": took,
+        "tuned_cell_ready_s": round(ready_s, 3), "tokens_equal_serve": True,
+        "stats_tuning": stats_tuning,
+        "layer_profile": {
+            "components": len(names), "errors": prof["errors"], "seconds": round(profile_s, 3),
+            "prefill_len": prof["prefill_len"], "decode_batch": prof["decode_batch"],
+            "decode_ms": {"embed": round(decode_ms["embed"], 4),
+                          "layers_sum": round(sum(c["decode"]["wall_s"] for c in layers) * 1e3, 4),
+                          "layer_median": round(statistics.median(
+                              c["decode"]["wall_s"] for c in layers) * 1e3, 4),
+                          "head": round(decode_ms["head"], 4),
+                          "all_sum": round(sum(decode_ms.values()), 4)},
+            "prefill_ms_sum": round(sum(c["prefill"]["wall_s"] for c in prof["components"])
+                                    * 1e3, 4),
+            "model_flops": prof["model_flops"],
+            "flops_sum_prefill": sum(c["prefill"]["flops"] for c in prof["components"])},
+        "ms_per_decode_step_http": round(statistics.median(step_ms), 3),
+        "replay_16": replay,
+    }
+
+
+def materialized_cell(tree: dict, tcfg, *args, **kw):
+    """A ServingCell booted on ``tree`` (with ``tcfg``), a checkpoint a
+    materialized loader has already read whole into host memory: how the
+    cell booted before the stream, less the load, which the caller timed."""
+    from kukeon_tpu_torch.runtime.serving_cell import ServingCell
+
+    class Materialized(ServingCell):
+        @staticmethod
+        def _load_checkpoint(path, cfg, quantize=False):
+            return tree, tcfg
+
+    return Materialized(*args, **kw)
 
 
 def scalar_divisor_misses(params: dict) -> dict:
@@ -3341,6 +3623,19 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
         return 2
+    # The tuning and layer profiles of this run live in a temporary
+    # directory of its own: a profile left in ~/.kuke can never change a
+    # phase's levers, and serve_tune's winner is removed after it.
+    profiles = tempfile.mkdtemp(prefix="kukeon-profiles-")
+    os.environ["KUKEON_TUNE_PATH"] = os.path.join(profiles, "serving_tune.json")
+    os.environ["KUKEON_LAYER_PROFILE_PATH"] = os.path.join(profiles, "layer_profile.json")
+    try:
+        return run_phases(phases)
+    finally:
+        shutil.rmtree(profiles, ignore_errors=True)
+
+
+def run_phases(phases: list) -> int:
     from kukeon_tpu_torch.ops import _build
     from kukeon_tpu_torch.ops import flash_attention as fa
     from kukeon_tpu_torch.ops import int8_matmul as k1
@@ -3397,10 +3692,13 @@ def main(argv=None) -> int:
     run("serve", lambda: {
         **serve_model(k1, "llama3-8b", max_seq_len=1024, prompt_len=128, new=64,
                       profile_new=32, stream_stop=True,
-                      keep=kept if "serve_obs" in phases else None),
+                      keep=kept if {"serve_obs", "serve_stream", "serve_tune"} & set(phases)
+                      else None),
         "bound_ms_per_decode_step": round(sum(
             bound_ms(4, K, N, bps)[0] * n for K, N, n in SHAPES_8B.values()), 4)})
-    run("serve_obs", lambda: serve_obs(kept.pop("llama3-8b", None), bps))
+    run("serve_obs", lambda: serve_obs(kept["llama3-8b"], bps))
+    run("serve_stream", lambda: serve_stream(k1, kept["llama3-8b"]))
+    run("serve_tune", lambda: serve_tune(kept["llama3-8b"]))
     kept.clear()
     run("serve_tied", lambda: serve_model(k1, "llama3-1b", max_seq_len=CKPT_SEQ,
                                           prompt_len=CKPT_PROMPT, new=CKPT_NEW))
@@ -3506,9 +3804,11 @@ def main(argv=None) -> int:
     serve8, serve1, serve_moe, train = (res["serve"], res["serve_tied"], res["serve_moe"],
                                         res["train"])
     train_moe, embed, ckpt = res["train_moe"], res["serve_embed"], res["serve_ckpt"]
+    stream, tune = res["serve_stream"], res["serve_tune"]
     ft, fm = flash["timing"], flash["timing_mixtral_train"]
     for label, run_, key in (("llama3-8b", serve8, "k1"), ("llama3-1b", serve1, "k1t"),
                              ("llama3-1b ckpt", ckpt, "k1"), ("llama3-1b ckpt", ckpt, "k1t"),
+                             ("llama3-8b stream", stream, "k1"),
                              ("mixtral-8x7b", serve_moe, "k1"), ("mixtral-8x7b", serve_moe, "k2")):
         if run_["launches"][key] <= 0:
             raise AssertionError(f"{label} serving launched no {key} kernel")
@@ -3527,8 +3827,10 @@ def main(argv=None) -> int:
                     for f in fields}
     kernels = [
         {"name": "int8_matmul", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": serve8["launches"]["k1"] + ckpt["launches"]["k1"],
+         "replaces": K1_REPLACES,
+         "launches": serve8["launches"]["k1"] + ckpt["launches"]["k1"] + stream["launches"]["k1"],
          "launches_serve": serve8["launches"]["k1"], "launches_ckpt": ckpt["launches"]["k1"],
+         "launches_stream": stream["launches"]["k1"],
          "launches_paged": spg["layout_check"]["launches"]["k1"],
          "launches_disagg": sdg["parity"]["launches"]["k1"],
          "max_abs_err": kern["max_abs_err"], **per_step, "bound_by": "bytes",
@@ -3637,8 +3939,21 @@ def main(argv=None) -> int:
         "train_moe_mixtral-8x7b_4_layers": {k: train_moe[k] for k in (
             "step_ms_median_3_6", "tokens_per_s", "mfu", "peak_mem_gb", "losses",
             "step1_rel_diff", "flash_launches_per_step")},
+        "serve_stream_llama3-8b": {k: stream[k] for k in (
+            "tmp_free_gb", "save_s", "checkpoint_bytes", "construct_s", "ready_s", "stages_s",
+            "marks_s", "capture_overlap_share_of_load", "load_bytes_counter", "leaf_bytes",
+            "tokens_equal_serve", "launches_per_step", "ms_per_decode_step")},
+        "serve_tune_llama3-8b": {
+            "arms": {n: {k: a.get(k) for k in ("tok_per_s", "ms_per_decode_step", "ttft_ms")}
+                     for n, a in tune["arms"].items()},
+            **{k: tune[k] for k in ("winner", "tuned_cell_levers", "tokens_equal_serve",
+                                    "ms_per_decode_step_http")},
+            "layer_profile": {k: tune["layer_profile"][k] for k in (
+                "components", "errors", "seconds", "decode_ms")},
+            "replay_16_event_ms_per_step": tune["replay_16"]["event_ms_per_step"]},
         "serve_ckpt_llama3-1b": {k: ckpt[k] for k in (
-            "seconds", "ready_s", "hf_bytes", "quant_bytes", "a_leaves_bitwise",
+            "seconds", "ready_s", "ready_s_materialized", "hf_bytes", "quant_bytes",
+            "a_leaves_bitwise",
             "scalar_divisor_scales", "b_leaves_bitwise", "c_tokens_equal", "d_tokens_equal",
             "launches_per_step", "ms_per_decode_step", "optional_packages")},
         "serve_embed_bge-base": {k: embed[k] for k in (

@@ -2,14 +2,17 @@
 environment, the port's own copy of what training checkpoints need from
 ``kukeon_tpu/faults.py`` (same variable, same syntax, same exception name).
 The port's points are :data:`POINTS`, a subset of the reference's list
-(``kukeon_tpu/faults.py:51-57``): ``checkpoint.save`` and
-``checkpoint.load`` (training), ``engine.prefill`` and ``engine.decode``
-(the serving engine's dispatches), ``engine.fetch`` (its blocking
-readback), ``kv.alloc`` (the paged KV allocator), ``kv.handoff`` (the
-serving cell's KV import), ``cell.http`` (the cell's generate and KV
-routes), ``devices.probe_wedged`` (the CUDA runtime probe reports a
-wedged runtime) and ``profile.capture`` (an on-demand profile fails to
-start).
+(``kukeon_tpu/faults.py:51-68``): ``checkpoint.save`` and
+``checkpoint.load`` (training), ``checkpoint.stream`` (a streamed
+checkpoint's reader, before each job), ``engine.prefill`` and
+``engine.decode`` (the serving engine's dispatches), ``engine.fetch`` (its
+blocking readback), ``engine.upload`` (its host-to-device copies, the
+streamed boot's too), ``kv.alloc`` (the paged KV allocator),
+``kv.handoff`` (the serving cell's KV import), ``cell.http`` (the cell's
+generate and KV routes), ``devices.probe_wedged`` (the CUDA runtime probe
+reports a wedged runtime), ``profile.capture`` (an on-demand profile fails
+to start) and ``profile.layers`` (the per-layer profile, once a shape of
+each component).
 
     from kukeon_tpu_torch import faults
     faults.maybe_fail("checkpoint.save")        # raises iff armed
@@ -39,13 +42,16 @@ POINTS = (
     "engine.prefill",
     "engine.decode",
     "engine.fetch",
+    "engine.upload",
     "kv.alloc",
     "kv.handoff",
     "cell.http",
     "checkpoint.save",
     "checkpoint.load",
+    "checkpoint.stream",
     "devices.probe_wedged",
     "profile.capture",
+    "profile.layers",
 )
 
 

@@ -23,14 +23,25 @@ Counterparts in the reference (``kukeon_tpu/models/checkpoints.py``):
   save_quantized                 :229
   is_quantized_checkpoint        :248
   load_quantized                 :252
+  CheckpointStreamError          :283
   TensorSpec                     :290
   _ST_DTYPES                     :320  (torch dtypes here)
   read_safetensors_header        :327
+  _walk_tree                     :343
+  CheckpointStream               :353-455
+  _timed_get                     :458
+  stream_quantized               :464-516
+
+:func:`drain` reads a stream to its end into a tree; ``load_quantized``
+is :func:`stream_quantized` drained with one reader.
 
 Loaders return trees of CPU tensors in the reference's layout (stacked
 ``[L, ...]`` leaves, int8 matrices as ``{"q", "s"}``); the serving cell
-moves them to its device. ``CheckpointStream`` and ``stream_quantized``
-(the streamed boot) are ROADMAP A10b.
+moves them to its device. The streamed boot's :class:`CheckpointStream`
+hands the same leaves over one at a time, read by threads of its own, so
+the engine can copy each to the card as it arrives while it captures its
+programs from the abstract tree (``TensorSpec`` leaves, from headers and
+configs alone).
 """
 
 from __future__ import annotations
@@ -38,11 +49,17 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import queue
 import struct
+import threading
+import time
+from collections.abc import Callable, Iterator
+from typing import Any
 
 import numpy as np
 import torch
 
+from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.models.llama import LlamaConfig
 
 QUANT_MANIFEST = "kukeon_quant.json"
@@ -82,6 +99,10 @@ class TensorSpec:
     def __init__(self, shape: tuple[int, ...], dtype: torch.dtype) -> None:
         self.shape = tuple(int(d) for d in shape)
         self.dtype = dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
 
     @property
     def nbytes(self) -> int:
@@ -373,7 +394,202 @@ def is_quantized_checkpoint(path: str) -> bool:
 def load_quantized(path: str, dtype: torch.dtype | None = None) -> tuple[dict, LlamaConfig]:
     """The int8 tree back as CPU tensors, with the manifest's config (its
     activation dtype ``dtype`` when given). f32 leaves other than the ``.s``
-    scales (the norms) are cast to the activation dtype."""
+    scales (the norms) are cast to the activation dtype. Read through
+    :func:`stream_quantized` with one reader, drained."""
+    stream = stream_quantized(path, dtype, threads=1, buffer=1)
+    return drain(stream), stream.cfg
+
+
+# --- streamed (tensor-granular) checkpoint pipeline ----------------------------
+
+class CheckpointStreamError(RuntimeError):
+    """A reader thread died mid-stream (an I/O or format error, or the armed
+    ``checkpoint.stream`` fault point). The consumer raises it, so a boot
+    fails clean: a half-loaded engine never turns ready."""
+
+
+def _walk_tree(node, prefix: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], Any]]:
+    """(path tuple, leaf) pairs of a nested-dict parameter tree ({"q", "s"}
+    dicts are interior nodes here: their tensors are the leaves)."""
+    if isinstance(node, dict):
+        for k in node:
+            yield from _walk_tree(node[k], prefix + (k,))
+    else:
+        yield prefix, node
+
+
+class CheckpointStream:
+    """Bounded-buffer, tensor-granular checkpoint reader.
+
+    ``jobs`` are zero-argument callables, each returning ``(leaves, disk_s,
+    cast_s)`` with ``leaves`` a list of ``(path tuple, CPU tensor)`` pairs
+    in their final dtype and layout. ``threads`` reader threads take the
+    jobs in order and push the leaves through a queue of ``buffer``
+    entries, so host memory holds at most ``buffer + threads`` jobs' leaves
+    however far the disk runs ahead of the consumer. ``finalize``, if
+    given, runs in each reader thread as it exits (closing the files it
+    opened). The readers start at construction, as the reference's do, so
+    the disk runs while the consumer builds what the leaves go into.
+
+    Iterating yields ``(path, tensor)`` until every leaf of
+    :attr:`abstract_params` has arrived. A reader's error (or the armed
+    ``checkpoint.stream`` point, tried before each job) surfaces on the
+    consumer as :class:`CheckpointStreamError`, never as a half tree; so
+    does a stream whose readers all ended short of the tree.
+
+    :attr:`stats` sums ``disk_s``, ``cast_s``, ``bytes`` and ``tensors``
+    under a lock; :meth:`stat_snapshot` reads it.
+    """
+
+    def __init__(self, abstract_params: dict, cfg, jobs: list[Callable], *,
+                 threads: int = 4, buffer: int = 16, finalize: Callable | None = None):
+        self.abstract_params = abstract_params
+        self.cfg = cfg
+        self.total_leaves = sum(1 for _ in _walk_tree(abstract_params))
+        self._jobs = list(jobs)
+        self._jobs_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self.stats = {"disk_s": 0.0, "cast_s": 0.0, "bytes": 0, "tensors": 0}  # guarded-by: _stats_lock
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, buffer))
+        self._closed = threading.Event()
+        self._finalize = finalize
+        self._threads = [
+            threading.Thread(target=self._reader, daemon=True, name=f"ckpt-stream-{i}")
+            for i in range(max(1, min(threads, len(self._jobs) or 1)))]
+        for t in self._threads:
+            t.start()
+
+    # --- reader side ---------------------------------------------------------
+
+    def _reader(self) -> None:
+        try:
+            self._read_jobs()
+        finally:
+            if self._finalize is not None:
+                self._finalize()
+
+    def _read_jobs(self) -> None:
+        while not self._closed.is_set():
+            with self._jobs_lock:
+                if not self._jobs:
+                    return
+                job = self._jobs.pop(0)
+            try:
+                faults.maybe_fail("checkpoint.stream")
+                leaves, disk_s, cast_s = job()
+            except BaseException as e:  # noqa: BLE001 — surfaced to the consumer
+                self._put(("err", CheckpointStreamError(
+                    f"checkpoint stream reader failed: {type(e).__name__}: {e}"), e))
+                return
+            nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+            with self._stats_lock:
+                self.stats["disk_s"] += disk_s
+                self.stats["cast_s"] += cast_s
+                self.stats["bytes"] += nbytes
+                self.stats["tensors"] += len(leaves)
+            for path, t in leaves:
+                if not self._put(("leaf", path, t)):
+                    return
+
+    def _put(self, item) -> bool:
+        """A bounded put that gives up once the stream is closed (a consumer
+        that stopped must not leave readers blocked)."""
+        while not self._closed.is_set():
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    # --- consumer side -------------------------------------------------------
+
+    def __iter__(self) -> Iterator[tuple[tuple[str, ...], torch.Tensor]]:
+        remaining = self.total_leaves
+        try:
+            while remaining:
+                try:
+                    item = self._q.get(timeout=0.2)
+                except queue.Empty:
+                    if any(t.is_alive() for t in self._threads) or not self._q.empty():
+                        continue
+                    raise CheckpointStreamError(
+                        f"checkpoint stream ended after {self.total_leaves - remaining} of "
+                        f"{self.total_leaves} leaves") from None
+                if item[0] == "err":
+                    raise item[1] from item[2]
+                yield item[1], item[2]
+                remaining -= 1
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Stop the readers (idempotent). Iteration closes on completion
+        and on error; a consumer that stops early calls this too."""
+        self._closed.set()
+
+    def stat_snapshot(self) -> dict:
+        with self._stats_lock:
+            return dict(self.stats)
+
+
+def drain(stream: CheckpointStream) -> dict:
+    """A stream read to its end: its tree of CPU tensors, in the abstract
+    tree's order (what the materialized loaders return). A reader's error
+    is raised as the reader met it, so a materialized load fails as it
+    would have failed reading in the caller's thread."""
+    try:
+        leaves = dict(stream)
+    except CheckpointStreamError as e:
+        raise (e.__cause__ or e) from None
+
+    def fill(node, path: tuple[str, ...]):
+        if isinstance(node, dict):
+            return {k: fill(v, path + (k,)) for k, v in node.items()}
+        return leaves[path]
+
+    return fill(stream.abstract_params, ())
+
+
+def _timed_get(get: Callable[[], torch.Tensor]) -> tuple[torch.Tensor, float]:
+    t0 = time.monotonic()
+    out = get()
+    return out, time.monotonic() - t0
+
+
+class _ThreadReaders:
+    """Tensors by name from safetensors files (``where``: name -> file), one
+    :class:`SafetensorsReader` per file and thread, as the reference keeps
+    one ``safe_open`` handle per thread. :meth:`close_local` closes the
+    calling thread's readers (a stream's ``finalize``)."""
+
+    def __init__(self, where: dict[str, str]):
+        self.where = where
+        self._tls = threading.local()
+
+    def get(self, name: str) -> torch.Tensor:
+        readers = getattr(self._tls, "readers", None)
+        if readers is None:
+            readers = self._tls.readers = {}
+        path = self.where[name]
+        r = readers.get(path)
+        if r is None:
+            r = readers[path] = SafetensorsReader(path)
+        return r.get_tensor(name)
+
+    def close_local(self) -> None:
+        for r in getattr(self._tls, "readers", {}).values():
+            r.close()
+        self._tls.readers = {}
+
+
+def stream_quantized(path: str, dtype: torch.dtype | None = None, *, threads: int = 4,
+                     buffer: int = 16) -> CheckpointStream:
+    """The streamed twin of :func:`load_quantized`: the abstract tree and
+    the config come from the manifest and the safetensors header alone (no
+    tensor byte read), then reader threads walk the file tensor by tensor,
+    casting the norms to the activation dtype. The leaves equal the
+    materialized loader's bit for bit."""
     with open(os.path.join(path, QUANT_MANIFEST)) as f:
         manifest = json.load(f)
     if manifest.get("format") != "kukeon-int8-v1":
@@ -381,11 +597,26 @@ def load_quantized(path: str, dtype: torch.dtype | None = None) -> tuple[dict, L
     cfg = _cfg_from_json(manifest["config"])
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    flat: dict[str, torch.Tensor] = {}
-    with SafetensorsReader(os.path.join(path, "model.quant.safetensors")) as f:
-        for name in f.keys():
-            t = f.get_tensor(name)
-            if t.dtype == torch.float32 and not name.endswith(".s"):
-                t = t.to(cfg.dtype)   # norm scales follow the activation dtype
-            flat[name] = t
-    return _unflatten_quant(flat), cfg
+    st_path = os.path.join(path, "model.quant.safetensors")
+    header = read_safetensors_header(st_path)
+    abstract_flat = {
+        name: (TensorSpec(spec.shape, cfg.dtype)
+               if spec.dtype == torch.float32 and not name.endswith(".s") else spec)
+        for name, spec in header.items()}
+    readers = _ThreadReaders({name: st_path for name in header})
+
+    def make_job(name: str):
+        want = abstract_flat[name].dtype
+
+        def job():
+            t, disk_s = _timed_get(lambda: readers.get(name))
+            t0 = time.monotonic()
+            if t.dtype != want:
+                t = t.to(want)
+            return [(tuple(name.split(".")), t)], disk_s, time.monotonic() - t0
+
+        return job
+
+    return CheckpointStream(_unflatten_quant(abstract_flat), cfg,
+                            [make_job(name) for name in header], threads=threads,
+                            buffer=buffer, finalize=readers.close_local)

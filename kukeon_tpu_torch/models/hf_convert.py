@@ -25,9 +25,16 @@ Counterparts in the reference (``kukeon_tpu/models/hf_convert.py``):
   moe_config_from_hf     :143
   load_moe_params        :169
   load_params_quantized  :253  (host quantization with ``llama.quantize_np``)
+  _llama_hf_names, _check_mapped  :343-370
+  stream_params          :394-473
+  stream_params_quantized  :476-594
 
-``stream_params`` and ``stream_params_quantized`` (the streamed boot) are
-ROADMAP A10b.
+The mapping is written once, as one row per final leaf (``_llama_rows``).
+The streams run one reader job a row, with an abstract tree from
+``config.json`` alone and the tensor names checked against the shard
+headers before any tensor byte is read. The materialized loaders drain the
+same stream with one reader, so both give the same leaves bit for bit. The
+MoE loader is materialized only, as in the reference.
 """
 
 from __future__ import annotations
@@ -35,11 +42,18 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import torch
 
-from kukeon_tpu_torch.models.checkpoints import SafetensorsReader, read_safetensors_header
+from kukeon_tpu_torch.models.checkpoints import (
+    CheckpointStream,
+    TensorSpec,
+    _ThreadReaders,
+    drain,
+    read_safetensors_header,
+)
 from kukeon_tpu_torch.models.llama import LlamaConfig, Params, quantize_np
 from kukeon_tpu_torch.models.moe import MoEConfig
 
@@ -87,86 +101,218 @@ def _open_shards(checkpoint_dir: str) -> dict[str, str]:
     return {name: single for name in read_safetensors_header(single)}
 
 
-class _Shards:
-    """The checkpoint's tensors by name, read on demand through one reader
-    per shard; remembers what was read, for the unmapped-tensor check."""
+# --- the mapping, one row per final leaf ------------------------------------------
+#
+# A row is ``(path, spec, names, build)``: the leaf's path in the port's
+# tree, its abstract spec (a TensorSpec, or a {"q", "s"} pair of them), the
+# HF tensors it reads, and ``build(g)``, which makes the leaf from
+# ``g.get(name)``. A stream runs one reader job a row; the materialized
+# loaders drain a stream with one reader.
 
-    def __init__(self, checkpoint_dir: str):
-        self.where = _open_shards(checkpoint_dir)
-        self._readers: dict[str, SafetensorsReader] = {}
-        self._consumed: set[str] = set()
+def _names(fmt: str, L: int) -> list[str]:
+    """The HF tensors of a row: every layer's for a per-layer ``fmt``."""
+    return [fmt.format(i) for i in range(L)] if "{}" in fmt else [fmt]
+
+
+def _plain_row(path: tuple, fmt: str, shape: tuple, transpose: bool, L: int,
+               dtype: torch.dtype) -> tuple:
+    """A full-precision leaf: the tensor (a per-layer row stacks every
+    layer's into a contiguous ``[L, ...]``), transposed if asked, then cast."""
+    names = _names(fmt, L)
+
+    def build(g) -> torch.Tensor:
+        ts = [g.get(n).T if transpose else g.get(n) for n in names]
+        return (torch.stack(ts) if "{}" in fmt else ts[0].contiguous()).to(dtype)
+
+    return path, TensorSpec(shape, dtype), names, build
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A host array as a contiguous CPU tensor (a transposed quantization
+    comes out column-major, and the kernels want row-major leaves)."""
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    """A stored tensor as f32 numpy, exactly (bf16 goes through torch:
+    numpy has no bfloat16 of its own)."""
+    return t.to(torch.float32).numpy()
+
+
+def _int8_row(path: tuple, fmt: str, shape: tuple, transpose: bool, L: int) -> tuple:
+    """An int8 {"q", "s"} leaf quantized on the host with
+    :func:`~kukeon_tpu_torch.models.llama.quantize_np` (the reference's
+    recipe): a transposed HF matrix per output channel on axis 0, the
+    embedding per vocab row on axis 1. A per-layer row quantizes each
+    layer, then stacks."""
+    names = _names(fmt, L)
+    axis = 0 if transpose else 1
+    spec = {"q": TensorSpec(shape, torch.int8),
+            "s": TensorSpec(shape[:-2] + shape[-1:] if transpose else shape[:-1],
+                            torch.float32)}
+
+    def build(g) -> dict[str, torch.Tensor]:
+        leaves = [quantize_np(_f32(g.get(n)).T if transpose else _f32(g.get(n)), axis=axis)
+                  for n in names]
+        if "{}" not in fmt:
+            return {k: _tensor(leaves[0][k]) for k in ("q", "s")}
+        return {k: _tensor(np.stack([leaf[k] for leaf in leaves])) for k in ("q", "s")}
+
+    return path, spec, names, build
+
+
+def _llama_rows(cfg: LlamaConfig | MoEConfig, quantized: bool,
+                mlp: list | None = None) -> list[tuple]:
+    """The Llama mapping of the module docstring, in the tree's order.
+    ``quantized``: every matrix an int8 leaf, the norms in the activation
+    dtype. ``mlp``: rows in place of the MLP's three (Mixtral's)."""
+    c, L, p = cfg, cfg.num_layers, "model.layers.{}."
+    H, V, I = c.hidden_size, c.vocab_size, c.intermediate_size
+
+    def path(name: str, fmt: str) -> tuple:
+        return ("layers", name) if "{}" in fmt else (name,)
+
+    def matrix(name: str, fmt: str, shape: tuple, transpose: bool = True) -> tuple:
+        if quantized:
+            return _int8_row(path(name, fmt), fmt, shape, transpose, L)
+        return _plain_row(path(name, fmt), fmt, shape, transpose, L, c.dtype)
+
+    def norm(name: str, fmt: str, shape: tuple) -> tuple:
+        return _plain_row(path(name, fmt), fmt, shape, False, L, c.dtype)
+
+    rows = [matrix("embed", "model.embed_tokens.weight", (V, H), transpose=False),
+            norm("attn_norm", p + "input_layernorm.weight", (L, H)),
+            matrix("wq", p + "self_attn.q_proj.weight", (L, H, c.q_dim)),
+            matrix("wk", p + "self_attn.k_proj.weight", (L, H, c.kv_dim)),
+            matrix("wv", p + "self_attn.v_proj.weight", (L, H, c.kv_dim)),
+            matrix("wo", p + "self_attn.o_proj.weight", (L, c.q_dim, H)),
+            norm("mlp_norm", p + "post_attention_layernorm.weight", (L, H))]
+    rows += mlp if mlp is not None else [
+        matrix("w_gate", p + "mlp.gate_proj.weight", (L, H, I)),
+        matrix("w_up", p + "mlp.up_proj.weight", (L, H, I)),
+        matrix("w_down", p + "mlp.down_proj.weight", (L, I, H))]
+    rows.append(norm("final_norm", "model.norm.weight", (H,)))
+    if not c.tie_embeddings:
+        rows.append(matrix("lm_head", "lm_head.weight", (H, V)))
+    return rows
+
+
+def _check_mapped(where: dict[str, str], rows: list[tuple], materialized: bool) -> None:
+    """The tensor names against the mapping, from the headers alone. A
+    tied checkpoint may still ship ``lm_head.weight``, which is dropped.
+    The materialized loaders fail on a missing tensor as the reference's
+    do, with the ``KeyError`` of the first one they would read."""
+    names = [n for row in rows for n in row[2]]
+    missing = [n for n in names if n not in where]
+    if missing and materialized:
+        raise KeyError(missing[0])
+    unmapped = sorted(set(where) - set(names) - {"lm_head.weight"})
+    if unmapped:
+        raise ValueError(f"unmapped tensors in checkpoint: {unmapped[:5]}")
+    if missing:
+        raise ValueError(f"missing tensors in checkpoint: {sorted(missing)[:5]}")
+
+
+class _TimedReads:
+    """``get(name)`` through ``readers``, summing the seconds spent reading
+    (a job's disk time; the rest of the job is its cast time)."""
+
+    def __init__(self, readers: _ThreadReaders):
+        self._readers = readers
+        self.seconds = 0.0
 
     def get(self, name: str) -> torch.Tensor:
-        shard = self.where[name]          # a missing tensor raises KeyError
-        if shard not in self._readers:
-            self._readers[shard] = SafetensorsReader(shard)
-        self._consumed.add(name)
-        return self._readers[shard].get_tensor(name)
-
-    def check_all_mapped(self) -> None:
-        """Raise on any tensor the mapping did not read; a tied checkpoint
-        may still ship ``lm_head.weight``, which is dropped."""
-        self._consumed.add("lm_head.weight")
-        unmapped = sorted(set(self.where) - self._consumed)
-        if unmapped:
-            raise ValueError(f"unmapped tensors in checkpoint: {unmapped[:5]}")
-
-    def __enter__(self) -> _Shards:
-        return self
-
-    def __exit__(self, *exc) -> None:
-        for r in self._readers.values():
-            r.close()
+        t0 = time.monotonic()
+        out = self._readers.get(name)
+        self.seconds += time.monotonic() - t0
+        return out
 
 
-def _stack(shards: _Shards, fmt: str, L: int, transpose: bool, dtype: torch.dtype):
-    """``fmt.format(i)`` for every layer, transposed if asked, stacked into
-    a contiguous ``[L, ...]`` tensor, then cast."""
-    ts = [shards.get(fmt.format(i)) for i in range(L)]
-    return torch.stack([t.T for t in ts] if transpose else ts).to(dtype)
+def _stream(checkpoint_dir: str, cfg, rows: list[tuple], *, threads: int, buffer: int,
+            materialized: bool = False) -> CheckpointStream:
+    """A stream with one reader job a row; its abstract tree is the rows'
+    specs, so no tensor byte is read before the first job."""
+    where = _open_shards(checkpoint_dir)
+    _check_mapped(where, rows, materialized)
+    readers = _ThreadReaders(where)
+    abstract: dict = {}
+    for path, spec, _, _ in rows:
+        node = abstract
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = spec
+
+    def make_job(path: tuple[str, ...], build):
+        def job():
+            reads = _TimedReads(readers)
+            t0 = time.monotonic()
+            leaf = build(reads)
+            total = time.monotonic() - t0
+            pairs = ([(path + (k,), leaf[k]) for k in ("q", "s")] if isinstance(leaf, dict)
+                     else [(path, leaf)])
+            return pairs, reads.seconds, total - reads.seconds
+        return job
+
+    return CheckpointStream(abstract, cfg, [make_job(path, build) for path, _, _, build in rows],
+                            threads=threads, buffer=buffer, finalize=readers.close_local)
 
 
-def _trunk(shards: _Shards, L: int, dtype: torch.dtype) -> tuple[torch.Tensor, dict]:
-    """The embedding and the attention half of every layer, shared by the
-    Llama and Mixtral layouts."""
-    p = "model.layers.{}."
-    embed = shards.get("model.embed_tokens.weight").to(dtype)
-    layers = {
-        "attn_norm": _stack(shards, p + "input_layernorm.weight", L, False, dtype),
-        "wq": _stack(shards, p + "self_attn.q_proj.weight", L, True, dtype),
-        "wk": _stack(shards, p + "self_attn.k_proj.weight", L, True, dtype),
-        "wv": _stack(shards, p + "self_attn.v_proj.weight", L, True, dtype),
-        "wo": _stack(shards, p + "self_attn.o_proj.weight", L, True, dtype),
-        "mlp_norm": _stack(shards, p + "post_attention_layernorm.weight", L, False, dtype),
-    }
-    return embed, layers
+def _loaded(checkpoint_dir: str, cfg, rows: list[tuple]) -> Params:
+    """The materialized loaders' tree: the rows' stream, one reader, drained."""
+    return drain(_stream(checkpoint_dir, cfg, rows, threads=1, buffer=1, materialized=True))
 
 
-def _head(shards: _Shards, params: Params, cfg, dtype: torch.dtype) -> Params:
-    params["final_norm"] = shards.get("model.norm.weight").to(dtype)
-    if not cfg.tie_embeddings:
-        params["lm_head"] = shards.get("lm_head.weight").T.contiguous().to(dtype)
-    shards.check_all_mapped()
-    return params
+def _int8_cfg(checkpoint_dir: str, cfg: LlamaConfig | None,
+              dtype: torch.dtype | None) -> LlamaConfig:
+    """The int8 loaders' config: ``dtype`` sets the activation and norm
+    dtype (default: cfg's, or bfloat16 when cfg comes from config.json)."""
+    if cfg is None:
+        return dataclasses.replace(config_from_hf(checkpoint_dir), dtype=dtype or torch.bfloat16)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
 
+
+# --- Llama ----------------------------------------------------------------------
 
 def load_params(checkpoint_dir: str, cfg: LlamaConfig | None = None,
                 dtype: torch.dtype = torch.bfloat16) -> tuple[Params, LlamaConfig]:
     """An HF Llama checkpoint directory -> (params, cfg), CPU tensors in
-    ``dtype``, stacked along the layer axis. Tensors are read as the
-    mapping needs them (stacked in the file's dtype, then cast)."""
-    cfg = cfg or config_from_hf(checkpoint_dir)
-    cfg = dataclasses.replace(cfg, dtype=dtype)   # params and cfg must agree
-    L, p = cfg.num_layers, "model.layers.{}."
-    with _Shards(checkpoint_dir) as shards:
-        embed, layers = _trunk(shards, L, dtype)
-        layers.update({
-            "w_gate": _stack(shards, p + "mlp.gate_proj.weight", L, True, dtype),
-            "w_up": _stack(shards, p + "mlp.up_proj.weight", L, True, dtype),
-            "w_down": _stack(shards, p + "mlp.down_proj.weight", L, True, dtype),
-        })
-        params = _head(shards, {"embed": embed, "layers": layers}, cfg, dtype)
-    return params, cfg
+    ``dtype``, stacked along the layer axis (each leaf stacked in the
+    file's dtype, then cast)."""
+    cfg = dataclasses.replace(cfg or config_from_hf(checkpoint_dir), dtype=dtype)
+    return _loaded(checkpoint_dir, cfg, _llama_rows(cfg, False)), cfg
+
+
+def load_params_quantized(checkpoint_dir: str,
+                          cfg: LlamaConfig | None = None,
+                          dtype: torch.dtype | None = None) -> tuple[Params, LlamaConfig]:
+    """An HF Llama checkpoint straight into the int8 tree ({"q", "s"}
+    leaves), quantized on the host one leaf at a time: the full-precision
+    tree is never materialized, and the peak beyond the int8 tree is one
+    leaf's f32 tensors. ``dtype`` sets the activation and norm dtype
+    (default: cfg's, or bfloat16 when cfg comes from config.json)."""
+    cfg = _int8_cfg(checkpoint_dir, cfg, dtype)
+    return _loaded(checkpoint_dir, cfg, _llama_rows(cfg, True)), cfg
+
+
+def stream_params(checkpoint_dir: str, cfg: LlamaConfig | None = None,
+                  dtype: torch.dtype = torch.bfloat16, *, threads: int = 2,
+                  buffer: int = 4) -> CheckpointStream:
+    """The streamed twin of :func:`load_params`: a :class:`CheckpointStream`
+    whose abstract tree comes from the config alone, one reader job per
+    final leaf (a stacked leaf's job reads its L tensors, transposes,
+    stacks and casts)."""
+    cfg = dataclasses.replace(cfg or config_from_hf(checkpoint_dir), dtype=dtype)
+    return _stream(checkpoint_dir, cfg, _llama_rows(cfg, False), threads=threads, buffer=buffer)
+
+
+def stream_params_quantized(checkpoint_dir: str, cfg: LlamaConfig | None = None,
+                            dtype: torch.dtype | None = None, *, threads: int = 2,
+                            buffer: int = 4) -> CheckpointStream:
+    """The streamed twin of :func:`load_params_quantized`: quantized on the
+    host as it loads, one reader job per final {"q", "s"} (or norm) leaf,
+    so the transient host memory is about one f32 leaf a reader thread."""
+    cfg = _int8_cfg(checkpoint_dir, cfg, dtype)
+    return _stream(checkpoint_dir, cfg, _llama_rows(cfg, True), threads=threads, buffer=buffer)
 
 
 # --- Mixtral (sparse MoE) -----------------------------------------------------
@@ -204,101 +350,26 @@ def load_moe_params(checkpoint_dir: str, cfg: MoEConfig | None = None,
       ...experts.E.w3.weight [I, H] -> w_up   [L, E, H, I]
       ...experts.E.w2.weight [H, I] -> w_down [L, E, I, H]
 
-    Attention, norms and embedding map as in Llama (the same trunk). The
+    Attention, norms and embedding map as in Llama (the same rows). The
     router stays f32, so routing does not wobble with the activation dtype.
     """
-    cfg = cfg or moe_config_from_hf(checkpoint_dir)
-    cfg = dataclasses.replace(cfg, dtype=dtype)
-    L, E = cfg.num_layers, cfg.num_experts
+    cfg = dataclasses.replace(cfg or moe_config_from_hf(checkpoint_dir), dtype=dtype)
+    L, E, H, I = cfg.num_layers, cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
 
-    def experts(shards: _Shards, w_name: str) -> torch.Tensor:
-        return torch.stack([
-            torch.stack([
-                shards.get(f"model.layers.{i}.block_sparse_moe.experts.{e}.{w_name}.weight").T
-                for e in range(E)])
-            for i in range(L)]).to(dtype)
+    def experts(name: str, w: str, shape: tuple) -> tuple:
+        names = [f"model.layers.{i}.block_sparse_moe.experts.{e}.{w}.weight"
+                 for i in range(L) for e in range(E)]
 
-    with _Shards(checkpoint_dir) as shards:
-        embed, layers = _trunk(shards, L, dtype)
-        layers.update({
-            "router": _stack(shards, "model.layers.{}.block_sparse_moe.gate.weight", L, True,
-                             torch.float32),
-            "w_gate": experts(shards, "w1"),
-            "w_up": experts(shards, "w3"),
-            "w_down": experts(shards, "w2"),
-        })
-        params = _head(shards, {"embed": embed, "layers": layers}, cfg, dtype)
-    return params, cfg
+        def build(g) -> torch.Tensor:
+            return torch.stack([torch.stack([g.get(names[i * E + e]).T for e in range(E)])
+                                for i in range(L)]).to(dtype)
 
+        return ("layers", name), TensorSpec(shape, dtype), names, build
 
-# --- int8 load ------------------------------------------------------------------
-
-def _tensor(a: np.ndarray) -> torch.Tensor:
-    """A host array as a contiguous CPU tensor (a transposed quantization
-    comes out column-major, and the kernels want row-major leaves)."""
-    return torch.from_numpy(np.ascontiguousarray(a))
-
-
-def _f32(t: torch.Tensor) -> np.ndarray:
-    """A stored tensor as f32 numpy, exactly (bf16 goes through torch:
-    numpy has no bfloat16 of its own)."""
-    return t.to(torch.float32).numpy()
-
-
-def load_params_quantized(checkpoint_dir: str,
-                          cfg: LlamaConfig | None = None,
-                          dtype: torch.dtype | None = None) -> tuple[Params, LlamaConfig]:
-    """An HF Llama checkpoint straight into the int8 tree ({"q", "s"}
-    leaves), quantized on the host one tensor at a time with
-    :func:`~kukeon_tpu_torch.models.llama.quantize_np` (the reference's
-    recipe): the full-precision tree is never materialized, and the peak
-    beyond the int8 tree is one f32 tensor (the embedding is the largest).
-
-    HF matrices are transposed to ``[in, out]`` and quantized per output
-    channel on axis 0; the embedding per vocab row on axis 1; ``lm_head``
-    only when untied. ``dtype`` sets the activation and norm dtype
-    (default: cfg's, or bfloat16 when cfg comes from config.json).
-    """
-    if cfg is None:
-        cfg = dataclasses.replace(config_from_hf(checkpoint_dir),
-                                  dtype=dtype or torch.bfloat16)
-    elif dtype is not None:
-        cfg = dataclasses.replace(cfg, dtype=dtype)
-    L = cfg.num_layers
-
-    with _Shards(checkpoint_dir) as shards:
-        def stack_q(fmt: str) -> dict[str, torch.Tensor]:
-            """Per-layer quantize (HF [out, in] -> ours [in, out]), stack."""
-            qs, ss = [], []
-            for i in range(L):
-                leaf = quantize_np(_f32(shards.get(fmt.format(i))).T, axis=0)
-                qs.append(leaf["q"])
-                ss.append(leaf["s"])
-            return {"q": _tensor(np.stack(qs)), "s": _tensor(np.stack(ss))}
-
-        def quantized(name: str, axis: int, transpose: bool) -> dict[str, torch.Tensor]:
-            w = _f32(shards.get(name))
-            leaf = quantize_np(w.T if transpose else w, axis=axis)
-            return {"q": _tensor(leaf["q"]), "s": _tensor(leaf["s"])}
-
-        p = "model.layers.{}."
-        params: Params = {
-            "embed": quantized("model.embed_tokens.weight", 1, False),
-            "layers": {
-                "attn_norm": _stack(shards, p + "input_layernorm.weight", L, False, cfg.dtype),
-                "wq": stack_q(p + "self_attn.q_proj.weight"),
-                "wk": stack_q(p + "self_attn.k_proj.weight"),
-                "wv": stack_q(p + "self_attn.v_proj.weight"),
-                "wo": stack_q(p + "self_attn.o_proj.weight"),
-                "mlp_norm": _stack(shards, p + "post_attention_layernorm.weight", L, False,
-                                   cfg.dtype),
-                "w_gate": stack_q(p + "mlp.gate_proj.weight"),
-                "w_up": stack_q(p + "mlp.up_proj.weight"),
-                "w_down": stack_q(p + "mlp.down_proj.weight"),
-            },
-            "final_norm": shards.get("model.norm.weight").to(cfg.dtype),
-        }
-        if not cfg.tie_embeddings:
-            params["lm_head"] = quantized("lm_head.weight", 0, True)
-        shards.check_all_mapped()
-    return params, cfg
+    rows = _llama_rows(cfg, False, mlp=[
+        _plain_row(("layers", "router"), "model.layers.{}.block_sparse_moe.gate.weight",
+                   (L, H, E), True, L, torch.float32),
+        experts("w_gate", "w1", (L, E, H, I)),
+        experts("w_up", "w3", (L, E, H, I)),
+        experts("w_down", "w2", (L, E, I, H))])
+    return _loaded(checkpoint_dir, cfg, rows), cfg

@@ -1,6 +1,6 @@
-"""Roofline profiling: per-program timers and the engine step flight
-recorder, the port of ``kukeon_tpu/obs/profile.py`` (its per-layer
-profile, ``profile_layers``, is not ported yet: ROADMAP A12d).
+"""Roofline profiling: per-program timers, the engine step flight
+recorder and the per-layer profile, the port of
+``kukeon_tpu/obs/profile.py``.
 
 - :class:`ProgramTimers` — dispatch counts, wall-time histograms and
   token counts for every engine program, plus each program's cost
@@ -21,15 +21,24 @@ profile, ``profile_layers``, is not ported yet: ROADMAP A12d).
   step records (occupancy, chunk size, tokens, per-program wall times,
   transfer counts, preemptions, seated trace ids) behind
   ``GET /v1/timeline``.
+- :func:`profile_layers` — the reference's per-layer profile (schema
+  ``kukeon-layer-profile/v1``): embed, every layer and the head, each at a
+  prefill and a decode shape, with FLOPs and bytes from
+  :func:`layer_cost` (plain counts, as :func:`program_cost`) and, on the
+  card, each component's time as the replay of a CUDA graph captured for
+  it (the counterpart of the reference's ``jax.jit``; an eager layer would
+  time its launches, not its work).
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 import threading
 import time
 from collections import deque
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable
 
 import torch
 
@@ -463,3 +472,178 @@ class FlightRecorder:
     def __len__(self) -> int:
         with self._lock:
             return min(self._next_seq, self.capacity)
+
+
+# --- per-layer cost profiler -----------------------------------------------------
+
+LAYER_PROFILE_SCHEMA = "kukeon-layer-profile/v1"
+
+
+def layer_cost(cfg, component: str, B: int, S: int, *, int8_weights: bool
+               ) -> tuple[float, float]:
+    """(FLOPs, memory bytes) of one component of a cacheless Llama forward
+    over ``[B, S]`` tokens, counted as :func:`program_cost` counts:
+
+    - ``embed``: one operation an element of the [B, S, H] rows (the cast,
+      and the scale of an int8 table); bytes the rows gathered (and their
+      scales), the token ids and the output.
+    - ``layer<i>``: 2 x the layer's projection elements a token, and the
+      dense attention's scores and value product, 4 H head_dim S a query
+      (every query against its S keys); bytes the layer's weights (int8:
+      one byte an element and a 4-byte scale an output column; else the
+      config dtype's bytes) and its input and output rows.
+    - ``head``: 2 H V a token; bytes the LM head's (or the tied
+      embedding's) weights, the input rows and the f32 logits.
+    """
+    c = cfg
+    D, V = c.hidden_size, c.vocab_size
+    act = torch.finfo(c.dtype).bits // 8
+    rows = B * S
+    if component == "embed":
+        w = 1 if int8_weights else act
+        nbytes = rows * D * (w + act) + rows * 8 + (rows * 4 if int8_weights else 0)
+        return float(rows * D), float(nbytes)
+    if component == "head":
+        wbytes = V * D + 4 * V if int8_weights else V * D * act
+        return 2.0 * rows * D * V, float(wbytes + rows * D * act + rows * V * 4)
+    mats = D * (c.q_dim + 2 * c.kv_dim) + c.q_dim * D + 3 * D * c.intermediate_size
+    cols = c.q_dim + 2 * c.kv_dim + D + 2 * c.intermediate_size + D
+    wbytes = mats + 4 * cols if int8_weights else mats * act
+    flops = 2.0 * rows * mats + 4.0 * c.num_heads * c.head_dim * rows * S
+    return flops, float(wbytes + 2 * rows * D * act)
+
+
+def _time_eager(fn: Callable, args: tuple, reps: int) -> float:
+    """Best of ``reps`` wall seconds of one call (the CPU's timing)."""
+    best = math.inf
+    for _ in range(max(1, reps)):
+        t0 = time.monotonic()
+        fn(*args)
+        best = min(best, time.monotonic() - t0)
+    return best
+
+
+def _time_graph(fn: Callable, args: tuple, reps: int, pool, keep: list) -> float:
+    """Best of ``reps`` device seconds of one replay of a CUDA graph of
+    ``fn(*args)``, timed with CUDA events: one eager run on a side stream
+    first (it builds the handles the capture must not), then the capture,
+    one replay to warm, then the timed replays. The graph goes to ``keep``:
+    while another capture may still draw on ``pool``, one of its graphs
+    must live, for the caching allocator refuses a capture into a shared
+    pool whose graphs are all gone until it has freed that pool."""
+    dev = args[0].device
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn(*args)
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        out = fn(*args)
+    graph.replay()
+    best = math.inf
+    for _ in range(max(1, reps)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    keep.append(graph)
+    del out
+    return best
+
+
+@torch.no_grad()
+def profile_layers(params, cfg, device: torch.device | str | None = None, *,
+                   prefill_len: int = 64, decode_batch: int = 8, measure: bool = True,
+                   reps: int = 3, guard=None) -> dict:
+    """Per-component profile of a Llama model (the reference's
+    ``profile_layers``, ``kukeon_tpu/obs/profile.py:441-560``): ``embed``,
+    ``layer0`` .. ``layer{L-1}`` through the cacheless
+    ``llama.transformer_block``, and ``head``, each at a prefill shape
+    ``[1, prefill_len]`` and a decode shape ``[decode_batch, 1]``, with
+    ``flops`` and ``bytes`` from :func:`layer_cost` and, when ``measure``,
+    ``wall_s``: on CUDA the best of ``reps`` replays of a CUDA graph
+    captured for the component (device time, CUDA events), on the CPU the
+    best of ``reps`` eager calls. ``model_flops``/``model_bytes`` are the
+    whole model's prefill by :func:`program_cost`, the engine programs'
+    count, so the components' prefill FLOPs sum to it (the embed's casts
+    aside).
+
+    Failures degrade, never crash: a component whose run raises (or the
+    armed ``profile.layers`` fault point, tried once a shape) becomes an
+    ``error`` entry, counted in ``errors``. ``guard``: a context manager
+    held throughout (the engine's capture lock, so no engine capture runs
+    beside these)."""
+    from kukeon_tpu_torch import faults
+    from kukeon_tpu_torch.models import llama
+    from kukeon_tpu_torch.ops.norms import rms_norm
+
+    dev = torch.device(device) if device is not None else params["final_norm"].device
+    n_layers, hidden = int(cfg.num_layers), int(cfg.hidden_size)
+    prefill_len, decode_batch = max(1, int(prefill_len)), max(1, int(decode_batch))
+    shapes = (("prefill", (1, prefill_len)), ("decode", (decode_batch, 1)))
+    int8 = llama._is_q(params["layers"]["wq"])
+    cuda = dev.type == "cuda"
+
+    def embed_fn(tokens):
+        return llama._embed(params, tokens, cfg.dtype)
+
+    def head_fn(x):
+        return llama._logits(params, cfg, rms_norm(x, params["final_norm"], cfg.rms_norm_eps))
+
+    def layer_fn(i: int):
+        w = llama.layer_weights(params, i)
+        return lambda x, positions: llama.transformer_block(x, w, cfg, positions)
+
+    def args_for(name: str, B: int, S: int) -> tuple:
+        if name == "embed":
+            return (torch.zeros((B, S), dtype=torch.int64, device=dev),)
+        x = torch.zeros((B, S, hidden), dtype=cfg.dtype, device=dev)
+        if name == "head":
+            return (x,)
+        return (x, torch.arange(S, device=dev).expand(B, S))
+
+    components: list[dict] = []
+    errors = 0
+    pool = torch.cuda.graph_pool_handle() if cuda and measure else None
+    graphs: list = []       # the pool's graphs, kept until the last capture
+    plan = [("embed", embed_fn)] + [(f"layer{i}", layer_fn(i)) for i in range(n_layers)]
+    plan += [("head", head_fn)]
+    with guard if guard is not None else contextlib.nullcontext():
+        for name, fn in plan:
+            kind = name if name in ("embed", "head") else "layer"
+            entry: dict[str, Any] = {"name": name}
+            try:
+                for shape_name, (B, S) in shapes:
+                    faults.maybe_fail("profile.layers")
+                    flops, nbytes = layer_cost(cfg, kind, B, S, int8_weights=int8)
+                    rec: dict[str, Any] = {"flops": flops, "bytes": nbytes}
+                    if measure:
+                        args = args_for(name, B, S)
+                        secs = (_time_graph(fn, args, reps, pool, graphs) if cuda
+                                else _time_eager(fn, args, reps))
+                        rec["wall_s"] = round(secs, 6)
+                    entry[shape_name] = rec
+            except Exception as e:  # noqa: BLE001 — a partial profile beats a dead cell
+                errors += 1
+                entry = {"name": name, "error": f"{type(e).__name__}: {e}"}
+            components.append(entry)
+        del graphs
+        if cuda:
+            torch.cuda.empty_cache()
+    model_flops, model_bytes = program_cost(
+        cfg, "prefill", ("prefill", prefill_len, False, False), num_slots=1,
+        max_seq_len=prefill_len, int8_weights=int8)
+    return {
+        "schema": LAYER_PROFILE_SCHEMA,
+        "num_layers": n_layers,
+        "prefill_len": prefill_len,
+        "decode_batch": decode_batch,
+        "model_flops": model_flops,
+        "model_bytes": model_bytes,
+        "components": components,
+        "errors": errors,
+    }

@@ -13,7 +13,9 @@ An HTTP front end over the port's :class:`ServingEngine`:
   GET  /v1/timeline         -> the flight recorder's newest ?n= step records
   GET  /v1/profile          -> the profiler spool's captures
   POST /v1/profile          -> {"durationMs": D}: a torch.profiler capture
-                               in the background (409 while one runs)
+                               in the background (409 while one runs);
+                               {"layers": true, "prefillLen": P,
+                               "decodeBatch": B}: the per-layer profile
   POST /drain               -> stop admitting, finish in-flight work, stop
                                the engine (then the process exits 0)
   POST /v1/kv/export        -> generate body in, KV handoff body out
@@ -73,7 +75,15 @@ JAX one. A ``traceparent`` header on ``/v1/generate`` (streamed too) and
 ``KUKEON_PROFILE_DIR`` (and ``KUKEON_PROFILE_KEEP``) the profile spool,
 ``KUKEON_PEAK_FLOPS``/``KUKEON_PEAK_HBM_BPS`` the peaks the utilization
 gauges divide by (read at boot). ``{"layers": true}`` on ``POST
-/v1/profile`` answers 400: the per-layer profile is ROADMAP A12d.
+/v1/profile`` runs :meth:`ServingCell.profile_layers` in the request: the
+live model's per-layer profile, persisted under the tuning key
+(``KUKEON_LAYER_PROFILE_PATH``) unless a component failed.
+
+**Tuning** (the reference's serving tune): ``--decode-chunk``,
+``--kv-cache-int8`` and ``--kv-page-tokens`` left out take the profile
+stored for this model on this backend (``KUKEON_TUNE_PATH``, written by
+``tools/autotune.py``), then the defaults; ``/v1/stats`` reports the
+levers taken under ``tuning``.
 
 **Watchdog** (the reference's ``EngineWatchdog``): under :func:`main`,
 when work has waited ``KUKEON_WATCHDOG_S`` (default 120; 0 disables)
@@ -95,16 +105,19 @@ drain, ``/metrics`` and ``/v1/timeline`` surfaces:
 **Checkpoints** (the reference's ``_load_checkpoint``): ``--checkpoint
 DIR`` serves real weights, the format chosen as the reference chooses it:
 a kukeon int8 checkpoint (``kukeon_quant.json``) through
-``checkpoints.load_quantized``; an HF directory (``config.json`` and
-safetensors) through ``hf_convert.load_params_quantized`` under ``--dtype
-int8``, else ``hf_convert.load_params``; for the MoE family
-``hf_convert.load_moe_params``, quantized on the host under ``--dtype
-int8``. The config comes from the checkpoint, and a ``tokenizer.json``
-beside the weights replaces the byte tokenizer. Weights are read into host
-memory and moved to the device whole.
+``checkpoints.stream_quantized``; an HF directory (``config.json`` and
+safetensors) through ``hf_convert.stream_params_quantized`` under
+``--dtype int8``, else ``hf_convert.stream_params``; for the MoE family
+``hf_convert.load_moe_params`` (materialized, as in the reference),
+quantized on the host under ``--dtype int8``. The config comes from the
+checkpoint, and a ``tokenizer.json`` beside the weights replaces the byte
+tokenizer. A stream boots the engine with its weights to come: its reader
+threads and the engine's load thread move the weights while
+:meth:`ServingCell.warmup` captures the programs; a stream that fails
+makes ``warmup`` exit (``SystemExit``), never ready; ``finish_boot`` adds
+the load's ``disk``, ``cast`` and ``upload`` seconds to the boot phases.
 
-Not ported yet (ROADMAP.md): the streamed boot and orbax checkpoints
-(A10b), tuning profiles and the layer profile (A12d), and multi-GPU (A13).
+Not ported yet (ROADMAP.md): orbax checkpoints (A10c) and multi-GPU (A13).
 """
 
 from __future__ import annotations
@@ -140,6 +153,7 @@ from kukeon_tpu_torch.obs import (
     expo,
     faults_collector,
 )
+from kukeon_tpu_torch.obs import profile as obs_profile
 from kukeon_tpu_torch.obs import trace as obs_trace
 from kukeon_tpu_torch.runtime.devices import probe_cuda_runtime
 from kukeon_tpu_torch.serving.embedding import EmbeddingEngine
@@ -148,6 +162,7 @@ from kukeon_tpu_torch.serving.engine import (
     RejectedError,
     ServingEngine,
 )
+from kukeon_tpu_torch.serving import tuning
 from kukeon_tpu_torch.serving.sampling import SamplingParams
 from kukeon_tpu_torch.serving.tokenizer import load_tokenizer
 
@@ -318,16 +333,18 @@ class ServingCell(LifecycleMixin):
     and config replace the preset's. ``role``: ``mixed``, ``prefill`` or
     ``decode``, what a gateway routes on (every role keeps the whole
     engine: a prefill cell can decode locally, a decode cell re-prefill a
-    preempted import)."""
+    preempted import). ``decode_chunk``, ``kv_cache_int8`` and
+    ``kv_page_tokens`` left ``None`` take the tuning profile of ``model``
+    on this backend, then the engine's defaults."""
 
     def __init__(self, model: str, *, num_slots: int = 8,
                  max_seq_len: int | None = None, dtype: str | None = None,
                  checkpoint: str | None = None,
-                 seed: int = 0, kv_cache_int8: bool = False,
-                 decode_chunk: int = 16, max_pending: int | None = None,
+                 seed: int = 0, kv_cache_int8: bool | None = None,
+                 decode_chunk: int | None = None, max_pending: int | None = None,
                  deadline_s: float | None = None,
                  device: str | torch.device | None = None,
-                 kv_page_tokens: int = 0, role: str = "mixed",
+                 kv_page_tokens: int | None = None, role: str = "mixed",
                  slo_ttft_p95_ms: float | None = None,
                  slo_availability: float | None = None):
         self._boot_marks: dict[str, float] = {"init_entry": time.monotonic()}
@@ -351,6 +368,8 @@ class ServingCell(LifecycleMixin):
             # refuse the flag rather than serve garbage.
             if kv_cache_int8:
                 raise SystemExit(f"model {model!r} does not support --kv-cache-int8 yet")
+            # Pinned, so a tuning profile cannot turn it on behind the guard.
+            kv_cache_int8 = False
             forward_fn = moe.forward
             if checkpoint:
                 params, cfg = hf_convert.load_moe_params(checkpoint, dtype=cfg.dtype)
@@ -373,14 +392,16 @@ class ServingCell(LifecycleMixin):
         self.model_name = model
         self.cfg = cfg
         # One registry for the whole cell: the engine's families and the
-        # cell's land in one /metrics.
+        # cell's land in one /metrics. A checkpoint stream loads on the
+        # engine's load thread while warmup() captures.
         registry = Registry()
         self.engine = ServingEngine(
             cfg, params, num_slots=num_slots,
             max_seq_len=max_seq_len or min(cfg.max_seq_len, 4096),
             kv_cache_int8=kv_cache_int8, decode_chunk=decode_chunk,
             max_pending=max_pending, seed=seed, device=self.device,
-            forward_fn=forward_fn, kv_page_tokens=kv_page_tokens, registry=registry)
+            forward_fn=forward_fn, kv_page_tokens=kv_page_tokens, registry=registry,
+            model_name=model)
         self.tokenizer = load_tokenizer(checkpoint)
         self.default_deadline_s = deadline_s
         self.started_at = time.time()
@@ -398,40 +419,56 @@ class ServingCell(LifecycleMixin):
 
     @staticmethod
     def _load_checkpoint(path: str, cfg, quantize: bool = False):
-        """(params, cfg) of a Llama checkpoint, CPU tensors, from, in the
-        reference's order of precedence:
+        """(a checkpoint stream, its cfg) of a Llama checkpoint (the
+        reference's ``:556-595``), in its order of precedence:
 
         - a kukeon int8 checkpoint (the ``kukeon_quant.json`` manifest):
-          no quantization work at load;
-        - an HF directory (``config.json`` and safetensors): quantized on
-          the host one tensor at a time when ``quantize``, so the
+          :func:`checkpoints.stream_quantized`, the config and the abstract
+          tree from the manifest and the header alone;
+        - an HF directory (``config.json`` and safetensors): the same
+          pipeline, quantized on the host one leaf at a time when
+          ``quantize`` (:func:`hf_convert.stream_params_quantized`), so the
           full-precision tree is never materialized;
         - anything else is an orbax checkpoint, which is not ported yet.
 
         ``cfg`` gives the activation dtype; the rest of the config comes
-        from the checkpoint."""
+        from the checkpoint. The stream returns before any tensor byte is
+        read."""
         if checkpoints.is_quantized_checkpoint(path):
-            return checkpoints.load_quantized(path, dtype=cfg.dtype)
-        if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
-            if quantize:
-                return hf_convert.load_params_quantized(path, dtype=cfg.dtype)
-            return hf_convert.load_params(path, dtype=cfg.dtype)
-        raise SystemExit(f"checkpoint {path!r} is neither a kukeon int8 checkpoint "
-                         f"({checkpoints.QUANT_MANIFEST}) nor an HF directory (config.json); "
-                         "orbax checkpoints are not ported yet (ROADMAP.md A10b)")
+            stream = checkpoints.stream_quantized(path, dtype=cfg.dtype)
+        elif os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
+            stream = (hf_convert.stream_params_quantized(path, dtype=cfg.dtype) if quantize
+                      else hf_convert.stream_params(path, dtype=cfg.dtype))
+        else:
+            raise SystemExit(f"checkpoint {path!r} is neither a kukeon int8 checkpoint "
+                             f"({checkpoints.QUANT_MANIFEST}) nor an HF directory "
+                             "(config.json); orbax checkpoints are not ported yet "
+                             "(ROADMAP.md A10c)")
+        return stream, stream.cfg
 
     def warmup(self, prompt_len: int = 64):
         """Capture the decode programs and the prefill of ``prompt_len``'s
         bucket (``engine.precompile``; a prefill cell also its export
         program, a decode cell its insert-only one), then run one request
         through them, as the reference cell does; ``/readyz`` turns 200
-        only at :meth:`mark_ready`, after both."""
+        only at :meth:`mark_ready`, after both. The captures need only the
+        weights' shapes, so they overlap a streamed load; the request waits
+        for it. A stream that failed exits (``SystemExit``, which no
+        ``except Exception`` swallows), so a half-loaded engine never
+        turns ready."""
         t0 = time.monotonic()
         self.engine.precompile((prompt_len,), export=self.role == "prefill",
                                imports=self.role == "decode")
         t1 = time.monotonic()
         self._boot_marks.setdefault("compile_done", t1)
-        self.engine.warmup(prompt_len)
+        try:
+            self.engine.warmup(prompt_len)
+        except RuntimeError as e:
+            if isinstance(e.__cause__, checkpoints.CheckpointStreamError):
+                raise SystemExit(
+                    f"serving-cell: checkpoint stream failed during boot ({e.__cause__}); "
+                    "exiting for the restart policy to recover") from e
+            raise
         t2 = time.monotonic()
         self._boot_marks.setdefault("warmup_done", t2)
         self.boot_s["precompile"] = round(t1 - t0, 3)
@@ -456,6 +493,15 @@ class ServingCell(LifecycleMixin):
             phases["warmup"] = m.get("warmup_done", m["compile_done"]) - m["compile_done"]
         total = now - _PROC_T0
         phases["serve"] = max(0.0, total - sum(phases.values()))
+        # A streamed boot's load stages, on top of the serial partition
+        # above: they ran inside its init, compile and warmup, so with them
+        # the phases sum past the total, by the overlap the stream bought.
+        eng = self.engine
+        cs = eng._ckpt_stream.stat_snapshot() if eng._ckpt_stream is not None else {}
+        load = {"disk": cs.get("disk_s", 0.0), "cast": cs.get("cast_s", 0.0),
+                "upload": eng.load_stats["upload_s"]}
+        if any(load.values()):
+            phases.update(load)
         reg = self.registry
         reg.gauge("kukeon_cold_start_seconds",
                   "Process start -> ready wall time (the rolling-restart and "
@@ -474,6 +520,28 @@ class ServingCell(LifecycleMixin):
             span.event("boot_warmup", at=m["compile_done"])
         self.engine.tracer.finish(span, "ok")
         return phases
+
+    def profile_layers(self, prefill_len: int | None = None,
+                       decode_batch: int | None = None) -> dict:
+        """The live model's per-layer profile (``obs/profile.py``
+        ``profile_layers``, the reference's ``:1051-1075``), persisted beside
+        the serving tune under the same ``model|backend|1`` key. An armed
+        ``profile.layers`` fault or a failed component comes back as
+        ``error`` entries (and the profile is not persisted); it never
+        takes the cell down. The engine's capture lock is held throughout,
+        so no engine capture runs beside the profile's."""
+        eng = self.engine
+        eng._ensure_loaded()
+        prof = obs_profile.profile_layers(
+            eng.params, eng.cfg, eng.device,
+            prefill_len=prefill_len or min(64, eng.max_seq_len - 1),
+            decode_batch=decode_batch or eng.num_slots,
+            guard=eng._programs.capture_lock)
+        key_args = (self.model_name, tuning.backend_name(eng.device), 1)
+        prof["key"] = tuning.profile_key(*key_args)
+        if not prof.get("errors"):
+            prof["path"] = tuning.save_layer_profile(*key_args, prof)
+        return prof
 
     def _parse_generate(self, req: dict):
         if "promptTokens" in req:
@@ -745,6 +813,10 @@ class ServingCell(LifecycleMixin):
             "int8Kernel": eng.cfg.int8_pallas,
             "kvCacheInt8": eng.kv_cache_int8,
             "decodeChunk": eng.decode_chunk,
+            # The levers the engine took, and whether a tuning profile gave
+            # any (the reference's block).
+            "tuning": {"decodeChunk": eng.decode_chunk, "kvCacheInt8": eng.kv_cache_int8,
+                       "kvPageTokens": eng.page_tokens, "fromProfile": eng.tune is not None},
             "decodePrograms": _program_counters(eng.program_stats),
             "prefillPrograms": {**_program_counters(eng.program_stats["prefill"]),
                                 "staticBytes": eng.program_stats["prefill"]["static_bytes"]},
@@ -783,7 +855,7 @@ class EmbeddingCell(LifecycleMixin):
             # The reference's embedding checkpoints are orbax ones.
             raise NotImplementedError(
                 f"checkpoint={checkpoint!r}: orbax checkpoints are not ported yet "
-                "(ROADMAP.md A10b)")
+                "(ROADMAP.md A10c)")
         self.device = resolve_device(device)
         cfg = EMBEDDING_MODELS[model]()
         if dtype:
@@ -1083,14 +1155,19 @@ def make_handler(cell: ServingCell | EmbeddingCell):
         def _profile(self):
             """``POST /v1/profile`` {"durationMs": D}: start a capture
             (exempt from admission: a draining or overloaded cell is when
-            an operator wants a trace); 409 while one runs. The per-layer
-            profile (``"layers"``) is not ported yet."""
+            an operator wants a trace); 409 while one runs. ``{"layers":
+            true}``: the per-layer profile, run in the request; failed
+            components come back recorded in the body (200), the cell
+            serving on (404 on a cell without one)."""
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n) or b"{}")
                 if req.get("layers"):
-                    self._send(400, {"error": "per-layer profiles (\"layers\") are not "
-                                              "ported yet (ROADMAP A12d)"})
+                    if not hasattr(cell, "profile_layers"):
+                        self._send(404, {"error": "this cell has no layer profiler"})
+                        return
+                    self._send(200, cell.profile_layers(prefill_len=req.get("prefillLen"),
+                                                        decode_batch=req.get("decodeBatch")))
                     return
                 rec = cell.profiler.start(float(req.get("durationMs", 1000)))
                 self._send(200, {"started": True, "capture": rec})
@@ -1236,12 +1313,14 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint", default=None,
                     help="a kukeon int8 checkpoint or an HF safetensors directory "
                          "(absent: random weights from --seed)")
-    ap.add_argument("--kv-cache-int8", action="store_true")
-    ap.add_argument("--decode-chunk", type=int, default=16)
-    ap.add_argument("--kv-page-tokens", type=int, default=0,
-                    help="> 0: the paged KV cache with pages of this many rows; 0 or "
-                         "absent: the legacy contiguous layout (no tuning profile "
-                         "decides it yet)")
+    # Absent (None): the tuning profile decides, then the default; given,
+    # the flag wins (serving/tuning.py).
+    ap.add_argument("--kv-cache-int8", action="store_true", default=None)
+    ap.add_argument("--decode-chunk", type=int, default=None)
+    ap.add_argument("--kv-page-tokens", type=int, default=None,
+                    help="> 0: the paged KV cache with pages of this many rows; 0: the "
+                         "legacy contiguous layout; absent: the tuning profile decides "
+                         "(legacy without one)")
     ap.add_argument("--role", default="mixed",
                     help="mixed (default), prefill or decode: the disaggregated-serving "
                          "role /v1/stats advertises (every role keeps the whole engine)")

@@ -68,9 +68,31 @@
   record a step that did work, and the progress heartbeat
   (``last_progress``, :meth:`stalled_s`) the cell's watchdog reads.
 
+- **Streamed boot** (the reference's ``CheckpointStream`` constructor and
+  its async load): ``params`` may be a
+  :class:`~kukeon_tpu_torch.models.checkpoints.CheckpointStream`. Every
+  leaf of its abstract tree is allocated on the device first, zero-filled,
+  so the programs can be captured (and their warm-up runs compute on
+  finite values) before a byte of weight arrived: a graph bakes in its
+  buffers' addresses, so the leaves are never replaced, only written in
+  place. A load thread then drains the stream through
+  the counted :meth:`_upload` seam on a CUDA stream of its own, from a
+  ring of pinned buffers made before any capture, and makes no
+  synchronizing call (it polls its events); the captures run under
+  ``capture_error_mode="thread_local"`` (``serving/programs.py``), so a
+  CUDA call of the load thread cannot void a capture on the engine's
+  thread. :meth:`warmup` and :meth:`step` wait for the load thread, and
+  once for the load stream, before anything reads a weight
+  (:meth:`_ensure_loaded`). ``load_stats`` and ``boot_marks`` keep the
+  boot's accounting apart from ``sync_stats``.
+- **Tuning profile** (``serving/tuning.py``): with ``model_name``, a lever
+  left ``None`` (``decode_chunk``, ``kv_cache_int8``, ``prefill_buckets``,
+  ``kv_page_tokens``) takes the profile stored under ``model|gpu|1`` (or
+  ``|cpu|1``), then the default; ``kv_page_tokens`` 0 forces the legacy
+  layout.
+
 Python orchestrates: queueing, slot choice, emitting tokens. Not ported
-yet (ROADMAP.md): tuning profiles and the per-layer profile (A12d), async
-weight load, meshes and sharding.
+yet (ROADMAP.md): meshes and sharding (A13).
 """
 
 from __future__ import annotations
@@ -91,6 +113,7 @@ import torch
 from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.device import resolve_device
 from kukeon_tpu_torch.models import llama
+from kukeon_tpu_torch.models.checkpoints import CheckpointStreamError, _walk_tree
 from kukeon_tpu_torch.obs import (
     CompileTracker,
     FlightRecorder,
@@ -119,6 +142,7 @@ from kukeon_tpu_torch.serving.programs import (
     program_key,
     program_labels,
 )
+from kukeon_tpu_torch.serving import tuning
 from kukeon_tpu_torch.serving.sampling import (
     SamplingParams,
     branch_flags,
@@ -264,7 +288,9 @@ class ServingEngine:
     prefill and decode. ``_lock`` guards the admission state
     (``_pending_n``, ``_next_id``, ``_requests``, ``_running``,
     ``last_progress``) and is the lock of the ``_work`` condition the idle
-    driver sleeps on. Scrapes read the instruments from other threads.
+    driver sleeps on. Scrapes read the instruments from other threads. A
+    streamed boot adds the load thread, which writes
+    only the weight leaves (in place), ``load_stats`` and ``boot_marks``.
     """
 
     def __init__(
@@ -275,28 +301,76 @@ class ServingEngine:
         num_slots: int = 8,
         max_seq_len: int | None = None,
         eos_ids: tuple[int, ...] = (),
-        decode_chunk: int = 16,
+        decode_chunk: int | None = None,
         seed: int = 0,
-        kv_cache_int8: bool = False,
+        kv_cache_int8: bool | None = None,
         prefill_buckets: tuple[int, ...] | None = None,
         max_pending: int | None = None,
         device: str | torch.device | None = None,
         forward_fn: Callable | None = None,
         prefix_cache_size: int = 8,
         prefix_cache_bytes: int = 2 << 30,
-        kv_page_tokens: int = 0,
+        kv_page_tokens: int | None = None,
         kv_pool_pages: int | None = None,
         registry: Registry | None = None,
+        model_name: str | None = None,
     ):
         self.device = resolve_device(device)
         self._forward = forward_fn or llama.forward
+        t_init = time.monotonic()
+        # A streamed boot (duck-typed on .abstract_params, as the
+        # reference's): the constructor sees only the abstract tree.
+        self._ckpt_stream = params if hasattr(params, "abstract_params") else None
+        ptree = self._ckpt_stream.abstract_params if self._ckpt_stream is not None else params
+        int8_weights = llama._is_q(ptree["layers"]["wq"])
         # int8 weights on a CUDA device always decode through the kernel; a
         # model whose dims it does not take fails at the kernel's shape check.
-        if (self.device.type == "cuda" and llama._is_q(params["layers"]["wq"])
-                and not cfg.int8_pallas):
+        if self.device.type == "cuda" and int8_weights and not cfg.int8_pallas:
             cfg = dataclasses.replace(cfg, int8_pallas=True)
         self.cfg = cfg
-        self.params = _to_device(params, self.device)
+        # The tuning profile (the reference's :310-335): levers the caller
+        # left None take the stored winner for this model on this backend,
+        # then the defaults; a missing or stale profile is a miss.
+        self.tune: tuning.ServingTune | None = None
+        if model_name and None in (decode_chunk, kv_cache_int8, prefill_buckets,
+                                   kv_page_tokens):
+            self.tune = tuning.load(model_name, tuning.backend_name(self.device), 1)
+            if self.tune is not None and ((self.tune.mesh_tensor or 1) > 1 or self.tune.kv_shard):
+                raise NotImplementedError(
+                    f"tuning profile {tuning.profile_key(model_name, tuning.backend_name(self.device), 1)}"
+                    f" asks for a sharded layout (mesh_tensor {self.tune.mesh_tensor}, kv_shard "
+                    f"{self.tune.kv_shard}); multi-GPU serving is not ported yet (ROADMAP.md A13)")
+        if self.tune is not None:
+            if decode_chunk is None:
+                decode_chunk = self.tune.decode_chunk
+            if kv_cache_int8 is None:
+                kv_cache_int8 = self.tune.kv_cache_int8
+            if prefill_buckets is None:
+                prefill_buckets = self.tune.prefill_buckets
+            # None: the profile decides; 0 forces the legacy layout.
+            if kv_page_tokens is None:
+                kv_page_tokens = self.tune.kv_page_tokens
+        decode_chunk = 16 if decode_chunk is None else decode_chunk
+        # Streamed-boot accounting, apart from sync_stats (the serving
+        # path's host-sync budget): kukeon_checkpoint_load_* read it, and
+        # boot_marks the monotonic times of the load's first and last leaf,
+        # its end, and the programs' captures.
+        self.load_stats = {"upload_s": 0.0, "bytes": 0, "tensors": 0}
+        self.boot_marks: dict[str, float] = {"init": t_init}
+        self._load_exc: Exception | None = None
+        self._loaded = threading.Event()
+        self._load_waited = False
+        self._stager: _Stager | None = None
+        self._load_stream = None
+        if self._ckpt_stream is not None:
+            # Allocated before any capture, zero-filled: the graphs bake in
+            # these addresses, and their warm-up runs read finite values.
+            self.params = _zeros(ptree, self.device)
+            self._stager = _Stager(self.device)
+            self._load_stream = self._stager.stream
+        else:
+            self.params = _to_device(params, self.device)
+            self._loaded.set()
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len or cfg.max_seq_len
         self.eos_ids = set(eos_ids)
@@ -338,7 +412,7 @@ class ServingEngine:
         # tests can hold the decode loop to <= 1 blocking fetch per chunk.
         self.sync_stats = {"fetches": 0, "uploads": 0, "chunks": 0,
                            "fetch_s": 0.0, "upload_s": 0.0}
-        self._init_obs(registry, max_pending, int8_weights=llama._is_q(params["layers"]["wq"]))
+        self._init_obs(registry, max_pending, int8_weights=int8_weights)
         # Allocated once: the decode programs read these very tensors.
         self.state = DecodeState.create(cfg, num_slots, self.max_seq_len,
                                         self.kv_cache_int8, self.device,
@@ -396,6 +470,73 @@ class ServingEngine:
         # driver inside a device call, so it goes stale while work is
         # queued: what stalled_s() reports.
         self.last_progress = time.monotonic()   # guarded-by: _lock
+        self.boot_marks["init_done"] = time.monotonic()
+        if not self._loaded.is_set():
+            # Started last: everything the load thread writes exists by now.
+            threading.Thread(target=self._load_weights, daemon=True,
+                             name="engine-weight-load").start()
+
+    # --- streamed boot ------------------------------------------------------
+
+    def _load_weights(self) -> None:
+        """The load thread: drain the stream into the device leaves; a
+        failure is kept for :meth:`_ensure_loaded` to raise."""
+        try:
+            self._consume_stream(self._ckpt_stream)
+        except Exception as e:  # noqa: BLE001 — surfaced by _ensure_loaded
+            self._load_exc = e
+        finally:
+            self._loaded.set()
+
+    def _consume_stream(self, stream) -> None:
+        """The reference's ``_consume_stream`` (``:1121-1144``): each leaf
+        through the counted :meth:`_upload` seam into its device tensor the
+        moment it arrives off the stream, so the readers' next tensors
+        overlap this one's copy. A leaf that does not fit the abstract tree,
+        or a tree left short, raises :class:`CheckpointStreamError`: a half
+        boot never serves."""
+        dst = dict(_walk_tree(self.params))
+        seen: set[tuple[str, ...]] = set()
+        marks = self.boot_marks
+        marks["load_start"] = time.monotonic()
+        try:
+            for path, t in stream:
+                now = time.monotonic()
+                marks.setdefault("first_leaf", now)
+                marks["last_leaf"] = now
+                into = dst.get(path)
+                if (into is None or path in seen or t.dtype != into.dtype
+                        or tuple(t.shape) != tuple(into.shape)):
+                    raise CheckpointStreamError(
+                        f"stream leaf {'.'.join(path)} ({t.dtype} {tuple(t.shape)}) does not "
+                        f"fit the abstract tree")
+                self._upload(t, into, stager=self._stager)
+                seen.add(path)
+            self._stager.drain()
+        finally:
+            stream.close()
+        if len(seen) != len(dst):
+            raise CheckpointStreamError(
+                f"stream ended with {len(seen)} of {len(dst)} leaves; missing "
+                f"{sorted('.'.join(p) for p in set(dst) - seen)[:5]}")
+        marks["load_done"] = time.monotonic()
+        self._stager = None            # the pinned ring goes back
+
+    def _ensure_loaded(self) -> None:
+        """Block until the weights are on the device (the reference's
+        ``_ensure_loaded``, ``:1215-1220``) and raise if their load failed;
+        then, once, make the engine's stream wait for the load stream's
+        last copy, so no replay or eager forward reads a weight early."""
+        if self._load_waited:
+            return
+        self._loaded.wait()
+        if self._load_exc is not None:
+            raise RuntimeError("engine weight load failed") from self._load_exc
+        if self._load_stream is not None:
+            done = torch.cuda.Event()
+            done.record(self._load_stream)
+            torch.cuda.current_stream(self.device).wait_event(done)
+        self._load_waited = True
 
     # --- observability (obs/) ---------------------------------------------
 
@@ -514,19 +655,23 @@ class ServingEngine:
         yield ("kukeon_engine_decode_chunks_total", "counter",
                "Dispatched multi-step decode chunks.",
                [({}, float(s["chunks"]))])
-        # The reference's streamed-checkpoint boot accounting: the port has
-        # no streamed boot yet (ROADMAP A10b), so these read 0, as the
-        # reference's do on a non-streamed boot.
+        # The streamed boot's accounting (the reference's :1166-1180): each
+        # stage's summed seconds (they overlap, so their sum exceeds the
+        # load's wall time) and the bytes moved; all 0 on a boot from a
+        # tree in memory.
+        ls = self.load_stats
+        cs = self._ckpt_stream.stat_snapshot() if self._ckpt_stream is not None else {}
         yield ("kukeon_checkpoint_load_bytes_total", "counter",
                "Checkpoint bytes streamed host->device during boot.",
-               [({}, 0.0)])
+               [({}, float(max(int(cs.get("bytes", 0)), ls["bytes"])))])
         yield ("kukeon_checkpoint_load_seconds", "counter",
                "Streamed checkpoint load wall time by pipeline stage "
                "(disk = reader-thread file reads, cast = host dtype "
                "casts/quantize, upload = device copies). Stages run "
                "concurrently: their sum exceeds the load wall clock.",
-               [({"stage": "disk"}, 0.0), ({"stage": "cast"}, 0.0),
-                ({"stage": "upload"}, 0.0)])
+               [({"stage": "disk"}, float(cs.get("disk_s", 0.0))),
+                ({"stage": "cast"}, float(cs.get("cast_s", 0.0))),
+                ({"stage": "upload"}, float(ls["upload_s"]))])
         yield ("kukeon_engine_prefix_cache_total", "counter",
                "Prefix-KV cache lookups by result.",
                [({"result": "hit"}, float(self.prefix_hits)),
@@ -728,6 +873,7 @@ class ServingEngine:
         if self._running:
             raise RuntimeError("precompile() before start(): the driver thread is running")
         self._programs.warm = self._prefill_programs.warm = False
+        self.boot_marks.setdefault("capture_start", time.monotonic())
         for k in chunk_sizes(self.decode_chunk):
             self._programs.build(program_key(k, False, False))
         buckets = sorted({min(self._bucket(max(1, n)), self.max_seq_len) for n in prompt_lens})
@@ -757,6 +903,7 @@ class ServingEngine:
                     pages=(none, none, self.max_pages_per_slot) if self.paged else None)
                 self._upload(packed, self._prefill_programs.inputs[:packed.size])
                 self._prefill_programs.build(key)
+        self.boot_marks["capture_end"] = time.monotonic()
 
     # --- counted transfer seams -------------------------------------------
 
@@ -776,13 +923,24 @@ class ServingEngine:
         self.timers.settle()
         return out
 
-    def _upload(self, x: np.ndarray | torch.Tensor, into: torch.Tensor) -> torch.Tensor:
+    def _upload(self, x: np.ndarray | torch.Tensor, into: torch.Tensor, *,
+                stager: _Stager | None = None) -> torch.Tensor:
         """Host array (or host tensor) -> the static device buffer ``into``,
         counted and timed (pinned staging, a copy that waits for no queued
-        device work)."""
+        device work). ``stager``: the streamed boot's copy (the load
+        thread's stream and pinned ring), counted on ``load_stats`` instead
+        of ``sync_stats``."""
+        faults.maybe_fail("engine.upload")
         t0 = time.monotonic()
         host = (x.contiguous() if isinstance(x, torch.Tensor)
                 else torch.from_numpy(np.ascontiguousarray(x)))
+        if stager is not None:
+            stager.copy(host, into)
+            ls = self.load_stats
+            ls["upload_s"] += time.monotonic() - t0
+            ls["bytes"] += host.numel() * host.element_size()
+            ls["tensors"] += 1
+            return into
         out = into.copy_(host.pin_memory() if into.is_cuda else host, non_blocking=True)
         self.sync_stats["uploads"] += 1
         self.sync_stats["upload_s"] += time.monotonic() - t0
@@ -909,6 +1067,7 @@ class ServingEngine:
         """Run one request through prefill, insert and a decode chunk, so
         first-use costs (kernel library load, cuBLAS handles, allocator
         growth) do not land on live traffic."""
+        self._ensure_loaded()
         sp = sampling or SamplingParams()
         req = self.submit(np.ones((max(1, prompt_len),), np.int32),
                           dataclasses.replace(sp, max_new_tokens=2))
@@ -952,6 +1111,12 @@ class ServingEngine:
             except Exception as e:  # noqa: BLE001 — the driver thread must not die silently
                 traceback.print_exc()
                 self.error = e
+                if self._load_exc is not None:
+                    # No weights will come: fail what waits, and stop.
+                    self._fail_all(e)
+                    with self._lock:
+                        self._running = False
+                    return
                 # The state may be half-written: start it over, in place,
                 # before the failed callers wake.
                 self.state.reset()
@@ -1078,6 +1243,7 @@ class ServingEngine:
         Returns True if any work was done; such a step leaves one record in
         the flight recorder and bumps the progress heartbeat.
         """
+        self._ensure_loaded()
         # Flight-recorder baselines (driver thread only: plain reads).
         step_t0 = time.monotonic()
         fetches0, uploads0 = self.sync_stats["fetches"], self.sync_stats["uploads"]
@@ -1604,3 +1770,76 @@ def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _zeros(tree, device: torch.device):
+    """Zero-filled device tensors of an abstract tree (``TensorSpec``
+    leaves: shape and dtype)."""
+    if isinstance(tree, dict):
+        return {k: _zeros(v, device) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+
+
+class _Stager:
+    """The streamed boot's host-to-device copies. On CUDA: a stream of its
+    own and a ring of pinned staging buffers, both made at the engine's
+    construction, before any capture. A leaf goes up in slices of a
+    buffer: copied into the buffer on the host, then ``cudaMemcpyAsync``
+    on the stream, then an event recorded behind it; a buffer is reused
+    once its event reads done (polled: no synchronizing call, which the
+    captures' warm-up runs forbid process-wide). On the CPU a plain copy."""
+
+    SLOT_BYTES = 64 << 20
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.stream = None
+        if self.cuda:
+            # From the high-priority pool: torch.cuda.Stream() hands out the
+            # default-priority pool's 32 streams in turn, and the captures'
+            # capture and side streams come from that pool, so a
+            # default-priority load stream could be the very stream a
+            # capture is recording, and its copies would void the capture.
+            self.stream = torch.cuda.Stream(device, priority=-1)
+            # A pool stream does not wait for the legacy default stream: the
+            # copies must follow the leaves' zero-fill (and any earlier
+            # kernel on memory the allocator has just handed out again).
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+            self._bufs = [torch.empty(self.SLOT_BYTES, dtype=torch.uint8, pin_memory=True)
+                          for _ in range(self.SLOTS)]
+            # Recorded once here, so each event exists before the load.
+            self._events = [torch.cuda.Event() for _ in range(self.SLOTS)]
+            for ev in self._events:
+                ev.record(self.stream)
+            self._next = 0
+
+    @staticmethod
+    def _wait(ev) -> None:
+        while not ev.query():
+            time.sleep(0.0002)
+
+    def copy(self, host: torch.Tensor, into: torch.Tensor) -> None:
+        if not self.cuda:
+            into.copy_(host)
+            return
+        src = host.reshape(-1).view(torch.uint8)
+        dst = into.reshape(-1).view(torch.uint8)
+        n, off = src.numel(), 0
+        with torch.cuda.stream(self.stream):
+            while off < n:
+                i = self._next
+                self._next = (i + 1) % self.SLOTS
+                self._wait(self._events[i])
+                m = min(self.SLOT_BYTES, n - off)
+                buf = self._bufs[i][:m]
+                buf.copy_(src[off:off + m])
+                dst[off:off + m].copy_(buf, non_blocking=True)
+                self._events[i].record(self.stream)
+                off += m
+
+    def drain(self) -> None:
+        """Until every copy enqueued so far is done (polled)."""
+        if self.cuda:
+            for ev in self._events:
+                self._wait(ev)

@@ -78,6 +78,11 @@ as ``prefill`` (every prefill and export kind), ``insert`` or ``decode``.
 Captures hold ``capture_lock``, which the cell's profiler also takes
 around its start and stop.
 
+Captures run with ``capture_error_mode="thread_local"``: a streamed
+boot's load thread copies weights on a stream of its own while the
+engine's thread captures (``serving/engine.py``), and only the capturing
+thread is held to the capture's rules.
+
 Before a capture the program runs once eagerly on a side stream, under
 ``torch.cuda.set_sync_debug_mode("error")``: that builds the kernels and
 cuBLAS handles, and an op that would synchronise the host (``.item()``,
@@ -416,7 +421,11 @@ class _Programs:
             graph.register_generator_state(self._gen)
         before = _kernel_counts()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            # thread_local: a streamed boot's load thread makes CUDA calls
+            # (copies on its own stream, event queries) while the engine's
+            # thread captures; under the default "global" mode any of them
+            # could void this capture. This thread stays held to the rule.
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                 self.run_eager(key)
         except RuntimeError as e:
             raise RuntimeError(f"{self.kind} program {key} failed to capture: {e}") from e

@@ -11,7 +11,7 @@ matches: the previous checkpoint stays the resume target.
 
 The payload is ``torch.save`` of the state (params, optimizer state,
 step) in one file, where the JAX package writes orbax; reading orbax
-checkpoints written by the JAX package is not ported (ROADMAP A10b).
+checkpoints written by the JAX package is not ported (ROADMAP A10c).
 """
 
 from __future__ import annotations

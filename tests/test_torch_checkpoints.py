@@ -499,10 +499,10 @@ def test_int8_checkpoint_boot_never_loads_the_full_precision_tree(tiny_dirs, mon
 
 def test_orbax_like_paths_and_embedding_checkpoints_are_refused(tmp_path):
     (tmp_path / "checkpoint").write_text("{}")      # an orbax-like directory
-    with pytest.raises(SystemExit, match="A10b"):
+    with pytest.raises(SystemExit, match="A10c"):
         ServingCell("tiny", num_slots=2, max_seq_len=64, checkpoint=str(tmp_path),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         EmbeddingCell("bge-tiny", checkpoint=str(tmp_path), device="cpu")
 
 
@@ -539,8 +539,8 @@ def test_main_serves_a_checkpoint_in_a_subprocess(tiny_dirs):
 
 def test_loaders_need_no_jax_safetensors_ml_dtypes_or_tokenizers(tmp_path):
     """In a process where those four cannot be imported: synthesize (no
-    tokenizer), all three HF loaders, save and load quantized, and boot a
-    cell from each format."""
+    tokenizer), all three HF loaders and both streamed ones, save and load
+    quantized (and stream it), and boot a cell from each format."""
     code = r"""
 import sys
 for m in ("jax", "safetensors", "ml_dtypes", "tokenizers", "kukeon_tpu"):
@@ -557,6 +557,10 @@ qp, qcfg = hf_convert.load_params_quantized(d)
 checkpoints.save_quantized(q, qp, qcfg)
 back, _ = checkpoints.load_quantized(q)
 assert torch.equal(back["layers"]["wq"]["q"], qp["layers"]["wq"]["q"])
+streamed = {path: t for s in (hf_convert.stream_params(d), hf_convert.stream_params_quantized(d),
+                              checkpoints.stream_quantized(q)) for path, t in s}
+assert torch.equal(streamed[("layers", "wq", "q")], qp["layers"]["wq"]["q"])
+assert torch.equal(streamed[("layers", "wq")], p["layers"]["wq"])
 toks = [ServingCell("tiny", num_slots=2, max_seq_len=64, checkpoint=c, dtype=dt,
                     device="cpu").generate({"promptTokens": [1, 2, 3], "maxNewTokens": 4})
         for c, dt in ((d, None), (d, "int8"), (q, None))]

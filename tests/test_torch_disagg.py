@@ -603,5 +603,6 @@ def test_every_fault_point_of_the_port_is_declared_and_the_references():
     root = pathlib.Path(__file__).resolve().parent.parent / "kukeon_tpu_torch"
     used = {m for f in root.rglob("*.py") if f.name != "faults.py"
             for m in re.findall(r'maybe_fail\("([^"]+)"\)', f.read_text())}
-    assert "kv.handoff" in used and used <= set(faults.POINTS), used
+    assert {"kv.handoff", "engine.upload", "checkpoint.stream", "profile.layers"} <= used
+    assert used <= set(faults.POINTS), used
     assert set(faults.POINTS) <= set(jfaults.POINTS)

@@ -275,7 +275,7 @@ assert "kukeon_tpu_torch.serving.programs" in names, names
 assert "kukeon_tpu_torch.serving.kv_pages" in names, names
 for mod in ("obs", "obs.registry", "obs.expo", "obs.trace", "obs.slo", "obs.device",
             "obs.profile", "runtime.devices", "models.bert", "serving.embedding",
-            "models.checkpoints", "models.hf_convert"):
+            "models.checkpoints", "models.hf_convert", "serving.tuning"):
     assert "kukeon_tpu_torch." + mod in names, (mod, names)
 print("ok", len(names))
 """

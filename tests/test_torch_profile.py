@@ -15,8 +15,9 @@ programs) on the CPU:
 - the flight recorder's ring, its dropped counter and the engine's step
   records; ``device_peaks``' table and overrides;
 - ``POST|GET /v1/profile``: single flight (409), the spool's keep-last-K,
-  the ``profile.capture`` fault, 400 for ``"layers"`` (ROADMAP A12d),
-  and the capture lock held around the profiler's start and stop.
+  the ``profile.capture`` fault, ``"layers"`` answered with the
+  per-layer profile, and the capture lock held around the profiler's
+  start and stop.
 """
 
 import http.client
@@ -331,10 +332,16 @@ def test_profile_capture_single_flight_and_spool(profiled_cell):
     assert _req(port, "POST", "/v1/profile", {"durationMs": "soon"})[0] == 400
 
 
-def test_layer_profiles_are_refused_naming_a12d(profiled_cell):
+def test_layer_profiles_are_refused_naming_a12d(profiled_cell, tmp_path, monkeypatch):
+    """A12d is ported: ``{"layers": true}`` is no longer refused but
+    answered with the live model's per-layer profile (200, no error),
+    persisted under the cell's tuning key."""
     _cell, port = profiled_cell
-    status, out = _req(port, "POST", "/v1/profile", {"layers": True})
-    assert status == 400 and "A12d" in out["error"]
+    monkeypatch.setenv("KUKEON_LAYER_PROFILE_PATH", str(tmp_path / "layers.json"))
+    status, out = _req(port, "POST", "/v1/profile",
+                       {"layers": True, "prefillLen": 8, "decodeBatch": 2})
+    assert status == 200 and out["errors"] == 0 and "error" not in out
+    assert out["key"] == "tiny|cpu|1" and out["path"] == str(tmp_path / "layers.json")
 
 
 def test_profile_capture_fault_path(profiled_cell):
