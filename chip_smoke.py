@@ -7,8 +7,9 @@ handoff between a prefill and a decode cell), boot llama3-8b from a
 checkpoint streamed onto the card while its programs are captured, sweep
 two decode chunks into a tuning profile that a cell boots from, profile
 that cell layer by layer, serve llama3-1b from the checkpoints the port
-writes and reads itself, serve bge-base embeddings, and train Llama and
-Mixtral.
+writes and reads itself (HF, kukeon int8, and orbax, with the port's own
+zstd decoder), serve bge-base embeddings, also from orbax, and train Llama
+and Mixtral, saving and resuming through orbax.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -18,7 +19,9 @@ time; any failure ends the run with a nonzero exit and no result line:
 
   card        nvidia-smi name and power limit, versions, and the build of
               both CUDA sources (csrc/int8_matmul.cu, csrc/flash_attention.cu),
-              one nvcc each, started together; ptxas registers, shared
+              one nvcc each, started together, and of the checkpoint
+              reader's host library (csrc/zstd_decode.cpp, the host C++
+              compiler) beside them; ptxas registers, shared
               memory and spills for every kernel; the count of HGMMA (wgmma)
               and HMMA (mma.sync) instructions in each kernel's SASS
               (cuobjdump), which shows the tensor-core path was compiled in
@@ -138,6 +141,25 @@ time; any failure ends the run with a nonzero exit and no result line:
               materialized: the loader's seconds plus the cell's) and each
               streamed boot's stages and marks; the directory is removed
               at the end
+  serve_orbax  orbax checkpoints, read and written by the port's own code:
+              (a) the fixture the JAX package wrote (tests/data/
+              orbax_llama_tiny: zarr chunks in zstd level-1 frames in an
+              OCDBT store) decoded on this host by the decoder built here,
+              every leaf's sha256 equal to tests/data/orbax_llama_tiny.json;
+              (b) llama3-1b at full width and depth, bf16, drawn on the card
+              and written with orbax_ckpt.write_tree into a temporary
+              directory; a cell booted from it with dtype int8 takes
+              serve_tied's traffic through serve_model (K1 112 and K1t 1 a
+              decode step in its profiled replays) and gives the tokens of an
+              engine over quantize_params of the same weights in memory, and
+              a bf16 cell those of an engine over the bf16 weights; each
+              cell's kukeon_checkpoint_load_bytes_total equals the leaf bytes
+              written; (c) bge-base, bf16, a cell's weights written the same
+              way and an EmbeddingCell booted from them: its /v1/embed vectors
+              equal, bit for bit, those of the cell the weights came from.
+              Reports the bytes on disk, the write, the load's disk, decode
+              and upload seconds and each cell's seconds to ready; the
+              directory is removed at the end
   serve_tiny  short int8 runs of tiny and mixtral-tiny, whose dims off 128
               take the reference's dequant fallback on the card
   moe_model   mixtral-8x7b int8 at full width and depth, drawn once on the
@@ -233,15 +255,17 @@ time; any failure ends the run with a nonzero exit and no result line:
   train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
               and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
-              and 8, then a resumed run of 2 more steps; the loss falls,
-              32 flash launches a step, restored params equal the saved ones
+              and 8 (orbax, the JAX TrainState's layout), then a resumed run
+              of 2 more steps; the loss falls, 32 flash launches a step,
+              restored params equal the saved ones; each save's seconds and
+              its step directory's bytes
   train_moe   Mixtral-8x7B at full width and 4 layers (6.07 B parameters),
               bf16, B 2, S 2048, 6 steps through create_moe_train_state and
               make_moe_train_step: a no-grad forward with the reference
               attention first (its loss within 1e-2 of step 1's), the
               losses finite and falling, 8 flash launches a step; step ms,
               tok/s, peak memory and mfu; then the CLI's mixtral-tiny branch,
-              4 steps and 2 resumed from its checkpoint, gated as train
+              4 steps and 2 resumed from its orbax checkpoint, gated as train
 
 Serving decodes through CUDA graph replays, where the kernels' Python
 launch counters move only while a graph is captured. So a serve phase
@@ -260,6 +284,7 @@ in a directory that holds this file and nothing else of the repository.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -326,6 +351,9 @@ TINY_MOE_B, TINY_MOE_S, TINY_MOE_STEPS, TINY_MOE_MORE = 4, 128, 4, 2
 # traffic (max_seq_len, prompt length, new tokens).
 CKPT_MODEL, CKPT_SHARD_BYTES = "llama3-1b", 1 << 30
 CKPT_SEQ, CKPT_PROMPT, CKPT_NEW = 256, 32, 16
+# serve_orbax: the JAX-written fixture (and its hashes beside it), and the
+# seed of the weights written.
+ORBAX_FIXTURE, ORBAX_SEED = os.path.join("tests", "data", "orbax_llama_tiny"), 23
 # serve_embed: bge-base's grid rows and traffic.
 EMBED_GRID, EMBED_SEQS, EMBED_BURST = 16, 64, 16
 # (K, N) of the llama3-8b decode projections, with launches per step.
@@ -351,7 +379,8 @@ SHAPES_MOE = {"w_gate": (4096, 14336, 32), "w_up": (4096, 14336, 32),
 FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
               ("S 65792", 1, 65792, 1, 1, 64, 256))
 PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs",
-          "serve_stream", "serve_tune", "serve_tied", "serve_ckpt", "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
+          "serve_stream", "serve_tune", "serve_tied", "serve_ckpt", "serve_orbax",
+          "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
           "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed", "train",
           "train_moe")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
@@ -2810,6 +2839,11 @@ def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
+def tree_bytes(path: str) -> int:
+    """Bytes of every file under ``path``, subdirectories included."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
 def serve_ckpt(k1) -> dict:
     """Serving from checkpoints: a llama3-1b HF checkpoint at full width
     and depth (tied head, f16, index layout over 1 GiB shards) written by
@@ -2940,6 +2974,151 @@ def serve_ckpt(k1) -> dict:
         **{k: served[k] for k in ("ms_per_decode_step", "decode_tok_s", "ttft_ms",
                                   "launches", "peak_mem_gb")},
         "launches_per_step": served["profile"]["launches_per_step"],
+        "dir_removed": not os.path.exists(root),
+    })
+    return out
+
+
+def orbax_fixture_check() -> dict:
+    """(a) of serve_orbax: the JAX-written fixture decoded here, by the
+    decoder built here, every leaf against its recorded sha256. A gate, not
+    a rate: the fixture's 1.3 MB of level-1 frames stay in cache."""
+    import hashlib
+
+    from kukeon_tpu_torch.models import orbax_ckpt
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE)
+    with open(path + ".json") as f:
+        want = {k: v["sha256"] for k, v in json.load(f).items()}
+    ckpt = orbax_ckpt.OrbaxCheckpoint(path)
+    leaves = flat_leaves(ckpt.read_tree())
+    got = {k: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+           for k, a in leaves.items()}
+    if got != want:
+        bad = sorted(k for k in want.keys() | got.keys() if got.get(k) != want.get(k))
+        raise AssertionError(f"serve_orbax (a): fixture leaves differ from their hashes: {bad}")
+    return {"leaves": len(got), "sha256_equal": True,
+            "frame_bytes": ckpt.stats["bytes_read"],
+            "leaf_bytes": sum(a.nbytes for a in leaves.values())}
+
+
+def orbax_boot(cell, report: dict, written: dict) -> dict:
+    """An orbax cell's boot: the materialized load's stats beside its
+    :func:`boot_report`, gated on the load-bytes counter equal to the
+    bytes of the leaves written."""
+    load = cell.checkpoint_load
+    if not (report["load_bytes_counter"] == load["leaf_bytes"] == written["leaf_bytes"]):
+        raise AssertionError(f"serve_orbax: kukeon_checkpoint_load_bytes_total "
+                             f"{report['load_bytes_counter']}, leaf bytes loaded "
+                             f"{load['leaf_bytes']}, written {written['leaf_bytes']}")
+    return {"ready_s": report["ready_s"], "load_bytes_counter": report["load_bytes_counter"],
+            **{k: round(v, 4) if isinstance(v, float) else v for k, v in load.items()}}
+
+
+def serve_orbax(k1) -> dict:
+    """Orbax checkpoints on the card (module docstring): (a) the
+    JAX-written fixture against its hashes; (b) llama3-1b bf16 written by
+    ``write_tree``, an int8 cell through ``serve_model`` (K1 112 and K1t 1 a
+    step) and a bf16 cell, each against an engine over the same weights in
+    memory; (c) bge-base's weights written and served again behind
+    ``/v1/embed``, bit for bit. The directory is removed at the end."""
+    from kukeon_tpu_torch.models import llama, orbax_ckpt
+    from kukeon_tpu_torch.runtime.serving_cell import EmbeddingCell, ServingCell, serve
+
+    out = {"a_fixture": orbax_fixture_check()}
+    emit({"serve_orbax_fixture": out["a_fixture"]})
+    cfg = llama.llama3_1b()
+    root = tempfile.mkdtemp(prefix="kukeon-orbax-")
+    lpath, bpath = os.path.join(root, "llama3-1b"), os.path.join(root, "bge-base")
+    try:
+        # (b) llama3-1b, full width and depth, bf16.
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(ORBAX_SEED)
+        params = llama.init_params(cfg, gen, "cuda")
+        written = orbax_ckpt.write_tree(lpath, params)
+        out["llama_write"] = {"leaf_bytes": written["leaf_bytes"],
+                              "bytes_on_disk": tree_bytes(lpath),
+                              "write_s": round(written["seconds"], 3)}
+        emit({"serve_orbax_write": out["llama_write"]})
+        t0 = time.monotonic()
+        cell = ServingCell(CKPT_MODEL, checkpoint=lpath, dtype="int8", num_slots=4,
+                           max_seq_len=CKPT_SEQ, device="cuda")
+        construct_s = time.monotonic() - t0
+        served = serve_model(k1, CKPT_MODEL, max_seq_len=CKPT_SEQ, prompt_len=CKPT_PROMPT,
+                             new=CKPT_NEW, cell=cell, label="llama3-1b orbax")
+        boot = {"int8": orbax_boot(cell, boot_report(cell, t0, construct_s + served["boot_s"]),
+                                   written)}
+        del cell
+        prompts = SERVED_PROMPTS["llama3-1b orbax"]
+        tokens_int8 = SERVED_TOKENS["llama3-1b orbax"]
+        tokens_mem = engine_tokens(cfg, llama.quantize_params(params), prompts, CKPT_NEW,
+                                   CKPT_SEQ)
+        if tokens_int8 != tokens_mem:
+            raise AssertionError(f"serve_orbax (b): the int8 orbax cell's tokens {tokens_int8} "
+                                 f"against the engine's over the same weights {tokens_mem}")
+        held = []              # cell_tokens drops its cell: keep it for the load's stats
+        tokens_bf16, report = cell_tokens(lambda: held.append(ServingCell(
+            CKPT_MODEL, checkpoint=lpath, num_slots=4, max_seq_len=CKPT_SEQ,
+            device="cuda")) or held[0], prompts, CKPT_NEW)
+        boot["bf16"] = orbax_boot(held.pop(), report, written)
+        tokens_bf16_mem = engine_tokens(cfg, params, prompts, CKPT_NEW, CKPT_SEQ)
+        if tokens_bf16 != tokens_bf16_mem:
+            raise AssertionError(f"serve_orbax (b): the bf16 orbax cell's tokens {tokens_bf16} "
+                                 f"against the engine's over the same weights {tokens_bf16_mem}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) bge-base: a cell's weights written, then served again.
+        mem = EmbeddingCell("bge-base", batch_size=EMBED_GRID, seed=ORBAX_SEED, device="cuda")
+        bwritten = orbax_ckpt.write_tree(bpath, mem.engine.params)
+        t0 = time.monotonic()
+        ecell = EmbeddingCell("bge-base", batch_size=EMBED_GRID, checkpoint=bpath,
+                              device="cuda")
+        ecell.warmup()
+        embed_ready_s = time.monotonic() - t0
+        rng = np.random.default_rng(17)
+        seqs = [rng.integers(1, mem.cfg.vocab_size, n).tolist()
+                for n in embed_lengths(rng)[:EMBED_BURST]]
+        mem.warmup()
+        vecs = {}
+        for name, c in (("orbax", ecell), ("memory", mem)):
+            server = serve(c)
+            c.mark_ready()
+            try:
+                got = post(f"http://127.0.0.1:{server.server_address[1]}/v1/embed",
+                           {"inputTokens": seqs})
+            finally:
+                server.shutdown()
+                server.server_close()
+            vecs[name] = np.array(got["embeddings"], np.float32)
+        if vecs["orbax"].shape != (len(seqs), mem.cfg.hidden_size) or \
+                not np.array_equal(vecs["orbax"], vecs["memory"]):
+            raise AssertionError("serve_orbax (c): the orbax bge-base cell's embeddings differ "
+                                 "from those of the cell its weights came from")
+        embed_load = {k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in ecell.checkpoint_load.items()}
+        if embed_load["leaf_bytes"] != bwritten["leaf_bytes"]:
+            raise AssertionError(f"serve_orbax (c): loaded {embed_load['leaf_bytes']} leaf "
+                                 f"bytes, wrote {bwritten['leaf_bytes']}")
+        del mem, ecell
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update({
+        "model": CKPT_MODEL, "boot": boot,
+        "ready_s": {fmt: b["ready_s"] for fmt, b in boot.items()},
+        "b_tokens_equal_memory": True, "tokens_int8": tokens_int8,
+        "tokens_bf16_first": tokens_bf16[0],
+        **{k: served[k] for k in ("ms_per_decode_step", "decode_tok_s", "ttft_ms",
+                                  "launches", "peak_mem_gb")},
+        "launches_per_step": served["profile"]["launches_per_step"],
+        "c_embed": {"model": "bge-base", "sequences": len(seqs),
+                    "lengths": [len(x) for x in seqs], "bitwise_equal": True,
+                    "write_s": round(bwritten["seconds"], 3),
+                    "bytes_on_disk": bwritten["bytes_written"],
+                    "ready_s": round(embed_ready_s, 3), "load": embed_load},
         "dir_removed": not os.path.exists(root),
     })
     return out
@@ -3124,7 +3303,7 @@ def materialized_cell(tree: dict, tcfg, *args, **kw):
 
     class Materialized(ServingCell):
         @staticmethod
-        def _load_checkpoint(path, cfg, quantize=False):
+        def _load_checkpoint(path, cfg, quantize=False, **_kw):
             return tree, tcfg
 
     return Materialized(*args, **kw)
@@ -3326,13 +3505,20 @@ def cli_train_twice(fa, common: list, steps: int, more: int) -> dict:
     from kukeon_tpu_torch.training.train_step import tree_leaves
 
     ckpt = common[common.index("--ckpt-dir") + 1]
-    saved, restored = {}, {}
+    saved, restored, saves = {}, {}, []
     real_save, real_restore = training.save_checkpoint, training.restore_checkpoint
 
     def save(root, state):          # keeps a host copy of what was saved at the end
         if state.step == steps and "params" not in saved:
             saved["params"] = [t.detach().to("cpu", copy=True) for t in tree_leaves(state.params)]
-        return real_save(root, state)
+        t0 = time.monotonic()
+        path = real_save(root, state)
+        # A repeated save of a step already on disk returns at once: not
+        # counted.
+        if not any(x["step"] == state.step for x in saves):
+            saves.append({"step": int(state.step), "s": round(time.monotonic() - t0, 3),
+                          "bytes": tree_bytes(path)})
+        return path
 
     def restore(root, template, step=None):
         state = real_restore(root, template, step)
@@ -3361,7 +3547,7 @@ def cli_train_twice(fa, common: list, steps: int, more: int) -> dict:
                     shutil.rmtree(os.path.join(ckpt, d))
     finally:
         training.save_checkpoint, training.restore_checkpoint = real_save, real_restore
-    out["saved"], out["restored"] = saved, restored
+    out["saved"], out["restored"], out["saves"] = saved, restored, saves
     sys.stdout.write(out["first"]["log"] + out["second"]["log"])
     return out
 
@@ -3439,6 +3625,9 @@ def phase_train(fa) -> dict:
             "flash_launches": launches, "flash_launches_per_step": launches // TRAIN_STEPS,
             "flash_launches_resumed": launches2,
             "resumed_from": r["restored"]["step"], "restored_params_bitwise_equal": True,
+            "checkpoint_format": "orbax", "saves": r["saves"],
+            "save_s": [x["s"] for x in r["saves"]],
+            "step_dir_bytes": r["saves"][-1]["bytes"] if r["saves"] else None,
             "profile": prof}
 
 
@@ -3584,7 +3773,8 @@ def phase_train_moe(fa) -> dict:
             "capacity": C, "peak_mem_gb": round(peak_gb, 2), "profile": profiled,
             "flash_launches": launches, "flash_launches_per_step": per_step,
             "tiny_cli": {"losses": tiny_losses, "resumed_from": r["restored"]["step"],
-                         "restored_params_bitwise_equal": True,
+                         "restored_params_bitwise_equal": True, "checkpoint_format": "orbax",
+                         "saves": r["saves"],
                          "flash_launches": [r["first"]["launches"], r["second"]["launches"]]}}
 
 
@@ -3648,11 +3838,17 @@ def run_phases(phases: list) -> int:
 
     with phase("card", {}) as p:
         t0 = time.monotonic()
-        built = _build.build_all()
+        with contextlib.ExitStack() as stack:
+            # The checkpoint reader's host library builds beside the kernels.
+            pool = stack.enter_context(concurrent.futures.ThreadPoolExecutor(1))
+            host = pool.submit(_build.build, _build.ZSTD_DECODE)
+            built = _build.build_all()
+            host_lib = host.result()
         p.update(nvidia_smi=smi, device=name, torch=torch.__version__,
                  cuda=torch.version.cuda, python=sys.version.split()[0],
                  hbm_bytes_per_s=bps, build_wall_s=round(time.monotonic() - t0, 2),
                  build_s={src: round(secs, 2) for src, (_p, _l, secs) in built.items()},
+                 host_build_s={_build.ZSTD_DECODE: round(host_lib[2], 2)},
                  tmp_free_gb=round(shutil.disk_usage(tempfile.gettempdir()).free / 1e9, 1),
                  ptxas={src: [ln.strip() for ln in log.splitlines()
                               if "Compiling entry" in ln or "registers" in ln or "spill" in ln
@@ -3703,6 +3899,7 @@ def run_phases(phases: list) -> int:
     run("serve_tied", lambda: serve_model(k1, "llama3-1b", max_seq_len=CKPT_SEQ,
                                           prompt_len=CKPT_PROMPT, new=CKPT_NEW))
     run("serve_ckpt", lambda: serve_ckpt(k1))
+    run("serve_orbax", lambda: serve_orbax(k1))
     run("serve_tiny", lambda: {m: serve_model(k1, m, max_seq_len=256, prompt_len=32, new=16)
                                for m in ("tiny", "mixtral-tiny")})
     # One Mixtral-8x7B draw (46.7 GB of int8) serves its four phases, and
@@ -3804,11 +4001,12 @@ def run_phases(phases: list) -> int:
     serve8, serve1, serve_moe, train = (res["serve"], res["serve_tied"], res["serve_moe"],
                                         res["train"])
     train_moe, embed, ckpt = res["train_moe"], res["serve_embed"], res["serve_ckpt"]
-    stream, tune = res["serve_stream"], res["serve_tune"]
+    stream, tune, orbax = res["serve_stream"], res["serve_tune"], res["serve_orbax"]
     ft, fm = flash["timing"], flash["timing_mixtral_train"]
     for label, run_, key in (("llama3-8b", serve8, "k1"), ("llama3-1b", serve1, "k1t"),
                              ("llama3-1b ckpt", ckpt, "k1"), ("llama3-1b ckpt", ckpt, "k1t"),
                              ("llama3-8b stream", stream, "k1"),
+                             ("llama3-1b orbax", orbax, "k1"), ("llama3-1b orbax", orbax, "k1t"),
                              ("mixtral-8x7b", serve_moe, "k1"), ("mixtral-8x7b", serve_moe, "k2")):
         if run_["launches"][key] <= 0:
             raise AssertionError(f"{label} serving launched no {key} kernel")
@@ -3828,9 +4026,10 @@ def run_phases(phases: list) -> int:
     kernels = [
         {"name": "int8_matmul", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES,
-         "launches": serve8["launches"]["k1"] + ckpt["launches"]["k1"] + stream["launches"]["k1"],
+         "launches": (serve8["launches"]["k1"] + ckpt["launches"]["k1"]
+                      + stream["launches"]["k1"] + orbax["launches"]["k1"]),
          "launches_serve": serve8["launches"]["k1"], "launches_ckpt": ckpt["launches"]["k1"],
-         "launches_stream": stream["launches"]["k1"],
+         "launches_stream": stream["launches"]["k1"], "launches_orbax": orbax["launches"]["k1"],
          "launches_paged": spg["layout_check"]["launches"]["k1"],
          "launches_disagg": sdg["parity"]["launches"]["k1"],
          "max_abs_err": kern["max_abs_err"], **per_step, "bound_by": "bytes",
@@ -3842,8 +4041,11 @@ def run_phases(phases: list) -> int:
          "unit": "one llama3-8b decode step at B=4 (225 launches); device_ms_per_call: "
                  "one call of each projection at B=4"},
         {"name": "int8_matmul_transposed", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1T_REPLACES, "launches": serve1["launches"]["k1t"] + ckpt["launches"]["k1t"],
+         "replaces": K1T_REPLACES,
+         "launches": (serve1["launches"]["k1t"] + ckpt["launches"]["k1t"]
+                      + orbax["launches"]["k1t"]),
          "launches_serve_tied": serve1["launches"]["k1t"], "launches_ckpt": ckpt["launches"]["k1t"],
+         "launches_orbax": orbax["launches"]["k1t"],
          "max_abs_err": tied["max_abs_err"], "ms": round(tied["ms"], 4),
          "plain_ms": round(tied["plain_ms"], 4), "bound_ms": round(tied["bound_ms"], 4),
          "bound_by": tied["bound_by"], "library_ms": round(tied["library_ms"], 4),
@@ -3935,7 +4137,8 @@ def run_phases(phases: list) -> int:
             "arms": sdg["arms"], "wall_s": sdg["wall_s"]},
         "train_llama3-1b": {k: train[k] for k in (
             "step_ms_median_3_8", "tokens_per_s", "mfu", "peak_mem_gb", "first_loss",
-            "last_loss", "flash_launches_per_step", "flash_share_of_step")},
+            "last_loss", "flash_launches_per_step", "flash_share_of_step", "save_s",
+            "step_dir_bytes")},
         "train_moe_mixtral-8x7b_4_layers": {k: train_moe[k] for k in (
             "step_ms_median_3_6", "tokens_per_s", "mfu", "peak_mem_gb", "losses",
             "step1_rel_diff", "flash_launches_per_step")},
@@ -3956,6 +4159,15 @@ def run_phases(phases: list) -> int:
             "a_leaves_bitwise",
             "scalar_divisor_scales", "b_leaves_bitwise", "c_tokens_equal", "d_tokens_equal",
             "launches_per_step", "ms_per_decode_step", "optional_packages")},
+        "serve_orbax_llama3-1b": {
+            **{k: orbax[k] for k in ("ready_s", "launches_per_step", "ms_per_decode_step",
+                                     "b_tokens_equal_memory")},
+            "fixture": orbax["a_fixture"], "write": orbax["llama_write"],
+            "load": {fmt: {k: b[k] for k in ("read_s", "disk_s", "decode_s", "upload_s",
+                                             "quantize_s", "load_bytes_counter") if k in b}
+                     for fmt, b in orbax["boot"].items()},
+            "embed_bge-base": {k: orbax["c_embed"][k] for k in (
+                "bitwise_equal", "ready_s", "write_s", "bytes_on_disk")}},
         "serve_embed_bge-base": {k: embed[k] for k in (
             "seq_per_s", "tokens_per_s", "burst_ms_p50", "cosine_to_f32_min",
             "alone_vs_in_grid")}}})

@@ -2,10 +2,12 @@
 
 :func:`params_from_numpy` takes a parameter tree in the reference's layout
 as numpy arrays (what ``jax.tree.map(np.asarray, params)`` gives, or
-``kukeon_tpu``'s host-side int8 init) and returns the same tree as torch
-tensors on ``device``. bf16 leaves arrive as ``ml_dtypes.bfloat16`` (the
-numpy dtype jax uses) and are reinterpreted bit for bit, without importing
-``ml_dtypes``; int8 ``q`` leaves and f32 ``s`` scales stay as they are.
+``kukeon_tpu``'s host-side int8 init, or an orbax checkpoint's leaves) and
+returns the same tree as torch tensors on ``device``. bf16 leaves arrive as
+``ml_dtypes.bfloat16`` (the numpy dtype jax uses) or as
+:class:`BFloat16Bits` (the orbax reader's) and are reinterpreted bit for
+bit, without importing ``ml_dtypes``; int8 ``q`` leaves and f32 ``s``
+scales stay as they are.
 
 :func:`init_quantized_params_device` draws an int8 tree on the device,
 layer by layer, with the reference's recipe (normal draws scaled by
@@ -26,7 +28,20 @@ from kukeon_tpu_torch.models.llama import LlamaConfig, Params, _int8_sym
 from kukeon_tpu_torch.models.moe import MoEConfig
 
 
-def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+class BFloat16Bits(np.ndarray):
+    """A bfloat16 array held as its uint16 bit patterns (numpy has no
+    bfloat16 without ``ml_dtypes``): what the port's checkpoint readers
+    return for a bfloat16 leaf. ``np.asarray`` drops the marker, so keep
+    the object itself until :func:`tensor_from_numpy` views it as
+    ``torch.bfloat16``."""
+
+
+def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor, bit for bit: ``ml_dtypes.bfloat16``
+    and :class:`BFloat16Bits` become ``torch.bfloat16``; read-only arrays
+    are copied, others shared."""
+    if isinstance(a, BFloat16Bits):
+        return tensor_from_numpy(a.view(np.ndarray)).view(torch.bfloat16)
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:     # jax's host views are read-only
         a = a.copy()
@@ -47,7 +62,7 @@ def params_from_numpy(tree: Any, device: torch.device | str,
     def conv(node, key=None):
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}
-        t = _tensor_from_numpy(np.asarray(node))
+        t = tensor_from_numpy(node if isinstance(node, np.ndarray) else np.asarray(node))
         if dtype is not None and t.is_floating_point() and key not in ("s", "router"):
             t = t.to(dtype)
         return t.to(device)

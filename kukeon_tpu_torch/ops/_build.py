@@ -8,6 +8,11 @@ changed source rebuilds and an unchanged one loads what is there.
 when a module is imported: hosts without ``nvcc`` (the CPU test hosts)
 import every module and only fail if a kernel is actually asked for.
 
+The checkpoint reader's host library (``zstd_decode.cpp``: the zstd frame
+decoder and CRC-32C) is plain C++17 and builds the same way with the host
+compiler (``$CXX``, else ``c++``), so it builds and runs on CPU hosts too:
+:func:`load_zstd`.
+
 Run ``python -m kukeon_tpu_torch.ops._build`` to build every library and
 print ``ptxas`` register and shared-memory use.
 """
@@ -30,11 +35,13 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 INT8_MATMUL = "int8_matmul.cu"
 FLASH_ATTENTION = "flash_attention.cu"
+ZSTD_DECODE = "zstd_decode.cpp"
 SOURCES = (INT8_MATMUL, FLASH_ATTENTION)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def find_nvcc() -> str:
@@ -49,15 +56,33 @@ def find_nvcc() -> str:
     return found
 
 
+def find_cxx() -> str:
+    cxx = os.environ.get("CXX") or "c++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found ($CXX, else c++): the "
+                           "checkpoint reader's zstd decoder is built from source")
+    return found
+
+
+def _compiler(source: str) -> tuple[list[str], tuple[str, ...]]:
+    if source.endswith(".cu"):
+        return [find_nvcc()], NVCC_FLAGS
+    return [find_cxx()], CXX_FLAGS
+
+
 def library_path(source: str) -> Path:
+    flags = NVCC_FLAGS if source.endswith(".cu") else CXX_FLAGS
     digest = hashlib.sha256((CSRC / source).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> tuple[Path, str, float]:
-    """Compile one source if its library is missing: (path, nvcc log,
-    seconds spent compiling, 0.0 when the library already existed)."""
+    """Compile one source if its library is missing: (path, compiler log,
+    seconds spent compiling, 0.0 when the library already existed). A
+    ``.cu`` source goes through ``nvcc``, a ``.cpp`` one through the host
+    compiler."""
     out = library_path(source)
     if out.exists():
         return out, "", 0.0
@@ -68,12 +93,13 @@ def build(source: str) -> tuple[Path, str, float]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
+        compiler, flags = _compiler(source)
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
+            [*compiler, *flags, "-o", tmp, str(CSRC / source)],
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {source} (exit {proc.returncode}):\n"
+                f"{Path(compiler[0]).name} failed on {source} (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     finally:
@@ -122,6 +148,24 @@ def load_flash_attention() -> ctypes.CDLL:
     lib.kukeon_flash_attention.argtypes = [P, P, P, P, P, P, P, P, ctypes.c_longlong,
                                            I, I, I, I, I, L, I, P]
     lib.kukeon_flash_attention.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def load_zstd() -> ctypes.CDLL:
+    """The loaded zstd_decode library (host C++), built first if needed."""
+    path, _log, _secs = build(ZSTD_DECODE)
+    lib = ctypes.CDLL(str(path))
+    P, U64 = ctypes.c_void_p, ctypes.c_uint64
+    # src, n, &size, &exact
+    lib.kukeon_zstd_frame_info.argtypes = [P, U64, ctypes.POINTER(U64),
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.kukeon_zstd_frame_info.restype = ctypes.c_int64
+    # src, n, dst, cap
+    lib.kukeon_zstd_decompress.argtypes = [P, U64, P, U64]
+    lib.kukeon_zstd_decompress.restype = ctypes.c_int64
+    lib.kukeon_crc32c.argtypes = [P, U64, ctypes.c_uint32]
+    lib.kukeon_crc32c.restype = ctypes.c_uint32
     return lib
 
 

@@ -109,15 +109,21 @@ a kukeon int8 checkpoint (``kukeon_quant.json``) through
 safetensors) through ``hf_convert.stream_params_quantized`` under
 ``--dtype int8``, else ``hf_convert.stream_params``; for the MoE family
 ``hf_convert.load_moe_params`` (materialized, as in the reference),
-quantized on the host under ``--dtype int8``. The config comes from the
-checkpoint, and a ``tokenizer.json`` beside the weights replaces the byte
-tokenizer. A stream boots the engine with its weights to come: its reader
-threads and the engine's load thread move the weights while
+quantized on the host under ``--dtype int8``; and an orbax checkpoint
+(``_METADATA``, what the JAX package's ``StandardCheckpointer`` writes)
+through the port's own reader, ``models/orbax_ckpt.py`` (materialized, as
+in the reference: every leaf checked against the preset's shapes, placed
+on the card, then quantized there under ``--dtype int8``). The config
+comes from the checkpoint (from the preset for orbax), and a
+``tokenizer.json`` beside the weights replaces the byte tokenizer.
+Embedding cells take orbax checkpoints, as the reference's do. A stream
+boots the engine with its weights to come: its reader threads and the
+engine's load thread move the weights while
 :meth:`ServingCell.warmup` captures the programs; a stream that fails
 makes ``warmup`` exit (``SystemExit``), never ready; ``finish_boot`` adds
 the load's ``disk``, ``cast`` and ``upload`` seconds to the boot phases.
 
-Not ported yet (ROADMAP.md): orbax checkpoints (A10c) and multi-GPU (A13).
+Not ported yet (ROADMAP.md): multi-GPU (A13).
 """
 
 from __future__ import annotations
@@ -141,7 +147,15 @@ import torch
 
 from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.device import resolve_device
-from kukeon_tpu_torch.models import bert, checkpoints, convert, hf_convert, llama, moe
+from kukeon_tpu_torch.models import (
+    bert,
+    checkpoints,
+    convert,
+    hf_convert,
+    llama,
+    moe,
+    orbax_ckpt,
+)
 from kukeon_tpu_torch.obs import (
     FlightRecorder,
     ProfileBusy,
@@ -348,6 +362,8 @@ class ServingCell(LifecycleMixin):
                  slo_ttft_p95_ms: float | None = None,
                  slo_availability: float | None = None):
         self._boot_marks: dict[str, float] = {"init_entry": time.monotonic()}
+        # A materialized (orbax) load's bytes and seconds; empty otherwise.
+        self.checkpoint_load: dict = {}
         if model not in MODELS:
             raise SystemExit(f"unknown model {model!r}; known: {sorted(MODELS)}")
         if role not in ROLES:
@@ -384,7 +400,8 @@ class ServingCell(LifecycleMixin):
             else:
                 params = moe.init_params(cfg, gen, self.device)
         elif checkpoint:
-            params, cfg = self._load_checkpoint(checkpoint, cfg, quantize)
+            params, cfg = self._load_checkpoint(checkpoint, cfg, quantize, device=self.device,
+                                                stats=self.checkpoint_load)
         elif quantize:
             params = convert.init_quantized_params_device(cfg, gen, self.device)
         else:
@@ -402,6 +419,12 @@ class ServingCell(LifecycleMixin):
             max_pending=max_pending, seed=seed, device=self.device,
             forward_fn=forward_fn, kv_page_tokens=kv_page_tokens, registry=registry,
             model_name=model)
+        if self.checkpoint_load:
+            # The materialized load moved its leaves host->device before
+            # the engine: kukeon_checkpoint_load_* count them as a stream's.
+            self.engine.load_stats.update(bytes=self.checkpoint_load["leaf_bytes"],
+                                          upload_s=self.checkpoint_load["upload_s"],
+                                          tensors=self.checkpoint_load["leaves"])
         self.tokenizer = load_tokenizer(checkpoint)
         self.default_deadline_s = deadline_s
         self.started_at = time.time()
@@ -418,9 +441,11 @@ class ServingCell(LifecycleMixin):
         self._boot_marks["init_exit"] = time.monotonic()
 
     @staticmethod
-    def _load_checkpoint(path: str, cfg, quantize: bool = False):
-        """(a checkpoint stream, its cfg) of a Llama checkpoint (the
-        reference's ``:556-595``), in its order of precedence:
+    def _load_checkpoint(path: str, cfg, quantize: bool = False, *,
+                         device: torch.device | str = "cpu", stats: dict | None = None):
+        """(a checkpoint stream or a tree on ``device``, its cfg) of a Llama
+        checkpoint (the reference's ``:556-595``), in its order of
+        precedence:
 
         - a kukeon int8 checkpoint (the ``kukeon_quant.json`` manifest):
           :func:`checkpoints.stream_quantized`, the config and the abstract
@@ -429,21 +454,38 @@ class ServingCell(LifecycleMixin):
           pipeline, quantized on the host one leaf at a time when
           ``quantize`` (:func:`hf_convert.stream_params_quantized`), so the
           full-precision tree is never materialized;
-        - anything else is an orbax checkpoint, which is not ported yet.
+        - an orbax checkpoint: read whole on the host, each leaf checked
+          against ``cfg``'s shapes (a mismatch exits naming the leaf), cast
+          to ``cfg.dtype``, placed on ``device``, then quantized there when
+          ``quantize``; ``stats`` (when given) gets the load's bytes and
+          seconds (:func:`orbax_ckpt.load_params`).
 
-        ``cfg`` gives the activation dtype; the rest of the config comes
-        from the checkpoint. The stream returns before any tensor byte is
-        read."""
+        Anything else exits. ``cfg`` gives the activation dtype; for the
+        first two the rest of the config comes from the checkpoint, and the
+        stream returns before any tensor byte is read."""
         if checkpoints.is_quantized_checkpoint(path):
             stream = checkpoints.stream_quantized(path, dtype=cfg.dtype)
         elif os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
             stream = (hf_convert.stream_params_quantized(path, dtype=cfg.dtype) if quantize
                       else hf_convert.stream_params(path, dtype=cfg.dtype))
+        elif orbax_ckpt.is_orbax_checkpoint(path):
+            try:
+                params, load = orbax_ckpt.load_params(
+                    path, llama.init_params(cfg, None, "meta"), cfg.dtype, device)
+            except orbax_ckpt.CheckpointError as e:
+                raise SystemExit(str(e)) from e
+            if stats is not None:
+                stats.update(load)
+            if quantize:
+                t0 = time.monotonic()
+                params = llama.quantize_params(params)
+                if stats is not None:
+                    stats["quantize_s"] = _synced_seconds(device, t0)
+            return params, cfg
         else:
             raise SystemExit(f"checkpoint {path!r} is neither a kukeon int8 checkpoint "
-                             f"({checkpoints.QUANT_MANIFEST}) nor an HF directory "
-                             "(config.json); orbax checkpoints are not ported yet "
-                             "(ROADMAP.md A10c)")
+                             f"({checkpoints.QUANT_MANIFEST}), nor an HF directory "
+                             f"(config.json), nor an orbax checkpoint ({orbax_ckpt.METADATA})")
         return stream, stream.cfg
 
     def warmup(self, prompt_len: int = 64):
@@ -837,13 +879,21 @@ class ServingCell(LifecycleMixin):
         }
 
 
+def _synced_seconds(device, t0: float) -> float:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.monotonic() - t0
+
+
 class EmbeddingCell(LifecycleMixin):
     """Embedding-model serving cell (bge-base), the port of the reference's
     ``EmbeddingCell`` (``kukeon_tpu/runtime/serving_cell.py:1079-1206``):
     ``/v1/embed`` instead of ``/v1/generate``, and the same health, stats
     and metrics seams as the decoder cell, so a reconciler treats both
-    flavours alike. Weights are random, drawn on the device from ``seed``;
-    ``dtype`` (``"bfloat16"``, ``"float32"``) overrides the model's."""
+    flavours alike. Weights come from ``checkpoint``, an orbax checkpoint
+    (:func:`orbax_ckpt.load_params`), or are random, drawn on the device from
+    ``seed``; ``dtype`` (``"bfloat16"``, ``"float32"``) overrides the
+    model's."""
 
     def __init__(self, model: str, *, batch_size: int = 16, pooling: str = "cls",
                  checkpoint: str | None = None, dtype: str | None = None, seed: int = 0,
@@ -851,23 +901,33 @@ class EmbeddingCell(LifecycleMixin):
         if model not in EMBEDDING_MODELS:
             raise SystemExit(f"unknown embedding model {model!r}; known: "
                              f"{sorted(EMBEDDING_MODELS)}")
-        if checkpoint:
-            # The reference's embedding checkpoints are orbax ones.
-            raise NotImplementedError(
-                f"checkpoint={checkpoint!r}: orbax checkpoints are not ported yet "
-                "(ROADMAP.md A10c)")
         self.device = resolve_device(device)
         cfg = EMBEDDING_MODELS[model]()
         if dtype:
             cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        params = bert.init_params(cfg, gen, self.device)
+        self.checkpoint_load: dict = {}
+        if checkpoint:
+            # The reference's embedding checkpoints are orbax ones
+            # (its :1144-1153), restored into bert.init_params' shapes.
+            if not orbax_ckpt.is_orbax_checkpoint(checkpoint):
+                raise SystemExit(f"checkpoint {checkpoint!r} is not an orbax checkpoint "
+                                 f"({orbax_ckpt.METADATA}): embedding cells read only those")
+            try:
+                params, self.checkpoint_load = orbax_ckpt.load_params(
+                    checkpoint, bert.init_params(cfg, None, "meta"), cfg.dtype, self.device)
+            except orbax_ckpt.CheckpointError as e:
+                raise SystemExit(str(e)) from e
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            params = bert.init_params(cfg, gen, self.device)
         self.model_name = model
         self.cfg = cfg
         self.engine = EmbeddingEngine(cfg, params, batch_size=batch_size, pooling=pooling,
                                       device=self.device)
-        self.tokenizer = load_tokenizer(None)
+        # The checkpoint's tokenizer.json when it ships one (the
+        # reference's :1127), else the byte tokenizer.
+        self.tokenizer = load_tokenizer(checkpoint)
         self.started_at = time.time()
         self._stats_lock = threading.Lock()
         self.total_sequences = 0   # guarded-by: _stats_lock

@@ -16,7 +16,7 @@ package's on the CPU, at ``tiny`` and ``mixtral-tiny``.
   greedy tokens: HF f32, HF int8, a quantized directory, ``mixtral-tiny``
   fp and int8, and a text prompt through the synthesized ``tokenizer.json``;
   the int8 path never materializes the full-precision tree; orbax-like
-  paths are refused; ``main()`` serves ``--checkpoint`` in a subprocess;
+  paths that are not orbax checkpoints are refused; ``main()`` serves ``--checkpoint`` in a subprocess;
 - the loaders run with ``jax``, ``safetensors``, ``ml_dtypes`` and
   ``tokenizers`` unimportable.
 """
@@ -498,11 +498,14 @@ def test_int8_checkpoint_boot_never_loads_the_full_precision_tree(tiny_dirs, mon
 
 
 def test_orbax_like_paths_and_embedding_checkpoints_are_refused(tmp_path):
+    """A directory that looks like an orbax one (a ``checkpoint`` file, no
+    ``_METADATA``) is no format either cell reads: both exit naming the
+    formats they take (orbax checkpoints proper: test_torch_orbax.py)."""
     (tmp_path / "checkpoint").write_text("{}")      # an orbax-like directory
-    with pytest.raises(SystemExit, match="A10c"):
+    with pytest.raises(SystemExit, match="nor an orbax checkpoint"):
         ServingCell("tiny", num_slots=2, max_seq_len=64, checkpoint=str(tmp_path),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A10c"):
+    with pytest.raises(SystemExit, match="not an orbax checkpoint"):
         EmbeddingCell("bge-tiny", checkpoint=str(tmp_path), device="cpu")
 
 

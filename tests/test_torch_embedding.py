@@ -306,7 +306,9 @@ def test_stats_have_the_reference_keys():
 
 
 def test_checkpoint_is_refused_naming_a10(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
+    # An empty directory is no orbax checkpoint (orbax ones boot:
+    # test_torch_orbax.py).
+    with pytest.raises(SystemExit, match="not an orbax checkpoint"):
         EmbeddingCell("bge-tiny", checkpoint=str(tmp_path), device="cpu")
     with pytest.raises(SystemExit, match="bge-huge"):
         EmbeddingCell("bge-huge", device="cpu")

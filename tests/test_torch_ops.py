@@ -259,11 +259,13 @@ def test_decode_gqa_attention_matches_jax(quantized):
 
 
 def test_port_imports_no_jax_and_no_reference_module():
-    """Every module of kukeon_tpu_torch imports with jax made unimportable,
-    and afterwards no ``kukeon_tpu`` / ``kukeon_tpu.*`` module is loaded."""
+    """Every module of kukeon_tpu_torch imports with jax (and zstandard,
+    tensorstore, orbax, safetensors, ml_dtypes) made unimportable, and
+    afterwards no ``kukeon_tpu`` / ``kukeon_tpu.*`` module is loaded."""
     code = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None
+for m in ("jax", "zstandard", "tensorstore", "orbax", "safetensors", "ml_dtypes"):
+    sys.modules[m] = None
 import kukeon_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(kukeon_tpu_torch.__path__, "kukeon_tpu_torch.")]
 for name in names:
@@ -275,7 +277,8 @@ assert "kukeon_tpu_torch.serving.programs" in names, names
 assert "kukeon_tpu_torch.serving.kv_pages" in names, names
 for mod in ("obs", "obs.registry", "obs.expo", "obs.trace", "obs.slo", "obs.device",
             "obs.profile", "runtime.devices", "models.bert", "serving.embedding",
-            "models.checkpoints", "models.hf_convert", "serving.tuning"):
+            "models.checkpoints", "models.hf_convert", "serving.tuning", "models.zstd",
+            "models.ocdbt", "models.orbax_ckpt"):
     assert "kukeon_tpu_torch." + mod in names, (mod, names)
 print("ok", len(names))
 """
