@@ -6,7 +6,9 @@ sessions through the prefix cache, the paged KV cache, and the KV
 handoff between a prefill and a decode cell), boot llama3-8b from a
 checkpoint streamed onto the card while its programs are captured, sweep
 two decode chunks into a tuning profile that a cell boots from, profile
-that cell layer by layer, serve llama3-1b from the checkpoints the port
+that cell layer by layer, serve llama3-8b through the tensor-parallel
+code over a one-rank NCCL group and hold the kernels at every shard shape
+of 2, 4 and 8 ranks, serve llama3-1b from the checkpoints the port
 writes and reads itself (HF, kukeon int8, and orbax, with the port's own
 zstd decoder), serve bge-base embeddings, also from orbax, and train Llama
 and Mixtral, saving and resuming through orbax.
@@ -114,6 +116,22 @@ time; any failure ends the run with a nonzero exit and no result line:
               times and their sum beside the cell's ms a step (HTTP) and a
               16-step replay timed alone. The profile file is removed, so
               later phases boot untuned
+  serve_tp    tensor-parallel serving on the one card: (a) K1 at every
+              llama3-8b projection's per-rank shard shape and K1t at the
+              llama3-1b head's, for t = 2, 4 and 8, B 4 (a head's
+              vocabulary shard padded to 128-wide tiles, as the port pads
+              it), against the plain version (the kernel phase's
+              tolerance), with the route each call took (the kernel), the
+              kernel's and the plain version's cold-L2 ms and device ms, and
+              one rank's K1 sum for an 8B decode step beside its bytes
+              bound; (b) ServingCell("llama3-8b", dtype="int8",
+              chips=1) through serve_model: a one-rank NCCL group, the
+              forward's collectives inside the captured graphs, serve's
+              greedy tokens bitwise, 225 K1 and 0 K1t a step, its ms a step
+              and tok/s beside serve's; (c) the runner's command line with
+              --chips 2 on the one card exits non-zero with the over-grant
+              message, and in this process the grant is refused with no
+              byte allocated. Times only: nothing here spans two GPUs
   serve_tied  a short llama3-1b run, whose tied LM head takes the
               transposed kernel (K1t 1 and K1 112 a step)
   serve_ckpt  serving from checkpoints: a llama3-1b HF checkpoint at full
@@ -379,7 +397,7 @@ SHAPES_MOE = {"w_gate": (4096, 14336, 32), "w_up": (4096, 14336, 32),
 FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
               ("S 65792", 1, 65792, 1, 1, 64, 256))
 PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs",
-          "serve_stream", "serve_tune", "serve_tied", "serve_ckpt", "serve_orbax",
+          "serve_stream", "serve_tune", "serve_tp", "serve_tied", "serve_ckpt", "serve_orbax",
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
           "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed", "train",
           "train_moe")   # in run order
@@ -924,11 +942,12 @@ def profile_serving(base: str, engine, prompts, new: int) -> dict:
                                  for e in host]}
 
 
-def make_cell(model: str, max_seq_len: int, kv_page_tokens: int = 0, role: str = "mixed"):
+def make_cell(model: str, max_seq_len: int, kv_page_tokens: int = 0, role: str = "mixed",
+              chips: int | None = None):
     from kukeon_tpu_torch.runtime.serving_cell import ServingCell
 
     return ServingCell(model, dtype="int8", num_slots=4, max_seq_len=max_seq_len,
-                       device="cuda", kv_page_tokens=kv_page_tokens, role=role)
+                       device="cuda", kv_page_tokens=kv_page_tokens, role=role, chips=chips)
 
 
 def twin_cell(cell, kv_page_tokens: int = 64, role: str | None = None,
@@ -3778,6 +3797,152 @@ def phase_train_moe(fa) -> dict:
                          "flash_launches": [r["first"]["launches"], r["second"]["launches"]]}}
 
 
+TP_WORLDS = (2, 4, 8)
+
+
+def tp_shard_shapes(t: int) -> dict:
+    """(K, N, calls a decode step, transposed) of one rank's K1 and K1t
+    calls at tensor parallelism t: the llama3-8b projections cut as
+    parallel/sharding.py cuts them (column-parallel on N, row-parallel on
+    K, the LM head on its vocabulary columns) and the llama3-1b tied head on
+    its vocabulary rows, each head's shard padded to the kernel's 128-wide
+    tiles as pad_vocab pads it (128256 / 4 = 32064 -> 32128, / 8 = 16032
+    -> 16128)."""
+    from kukeon_tpu_torch.parallel.sharding import VOCAB_TILE
+
+    def vocab(n: int) -> int:          # pad_vocab's padding of a head shard
+        return n + -n % VOCAB_TILE
+
+    out = {}
+    for name, (K, N, n) in SHAPES_8B.items():
+        row = name in ("wo", "w_down")
+        cols = vocab(N // t) if name == "lm_head" else N if row else N // t
+        out[name] = (K // t if row else K, cols, n, False)
+    out["tied_head_1b"] = (TIED_1B[0], vocab(TIED_1B[1] // t), 1, True)
+    return out
+
+
+def serve_tp_kernels(k1, bps: float) -> dict:
+    """(a): every shard shape for t in TP_WORLDS, B 4, against the plain
+    version; the route each call takes, cold-L2 kernel and plain ms, the
+    kernel's device ms, and one rank's K1 sum for an 8B step beside its
+    bound."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out, worst = {}, 0.0
+    for t in TP_WORLDS:
+        rows = {}
+        for name, (K, N, n, transpose) in tp_shard_shapes(t).items():
+            q = torch.randint(-127, 128, (N, K) if transpose else (K, N), generator=g,
+                              device="cuda", dtype=torch.int8)
+            s = torch.rand(N, generator=g, device="cuda") * 0.02 + 1e-3
+            h = torch.randn((4, K), generator=g, device="cuda").to(torch.bfloat16)
+            route = k1._route("cuda", 4, K, N)
+            before = k1.int8_matmul.launches
+            got = k1.int8_matmul(h, q, s, transpose=transpose)
+            launched = k1.int8_matmul.launches - before
+            ref = k1.int8_matmul_reference(h, q, s, transpose=transpose)
+            torch.cuda.synchronize()
+            ok, ea, er = within_tol(got, ref)
+            if not ok or not torch.isfinite(got).all():
+                raise AssertionError(f"int8_matmul disagrees with its plain version at the "
+                                     f"t={t} shard of {name} ({K}x{N}): max abs {ea}, rel {er}")
+            if launched != (route == "kernel"):
+                raise AssertionError(f"t={t} {name}: route {route} but {launched} launches")
+            worst = max(worst, ea)
+            call = (lambda: k1.int8_matmul(h, q, s, transpose=transpose))
+            rows[name] = {
+                "K": K, "N": N, "calls_per_step": n, "route": route, "max_abs_err": ea,
+                "ms": round(cold_median_ms(call, flush), 4),
+                "plain_ms": round(cold_median_ms(
+                    lambda: k1.int8_matmul_reference(h, q, s, transpose=transpose), flush), 4),
+                "device_ms": round(sum(kernel_device_ms(call, flush).values()), 4),
+                "bound_ms": round(bound_ms(4, K, N, bps)[0], 4)}
+            del q, s, h
+        step = [nm for nm in SHAPES_8B]
+        out[f"t{t}"] = {
+            "shapes": rows,
+            "k1_ms_per_step": round(sum(rows[nm]["ms"] * rows[nm]["calls_per_step"]
+                                        for nm in step), 4),
+            "k1_device_ms_per_step": round(sum(rows[nm]["device_ms"] * rows[nm]["calls_per_step"]
+                                               for nm in step), 4),
+            "k1_bound_ms_per_step": round(sum(rows[nm]["bound_ms"] * rows[nm]["calls_per_step"]
+                                              for nm in step), 4),
+            "int8_bytes_bound_ms_per_step": round(sum(
+                rows[nm]["K"] * rows[nm]["N"] * rows[nm]["calls_per_step"] for nm in step)
+                / bps * 1e3, 4),
+            "dequant_routes": sorted(nm for nm, r in rows.items() if r["route"] != "kernel")}
+    del flush
+    return {"worlds": out, "max_abs_err": worst,
+            "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), the kernel phase's"}
+
+
+def serve_tp(k1, bps: float) -> dict:
+    """(a) the shard shapes; (b) llama3-8b int8 through ServingCell(chips=1)
+    over a one-rank NCCL group, serve's traffic, its tokens against serve's;
+    (c) the over-grant on one card, in a child process through the cell's
+    main and in this process before any byte."""
+    import torch.distributed as dist
+
+    from kukeon_tpu_torch.parallel import launch
+    from kukeon_tpu_torch.runtime.serving_cell import ServingCell
+
+    out = {"a_shards": serve_tp_kernels(k1, bps)}
+    cell = make_cell("llama3-8b", 1024, chips=1)
+    eng = cell.engine
+    group = launch.current()
+    mesh_info = {"world": eng.world, "kv_sharded": eng.kv_sharded,
+                 "backend": dist.get_backend(), "stats_mesh": cell.stats()["mesh"]}
+    if eng.mesh is None or eng.world != 1 or group is None or mesh_info["backend"] != "nccl":
+        raise AssertionError(f"ServingCell(chips=1) did not serve over a one-rank NCCL group: "
+                             f"{mesh_info}")
+    del eng
+    b = serve_model(k1, "llama3-8b", max_seq_len=1024, prompt_len=128, new=64, profile_new=32,
+                    cell=cell, label="llama3-8b tp1")
+    # The graphs that captured the group's collectives go before the group.
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch.shutdown()
+    if "llama3-8b" in SERVED_TOKENS:
+        if SERVED_TOKENS["llama3-8b tp1"] != SERVED_TOKENS["llama3-8b"]:
+            raise AssertionError("ServingCell(chips=1) gave other tokens than serve's cell")
+        b["tokens_equal_serve"] = True
+    # The collectives' own kernels among the profile's top device rows
+    # (name: launches), if NCCL launches any for one rank.
+    nccl = {row[0]: row[2] for row in b["profile"]["top_device_ms"] if "nccl" in row[0].lower()}
+    out["b_serve"] = {**{k: b[k] for k in ("decode_tok_s", "ttft_ms", "ms_per_decode_step",
+                                             "launches", "capture_s", "captures", "boot_s",
+                                             "peak_mem_gb")},
+                      "launches_per_step": b["profile"]["launches_per_step"],
+                      "nccl_kernels_in_top_rows": nccl, "mesh": mesh_info,
+                      "tokens_equal_serve": b.get("tokens_equal_serve", "serve did not run")}
+    # (c): the runner's way (the cell's main, --chips 2), then in-process.
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kukeon_tpu_torch.runtime.serving_cell", "--model", "llama3-8b",
+         "--dtype", "int8", "--chips", "2", "--port", "0"],
+        capture_output=True, text=True, timeout=300)
+    child_s = time.monotonic() - t0
+    want = "--chips 2: serving mesh wants 2 GPUs but only 1 visible"
+    if proc.returncode == 0 or want not in proc.stderr:
+        raise AssertionError(f"--chips 2 on one card: exit {proc.returncode}, "
+                             f"stderr {proc.stderr[-2000:]}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        ServingCell("llama3-8b", dtype="int8", device="cuda", chips=2)
+        raise AssertionError("ServingCell(chips=2) on one card did not exit")
+    except SystemExit as e:
+        message = str(e)
+    if want not in message or torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"over-grant: {message!r}, allocated {before} -> "
+                             f"{torch.cuda.memory_allocated()}")
+    out["c_overgrant"] = {"exit_code": proc.returncode, "child_s": round(child_s, 3),
+                          "message": message, "bytes_allocated": 0}
+    return out
+
+
 def sass_counts(built: dict) -> dict:
     """{source: {kernel: {"HGMMA": n, "HMMA": n}}} from cuobjdump's SASS of
     each built library: the tensor-core instructions each kernel holds."""
@@ -3896,6 +4061,7 @@ def run_phases(phases: list) -> int:
     run("serve_stream", lambda: serve_stream(k1, kept["llama3-8b"]))
     run("serve_tune", lambda: serve_tune(kept["llama3-8b"]))
     kept.clear()
+    run("serve_tp", lambda: serve_tp(k1, bps))
     run("serve_tied", lambda: serve_model(k1, "llama3-1b", max_seq_len=CKPT_SEQ,
                                           prompt_len=CKPT_PROMPT, new=CKPT_NEW))
     run("serve_ckpt", lambda: serve_ckpt(k1))
@@ -4002,6 +4168,7 @@ def run_phases(phases: list) -> int:
                                         res["train"])
     train_moe, embed, ckpt = res["train_moe"], res["serve_embed"], res["serve_ckpt"]
     stream, tune, orbax = res["serve_stream"], res["serve_tune"], res["serve_orbax"]
+    tp = res["serve_tp"]
     ft, fm = flash["timing"], flash["timing_mixtral_train"]
     for label, run_, key in (("llama3-8b", serve8, "k1"), ("llama3-1b", serve1, "k1t"),
                              ("llama3-1b ckpt", ckpt, "k1"), ("llama3-1b ckpt", ckpt, "k1t"),
@@ -4027,8 +4194,10 @@ def run_phases(phases: list) -> int:
         {"name": "int8_matmul", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES,
          "launches": (serve8["launches"]["k1"] + ckpt["launches"]["k1"]
-                      + stream["launches"]["k1"] + orbax["launches"]["k1"]),
+                      + stream["launches"]["k1"] + orbax["launches"]["k1"]
+                      + tp["b_serve"]["launches"]["k1"]),
          "launches_serve": serve8["launches"]["k1"], "launches_ckpt": ckpt["launches"]["k1"],
+         "launches_serve_tp": tp["b_serve"]["launches"]["k1"],
          "launches_stream": stream["launches"]["k1"], "launches_orbax": orbax["launches"]["k1"],
          "launches_paged": spg["layout_check"]["launches"]["k1"],
          "launches_disagg": sdg["parity"]["launches"]["k1"],
@@ -4168,6 +4337,18 @@ def run_phases(phases: list) -> int:
                      for fmt, b in orbax["boot"].items()},
             "embed_bge-base": {k: orbax["c_embed"][k] for k in (
                 "bitwise_equal", "ready_s", "write_s", "bytes_on_disk")}},
+        "serve_tp_llama3-8b": {
+            "a_k1_ms_per_step": {w: v["k1_ms_per_step"] for w, v in
+                                 tp["a_shards"]["worlds"].items()},
+            "a_k1_bound_ms_per_step": {w: v["k1_bound_ms_per_step"] for w, v in
+                                       tp["a_shards"]["worlds"].items()},
+            "a_dequant_routes": {w: v["dequant_routes"] for w, v in
+                                 tp["a_shards"]["worlds"].items()},
+            "b": {k: tp["b_serve"][k] for k in ("ms_per_decode_step", "decode_tok_s",
+                                                 "launches_per_step", "tokens_equal_serve")},
+            "serve_ms_per_decode_step": serve8["ms_per_decode_step"],
+            "serve_decode_tok_s": serve8["decode_tok_s"],
+            "c_exit_code": tp["c_overgrant"]["exit_code"]},
         "serve_embed_bge-base": {k: embed[k] for k in (
             "seq_per_s", "tokens_per_s", "burst_ms_p50", "cosine_to_f32_min",
             "alone_vs_in_grid")}}})

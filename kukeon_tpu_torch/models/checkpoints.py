@@ -391,6 +391,17 @@ def is_quantized_checkpoint(path: str) -> bool:
     return os.path.exists(os.path.join(path, QUANT_MANIFEST))
 
 
+def quantized_config(path: str, dtype: torch.dtype | None = None) -> LlamaConfig:
+    """The config in a kukeon int8 checkpoint's manifest (its activation
+    dtype ``dtype`` when given)."""
+    with open(os.path.join(path, QUANT_MANIFEST)) as f:
+        manifest = json.load(f)
+    if manifest.get("format") != "kukeon-int8-v1":
+        raise ValueError(f"unknown quantized checkpoint format in {path}")
+    cfg = _cfg_from_json(manifest["config"])
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
 def load_quantized(path: str, dtype: torch.dtype | None = None) -> tuple[dict, LlamaConfig]:
     """The int8 tree back as CPU tensors, with the manifest's config (its
     activation dtype ``dtype`` when given). f32 leaves other than the ``.s``
@@ -590,13 +601,7 @@ def stream_quantized(path: str, dtype: torch.dtype | None = None, *, threads: in
     tensor byte read), then reader threads walk the file tensor by tensor,
     casting the norms to the activation dtype. The leaves equal the
     materialized loader's bit for bit."""
-    with open(os.path.join(path, QUANT_MANIFEST)) as f:
-        manifest = json.load(f)
-    if manifest.get("format") != "kukeon-int8-v1":
-        raise ValueError(f"unknown quantized checkpoint format in {path}")
-    cfg = _cfg_from_json(manifest["config"])
-    if dtype is not None:
-        cfg = dataclasses.replace(cfg, dtype=dtype)
+    cfg = quantized_config(path, dtype)
     st_path = os.path.join(path, "model.quant.safetensors")
     header = read_safetensors_header(st_path)
     abstract_flat = {

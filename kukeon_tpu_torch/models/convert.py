@@ -24,7 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from kukeon_tpu_torch.models.llama import LlamaConfig, Params, _int8_sym
+from kukeon_tpu_torch.models.llama import LlamaConfig, Params, _int8_sym, nest
 from kukeon_tpu_torch.models.moe import MoEConfig
 
 
@@ -70,12 +70,31 @@ def params_from_numpy(tree: Any, device: torch.device | str,
     return conv(tree)
 
 
+def npz_leaves(*, device: torch.device | str, path: str):
+    """The ``(path tuple, tensor)`` leaves of an ``.npz`` whose keys are the
+    leaves' paths joined by ``/`` (numpy dtypes; int8 ``{"q", "s"}`` leaves
+    as ``…/q`` and ``…/s``), on ``device``, read one at a time in the
+    file's order: a weight recipe's factory
+    (:class:`kukeon_tpu_torch.parallel.sharding.Recipe`)."""
+    with np.load(path) as f:
+        for key in f.files:
+            yield tuple(key.split("/")), tensor_from_numpy(f[key]).to(device)
+
+
 def init_quantized_params_device(cfg: LlamaConfig, generator: torch.Generator,
                                  device: torch.device | str) -> Params:
     """Random int8 tree drawn on ``device`` one layer slice at a time, so
     peak memory beyond the int8 tree is one f32 layer matrix (the embedding
     is the largest: V x H). ``generator`` must live on ``device``."""
-    return _int8_tree(cfg, generator, device, experts=None)
+    return nest(iter_quantized_params_device(cfg, generator, device))
+
+
+def iter_quantized_params_device(cfg: LlamaConfig, generator: torch.Generator,
+                                 device: torch.device | str):
+    """:func:`init_quantized_params_device`' leaves as ``(path, tensor)``
+    pairs, each drawn when it is yielded (the same draws, in the same
+    order), so a caller can keep a slice of each and free the rest."""
+    return _int8_leaves(cfg, generator, device, experts=None)
 
 
 def init_quantized_moe_params_device(cfg: MoEConfig, generator: torch.Generator,
@@ -85,12 +104,12 @@ def init_quantized_moe_params_device(cfg: MoEConfig, generator: torch.Generator,
     matrix (at Mixtral-8x7B an expert matrix is 235 MB, where a whole
     [L, E, H, I] f32 stack would be 60 GB). The router is drawn f32 and
     stays so. ``generator`` must live on ``device``."""
-    return _int8_tree(cfg, generator, device, experts=cfg.num_experts)
+    return nest(_int8_leaves(cfg, generator, device, experts=cfg.num_experts))
 
 
-def _int8_tree(cfg, generator: torch.Generator, device, experts: int | None) -> Params:
-    """The Llama tree, or with ``experts`` the MoE tree (router [L, H, E]
-    f32 and expert stacks [L, E, K, N])."""
+def _int8_leaves(cfg, generator: torch.Generator, device, experts: int | None):
+    """The Llama tree's leaves, or with ``experts`` the MoE tree's (router
+    [L, H, E] f32 and expert stacks [L, E, K, N]), in the tree's order."""
     c = cfg
     L, H, I, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
 
@@ -102,39 +121,35 @@ def _int8_tree(cfg, generator: torch.Generator, device, experts: int | None) -> 
         qw, s = _int8_sym(normal(shape, fan_in), axis)
         return qw, s.squeeze(axis)
 
-    def stacked(shape, fan_in, lead=(L,)):
+    def stacked(name, shape, fan_in, lead=(L,)):
         """[*lead, K, N] int8, scale per output column: the reference's axis
         1 of [L, K, N] (axis 2 of [L, E, K, N]), one [K, N] slice at a time."""
         qs = torch.empty((*lead, *shape), dtype=torch.int8, device=device)
         ss = torch.empty((*lead, shape[1]), dtype=torch.float32, device=device)
         for idx in np.ndindex(*lead):
             qs[idx], ss[idx] = q_leaf(shape, fan_in, 0)
-        return {"q": qs, "s": ss}
+        yield ("layers", name, "q"), qs
+        yield ("layers", name, "s"), ss
 
-    eq, es = q_leaf((V, H), H, 1)
+    eq, es = q_leaf((V, H), H, 1)                            # scale per vocab row
+    yield ("embed", "q"), eq
+    yield ("embed", "s"), es
+    del eq, es
     ones = lambda *shape: torch.ones(shape, dtype=c.dtype, device=device)  # noqa: E731
-    layers = {
-        "attn_norm": ones(L, H),
-        "wq": stacked((H, c.q_dim), H),
-        "wk": stacked((H, c.kv_dim), H),
-        "wv": stacked((H, c.kv_dim), H),
-        "wo": stacked((c.q_dim, H), c.q_dim),
-        "mlp_norm": ones(L, H),
-    }
+    yield ("layers", "attn_norm"), ones(L, H)
+    yield from stacked("wq", (H, c.q_dim), H)
+    yield from stacked("wk", (H, c.kv_dim), H)
+    yield from stacked("wv", (H, c.kv_dim), H)
+    yield from stacked("wo", (c.q_dim, H), c.q_dim)
+    yield ("layers", "mlp_norm"), ones(L, H)
     mlp = (L,) if experts is None else (L, experts)
     if experts is not None:
-        layers["router"] = normal((L, H, experts), H)
-    layers.update({
-        "w_gate": stacked((H, I), H, mlp),
-        "w_up": stacked((H, I), H, mlp),
-        "w_down": stacked((I, H), I, mlp),
-    })
-    params: Params = {
-        "embed": {"q": eq, "s": es},                         # scale per vocab row
-        "layers": layers,
-        "final_norm": ones(H),
-    }
+        yield ("layers", "router"), normal((L, H, experts), H)
+    yield from stacked("w_gate", (H, I), H, mlp)
+    yield from stacked("w_up", (H, I), H, mlp)
+    yield from stacked("w_down", (I, H), I, mlp)
+    yield ("final_norm",), ones(H)
     if not c.tie_embeddings:
         hq, hs = q_leaf((H, V), H, 0)                        # scale per vocab col
-        params["lm_head"] = {"q": hq, "s": hs}
-    return params
+        yield ("lm_head", "q"), hq
+        yield ("lm_head", "s"), hs

@@ -11,6 +11,17 @@ KV caches are ``[L, B, S, KV, D]`` and are updated **in place**
 (advanced-index assignment): where the reference donates the cache to a
 jitted program and gets a new one back, :func:`forward` writes into the
 cache it is given and returns that same object with new ``lengths``.
+
+**Tensor parallelism** (``mesh=``, a ``parallel.mesh.Mesh``): the forward
+runs on one rank's local tree (``parallel/sharding.py``): its q heads,
+its kv heads (or all of them, replicated), its columns of ``w_gate`` and
+``w_up`` and rows of ``w_down``, its vocabulary rows of the embedding. The
+head counts come from the local shapes, so the code is the one-device
+code, plus a masked embedding lookup and an ``all_reduce`` after it, one
+``all_reduce`` after ``wo`` and one after ``w_down`` (the row-parallel
+partial scaled and cast to the activation dtype first, then summed in
+it), and an ``all_gather`` of the vocabulary-sharded logits. Without a
+mesh it is the one-device code.
 """
 
 from __future__ import annotations
@@ -103,6 +114,13 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
       lm_head [H, V] (absent when tie_embeddings).
     The draws differ from the reference's (torch's generator, not jax's);
     parity tests convert the reference's tree instead."""
+    return nest(iter_params(cfg, generator, device))
+
+
+def iter_params(cfg: LlamaConfig, generator: torch.Generator, device: torch.device | str):
+    """:func:`init_params`' leaves as ``(path, tensor)`` pairs, each drawn
+    when it is yielded (the same draws, in the same order), so a caller
+    can keep a slice of each and free the rest before the next."""
     c = cfg
 
     def dense(shape, fan_in):
@@ -111,24 +129,30 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
     L, H, I, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
     ones = lambda *shape: torch.ones(shape, dtype=c.dtype, device=device)  # noqa: E731
-    params: Params = {
-        "embed": dense((V, H), H),
-        "layers": {
-            "attn_norm": ones(L, H),
-            "wq": dense((L, H, c.q_dim), H),
-            "wk": dense((L, H, c.kv_dim), H),
-            "wv": dense((L, H, c.kv_dim), H),
-            "wo": dense((L, c.q_dim, H), c.q_dim),
-            "mlp_norm": ones(L, H),
-            "w_gate": dense((L, H, I), H),
-            "w_up": dense((L, H, I), H),
-            "w_down": dense((L, I, H), I),
-        },
-        "final_norm": ones(H),
-    }
+    yield ("embed",), dense((V, H), H)
+    yield ("layers", "attn_norm"), ones(L, H)
+    yield ("layers", "wq"), dense((L, H, c.q_dim), H)
+    yield ("layers", "wk"), dense((L, H, c.kv_dim), H)
+    yield ("layers", "wv"), dense((L, H, c.kv_dim), H)
+    yield ("layers", "wo"), dense((L, c.q_dim, H), c.q_dim)
+    yield ("layers", "mlp_norm"), ones(L, H)
+    yield ("layers", "w_gate"), dense((L, H, I), H)
+    yield ("layers", "w_up"), dense((L, H, I), H)
+    yield ("layers", "w_down"), dense((L, I, H), I)
+    yield ("final_norm",), ones(H)
     if not c.tie_embeddings:
-        params["lm_head"] = dense((H, V), H)
-    return params
+        yield ("lm_head",), dense((H, V), H)
+
+
+def nest(leaves) -> dict:
+    """The nested-dict tree of ``(path tuple, leaf)`` pairs, in their order."""
+    tree: dict = {}
+    for path, leaf in leaves:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
 
 
 # --- KV cache ----------------------------------------------------------------
@@ -149,8 +173,11 @@ class KVCache:
 
     @staticmethod
     def create(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
-               quantized: bool = False, device=None) -> "KVCache":
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+               quantized: bool = False, device=None,
+               kv_heads: int | None = None) -> "KVCache":
+        """``kv_heads``: the heads this cache holds (a rank's share under
+        tensor parallelism), default ``cfg.num_kv_heads``."""
+        shape = (cfg.num_layers, batch, max_len, kv_heads or cfg.num_kv_heads, cfg.head_dim)
         lengths = torch.zeros((batch,), dtype=torch.int64, device=device)
         if quantized:
             return KVCache(
@@ -216,27 +243,28 @@ def _int8_sym(w: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
 def quantize_params(params: Params) -> Params:
     """Full-precision tree -> int8 tree ({"q": int8, "s": f32} leaves for
     every dense matrix; norms stay as they are)."""
-
-    def q(w, axis):
-        qw, s = _int8_sym(w, axis)
-        return {"q": qw, "s": s.squeeze(axis)}
-
     L = params["layers"]
     out: Params = {
-        "embed": q(params["embed"], 1),                     # scale per vocab row
-        "layers": {
-            "attn_norm": L["attn_norm"],
-            "wq": q(L["wq"], 1), "wk": q(L["wk"], 1), "wv": q(L["wv"], 1),
-            "wo": q(L["wo"], 1),
-            "mlp_norm": L["mlp_norm"],
-            "w_gate": q(L["w_gate"], 1), "w_up": q(L["w_up"], 1),
-            "w_down": q(L["w_down"], 1),
-        },
+        "embed": quantize_leaf(("embed",), params["embed"]),
+        "layers": {n: quantize_leaf(("layers", n), L[n])
+                   for n in ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
+                             "w_gate", "w_up", "w_down")},
         "final_norm": params["final_norm"],
     }
     if "lm_head" in params:
-        out["lm_head"] = q(params["lm_head"], 0)            # scale per vocab col
+        out["lm_head"] = quantize_leaf(("lm_head",), params["lm_head"])
     return out
+
+
+def quantize_leaf(path: tuple[str, ...], w: torch.Tensor):
+    """:func:`quantize_params` of one leaf at ``path``: a norm as it is, a
+    matrix as {"q", "s"} with a scale per vocabulary row (``embed``), per
+    vocabulary column (``lm_head``) or per output column (the layers')."""
+    if path[-1] in ("attn_norm", "mlp_norm", "final_norm"):
+        return w
+    axis = 0 if path[-1] == "lm_head" else 1
+    qw, s = _int8_sym(w, axis)
+    return {"q": qw, "s": s.squeeze(axis)}
 
 
 def quantize_np(w, axis: int):
@@ -287,6 +315,30 @@ def _is_q(w) -> bool:
     return isinstance(w, dict) and "q" in w
 
 
+def _cols(w) -> int:
+    """Output columns of a plain or quantized [.., K, N] matrix."""
+    return (w["q"] if _is_q(w) else w).shape[-1]
+
+
+def _heads(params: Params, c: LlamaConfig, rank: int) -> tuple[int, int, slice]:
+    """(q heads, kv heads computed, kv heads attended) of this rank, from
+    the local shapes: its q heads are a contiguous block of the model's;
+    with a replicated cache (every kv head computed) it attends only the
+    kv heads of its q heads' groups."""
+    w = params["layers"]
+    nh = _cols(w["wq"]) // c.head_dim
+    nkv = _cols(w["wk"]) // c.head_dim
+    if nkv < c.num_kv_heads or nh == c.num_heads:
+        return nh, nkv, slice(None)
+    g = c.num_heads // c.num_kv_heads
+    return nh, nkv, slice(rank * nh // g, ((rank + 1) * nh - 1) // g + 1)
+
+
+def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The row-parallel sum (no-op without a mesh)."""
+    return x if mesh is None else mesh.all_reduce(x)
+
+
 def _mm(h: torch.Tensor, w, kernel: bool = False) -> torch.Tensor:
     """h @ w for plain or quantized weights.
 
@@ -302,8 +354,18 @@ def _mm(h: torch.Tensor, w, kernel: bool = False) -> torch.Tensor:
     return h @ w
 
 
-def _embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def _embed(params: Params, tokens: torch.Tensor, dtype, mesh=None,
+           rows: int = 0) -> torch.Tensor:
+    """Embedding rows of ``tokens``. With a mesh the local table holds the
+    rank's block of ``rows`` vocabulary entries (and any padding after
+    them): ids outside it look up row 0 and come out as zeros, and the
+    ``all_reduce`` sums the one rank's row with zeros, exactly."""
     e = params["embed"]
+    if mesh is not None:
+        local = tokens - mesh.rank * rows
+        hit = (local >= 0) & (local < rows)
+        x = _embed(params, torch.where(hit, local, torch.zeros_like(local)), dtype)
+        return mesh.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
     if _is_q(e):
         rows = e["q"][tokens].to(dtype)
         return rows * e["s"][tokens][..., None].to(dtype)
@@ -311,7 +373,17 @@ def _embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _logits(params: Params, c: LlamaConfig, x: torch.Tensor,
-            kernel: bool = False) -> torch.Tensor:
+            kernel: bool = False, mesh=None) -> torch.Tensor:
+    """f32 logits; with a mesh the rank's vocabulary columns (its padding
+    cut off), gathered in the activation dtype."""
+    out = _local_logits(params, c, x, kernel)
+    if mesh is not None:
+        out = mesh.all_gather(out[..., :c.vocab_size // mesh.world], -1)
+    return out.float()
+
+
+def _local_logits(params: Params, c: LlamaConfig, x: torch.Tensor,
+                  kernel: bool = False) -> torch.Tensor:
     if c.tie_embeddings:
         e = params["embed"]
         if _is_q(e):
@@ -319,11 +391,11 @@ def _logits(params: Params, c: LlamaConfig, x: torch.Tensor,
                 lead = x.shape[:-1]
                 out = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(),
                                   e["q"], e["s"], transpose=True)
-                return out.reshape(*lead, out.shape[-1]).float()
+                return out.reshape(*lead, out.shape[-1])
             raw = torch.einsum("bsh,vh->bsv", x, e["q"].to(x.dtype))
-            return (raw * e["s"].to(x.dtype)).float()
-        return torch.einsum("bsh,vh->bsv", x, e).float()
-    return _mm(x, params["lm_head"], kernel).float()
+            return raw * e["s"].to(x.dtype)
+        return torch.einsum("bsh,vh->bsv", x, e)
+    return _mm(x, params["lm_head"], kernel)
 
 
 def layer_weights(params: Params, layer: int) -> dict:
@@ -347,11 +419,12 @@ def layer_slices(params: Params) -> list[dict]:
     return [{name: col[layer] for name, col in cols.items()} for layer in range(n)]
 
 
-def _mlp(x: torch.Tensor, w: dict, c: LlamaConfig, kernel: bool = False) -> torch.Tensor:
+def _mlp(x: torch.Tensor, w: dict, c: LlamaConfig, kernel: bool = False,
+         mesh=None) -> torch.Tensor:
     h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
     gate = F.silu(_mm(h, w["w_gate"], kernel).float()).to(c.dtype)
     up = _mm(h, w["w_up"], kernel)
-    return x + _mm(gate * up, w["w_down"], kernel)
+    return x + _psum(_mm(gate * up, w["w_down"], kernel), mesh)
 
 
 # --- Forward -----------------------------------------------------------------
@@ -363,23 +436,25 @@ def transformer_block(
     positions: torch.Tensor,
     attn_impl: str = "auto",
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """One no-cache decoder block (attention + SwiGLU residual) over
     [B, S, H], ``w`` one layer's weights (:func:`layer_weights`); ``rope``
     optionally the positions' precomputed (cos, sin) tables."""
     c = cfg
     B, S = x.shape[:2]
+    nh, nkv, sel = _heads({"layers": w}, c, mesh.rank if mesh is not None else 0)
     rope = rope or rope_tables(positions, c.head_dim, c.rope_theta)
     h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
-    q = _mm(h, w["wq"]).reshape(B, S, c.num_heads, c.head_dim)
-    k = _mm(h, w["wk"]).reshape(B, S, c.num_kv_heads, c.head_dim)
-    v = _mm(h, w["wv"]).reshape(B, S, c.num_kv_heads, c.head_dim)
+    q = _mm(h, w["wq"]).reshape(B, S, nh, c.head_dim)
+    k = _mm(h, w["wk"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
+    v = _mm(h, w["wv"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
     q = apply_rope(q, positions, c.rope_theta, rope)
     k = apply_rope(k, positions, c.rope_theta, rope)
     attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
                          impl=attn_impl)
-    x = x + _mm(attn.reshape(B, S, c.q_dim), w["wo"])
-    return _mlp(x, w, c)
+    x = x + _psum(_mm(attn.reshape(B, S, nh * c.head_dim), w["wo"]), mesh)
+    return _mlp(x, w, c, mesh=mesh)
 
 
 def forward(
@@ -391,6 +466,7 @@ def forward(
     attn_impl: str = "auto",
     logit_positions: torch.Tensor | None = None,
     remat: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Run the decoder.
 
@@ -407,6 +483,8 @@ def forward(
         ``torch.utils.checkpoint``: its activations are recomputed in the
         backward instead of kept (training; the reference checkpoints the
         whole forward, with the same numbers).
+      mesh: optional ``parallel.mesh.Mesh``: ``params`` is then the rank's
+        local tree and ``cache`` holds its kv heads (module docstring).
 
     Returns:
       (logits [B, S, V] float32 — [B, 1, V] with ``logit_positions`` — and
@@ -414,26 +492,28 @@ def forward(
     """
     c = cfg
     B, S = tokens.shape
-    x = _embed(params, tokens, c.dtype)                     # [B, S, H]
+    x = _embed(params, tokens, c.dtype, mesh,               # [B, S, H]
+               c.vocab_size // mesh.world if mesh is not None else 0)
 
     if cache is not None and S == 1 and attn_impl in ("auto", "reference"):
-        return _decode_forward(params, c, x, positions, cache, B)
+        return _decode_forward(params, c, x, positions, cache, B, mesh)
 
+    nh, nkv, sel = _heads(params, c, mesh.rank if mesh is not None else 0)
     offsets = cache.lengths if cache is not None else None
     rope = rope_tables(positions, c.head_dim, c.rope_theta)
     for layer, w in enumerate(layer_slices(params)):
         if cache is None:
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    transformer_block, x, w, c, positions, attn_impl, rope,
+                    transformer_block, x, w, c, positions, attn_impl, rope, mesh,
                     use_reentrant=False)
             else:
-                x = transformer_block(x, w, c, positions, attn_impl, rope)
+                x = transformer_block(x, w, c, positions, attn_impl, rope, mesh)
             continue
         h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
-        q = _mm(h, w["wq"]).reshape(B, S, c.num_heads, c.head_dim)
-        k = _mm(h, w["wk"]).reshape(B, S, c.num_kv_heads, c.head_dim)
-        v = _mm(h, w["wv"]).reshape(B, S, c.num_kv_heads, c.head_dim)
+        q = _mm(h, w["wq"]).reshape(B, S, nh, c.head_dim)
+        k = _mm(h, w["wk"]).reshape(B, S, nkv, c.head_dim)
+        v = _mm(h, w["wv"]).reshape(B, S, nkv, c.head_dim)
         q = apply_rope(q, positions, c.rope_theta, rope)
         k = apply_rope(k, positions, c.rope_theta, rope)
         ck, cv = cache.k[layer], cache.v[layer]
@@ -455,11 +535,11 @@ def forward(
             _cache_insert(cv, v, offsets)
             ak, av = ck, cv
         kv_positions = torch.arange(ck.shape[1], device=x.device)[None, :].expand(B, -1)
-        attn = gqa_attention(q, ak, av, q_positions=positions,
+        attn = gqa_attention(q, ak[:, :, sel], av[:, :, sel], q_positions=positions,
                              kv_positions=kv_positions, kv_length=offsets + S,
                              impl=attn_impl)
-        x = x + _mm(attn.reshape(B, S, c.q_dim), w["wo"])
-        x = _mlp(x, w, c)
+        x = x + _psum(_mm(attn.reshape(B, S, nh * c.head_dim), w["wo"]), mesh)
+        x = _mlp(x, w, c, mesh=mesh)
 
     if cache is not None:
         cache.lengths = cache.lengths + S
@@ -467,7 +547,7 @@ def forward(
     if logit_positions is not None:
         idx = logit_positions.reshape(B, 1, 1).expand(B, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
-    return _logits(params, c, x), cache
+    return _logits(params, c, x, mesh=mesh), cache
 
 
 def _decode_forward(
@@ -477,30 +557,34 @@ def _decode_forward(
     positions: torch.Tensor,
     cache: KVCache,
     B: int,
+    mesh=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Single-token decode: every layer reads its cache slice read-only
     (append-free attention scores the new token separately); the new K/V of
     all layers are written once at the end, one row per slot, in place.
     With ``cfg.int8_pallas`` the projections and the LM head go through
-    :func:`int8_matmul` — at 8B, 7 x 32 + 1 = 225 kernel launches a step."""
+    :func:`int8_matmul` — at 8B, 7 x 32 + 1 = 225 kernel launches a step,
+    at every rank's shard shapes under a mesh."""
     offsets = cache.lengths
     kern = c.int8_pallas
+    nh, nkv, sel = _heads(params, c, mesh.rank if mesh is not None else 0)
     rope = rope_tables(positions, c.head_dim, c.rope_theta)
     new_k, new_v = [], []
     for layer in range(c.num_layers):
         w = layer_weights(params, layer)
         h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
-        q = _mm(h, w["wq"], kern).reshape(B, 1, c.num_heads, c.head_dim)
-        k = _mm(h, w["wk"], kern).reshape(B, 1, c.num_kv_heads, c.head_dim)
-        v = _mm(h, w["wv"], kern).reshape(B, 1, c.num_kv_heads, c.head_dim)
+        q = _mm(h, w["wq"], kern).reshape(B, 1, nh, c.head_dim)
+        k = _mm(h, w["wk"], kern).reshape(B, 1, nkv, c.head_dim)
+        v = _mm(h, w["wv"], kern).reshape(B, 1, nkv, c.head_dim)
         q = apply_rope(q, positions, c.rope_theta, rope)
         k = apply_rope(k, positions, c.rope_theta, rope)
         attn = decode_gqa_attention(
-            q, k, v, cache.k[layer], cache.v[layer], offsets,
-            k_scale=cache.k_scale[layer] if cache.quantized else None,
-            v_scale=cache.v_scale[layer] if cache.quantized else None)
-        x = x + _mm(attn.reshape(B, 1, c.q_dim), w["wo"], kern)
-        x = _mlp(x, w, c, kern)
+            q, k[:, :, sel], v[:, :, sel], cache.k[layer][:, :, sel],
+            cache.v[layer][:, :, sel], offsets,
+            k_scale=cache.k_scale[layer][:, :, sel] if cache.quantized else None,
+            v_scale=cache.v_scale[layer][:, :, sel] if cache.quantized else None)
+        x = x + _psum(_mm(attn.reshape(B, 1, nh * c.head_dim), w["wo"], kern), mesh)
+        x = _mlp(x, w, c, kern, mesh)
         new_k.append(k)
         new_v.append(v)
 
@@ -521,4 +605,4 @@ def _decode_forward(
     cache.lengths = cache.lengths + 1
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
-    return _logits(params, c, x, kern), cache
+    return _logits(params, c, x, kern, mesh), cache

@@ -18,7 +18,10 @@ Three pieces:
   time: a scrape may land in the middle of a CUDA-graph capture on the
   engine thread, which any runtime call from another thread would
   invalidate. A CPU device declares the families with no samples, so the
-  scrape schema is the same everywhere.
+  scrape schema is the same everywhere. A tensor-parallel leader passes
+  ``peers``: its followers' counters, which they report over the rank
+  group's control channel (``parallel/launch.py``), one sample each under
+  its own ``device`` label.
 - :class:`CompileTracker` — counts every program build
   (``kukeon_compiles_total{program=}``) and times it
   (``kukeon_compile_seconds{program=}``). Where the reference counts jit
@@ -53,9 +56,11 @@ _HBM_FAMILIES = (
 )
 
 
-def device_memory_collector(device: torch.device | str | None = None):
+def device_memory_collector(device: torch.device | str | None = None, peers=None):
     """The scrape-time collector of the ``kukeon_hbm_bytes_*`` families for
-    ``device`` (None or a CPU device: the families with no samples).
+    ``device`` (None or a CPU device: the families with no samples), and
+    for every device ``peers()`` reports (``{"index", "in_use", "limit",
+    "peak"}`` dicts, read as they stand).
 
     On CUDA, ``in_use`` and ``peak`` are the caching allocator's allocated
     bytes (``allocated_bytes.all.current`` / ``.peak``, what
@@ -69,15 +74,18 @@ def device_memory_collector(device: torch.device | str | None = None):
         capacity = float(torch.cuda.get_device_properties(index).total_memory)
 
     def device_memory_collector():
-        values: dict[str, float] = {}
+        devices: list[dict] = []
         if index is not None:
             ms = torch.cuda.memory_stats(index)
-            values = {"in_use": float(ms.get("allocated_bytes.all.current", 0)),
-                      "limit": capacity,
-                      "peak": float(ms.get("allocated_bytes.all.peak", 0))}
+            devices.append({"index": index,
+                            "in_use": float(ms.get("allocated_bytes.all.current", 0)),
+                            "limit": capacity,
+                            "peak": float(ms.get("allocated_bytes.all.peak", 0))})
+        if peers is not None:
+            devices += [d for d in peers() if "index" in d]
         for key, name, help in _HBM_FAMILIES:
             yield (name, "gauge", help,
-                   [({"device": str(index)}, values[key])] if key in values else [])
+                   [({"device": str(d["index"])}, d[key]) for d in devices])
 
     return device_memory_collector
 

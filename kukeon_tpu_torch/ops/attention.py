@@ -178,7 +178,7 @@ def gqa_attention(
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"impl={impl!r} (sequence parallelism) is not ported yet: "
-            "ROADMAP.md A13, multi-GPU")
+            "ROADMAP.md A13d, multi-GPU")
     if impl not in ("auto", "reference", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
 

@@ -1,0 +1,457 @@
+"""Rank groups: one process per device, started, joined and torn down here.
+
+JAX drives every chip of a mesh from one controller; the port runs one
+process per device, as PyTorch does. Rank 0, the **leader**, is the process
+that asked for the group (a serving cell, a test): it keeps all host state
+and starts ``world - 1`` **followers**, ``python -m
+kukeon_tpu_torch.parallel.launch``, on devices 1..world-1 (``cuda:r``, or
+gloo ranks on the CPU). A follower holds no scheduling logic: it runs
+:func:`follower_main`, which builds the objects the leader names and
+applies, in order, the device actions the leader posts to them.
+
+- **Rendezvous**: a temporary directory per group holds a ``FileStore``
+  (``torch.distributed``'s group, NCCL on ``cuda``, gloo on ``cpu``), and
+  names the leader's control socket (``AF_UNIX``, abstract, a random key),
+  so no TCP port is taken. Every wait has a timeout, ``KUKEON_TP_TIMEOUT_S`` (default 300 s):
+  the followers' connections, ``init_process_group`` and every collective.
+- **Control channel**: the leader queues ``(object id, action, args)``
+  descriptors (:meth:`Group.post`) and sends the queue as one message a
+  follower when an action that meets a collective is posted: a decode
+  chunk's host inputs and its program run go out together. An argument
+  wrapped in :class:`PerRank` sends each follower its own element.
+- **Failures end the group**: a follower whose process exits, or whose
+  action raises, marks the group failed and calls ``on_failure`` (a cell
+  exits non-zero there: it never serves on fewer devices); the next post
+  raises :class:`RankFailure`. A leader action that raises once it was
+  sent (it may hold a collective the followers now wait in) ends the
+  group at once, its followers killed (:meth:`Group.abort`). Fault points
+  (``faults.py``) fire on the leader alone: the followers start without
+  ``KUKEON_FAULTS``, so none fails an action on its own count. A follower
+  exits when the leader's channel closes or the leader process is gone
+  (polled every 0.5 s), so no rank outlives its leader. :func:`shutdown`
+  (also at exit) stops them.
+
+One group per process: ``torch.distributed``'s default group.
+"""
+
+from __future__ import annotations
+
+import argparse
+import atexit
+import dataclasses
+import datetime
+import gc
+import importlib
+import os
+import pickle
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import traceback
+from multiprocessing.connection import Client, Connection, Listener
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+
+from kukeon_tpu_torch import faults
+
+TIMEOUT_ENV = "KUKEON_TP_TIMEOUT_S"
+_AUTHKEY_ENV = "KUKEON_TP_AUTHKEY"
+_STATS_EVERY_S = 1.0
+
+_GROUP: "Group | None" = None
+_GROUP_LOCK = threading.Lock()
+
+
+class RankFailure(RuntimeError):
+    """A rank of the group failed: its process exited or an action raised."""
+
+
+@dataclasses.dataclass
+class PerRank:
+    """An action argument that differs by rank: ``items[r]`` goes to rank r."""
+
+    items: list
+
+
+def timeout_s() -> float:
+    return float(os.environ.get(TIMEOUT_ENV, "300") or 300)
+
+
+def _control_address(rdzv: str) -> str:
+    """The leader's control socket: in Linux's abstract namespace, named
+    after the rendezvous directory, so no socket file lives there and a
+    long ``TMPDIR`` cannot overflow a socket path."""
+    return "\0kukeon-tp-" + os.path.basename(rdzv)
+
+
+def _device(device_type: str, rank: int) -> torch.device:
+    return torch.device(f"cuda:{rank}") if device_type == "cuda" else torch.device("cpu")
+
+
+def _init_torch_group(device_type: str, store_path: str, rank: int, world: int) -> None:
+    """``init_process_group`` on the rendezvous store, then one eager
+    ``all_reduce`` that must sum to ``world``: NCCL builds its communicator
+    there, outside any graph capture, and a rank that cannot reach the
+    others fails here, at boot."""
+    timeout = datetime.timedelta(seconds=timeout_s())
+    store = dist.FileStore(store_path, world)
+    if device_type == "cuda":
+        dev = _device("cuda", rank)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", store=store, rank=rank, world_size=world,
+                                timeout=timeout, device_id=dev)
+    else:
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                                timeout=timeout)
+    one = torch.ones((1,), device=_device(device_type, rank))
+    dist.all_reduce(one)
+    if int(one.item()) != world:
+        raise RankFailure(f"rendezvous all_reduce gave {one.item()}, want {world}")
+
+
+class Group:
+    """This process's rank group. The leader's holds the followers'
+    processes and channels; a follower's, its channel to the leader.
+    ``peer_stats[r]``: the latest allocator counters follower r reported
+    (``{"in_use", "limit", "peak", "index"}``), read by the leader's
+    scrapes without any CUDA call."""
+
+    def __init__(self, rank: int, world: int, device_type: str, rdzv: str,
+                 conns: list[Connection], procs: list[subprocess.Popen] | None = None):
+        self.rank = rank
+        self.world = world
+        self.device_type = device_type
+        self.device = _device(device_type, rank)
+        self._rdzv = rdzv
+        self._conns = conns
+        self._procs = procs or []
+        self._lock = threading.Lock()
+        self._queue: list[tuple[int, str, tuple]] = []
+        self._next_id = 0
+        self._closing = False
+        self.failed: str | None = None
+        self.on_failure: Callable[[str], None] | None = None
+        self.peer_stats: dict[int, dict] = {}
+        if rank == 0:
+            for r, conn in enumerate(conns, start=1):
+                threading.Thread(target=self._watch, args=(r, conn), daemon=True,
+                                 name=f"rank-{r}-watch").start()
+
+    @property
+    def pids(self) -> list[int]:
+        """The followers' process ids, by rank (leader only)."""
+        return [p.pid for p in self._procs]
+
+    def new_id(self) -> int:
+        self._next_id += 1
+        return self._next_id
+
+    # --- the leader's side ------------------------------------------------
+
+    def post(self, oid: int, action: str, args: tuple = (), *, flush: bool = False) -> None:
+        """Queue one descriptor for the followers; ``flush``: send the
+        queue now (one message a follower). Raises :class:`RankFailure`
+        once a rank has failed."""
+        if self.failed is not None:
+            raise RankFailure(self.failed)
+        with self._lock:
+            self._queue.append((oid, action, args))
+            if flush:
+                self._send_locked()
+
+    def flush(self) -> None:
+        with self._lock:
+            self._send_locked()
+
+    def drop(self, oid: int) -> None:
+        """Queue the followers' drop of object ``oid`` (sent with the next
+        message); nothing once the group has failed or is closing."""
+        if self.failed is None and not self._closing:
+            self._queue.append((oid, "drop", ()))
+
+    def _send_locked(self) -> None:
+        batch, self._queue = self._queue, []
+        if not batch:
+            return
+        for r, conn in enumerate(self._conns, start=1):
+            msg = [(oid, action, tuple(a.items[r] if isinstance(a, PerRank) else a
+                                       for a in args))
+                   for oid, action, args in batch]
+            try:
+                conn.send_bytes(pickle.dumps(msg, protocol=pickle.HIGHEST_PROTOCOL))
+            except OSError as e:
+                self._fail(f"rank {r}: control channel lost ({e})")
+                raise RankFailure(self.failed) from e
+
+    def _watch(self, rank: int, conn: Connection) -> None:
+        """Follower ``rank``'s reports: its allocator counters, or the
+        error it died of; its channel's end while the group is open is a
+        failure."""
+        while True:
+            try:
+                kind, body = pickle.loads(conn.recv_bytes())
+            except (EOFError, OSError):
+                break
+            if kind == "stats":
+                self.peer_stats[rank] = body
+            elif kind == "error":
+                self._fail(f"rank {rank} failed: {body}")
+        if not self._closing:
+            proc = self._procs[rank - 1]
+            try:
+                code = proc.wait(timeout=2.0)
+            except subprocess.TimeoutExpired:
+                code = None
+            self._fail(f"rank {rank} exited (code {code})")
+
+    def _fail(self, why: str, *, kill: bool = False) -> None:
+        if self.failed is None and not self._closing:
+            self.failed = why
+            print(f"rank group: {why}", file=sys.stderr, flush=True)
+            if kill:
+                for p in self._procs:
+                    p.kill()
+            if self.on_failure is not None:
+                self.on_failure(why)
+
+    def abort(self, why: str) -> None:
+        """Fail the group now (the leader's): its followers are killed, not
+        left in a collective this rank will not enter until the timeout,
+        and ``on_failure`` is called."""
+        self._fail(why, kill=True)
+
+    def close(self) -> None:
+        """Stop the followers (their ``exit`` descriptor, then a bounded
+        wait, then a kill), tear the torch group down and remove the
+        rendezvous directory."""
+        self._closing = True
+        if self.rank == 0:
+            for conn in self._conns:
+                try:
+                    conn.send_bytes(pickle.dumps([(0, "exit", ())]))
+                except OSError:
+                    pass
+            deadline = time.monotonic() + 10.0
+            for p in self._procs:
+                try:
+                    p.wait(timeout=max(0.1, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        for conn in self._conns:
+            conn.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if self.rank == 0:
+            shutil.rmtree(self._rdzv, ignore_errors=True)
+
+    # --- the follower's side -----------------------------------------------
+
+    def report(self, kind: str, body: Any) -> None:
+        self._conns[0].send_bytes(pickle.dumps((kind, body)))
+
+
+def current() -> Group | None:
+    """This process's open group, if any."""
+    return _GROUP
+
+
+def group(world: int, device_type: str) -> Group:
+    """This process's group of ``world`` ranks on ``device_type``: the open
+    one when it matches, else a new one (:func:`start`). A second group of
+    another shape in one process is a ``ValueError``."""
+    global _GROUP
+    with _GROUP_LOCK:
+        if _GROUP is not None and _GROUP.failed is None:
+            if (_GROUP.world, _GROUP.device_type) != (world, device_type):
+                raise ValueError(
+                    f"this process already leads a group of {_GROUP.world} "
+                    f"{_GROUP.device_type} ranks; one group a process")
+            return _GROUP
+        if _GROUP is not None:
+            _GROUP.close()
+        _GROUP = start(world, device_type)
+        return _GROUP
+
+
+def shutdown() -> None:
+    """Close this process's group, if one is open."""
+    global _GROUP
+    with _GROUP_LOCK:
+        if _GROUP is not None:
+            g, _GROUP = _GROUP, None
+            g.close()
+
+
+atexit.register(shutdown)
+
+
+def follower_env(key: bytes) -> dict[str, str]:
+    """A follower's environment: this process's, without ``KUKEON_FAULTS``
+    (fault points fire on the leader alone), with the control channel's
+    key and this package on ``PYTHONPATH``."""
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {k: v for k, v in os.environ.items() if k != faults.ENV}
+    env[_AUTHKEY_ENV] = key.hex()
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (pkg_root, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def start(world: int, device_type: str) -> Group:
+    """Start ``world - 1`` followers and join them as rank 0. A follower
+    that exits before it connects, or a rendezvous that outlasts the
+    timeout, kills the others and raises :class:`RankFailure`."""
+    rdzv = tempfile.mkdtemp(prefix="kukeon-tp-")
+    key = os.urandom(16)
+    listener = Listener(_control_address(rdzv), family="AF_UNIX", authkey=key)
+    env = follower_env(key)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "kukeon_tpu_torch.parallel.launch", "--rank", str(r),
+         "--world", str(world), "--rdzv", rdzv, "--device", device_type,
+         "--leader-pid", str(os.getpid())], env=env)
+        for r in range(1, world)]
+    conns: dict[int, Connection] = {}
+    accepted: list = []
+
+    def accept():
+        try:
+            for _ in range(world - 1):
+                conn = listener.accept()
+                accepted.append(conn)
+        except OSError:
+            pass
+
+    t = threading.Thread(target=accept, daemon=True, name="rank-accept")
+    t.start()
+    deadline = time.monotonic() + timeout_s()
+    try:
+        while len(accepted) < world - 1:
+            dead = [(r, p.returncode) for r, p in enumerate(procs, start=1)
+                    if p.poll() is not None]
+            if dead:
+                raise RankFailure(f"rank {dead[0][0]} exited before the rendezvous "
+                                  f"(code {dead[0][1]})")
+            if time.monotonic() > deadline:
+                raise RankFailure(f"rendezvous timed out after {timeout_s():.0f} s: "
+                                  f"{len(accepted)} of {world - 1} followers connected")
+            time.sleep(0.01)
+        for conn in accepted:
+            if not conn.poll(timeout_s()):
+                raise RankFailure("a follower connected but never said its rank")
+            conns[int(pickle.loads(conn.recv_bytes()))] = conn
+        _init_torch_group(device_type, os.path.join(rdzv, "store"), 0, world)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        for conn in accepted:
+            conn.close()
+        shutil.rmtree(rdzv, ignore_errors=True)
+        raise
+    finally:
+        listener.close()
+    return Group(0, world, device_type, rdzv, [conns[r] for r in range(1, world)], procs)
+
+
+# --- the follower process ---------------------------------------------------
+
+
+def _watch_leader(leader_pid: int) -> None:
+    """Exit this follower once its leader process is gone (re-parented),
+    even while the main thread is blocked in a collective."""
+    while True:
+        if os.getppid() != leader_pid:
+            os._exit(3)
+        time.sleep(0.5)
+
+
+def _memory_stats(g: Group) -> dict:
+    """This rank's allocator counters (no CUDA runtime call)."""
+    if g.device_type != "cuda":
+        return {}
+    ms = torch.cuda.memory_stats(g.device)
+    return {"index": g.device.index, "in_use": float(ms.get("allocated_bytes.all.current", 0)),
+            "peak": float(ms.get("allocated_bytes.all.peak", 0)),
+            "limit": float(torch.cuda.get_device_properties(g.device).total_memory)}
+
+
+def _resolve(path: str) -> Callable:
+    module, _, name = path.partition(":")
+    return getattr(importlib.import_module(module), name)
+
+
+def follower_main(argv=None) -> int:
+    """A follower's life: connect, join the torch group, then apply the
+    leader's descriptors in order: ``new`` (``(factory, kwargs)``:
+    ``factory(mesh, **kwargs)`` makes object ``oid``), ``drop``, ``exit``,
+    and any other action, which goes to ``obj.follow(action, args)``. An
+    action that raises is reported to the leader and ends the process."""
+    ap = argparse.ArgumentParser(prog="kukeon-tp-follower")
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--rdzv", required=True)
+    ap.add_argument("--device", choices=("cuda", "cpu"), required=True)
+    ap.add_argument("--leader-pid", type=int, required=True)
+    args = ap.parse_args(argv)
+    threading.Thread(target=_watch_leader, args=(args.leader_pid,), daemon=True,
+                     name="leader-watch").start()
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    key = bytes.fromhex(os.environ.pop(_AUTHKEY_ENV))
+    conn = Client(_control_address(args.rdzv), family="AF_UNIX", authkey=key)
+    conn.send_bytes(pickle.dumps(args.rank))
+    _init_torch_group(args.device, os.path.join(args.rdzv, "store"), args.rank, args.world)
+    g = Group(args.rank, args.world, args.device, args.rdzv, [conn])
+    from kukeon_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(g)
+    objs: dict[int, Any] = {}
+    last_stats = 0.0
+    code = 0
+    try:
+        while True:
+            try:
+                batch = pickle.loads(conn.recv_bytes())
+            except (EOFError, OSError):
+                code = 1               # the leader went away without an exit
+                break
+            for oid, action, a in batch:
+                if action == "exit":
+                    return 0
+                if action == "new":
+                    factory, kwargs = a
+                    objs[oid] = _resolve(factory)(mesh, **kwargs)
+                elif action == "drop":
+                    objs.pop(oid, None)
+                    gc.collect()
+                else:
+                    objs[oid].follow(action, a)
+            now = time.monotonic()
+            if now - last_stats >= _STATS_EVERY_S:
+                g.report("stats", _memory_stats(g))
+                last_stats = now
+    except BaseException as e:  # noqa: BLE001 — reported, then the process ends
+        traceback.print_exc()
+        try:
+            g.report("error", f"{type(e).__name__}: {e}")
+        except OSError:
+            pass
+        code = 1
+    finally:
+        objs.clear()
+        g._closing = True
+        try:
+            if dist.is_initialized() and code == 0:
+                dist.destroy_process_group()
+        except Exception:  # noqa: BLE001 — exiting anyway
+            pass
+    return code
+
+
+if __name__ == "__main__":
+    sys.exit(follower_main())

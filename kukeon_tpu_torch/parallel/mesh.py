@@ -1,0 +1,125 @@
+"""Serving meshes over a rank group, the port of ``kukeon_tpu/parallel/mesh.py``.
+
+The reference builds a ``jax.sharding.Mesh`` over the devices one
+controller sees and lets GSPMD insert the collectives. The port runs one
+process per device (PyTorch's idiom): a :class:`Mesh` is this process's
+view of a rank group (``parallel/launch.py``), its rank, the world, its
+device and the axis sizes, and it carries the two collectives the
+tensor-parallel forward calls, :meth:`Mesh.all_reduce` and
+:meth:`Mesh.all_gather`, through ``torch.distributed`` (NCCL on ``cuda``,
+gloo on ``cpu``). Serving puts every rank on ``tensor``; the other axes
+keep the reference's names for the slices that add them (ROADMAP.md A13b-d).
+
+Counterparts in the reference: the axis names :28-33, ``serving_mesh``
+:121, ``largest_pow2_leq`` :146, ``auto_mesh_shape`` :151.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+AXIS_DATA = "data"
+AXIS_FSDP = "fsdp"
+AXIS_TENSOR = "tensor"
+AXIS_SEQ = "seq"
+AXIS_EXPERT = "expert"
+AXIS_PIPE = "pipe"
+
+# Gloo ranks a CPU host offers a grant: the CPU has no device count, so the
+# port takes the reference's forced host-platform count (its tests' 8).
+CPU_RANKS = 8
+
+
+def largest_pow2_leq(n: int) -> int:
+    return 1 << (n.bit_length() - 1) if n > 0 else 1
+
+
+def auto_mesh_shape(n_devices: int) -> dict[str, int]:
+    """The reference's heuristic serving layout: tensor up to 8, data
+    beyond; ``data * tensor == n_devices`` always (a count with no divisor
+    <= 8 but itself puts every device on tensor)."""
+    if n_devices < 1:
+        raise ValueError(f"auto_mesh_shape needs >= 1 device, got {n_devices}")
+    tensor = max(d for d in range(1, min(8, n_devices) + 1) if n_devices % d == 0)
+    return {"data": n_devices // tensor, "tensor": tensor}
+
+
+def visible_devices(device_type: str) -> int:
+    """Devices a grant may take on this host: the visible GPUs on ``cuda``
+    (``CUDA_VISIBLE_DEVICES`` narrows them), :data:`CPU_RANKS` gloo ranks
+    on ``cpu``."""
+    if device_type == "cuda":
+        return torch.cuda.device_count()
+    return CPU_RANKS
+
+
+def check_grant(n: int, device_type: str) -> int:
+    """The reference's ``serving_mesh`` checks: a grant is exact, so ``n``
+    below 1 or above what this host can see is a ``ValueError``. -> n."""
+    if n < 1:
+        raise ValueError(f"serving mesh needs >= 1 device, got {n}")
+    visible = visible_devices(device_type)
+    if n > visible:
+        raise ValueError(
+            f"serving mesh wants {n} {'GPUs' if device_type == 'cuda' else 'CPU ranks'} "
+            f"but only {visible} visible (check the cell's chip grant"
+            f"{' / CUDA_VISIBLE_DEVICES' if device_type == 'cuda' else ''})")
+    return n
+
+
+def serving_mesh(n_devices: int | None = None, device: str = "cuda") -> "Mesh":
+    """All ranks on ``tensor``: the reference's latency layout for one
+    model. ``n_devices`` is a hard request (None: every visible device):
+    asking for more than the host shows fails here, before any process
+    starts. Returns rank 0's mesh over this process's group
+    (:func:`kukeon_tpu_torch.parallel.launch.group`), started now with
+    ``n - 1`` followers or reused when one of that size is open."""
+    # Imported here: a follower runs launch as ``__main__``, after this
+    # package's __init__ has imported this module.
+    from kukeon_tpu_torch.parallel import launch
+
+    dtype = torch.device(device).type
+    n = check_grant(visible_devices(dtype) if n_devices is None else n_devices, dtype)
+    return Mesh(launch.group(n, dtype))
+
+
+class Mesh:
+    """This process's view of a rank group: ``rank``, ``world``, its
+    ``device`` and ``shape`` (every rank on ``tensor``), and the
+    collectives over the group. Each collective sums or gathers in the
+    tensor's own dtype, as the reference's ``psum`` does, and is one
+    ``torch.distributed`` call on the current stream (captured inside the
+    CUDA graphs like any kernel)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.rank = group.rank
+        self.world = group.world
+        self.device = group.device
+        self.shape = {AXIS_DATA: 1, AXIS_TENSOR: group.world}
+
+    @property
+    def leader(self) -> bool:
+        return self.rank == 0
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` (contiguous) over the ranks, in place; returns it."""
+        dist.all_reduce(x)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+        flat = x.contiguous().reshape(-1)
+        out = torch.empty((self.world * flat.numel(),), dtype=x.dtype, device=x.device)
+        # torch 2.13 renames all_gather_into_tensor (and warns on the old
+        # name); the GPU host's 2.11 has only the old one.
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(out, flat)
+        dim = dim % x.ndim
+        parts = out.view(self.world, *x.shape)
+        return parts.movedim(0, dim).reshape(
+            *x.shape[:dim], self.world * x.shape[dim], *x.shape[dim + 1:])
+
+    def __repr__(self) -> str:
+        return f"Mesh(rank={self.rank}, world={self.world}, device={self.device})"

@@ -3,7 +3,7 @@
 cell's watchdog asks it whether a stalled engine sits on a wedged runtime.
 
 Only the probe lives here. Device discovery and grants for
-``/dev/nvidia*`` are not ported yet (ROADMAP A13).
+``/dev/nvidia*`` are not ported yet (ROADMAP A13e).
 """
 
 from __future__ import annotations

@@ -123,7 +123,28 @@ engine's load thread move the weights while
 makes ``warmup`` exit (``SystemExit``), never ready; ``finish_boot`` adds
 the load's ``disk``, ``cast`` and ``upload`` seconds to the boot phases.
 
-Not ported yet (ROADMAP.md): multi-GPU (A13).
+**Tensor parallelism** (the reference's ``--chips N``, what its runner
+always passes): ``--chips N`` serves one Llama-family model over exactly N
+devices, all on ``tensor`` (``parallel/mesh.py``), a grant above what the
+host shows exiting before any weight is allocated; without the flag, every
+visible GPU (one rank on the CPU), a count that would need a ``data`` axis
+refused (:func:`cell_world`). This process is rank 0, the leader: it owns
+the HTTP server, the scheduler, the tokenizer, the prefix index and the
+page allocator, and starts N - 1 followers (``python -m
+kukeon_tpu_torch.parallel.launch``) on ``cuda:1..N-1``. Every rank runs
+one weight recipe (:func:`rank_leaves`: drawn from the seed, or
+``--checkpoint`` read on the host), keeping its slice of each leaf as it
+comes, and the followers apply the leader's device actions
+(``serving/engine.py``). A
+follower that dies ends the cell (exit 1 under :func:`main`): it never
+serves on fewer devices. ``/v1/stats`` ``mesh`` reports ``chips``,
+``shape`` and ``kvSharded``; ``/metrics`` carries every rank's
+``kukeon_hbm_bytes_*{device=}``. At ``--chips`` above 1 the MoE family,
+the embedding cell, the streamed boot and ``/v1/profile {"layers": true}``
+are not ported yet (ROADMAP.md A13b): the first two exit at boot, the
+last answers 501, and a checkpoint is read by the recipe, not streamed
+into a booting engine. Without ``--chips`` the MoE family and the
+embedding cell serve on one device, on any host.
 """
 
 from __future__ import annotations
@@ -168,6 +189,14 @@ from kukeon_tpu_torch.obs import (
     faults_collector,
 )
 from kukeon_tpu_torch.obs import profile as obs_profile
+from kukeon_tpu_torch.parallel import launch
+from kukeon_tpu_torch.parallel.mesh import (
+    auto_mesh_shape,
+    check_grant,
+    serving_mesh,
+    visible_devices,
+)
+from kukeon_tpu_torch.parallel.sharding import Recipe, check_tensor_parallel
 from kukeon_tpu_torch.obs import trace as obs_trace
 from kukeon_tpu_torch.runtime.devices import probe_cuda_runtime
 from kukeon_tpu_torch.serving.embedding import EmbeddingEngine
@@ -349,7 +378,10 @@ class ServingCell(LifecycleMixin):
     engine: a prefill cell can decode locally, a decode cell re-prefill a
     preempted import). ``decode_chunk``, ``kv_cache_int8`` and
     ``kv_page_tokens`` left ``None`` take the tuning profile of ``model``
-    on this backend, then the engine's defaults."""
+    on this backend, then the engine's defaults. ``chips``: the grant,
+    exactly that many devices over a rank group (the module docstring's
+    tensor parallelism); ``None``: every visible GPU, one device on the
+    CPU, the one-device code when that is one (:func:`cell_world`)."""
 
     def __init__(self, model: str, *, num_slots: int = 8,
                  max_seq_len: int | None = None, dtype: str | None = None,
@@ -360,7 +392,8 @@ class ServingCell(LifecycleMixin):
                  device: str | torch.device | None = None,
                  kv_page_tokens: int | None = None, role: str = "mixed",
                  slo_ttft_p95_ms: float | None = None,
-                 slo_availability: float | None = None):
+                 slo_availability: float | None = None,
+                 chips: int | None = None):
         self._boot_marks: dict[str, float] = {"init_entry": time.monotonic()}
         # A materialized (orbax) load's bytes and seconds; empty otherwise.
         self.checkpoint_load: dict = {}
@@ -371,11 +404,17 @@ class ServingCell(LifecycleMixin):
         self.role = role
         self.device = resolve_device(device)
         quantize = dtype == "int8"
-        cfg = MODELS[model]()
-        if dtype and not quantize:
-            cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
-        if max_seq_len:
-            cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
+        cfg = _preset_cfg(model, dtype, max_seq_len)
+        world = cell_world(model, chips, self.device.type)
+        mesh = None
+        if world is not None:
+            # The grant's group, refused before a weight is allocated or a
+            # rank started.
+            if checkpoint:
+                cfg = self._checkpoint_cfg(checkpoint, cfg)
+            check_tensor_parallel(cfg, world)
+            mesh = serving_mesh(world, self.device.type)
+            self.device = mesh.device
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         forward_fn = None
@@ -399,13 +438,17 @@ class ServingCell(LifecycleMixin):
                 params = convert.init_quantized_moe_params_device(cfg, gen, self.device)
             else:
                 params = moe.init_params(cfg, gen, self.device)
+        elif mesh is not None:
+            # Every rank (this one inside the engine) runs one recipe and
+            # keeps its slice of each leaf as it comes.
+            params = Recipe("kukeon_tpu_torch.runtime.serving_cell:rank_leaves", {
+                "model": model, "dtype": dtype, "checkpoint": checkpoint, "seed": seed,
+                "max_seq_len": max_seq_len})
         elif checkpoint:
             params, cfg = self._load_checkpoint(checkpoint, cfg, quantize, device=self.device,
                                                 stats=self.checkpoint_load)
-        elif quantize:
-            params = convert.init_quantized_params_device(cfg, gen, self.device)
         else:
-            params = llama.init_params(cfg, gen, self.device)
+            params = _drawn_params(cfg, quantize, gen)
         self.model_name = model
         self.cfg = cfg
         # One registry for the whole cell: the engine's families and the
@@ -418,7 +461,8 @@ class ServingCell(LifecycleMixin):
             kv_cache_int8=kv_cache_int8, decode_chunk=decode_chunk,
             max_pending=max_pending, seed=seed, device=self.device,
             forward_fn=forward_fn, kv_page_tokens=kv_page_tokens, registry=registry,
-            model_name=model)
+            model_name=model, mesh=mesh)
+        del params
         if self.checkpoint_load:
             # The materialized load moved its leaves host->device before
             # the engine: kukeon_checkpoint_load_* count them as a stream's.
@@ -463,12 +507,13 @@ class ServingCell(LifecycleMixin):
         Anything else exits. ``cfg`` gives the activation dtype; for the
         first two the rest of the config comes from the checkpoint, and the
         stream returns before any tensor byte is read."""
-        if checkpoints.is_quantized_checkpoint(path):
+        kind = _checkpoint_kind(path)
+        if kind == "int8":
             stream = checkpoints.stream_quantized(path, dtype=cfg.dtype)
-        elif os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
+        elif kind == "hf":
             stream = (hf_convert.stream_params_quantized(path, dtype=cfg.dtype) if quantize
                       else hf_convert.stream_params(path, dtype=cfg.dtype))
-        elif orbax_ckpt.is_orbax_checkpoint(path):
+        else:
             try:
                 params, load = orbax_ckpt.load_params(
                     path, llama.init_params(cfg, None, "meta"), cfg.dtype, device)
@@ -482,11 +527,20 @@ class ServingCell(LifecycleMixin):
                 if stats is not None:
                     stats["quantize_s"] = _synced_seconds(device, t0)
             return params, cfg
-        else:
-            raise SystemExit(f"checkpoint {path!r} is neither a kukeon int8 checkpoint "
-                             f"({checkpoints.QUANT_MANIFEST}), nor an HF directory "
-                             f"(config.json), nor an orbax checkpoint ({orbax_ckpt.METADATA})")
         return stream, stream.cfg
+
+    @staticmethod
+    def _checkpoint_cfg(path: str, cfg):
+        """The config :meth:`_load_checkpoint` gives for ``path``, from the
+        kukeon manifest or the HF ``config.json`` alone (no tensor byte
+        read, no reader started): what a tensor-parallel cell checks its
+        grant against before any rank starts."""
+        kind = _checkpoint_kind(path)
+        if kind == "int8":
+            return checkpoints.quantized_config(path, cfg.dtype)
+        if kind == "hf":
+            return dataclasses.replace(hf_convert.config_from_hf(path), dtype=cfg.dtype)
+        return cfg
 
     def warmup(self, prompt_len: int = 64):
         """Capture the decode programs and the prefill of ``prompt_len``'s
@@ -573,6 +627,10 @@ class ServingCell(LifecycleMixin):
         takes the cell down. The engine's capture lock is held throughout,
         so no engine capture runs beside the profile's."""
         eng = self.engine
+        if eng.world > 1:
+            raise NotImplementedError(
+                f"the per-layer profile of a {eng.world}-rank cell is not ported yet "
+                "(ROADMAP.md A13b)")
         eng._ensure_loaded()
         prof = obs_profile.profile_layers(
             eng.params, eng.cfg, eng.device,
@@ -871,12 +929,128 @@ class ServingCell(LifecycleMixin):
                         "preemptions": eng.preemptions,
                         "shedKvExhausted": eng.shed_stats["kv_exhausted"],
                         "viewBytes": eng.program_stats["view_bytes"]},
+            # The serving mesh (the reference's keys): devices, the axes
+            # above 1, and whether the KV cache is sharded over them.
+            "mesh": {"chips": eng.world,
+                     "shape": {"tensor": eng.world} if eng.world > 1 else {},
+                     "kvSharded": eng.kv_sharded},
             "bootSeconds": self.boot_s,
             "uptimeSeconds": round(reg.get("kukeon_cell_uptime_seconds").value(), 1),
             "ready": ready,
             "draining": self.draining,
             **({"unreadyReason": why} if why else {}),
         }
+
+
+def grant(chips: int | None, device_type: str) -> int:
+    """The ranks a cell serves on (the reference's ``:440-454``): exactly
+    ``chips`` (more than the host shows exits naming the flag); without
+    the flag every visible GPU, all on ``tensor`` (one rank on the CPU),
+    and a count the reference would split over a ``data`` axis exits."""
+    if chips is not None:
+        try:
+            return check_grant(chips, device_type)
+        except ValueError as e:
+            raise SystemExit(f"--chips {chips}: {e}") from e
+    n = max(visible_devices("cuda"), 1) if device_type == "cuda" else 1
+    shape = auto_mesh_shape(n)
+    if shape["data"] > 1:
+        raise SystemExit(
+            f"{n} visible GPUs lay out as data {shape['data']} x tensor {shape['tensor']}; "
+            "a data axis is not ported yet (ROADMAP.md A13b): pass --chips")
+    return n
+
+
+def cell_world(model: str, chips: int | None, device_type: str) -> int | None:
+    """The size of a decoder cell's rank group, None for the one-device
+    code. A Llama-family cell takes its :func:`grant`: a group whenever
+    ``--chips`` is given (a one-rank group at ``--chips 1``) or the
+    visible GPUs are more than one. The MoE family, whose sharding is
+    not ported yet, serves on one device: at ``--chips 1`` or without the
+    flag (on a host of many GPUs too, its ``/v1/stats`` mesh saying one),
+    and a grant above one exits naming A13b."""
+    if model in MOE_MODELS:
+        if chips is not None and grant(chips, device_type) > 1:
+            raise SystemExit(f"--chips {chips}: the MoE family's expert and tensor sharding "
+                             "is not ported yet (ROADMAP.md A13b)")
+        return None
+    world = grant(chips, device_type)
+    return world if chips is not None or world > 1 else None
+
+
+def _preset_cfg(model: str, dtype: str | None, max_seq_len: int | None):
+    """``model``'s preset config with the cell's ``dtype`` (int8: the
+    preset's activations) and ``max_seq_len``."""
+    cfg = MODELS[model]()
+    if dtype and dtype != "int8":
+        cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
+    if max_seq_len:
+        cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
+    return cfg
+
+
+def _drawn_params(cfg, quantize: bool, gen: torch.Generator):
+    """Random Llama weights drawn on ``gen``'s device: from one seed, the
+    same tree on every device of one kind."""
+    return llama.nest(_drawn_leaves(cfg, quantize, gen))
+
+
+def _drawn_leaves(cfg, quantize: bool, gen: torch.Generator):
+    if quantize:
+        return convert.iter_quantized_params_device(cfg, gen, gen.device)
+    return llama.iter_params(cfg, gen, gen.device)
+
+
+def rank_leaves(*, device: torch.device, model: str, dtype: str | None,
+                checkpoint: str | None, seed: int, max_seq_len: int | None):
+    """A tensor-parallel cell's weight recipe (``parallel.sharding.Recipe``):
+    the leaves of the tree the one-device cell would serve, one at a time,
+    each rank keeping its slice. Drawn on ``device`` from ``seed`` (the
+    one-device cell's draws); or read from ``checkpoint``: a kukeon int8
+    or HF checkpoint through its stream (host leaves), an orbax one read
+    whole on the host, each leaf then placed on ``device`` and quantized
+    there under int8."""
+    quantize = dtype == "int8"
+    cfg = _preset_cfg(model, dtype, max_seq_len)
+    if not checkpoint:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        yield from _drawn_leaves(cfg, quantize, gen)
+        return
+    src, cfg = ServingCell._load_checkpoint(checkpoint, cfg, quantize and _checkpoint_kind(
+        checkpoint) != "orbax")
+    if isinstance(src, checkpoints.CheckpointStream):
+        try:
+            yield from src
+        except checkpoints.CheckpointStreamError as e:
+            raise (e.__cause__ or e) from None
+        finally:
+            src.close()
+        return
+    for path, host in checkpoints._walk_tree(src):
+        leaf = host.to(device)
+        if quantize:
+            leaf = llama.quantize_leaf(path, leaf)
+        if isinstance(leaf, dict):
+            yield path + ("q",), leaf["q"]
+            yield path + ("s",), leaf["s"]
+        else:
+            yield path, leaf
+        del leaf
+
+
+def _checkpoint_kind(path: str) -> str:
+    """``int8`` (a kukeon int8 checkpoint), ``hf`` (an HF directory) or
+    ``orbax``, in that order of precedence; anything else exits."""
+    if checkpoints.is_quantized_checkpoint(path):
+        return "int8"
+    if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
+        return "hf"
+    if orbax_ckpt.is_orbax_checkpoint(path):
+        return "orbax"
+    raise SystemExit(f"checkpoint {path!r} is neither a kukeon int8 checkpoint "
+                     f"({checkpoints.QUANT_MANIFEST}), nor an HF directory "
+                     f"(config.json), nor an orbax checkpoint ({orbax_ckpt.METADATA})")
 
 
 def _synced_seconds(device, t0: float) -> float:
@@ -1233,6 +1407,8 @@ def make_handler(cell: ServingCell | EmbeddingCell):
                 self._send(200, {"started": True, "capture": rec})
             except ProfileBusy as e:
                 self._send(409, {"error": str(e)})
+            except NotImplementedError as e:
+                self._send(501, {"error": str(e)})
             except (ValueError, TypeError) as e:
                 self._send(400, {"error": str(e)})
             except Exception as e:  # noqa: BLE001 — the server must keep serving
@@ -1361,7 +1537,10 @@ def serve(cell: ServingCell | EmbeddingCell, host: str = "127.0.0.1", port: int 
     return server
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The cell's command line: the reference cell's flags, which its
+    runner passes (``kukeon_tpu/runtime/runner.py``), ``--chips`` among
+    them, plus ``--device``."""
     ap = argparse.ArgumentParser(prog="kukeon-serving-cell-torch")
     ap.add_argument("--model", required=True, choices=sorted({**MODELS, **EMBEDDING_MODELS}))
     ap.add_argument("--port", type=int, default=9000)
@@ -1394,10 +1573,21 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    ap.add_argument("--chips", type=int, default=None,
+                    help="serve over exactly this many devices, all on the tensor axis "
+                         "(one process each; absent: every visible GPU, one rank on the CPU; "
+                         "the MoE family and embedding models: one device)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     embedding = args.model in EMBEDDING_MODELS
     if embedding:
+        if args.chips is not None and args.chips > 1:
+            raise SystemExit(f"--chips {args.chips}: the embedding cell at more than one "
+                             "device is not ported yet (ROADMAP.md A13b)")
         cell = EmbeddingCell(args.model, batch_size=args.num_slots, dtype=args.dtype,
                              checkpoint=args.checkpoint, seed=args.seed, device=args.device)
         if not args.no_warmup:
@@ -1411,7 +1601,18 @@ def main(argv=None) -> int:
             deadline_s=args.deadline_s or None, device=args.device,
             kv_page_tokens=args.kv_page_tokens, role=args.role,
             slo_ttft_p95_ms=args.slo_ttft_p95_ms or None,
-            slo_availability=args.slo_availability or None)
+            slo_availability=args.slo_availability or None, chips=args.chips)
+        group = launch.current()
+        if group is not None:
+            # A rank that dies ends the cell: it never serves on fewer devices.
+            def _rank_failed(why: str):
+                cell.mark_unready(f"rank failed: {why}")
+                print(f"serving-cell: {why}; exiting 1", file=sys.stderr, flush=True)
+                os._exit(1)
+
+            group.on_failure = _rank_failed
+            if group.failed is not None:
+                _rank_failed(group.failed)
         # Warmup before the driver thread starts: step() is single-driver.
         if not args.no_warmup:
             cell.warmup()

@@ -91,8 +91,32 @@
   ``|cpu|1``), then the default; ``kv_page_tokens`` 0 forces the legacy
   layout.
 
-Python orchestrates: queueing, slot choice, emitting tokens. Not ported
-yet (ROADMAP.md): meshes and sharding (A13).
+- **Tensor parallelism** (``mesh=``, a ``parallel.mesh.Mesh`` over a rank
+  group, ``parallel/launch.py``; the reference's ``mesh``): the weights
+  come as a ``parallel.sharding.Recipe``, which every rank runs, keeping
+  its slice of each leaf as it comes (``local_params``), so no rank holds
+  the whole model and none is sent a tensor. Every rank holds its shard
+  of the weights (``parallel/sharding.py``) and of the KV
+  cache (its kv heads; all of them, replicated, when ``kv_shard`` is False
+  or the kv heads do not divide the world: the reference's
+  ``_cache_shardings`` rule), and its programs run the forward with the
+  collectives inside (``models/llama.py``), captured in the graphs. Rank
+  0, the leader, is this class as a caller uses it: it keeps every piece
+  of host state (queue, slots, page allocator, prefix index, sampling
+  flags) and makes every decision. Each device action it takes (an
+  upload, a program build or run, a prefix block stored, loaded or
+  dropped, a slot deactivated, an export's gather, an import's rows) goes
+  through :meth:`_dev`, which posts one descriptor to the followers and
+  runs it here; the descriptors of a chunk go out as one message with its
+  program run. A follower is this class built by :func:`follower_engine`
+  on its rank, and :meth:`follow` applies the descriptors in order. Every
+  rank samples the same gathered logits with the same generator state,
+  so the tokens agree without a broadcast, and only the leader reads
+  them back: the host-sync budget holds per rank. The tuning profile is
+  the one stored under ``model|backend|world``. The MoE family and a
+  streamed boot are refused on a mesh (ROADMAP.md A13b).
+
+Python orchestrates: queueing, slot choice, emitting tokens.
 """
 
 from __future__ import annotations
@@ -100,6 +124,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import queue
+import weakref
 from collections import OrderedDict, deque
 from collections.abc import Mapping
 import threading
@@ -114,6 +139,13 @@ from kukeon_tpu_torch import faults
 from kukeon_tpu_torch.device import resolve_device
 from kukeon_tpu_torch.models import llama
 from kukeon_tpu_torch.models.checkpoints import CheckpointStreamError, _walk_tree
+from kukeon_tpu_torch.parallel import launch
+from kukeon_tpu_torch.parallel.sharding import (
+    Recipe,
+    check_tensor_parallel,
+    kv_sharded,
+    local_params,
+)
 from kukeon_tpu_torch.obs import (
     CompileTracker,
     FlightRecorder,
@@ -314,32 +346,42 @@ class ServingEngine:
         kv_pool_pages: int | None = None,
         registry: Registry | None = None,
         model_name: str | None = None,
+        mesh=None,
+        kv_shard: bool | None = None,
     ):
-        self.device = resolve_device(device)
-        self._forward = forward_fn or llama.forward
+        # Tensor parallelism: this rank's device, and the forward with the
+        # mesh's collectives.
+        self.mesh = mesh
+        self.world = mesh.world if mesh is not None else 1
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        if mesh is not None and forward_fn not in (None, llama.forward):
+            raise NotImplementedError(
+                "tensor parallelism serves the Llama family only; the MoE family's "
+                "expert sharding is not ported yet (ROADMAP.md A13b)")
+        self._forward = (functools.partial(llama.forward, mesh=mesh) if mesh is not None
+                         else forward_fn or llama.forward)
         t_init = time.monotonic()
         # A streamed boot (duck-typed on .abstract_params, as the
         # reference's): the constructor sees only the abstract tree.
         self._ckpt_stream = params if hasattr(params, "abstract_params") else None
-        ptree = self._ckpt_stream.abstract_params if self._ckpt_stream is not None else params
-        int8_weights = llama._is_q(ptree["layers"]["wq"])
-        # int8 weights on a CUDA device always decode through the kernel; a
-        # model whose dims it does not take fails at the kernel's shape check.
-        if self.device.type == "cuda" and int8_weights and not cfg.int8_pallas:
-            cfg = dataclasses.replace(cfg, int8_pallas=True)
-        self.cfg = cfg
+        if mesh is not None and not isinstance(params, Recipe):
+            raise TypeError(
+                "on a mesh the weights come as a parallel.sharding.Recipe, which every "
+                "rank makes and cuts its slice of (a streamed boot there is ROADMAP.md A13b)")
         # The tuning profile (the reference's :310-335): levers the caller
         # left None take the stored winner for this model on this backend,
         # then the defaults; a missing or stale profile is a miss.
         self.tune: tuning.ServingTune | None = None
         if model_name and None in (decode_chunk, kv_cache_int8, prefill_buckets,
-                                   kv_page_tokens):
-            self.tune = tuning.load(model_name, tuning.backend_name(self.device), 1)
-            if self.tune is not None and ((self.tune.mesh_tensor or 1) > 1 or self.tune.kv_shard):
+                                   kv_page_tokens, kv_shard):
+            # Keyed by the world, as the reference keys its mesh size.
+            key = (model_name, tuning.backend_name(self.device), self.world)
+            self.tune = tuning.load(*key)
+            if self.tune is not None and self.tune.mesh_tensor not in (None, self.world):
                 raise NotImplementedError(
-                    f"tuning profile {tuning.profile_key(model_name, tuning.backend_name(self.device), 1)}"
-                    f" asks for a sharded layout (mesh_tensor {self.tune.mesh_tensor}, kv_shard "
-                    f"{self.tune.kv_shard}); multi-GPU serving is not ported yet (ROADMAP.md A13)")
+                    f"tuning profile {tuning.profile_key(*key)} asks for tensor axis "
+                    f"{self.tune.mesh_tensor} on {self.world} devices; a data axis is not "
+                    "ported yet (ROADMAP.md A13b)")
         if self.tune is not None:
             if decode_chunk is None:
                 decode_chunk = self.tune.decode_chunk
@@ -350,7 +392,25 @@ class ServingEngine:
             # None: the profile decides; 0 forces the legacy layout.
             if kv_page_tokens is None:
                 kv_page_tokens = self.tune.kv_page_tokens
+            # None: the profile, then the reference's divisibility rule.
+            if kv_shard is None:
+                kv_shard = self.tune.kv_shard
         decode_chunk = 16 if decode_chunk is None else decode_chunk
+        self.kv_sharded = (check_tensor_parallel(cfg, self.world, kv_shard) if mesh is not None
+                           else kv_sharded(cfg.num_kv_heads, 1, kv_shard))
+        recipe = params if mesh is not None else None
+        if mesh is not None:
+            params = local_params(recipe, cfg, mesh, self.kv_sharded)
+        ptree = self._ckpt_stream.abstract_params if self._ckpt_stream is not None else params
+        int8_weights = llama._is_q(ptree["layers"]["wq"])
+        # int8 weights on a CUDA device always decode through the kernel; a
+        # model whose dims it does not take fails at the kernel's shape check.
+        if self.device.type == "cuda" and int8_weights and not cfg.int8_pallas:
+            cfg = dataclasses.replace(cfg, int8_pallas=True)
+        self.cfg = cfg
+        # The kv heads this rank's cache holds.
+        self.kv_heads = (cfg.num_kv_heads // self.world if self.kv_sharded
+                         else cfg.num_kv_heads)
         # Streamed-boot accounting, apart from sync_stats (the serving
         # path's host-sync budget): kukeon_checkpoint_load_* read it, and
         # boot_marks the monotonic times of the load's first and last leaf,
@@ -400,11 +460,11 @@ class ServingEngine:
             self._pool = PageAllocator(self.kv_pool_pages, pt)
             # One page's bytes (K + V, and the scales of an int8 pool): what
             # a prefix entry pins against prefix_cache_bytes.
-            row = cfg.num_layers * cfg.num_kv_heads * cfg.head_dim
+            row = cfg.num_layers * self.kv_heads * cfg.head_dim
             itemsize = 1 if self.kv_cache_int8 else torch.finfo(cfg.dtype).bits // 8
             self._page_bytes = 2 * pt * row * itemsize
             if self.kv_cache_int8:
-                self._page_bytes += 2 * pt * cfg.num_layers * cfg.num_kv_heads * 4
+                self._page_bytes += 2 * pt * cfg.num_layers * self.kv_heads * 4
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # Transfer-counting seam: every blocking device->host read goes
@@ -416,7 +476,8 @@ class ServingEngine:
         # Allocated once: the decode programs read these very tensors.
         self.state = DecodeState.create(cfg, num_slots, self.max_seq_len,
                                         self.kv_cache_int8, self.device,
-                                        self.page_tokens, self.kv_pool_pages)
+                                        self.page_tokens, self.kv_pool_pages,
+                                        kv_heads=self.kv_heads)
         instruments = {"timers": self.timers, "compiles": self.compiles,
                        "cost": self._program_cost}
         self._programs = DecodePrograms(self._forward, self.params, cfg, self.state,
@@ -429,8 +490,11 @@ class ServingEngine:
         self.program_stats = self._programs.stats
         self.program_stats["prefill"] = self._prefill_programs.stats
         self.program_stats["view_bytes"] = self.state.view_bytes()
-        # Prefix cache: prefix_id -> stored prompt KV (LRU, the loop's thread only).
+        # Prefix cache: prefix_id -> stored prompt KV (LRU, the loop's thread
+        # only); a follower keeps only the device blocks, by prefix_id.
         self._prefix_cache: OrderedDict[str, _CachedPrefix] = OrderedDict()
+        self._prefix_blocks: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._follower = mesh is not None and not mesh.leader
         self._prefix_cache_size = max(0, prefix_cache_size)
         self._prefix_cache_bytes = max(0, prefix_cache_bytes)
         self.prefix_hits = 0
@@ -471,10 +535,124 @@ class ServingEngine:
         # queued: what stalled_s() reports.
         self.last_progress = time.monotonic()   # guarded-by: _lock
         self.boot_marks["init_done"] = time.monotonic()
+        # The leader's followers build their engines now, from the same
+        # recipe with the levers resolved here, and drop them when this
+        # one goes.
+        self._group = mesh.group if mesh is not None and mesh.leader and mesh.world > 1 else None
+        if self._group is not None:
+            self._oid = self._group.new_id()
+            followers = dict(
+                num_slots=num_slots, max_seq_len=self.max_seq_len, decode_chunk=self.decode_chunk,
+                seed=seed, kv_cache_int8=self.kv_cache_int8, prefill_buckets=self.prefill_buckets,
+                prefix_cache_size=prefix_cache_size, prefix_cache_bytes=prefix_cache_bytes,
+                kv_page_tokens=self.page_tokens, kv_pool_pages=self.kv_pool_pages,
+                kv_shard=self.kv_sharded)
+            self._group.post(self._oid, "new", (
+                "kukeon_tpu_torch.serving.engine:follower_engine",
+                {"cfg": self.cfg, "recipe": recipe, "kwargs": followers}), flush=True)
+            weakref.finalize(self, self._group.drop, self._oid)
         if not self._loaded.is_set():
             # Started last: everything the load thread writes exists by now.
             threading.Thread(target=self._load_weights, daemon=True,
                              name="engine-weight-load").start()
+
+    # --- device actions (the leader's, mirrored on its followers) ----------
+
+    def _dev(self, action: str, *args, flush: bool = False):
+        """One device action: posted to the followers (``flush``: sent now
+        with every descriptor queued before it; an action that meets a
+        collective flushes), then run here. :class:`launch.PerRank`
+        arguments go to each rank as its own item. A flushed action that
+        raises here ends the group (:meth:`launch.Group.abort`)."""
+        if self._group is not None:
+            self._group.post(self._oid, action, args, flush=flush)
+        rank = self.mesh.rank if self.mesh is not None else 0
+        try:
+            return getattr(self, "_act_" + action)(
+                *(a.items[rank] if isinstance(a, launch.PerRank) else a for a in args))
+        except BaseException as e:
+            if self._group is not None and flush:
+                # Sent: the followers may wait in its collective, which
+                # this rank will not enter. End the group now.
+                self._group.abort(f"rank 0 failed in {action}: {type(e).__name__}: {e}")
+            raise
+
+    def follow(self, action: str, args: tuple) -> None:
+        """A follower applies one of its leader's descriptors."""
+        getattr(self, "_act_" + action)(*args)
+
+    def close(self) -> None:
+        """Stop the driver; on a leader, drop the followers' engines now
+        (they are dropped when this object is collected otherwise)."""
+        self.stop()
+        if self._group is not None:
+            self._group.drop(self._oid)
+            self._group.flush()
+            self._group = None
+
+    def _programs_of(self, kind: str):
+        return self._programs if kind == "decode" else self._prefill_programs
+
+    def _act_stage(self, packed: np.ndarray) -> None:
+        self._upload(packed, self._prefill_programs.inputs[:packed.size])
+
+    def _act_build(self, kind: str, key) -> None:
+        self._programs_of(kind).build(key)
+
+    def _act_run(self, kind: str, key):
+        return self._programs_of(kind).run(key)
+
+    def _act_sampling(self, temps, top_ks, top_ps) -> None:
+        st = self.state
+        self._upload(temps, st.temps)
+        self._upload(top_ks, st.top_ks)
+        self._upload(top_ps, st.top_ps)
+
+    def _act_bt(self, bt: np.ndarray) -> None:
+        self._upload(bt, self.state.bt)
+
+    def _act_deactivate(self, slot: int) -> None:
+        self.state.active[slot] = False
+
+    def _act_reset(self) -> None:
+        self.state.reset()
+        self._prefill_programs.reset()
+
+    def _act_prefix_put(self, prefix_id: str, key) -> tuple[torch.Tensor, torch.Tensor]:
+        kv_k, kv_v = self._prefill_programs.block(key)
+        blocks = (kv_k.clone(), kv_v.clone())
+        if self._follower:
+            self._prefix_blocks[prefix_id] = blocks
+        return blocks
+
+    def _act_prefix_drop(self, prefix_id: str) -> None:
+        self._prefix_blocks.pop(prefix_id, None)
+
+    def _act_prefix_load(self, prefix_id: str) -> None:
+        if self._follower:
+            self._prefill_programs.load_prefix(*self._prefix_blocks[prefix_id])
+        else:
+            e = self._prefix_cache[prefix_id]
+            self._prefill_programs.load_prefix(e.kv_k, e.kv_v)
+
+    def _act_export_rows(self, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The block's first ``n`` rows; on a mesh with a sharded cache,
+        every rank's kv heads gathered, so the leader holds the block the
+        one-device engine would."""
+        progs = self._prefill_programs
+        rows = progs.block_k[:, :, :n], progs.block_v[:, :, :n]
+        if self.mesh is not None and self.kv_sharded:
+            rows = tuple(self.mesh.all_gather(t, 3) for t in rows)
+        return rows
+
+    def _act_import_rows(self, k: torch.Tensor, v: torch.Tensor, bucket: int) -> None:
+        """An import's rows (this rank's kv heads, ``rows`` of them) into
+        the block, zero-padded to ``bucket``."""
+        progs = self._prefill_programs
+        rows = k.shape[2]
+        for x, block in ((k, progs.block_k), (v, progs.block_v)):
+            self._upload(x.to(self.cfg.dtype), block[:, :, :rows])
+            block[:, :, rows:bucket].zero_()
 
     # --- streamed boot ------------------------------------------------------
 
@@ -595,7 +773,7 @@ class ServingEngine:
             labels=("reason",))
         reg.gauge("kukeon_engine_mesh_chips",
                   "Devices in this engine's serving mesh (1 = single device)."
-                  ).set(1)
+                  ).set(self.world)
         reg.gauge("kukeon_engine_slots_total",
                   "Decode slots in the fixed batch.").set(self.num_slots)
         reg.gauge("kukeon_engine_slots_free",
@@ -610,7 +788,9 @@ class ServingEngine:
             -1 if max_pending is None else max_pending)
         reg.register_collector(self._obs_collect)
         reg.register_collector(faults_collector)
-        reg.register_collector(device_memory_collector(self.device))
+        group = self.mesh.group if self.mesh is not None and self.mesh.leader else None
+        reg.register_collector(device_memory_collector(
+            self.device, peers=(lambda: list(group.peer_stats.values())) if group else None))
         self.compiles = CompileTracker(reg)
         # Peaks and the end-mark event ring are read at boot: a scrape may
         # land mid-capture, when no CUDA call may come from another thread.
@@ -725,14 +905,14 @@ class ServingEngine:
         if cached is not None:
             self.prefix_hits += 1
             tokens, plen = req.prompt[cached.length:], cached.length
-            self._prefill_programs.load_prefix(cached.kv_k, cached.kv_v)
+            self._dev("prefix_load", req.prefix_id)
         else:
             if req.prefix_id is not None and not self.paged:
                 self.prefix_misses += 1
             tokens, plen = req.prompt, 0
         bucket = min(self._bucket(tokens.size), self.max_seq_len)
         packed = pack_prefill_inputs(tokens, bucket, n, slot, plen, req.sampling)
-        self._upload(packed, self._prefill_programs.inputs[:packed.size])
+        self._dev("stage", packed)
         return prefill_key(bucket, req.sampling,
                            cached.kv_k.shape[2] if cached is not None else None,
                            export=export)
@@ -760,7 +940,7 @@ class ServingEngine:
         ids[first:-(-n // pt)] = pages[first:-(-n // pt)]
         packed = pack_prefill_inputs(tokens, self.max_seq_len, n, slot, plen, req.sampling,
                                      pages=(gather, ids, mp))
-        self._upload(packed, self._prefill_programs.inputs)
+        self._dev("stage", packed)
         return key
 
     def _prefix_lookup(self, req: Request) -> _CachedPrefix | None:
@@ -776,15 +956,14 @@ class ServingEngine:
             return e
         return None
 
-    def _prefix_store(self, prefix_id: str, prompt: np.ndarray, kv_k: torch.Tensor,
-                      kv_v: torch.Tensor) -> None:
-        """Store copies of the prompt's KV block (``kv_k``/``kv_v`` may be
-        views of the programs' static block) under ``prefix_id``."""
+    def _prefix_store(self, prefix_id: str, prompt: np.ndarray, key) -> None:
+        """Store copies of the prompt's KV block (the block the program of
+        ``key`` left) under ``prefix_id``."""
         if self._prefix_cache_size == 0 or self._prefix_cache_bytes == 0:
             return
+        kv_k, kv_v = self._dev("prefix_put", prefix_id, key)
         self._prefix_cache[prefix_id] = _CachedPrefix(
-            tokens=prompt.copy(), kv_k=kv_k.clone(), kv_v=kv_v.clone(),
-            length=int(prompt.size))
+            tokens=prompt.copy(), kv_k=kv_k, kv_v=kv_v, length=int(prompt.size))
         self._prefix_cache.move_to_end(prefix_id)
         # Evict LRU-first past either bound. An entry that alone exceeds the
         # byte budget evicts itself too: keeping it would pin more device
@@ -793,7 +972,7 @@ class ServingEngine:
                 len(self._prefix_cache) > self._prefix_cache_size
                 or sum(e.nbytes for e in self._prefix_cache.values())
                 > self._prefix_cache_bytes):
-            self._prefix_cache.popitem(last=False)
+            self._dev("prefix_drop", self._prefix_cache.popitem(last=False)[0])
 
     # --- paged prefix cache (shared refcounted pages, no copies) -----------
 
@@ -855,7 +1034,7 @@ class ServingEngine:
         """K decode steps over every slot -> the program's static tokens
         [B, K] on the device. Inactive slots neither advance their length
         nor change token."""
-        return self._programs.run(program_key(k, *flags))
+        return self._dev("run", "decode", program_key(k, *flags), flush=True)
 
     @torch.no_grad()
     def precompile(self, prompt_lens: tuple[int, ...] = (64,), *, export: bool = False,
@@ -875,7 +1054,7 @@ class ServingEngine:
         self._programs.warm = self._prefill_programs.warm = False
         self.boot_marks.setdefault("capture_start", time.monotonic())
         for k in chunk_sizes(self.decode_chunk):
-            self._programs.build(program_key(k, False, False))
+            self._dev("build", "decode", program_key(k, False, False), flush=True)
         buckets = sorted({min(self._bucket(max(1, n)), self.max_seq_len) for n in prompt_lens})
         keys = [prefill_key(S, SamplingParams(), paged=self.paged) for S in buckets]
         if export:
@@ -901,8 +1080,8 @@ class ServingEngine:
                     none, self.max_seq_len if self.paged else S, max(1, S // 2), 0, 0,
                     SamplingParams(),
                     pages=(none, none, self.max_pages_per_slot) if self.paged else None)
-                self._upload(packed, self._prefill_programs.inputs[:packed.size])
-                self._prefill_programs.build(key)
+                self._dev("stage", packed)
+                self._dev("build", "prefill", key, flush=True)
         self.boot_marks["capture_end"] = time.monotonic()
 
     # --- counted transfer seams -------------------------------------------
@@ -1111,16 +1290,21 @@ class ServingEngine:
             except Exception as e:  # noqa: BLE001 — the driver thread must not die silently
                 traceback.print_exc()
                 self.error = e
-                if self._load_exc is not None:
-                    # No weights will come: fail what waits, and stop.
+                if self._load_exc is None:
+                    # The state may be half-written: start it over, in
+                    # place, on every rank, before the failed callers wake.
+                    try:
+                        self._dev("reset", flush=True)
+                    except launch.RankFailure:
+                        pass
+                if self._load_exc is not None or (
+                        self._group is not None and self._group.failed is not None):
+                    # No weights will come, or a rank is gone (the group
+                    # cannot compute any more): fail what waits, and stop.
                     self._fail_all(e)
                     with self._lock:
                         self._running = False
                     return
-                # The state may be half-written: start it over, in place,
-                # before the failed callers wake.
-                self.state.reset()
-                self._prefill_programs.reset()
                 self._fail_all(e)
                 self._slot_req = [None] * self.num_slots
                 self._slot_len = [0] * self.num_slots
@@ -1391,9 +1575,9 @@ class ServingEngine:
             self._note_prefill(req, self._dispatch_prefill_paged(req, slot), t0)
             return True
         key = self._stage_prefill(req, slot)
-        self._prefill_programs.run(key)
+        self._dev("run", "prefill", key, flush=True)
         if req.prefix_id is not None:
-            self._prefix_store(req.prefix_id, req.prompt, *self._prefill_programs.block(key))
+            self._prefix_store(req.prefix_id, req.prompt, key)
         self._note_prefill(req, key, t0)
         req.slot = slot
         self._slot_req[slot] = req
@@ -1415,12 +1599,11 @@ class ServingEngine:
         n = int(req.prompt.size)
         key = self._stage_prefill(req, 0, export=True)
         progs = self._prefill_programs
-        progs.run(key)
-        kv_k, kv_v = progs.block(key)
+        self._dev("run", "prefill", key, flush=True)
         if req.prefix_id is not None and not self.paged:
-            self._prefix_store(req.prefix_id, req.prompt, kv_k, kv_v)
+            self._prefix_store(req.prefix_id, req.prompt, key)
         self._note_prefill(req, key, t0)
-        rows = [progs.first, kv_k[:, :, :n], kv_v[:, :, :n]]
+        rows = [progs.first, *self._dev("export_rows", n, flush=True)]
         ready = None
         if progs.first.is_cuda:
             host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in rows]
@@ -1490,14 +1673,20 @@ class ServingEngine:
                                                               self.max_pages_per_slot))
         else:
             packed = pack_prefill_inputs(np.array([first]), bucket, n, slot, 0, req.sampling)
-        self._upload(packed, progs.inputs[:packed.size])
+        self._dev("stage", packed)
         rows = min(n, bucket)
-        for name, block in (("k", progs.block_k), ("v", progs.block_v)):
+        kv = []
+        for name in ("k", "v"):
             x = imp[name]
-            x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-            self._upload(x[:, :, :rows].to(self.cfg.dtype), block[:, :, :rows])
-            block[:, :, rows:bucket].zero_()
-        progs.run(key)
+            x = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x)))[:, :, :rows]
+            if self.mesh is not None and self.kv_sharded:
+                # Each rank's kv heads, from the host block.
+                h = self.kv_heads
+                x = launch.PerRank([x[:, :, :, r * h:(r + 1) * h].contiguous()
+                                    for r in range(self.world)])
+            kv.append(x)
+        self._dev("import_rows", *kv, bucket)
+        self._dev("run", "prefill", key, flush=True)
         if self.paged:
             self._slot_pages[slot] = pages
             self._bt[slot, :] = SCRATCH_PAGE
@@ -1546,7 +1735,7 @@ class ServingEngine:
         elif req.prefix_id is not None:
             self.prefix_misses += 1
         key = self._stage_prefill_paged(req, slot, seq, cached, pages)
-        self._prefill_programs.run(key)
+        self._dev("run", "prefill", key, flush=True)
         self._slot_pages[slot] = pages
         self._bt[slot, :] = SCRATCH_PAGE
         self._bt[slot, :len(pages)] = pages
@@ -1584,10 +1773,7 @@ class ServingEngine:
         if self._sampling_dirty:
             temps, top_ks, top_ps = slot_sampling_arrays(
                 self._active_requests(), self.num_slots)
-            st = self.state
-            self._upload(temps, st.temps)
-            self._upload(top_ks.astype(np.int64), st.top_ks)
-            self._upload(top_ps, st.top_ps)
+            self._dev("sampling", temps, top_ks.astype(np.int64), top_ps)
             self._sampling_flags = branch_flags(temps, top_ks, top_ps)
             self._sampling_dirty = False
 
@@ -1613,7 +1799,7 @@ class ServingEngine:
             req.trace.event("preempted")
         self._slot_req[slot] = None
         self._sampling_dirty = True
-        self.state.active[slot] = False
+        self._dev("deactivate", slot)
         self._free_pages(slot)
         self._slot_len[slot] = 0
         req.slot = -1
@@ -1674,7 +1860,7 @@ class ServingEngine:
             if not self._active_requests():
                 return None         # pressure handling emptied the batch
             if self._bt_dirty:
-                self._upload(self._bt, self.state.bt)
+                self._dev("bt", self._bt.copy())
                 self._bt_dirty = False
         self._upload_sampling()
         toks = self._decode_chunk(k, self._sampling_flags)
@@ -1747,7 +1933,7 @@ class ServingEngine:
         (-1, True) sentinel."""
         self._slot_req[req.slot] = None
         self._sampling_dirty = True
-        self.state.active[req.slot] = False
+        self._dev("deactivate", req.slot)
         if self.paged:
             # Pages a prefix entry or another session also holds stay.
             self._free_pages(req.slot)
@@ -1759,6 +1945,14 @@ class ServingEngine:
         if terminal and req.emit:
             req.emit(-1, True)
         req.done.set()
+
+
+def follower_engine(mesh, *, cfg: llama.LlamaConfig, recipe: Recipe,
+                    kwargs: dict) -> ServingEngine:
+    """A follower rank's engine (``parallel/launch.py`` builds it at its
+    leader's word): its slice of the leader's weight ``recipe``, and the
+    leader's resolved levers ``kwargs``."""
+    return ServingEngine(cfg, recipe, mesh=mesh, **kwargs)
 
 
 def _nbytes(x) -> int:

@@ -78,6 +78,14 @@ as ``prefill`` (every prefill and export kind), ``insert`` or ``decode``.
 Captures hold ``capture_lock``, which the cell's profiler also takes
 around its start and stop.
 
+**Tensor parallelism**: on a mesh the engine's forward carries the
+collectives (``models/llama.py``), so a capture records them with the
+kernels, and its warm-up run performs them. Every rank builds and runs the
+same keys in the same order (the leader posts each build and run to its
+followers, ``serving/engine.py``), so the ranks' warm-ups, captures and
+replays meet in every collective. The cache and the prefill block hold the
+rank's kv heads (``DecodeState.kv_heads``).
+
 Captures run with ``capture_error_mode="thread_local"``: a streamed
 boot's load thread copies weights on a stream of its own while the
 engine's thread captures (``serving/engine.py``), and only the capturing
@@ -211,17 +219,19 @@ class DecodeState:
     @staticmethod
     def create(cfg, num_slots: int, max_len: int, quantized: bool,
                device: torch.device, page_tokens: int = 0,
-               pool_pages: int = 0) -> "DecodeState":
+               pool_pages: int = 0, kv_heads: int | None = None) -> "DecodeState":
+        """``kv_heads``: the kv heads the cache holds (a rank's share under
+        tensor parallelism), default ``cfg.num_kv_heads``."""
         B = num_slots
         bt = view = None
+        kw = {"quantized": quantized, "device": device, "kv_heads": kv_heads}
         if page_tokens:
-            cache = KVCache.create(cfg, pool_pages + 1, page_tokens, quantized=quantized,
-                                   device=device)
+            cache = KVCache.create(cfg, pool_pages + 1, page_tokens, **kw)
             cache.lengths = torch.zeros((B,), dtype=torch.int64, device=device)
             bt = torch.zeros((B, max_len // page_tokens), dtype=torch.int64, device=device)
-            view = KVCache.create(cfg, B, max_len, quantized=quantized, device=device)
+            view = KVCache.create(cfg, B, max_len, **kw)
         else:
-            cache = KVCache.create(cfg, B, max_len, quantized=quantized, device=device)
+            cache = KVCache.create(cfg, B, max_len, **kw)
         return DecodeState(
             cache=cache,
             tokens=torch.zeros((B,), dtype=torch.int64, device=device),
@@ -239,6 +249,11 @@ class DecodeState:
     @property
     def page_tokens(self) -> int:
         return self.cache.k.shape[2] if self.paged else 0
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads the cache holds."""
+        return self.cache.k.shape[3]
 
     @property
     def max_len(self) -> int:
@@ -598,7 +613,7 @@ class PrefillPrograms(_Programs):
         super().__init__(forward, params, cfg, state, generator, pool, **instruments)
         self._bucket = bucket
         S = state.max_len
-        shape = (cfg.num_layers, 1, S, cfg.num_kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers, 1, S, state.kv_heads, cfg.head_dim)
         # Paged: the gather ids, then the insert ids, after the tokens.
         self.max_pages = state.bt.shape[1] if state.paged else 0
         self.inputs = torch.zeros((HEADER + S + 2 * self.max_pages,), dtype=torch.int64,
@@ -670,7 +685,8 @@ class PrefillPrograms(_Programs):
             cache = KVCache(k=self.block_k[:, :, :S], v=self.block_v[:, :, :S], lengths=plen)
         else:
             Pb, S = key[1], key[2]
-            cache = KVCache.create(self._cfg, 1, Pb + S, device=self.device)
+            cache = KVCache.create(self._cfg, 1, Pb + S, device=self.device,
+                                   kv_heads=self.state.kv_heads)
             cache.k[:, :, :Pb].copy_(self.block_k[:, :, :Pb])
             cache.v[:, :, :Pb].copy_(self.block_v[:, :, :Pb])
             cache.lengths = plen

@@ -11,7 +11,11 @@ a profile tuned for llama3-8b on one GPU is never applied to a CPU run of
 the same model, to another model or to another chip count; a stale key is
 simply ignored. The port's backend is ``"gpu"`` on a CUDA device (what
 ``jax.default_backend()`` calls one) and ``"cpu"`` on the CPU
-(:func:`backend_name`), with ``n_chips`` 1. The per-layer profiles of
+(:func:`backend_name`), with ``n_chips`` the engine's device count (its
+mesh's world, 1 without one). ``mesh_tensor`` and ``kv_shard`` are the
+reference's sharding levers: an engine takes ``kv_shard`` and refuses a
+``mesh_tensor`` other than its world (a data axis, not ported yet). The
+per-layer profiles of
 ``obs/profile.py``'s ``profile_layers`` live beside it
 (``~/.kuke/layer_profile.json``, ``KUKEON_LAYER_PROFILE_PATH``) under the
 same keys, so the reference's ``kuke profile layers`` reads the port's

@@ -15,7 +15,7 @@ depth, Mixtral-8x7B's training state (about 374 GB) does not fit one GPU
 and the run fails with CUDA's out-of-memory error, as the reference's does
 on a chip too small. A mesh axis above 1 (``--data``, ``--fsdp``,
 ``--tensor``, ``--seq``, ``--expert``, ``--pipe``) is not ported yet and
-raises (ROADMAP A13).
+raises (ROADMAP A13c).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def main(argv=None) -> int:
     if sharded:
         raise NotImplementedError(
             f"mesh axes {sharded}: the port trains on one GPU; multi-GPU "
-            "(data/fsdp/tensor/seq/expert/pipeline parallelism) is ROADMAP.md A13")
+            "(data/fsdp/tensor/seq/expert/pipeline parallelism) is ROADMAP.md A13c")
     device = resolve_device(args.device)
 
     from kukeon_tpu_torch.training import (

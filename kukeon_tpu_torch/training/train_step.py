@@ -16,7 +16,7 @@ numbers, and per-block remat bounds the memory).
 The MoE step (:func:`make_moe_train_step`) adds the Switch load-balance
 loss and the router z-loss of ``moe.forward_with_aux`` to the cross
 entropy, with the training capacity (the GShard drops). The pipeline step
-is not ported (ROADMAP A13).
+is not ported (ROADMAP A13d).
 """
 
 from __future__ import annotations

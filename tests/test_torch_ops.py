@@ -278,7 +278,8 @@ assert "kukeon_tpu_torch.serving.kv_pages" in names, names
 for mod in ("obs", "obs.registry", "obs.expo", "obs.trace", "obs.slo", "obs.device",
             "obs.profile", "runtime.devices", "models.bert", "serving.embedding",
             "models.checkpoints", "models.hf_convert", "serving.tuning", "models.zstd",
-            "models.ocdbt", "models.orbax_ckpt"):
+            "models.ocdbt", "models.orbax_ckpt", "parallel", "parallel.mesh",
+            "parallel.sharding", "parallel.launch", "parallel.forward"):
     assert "kukeon_tpu_torch." + mod in names, (mod, names)
 print("ok", len(names))
 """

@@ -162,13 +162,23 @@ def test_stale_or_absent_profile_boots_the_defaults(tune_path, params):
 @pytest.mark.parametrize("entry", [{"mesh_tensor": 2}, {"kv_shard": True}],
                          ids=["mesh_tensor", "kv_shard"])
 def test_a_sharded_profile_is_refused_naming_a13(tune_path, params, entry):
+    """A profile whose tensor axis is not the engine's device count (a data
+    axis, A13b) is refused. Its ``kv_shard``, a lever since tensor
+    parallelism is ported (A13a), is taken, as the reference takes it; a
+    caller that pins it keeps its own."""
     with open(tune_path, "w") as f:
         json.dump({"tiny|cpu|1": {"decode_chunk": 4, **entry}}, f)
-    with pytest.raises(NotImplementedError, match="A13"):
-        _engine(params, model_name="tiny")
+    if "mesh_tensor" in entry:
+        with pytest.raises(NotImplementedError, match="A13b"):
+            _engine(params, model_name="tiny")
+    else:
+        eng = _engine(params, model_name="tiny")
+        assert eng.tune.kv_shard is True and eng.kv_sharded and eng.decode_chunk == 4
+        eng = _engine(params, model_name="tiny", kv_shard=False)
+        assert not eng.kv_sharded and eng.decode_chunk == 4
     # A caller that pins every lever reads no profile.
     eng = _engine(params, model_name="tiny", decode_chunk=4, kv_cache_int8=False,
-                  prefill_buckets=(64,), kv_page_tokens=0)
+                  prefill_buckets=(64,), kv_page_tokens=0, kv_shard=True)
     assert eng.tune is None
 
 
