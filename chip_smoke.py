@@ -10,8 +10,10 @@ that cell layer by layer, serve llama3-8b through the tensor-parallel
 code over a one-rank NCCL group and hold the kernels at every shard shape
 of 2, 4 and 8 ranks, serve llama3-1b from the checkpoints the port
 writes and reads itself (HF, kukeon int8, and orbax, with the port's own
-zstd decoder), serve bge-base embeddings, also from orbax, and train Llama
-and Mixtral, saving and resuming through orbax.
+zstd decoder), serve bge-base embeddings, also from orbax, serve
+Mixtral-8x7B and bge-base through the tensor-parallel code over a one-rank
+NCCL group and hold the kernels at every Mixtral shard shape of 2, 4 and 8
+ranks, and train Llama and Mixtral, saving and resuming through orbax.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -270,6 +272,26 @@ time; any failure ends the run with a nonzero exit and no result line:
               within cosine 0.999 of the port's f32 forward of the same
               weights, one sequence alone and inside a padded grid within
               cosine 0.9999, and /metrics counting the sequences
+  serve_tp_cells  the MoE family and the embedding cell on a mesh, on the
+              one card, after serve_embed (serve_moe's cell is freed by
+              then): (a) K2 against its plain version at each rank's
+              Mixtral-8x7B expert shapes for t = 2, 4 and 8 (w_gate/w_up
+              x[8, C, 4096] @ q[8, 4096, 14336/t], w_down x[8, C, 14336/t]
+              @ q[8, 14336/t, 4096]), C in {1, 4, 16, 64} with every row
+              filled and C 4 with a routed decode step's rows, whose empty
+              rows must be +0; K1 at each rank's trunk (wq N 4096/t, wk and
+              wv N 1024/t, wo K 4096/t) and untied head (32000/t padded to
+              128-wide tiles: 16000, 8064, 4096), B 4; the route each call
+              took, cold-L2 ms beside the bound, and one rank's K2 and K1
+              sums for a decode step; (b) ServingCell("mixtral-8x7b",
+              dtype="int8", chips=1) through serve_model: a one-rank NCCL
+              group at full width and depth, serve_moe's greedy tokens
+              bitwise, 129 K1 and 96 K2 a step in the replays, its ms a
+              step beside serve_moe's; (c) EmbeddingCell("bge-base",
+              chips=1) over the same group: serve_embed's vectors bit for
+              bit; (d) both cells' main with --chips 2 on the one card exit
+              1 with the over-grant message. Times only: nothing here spans
+              two GPUs
   train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
               and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
@@ -399,8 +421,8 @@ FLASH_LONG = (("S 8192", 1, 8192, 8, 2, 64, None),
 PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs",
           "serve_stream", "serve_tune", "serve_tp", "serve_tied", "serve_ckpt", "serve_orbax",
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
-          "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed", "train",
-          "train_moe")   # in run order
+          "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed",
+          "serve_tp_cells", "train", "train_moe")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
 STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
                  "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
@@ -795,12 +817,12 @@ def phase_moe_model(k1, params) -> dict:
     real_block = moe.moe_block
     K = cfg.experts_per_token
 
-    def recording_block(h, w, c, inference=False, kernel=False):
+    def recording_block(h, w, c, inference=False, kernel=False, mesh=None):
         probs = torch.softmax(h.reshape(-1, h.shape[-1]).float() @ w["router"], dim=-1)
         top = torch.topk(probs, K + 1, dim=-1)
         routes[flag].append((top.indices[:, :K].sort(-1)[0],
                              top.values[:, K - 1] - top.values[:, K]))
-        return real_block(h, w, c, inference, kernel)
+        return real_block(h, w, c, inference, kernel, mesh)
 
     with torch.no_grad():
         for flag in (True, False):
@@ -3359,6 +3381,11 @@ def synced(x):
     return x
 
 
+# serve_embed's timed bursts and their vectors, which serve_tp_cells' one-rank
+# embedding cell must give bit for bit.
+EMBEDDED: dict = {}
+
+
 def serve_embed() -> dict:
     """bge-base behind the port's EmbeddingCell over HTTP (module docstring)."""
     from kukeon_tpu_torch.models import bert
@@ -3431,6 +3458,7 @@ def serve_embed() -> dict:
                              f"cosine {cos_alone} < 0.9999")
     if counted != sent:
         raise AssertionError(f"/metrics counts {counted} sequences, {sent} were sent")
+    EMBEDDED.update(bursts=bursts, vecs=vecs)
     timed = passes["timed"]
     return {"model": "bge-base", "dtype": "bfloat16", "params": cfg.param_count(),
             "grid_rows": EMBED_GRID, "sequences": len(seqs), "burst": EMBED_BURST,
@@ -3943,6 +3971,250 @@ def serve_tp(k1, bps: float) -> dict:
     return out
 
 
+# serve_tp_cells: the expert kernel's rows at each rank (C), and the
+# Mixtral-8x7B vocabulary.
+TP_CELL_ROWS = (1, 4, 16, 64)
+MIXTRAL_VOCAB = 32000
+
+
+def tp_cell_shapes(t: int) -> tuple[dict, dict]:
+    """(K1 shapes, K2 shapes) of one Mixtral-8x7B rank at tensor
+    parallelism t, as parallel/sharding.py cuts them: the trunk as
+    tp_shard_shapes cuts llama3-8b's (wq N 4096/t, wk and wv N 1024/t, wo
+    K 4096/t), the untied head on its vocabulary columns padded to the
+    kernel's 128-wide tiles (32000/t: 16000, 8000 -> 8064, 4000 -> 4096),
+    and every expert's w_gate/w_up on their columns (N 14336/t) and
+    w_down on its rows (K 14336/t). Each (K, N, calls a step)."""
+    from kukeon_tpu_torch.parallel.sharding import VOCAB_TILE
+
+    k1 = {}
+    for name, (K, N, n) in SHAPES_MIXTRAL.items():
+        if name == "lm_head":
+            cols = -(-MIXTRAL_VOCAB // t)
+            k1[name] = (K, cols + -cols % VOCAB_TILE, n)
+        else:
+            k1[name] = (K // t, N, n) if name == "wo" else (K, N // t, n)
+    k2 = {name: ((K // t, N, n) if name == "w_down" else (K, N // t, n))
+          for name, (K, N, n) in SHAPES_MOE.items()}
+    return k1, k2
+
+
+def check_expert_shard(k1, g: torch.Generator, K: int, N: int, counts: list) -> dict:
+    """K2 at one rank's expert shape: every C of TP_CELL_ROWS with every
+    row filled, then C = MOE_TOKENS with a routed decode step's rows, whose
+    empty slots must come out +0 (bits 0). -> the route, the worst error,
+    the weights and the routed rows (for the timings)."""
+    q = torch.randint(-127, 128, (MOE_E, K, N), generator=g, device="cuda", dtype=torch.int8)
+    s = torch.rand((MOE_E, N), generator=g, device="cuda") * 0.02 + 1e-3
+    route = k1._route("cuda", MOE_TOKENS, K, N)
+    worst = 0.0
+    for C in TP_CELL_ROWS:
+        x = torch.randn((MOE_E, C, K), generator=g, device="cuda").to(torch.bfloat16)
+        before = k1.int8_matmul_expert.launches
+        out = k1.int8_matmul_expert(x, q, s)
+        launched = k1.int8_matmul_expert.launches - before
+        ref = k1.int8_matmul_expert_reference(x, q, s)
+        torch.cuda.synchronize()
+        ok, ea, er = within_tol(out, ref)
+        if not ok or not torch.isfinite(out).all() or launched != 1:
+            raise AssertionError(f"int8_matmul_expert at the shard K={K} N={N} C={C}: "
+                                 f"max abs {ea}, rel {er}, {launched} launches")
+        worst = max(worst, ea)
+    x = torch.zeros((MOE_E, MOE_TOKENS, K), device="cuda", dtype=torch.bfloat16)
+    for e, n in enumerate(counts):
+        x[e, :n] = torch.randn((n, K), generator=g, device="cuda").to(torch.bfloat16)
+    out = k1.int8_matmul_expert(x, q, s)
+    ref = k1.int8_matmul_expert_reference(x, q, s)
+    torch.cuda.synchronize()
+    ok, ea, er = within_tol(out, ref)
+    if not ok or not torch.isfinite(out).all():
+        raise AssertionError(f"int8_matmul_expert at the shard K={K} N={N}, routed rows "
+                             f"{counts}: max abs {ea}, rel {er}")
+    for e, n in enumerate(counts):
+        if not (torch.all(out[e, n:].view(torch.int16) == 0)
+                and torch.all(ref[e, n:].view(torch.int16) == 0)):
+            raise AssertionError(f"int8_matmul_expert at the shard K={K} N={N}: the empty "
+                                 f"rows of expert {e} are not +0 (routed rows {counts})")
+    return {"route": route, "max_abs_err": max(worst, ea), "q": q, "s": s, "routed": x}
+
+
+def serve_tp_cells_kernels(k1, bps: float) -> dict:
+    """(a): K2 at every rank's expert shapes and K1 at every rank's trunk
+    and head shapes of Mixtral-8x7B for t in TP_WORLDS, against the plain
+    versions; cold-L2 ms beside the bound (C = MOE_TOKENS: filled, and the
+    routed decode step's rows), and one rank's K2 and K1 sums for a decode
+    step."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    counts = decode_routing(g)
+    empty = sum(1 for n in counts if n == 0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    worlds, worst = {}, 0.0
+    for t in TP_WORLDS:
+        k1_shapes, k2_shapes = tp_cell_shapes(t)
+        k2_rows, k1_rows = {}, {}
+        for name, (K, N, n) in k2_shapes.items():
+            if name == "w_up":              # w_gate's shape
+                continue
+            c = check_expert_shard(k1, g, K, N, counts)
+            q, s, routed = c["q"], c["s"], c["routed"]
+            x = torch.randn((MOE_E, MOE_TOKENS, K), generator=g, device="cuda").to(
+                torch.bfloat16)
+            k2_rows[name] = {
+                "K": K, "N": N, "calls_per_step": n, "route": c["route"],
+                "max_abs_err": c["max_abs_err"], "k_slice": k1.k_slice_expert(
+                    MOE_TOKENS, K, N, MOE_E),
+                "ms": round(cold_median_ms(lambda: k1.int8_matmul_expert(x, q, s), flush), 4),
+                "plain_ms": round(cold_median_ms(
+                    lambda: k1.int8_matmul_expert_reference(x, q, s), flush), 4),
+                "bound_ms": round(bound_ms(MOE_TOKENS, K, N, bps, MOE_E)[0], 4),
+                "routed_ms": round(cold_median_ms(
+                    lambda: k1.int8_matmul_expert(routed, q, s), flush), 4),
+                "routed_bound_ms": round(bound_ms(MOE_TOKENS, K, N, bps,
+                                                  MOE_E - empty)[0], 4)}
+            worst = max(worst, c["max_abs_err"])
+            del q, s, routed, x
+        k2_rows["w_up"] = k2_rows["w_gate"]
+        for name, (K, N, n) in k1_shapes.items():
+            if name == "wv":                # wk's shape
+                continue
+            q = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+            s = torch.rand(N, generator=g, device="cuda") * 0.02 + 1e-3
+            h = torch.randn((MOE_TOKENS, K), generator=g, device="cuda").to(torch.bfloat16)
+            before = k1.int8_matmul.launches
+            got = k1.int8_matmul(h, q, s)
+            launched = k1.int8_matmul.launches - before
+            ref = k1.int8_matmul_reference(h, q, s)
+            torch.cuda.synchronize()
+            ok, ea, er = within_tol(got, ref)
+            route = k1._route("cuda", MOE_TOKENS, K, N)
+            if not ok or not torch.isfinite(got).all() or launched != (route == "kernel"):
+                raise AssertionError(f"int8_matmul at the t={t} shard of mixtral {name} "
+                                     f"({K}x{N}): max abs {ea}, rel {er}, route {route}, "
+                                     f"{launched} launches")
+            worst = max(worst, ea)
+            k1_rows[name] = {
+                "K": K, "N": N, "calls_per_step": n, "route": route, "max_abs_err": ea,
+                "ms": round(cold_median_ms(lambda: k1.int8_matmul(h, q, s), flush), 4),
+                "plain_ms": round(cold_median_ms(
+                    lambda: k1.int8_matmul_reference(h, q, s), flush), 4),
+                "bound_ms": round(bound_ms(MOE_TOKENS, K, N, bps)[0], 4)}
+            del q, s, h
+        k1_rows["wv"] = k1_rows["wk"]
+
+        def per_step(rows, key):
+            return round(sum(r[key] * r["calls_per_step"] for r in rows.values()), 4)
+
+        worlds[f"t{t}"] = {
+            "k2": k2_rows, "k1": k1_rows,
+            "k2_ms_per_step": per_step(k2_rows, "ms"),
+            "k2_bound_ms_per_step": per_step(k2_rows, "bound_ms"),
+            "k2_routed_ms_per_step": per_step(k2_rows, "routed_ms"),
+            "k2_routed_bound_ms_per_step": per_step(k2_rows, "routed_bound_ms"),
+            "k1_ms_per_step": per_step(k1_rows, "ms"),
+            "k1_bound_ms_per_step": per_step(k1_rows, "bound_ms"),
+            "dequant_routes": sorted(nm for nm, r in {**k1_rows, **k2_rows}.items()
+                                     if r["route"] != "kernel")}
+    del flush
+    return {"worlds": worlds, "max_abs_err": worst, "routing_tokens_per_expert": counts,
+            "empty_experts": empty,
+            "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16); empty rows exactly +0"}
+
+
+def serve_tp_cells(k1, bps: float) -> dict:
+    """(a) the Mixtral shard shapes of K1 and K2; (b) mixtral-8x7b int8
+    through ServingCell(chips=1) over a one-rank NCCL group, serve_moe's
+    traffic, its tokens against serve_moe's; (c) bge-base through
+    EmbeddingCell(chips=1), serve_embed's bursts, its vectors against
+    serve_embed's bit for bit; (d) both cells' main with --chips 2 on the
+    one card exit 1 before any weight."""
+    import torch.distributed as dist
+
+    from kukeon_tpu_torch.parallel import launch
+    from kukeon_tpu_torch.runtime.serving_cell import EmbeddingCell
+
+    out = {"a_shards": serve_tp_cells_kernels(k1, bps)}
+    t0 = time.monotonic()
+    cell = make_cell("mixtral-8x7b", 1024, chips=1)
+    construct_s = time.monotonic() - t0
+    eng = cell.engine
+    mesh_info = {"world": eng.world, "kv_sharded": eng.kv_sharded,
+                 "backend": dist.get_backend(), "stats_mesh": cell.stats()["mesh"]}
+    if eng.mesh is None or eng.world != 1 or launch.current() is None \
+            or mesh_info["backend"] != "nccl":
+        raise AssertionError(f"mixtral ServingCell(chips=1) did not serve over a one-rank "
+                             f"NCCL group: {mesh_info}")
+    del eng
+    b = serve_model(k1, "mixtral-8x7b", max_seq_len=1024, prompt_len=128, new=32,
+                    profile_new=16, cell=cell, label="mixtral-8x7b tp1")
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "mixtral-8x7b" in SERVED_TOKENS:
+        if SERVED_TOKENS["mixtral-8x7b tp1"] != SERVED_TOKENS["mixtral-8x7b"]:
+            raise AssertionError("mixtral ServingCell(chips=1) gave other tokens than "
+                                 "serve_moe's cell")
+        b["tokens_equal_serve_moe"] = True
+    out["b_serve"] = {**{k: b[k] for k in ("decode_tok_s", "ttft_ms", "ms_per_decode_step",
+                                             "launches", "capture_s", "captures", "boot_s",
+                                             "peak_mem_gb")},
+                      "construct_s": round(construct_s, 3),
+                      "launches_per_step": b["profile"]["launches_per_step"],
+                      "device_idle_share": b["profile"]["device_idle_share"],
+                      "top_device_ms": b["profile"]["top_device_ms"][:12],
+                      "mesh": mesh_info,
+                      "tokens_equal_serve_moe": b.get("tokens_equal_serve_moe",
+                                                      "serve_moe did not run")}
+    # (c) the embedding cell over the same one-rank group.
+    t0 = time.monotonic()
+    ecell = EmbeddingCell("bge-base", batch_size=EMBED_GRID, device="cuda", chips=1)
+    boot_s = time.monotonic() - t0
+    if ecell.engine.mesh is None or ecell.stats()["mesh"] != {"chips": 1, "shape": {}}:
+        raise AssertionError(f"EmbeddingCell(chips=1) is not on a rank group: "
+                             f"{ecell.stats().get('mesh')}")
+    bursts = EMBEDDED.get("bursts")
+    if bursts is None:        # serve_embed did not run: its bursts, vectors from one device
+        rng = np.random.default_rng(13)
+        seqs = [rng.integers(1, ecell.cfg.vocab_size, n).tolist() for n in embed_lengths(rng)]
+        bursts = [seqs[i:i + EMBED_BURST] for i in range(0, len(seqs), EMBED_BURST)]
+        one = EmbeddingCell("bge-base", batch_size=EMBED_GRID, device="cuda")
+        want = np.array([v for bt in bursts for v in one.embed({"inputTokens": bt})[
+            "embeddings"]], np.float32)
+        del one
+    else:
+        want = EMBEDDED["vecs"]
+    t0 = time.monotonic()
+    got = np.array([v for bt in bursts for v in ecell.embed({"inputTokens": bt})["embeddings"]],
+                   np.float32)
+    embed_s = time.monotonic() - t0
+    if got.shape != want.shape or not np.array_equal(got.view(np.int32), want.view(np.int32)):
+        diff = float(np.abs(got - want).max()) if got.shape == want.shape else None
+        raise AssertionError(f"EmbeddingCell(chips=1) vectors differ from serve_embed's "
+                             f"(max abs {diff})")
+    out["c_embed"] = {"bitwise_equal": True, "sequences": int(got.shape[0]),
+                      "boot_s": round(boot_s, 3), "embed_s": round(embed_s, 3),
+                      "against": "serve_embed" if "bursts" in EMBEDDED else "one device, here"}
+    del ecell
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch.shutdown()
+    # (d) the runner's way, --chips 2 on one card, for both cells.
+    want_msg = "--chips 2: serving mesh wants 2 GPUs but only 1 visible"
+    children = {}
+    for model, extra in (("mixtral-8x7b", ["--dtype", "int8"]), ("bge-base", [])):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kukeon_tpu_torch.runtime.serving_cell", "--model", model,
+             *extra, "--chips", "2", "--port", "0"],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 1 or want_msg not in proc.stderr:
+            raise AssertionError(f"{model} --chips 2 on one card: exit {proc.returncode}, "
+                                 f"stderr {proc.stderr[-2000:]}")
+        children[model] = {"exit_code": proc.returncode,
+                           "child_s": round(time.monotonic() - t0, 3)}
+    out["d_overgrant"] = children
+    return out
+
+
 def sass_counts(built: dict) -> dict:
     """{source: {kernel: {"HGMMA": n, "HMMA": n}}} from cuobjdump's SASS of
     each built library: the tensor-core instructions each kernel holds."""
@@ -4148,6 +4420,7 @@ def run_phases(phases: list) -> int:
         return out
 
     run("serve_embed", serve_embed)
+    run("serve_tp_cells", lambda: serve_tp_cells(k1, bps))
     run("train", train)
 
     def train_moe():
@@ -4168,13 +4441,15 @@ def run_phases(phases: list) -> int:
                                         res["train"])
     train_moe, embed, ckpt = res["train_moe"], res["serve_embed"], res["serve_ckpt"]
     stream, tune, orbax = res["serve_stream"], res["serve_tune"], res["serve_orbax"]
-    tp = res["serve_tp"]
+    tp, tpc = res["serve_tp"], res["serve_tp_cells"]
     ft, fm = flash["timing"], flash["timing_mixtral_train"]
     for label, run_, key in (("llama3-8b", serve8, "k1"), ("llama3-1b", serve1, "k1t"),
                              ("llama3-1b ckpt", ckpt, "k1"), ("llama3-1b ckpt", ckpt, "k1t"),
                              ("llama3-8b stream", stream, "k1"),
                              ("llama3-1b orbax", orbax, "k1"), ("llama3-1b orbax", orbax, "k1t"),
-                             ("mixtral-8x7b", serve_moe, "k1"), ("mixtral-8x7b", serve_moe, "k2")):
+                             ("mixtral-8x7b", serve_moe, "k1"), ("mixtral-8x7b", serve_moe, "k2"),
+                             ("mixtral-8x7b tp1", tpc["b_serve"], "k1"),
+                             ("mixtral-8x7b tp1", tpc["b_serve"], "k2")):
         if run_["launches"][key] <= 0:
             raise AssertionError(f"{label} serving launched no {key} kernel")
     gd, gp, sp = res["graph_decode"], res["graph_prefill"], res["serve_prefix"]
@@ -4195,9 +4470,10 @@ def run_phases(phases: list) -> int:
          "replaces": K1_REPLACES,
          "launches": (serve8["launches"]["k1"] + ckpt["launches"]["k1"]
                       + stream["launches"]["k1"] + orbax["launches"]["k1"]
-                      + tp["b_serve"]["launches"]["k1"]),
+                      + tp["b_serve"]["launches"]["k1"] + tpc["b_serve"]["launches"]["k1"]),
          "launches_serve": serve8["launches"]["k1"], "launches_ckpt": ckpt["launches"]["k1"],
          "launches_serve_tp": tp["b_serve"]["launches"]["k1"],
+         "launches_serve_tp_cells": tpc["b_serve"]["launches"]["k1"],
          "launches_stream": stream["launches"]["k1"], "launches_orbax": orbax["launches"]["k1"],
          "launches_paged": spg["layout_check"]["launches"]["k1"],
          "launches_disagg": sdg["parity"]["launches"]["k1"],
@@ -4245,7 +4521,10 @@ def run_phases(phases: list) -> int:
                  "one call at B=2 S=2048 H=32 KV=8 D=128, "
                  f"{train_moe['flash_launches_per_step'][0]} launches per MoE train step"},
         {"name": "int8_matmul_expert", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K2_REPLACES, "launches": serve_moe["launches"]["k2"],
+         "replaces": K2_REPLACES,
+         "launches": serve_moe["launches"]["k2"] + tpc["b_serve"]["launches"]["k2"],
+         "launches_serve_moe": serve_moe["launches"]["k2"],
+         "launches_serve_tp_cells": tpc["b_serve"]["launches"]["k2"],
          "launches_paged": serve_moe["paged"]["launches"]["k2"],
          "max_abs_err": moe_kern["max_abs_err"], **per_step_moe,
          "bound_by": tm["w_gate"]["bound_by"], "library_ms_call": moe_kern["library_call"],
@@ -4349,6 +4628,21 @@ def run_phases(phases: list) -> int:
             "serve_ms_per_decode_step": serve8["ms_per_decode_step"],
             "serve_decode_tok_s": serve8["decode_tok_s"],
             "c_exit_code": tp["c_overgrant"]["exit_code"]},
+        "serve_tp_cells": {
+            "a_k2_ms_per_step": {w: v["k2_ms_per_step"] for w, v in
+                                 tpc["a_shards"]["worlds"].items()},
+            "a_k2_bound_ms_per_step": {w: v["k2_bound_ms_per_step"] for w, v in
+                                       tpc["a_shards"]["worlds"].items()},
+            "a_k1_ms_per_step": {w: v["k1_ms_per_step"] for w, v in
+                                 tpc["a_shards"]["worlds"].items()},
+            "a_dequant_routes": {w: v["dequant_routes"] for w, v in
+                                 tpc["a_shards"]["worlds"].items()},
+            "b_mixtral": {k: tpc["b_serve"][k] for k in (
+                "ms_per_decode_step", "decode_tok_s", "launches_per_step",
+                "tokens_equal_serve_moe")},
+            "serve_moe_ms_per_decode_step": serve_moe["ms_per_decode_step"],
+            "c_embed_bitwise_equal": tpc["c_embed"]["bitwise_equal"],
+            "d_exit_codes": {m: v["exit_code"] for m, v in tpc["d_overgrant"].items()}},
         "serve_embed_bge-base": {k: embed[k] for k in (
             "seq_per_s", "tokens_per_s", "burst_ms_p50", "cosine_to_f32_min",
             "alone_vs_in_grid")}}})

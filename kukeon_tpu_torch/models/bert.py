@@ -11,6 +11,17 @@ reference. The reference leaves BERT to XLA (no Pallas kernel), so these
 are plain tensor ops too: no SDPA, whose rounding differs from the
 reference's explicit softmax. The reference's ``lax.scan`` over layers is
 a Python loop.
+
+**Tensor parallelism** (``mesh=``, a ``parallel.mesh.Mesh``; the
+reference's ``shard_bert_params``): the forward runs on one rank's local
+tree (``parallel/sharding.py bert_param_specs``): its vocabulary rows of
+``word``, its heads' columns of ``wq``/``wk``/``wv`` and their biases,
+its rows of ``wo``, its columns of ``w_in`` and ``b_in`` and rows of
+``w_out``. The word rows come from a masked lookup and an ``all_reduce``,
+and ``position`` and ``type`` are added once, after it; the head count
+comes from the local shapes; one ``all_reduce`` follows ``attn @ wo`` and
+one ``h @ w_out``, and ``bo``/``b_out`` are added after the sum (before
+it, t ranks would add them t times).
 """
 
 from __future__ import annotations
@@ -20,6 +31,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from kukeon_tpu_torch.models.llama import _psum, masked_lookup, nest
 
 Params = dict[str, Any]
 
@@ -74,6 +87,12 @@ def init_params(cfg: BertConfig, generator: torch.Generator,
     Matrices are normal draws times ``fan_in ** -0.5``, biases 0, norm
     scales 1. The draws differ from the reference's (torch's generator, not
     jax's); parity tests convert the reference's tree instead."""
+    return nest(iter_params(cfg, generator, device))
+
+
+def iter_params(cfg: BertConfig, generator: torch.Generator, device: torch.device | str):
+    """:func:`init_params`' leaves as ``(path, tensor)`` pairs, each drawn
+    when it is yielded (the same draws, in the same order)."""
     c = cfg
     L, H, I = c.num_layers, c.hidden_size, c.intermediate_size
 
@@ -84,33 +103,23 @@ def init_params(cfg: BertConfig, generator: torch.Generator,
     def full(value, *shape):
         return torch.full(shape, value, dtype=c.dtype, device=device)
 
-    return {
-        "embed": {
-            "word": dense((c.vocab_size, H), H),
-            "position": dense((c.max_position_embeddings, H), H),
-            "type": dense((c.type_vocab_size, H), H),
-            "norm_scale": full(1.0, H),
-            "norm_bias": full(0.0, H),
-        },
-        "layers": {
-            "wq": dense((L, H, H), H),
-            "bq": full(0.0, L, H),
-            "wk": dense((L, H, H), H),
-            "bk": full(0.0, L, H),
-            "wv": dense((L, H, H), H),
-            "bv": full(0.0, L, H),
-            "wo": dense((L, H, H), H),
-            "bo": full(0.0, L, H),
-            "attn_norm_scale": full(1.0, L, H),
-            "attn_norm_bias": full(0.0, L, H),
-            "w_in": dense((L, H, I), H),
-            "b_in": full(0.0, L, I),
-            "w_out": dense((L, I, H), I),
-            "b_out": full(0.0, L, H),
-            "mlp_norm_scale": full(1.0, L, H),
-            "mlp_norm_bias": full(0.0, L, H),
-        },
-    }
+    yield ("embed", "word"), dense((c.vocab_size, H), H)
+    yield ("embed", "position"), dense((c.max_position_embeddings, H), H)
+    yield ("embed", "type"), dense((c.type_vocab_size, H), H)
+    yield ("embed", "norm_scale"), full(1.0, H)
+    yield ("embed", "norm_bias"), full(0.0, H)
+    for name, shape, fan_in in (("q", (H, H), H), ("k", (H, H), H), ("v", (H, H), H),
+                                ("o", (H, H), H)):
+        yield ("layers", "w" + name), dense((L, *shape), fan_in)
+        yield ("layers", "b" + name), full(0.0, L, H)
+    yield ("layers", "attn_norm_scale"), full(1.0, L, H)
+    yield ("layers", "attn_norm_bias"), full(0.0, L, H)
+    yield ("layers", "w_in"), dense((L, H, I), H)
+    yield ("layers", "b_in"), full(0.0, L, I)
+    yield ("layers", "w_out"), dense((L, I, H), I)
+    yield ("layers", "b_out"), full(0.0, L, H)
+    yield ("layers", "mlp_norm_scale"), full(1.0, L, H)
+    yield ("layers", "mlp_norm_bias"), full(0.0, L, H)
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -130,9 +139,11 @@ def forward(
     tokens: torch.Tensor,
     mask: torch.Tensor,
     token_types: torch.Tensor | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Encode. tokens/mask: [B, S] (mask 1 = real token, 0 = pad).
-    Returns the final hidden states [B, S, H] in f32."""
+    Returns the final hidden states [B, S, H] in f32. ``mesh``: ``params``
+    is the rank's local tree (the module docstring)."""
     c = cfg
     B, S = tokens.shape
     tokens = tokens.long()
@@ -140,7 +151,9 @@ def forward(
     tt = token_types.long() if token_types is not None else torch.zeros_like(tokens)
 
     e = params["embed"]
-    x = (e["word"][tokens] + e["position"][pos][None] + e["type"][tt]).to(c.dtype)
+    word = (e["word"][tokens] if mesh is None
+            else masked_lookup(e["word"], tokens, e["word"].shape[0], mesh))
+    x = (word + e["position"][pos][None] + e["type"][tt]).to(c.dtype)
     x = _layer_norm(x, e["norm_scale"], e["norm_bias"], c.layer_norm_eps)
 
     # Padded keys take f32's most negative finite value (not -inf), so a
@@ -152,25 +165,26 @@ def forward(
     scale = c.head_dim ** -0.5
 
     lw = params["layers"]
+    nh = lw["wq"].shape[-1] // c.head_dim          # this rank's heads
     for layer in range(c.num_layers):
         w = {name: t[layer] for name, t in lw.items()}
 
         def proj(name, bname):
-            return (x @ w[name] + w[bname]).reshape(B, S, c.num_heads, c.head_dim)
+            return (x @ w[name] + w[bname]).reshape(B, S, nh, c.head_dim)
 
         q = proj("wq", "bq")
         k = proj("wk", "bk")
         v = proj("wv", "bv")
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
         probs = torch.softmax(logits + attn_bias, dim=-1).to(c.dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, c.hidden_size)
-        attn = attn @ w["wo"] + w["bo"]
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, nh * c.head_dim)
+        attn = _psum(attn @ w["wo"], mesh) + w["bo"]
         x = _layer_norm(x + attn, w["attn_norm_scale"], w["attn_norm_bias"],
                         c.layer_norm_eps)
 
         # The reference's gelu is the exact (erf) one: approximate=False.
         h = F.gelu((x @ w["w_in"] + w["b_in"]).float()).to(c.dtype)
-        h = h @ w["w_out"] + w["b_out"]
+        h = _psum(h @ w["w_out"], mesh) + w["b_out"]
         x = _layer_norm(x + h, w["mlp_norm_scale"], w["mlp_norm_bias"], c.layer_norm_eps)
     return x.float()
 
@@ -181,11 +195,12 @@ def embed(
     tokens: torch.Tensor,
     mask: torch.Tensor,
     pooling: str = "cls",
+    mesh=None,
 ) -> torch.Tensor:
     """Sentence embeddings, bge-style: encode, pool, L2-normalise.
     Returns [B, H] f32 unit vectors. ``pooling``: "cls" (bge's default) or
     "mean" (mask-weighted)."""
-    hidden = forward(params, cfg, tokens, mask)
+    hidden = forward(params, cfg, tokens, mask, mesh=mesh)
     if pooling == "cls":
         pooled = hidden[:, 0, :]
     elif pooling == "mean":

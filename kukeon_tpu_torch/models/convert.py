@@ -104,7 +104,14 @@ def init_quantized_moe_params_device(cfg: MoEConfig, generator: torch.Generator,
     matrix (at Mixtral-8x7B an expert matrix is 235 MB, where a whole
     [L, E, H, I] f32 stack would be 60 GB). The router is drawn f32 and
     stays so. ``generator`` must live on ``device``."""
-    return nest(_int8_leaves(cfg, generator, device, experts=cfg.num_experts))
+    return nest(iter_quantized_moe_params_device(cfg, generator, device))
+
+
+def iter_quantized_moe_params_device(cfg: MoEConfig, generator: torch.Generator,
+                                     device: torch.device | str):
+    """:func:`init_quantized_moe_params_device`' leaves as ``(path,
+    tensor)`` pairs, each drawn when it is yielded (the same draws)."""
+    return _int8_leaves(cfg, generator, device, experts=cfg.num_experts)
 
 
 def _int8_leaves(cfg, generator: torch.Generator, device, experts: int | None):

@@ -23,7 +23,7 @@ Counterparts in the reference (``kukeon_tpu/models/hf_convert.py``):
   _open_shards           :56
   load_params            :81
   moe_config_from_hf     :143
-  load_moe_params        :169
+  load_moe_params        :169  (and its stream, ``stream_moe_params``)
   load_params_quantized  :253  (host quantization with ``llama.quantize_np``)
   _llama_hf_names, _check_mapped  :343-370
   stream_params          :394-473
@@ -354,7 +354,23 @@ def load_moe_params(checkpoint_dir: str, cfg: MoEConfig | None = None,
     router stays f32, so routing does not wobble with the activation dtype.
     """
     cfg = dataclasses.replace(cfg or moe_config_from_hf(checkpoint_dir), dtype=dtype)
+    return _loaded(checkpoint_dir, cfg, _moe_rows(cfg)), cfg
+
+
+def stream_moe_params(checkpoint_dir: str, cfg: MoEConfig | None = None,
+                      dtype: torch.dtype = torch.bfloat16) -> CheckpointStream:
+    """:func:`load_moe_params`' leaves as a stream, one leaf at a time (one
+    reader, a buffer of one: an expert stack of Mixtral-8x7B is 30 GB in
+    bf16): what a tensor-parallel rank's recipe cuts its slices from."""
+    cfg = dataclasses.replace(cfg or moe_config_from_hf(checkpoint_dir), dtype=dtype)
+    return _stream(checkpoint_dir, cfg, _moe_rows(cfg), threads=1, buffer=1, materialized=True)
+
+
+def _moe_rows(cfg: MoEConfig) -> list[tuple]:
+    """The Mixtral mapping: Llama's rows with the router and the three
+    expert stacks in place of the MLP's."""
     L, E, H, I = cfg.num_layers, cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    dtype = cfg.dtype
 
     def experts(name: str, w: str, shape: tuple) -> tuple:
         names = [f"model.layers.{i}.block_sparse_moe.experts.{e}.{w}.weight"
@@ -366,10 +382,10 @@ def load_moe_params(checkpoint_dir: str, cfg: MoEConfig | None = None,
 
         return ("layers", name), TensorSpec(shape, dtype), names, build
 
-    rows = _llama_rows(cfg, False, mlp=[
+    return _llama_rows(cfg, False, mlp=[
         _plain_row(("layers", "router"), "model.layers.{}.block_sparse_moe.gate.weight",
                    (L, H, E), True, L, torch.float32),
         experts("w_gate", "w1", (L, E, H, I)),
         experts("w_up", "w3", (L, E, H, I)),
         experts("w_down", "w2", (L, E, I, H))])
-    return _loaded(checkpoint_dir, cfg, rows), cfg
+

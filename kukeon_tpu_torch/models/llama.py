@@ -354,18 +354,39 @@ def _mm(h: torch.Tensor, w, kernel: bool = False) -> torch.Tensor:
     return h @ w
 
 
+def vocab_rows(vocab_size: int, world: int) -> int:
+    """A rank's block of a vocabulary cut ``world`` ways: ``ceil(V / world)``
+    entries, the last rank's zero-padded when the world does not divide V
+    (``parallel/sharding.py``)."""
+    return -(-vocab_size // world)
+
+
+def _world(mesh) -> int:
+    return mesh.world if mesh is not None else 1
+
+
+def masked_lookup(table: torch.Tensor, tokens: torch.Tensor, rows: int, mesh,
+                  lookup=None) -> torch.Tensor:
+    """The vocab-sharded lookup of ``tokens`` in a rank's block of ``rows``
+    entries of ``table`` (``lookup(ids)``, default ``table[ids]``): ids
+    outside the block look up row 0 and come out as zeros, and the
+    ``all_reduce`` sums the one rank's row with zeros, exactly. No id below
+    the vocabulary reads a padded row."""
+    local = tokens - mesh.rank * rows
+    hit = (local >= 0) & (local < rows)
+    x = (lookup or table.__getitem__)(torch.where(hit, local, torch.zeros_like(local)))
+    return mesh.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
+
+
 def _embed(params: Params, tokens: torch.Tensor, dtype, mesh=None,
            rows: int = 0) -> torch.Tensor:
     """Embedding rows of ``tokens``. With a mesh the local table holds the
     rank's block of ``rows`` vocabulary entries (and any padding after
-    them): ids outside it look up row 0 and come out as zeros, and the
-    ``all_reduce`` sums the one rank's row with zeros, exactly."""
+    them), looked up by :func:`masked_lookup`."""
     e = params["embed"]
     if mesh is not None:
-        local = tokens - mesh.rank * rows
-        hit = (local >= 0) & (local < rows)
-        x = _embed(params, torch.where(hit, local, torch.zeros_like(local)), dtype)
-        return mesh.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
+        return masked_lookup(e, tokens, rows, mesh,
+                             lambda ids: _embed(params, ids, dtype))
     if _is_q(e):
         rows = e["q"][tokens].to(dtype)
         return rows * e["s"][tokens][..., None].to(dtype)
@@ -374,11 +395,13 @@ def _embed(params: Params, tokens: torch.Tensor, dtype, mesh=None,
 
 def _logits(params: Params, c: LlamaConfig, x: torch.Tensor,
             kernel: bool = False, mesh=None) -> torch.Tensor:
-    """f32 logits; with a mesh the rank's vocabulary columns (its padding
-    cut off), gathered in the activation dtype."""
+    """f32 logits; with a mesh each rank's block of vocabulary columns (the
+    kernel tile's padding cut off), gathered in the activation dtype, then
+    cut to the vocabulary (the last block's zero-padding off)."""
     out = _local_logits(params, c, x, kernel)
     if mesh is not None:
-        out = mesh.all_gather(out[..., :c.vocab_size // mesh.world], -1)
+        out = mesh.all_gather(out[..., :vocab_rows(c.vocab_size, mesh.world)], -1)
+        out = out[..., :c.vocab_size]
     return out.float()
 
 
@@ -493,7 +516,7 @@ def forward(
     c = cfg
     B, S = tokens.shape
     x = _embed(params, tokens, c.dtype, mesh,               # [B, S, H]
-               c.vocab_size // mesh.world if mesh is not None else 0)
+               vocab_rows(c.vocab_size, _world(mesh)))
 
     if cache is not None and S == 1 and attn_impl in ("auto", "reference"):
         return _decode_forward(params, c, x, positions, cache, B, mesh)

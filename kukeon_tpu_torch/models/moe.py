@@ -18,6 +18,19 @@ At decode, with ``cfg.int8_pallas``, int8 expert stacks go through
 :func:`~kukeon_tpu_torch.ops.int8_matmul.int8_matmul_expert` (the CUDA
 kernel, all experts in one launch) and the trunk through ``int8_matmul``.
 
+**Tensor parallelism** (``mesh=``, a ``parallel.mesh.Mesh``; the
+reference's ``moe_specs_for_params`` on ``serving_mesh``): the forward
+runs on one rank's local tree (``parallel/sharding.py``): the attention
+trunk cut as Llama's, every expert's ``w_gate``/``w_up`` columns and
+``w_down`` rows, the router whole. The head counts come from the local
+shapes; the collectives are Llama's (a masked embedding lookup, one
+``all_reduce`` after ``wo``, an ``all_gather`` of the logits) plus one
+``all_reduce`` a MoE block, after the combine einsum: the rank's partial
+``[N, H]`` (E times fewer bytes than ``ye`` ``[E, C, H]``), in the
+activation dtype, as the row-parallel contract has it. The router runs on
+the replicated activations, so every rank routes the same tokens to the
+same experts.
+
 Training (the reference's ``forward_with_aux`` under ``jax.value_and_grad``)
 runs the no-cache path, with ``remat=True`` each block under non-reentrant
 ``torch.utils.checkpoint``; the block returns its aux losses beside its
@@ -26,6 +39,7 @@ output, so their gradients reach the router through the recompute.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -34,7 +48,16 @@ import torch
 import torch.nn.functional as F
 
 from kukeon_tpu_torch.models import llama
-from kukeon_tpu_torch.models.llama import KVCache, _cache_insert, _embed, _mm
+from kukeon_tpu_torch.models.llama import (
+    KVCache,
+    _cache_insert,
+    _embed,
+    _heads,
+    _mm,
+    _psum,
+    _world,
+    vocab_rows,
+)
 from kukeon_tpu_torch.ops.attention import decode_gqa_attention, gqa_attention
 from kukeon_tpu_torch.ops.int8_matmul import int8_matmul_expert
 from kukeon_tpu_torch.ops.norms import rms_norm
@@ -111,6 +134,13 @@ def init_params(cfg: MoEConfig, generator: torch.Generator,
       lm_head [H, V] (absent when tie_embeddings).
     The draws differ from the reference's (torch's generator, not jax's);
     parity tests convert the reference's tree instead."""
+    return llama.nest(iter_params(cfg, generator, device))
+
+
+def iter_params(cfg: MoEConfig, generator: torch.Generator, device: torch.device | str):
+    """:func:`init_params`' leaves as ``(path, tensor)`` pairs, each drawn
+    when it is yielded (the same draws, in the same order), so a caller
+    can keep a slice of each and free the rest before the next."""
     c = cfg
 
     def normal(shape, fan_in):
@@ -123,56 +153,52 @@ def init_params(cfg: MoEConfig, generator: torch.Generator,
     L, H, I, V, E = (c.num_layers, c.hidden_size, c.intermediate_size,
                      c.vocab_size, c.num_experts)
     ones = lambda *shape: torch.ones(shape, dtype=c.dtype, device=device)  # noqa: E731
-    params: Params = {
-        "embed": dense((V, H), H),
-        "layers": {
-            "attn_norm": ones(L, H),
-            "wq": dense((L, H, c.q_dim), H),
-            "wk": dense((L, H, c.kv_dim), H),
-            "wv": dense((L, H, c.kv_dim), H),
-            "wo": dense((L, c.q_dim, H), c.q_dim),
-            "mlp_norm": ones(L, H),
-            # f32: routing decisions must not wobble with the activation dtype.
-            "router": normal((L, H, E), H),
-            "w_gate": dense((L, E, H, I), H),
-            "w_up": dense((L, E, H, I), H),
-            "w_down": dense((L, E, I, H), I),
-        },
-        "final_norm": ones(H),
-    }
+    yield ("embed",), dense((V, H), H)
+    yield ("layers", "attn_norm"), ones(L, H)
+    yield ("layers", "wq"), dense((L, H, c.q_dim), H)
+    yield ("layers", "wk"), dense((L, H, c.kv_dim), H)
+    yield ("layers", "wv"), dense((L, H, c.kv_dim), H)
+    yield ("layers", "wo"), dense((L, c.q_dim, H), c.q_dim)
+    yield ("layers", "mlp_norm"), ones(L, H)
+    # f32: routing decisions must not wobble with the activation dtype.
+    yield ("layers", "router"), normal((L, H, E), H)
+    yield ("layers", "w_gate"), dense((L, E, H, I), H)
+    yield ("layers", "w_up"), dense((L, E, H, I), H)
+    yield ("layers", "w_down"), dense((L, E, I, H), I)
+    yield ("final_norm",), ones(H)
     if not c.tie_embeddings:
-        params["lm_head"] = dense((H, V), H)
-    return params
+        yield ("lm_head",), dense((H, V), H)
 
 
 def quantize_params(params: Params) -> Params:
     """Full-precision MoE tree -> int8 ({"q", "s"} leaves for every dense
-    matrix). Attention and embedding quantize as in the Llama tree; expert
-    stacks [L, E, in, out] per output channel along the contraction axis
-    (s: [L, E, out]). The router stays f32."""
-
-    def q(w, axis):
-        qw, s = llama._int8_sym(w, axis)
-        return {"q": qw, "s": s.squeeze(axis)}
-
-    L = params["layers"]
-    out: Params = {
-        "embed": q(params["embed"], 1),
-        "layers": {
-            "attn_norm": L["attn_norm"],
-            "wq": q(L["wq"], 1), "wk": q(L["wk"], 1), "wv": q(L["wv"], 1),
-            "wo": q(L["wo"], 1),
-            "mlp_norm": L["mlp_norm"],
-            "router": L["router"],
-            "w_gate": q(L["w_gate"], 2),       # [L, E, H, I] -> s [L, E, I]
-            "w_up": q(L["w_up"], 2),
-            "w_down": q(L["w_down"], 2),       # [L, E, I, H] -> s [L, E, H]
-        },
-        "final_norm": params["final_norm"],
-    }
+    matrix, by :func:`quantize_leaf`). Attention and embedding quantize as
+    in the Llama tree; expert stacks [L, E, in, out] per output channel
+    along the contraction axis (s: [L, E, out]). The router stays f32."""
+    out: Params = {"embed": quantize_leaf(("embed",), params["embed"]),
+                   "layers": {n: quantize_leaf(("layers", n), w)
+                              for n, w in params["layers"].items()},
+                   "final_norm": params["final_norm"]}
     if "lm_head" in params:
-        out["lm_head"] = q(params["lm_head"], 0)
+        out["lm_head"] = quantize_leaf(("lm_head",), params["lm_head"])
     return out
+
+
+def quantize_leaf(path: tuple[str, ...], w: torch.Tensor):
+    """:func:`quantize_params` of one leaf at ``path``: norms and the router
+    as they are, the trunk's matrices as Llama's, an expert stack
+    ``[L, E, K, N]`` per output column, one ``[K, N]`` matrix at a time
+    (the f32 transient one matrix, not the stack; the same bits)."""
+    if path[-1] == "router":
+        return w
+    if w.ndim < 4:
+        return llama.quantize_leaf(path, w)
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((*w.shape[:2], w.shape[3]), dtype=torch.float32, device=w.device)
+    for idx in np.ndindex(*w.shape[:2]):
+        qw, sw = llama._int8_sym(w[idx], 0)
+        q[idx], s[idx] = qw, sw.squeeze(0)
+    return {"q": q, "s": s}
 
 
 def init_quantized_params_host(cfg: MoEConfig, seed: int = 0) -> Params:
@@ -239,10 +265,29 @@ def _capacity(cfg: MoEConfig, n_tokens: int, inference: bool = False) -> int:
     return max(cap, K)
 
 
+# Where a forward records each MoE block's expert choices (``record_routes``).
+_route_log: list | None = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Within the block, every :func:`moe_block` appends its ``[N, K]``
+    expert choices to the list this yields (a test seam: which experts a
+    rank routed each token to, layer by layer)."""
+    global _route_log
+    prev, _route_log = _route_log, []
+    try:
+        yield _route_log
+    finally:
+        _route_log = prev
+
+
 def moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, inference: bool = False,
-              kernel: bool = False) -> tuple[torch.Tensor, dict]:
+              kernel: bool = False, mesh=None) -> tuple[torch.Tensor, dict]:
     """Sparse-MoE SwiGLU over [B, S, H] -> ([B, S, H], aux losses), ``w``
-    one layer's weights. Router, softmax and aux losses in f32."""
+    one layer's weights. Router, softmax and aux losses in f32. With a
+    mesh ``w`` holds the rank's slice of every expert, and the combined
+    partial is summed over the ranks (the module docstring)."""
     c = cfg
     B, S, H = h.shape
     N = B * S
@@ -254,6 +299,8 @@ def moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, inference: bool = False,
     probs = torch.softmax(router_logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, K, dim=-1, sorted=True)   # [N, K]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    if _route_log is not None:
+        _route_log.append(expert_idx)
 
     # Priority dispatch: choice 0 of every token before choice 1 (GShard),
     # through a cumulative count over the flattened (K, N) order.
@@ -271,7 +318,7 @@ def moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, inference: bool = False,
     gate = F.silu(_expert_mm(xe, w["w_gate"], "ech,ehi->eci", kernel).float()).to(c.dtype)
     up = _expert_mm(xe, w["w_up"], "ech,ehi->eci", kernel)
     ye = _expert_mm(gate * up, w["w_down"], "eci,eih->ech", kernel)     # [E, C, H]
-    y = torch.einsum("nec,ech->nh", combine.to(c.dtype), ye)
+    y = _psum(torch.einsum("nec,ech->nh", combine.to(c.dtype), ye), mesh)
 
     # Switch load balance over first choices, and the router z-loss.
     f = mask[0].mean(dim=0)
@@ -283,29 +330,32 @@ def moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, inference: bool = False,
 
 def _decode_forward(params: Params, c: MoEConfig, x: torch.Tensor,
                     positions: torch.Tensor, cache: KVCache,
-                    B: int) -> tuple[torch.Tensor, KVCache]:
+                    B: int, mesh=None) -> tuple[torch.Tensor, KVCache]:
     """Single-token decode (the port's ``llama._decode_forward`` with the
     MoE block): caches read-only per layer, the new K/V of every layer
     written once at the end, in place. The MoE block runs at N = B tokens
     with full capacity. With ``cfg.int8_pallas`` every quantized product
     goes through a kernel: at Mixtral-8x7B, 4 x 32 + 1 = 129 int8_matmul
-    and 3 x 32 = 96 int8_matmul_expert launches a step."""
+    and 3 x 32 = 96 int8_matmul_expert launches a step, at every rank's
+    shard shapes under a mesh."""
     offsets = cache.lengths
     kern = c.int8_pallas
+    nh, nkv, sel = _heads(params, c, mesh.rank if mesh is not None else 0)
     rope = rope_tables(positions, c.head_dim, c.rope_theta)
     new_k, new_v = [], []
     for layer in range(c.num_layers):
         w = llama.layer_weights(params, layer)
         h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
-        q = _mm(h, w["wq"], kern).reshape(B, 1, c.num_heads, c.head_dim)
-        k = _mm(h, w["wk"], kern).reshape(B, 1, c.num_kv_heads, c.head_dim)
-        v = _mm(h, w["wv"], kern).reshape(B, 1, c.num_kv_heads, c.head_dim)
+        q = _mm(h, w["wq"], kern).reshape(B, 1, nh, c.head_dim)
+        k = _mm(h, w["wk"], kern).reshape(B, 1, nkv, c.head_dim)
+        v = _mm(h, w["wv"], kern).reshape(B, 1, nkv, c.head_dim)
         q = apply_rope(q, positions, c.rope_theta, rope)
         k = apply_rope(k, positions, c.rope_theta, rope)
-        attn = decode_gqa_attention(q, k, v, cache.k[layer], cache.v[layer], offsets)
-        x = x + _mm(attn.reshape(B, 1, c.q_dim), w["wo"], kern)
+        attn = decode_gqa_attention(q, k[:, :, sel], v[:, :, sel], cache.k[layer][:, :, sel],
+                                    cache.v[layer][:, :, sel], offsets)
+        x = x + _psum(_mm(attn.reshape(B, 1, nh * c.head_dim), w["wo"], kern), mesh)
         h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
-        y, _ = moe_block(h, w, c, inference=True, kernel=kern)
+        y, _ = moe_block(h, w, c, inference=True, kernel=kern, mesh=mesh)
         x = x + y
         new_k.append(k)
         new_v.append(v)
@@ -317,7 +367,7 @@ def _decode_forward(params: Params, c: MoEConfig, x: torch.Tensor,
     cache.lengths = cache.lengths + 1
 
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
-    return llama._logits(params, c, x, kern), cache
+    return llama._logits(params, c, x, kern, mesh), cache
 
 
 def moe_transformer_block(
@@ -355,6 +405,7 @@ def forward_with_aux(
     attn_impl: str = "auto",
     logit_positions: torch.Tensor | None = None,
     remat: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, KVCache | None, dict]:
     """Run the MoE decoder: (logits, cache, aux-loss dict).
 
@@ -365,17 +416,23 @@ def forward_with_aux(
     (int8) KV cache is not supported: the reference's MoE ignores scales.
     ``remat``: without a cache, run each block under non-reentrant
     ``torch.utils.checkpoint`` (training; the reference checkpoints the
-    whole forward, with the same numbers)."""
+    whole forward, with the same numbers). ``mesh``: ``params`` is the
+    rank's local tree and ``cache`` holds its kv heads (serving; the
+    module docstring)."""
     c = cfg
     B, S = tokens.shape
-    x = _embed(params, tokens, c.dtype)
+    if mesh is not None and cache is None:
+        raise NotImplementedError("the MoE forward over a mesh serves (a cache); "
+                                  "training on a mesh is ROADMAP.md A13c")
+    x = _embed(params, tokens, c.dtype, mesh, vocab_rows(c.vocab_size, _world(mesh)))
 
     if cache is not None and S == 1 and attn_impl in ("auto", "reference"):
-        logits, cache = _decode_forward(params, c, x, positions, cache, B)
+        logits, cache = _decode_forward(params, c, x, positions, cache, B, mesh)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, cache, {"load_balance": zero, "router_z": zero.clone()}
 
     offsets = cache.lengths if cache is not None else None
+    nh, nkv, sel = _heads(params, c, mesh.rank if mesh is not None else 0)
     rope = rope_tables(positions, c.head_dim, c.rope_theta)
     lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -391,21 +448,21 @@ def forward_with_aux(
             z_sum = z_sum + z
             continue
         h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
-        q = _mm(h, w["wq"]).reshape(B, S, c.num_heads, c.head_dim)
-        k = _mm(h, w["wk"]).reshape(B, S, c.num_kv_heads, c.head_dim)
-        v = _mm(h, w["wv"]).reshape(B, S, c.num_kv_heads, c.head_dim)
+        q = _mm(h, w["wq"]).reshape(B, S, nh, c.head_dim)
+        k = _mm(h, w["wk"]).reshape(B, S, nkv, c.head_dim)
+        v = _mm(h, w["wv"]).reshape(B, S, nkv, c.head_dim)
         q = apply_rope(q, positions, c.rope_theta, rope)
         k = apply_rope(k, positions, c.rope_theta, rope)
         ck, cv = cache.k[layer], cache.v[layer]
         _cache_insert(ck, k, offsets)
         _cache_insert(cv, v, offsets)
         kv_positions = torch.arange(ck.shape[1], device=x.device)[None, :].expand(B, -1)
-        attn = gqa_attention(q, ck, cv, q_positions=positions,
+        attn = gqa_attention(q, ck[:, :, sel], cv[:, :, sel], q_positions=positions,
                              kv_positions=kv_positions, kv_length=offsets + S,
                              impl=attn_impl)
-        x = x + _mm(attn.reshape(B, S, c.q_dim), w["wo"])
+        x = x + _psum(_mm(attn.reshape(B, S, nh * c.head_dim), w["wo"]), mesh)
         h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
-        y, aux = moe_block(h, w, c, inference=True)
+        y, aux = moe_block(h, w, c, inference=True, mesh=mesh)
         x = x + y
         lb_sum = lb_sum + aux["load_balance"]
         z_sum = z_sum + aux["router_z"]
@@ -416,7 +473,7 @@ def forward_with_aux(
     if logit_positions is not None:
         idx = logit_positions.reshape(B, 1, 1).expand(B, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
-    logits = llama._logits(params, c, x)
+    logits = llama._logits(params, c, x, mesh=mesh)
     aux = {"load_balance": lb_sum / c.num_layers, "router_z": z_sum / c.num_layers}
     return logits, cache, aux
 
@@ -429,8 +486,9 @@ def forward(
     cache: KVCache | None = None,
     attn_impl: str = "auto",
     logit_positions: torch.Tensor | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Serving-signature forward (drop-in for ``llama.forward``)."""
     logits, cache, _ = forward_with_aux(params, cfg, tokens, positions, cache,
-                                        attn_impl, logit_positions)
+                                        attn_impl, logit_positions, mesh=mesh)
     return logits, cache

@@ -24,7 +24,9 @@ applies, in order, the device actions the leader posts to them.
   exits non-zero there: it never serves on fewer devices); the next post
   raises :class:`RankFailure`. A leader action that raises once it was
   sent (it may hold a collective the followers now wait in) ends the
-  group at once, its followers killed (:meth:`Group.abort`). Fault points
+  group at once, its followers killed (:meth:`Group.abort`); a follower
+  already dead is named as the cause (a peer's death is what makes a
+  leader's collective raise), the leader only when all are alive. Fault points
   (``faults.py``) fire on the leader alone: the followers start without
   ``KUKEON_FAULTS``, so none fails an action on its own count. A follower
   exits when the leader's channel closes or the leader process is gone
@@ -62,6 +64,10 @@ from kukeon_tpu_torch import faults
 TIMEOUT_ENV = "KUKEON_TP_TIMEOUT_S"
 _AUTHKEY_ENV = "KUKEON_TP_AUTHKEY"
 _STATS_EVERY_S = 1.0
+# How long a leader's abort waits for a dead follower to show (its process
+# reaped, or its channel's end seen by the watch thread) before it blames
+# the leader itself.
+ABORT_WAIT_S = 2.0
 
 _GROUP: "Group | None" = None
 _GROUP_LOCK = threading.Lock()
@@ -131,6 +137,7 @@ class Group:
         self._conns = conns
         self._procs = procs or []
         self._lock = threading.Lock()
+        self._fail_lock = threading.Lock()
         self._queue: list[tuple[int, str, tuple]] = []
         self._next_id = 0
         self._closing = False
@@ -210,20 +217,46 @@ class Group:
             self._fail(f"rank {rank} exited (code {code})")
 
     def _fail(self, why: str, *, kill: bool = False) -> None:
-        if self.failed is None and not self._closing:
-            self.failed = why
+        with self._fail_lock:
+            if self.failed is not None or self._closing:
+                first = False
+            else:
+                first = True
+                self.failed = why
+        if kill:
+            for p in self._procs:
+                p.kill()
+        if first:
             print(f"rank group: {why}", file=sys.stderr, flush=True)
-            if kill:
-                for p in self._procs:
-                    p.kill()
             if self.on_failure is not None:
                 self.on_failure(why)
+
+    def _dead_follower(self, wait_s: float) -> str | None:
+        """Why the group failed if a follower is gone: the cause a watch
+        thread recorded, else the first follower whose process has exited
+        (``rank r exited (code c)``, as :meth:`_watch` words it). Polls for
+        up to ``wait_s``: a follower killed mid-collective resets its
+        sockets before its process is reaped, so the leader's collective
+        can raise before either shows. None when every follower is alive."""
+        deadline = time.monotonic() + wait_s
+        while True:
+            if self.failed is not None:
+                return self.failed
+            for r, p in enumerate(self._procs, start=1):
+                if p.poll() is not None:
+                    return f"rank {r} exited (code {p.returncode})"
+            if time.monotonic() >= deadline:
+                return None
+            time.sleep(0.01)
 
     def abort(self, why: str) -> None:
         """Fail the group now (the leader's): its followers are killed, not
         left in a collective this rank will not enter until the timeout,
-        and ``on_failure`` is called."""
-        self._fail(why, kill=True)
+        and ``on_failure`` is called. A follower already gone is the cause
+        (a leader's collective fails when its peer dies): ``why``, the
+        leader's own failure, is recorded only when every follower is
+        alive after :data:`ABORT_WAIT_S`."""
+        self._fail(self._dead_follower(ABORT_WAIT_S) or why, kill=True)
 
     def close(self) -> None:
         """Stop the followers (their ``exit`` descriptor, then a bounded

@@ -7,8 +7,10 @@ view of a rank group (``parallel/launch.py``), its rank, the world, its
 device and the axis sizes, and it carries the two collectives the
 tensor-parallel forward calls, :meth:`Mesh.all_reduce` and
 :meth:`Mesh.all_gather`, through ``torch.distributed`` (NCCL on ``cuda``,
-gloo on ``cpu``). Serving puts every rank on ``tensor``; the other axes
-keep the reference's names for the slices that add them (ROADMAP.md A13b-d).
+gloo on ``cpu``). Serving puts every rank on ``tensor``; ``expert`` is size 1, as in the
+reference's ``serving_mesh`` (a MoE layer's experts are cut on
+``tensor`` inside each expert); the other axes keep the reference's names
+for the slices that add them (ROADMAP.md A13b2-d).
 
 Counterparts in the reference: the axis names :28-33, ``serving_mesh``
 :121, ``largest_pow2_leq`` :146, ``auto_mesh_shape`` :151.
@@ -97,14 +99,16 @@ class Mesh:
         self.rank = group.rank
         self.world = group.world
         self.device = group.device
-        self.shape = {AXIS_DATA: 1, AXIS_TENSOR: group.world}
+        self.shape = {AXIS_DATA: 1, AXIS_EXPERT: 1, AXIS_TENSOR: group.world}
 
     @property
     def leader(self) -> bool:
         return self.rank == 0
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` (contiguous) over the ranks, in place; returns it."""
+        """Sum ``x`` over the ranks, in place (a contiguous copy of a
+        strided ``x``); returns the sum."""
+        x = x.contiguous()
         dist.all_reduce(x)
         return x
 

@@ -1,19 +1,27 @@
-"""Megatron layout of the Llama family, the port of
+"""Megatron layout of the Llama, MoE and BERT families, the port of
 ``kukeon_tpu/parallel/sharding.py``.
 
 The reference annotates ``PartitionSpec``s and lets GSPMD place the
 collectives. Here the same specs, as tuples of axis names, cut each rank's
-local tree (:func:`shard_params`), and the forward
-(``models/llama.py``) places the collectives itself:
+local tree (:func:`shard_params`), and the forwards (``models/llama.py``,
+``models/moe.py``, ``models/bert.py``) place the collectives themselves:
 
-- ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` are column-parallel (their
-  output dim on ``tensor``), ``wo`` and ``w_down`` row-parallel (their
-  input dim), so one ``all_reduce`` closes each attention and each MLP
-  block: two a layer;
-- the embedding is vocab-sharded (a masked lookup, then an
-  ``all_reduce``), the untied LM head column-sharded and the tied one the
-  vocab-sharded embedding, both followed by an ``all_gather`` of the
-  logits;
+- ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` (BERT's ``w_in``) are
+  column-parallel (their output dim on ``tensor``), ``wo`` and ``w_down``
+  (``w_out``) row-parallel (their input dim), so one ``all_reduce``
+  closes each attention and each MLP block: two a layer. A MoE layer's
+  expert stacks ``[L, E, in, out]`` keep that pairing inside each expert
+  (``expert`` is size 1 when serving, as in the reference's
+  ``serving_mesh``), and its one ``all_reduce`` follows the combine; the
+  router is replicated. BERT's column-parallel biases are cut with their
+  matrices; ``bo``/``b_out`` are replicated and added after the sum;
+- the embedding (BERT's ``word``) is vocab-sharded (a masked lookup, then
+  an ``all_reduce``), the untied LM head column-sharded and the tied one
+  the vocab-sharded embedding, both followed by an ``all_gather`` of the
+  logits. A vocabulary the world does not divide is cut in blocks of
+  ``ceil(V / world)`` (:func:`vocab_rows`), the last rank's zero-padded;
+  the masked lookup never reads a padded row, and the forward cuts the
+  padded columns off the logits;
 - an int8 scale takes its matrix's spec minus the contracted axis
   (:func:`_quant_scale_spec`);
 - an int8 LM head's vocabulary shard (the tied embedding's rows, or the
@@ -28,7 +36,9 @@ local tree (:func:`shard_params`), and the forward
 
 Counterparts in the reference: ``llama_param_specs`` :34,
 ``specs_for_params`` :63, ``_quant_scale_spec`` :68, ``shard_params``
-:102, ``kv_cache_spec`` :208. The MoE and BERT specs wait for A13b.
+:102, ``moe_param_specs`` :130, ``moe_specs_for_params`` :161,
+``bert_param_specs`` :166, ``shard_bert_params`` :194, ``kv_cache_spec``
+:208.
 """
 
 from __future__ import annotations
@@ -40,8 +50,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from kukeon_tpu_torch.models import llama
-from kukeon_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR
+from kukeon_tpu_torch.models import bert, llama, moe
+from kukeon_tpu_torch.models.llama import vocab_rows
+from kukeon_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR
 
 Spec = tuple
 
@@ -75,6 +86,84 @@ def specs_for_params(params, fsdp: bool = False) -> dict:
     return {k: full[k] for k in params}
 
 
+def moe_param_specs(fsdp: bool = False) -> dict:
+    """The reference's spec tree for ``models.moe.init_params``: the
+    attention trunk as Llama's, the router replicated, each expert stack's
+    E axis on ``expert`` and the column -> row pairing on ``tensor``
+    inside every expert."""
+    f = AXIS_FSDP if fsdp else None
+    t = AXIS_TENSOR
+    e = AXIS_EXPERT
+    return {
+        "embed": (t, f),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, f, t),
+            "wk": (None, f, t),
+            "wv": (None, f, t),
+            "wo": (None, t, f),
+            "mlp_norm": (None, None),
+            "router": (None, None, None),
+            "w_gate": (None, e, f, t),          # [L, E, H, I]
+            "w_up": (None, e, f, t),
+            "w_down": (None, e, t, f),          # [L, E, I, H]
+        },
+        "final_norm": (None,),
+        "lm_head": (f, t),
+    }
+
+
+def moe_specs_for_params(params, fsdp: bool = False) -> dict:
+    full = moe_param_specs(fsdp)
+    return {k: full[k] for k in params}
+
+
+def bert_param_specs(fsdp: bool = False) -> dict:
+    """The reference's spec tree for ``models.bert.init_params``: the
+    decoder's column -> row pairing, each column-parallel bias cut with
+    its matrix, ``bo``/``b_out`` replicated."""
+    f = AXIS_FSDP if fsdp else None
+    t = AXIS_TENSOR
+    return {
+        "embed": {
+            "word": (t, f),                     # vocab-sharded
+            "position": (None, f),
+            "type": (None, f),
+            "norm_scale": (None,),
+            "norm_bias": (None,),
+        },
+        "layers": {
+            "wq": (None, f, t), "bq": (None, t),
+            "wk": (None, f, t), "bk": (None, t),
+            "wv": (None, f, t), "bv": (None, t),
+            "wo": (None, t, f), "bo": (None, None),
+            "attn_norm_scale": (None, None), "attn_norm_bias": (None, None),
+            "w_in": (None, f, t), "b_in": (None, t),
+            "w_out": (None, t, f), "b_out": (None, None),
+            "mlp_norm_scale": (None, None), "mlp_norm_bias": (None, None),
+        },
+    }
+
+
+def family(tree) -> str:
+    """``"bert"``, ``"moe"`` or ``"llama"``: the family of a parameter tree
+    (BERT's embedding is a dict with ``word``; a MoE layer has a router)."""
+    embed = tree.get("embed")
+    if isinstance(embed, dict) and "word" in embed:
+        return "bert"
+    return "moe" if "router" in tree.get("layers", {}) else "llama"
+
+
+def tree_specs(params, fsdp: bool = False) -> dict:
+    """The spec tree of ``params``' family, pruned to its keys."""
+    kind = family(params)
+    if kind == "bert":
+        return bert_param_specs(fsdp)
+    if kind == "moe":
+        return moe_specs_for_params(params, fsdp)
+    return specs_for_params(params, fsdp)
+
+
 def _quant_scale_spec(spec: Spec, q, s) -> Spec:
     """Spec of an int8 scale vector: the matrix spec minus the contracted
     axis (the scale spans the surviving ones)."""
@@ -101,60 +190,75 @@ def kv_sharded(num_kv_heads: int, world: int, kv_shard: bool | None = None) -> b
 
 
 def check_tensor_parallel(cfg, world: int, kv_shard: bool | None = None) -> bool:
-    """Refuse (``SystemExit``, naming A13b) a tensor axis the port cannot
-    cut ``cfg`` over: one that does not divide the heads, the intermediate
-    size or the vocabulary, or, with a replicated cache, whose q-head
-    groups would straddle kv heads. -> whether the cache shards."""
+    """Refuse (``SystemExit``, naming A13b2) a tensor axis the port cannot
+    cut ``cfg`` over: one that does not divide the heads or the
+    intermediate size, or, with a replicated cache, whose q-head groups
+    would straddle kv heads. A vocabulary it does not divide is padded
+    (:func:`vocab_rows`). -> whether the cache shards (BERT has none:
+    True)."""
     for what, n in (("num_heads", cfg.num_heads),
-                    ("intermediate_size", cfg.intermediate_size),
-                    ("vocab_size", cfg.vocab_size)):
+                    ("intermediate_size", cfg.intermediate_size)):
         if n % world:
             raise SystemExit(
                 f"tensor parallelism over {world} ranks: {what} {n} is not a multiple of "
-                f"{world}; uneven shards are not ported yet (ROADMAP.md A13b)")
-    sharded = kv_sharded(cfg.num_kv_heads, world, kv_shard)
-    if not sharded and world % cfg.num_kv_heads and cfg.num_kv_heads % world:
+                f"{world}; uneven shards are not ported yet (ROADMAP.md A13b2)")
+    kv_heads = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    sharded = kv_sharded(kv_heads, world, kv_shard)
+    if not sharded and world % kv_heads and kv_heads % world:
         raise SystemExit(
-            f"tensor parallelism over {world} ranks: {cfg.num_kv_heads} kv heads neither "
+            f"tensor parallelism over {world} ranks: {kv_heads} kv heads neither "
             f"divide nor are divided by {world}, so a rank's q heads would span part of a "
-            "kv group; not ported yet (ROADMAP.md A13b)")
+            "kv group; not ported yet (ROADMAP.md A13b2)")
     return sharded
 
 
 def _cut(x, spec: Spec, rank: int, world: int):
-    """The ``rank``-th of ``world`` equal blocks of ``x`` along the axis
-    ``spec`` puts on ``tensor`` (``x`` itself when none does), as a copy:
+    """The ``rank``-th of ``world`` blocks of ``x`` along the axis ``spec``
+    puts on ``tensor`` (``x`` itself when none does), as a copy:
     contiguous, and holding no reference to ``x`` (a view of a row block
-    would keep the whole leaf's storage alive)."""
+    would keep the whole leaf's storage alive). An axis the world does
+    not divide is cut in blocks of ``ceil(n / world)``, the last one(s)
+    zero-padded (only a vocabulary is cut so: :func:`check_tensor_parallel`
+    refuses the rest)."""
     if AXIS_TENSOR not in spec or world == 1:
         return x
     axis = spec.index(AXIS_TENSOR)
     n = x.shape[axis]
-    if n % world:
-        raise ValueError(f"axis {axis} of a {tuple(x.shape)} leaf does not split {world} ways")
-    m = n // world
+    m = vocab_rows(n, world)
+    lo, hi = min(rank * m, n), min((rank + 1) * m, n)
     if isinstance(x, torch.Tensor):
-        return x.narrow(axis, rank * m, m).clone(memory_format=torch.contiguous_format)
-    return np.ascontiguousarray(np.take(x, np.arange(rank * m, (rank + 1) * m), axis=axis))
+        part = x.narrow(axis, lo, hi - lo)
+        if hi - lo == m:
+            return part.clone(memory_format=torch.contiguous_format)
+        shape = list(x.shape)
+        shape[axis] = m - (hi - lo)
+        return torch.cat([part, x.new_zeros(shape)], axis)
+    part = np.take(x, np.arange(lo, hi), axis=axis)
+    if hi - lo < m:
+        pad = [(0, 0)] * x.ndim
+        pad[axis] = (0, m - (hi - lo))
+        part = np.pad(part, pad)
+    return np.ascontiguousarray(part)
 
 
 def param_specs(params, kv_shard: bool = True) -> dict:
-    """The spec of every leaf of ``params`` (int8 ``{"q", "s"}`` leaves
-    expanded, the scale by :func:`_quant_scale_spec`); ``kv_shard`` False
-    replicates ``wk`` and ``wv``."""
-    specs = specs_for_params(params)
-    if not kv_shard:
+    """The spec of every leaf of ``params`` (its family's spec tree, int8
+    ``{"q", "s"}`` leaves expanded, the scale by
+    :func:`_quant_scale_spec`); ``kv_shard`` False replicates a decoder's
+    ``wk`` and ``wv``."""
+    specs = tree_specs(params)
+    if not kv_shard and family(params) != "bert":
         specs["layers"] = {**specs["layers"], "wk": (None, None, None),
                            "wv": (None, None, None)}
 
-    def expand(spec, leaf):
-        if isinstance(leaf, dict):                   # int8 {"q", "s"}
-            return {"q": spec, "s": _quant_scale_spec(spec, leaf["q"], leaf["s"])}
+    def walk(node, spec):
+        if isinstance(spec, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, dict):                   # int8 {"q", "s"}
+            return {"q": spec, "s": _quant_scale_spec(spec, node["q"], node["s"])}
         return spec
 
-    return {k: ({n: expand(specs[k][n], w) for n, w in leaf.items()}
-                if k == "layers" else expand(specs[k], leaf))
-            for k, leaf in params.items()}
+    return walk(params, specs)
 
 
 VOCAB_TILE = 128
@@ -192,18 +296,29 @@ class Recipe:
     kwargs: dict
 
 
+def meta_params(cfg) -> dict:
+    """``cfg``'s tree on the meta device (shapes only): int8 for the
+    decoder families, whose ``{"q", "s"}`` node also gives a
+    full-precision matrix's spec; full precision for BERT, which has no
+    int8 form."""
+    if isinstance(cfg, bert.BertConfig):
+        return bert.init_params(cfg, None, "meta")
+    if isinstance(cfg, moe.MoEConfig):
+        return moe.quantize_params(moe.init_params(cfg, None, "meta"))
+    return llama.quantize_params(llama.init_params(cfg, None, "meta"))
+
+
 def local_params(recipe: Recipe, cfg, mesh, kv_shard: bool = True) -> dict[str, Any]:
-    """This rank's tree, on its device, from ``recipe``: each full leaf is
-    cut by its spec as it comes and freed before the next is made, so a
-    rank holds its local tree and at most one full leaf (plus what the
-    factory holds to make it), never the model. An int8 LM head's
-    vocabulary shard comes padded (:func:`pad_vocab`)."""
+    """This rank's tree, on its device, from ``recipe`` (any family; its
+    specs from ``cfg``'s): each full leaf is cut by its spec as it comes
+    and freed before the next is made, so a rank holds its local tree and
+    at most one full leaf (plus what the factory holds to make it), never
+    the model. The vocabulary rows come zero-padded to
+    :func:`vocab_rows`, and an int8 LM head's shard padded further to the
+    kernel's tile (:func:`pad_vocab`)."""
     module, _, name = recipe.factory.partition(":")
     factory = getattr(importlib.import_module(module), name)
-    # The spec of a leaf by its path: from the int8 tree of cfg's shapes,
-    # whose {"q", "s"} node also gives a full-precision matrix's spec.
-    meta = llama.init_params(cfg, None, "meta")
-    specs = param_specs(llama.quantize_params(meta), kv_shard)
+    specs = param_specs(meta_params(cfg), kv_shard)
     local = []
     for path, full in factory(device=mesh.device, **recipe.kwargs):
         spec = specs
@@ -213,7 +328,10 @@ def local_params(recipe: Recipe, cfg, mesh, kv_shard: bool = True) -> dict[str, 
             spec = spec["q"]
         local.append((path, _cut(full, spec, mesh.rank, mesh.world).to(mesh.device)))
         del full
-    return pad_vocab(llama.nest(local), cfg.vocab_size // mesh.world)
+    tree = llama.nest(local)
+    if isinstance(cfg, bert.BertConfig):
+        return tree
+    return pad_vocab(tree, vocab_rows(cfg.vocab_size, mesh.world))
 
 
 def shard_params(params, mesh, kv_shard: bool = True) -> dict[str, Any]:
@@ -225,7 +343,8 @@ def shard_params(params, mesh, kv_shard: bool = True) -> dict[str, Any]:
 
 
 def shard_tree(params, rank: int, world: int, kv_shard: bool = True) -> dict[str, Any]:
-    """:func:`shard_params` by rank and world."""
+    """:func:`shard_params` by rank and world (a vocabulary the world does
+    not divide comes zero-padded, as :func:`local_params` cuts it)."""
     specs = param_specs(params, kv_shard)
 
     def walk(node, spec):

@@ -124,7 +124,8 @@ makes ``warmup`` exit (``SystemExit``), never ready; ``finish_boot`` adds
 the load's ``disk``, ``cast`` and ``upload`` seconds to the boot phases.
 
 **Tensor parallelism** (the reference's ``--chips N``, what its runner
-always passes): ``--chips N`` serves one Llama-family model over exactly N
+always passes): ``--chips N`` serves one model (Llama, Mixtral, or the
+embedding cell's BERT) over exactly N
 devices, all on ``tensor`` (``parallel/mesh.py``), a grant above what the
 host shows exiting before any weight is allocated; without the flag, every
 visible GPU (one rank on the CPU), a count that would need a ``data`` axis
@@ -139,12 +140,16 @@ comes, and the followers apply the leader's device actions
 follower that dies ends the cell (exit 1 under :func:`main`): it never
 serves on fewer devices. ``/v1/stats`` ``mesh`` reports ``chips``,
 ``shape`` and ``kvSharded``; ``/metrics`` carries every rank's
-``kukeon_hbm_bytes_*{device=}``. At ``--chips`` above 1 the MoE family,
-the embedding cell, the streamed boot and ``/v1/profile {"layers": true}``
-are not ported yet (ROADMAP.md A13b): the first two exit at boot, the
-last answers 501, and a checkpoint is read by the recipe, not streamed
-into a booting engine. Without ``--chips`` the MoE family and the
-embedding cell serve on one device, on any host.
+``kukeon_hbm_bytes_*{device=}``. Mixtral's recipe draws the one-device
+cell's leaves from the seed, or reads an HF Mixtral directory leaf by leaf
+(quantized on the rank's device under int8); the embedding cell's draws
+``bert.init_params``' leaves or reads its orbax checkpoint on the host; its
+leader posts each grid to the followers and alone pools. A vocabulary the
+world does not divide is padded (bge-base's 30522 at 4). At ``--chips``
+above 1 the streamed boot, ``/v1/profile {"layers": true}`` and uneven
+heads or intermediate sizes are not ported yet (ROADMAP.md A13b2): a
+checkpoint is read by the recipe, not streamed into a booting engine,
+the profile answers 501, and uneven shards exit at boot.
 """
 
 from __future__ import annotations
@@ -325,7 +330,7 @@ class LifecycleMixin:
         pass
 
     def _init_cell_obs(self, registry: Registry, kind: str, device: torch.device,
-                       engine: ServingEngine | None = None) -> None:
+                       engine: ServingEngine | None = None, peers=None) -> None:
         """The cell's families on the one registry ``GET /metrics`` renders
         (the reference's ``_init_cell_obs``, shared by both cell flavours):
         identity, uptime, readiness, drain and HTTP in-flight gauges
@@ -334,7 +339,8 @@ class LifecycleMixin:
         its ``engine``: the recorder is the engine's ring, the spool holds
         the engine's capture lock, and the engine has registered the fault
         and device-memory collectors. Without one (the embedding cell) the
-        cell registers those and keeps a ring of its own."""
+        cell registers those, with its followers' memory counters
+        (``peers``) beside its own, and keeps a ring of its own."""
         self.registry = registry
         registry.gauge("kukeon_cell_info", "Static cell identity (value always 1).",
                        labels=("model", "kind")).set(1, model=self.model_name, kind=kind)
@@ -362,7 +368,7 @@ class LifecycleMixin:
             self.recorder = engine.recorder
         else:
             registry.register_collector(faults_collector)
-            registry.register_collector(device_memory_collector(device))
+            registry.register_collector(device_memory_collector(device, peers=peers))
             self.profiler = ProfileSpool(registry=registry, cuda=cuda)
             self.recorder = FlightRecorder(registry=registry)
 
@@ -407,6 +413,10 @@ class ServingCell(LifecycleMixin):
         cfg = _preset_cfg(model, dtype, max_seq_len)
         world = cell_world(model, chips, self.device.type)
         mesh = None
+        if model in MOE_MODELS and kv_cache_int8:
+            # The MoE decode ignores int8-KV scales (as the reference's):
+            # refuse the flag rather than serve garbage.
+            raise SystemExit(f"model {model!r} does not support --kv-cache-int8 yet")
         if world is not None:
             # The grant's group, refused before a weight is allocated or a
             # rank started.
@@ -419,36 +429,31 @@ class ServingCell(LifecycleMixin):
         gen.manual_seed(seed)
         forward_fn = None
         if model in MOE_MODELS:
-            # The MoE decode ignores int8-KV scales (as the reference's):
-            # refuse the flag rather than serve garbage.
-            if kv_cache_int8:
-                raise SystemExit(f"model {model!r} does not support --kv-cache-int8 yet")
             # Pinned, so a tuning profile cannot turn it on behind the guard.
             kv_cache_int8 = False
             forward_fn = moe.forward
-            if checkpoint:
-                params, cfg = hf_convert.load_moe_params(checkpoint, dtype=cfg.dtype)
-                if max_seq_len:
-                    cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
-                if quantize:
-                    # On the host, before the engine moves the tree: a
-                    # Mixtral-8x7B bf16 tree would not fit on the card.
-                    params = moe.quantize_params(params)
-            elif quantize:
-                params = convert.init_quantized_moe_params_device(cfg, gen, self.device)
-            else:
-                params = moe.init_params(cfg, gen, self.device)
-        elif mesh is not None:
+        if mesh is not None:
             # Every rank (this one inside the engine) runs one recipe and
             # keeps its slice of each leaf as it comes.
             params = Recipe("kukeon_tpu_torch.runtime.serving_cell:rank_leaves", {
                 "model": model, "dtype": dtype, "checkpoint": checkpoint, "seed": seed,
                 "max_seq_len": max_seq_len})
+        elif model in MOE_MODELS and checkpoint:
+            params, cfg = hf_convert.load_moe_params(checkpoint, dtype=cfg.dtype)
+            if quantize:
+                # On the host, before the engine moves the tree: a
+                # Mixtral-8x7B bf16 tree would not fit on the card.
+                params = moe.quantize_params(params)
+        elif model in MOE_MODELS:
+            params = (convert.init_quantized_moe_params_device(cfg, gen, self.device)
+                      if quantize else moe.init_params(cfg, gen, self.device))
         elif checkpoint:
             params, cfg = self._load_checkpoint(checkpoint, cfg, quantize, device=self.device,
                                                 stats=self.checkpoint_load)
         else:
             params = _drawn_params(cfg, quantize, gen)
+        if model in MOE_MODELS and checkpoint and max_seq_len:
+            cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
         self.model_name = model
         self.cfg = cfg
         # One registry for the whole cell: the engine's families and the
@@ -535,6 +540,9 @@ class ServingCell(LifecycleMixin):
         kukeon manifest or the HF ``config.json`` alone (no tensor byte
         read, no reader started): what a tensor-parallel cell checks its
         grant against before any rank starts."""
+        if isinstance(cfg, moe.MoEConfig):
+            # Mixtral reads HF directories only (load_moe_params).
+            return dataclasses.replace(hf_convert.moe_config_from_hf(path), dtype=cfg.dtype)
         kind = _checkpoint_kind(path)
         if kind == "int8":
             return checkpoints.quantized_config(path, cfg.dtype)
@@ -630,7 +638,7 @@ class ServingCell(LifecycleMixin):
         if eng.world > 1:
             raise NotImplementedError(
                 f"the per-layer profile of a {eng.world}-rank cell is not ported yet "
-                "(ROADMAP.md A13b)")
+                "(ROADMAP.md A13b2)")
         eng._ensure_loaded()
         prof = obs_profile.profile_layers(
             eng.params, eng.cfg, eng.device,
@@ -957,23 +965,15 @@ def grant(chips: int | None, device_type: str) -> int:
     if shape["data"] > 1:
         raise SystemExit(
             f"{n} visible GPUs lay out as data {shape['data']} x tensor {shape['tensor']}; "
-            "a data axis is not ported yet (ROADMAP.md A13b): pass --chips")
+            "a data axis is not ported yet (ROADMAP.md A13b2): pass --chips")
     return n
 
 
 def cell_world(model: str, chips: int | None, device_type: str) -> int | None:
-    """The size of a decoder cell's rank group, None for the one-device
-    code. A Llama-family cell takes its :func:`grant`: a group whenever
-    ``--chips`` is given (a one-rank group at ``--chips 1``) or the
-    visible GPUs are more than one. The MoE family, whose sharding is
-    not ported yet, serves on one device: at ``--chips 1`` or without the
-    flag (on a host of many GPUs too, its ``/v1/stats`` mesh saying one),
-    and a grant above one exits naming A13b."""
-    if model in MOE_MODELS:
-        if chips is not None and grant(chips, device_type) > 1:
-            raise SystemExit(f"--chips {chips}: the MoE family's expert and tensor sharding "
-                             "is not ported yet (ROADMAP.md A13b)")
-        return None
+    """The size of a cell's rank group, None for the one-device code. Every
+    family (Llama, Mixtral, the embedding cell) takes its :func:`grant`: a
+    group whenever ``--chips`` is given (a one-rank group at ``--chips
+    1``) or the visible GPUs are more than one."""
     world = grant(chips, device_type)
     return world if chips is not None or world > 1 else None
 
@@ -1009,9 +1009,15 @@ def rank_leaves(*, device: torch.device, model: str, dtype: str | None,
     one-device cell's draws); or read from ``checkpoint``: a kukeon int8
     or HF checkpoint through its stream (host leaves), an orbax one read
     whole on the host, each leaf then placed on ``device`` and quantized
-    there under int8."""
+    there under int8. Mixtral: its draws, or an HF Mixtral directory read
+    leaf by leaf (the rows of ``hf_convert.load_moe_params``), each leaf
+    quantized on ``device`` under int8, an expert stack one matrix at a
+    time."""
     quantize = dtype == "int8"
     cfg = _preset_cfg(model, dtype, max_seq_len)
+    if model in MOE_MODELS:
+        yield from _moe_leaves(cfg, device, quantize, checkpoint, seed)
+        return
     if not checkpoint:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -1037,6 +1043,66 @@ def rank_leaves(*, device: torch.device, model: str, dtype: str | None,
         else:
             yield path, leaf
         del leaf
+
+
+def _moe_leaves(cfg, device: torch.device, quantize: bool, checkpoint: str | None,
+                seed: int):
+    """:func:`rank_leaves` of the MoE family."""
+    if not checkpoint:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        if quantize:
+            yield from convert.iter_quantized_moe_params_device(cfg, gen, device)
+        else:
+            yield from moe.iter_params(cfg, gen, device)
+        return
+    stream = hf_convert.stream_moe_params(checkpoint, dtype=cfg.dtype)
+    try:
+        for path, host in stream:
+            leaf = moe.quantize_leaf(path, host.to(device)) if quantize else host
+            del host
+            if isinstance(leaf, dict):
+                yield path + ("q",), leaf["q"]
+                yield path + ("s",), leaf["s"]
+            else:
+                yield path, leaf
+            del leaf
+    except checkpoints.CheckpointStreamError as e:
+        raise (e.__cause__ or e) from None
+    finally:
+        stream.close()
+
+
+def embedding_leaves(*, device: torch.device, cfg, checkpoint: str | None, seed: int):
+    """An embedding cell's weight recipe on a mesh: ``bert.init_params``'
+    leaves of ``cfg`` drawn on ``device`` from ``seed`` (the one-device
+    cell's draws), or the orbax checkpoint read whole on the host, each
+    leaf then placed on ``device``."""
+    if not checkpoint:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        yield from bert.iter_params(cfg, gen, device)
+        return
+    params, _ = _embedding_checkpoint(checkpoint, cfg, "cpu")
+    for path, host in checkpoints._walk_tree(params):
+        yield path, host.to(device)
+
+
+def _require_orbax(path: str) -> None:
+    if not orbax_ckpt.is_orbax_checkpoint(path):
+        raise SystemExit(f"checkpoint {path!r} is not an orbax checkpoint "
+                         f"({orbax_ckpt.METADATA}): embedding cells read only those")
+
+
+def _embedding_checkpoint(path: str, cfg, device) -> tuple[dict, dict]:
+    """(tree, load stats) of an embedding cell's orbax checkpoint (the
+    reference's ``:1144-1153``: restored into ``bert.init_params``' shapes)."""
+    _require_orbax(path)
+    try:
+        return orbax_ckpt.load_params(path, bert.init_params(cfg, None, "meta"), cfg.dtype,
+                                      device)
+    except orbax_ckpt.CheckpointError as e:
+        raise SystemExit(str(e)) from e
 
 
 def _checkpoint_kind(path: str) -> str:
@@ -1067,11 +1133,13 @@ class EmbeddingCell(LifecycleMixin):
     flavours alike. Weights come from ``checkpoint``, an orbax checkpoint
     (:func:`orbax_ckpt.load_params`), or are random, drawn on the device from
     ``seed``; ``dtype`` (``"bfloat16"``, ``"float32"``) overrides the
-    model's."""
+    model's. ``chips``: the grant, as the decoder cell's (:func:`cell_world`);
+    on a group every rank runs :func:`embedding_leaves` and keeps its
+    slice."""
 
     def __init__(self, model: str, *, batch_size: int = 16, pooling: str = "cls",
                  checkpoint: str | None = None, dtype: str | None = None, seed: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, chips: int | None = None):
         if model not in EMBEDDING_MODELS:
             raise SystemExit(f"unknown embedding model {model!r}; known: "
                              f"{sorted(EMBEDDING_MODELS)}")
@@ -1080,17 +1148,19 @@ class EmbeddingCell(LifecycleMixin):
         if dtype:
             cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
         self.checkpoint_load: dict = {}
-        if checkpoint:
-            # The reference's embedding checkpoints are orbax ones
-            # (its :1144-1153), restored into bert.init_params' shapes.
-            if not orbax_ckpt.is_orbax_checkpoint(checkpoint):
-                raise SystemExit(f"checkpoint {checkpoint!r} is not an orbax checkpoint "
-                                 f"({orbax_ckpt.METADATA}): embedding cells read only those")
-            try:
-                params, self.checkpoint_load = orbax_ckpt.load_params(
-                    checkpoint, bert.init_params(cfg, None, "meta"), cfg.dtype, self.device)
-            except orbax_ckpt.CheckpointError as e:
-                raise SystemExit(str(e)) from e
+        world = cell_world(model, chips, self.device.type)
+        mesh = None
+        if world is not None:
+            # Refused before a weight is allocated or a rank started.
+            check_tensor_parallel(cfg, world)
+            if checkpoint:
+                _require_orbax(checkpoint)
+            mesh = serving_mesh(world, self.device.type)
+            self.device = mesh.device
+            params = Recipe("kukeon_tpu_torch.runtime.serving_cell:embedding_leaves", {
+                "cfg": cfg, "checkpoint": checkpoint, "seed": seed})
+        elif checkpoint:
+            params, self.checkpoint_load = _embedding_checkpoint(checkpoint, cfg, self.device)
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
@@ -1098,7 +1168,7 @@ class EmbeddingCell(LifecycleMixin):
         self.model_name = model
         self.cfg = cfg
         self.engine = EmbeddingEngine(cfg, params, batch_size=batch_size, pooling=pooling,
-                                      device=self.device)
+                                      device=self.device, mesh=mesh)
         # The checkpoint's tokenizer.json when it ships one (the
         # reference's :1127), else the byte tokenizer.
         self.tokenizer = load_tokenizer(checkpoint)
@@ -1106,7 +1176,9 @@ class EmbeddingCell(LifecycleMixin):
         self._stats_lock = threading.Lock()
         self.total_sequences = 0   # guarded-by: _stats_lock
         self._init_lifecycle()
-        self._init_cell_obs(Registry(), "embedding", self.device)
+        group = mesh.group if mesh is not None and mesh.world > 1 else None
+        self._init_cell_obs(Registry(), "embedding", self.device,
+                            peers=(lambda: list(group.peer_stats.values())) if group else None)
         self.registry.gauge("kukeon_embed_batch_size",
                             "Embedding micro-batch grid size.").set(batch_size)
         self.registry.register_collector(self._obs_collect)
@@ -1158,6 +1230,12 @@ class EmbeddingCell(LifecycleMixin):
             "devices": [torch.cuda.get_device_name(self.device)
                         if self.device.type == "cuda" else "cpu"],
             "batchSize": self.engine.batch_size,
+            # A cell on a rank group adds its mesh, as the decoder cell
+            # reports it (without a cache); one device keeps the
+            # reference's keys.
+            **({"mesh": {"chips": self.engine.world,
+                         "shape": {"tensor": self.engine.world} if self.engine.world > 1 else {}}}
+               if self.engine.mesh is not None else {}),
             "uptimeSeconds": round(
                 self.registry.get("kukeon_cell_uptime_seconds").value(), 1),
             "totalSequences": self.total_sequences,
@@ -1575,9 +1653,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu")
     ap.add_argument("--chips", type=int, default=None,
                     help="serve over exactly this many devices, all on the tensor axis "
-                         "(one process each; absent: every visible GPU, one rank on the CPU; "
-                         "the MoE family and embedding models: one device)")
+                         "(one process each; absent: every visible GPU, one rank on the CPU)")
     return ap
+
+
+def _end_on_rank_failure(cell) -> None:
+    """A rank that dies ends the cell (exit 1): it never serves on fewer
+    devices."""
+    group = launch.current()
+    if group is None:
+        return
+
+    def _rank_failed(why: str):
+        cell.mark_unready(f"rank failed: {why}")
+        print(f"serving-cell: {why}; exiting 1", file=sys.stderr, flush=True)
+        os._exit(1)
+
+    group.on_failure = _rank_failed
+    if group.failed is not None:
+        _rank_failed(group.failed)
 
 
 def main(argv=None) -> int:
@@ -1585,11 +1679,10 @@ def main(argv=None) -> int:
 
     embedding = args.model in EMBEDDING_MODELS
     if embedding:
-        if args.chips is not None and args.chips > 1:
-            raise SystemExit(f"--chips {args.chips}: the embedding cell at more than one "
-                             "device is not ported yet (ROADMAP.md A13b)")
         cell = EmbeddingCell(args.model, batch_size=args.num_slots, dtype=args.dtype,
-                             checkpoint=args.checkpoint, seed=args.seed, device=args.device)
+                             checkpoint=args.checkpoint, seed=args.seed, device=args.device,
+                             chips=args.chips)
+        _end_on_rank_failure(cell)
         if not args.no_warmup:
             cell.warmup()
     else:
@@ -1602,17 +1695,7 @@ def main(argv=None) -> int:
             kv_page_tokens=args.kv_page_tokens, role=args.role,
             slo_ttft_p95_ms=args.slo_ttft_p95_ms or None,
             slo_availability=args.slo_availability or None, chips=args.chips)
-        group = launch.current()
-        if group is not None:
-            # A rank that dies ends the cell: it never serves on fewer devices.
-            def _rank_failed(why: str):
-                cell.mark_unready(f"rank failed: {why}")
-                print(f"serving-cell: {why}; exiting 1", file=sys.stderr, flush=True)
-                os._exit(1)
-
-            group.on_failure = _rank_failed
-            if group.failed is not None:
-                _rank_failed(group.failed)
+        _end_on_rank_failure(cell)
         # Warmup before the driver thread starts: step() is single-driver.
         if not args.no_warmup:
             cell.warmup()

@@ -100,7 +100,10 @@
   cache (its kv heads; all of them, replicated, when ``kv_shard`` is False
   or the kv heads do not divide the world: the reference's
   ``_cache_shardings`` rule), and its programs run the forward with the
-  collectives inside (``models/llama.py``), captured in the graphs. Rank
+  collectives inside (``models/llama.py``, or ``models/moe.py`` with
+  ``forward_fn=moe.forward``: the reference's ``moe_specs_for_params``
+  layout, each rank's expert slices through the grouped kernel),
+  captured in the graphs. Rank
   0, the leader, is this class as a caller uses it: it keeps every piece
   of host state (queue, slots, page allocator, prefix index, sampling
   flags) and makes every decision. Each device action it takes (an
@@ -113,8 +116,8 @@
   rank samples the same gathered logits with the same generator state,
   so the tokens agree without a broadcast, and only the leader reads
   them back: the host-sync budget holds per rank. The tuning profile is
-  the one stored under ``model|backend|world``. The MoE family and a
-  streamed boot are refused on a mesh (ROADMAP.md A13b).
+  the one stored under ``model|backend|world``. A streamed boot is
+  refused on a mesh (ROADMAP.md A13b2).
 
 Python orchestrates: queueing, slot choice, emitting tokens.
 """
@@ -354,12 +357,9 @@ class ServingEngine:
         self.mesh = mesh
         self.world = mesh.world if mesh is not None else 1
         self.device = mesh.device if mesh is not None else resolve_device(device)
-        if mesh is not None and forward_fn not in (None, llama.forward):
-            raise NotImplementedError(
-                "tensor parallelism serves the Llama family only; the MoE family's "
-                "expert sharding is not ported yet (ROADMAP.md A13b)")
-        self._forward = (functools.partial(llama.forward, mesh=mesh) if mesh is not None
-                         else forward_fn or llama.forward)
+        forward_fn = forward_fn or llama.forward
+        self._forward = (functools.partial(forward_fn, mesh=mesh) if mesh is not None
+                         else forward_fn)
         t_init = time.monotonic()
         # A streamed boot (duck-typed on .abstract_params, as the
         # reference's): the constructor sees only the abstract tree.
@@ -367,7 +367,7 @@ class ServingEngine:
         if mesh is not None and not isinstance(params, Recipe):
             raise TypeError(
                 "on a mesh the weights come as a parallel.sharding.Recipe, which every "
-                "rank makes and cuts its slice of (a streamed boot there is ROADMAP.md A13b)")
+                "rank makes and cuts its slice of (a streamed boot there is ROADMAP.md A13b2)")
         # The tuning profile (the reference's :310-335): levers the caller
         # left None take the stored winner for this model on this backend,
         # then the defaults; a missing or stale profile is a miss.
@@ -381,7 +381,7 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"tuning profile {tuning.profile_key(*key)} asks for tensor axis "
                     f"{self.tune.mesh_tensor} on {self.world} devices; a data axis is not "
-                    "ported yet (ROADMAP.md A13b)")
+                    "ported yet (ROADMAP.md A13b2)")
         if self.tune is not None:
             if decode_chunk is None:
                 decode_chunk = self.tune.decode_chunk
@@ -546,7 +546,7 @@ class ServingEngine:
                 seed=seed, kv_cache_int8=self.kv_cache_int8, prefill_buckets=self.prefill_buckets,
                 prefix_cache_size=prefix_cache_size, prefix_cache_bytes=prefix_cache_bytes,
                 kv_page_tokens=self.page_tokens, kv_pool_pages=self.kv_pool_pages,
-                kv_shard=self.kv_sharded)
+                kv_shard=self.kv_sharded, forward_fn=forward_fn)
             self._group.post(self._oid, "new", (
                 "kukeon_tpu_torch.serving.engine:follower_engine",
                 {"cfg": self.cfg, "recipe": recipe, "kwargs": followers}), flush=True)

@@ -7,6 +7,8 @@ whose concatenation on the spec's axis is the leaf, bit for bit."""
 
 import dataclasses
 import functools
+import os
+import time
 
 import jax
 import numpy as np
@@ -52,32 +54,29 @@ def test_serving_mesh_loud_failures():
 
 @pytest.mark.parametrize("visible", [1, 2, 4, 8, 9, 12])
 def test_a_cell_without_chips_takes_every_visible_gpu(monkeypatch, visible):
-    """No ``--chips``: a Llama-family cell's group is every visible GPU
-    when that is more than one (none, the one-device code, at one); a
-    count the reference lays out with a data axis (9, 12) exits naming
-    A13b. The MoE family serves on one device whatever the host shows,
-    and exits on a grant above one."""
+    """No ``--chips``: a cell's group (Llama, Mixtral or the embedding
+    cell alike) is every visible GPU when that is more than one (none, the
+    one-device code, at one); a count the reference lays out with a data
+    axis (9, 12) exits naming A13b2. ``--chips N`` is a group of N, one
+    above what the host shows exits."""
     from kukeon_tpu_torch.runtime import serving_cell as sc
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
-    if jmesh.auto_mesh_shape(visible)["data"] > 1:
-        with pytest.raises(SystemExit, match=f"{visible} visible GPUs lay out as data.*A13b"):
-            sc.grant(None, "cuda")
-        with pytest.raises(SystemExit, match="A13b"):
-            sc.cell_world("llama3-8b", None, "cuda")
-    else:
-        assert sc.grant(None, "cuda") == visible
-        assert sc.cell_world("llama3-8b", None, "cuda") == (visible if visible > 1 else None)
-    assert sc.cell_world("mixtral-8x7b", None, "cuda") is None
-    assert sc.cell_world("mixtral-8x7b", 1, "cuda") is None
-    assert sc.cell_world("llama3-8b", 1, "cuda") == 1
+    for model in ("llama3-8b", "mixtral-8x7b", "bge-base"):
+        if jmesh.auto_mesh_shape(visible)["data"] > 1:
+            with pytest.raises(SystemExit, match=f"{visible} visible GPUs lay out as data.*A13b2"):
+                sc.grant(None, "cuda")
+            with pytest.raises(SystemExit, match="A13b2"):
+                sc.cell_world(model, None, "cuda")
+        else:
+            assert sc.grant(None, "cuda") == visible
+            assert sc.cell_world(model, None, "cuda") == (visible if visible > 1 else None)
+        assert sc.cell_world(model, 1, "cuda") == 1
+        if visible >= 2:
+            assert sc.cell_world(model, 2, "cuda") == 2
+        with pytest.raises(SystemExit, match=f"--chips {visible + 1}: serving mesh wants"):
+            sc.cell_world(model, visible + 1, "cuda")
     assert sc.grant(None, "cpu") == 1 and sc.cell_world("tiny", None, "cpu") is None
-    if visible >= 2:
-        assert sc.cell_world("llama3-8b", 2, "cuda") == 2
-        with pytest.raises(SystemExit, match="--chips 2: the MoE family.*A13b"):
-            sc.cell_world("mixtral-8x7b", 2, "cuda")
-    with pytest.raises(SystemExit, match=f"--chips {visible + 1}: serving mesh wants"):
-        sc.cell_world("mixtral-8x7b", visible + 1, "cuda")
 
 
 def test_followers_start_without_the_fault_table(monkeypatch):
@@ -197,10 +196,10 @@ def test_tensor_parallel_refusals_name_a13b():
     assert tshd.check_tensor_parallel(cfg, 2) is True
     assert tshd.check_tensor_parallel(cfg, 2, kv_shard=False) is False
     assert tshd.check_tensor_parallel(cfg, 4) is False          # 2 kv heads, 4 ranks
-    with pytest.raises(SystemExit, match="num_heads 4 is not a multiple of 3.*A13b"):
+    with pytest.raises(SystemExit, match="num_heads 4 is not a multiple of 3.*A13b2"):
         tshd.check_tensor_parallel(cfg, 3)
     odd = dataclasses.replace(cfg, num_heads=12, num_kv_heads=6, intermediate_size=256)
-    with pytest.raises(SystemExit, match="6 kv heads neither divide.*A13b"):
+    with pytest.raises(SystemExit, match="6 kv heads neither divide.*A13b2"):
         tshd.check_tensor_parallel(odd, 4)
     with pytest.raises(SystemExit, match="intermediate_size 256 is not a multiple of 6"):
         tshd.check_tensor_parallel(dataclasses.replace(odd, num_heads=6, num_kv_heads=6), 6)
@@ -288,6 +287,51 @@ def test_a_leader_action_failing_after_its_flush_aborts_the_group(tmp_path):
     finally:
         proc.kill()
         proc.wait()
+
+
+@pytest.mark.parametrize("watched", [False, True], ids=["no_channel", "channel_open"])
+def test_a_leader_action_failing_after_its_follower_died_names_the_follower(tmp_path, watched):
+    """The race of a follower's death (C10): its sockets reset, so the
+    leader's collective raises before any watch thread has seen the
+    follower go. Forced here: the follower is dead (killed, not reaped),
+    and its control channel, when there is one, is still open, so the
+    watch thread blocks in its read. The leader's action raises after its
+    flush; the group records ``rank 1 exited (code -9)``, not the
+    leader's own error, and ``on_failure`` hears the same."""
+    import multiprocessing
+    import subprocess
+    import sys
+    import types
+
+    from kukeon_tpu_torch.serving.engine import ServingEngine
+
+    proc = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"])
+    ends = multiprocessing.Pipe() if watched else None
+    try:
+        proc.kill()
+        while not os.path.exists(f"/proc/{proc.pid}") or open(
+                f"/proc/{proc.pid}/stat").read().split()[2] != "Z":
+            time.sleep(0.01)
+        group = launch.Group(0, 2, "cpu", str(tmp_path), [ends[0]] if watched else [], [proc])
+        heard = []
+        group.on_failure = heard.append
+        group.post = lambda oid, action, args, flush=False: None
+
+        def boom(*a):
+            raise RuntimeError("gloo: Connection reset by peer")
+
+        eng = types.SimpleNamespace(_group=group, _oid=1, mesh=None, _act_run=boom)
+        with pytest.raises(RuntimeError, match="reset by peer"):
+            ServingEngine._dev(eng, "run", "decode", (4,), flush=True)
+        assert group.failed == heard[0] == "rank 1 exited (code -9)"
+        with pytest.raises(launch.RankFailure, match="rank 1 exited"):
+            launch.Group.post(group, 1, "noop")
+    finally:
+        proc.kill()
+        proc.wait()
+        if ends is not None:
+            for end in ends:
+                end.close()
 
 
 class _Rank:

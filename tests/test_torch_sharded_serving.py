@@ -7,7 +7,7 @@ and paged layouts, with the KV cache sharded and replicated, across a KV
 handoff; its logits agree with the JAX forward on the 2-device mesh
 within the tolerance of ``tests/test_torch_llama.py``; it keeps the
 single-device compile and host-sync budgets; and the cell honours the
-runner's ``--chips`` grant, refuses what is not ported naming A13b, and
+runner's ``--chips`` grant, refuses what is not ported naming A13b2, and
 ends when a rank dies. One rank group serves the whole file; its
 collectives and rendezvous time out after ``GROUP_TIMEOUT_S``, so no case
 can hang the suite, and every subprocess wait has a deadline.
@@ -373,7 +373,7 @@ def test_an_armed_upload_fails_one_request_not_the_group(mesh2, trees, monkeypat
 def test_cell_chips2_stats_metrics_and_refusals(mesh2):
     """``ServingCell(chips=2)``: /v1/stats ``mesh`` with the reference's
     keys, the gauge at 2, a request served; the layer profile refused
-    naming A13b (501 over HTTP)."""
+    naming A13b2 (501 over HTTP)."""
     cell = ServingCell("tiny", num_slots=2, max_seq_len=96, device="cpu", chips=2)
     try:
         assert cell.stats()["mesh"] == {"chips": 2, "shape": {"tensor": 2}, "kvSharded": True}
@@ -381,7 +381,7 @@ def test_cell_chips2_stats_metrics_and_refusals(mesh2):
         cell.warmup(8)
         out = cell.generate({"promptTokens": [1, 2, 3, 4], "maxNewTokens": 4})
         assert out["numTokens"] == 4
-        with pytest.raises(NotImplementedError, match="A13b"):
+        with pytest.raises(NotImplementedError, match="A13b2"):
             cell.profile_layers()
         server = serving_cell.serve(cell)
         try:
@@ -455,12 +455,39 @@ def test_overgrant_exits_before_any_weight(monkeypatch):
     assert launch.current() is before
 
 
-def test_moe_and_embedding_refused_at_chips2(monkeypatch):
+def test_moe_and_embedding_refused_at_chips2(mesh2, monkeypatch):
+    """Refused until A13b1, served since (the name kept): a Mixtral cell
+    at ``chips=2`` serves over the file's group without the one-device
+    draw; the runner's way for the embedding cell, ``main --chips 2``,
+    comes up on two ranks, answers ``/v1/embed`` and drains to exit 0."""
     monkeypatch.setattr(serving_cell, "_drawn_params", None)
-    with pytest.raises(SystemExit, match="--chips 2: the MoE family.*A13b"):
-        ServingCell("mixtral-tiny", num_slots=2, max_seq_len=96, device="cpu", chips=2)
-    with pytest.raises(SystemExit, match="--chips 2: the embedding cell.*A13b"):
-        serving_cell.main(["--model", "bge-tiny", "--device", "cpu", "--chips", "2"])
+    cell = ServingCell("mixtral-tiny", num_slots=2, max_seq_len=96, device="cpu", chips=2)
+    try:
+        assert cell.stats()["mesh"] == {"chips": 2, "shape": {"tensor": 2}, "kvSharded": True}
+        assert cell.generate({"promptTokens": [1, 2, 3], "maxNewTokens": 3})["numTokens"] == 3
+    finally:
+        cell.engine.close()
+    env = dict(os.environ, **{launch.TIMEOUT_ENV: GROUP_TIMEOUT_S})
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kukeon_tpu_torch.runtime.serving_cell", "--model", "bge-tiny",
+         "--device", "cpu", "--chips", "2", "--port", "0", "--num-slots", "4"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+    try:
+        line = _readline(proc, 90.0)
+        assert "ready on" in line, (line, proc.stderr.read() if proc.poll() is not None else "")
+        base = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        with urllib.request.urlopen(base + "/v1/stats", timeout=30) as r:
+            assert json.load(r)["mesh"] == {"chips": 2, "shape": {"tensor": 2}}
+        req = urllib.request.Request(base + "/v1/embed", method="POST", data=json.dumps(
+            {"inputTokens": [[1, 2, 3], [4, 5]]}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert json.load(r)["numSequences"] == 2
+        urllib.request.urlopen(urllib.request.Request(base + "/drain", method="POST"),
+                               timeout=30).close()
+        assert proc.wait(timeout=30) == 0
+    finally:
+        proc.kill()
+        proc.wait()
 
 
 def test_runner_command_line_parses():
@@ -493,7 +520,7 @@ def test_tune_mesh_fields_roundtrip_and_world_key(mesh2, trees, tmp_path, monkey
     """``mesh_tensor`` and ``kv_shard`` cross both packages' ServingTune;
     a two-rank engine reads the profile stored under ``tiny|cpu|2`` (its
     kv_shard False replicates the cache) and refuses one whose tensor axis
-    is not the world's (a data axis, A13b)."""
+    is not the world's (a data axis, A13b2)."""
     from kukeon_tpu.serving.tuning import ServingTune as JaxTune
     from kukeon_tpu_torch.serving import tuning
 
@@ -508,7 +535,7 @@ def test_tune_mesh_fields_roundtrip_and_world_key(mesh2, trees, tmp_path, monkey
     assert not eng.kv_sharded and eng.decode_chunk == 4
     eng.close()
     tuning.save("tiny", "cpu", 2, dataclasses.replace(ours, mesh_tensor=1))
-    with pytest.raises(NotImplementedError, match="tensor axis 1 on 2 devices.*A13b"):
+    with pytest.raises(NotImplementedError, match="tensor axis 1 on 2 devices.*A13b2"):
         _engine(trees, mesh2, model_name="tiny")
 
 
