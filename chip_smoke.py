@@ -104,7 +104,20 @@ time; any failure ends the run with a nonzero exit and no result line:
               the tree's leaf bytes. Reports the save, construction to
               ready, the load's disk/cast/upload seconds, the engine's boot
               marks and the share of the load the captures overlapped (a
-              report: it depends on the disk). The directory is removed
+              report: it depends on the disk). Then (b) the same cell at
+              chips=1, a one-rank NCCL group whose rank streams its blocks
+              (a "stream" recipe), with the same gates and reports; and (c)
+              the rank readers at t = 2, 4 and 8 on the same directory,
+              each rank in turn in a process of its own (forked from a
+              fork server that has only imported the readers) without a
+              group, its leaves copied onto the card: every leaf's shape,
+              dtype and two exact integer sums equal those of the block of
+              serve's tree, summed on the card leaf by leaf; per rank its
+              seconds, the bytes it requested from disk, its blocks' bytes,
+              the most a reader job declared at once (job_peak_bytes, a
+              count of its own buffers) and its process's resident-set
+              growth over its baseline (VmRSS from /proc/self/status,
+              sampled every 5 ms). The directory is removed
   serve_tune  the tuning profile and the layer profile on serve's weights:
               tools/autotune.py's sweep over two arms (decode chunk 16
               and 64, each a cell over serve's weights with serve's
@@ -127,7 +140,8 @@ time; any failure ends the run with a nonzero exit and no result line:
               kernel's and the plain version's cold-L2 ms and device ms, and
               one rank's K1 sum for an 8B decode step beside its bytes
               bound; (b) ServingCell("llama3-8b", dtype="int8",
-              chips=1) through serve_model: a one-rank NCCL group, the
+              chips=1) drawn from serve's seed, through serve_model: a
+              one-rank NCCL group, the
               forward's collectives inside the captured graphs, serve's
               greedy tokens bitwise, 225 K1 and 0 K1t a step, its ms a step
               and tok/s beside serve's; (c) the runner's command line with
@@ -152,7 +166,11 @@ time; any failure ends the run with a nonzero exit and no result line:
               directory and an engine over (a)'s card-side tree give the
               same greedy tokens; (d) a bf16 cell booted from the directory
               gives the tokens of an engine over load_params of it in
-              memory. The three cells boot through the stream: each one's
+              memory; after (b), the rank readers of the HF directory under
+              int8 at t = 2 and 8, as serve_stream's (c), each block
+              against (a)'s host tree (a row-parallel leaf's scale from its
+              whole rows; the tied head's shard tile-padded). The three
+              cells boot through the stream: each one's
               load-bytes counter must equal its leaf bytes; then the same
               three booted on the trees the materialized loaders gave
               above (the whole tree in host memory first) must give the
@@ -290,8 +308,17 @@ time; any failure ends the run with a nonzero exit and no result line:
               step beside serve_moe's; (c) EmbeddingCell("bge-base",
               chips=1) over the same group: serve_embed's vectors bit for
               bit; (d) both cells' main with --chips 2 on the one card exit
-              1 with the over-grant message. Times only: nothing here spans
-              two GPUs
+              1 with the over-grant message; (e) an HF Mixtral-8x7B
+              directory at full width cut to 2 of 32 layers (bf16, ~6 GB,
+              drawn on the card and written by the port's writer), read by
+              each rank of t = 8 in turn, each in a process of its own, as
+              serve_stream's (c), through hf_convert.moe_rank_leaves (int8:
+              every expert matrix's rows or columns in staging blocks,
+              quantized on the card): each rank's leaves sum as the block
+              of the one-device tree quantized on the card; per rank its
+              seconds, its blocks' bytes, the most a read declared on the
+              host and its process's VmRSS growth. Times only: nothing
+              here spans two GPUs
   train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
               and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
@@ -324,6 +351,7 @@ in a directory that holds this file and nothing else of the repository.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -2943,6 +2971,10 @@ def serve_ckpt(k1) -> dict:
         out["quant_bytes"] = dir_bytes(qdir)
         back, _ = timed("load_quantized", lambda: checkpoints.load_quantized(qdir))
         out["b_leaves_bitwise"] = tree_bitwise_equal(host_q, back, "(b) save/load quantized")
+        # The rank readers of the HF directory under int8 at t 2 and 8: a
+        # row-parallel leaf's scale from its whole rows, the tied head's
+        # shard tile-padded; each block against (a)'s host tree.
+        out["readers"] = rank_readers({"kind": "hf_int8", "root": hf}, host_q, qcfg, (2, 8))
         # (c) three routes to one int8 tree give one set of tokens.
         g = torch.Generator().manual_seed(7)
         prompts = [torch.randint(0, cfg.vocab_size, (CKPT_PROMPT,), generator=g).tolist()
@@ -3179,15 +3211,20 @@ def overlap_share(marks: dict) -> float | None:
 def serve_stream(k1, pre) -> dict:
     """The streamed boot at 8B: ``serve``'s llama3-8b int8 tree (``pre``,
     serve's kept cell) saved as a kukeon int8 checkpoint into a temporary
-    directory, then a ServingCell booted with ``checkpoint=dir`` (the
+    directory, then (a) a ServingCell booted with ``checkpoint=dir`` (the
     stream: reader threads, the engine's load thread, the captures
     meanwhile) and served ``serve``'s traffic through ``serve_model``: its
     greedy tokens must be ``serve``'s, 225 K1 a decode step in its
     profiled replays, and ``kukeon_checkpoint_load_bytes_total`` the tree's
-    leaf bytes. Reports the temp dir's free space, the save, construction
-    to ready, the load's stages and the engine's boot marks (how much of
-    the load the captures hid: a report, not a gate). The directory is
-    removed at the end."""
+    leaf bytes; (b) the same with ``chips=1``: a one-rank NCCL group whose
+    rank streams its blocks (a ``"stream"`` recipe), with the same gates;
+    (c) the rank readers at t 2, 4 and 8 on the same directory, each rank
+    in turn in a process of its own without a group
+    (:func:`rank_readers`): each leaf's block sums as the block of serve's
+    tree on the card. Reports the temp dir's free space, the save,
+    construction to ready, the load's stages and the engine's boot marks
+    (how much of the load the captures hid: a report, not a gate) of both
+    cells. The directory is removed at the end."""
     from kukeon_tpu_torch.models import checkpoints
     from kukeon_tpu_torch.runtime.serving_cell import ServingCell
 
@@ -3207,13 +3244,25 @@ def serve_stream(k1, pre) -> dict:
                              profile_new=8, cell=cell, label="llama3-8b stream")
         boot = boot_report(cell, t0, construct_s + served["boot_s"])
         del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_streamed(boot, "serve_stream")
+        if SERVED_TOKENS["llama3-8b stream"] != SERVED_TOKENS["llama3-8b"]:
+            raise AssertionError("serve_stream: the streamed cell's greedy tokens differ "
+                                 "from serve's")
+        # (b) one rank of a group, streamed.
+        tp1 = tp1_serve(k1, lambda: ServingCell("llama3-8b", checkpoint=root, num_slots=4,
+                                                max_seq_len=1024, device="cuda", chips=1),
+                        "llama3-8b stream tp1")
+        tp1_boot = tp1["boot"]
+        check_streamed(tp1_boot, "serve_stream (b)")
+        # (c) the rank readers.
+        readers = rank_readers({"kind": "kukeon_int8", "root": root}, pre.engine.params,
+                               pre.cfg, (2, 4, 8))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    check_streamed(boot, "serve_stream")
-    if SERVED_TOKENS["llama3-8b stream"] != SERVED_TOKENS["llama3-8b"]:
-        raise AssertionError("serve_stream: the streamed cell's greedy tokens differ from serve's")
     return {"tmp_free_gb": free_gb, "save_s": round(save_s, 3), "checkpoint_bytes": nbytes,
             "construct_s": round(construct_s, 3), **boot,
             "capture_overlap_share_of_load": overlap_share(boot["marks_s"]),
@@ -3221,7 +3270,235 @@ def serve_stream(k1, pre) -> dict:
             **{k: served[k] for k in ("ms_per_decode_step", "decode_tok_s", "ttft_ms", "launches",
                                       "capture_s", "peak_mem_gb")},
             "launches_per_step": served["profile"]["launches_per_step"],
+            "b_tp1": {**tp1_boot,
+                      "capture_overlap_share_of_load": overlap_share(tp1_boot["marks_s"]),
+                      **{k: tp1[k] for k in ("ms_per_decode_step", "decode_tok_s", "ttft_ms",
+                                             "launches", "launches_per_step",
+                                             "tokens_equal_serve", "mesh")}},
+            "c_readers": readers,
             "dir_removed": not os.path.exists(root)}
+
+
+class _RssPeak(threading.Thread):
+    """This process's resident set (``VmRSS`` of /proc/self/status), read
+    every 5 ms: its peak above the level when started. A rank reader runs
+    it in a process of its own (:func:`fresh_reader`), where no heap freed
+    by earlier work can be reused unseen. (``VmHWM``, the kernel's own
+    high-water mark, is not read: some hosts' /proc lacks it.)"""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.base = self.peak = _vm_rss_kb()
+        self._done = threading.Event()
+
+    def run(self):
+        while not self._done.wait(0.005):
+            self.peak = max(self.peak, _vm_rss_kb())
+
+    def finish(self) -> dict:
+        self._done.set()
+        self.join()
+        return {"rss_base_mb": round(self.base / 1024, 1),
+                "rss_peak_growth_mb": round((self.peak - self.base) / 1024, 1)}
+
+
+def _vm_rss_kb() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise RuntimeError("/proc/self/status has no VmRSS line")
+
+
+# The words block_sums takes at once: a multiple of its weights' period.
+SUM_CHUNK = 65521 * 1024
+
+
+def block_sums(t: torch.Tensor) -> list[int]:
+    """Two exact integer sums of ``t``'s bytes, on its device: of its int16
+    words (bytes, if their count is odd), and of each word times (its index
+    mod 65521) + 1, so a block shifted, cut elsewhere or transposed does
+    not pass. A term is below 2^31 and a leaf has fewer than 2^31 words:
+    no sum leaves int64, so any two devices agree bit for bit."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    w = b.view(torch.int16) if b.numel() % 2 == 0 else b
+    k = torch.arange(min(SUM_CHUNK, w.numel()), dtype=torch.int64, device=w.device)
+    k = k.remainder_(65521).add_(1)
+    s1 = s2 = 0
+    for o in range(0, w.numel(), SUM_CHUNK):
+        x = w[o:o + SUM_CHUNK].to(torch.int64)
+        s1 += int(x.sum())
+        s2 += int((x * k[:x.numel()]).sum())
+    return [s1, s2]
+
+
+def _rank_stream(spec: dict):
+    """A rank's leaves for ``spec`` (``kind``: ``kukeon_int8`` a kukeon int8
+    directory, ``hf_int8`` an HF one quantized on the host, ``moe`` an HF
+    Mixtral one through ``moe_rank_leaves``, quantized on the card) and a
+    function giving its reader's stats."""
+    from kukeon_tpu_torch.models import checkpoints, hf_convert
+
+    where = dict(rank=spec["rank"], world=spec["world"], kv_shard=spec["kv_shard"])
+    if spec["kind"] == "moe":
+        peak = checkpoints.JobPeak()
+        leaves = hf_convert.moe_rank_leaves(spec["root"], spec["cfg"], device=_card(),
+                                            quantize=True, peak=peak, **where)
+        return leaves, lambda: {"job_peak_bytes": peak.bytes}
+    if spec["kind"] == "kukeon_int8":
+        stream = checkpoints.stream_quantized(spec["root"], **where)
+    else:
+        stream = hf_convert.stream_params_quantized(spec["root"], threads=4, **where)
+    return stream, lambda: {k: stream.stat_snapshot()[k] for k in ("read_bytes",
+                                                                   "job_peak_bytes")}
+
+
+def _reader_child(spec: dict, conn) -> None:
+    """One rank's reader in a process of its own (:func:`fresh_reader`):
+    its CUDA context first, then the resident set's baseline, then its
+    leaves read to the end, each copied onto the card as an engine's load
+    thread copies it and summed there (:func:`block_sums`). Sends the
+    rank's report, or the traceback."""
+    import traceback
+
+    try:
+        dev = _card()
+        torch.empty(1, device=dev)
+        rss = _RssPeak()
+        rss.start()
+        t0 = time.monotonic()
+        leaves, stats = _rank_stream(spec)
+        sums, slice_bytes = {}, 0
+        for path, host in leaves:
+            slice_bytes += host.numel() * host.element_size()
+            leaf = host.to(dev)
+            sums[".".join(path)] = [list(leaf.shape), str(leaf.dtype), *block_sums(leaf)]
+            del host, leaf
+        conn.send({"rank": spec["rank"], "seconds": round(time.monotonic() - t0, 3),
+                   **stats(), "slice_bytes": slice_bytes, **rss.finish(), "sums": sums})
+    except BaseException:
+        conn.send({"error": traceback.format_exc()})
+    finally:
+        conn.close()
+
+
+def _card() -> str:
+    """The card, or the host where there is none (a rehearsal). Asked at
+    call time: the fork server must not initialise CUDA."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+_FORK = None
+
+
+def fresh_reader(spec: dict, exiting: list, timeout: float = 300.0) -> dict:
+    """:func:`_reader_child` for ``spec`` in a process forked from
+    multiprocessing's fork server, which has imported this script, the
+    port's readers and ``torch._dynamo`` (which the readers' meta-device
+    draws import, 2 s and ~70 MB on a first use) and touched no card and
+    no large buffer: each rank starts with a fresh heap and its own
+    resident set. Its report, with ``wall_s`` from the start to the report
+    (the fork, the CUDA context, the reads); a child that reported goes on
+    ``exiting`` (its context torn down meanwhile, :func:`reap`). Raises
+    with the child's traceback, or its exit code."""
+    import multiprocessing
+
+    global _FORK
+    if _FORK is None:
+        _FORK = multiprocessing.get_context("forkserver")
+        _FORK.set_forkserver_preload(["__main__", "torch._dynamo",
+                                      "kukeon_tpu_torch.models.hf_convert",
+                                      "kukeon_tpu_torch.parallel.sharding"])
+        atexit.register(_stop_fork)
+    t0 = time.monotonic()
+    recv, send = _FORK.Pipe(duplex=False)
+    proc = _FORK.Process(target=_reader_child, args=(spec, send), daemon=True)
+    proc.start()
+    send.close()
+    who = f"rank reader {spec['rank']} of {spec['world']} ({spec['kind']})"
+    try:
+        if not recv.poll(timeout):
+            raise AssertionError(f"{who}: no report in {timeout} s")
+        got = recv.recv()
+    except EOFError:
+        proc.join(30)
+        raise AssertionError(f"{who}: exited {proc.exitcode} with no report") from None
+    finally:
+        recv.close()
+        exiting.append(proc)
+    if "error" in got:
+        raise AssertionError(f"{who}:\n{got['error']}")
+    return {**got, "wall_s": round(time.monotonic() - t0, 3)}
+
+
+def reap(procs: list) -> None:
+    """Waits for each reader process to exit; kills one still there after
+    30 s."""
+    for proc in procs:
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def _stop_fork() -> None:
+    """Stops the fork server and the resource tracker it started, waiting
+    for both (Python 3.12's stop methods, private ones)."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
+
+def rank_readers(spec: dict, ref_tree: dict, cfg, worlds) -> dict:
+    """Each rank's reader of a tensor-parallel group of each world in
+    ``worlds``, run in turn, each in a process of its own without a group
+    (:func:`fresh_reader`, ``spec`` less the rank's place): the shape,
+    dtype and sums (:func:`block_sums`) of each leaf it yields must be
+    those of ``Layout``'s block of ``ref_tree``'s leaf (the one-device
+    tree), padding included, summed on the card leaf by leaf, so no
+    process holds a rank's tree and the reader's own. Reports each rank's
+    seconds (its reads, the copies to the card and the sums), the bytes it
+    requested from disk, its leaves' bytes, the most a reader job declared
+    at once (``job_peak_bytes``) and its process's resident-set growth
+    over the baseline taken after its CUDA context."""
+    from kukeon_tpu_torch.models.checkpoints import _walk_tree
+    from kukeon_tpu_torch.parallel.sharding import Layout, kv_sharded
+
+    ref = dict(_walk_tree(ref_tree))
+    out, exiting = {}, []
+    try:
+        for t in worlds:
+            kv = kv_sharded(cfg.num_kv_heads, t)
+            ranks = []
+            for r in range(t):
+                got = fresh_reader({**spec, "rank": r, "world": t, "kv_shard": kv}, exiting)
+                check_rank_sums(got.pop("sums"), ref, Layout(cfg, r, t, kv),
+                                f"rank {r} of {t}")
+                ranks.append(got)
+            out[f"t{t}"] = {"kv_sharded": kv, "ranks": ranks,
+                            "seconds": round(sum(x["seconds"] for x in ranks), 3)}
+    finally:
+        reap(exiting)
+    return out
+
+
+def check_rank_sums(sums: dict, ref: dict, layout, who: str) -> None:
+    """A rank's leaves (``sums``: path -> shape, dtype, sums) against
+    ``layout``'s blocks of the one-device leaves ``ref``, each summed on
+    the card: every leaf there, none more, each equal."""
+    bad = sorted(set(sums) ^ {".".join(p) for p in ref})
+    for path, full in ref.items():
+        key = ".".join(path)
+        if key not in sums:
+            continue
+        blk = layout.block(path, full.shape)
+        want = (blk.place(blk.take(full)) if blk.axis is not None else full).to(_card())
+        if sums[key] != [list(want.shape), str(want.dtype), *block_sums(want)]:
+            bad.append(key)
+        del want
+    if bad:
+        raise AssertionError(f"{who}: blocks differ from the one-device tree's at {bad[:5]}")
 
 
 def load_autotune():
@@ -3905,18 +4182,20 @@ def serve_tp_kernels(k1, bps: float) -> dict:
             "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), the kernel phase's"}
 
 
-def serve_tp(k1, bps: float) -> dict:
-    """(a) the shard shapes; (b) llama3-8b int8 through ServingCell(chips=1)
-    over a one-rank NCCL group, serve's traffic, its tokens against serve's;
-    (c) the over-grant on one card, in a child process through the cell's
-    main and in this process before any byte."""
+def tp1_serve(k1, make, label: str) -> dict:
+    """A ``chips=1`` llama3-8b cell from ``make()`` through serve_model: a
+    one-rank NCCL group, serve's greedy tokens bitwise, 225 K1 a step in
+    the replays; then its graphs freed (this function holds the only
+    reference) and the group shut down. -> serve_tp's (b) report (drawn)
+    or serve_stream's (streamed), with the cell's :func:`boot_report` under
+    ``"boot"``."""
     import torch.distributed as dist
 
     from kukeon_tpu_torch.parallel import launch
-    from kukeon_tpu_torch.runtime.serving_cell import ServingCell
 
-    out = {"a_shards": serve_tp_kernels(k1, bps)}
-    cell = make_cell("llama3-8b", 1024, chips=1)
+    t0 = time.monotonic()
+    cell = make()
+    construct_s = time.monotonic() - t0
     eng = cell.engine
     group = launch.current()
     mesh_info = {"world": eng.world, "kv_sharded": eng.kv_sharded,
@@ -3926,25 +4205,40 @@ def serve_tp(k1, bps: float) -> dict:
                              f"{mesh_info}")
     del eng
     b = serve_model(k1, "llama3-8b", max_seq_len=1024, prompt_len=128, new=64, profile_new=32,
-                    cell=cell, label="llama3-8b tp1")
+                    cell=cell, label=label)
+    report = {"construct_s": round(construct_s, 3),
+              **boot_report(cell, t0, construct_s + b["boot_s"])}
     # The graphs that captured the group's collectives go before the group.
     del cell
     gc.collect()
     torch.cuda.empty_cache()
     launch.shutdown()
     if "llama3-8b" in SERVED_TOKENS:
-        if SERVED_TOKENS["llama3-8b tp1"] != SERVED_TOKENS["llama3-8b"]:
-            raise AssertionError("ServingCell(chips=1) gave other tokens than serve's cell")
+        if SERVED_TOKENS[label] != SERVED_TOKENS["llama3-8b"]:
+            raise AssertionError(f"{label}: ServingCell(chips=1) gave other tokens than serve's")
         b["tokens_equal_serve"] = True
     # The collectives' own kernels among the profile's top device rows
     # (name: launches), if NCCL launches any for one rank.
     nccl = {row[0]: row[2] for row in b["profile"]["top_device_ms"] if "nccl" in row[0].lower()}
-    out["b_serve"] = {**{k: b[k] for k in ("decode_tok_s", "ttft_ms", "ms_per_decode_step",
-                                             "launches", "capture_s", "captures", "boot_s",
-                                             "peak_mem_gb")},
-                      "launches_per_step": b["profile"]["launches_per_step"],
-                      "nccl_kernels_in_top_rows": nccl, "mesh": mesh_info,
-                      "tokens_equal_serve": b.get("tokens_equal_serve", "serve did not run")}
+    return {**{k: b[k] for k in ("decode_tok_s", "ttft_ms", "ms_per_decode_step",
+                                 "launches", "capture_s", "captures", "boot_s",
+                                 "peak_mem_gb")},
+            "launches_per_step": b["profile"]["launches_per_step"],
+            "nccl_kernels_in_top_rows": nccl, "mesh": mesh_info, "label": label,
+            "tokens_equal_serve": b.get("tokens_equal_serve", "serve did not run"),
+            "boot": report}
+
+
+def serve_tp(k1, bps: float) -> dict:
+    """(a) the shard shapes; (b) llama3-8b int8 through ServingCell(chips=1)
+    over a one-rank NCCL group, serve's traffic, its tokens against serve's;
+    (c) the over-grant on one card, in a child process through the cell's
+    main and in this process before any byte."""
+    from kukeon_tpu_torch.runtime.serving_cell import ServingCell
+
+    out = {"a_shards": serve_tp_kernels(k1, bps)}
+    out["b_serve"] = tp1_serve(k1, lambda: make_cell("llama3-8b", 1024, chips=1),
+                               "llama3-8b tp1")
     # (c): the runner's way (the cell's main, --chips 2), then in-process.
     t0 = time.monotonic()
     proc = subprocess.run(
@@ -4126,7 +4420,7 @@ def serve_tp_cells(k1, bps: float) -> dict:
     traffic, its tokens against serve_moe's; (c) bge-base through
     EmbeddingCell(chips=1), serve_embed's bursts, its vectors against
     serve_embed's bit for bit; (d) both cells' main with --chips 2 on the
-    one card exit 1 before any weight."""
+    one card exit 1 before any weight; (e) :func:`mixtral_expert_readers`."""
     import torch.distributed as dist
 
     from kukeon_tpu_torch.parallel import launch
@@ -4212,7 +4506,135 @@ def serve_tp_cells(k1, bps: float) -> dict:
         children[model] = {"exit_code": proc.returncode,
                            "child_s": round(time.monotonic() - t0, 3)}
     out["d_overgrant"] = children
+    out["e_expert_reader"] = mixtral_expert_readers()
     return out
+
+
+# serve_tp_cells (e): Mixtral-8x7B at full width, cut to this many layers.
+MIXTRAL_CUT_LAYERS = 2
+
+
+def write_mixtral_hf(path: str, cfg, seed: int, device: str = "cuda") -> dict:
+    """An HF Mixtral directory at ``cfg``'s shapes, bf16, drawn on the card
+    from ``seed`` (normal times ``fan_in ** -0.5``; norms ones) and written
+    with the port's safetensors writer in shards of at most 2 GiB, with its
+    index and config.json. -> the one-device tree in full precision, on the
+    card (what ``hf_convert.load_moe_params`` reads back: the same bf16
+    values, the router in f32)."""
+    from kukeon_tpu_torch.models import checkpoints
+
+    os.makedirs(path, exist_ok=True)
+    g = torch.Generator(device=device).manual_seed(seed)
+    L, E, H, I = cfg.num_layers, cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    V, bf = cfg.vocab_size, torch.bfloat16
+
+    def draw(shape, fan_in):
+        if fan_in is None:
+            return torch.ones(shape, dtype=bf, device=device)
+        w = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
+        return w.mul_(fan_in ** -0.5).to(bf)
+
+    tree = {"embed": None, "layers": {k: [] for k in (
+        "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router", "w_gate", "w_up",
+        "w_down")}}
+    weight_map, shard, shard_bytes, shards = {}, {}, 0, []
+
+    def put(name, t):
+        nonlocal shard, shard_bytes
+        nbytes = t.numel() * t.element_size()
+        if shard and shard_bytes + nbytes > 2 << 30:
+            flush()
+        shard[name] = t
+        shard_bytes += nbytes
+
+    def flush():
+        nonlocal shard, shard_bytes
+        fname = f"model-{len(shards) + 1:05d}.safetensors"
+        checkpoints.save_safetensors(shard, os.path.join(path, fname))
+        weight_map.update({n: fname for n in shard})
+        shards.append(fname)
+        shard, shard_bytes = {}, 0
+
+    emb = draw((V, H), H)
+    put("model.embed_tokens.weight", emb)
+    tree["embed"] = emb
+    lw = tree["layers"]
+    for i in range(L):
+        p = f"model.layers.{i}."
+        for key, name, shape, fan_in in (
+                ("attn_norm", "input_layernorm", (H,), None),
+                ("wq", "self_attn.q_proj", (cfg.q_dim, H), H),
+                ("wk", "self_attn.k_proj", (cfg.kv_dim, H), H),
+                ("wv", "self_attn.v_proj", (cfg.kv_dim, H), H),
+                ("wo", "self_attn.o_proj", (H, cfg.q_dim), cfg.q_dim),
+                ("mlp_norm", "post_attention_layernorm", (H,), None),
+                ("router", "block_sparse_moe.gate", (E, H), H)):
+            w = draw(shape, fan_in)
+            put(p + name + ".weight", w)
+            lw[key].append(w if fan_in is None else w.T)
+        for key, w_name, shape, fan_in in (("w_gate", "w1", (I, H), H), ("w_up", "w3", (I, H), H),
+                                           ("w_down", "w2", (H, I), I)):
+            mats = []
+            for e in range(E):
+                w = draw(shape, fan_in)
+                put(f"{p}block_sparse_moe.experts.{e}.{w_name}.weight", w)
+                mats.append(w.T)
+            lw[key].append(torch.stack(mats))
+    final = draw((H,), None)
+    put("model.norm.weight", final)
+    head = draw((V, H), H)
+    put("lm_head.weight", head)
+    flush()
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["MixtralForCausalLM"], "vocab_size": V, "hidden_size": H,
+                   "intermediate_size": I, "num_hidden_layers": L,
+                   "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+                   "head_dim": cfg.head_dim, "num_local_experts": E,
+                   "num_experts_per_tok": cfg.experts_per_token, "rope_theta": cfg.rope_theta,
+                   "rms_norm_eps": cfg.rms_norm_eps,
+                   "max_position_embeddings": cfg.max_seq_len, "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"}, f)
+    tree["layers"] = {k: torch.stack(v).contiguous() for k, v in lw.items()}
+    tree["layers"]["router"] = tree["layers"]["router"].float()
+    tree["final_norm"] = final
+    tree["lm_head"] = head.T.contiguous()
+    return tree
+
+
+def mixtral_expert_readers(cfg=None) -> dict:
+    """serve_tp_cells (e): an HF Mixtral-8x7B directory at full width, cut
+    to :data:`MIXTRAL_CUT_LAYERS` of 32 layers, read by each rank of t 8
+    in turn, each in a process of its own (``hf_convert.moe_rank_leaves``,
+    int8: every expert matrix's rows or columns read in staging blocks and
+    quantized on the card; :func:`rank_readers`): each rank's leaves sum
+    as the blocks of the one-device tree quantized on the card
+    (``moe.quantize_params``). Per rank: seconds, its leaves' bytes, the
+    most a read declared on the host (``job_peak_bytes``) and its
+    process's VmRSS growth. (``cfg``: a rehearsal's.)"""
+    from kukeon_tpu_torch.models import moe
+
+    cfg = cfg or dataclasses.replace(moe.mixtral_8x7b(), num_layers=MIXTRAL_CUT_LAYERS)
+    root = tempfile.mkdtemp(prefix="kukeon-mixtral-hf-")
+    t = 8
+    try:
+        t0 = time.monotonic()
+        full = write_mixtral_hf(root, cfg, seed=11, device=_card())
+        write_s = time.monotonic() - t0
+        nbytes = dir_bytes(root)
+        ref = moe.quantize_params(full)
+        del full
+        readers = rank_readers({"kind": "moe", "root": root, "cfg": cfg}, ref, cfg, (t,))
+        del ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "t": t, "checkpoint_bytes": nbytes,
+            "write_s": round(write_s, 3), "ranks": readers[f"t{t}"]["ranks"],
+            "seconds": readers[f"t{t}"]["seconds"], "dir_removed": not os.path.exists(root)}
 
 
 def sass_counts(built: dict) -> dict:
@@ -4590,10 +5012,19 @@ def run_phases(phases: list) -> int:
         "train_moe_mixtral-8x7b_4_layers": {k: train_moe[k] for k in (
             "step_ms_median_3_6", "tokens_per_s", "mfu", "peak_mem_gb", "losses",
             "step1_rel_diff", "flash_launches_per_step")},
-        "serve_stream_llama3-8b": {k: stream[k] for k in (
-            "tmp_free_gb", "save_s", "checkpoint_bytes", "construct_s", "ready_s", "stages_s",
-            "marks_s", "capture_overlap_share_of_load", "load_bytes_counter", "leaf_bytes",
-            "tokens_equal_serve", "launches_per_step", "ms_per_decode_step")},
+        "serve_stream_llama3-8b": {
+            **{k: stream[k] for k in (
+                "tmp_free_gb", "save_s", "checkpoint_bytes", "construct_s", "ready_s",
+                "stages_s", "marks_s", "capture_overlap_share_of_load", "load_bytes_counter",
+                "leaf_bytes", "tokens_equal_serve", "launches_per_step", "ms_per_decode_step")},
+            "b_tp1": {k: stream["b_tp1"][k] for k in (
+                "ready_s", "stages_s", "marks_s", "capture_overlap_share_of_load",
+                "load_bytes_counter", "leaf_bytes", "tokens_equal_serve", "launches_per_step",
+                "ms_per_decode_step")},
+            "c_readers": {w: [[x["seconds"], x["read_bytes"], x["slice_bytes"],
+                               x["job_peak_bytes"], x["rss_peak_growth_mb"], x["wall_s"]]
+                              for x in v["ranks"]]
+                          for w, v in stream["c_readers"].items()}},
         "serve_tune_llama3-8b": {
             "arms": {n: {k: a.get(k) for k in ("tok_per_s", "ms_per_decode_step", "ttft_ms")}
                      for n, a in tune["arms"].items()},
@@ -4607,6 +5038,9 @@ def run_phases(phases: list) -> int:
             "a_leaves_bitwise",
             "scalar_divisor_scales", "b_leaves_bitwise", "c_tokens_equal", "d_tokens_equal",
             "launches_per_step", "ms_per_decode_step", "optional_packages")},
+        "serve_ckpt_readers": {w: [[x["seconds"], x["read_bytes"], x["slice_bytes"],
+                                    x["job_peak_bytes"], x["rss_peak_growth_mb"], x["wall_s"]]
+                                   for x in v["ranks"]] for w, v in ckpt["readers"].items()},
         "serve_orbax_llama3-1b": {
             **{k: orbax[k] for k in ("ready_s", "launches_per_step", "ms_per_decode_step",
                                      "b_tokens_equal_memory")},
@@ -4642,7 +5076,10 @@ def run_phases(phases: list) -> int:
                 "tokens_equal_serve_moe")},
             "serve_moe_ms_per_decode_step": serve_moe["ms_per_decode_step"],
             "c_embed_bitwise_equal": tpc["c_embed"]["bitwise_equal"],
-            "d_exit_codes": {m: v["exit_code"] for m, v in tpc["d_overgrant"].items()}},
+            "d_exit_codes": {m: v["exit_code"] for m, v in tpc["d_overgrant"].items()},
+            "e_expert_reader_t8": [[x["seconds"], x["slice_bytes"], x["job_peak_bytes"],
+                                    x["rss_peak_growth_mb"], x["wall_s"]]
+                                   for x in tpc["e_expert_reader"]["ranks"]]},
         "serve_embed_bge-base": {k: embed[k] for k in (
             "seq_per_s", "tokens_per_s", "burst_ms_p50", "cosine_to_f32_min",
             "alone_vs_in_grid")}}})

@@ -33,7 +33,11 @@ Counterparts in the reference (``kukeon_tpu/models/checkpoints.py``):
   stream_quantized               :464-516
 
 :func:`drain` reads a stream to its end into a tree; ``load_quantized``
-is :func:`stream_quantized` drained with one reader.
+is :func:`stream_quantized` drained with one reader. A tensor-parallel
+rank's stream (``stream_quantized(rank=, world=)``) reads only that rank's
+block of each leaf (:meth:`SafetensorsReader.read_block`: a run a read, a
+column range as whole rows in staging blocks of :data:`STAGE_BYTES`), and
+:class:`HostMeter` counts what a reader job holds at once.
 
 Loaders return trees of CPU tensors in the reference's layout (stacked
 ``[L, ...]`` leaves, int8 matrices as ``{"q", "s"}``); the serving cell
@@ -130,13 +134,53 @@ def read_safetensors_header(path: str) -> dict[str, TensorSpec]:
             for name, meta in header.items()}
 
 
+class HostMeter:
+    """The host bytes a reader job declares it holds in its buffers at once
+    (the slice it builds and its staging blocks), and their peak. A count
+    of those buffers, not of the process's memory: the temporaries of a
+    cast or a quotient, the stream's queued leaves and its threads are not
+    in it."""
+
+    def __init__(self) -> None:
+        self.live = 0
+        self.peak = 0
+
+    def hold(self, nbytes: int) -> None:
+        self.live += nbytes
+        self.peak = max(self.peak, self.live)
+
+    def free(self, nbytes: int) -> None:
+        self.live -= nbytes
+
+
+class JobPeak:
+    """The most any one reader job held at once (its :class:`HostMeter`'s
+    peak), over a stream's threads: a rank stream's ``job_peak_bytes``."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.bytes = 0
+
+    def note(self, meter: HostMeter) -> None:
+        with self._lock:
+            self.bytes = max(self.bytes, meter.peak)
+
+# The rows a slice reader takes from disk at once, at most this many bytes:
+# a rank's staging block (a column range is read as whole rows).
+STAGE_BYTES = 16 << 20
+
+
 class SafetensorsReader:
     """One safetensors file opened for reading tensor by tensor (the port's
     ``safe_open``): :meth:`get_tensor` seeks to the tensor's data and reads
-    it into a fresh CPU tensor, so no more than that tensor is held."""
+    it into a fresh CPU tensor, so no more than that tensor is held. A
+    rank's slice reads: :meth:`row_blocks` (a row range, in blocks of
+    bounded bytes through one staging buffer) and :meth:`read_block` (a
+    block along any axis). ``bytes_read`` sums the bytes requested."""
 
     def __init__(self, path: str):
         self.path = path
+        self.bytes_read = 0
         self._f = open(path, "rb")
         try:
             self._header, self._base = _read_header(self._f)
@@ -147,26 +191,89 @@ class SafetensorsReader:
     def keys(self) -> list[str]:
         return list(self._header)
 
-    def get_tensor(self, name: str) -> torch.Tensor:
+    def spec(self, name: str) -> TensorSpec:
+        """``name``'s shape and dtype, its byte count checked against its
+        offsets."""
         meta = self._header[name]
-        dtype = _ST_DTYPES[meta["dtype"]]
-        shape = tuple(meta["shape"])
+        spec = TensorSpec(meta["shape"], _ST_DTYPES[meta["dtype"]])
         start, end = meta["data_offsets"]
-        nbytes = TensorSpec(shape, dtype).nbytes
-        if end - start != nbytes:
+        if end - start != spec.nbytes:
             raise ValueError(f"{self.path}: tensor {name!r} holds {end - start} bytes, "
-                             f"its dtype and shape {meta['dtype']} {list(shape)} need {nbytes}")
-        raw = torch.empty(nbytes, dtype=torch.uint8)
-        view = memoryview(raw.numpy())
-        self._f.seek(self._base + start)
+                             f"its dtype and shape {meta['dtype']} {list(spec.shape)} need "
+                             f"{spec.nbytes}")
+        return spec
+
+    def _read_at(self, name: str, offset: int, out: torch.Tensor) -> None:
+        """``out``'s bytes from ``offset`` bytes into ``name``'s data."""
+        view = memoryview(out.reshape(-1).view(torch.uint8).numpy())
+        self._f.seek(self._base + self._header[name]["data_offsets"][0] + offset)
         got = 0
-        while got < nbytes:
+        while got < len(view):
             n = self._f.readinto(view[got:])
             if not n:
                 raise ValueError(f"{self.path}: tensor {name!r} is cut short "
-                                 f"({got} of {nbytes} bytes)")
+                                 f"({got} of {len(view)} bytes at {offset})")
             got += n
-        return raw.view(dtype).reshape(shape)
+        self.bytes_read += got
+
+    def get_tensor(self, name: str) -> torch.Tensor:
+        spec = self.spec(name)
+        out = torch.empty(spec.shape, dtype=spec.dtype)
+        self._read_at(name, 0, out)
+        return out
+
+    def row_blocks(self, name: str, lo: int, hi: int, *, width: int | None = None,
+                   stage_bytes: int | None = None,
+                   meter: HostMeter | None = None) -> Iterator[tuple[int, torch.Tensor]]:
+        """Rows ``[lo, hi)`` of ``name``'s first axis (of ``name`` seen as
+        rows of ``width`` elements, when given) as ``(first row, rows)``
+        blocks of at most ``stage_bytes`` (default :data:`STAGE_BYTES`; one
+        row at least), each one read into the same staging buffer: a block
+        is valid until the next is read."""
+        spec = self.spec(name)
+        row_shape = (width,) if width is not None else spec.shape[1:]
+        row = spec.dtype.itemsize * int(np.prod(row_shape, dtype=np.int64))
+        stage = STAGE_BYTES if stage_bytes is None else stage_bytes
+        n = max(1, min(hi - lo, stage // max(1, row)))
+        buf = torch.empty((n, *row_shape), dtype=spec.dtype)
+        held = n * row
+        if meter is not None:
+            meter.hold(held)
+        try:
+            for r0 in range(lo, hi, n):
+                part = buf[:min(n, hi - r0)]
+                self._read_at(name, r0 * row, part)
+                yield r0, part
+        finally:
+            if meter is not None:
+                meter.free(held)
+
+    def read_block(self, name: str, axis: int | None, lo: int, hi: int, *,
+                   meter: HostMeter | None = None) -> torch.Tensor:
+        """``name`` cut to ``[lo, hi)`` along ``axis`` (None: whole) into a
+        fresh tensor. A block with contiguous runs is read a run at a time
+        (one read per index of the axes before ``axis``); a range of the
+        last axis of a tensor of more than one row is read as whole rows
+        through :meth:`row_blocks`, never a read per row."""
+        spec = self.spec(name)
+        if axis is None:
+            return self.get_tensor(name)
+        shape = spec.shape
+        outer = int(np.prod(shape[:axis], dtype=np.int64))
+        inner = int(np.prod(shape[axis + 1:], dtype=np.int64))
+        n = shape[axis]
+        out = torch.empty((outer, hi - lo, inner), dtype=spec.dtype)
+        if meter is not None:
+            meter.hold(out.numel() * out.element_size())
+        if inner > 1 or outer == 1:
+            item = spec.dtype.itemsize
+            for o in range(outer):
+                self._read_at(name, (o * n + lo) * inner * item, out[o])
+        else:
+            flat = out[:, :, 0]
+            for r0, rows in self.row_blocks(name, 0, outer, width=n, meter=meter):
+                flat[r0:r0 + rows.shape[0]] = rows[:, lo:hi]
+        return out.reshape(*shape[:axis], hi - lo, *shape[axis + 1:])
 
     def close(self) -> None:
         self._f.close()
@@ -449,11 +556,15 @@ class CheckpointStream:
     does a stream whose readers all ended short of the tree.
 
     :attr:`stats` sums ``disk_s``, ``cast_s``, ``bytes`` and ``tensors``
-    under a lock; :meth:`stat_snapshot` reads it.
+    under a lock; :meth:`stat_snapshot` reads it, with ``extra_stats()``'s
+    keys when given. ``count(path, leaf)``, when given, is what a leaf adds
+    to ``bytes`` (a rank's stream: the full leaf's bytes, the reference's
+    count, not its slice's).
     """
 
     def __init__(self, abstract_params: dict, cfg, jobs: list[Callable], *,
-                 threads: int = 4, buffer: int = 16, finalize: Callable | None = None):
+                 threads: int = 4, buffer: int = 16, finalize: Callable | None = None,
+                 count: Callable | None = None, extra_stats: Callable | None = None):
         self.abstract_params = abstract_params
         self.cfg = cfg
         self.total_leaves = sum(1 for _ in _walk_tree(abstract_params))
@@ -464,6 +575,8 @@ class CheckpointStream:
         self._q: queue.Queue = queue.Queue(maxsize=max(1, buffer))
         self._closed = threading.Event()
         self._finalize = finalize
+        self._count = count
+        self._extra_stats = extra_stats
         self._threads = [
             threading.Thread(target=self._reader, daemon=True, name=f"ckpt-stream-{i}")
             for i in range(max(1, min(threads, len(self._jobs) or 1)))]
@@ -492,7 +605,8 @@ class CheckpointStream:
                 self._put(("err", CheckpointStreamError(
                     f"checkpoint stream reader failed: {type(e).__name__}: {e}"), e))
                 return
-            nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+            nbytes = sum(self._count(p, t) if self._count is not None
+                         else t.numel() * t.element_size() for p, t in leaves)
             with self._stats_lock:
                 self.stats["disk_s"] += disk_s
                 self.stats["cast_s"] += cast_s
@@ -541,7 +655,10 @@ class CheckpointStream:
 
     def stat_snapshot(self) -> dict:
         with self._stats_lock:
-            return dict(self.stats)
+            out = dict(self.stats)
+        if self._extra_stats is not None:
+            out.update(self._extra_stats())
+        return out
 
 
 def drain(stream: CheckpointStream) -> dict:
@@ -577,8 +694,11 @@ class _ThreadReaders:
     def __init__(self, where: dict[str, str]):
         self.where = where
         self._tls = threading.local()
+        self._lock = threading.Lock()
+        self._opened: list[SafetensorsReader] = []   # guarded-by: _lock
 
-    def get(self, name: str) -> torch.Tensor:
+    def reader(self, name: str) -> SafetensorsReader:
+        """The calling thread's reader of the file that holds ``name``."""
         readers = getattr(self._tls, "readers", None)
         if readers is None:
             readers = self._tls.readers = {}
@@ -586,7 +706,17 @@ class _ThreadReaders:
         r = readers.get(path)
         if r is None:
             r = readers[path] = SafetensorsReader(path)
-        return r.get_tensor(name)
+            with self._lock:
+                self._opened.append(r)
+        return r
+
+    def get(self, name: str) -> torch.Tensor:
+        return self.reader(name).get_tensor(name)
+
+    def bytes_read(self) -> int:
+        """The bytes every reader has requested so far."""
+        with self._lock:
+            return sum(r.bytes_read for r in self._opened)
 
     def close_local(self) -> None:
         for r in getattr(self._tls, "readers", {}).values():
@@ -595,26 +725,50 @@ class _ThreadReaders:
 
 
 def stream_quantized(path: str, dtype: torch.dtype | None = None, *, threads: int = 4,
-                     buffer: int = 16) -> CheckpointStream:
+                     buffer: int = 16, rank: int = 0, world: int | None = None,
+                     kv_shard: bool = True) -> CheckpointStream:
     """The streamed twin of :func:`load_quantized`: the abstract tree and
     the config come from the manifest and the safetensors header alone (no
     tensor byte read), then reader threads walk the file tensor by tensor,
     casting the norms to the activation dtype. The leaves equal the
-    materialized loader's bit for bit."""
+    materialized loader's bit for bit.
+
+    With ``world``, rank ``rank``'s stream (a tensor-parallel rank's
+    recipe): each job reads only that rank's block of its leaf
+    (``parallel.sharding.Layout``; a scale the spec replicates, as ``wo``'s
+    and ``w_down``'s, whole), padding included, so its abstract tree has
+    ``sharding.local_meta``'s shapes; no full leaf is held on the host
+    (:meth:`SafetensorsReader.read_block`, staging blocks of
+    :data:`STAGE_BYTES`). Its ``bytes`` count the full leaves' bytes, the
+    reference's count; ``read_bytes`` the bytes requested from disk and
+    ``job_peak_bytes`` the most a job held at once."""
     cfg = quantized_config(path, dtype)
     st_path = os.path.join(path, "model.quant.safetensors")
     header = read_safetensors_header(st_path)
+    layout = None
+    if world is not None:
+        from kukeon_tpu_torch.parallel.sharding import Layout
+
+        layout = Layout(cfg, rank, world, kv_shard)
+    blocks = {name: layout.block(tuple(name.split(".")), spec.shape) if layout else None
+              for name, spec in header.items()}
     abstract_flat = {
-        name: (TensorSpec(spec.shape, cfg.dtype)
-               if spec.dtype == torch.float32 and not name.endswith(".s") else spec)
+        name: TensorSpec(blocks[name].local_shape(spec.shape) if layout else spec.shape,
+                         cfg.dtype if spec.dtype == torch.float32 and not name.endswith(".s")
+                         else spec.dtype)
         for name, spec in header.items()}
     readers = _ThreadReaders({name: st_path for name in header})
+    peak = JobPeak()
 
     def make_job(name: str):
         want = abstract_flat[name].dtype
 
         def job():
-            t, disk_s = _timed_get(lambda: readers.get(name))
+            if layout is None:
+                t, disk_s = _timed_get(lambda: readers.get(name))
+            else:
+                t, disk_s = _timed_get(lambda: _read_rank_block(
+                    readers.reader(name), name, header[name].shape, blocks[name], peak))
             t0 = time.monotonic()
             if t.dtype != want:
                 t = t.to(want)
@@ -622,6 +776,29 @@ def stream_quantized(path: str, dtype: torch.dtype | None = None, *, threads: in
 
         return job
 
-    return CheckpointStream(_unflatten_quant(abstract_flat), cfg,
-                            [make_job(name) for name in header], threads=threads,
-                            buffer=buffer, finalize=readers.close_local)
+    full = {tuple(name.split(".")): TensorSpec(spec.shape, abstract_flat[name].dtype).nbytes
+            for name, spec in header.items()}
+    return CheckpointStream(
+        _unflatten_quant(abstract_flat), cfg, [make_job(name) for name in header],
+        threads=threads, buffer=buffer, finalize=readers.close_local,
+        count=(lambda p, t: full[p]) if layout else None,
+        extra_stats=(lambda: {"read_bytes": readers.bytes_read(), "job_peak_bytes": peak.bytes})
+        if layout else None)
+
+
+def _read_rank_block(reader: SafetensorsReader, name: str, shape: tuple, block,
+                     peak: JobPeak) -> torch.Tensor:
+    """A rank's block of ``name`` (a ``sharding.Block``) read from disk and
+    padded to its local shape; ``peak`` notes the most the read held at
+    once."""
+    meter = HostMeter()
+    whole = block.axis is None or (block.lo == 0 and block.hi == shape[block.axis])
+    part = reader.read_block(name, None if whole else block.axis, block.lo, block.hi,
+                             meter=meter)
+    if whole:
+        meter.hold(part.numel() * part.element_size())
+    if block.axis is not None and block.size != block.hi - block.lo:
+        part = block.place(part)
+        meter.hold(part.numel() * part.element_size())
+    peak.note(meter)
+    return part

@@ -23,7 +23,7 @@ Counterparts in the reference (``kukeon_tpu/models/hf_convert.py``):
   _open_shards           :56
   load_params            :81
   moe_config_from_hf     :143
-  load_moe_params        :169  (and its stream, ``stream_moe_params``)
+  load_moe_params        :169
   load_params_quantized  :253  (host quantization with ``llama.quantize_np``)
   _llama_hf_names, _check_mapped  :343-370
   stream_params          :394-473
@@ -35,6 +35,12 @@ The streams run one reader job a row, with an abstract tree from
 headers before any tensor byte is read. The materialized loaders drain the
 same stream with one reader, so both give the same leaves bit for bit. The
 MoE loader is materialized only, as in the reference.
+
+A tensor-parallel rank's streams (``stream_params(rank=, world=)``, and
+the quantized one) and its Mixtral reader (:func:`moe_rank_leaves`) read
+only that rank's rows or columns of each HF matrix (:class:`_Slicer`), so
+its host holds its slices and a staging block; its leaves equal the cut
+of the one-device leaves bit for bit, int8 scales included.
 """
 
 from __future__ import annotations
@@ -47,14 +53,17 @@ import time
 import numpy as np
 import torch
 
+from kukeon_tpu_torch.models import checkpoints
 from kukeon_tpu_torch.models.checkpoints import (
     CheckpointStream,
+    HostMeter,
+    JobPeak,
     TensorSpec,
     _ThreadReaders,
     drain,
     read_safetensors_header,
 )
-from kukeon_tpu_torch.models.llama import LlamaConfig, Params, quantize_np
+from kukeon_tpu_torch.models.llama import LlamaConfig, Params, _int8_sym, quantize_np
 from kukeon_tpu_torch.models.moe import MoEConfig
 
 
@@ -161,11 +170,122 @@ def _int8_row(path: tuple, fmt: str, shape: tuple, transpose: bool, L: int) -> t
     return path, spec, names, build
 
 
+class _Slicer:
+    """A tensor-parallel rank's reads (``parallel.sharding.Layout``): each
+    row's leaf built from the rank's rows of each HF matrix, read in staging
+    blocks of ``checkpoints.STAGE_BYTES`` (``SafetensorsReader.row_blocks``),
+    never a full matrix at once. An HF matrix is ``[out, in]``: a column-parallel
+    leaf (its ``out`` cut, and the embedding's vocabulary) is a block of
+    rows; a row-parallel one (``wo``, ``w_down``: ``in`` cut) a strided
+    block of columns, read as whole rows, whose int8 scale, per output over
+    all of ``in``, each whole row gives: so a rank's ``q`` and ``s`` are the
+    cut of the one-device quantization bit for bit, with no collective.
+    ``peak``: the most a job declared at once (its leaf and its staging;
+    ``HostMeter``)."""
+
+    def __init__(self, layout, cast: torch.dtype | None = None):
+        self.layout = layout
+        # Under int8, the dtype a matrix is cast to before it is quantized
+        # (Mixtral's one-device load quantizes its cast tree).
+        self.cast = cast
+        self.peak = JobPeak()
+
+    def matrix(self, path: tuple, fmt: str, shape: tuple, transpose: bool, L: int,
+               dtype: torch.dtype | None) -> tuple:
+        """The row of a matrix leaf of full port ``shape``: int8 ``{"q",
+        "s"}`` when ``dtype`` is None (quantized as :func:`_int8_row`),
+        else ``dtype`` (as :func:`_plain_row`)."""
+        names = _names(fmt, L)
+        stacked = "{}" in fmt
+        quantized = dtype is None
+        s_shape = shape[:-2] + shape[-1:] if transpose else shape[:-1]
+        qb = self.layout.block(path + (("q",) if quantized else ()), shape)
+        q_spec = TensorSpec(qb.local_shape(shape), torch.int8 if quantized else dtype)
+        spec = q_spec
+        if quantized:
+            sb = self.layout.block(path + ("s",), s_shape)
+            spec = {"q": q_spec, "s": TensorSpec(sb.local_shape(s_shape), torch.float32)}
+        # The cut of one layer's port matrix: 0 its rows (in; the
+        # embedding's vocabulary), 1 its columns (out), None none.
+        cut = None if qb.axis is None else qb.axis - stacked
+        slicer = self
+
+        def build(g):
+            meter = HostMeter()
+            q = torch.zeros(q_spec.shape, dtype=q_spec.dtype)
+            meter.hold(q_spec.nbytes)
+            s = None
+            if quantized:
+                s = torch.zeros(spec["s"].shape, dtype=torch.float32)
+                meter.hold(spec["s"].nbytes)
+                if sb.fill:
+                    s.narrow(sb.axis, sb.rows, sb.size - sb.rows).fill_(sb.fill)
+            for i, name in enumerate(names):
+                slicer._layer(g, name, q[i] if stacked else q,
+                              (s[i] if stacked else s) if quantized else None,
+                              transpose, cut, qb, meter)
+            slicer.peak.note(meter)
+            return {"q": q, "s": s} if quantized else q
+
+        return path, spec, names, build
+
+    def _layer(self, g, name: str, q: torch.Tensor, s: torch.Tensor | None, transpose: bool,
+               cut: int | None, qb, meter: HostMeter) -> None:
+        """One HF matrix's share into ``q`` (and ``s``): its rows ``[r_lo,
+        r_hi)`` (the port's output block, or all), whole, in staging blocks;
+        of each, the port's input block ``[c_lo, c_hi)``."""
+        spec = g.spec(name)
+        rows_out = (transpose and cut == 1) or (not transpose and cut == 0)
+        r_lo, r_hi = (qb.lo, qb.hi) if rows_out else (0, spec.shape[0])
+        c_lo, c_hi = (qb.lo, qb.hi) if transpose and cut == 0 else (0, spec.shape[1])
+        # Staging: the raw block and its f32 (or cast) copy within STAGE_BYTES.
+        item = spec.dtype.itemsize
+        stage = checkpoints.STAGE_BYTES * item // (item + 4)
+        for r0, rows in g.row_blocks(name, r_lo, r_hi, stage_bytes=stage, meter=meter):
+            at = r0 - r_lo
+            n = rows.shape[0]
+            extra = rows.numel() * 4
+            meter.hold(extra)
+            if s is not None:
+                # Each whole row's max (every output's scale), the quotient
+                # on this rank's columns.
+                qs = quantize_np(_f32(rows if self.cast is None else rows.to(self.cast)), 1,
+                                 part=(c_lo, c_hi))
+                q_rows = torch.from_numpy(qs["q"])
+                if transpose:
+                    q[:, at:at + n] = q_rows.T
+                else:
+                    q[at:at + n] = q_rows
+                s[at:at + n] = torch.from_numpy(qs["s"])
+                del qs, q_rows
+            elif transpose:
+                q[:, at:at + n] = rows[:, c_lo:c_hi].T.to(q.dtype)
+            else:
+                q[at:at + n] = rows.to(q.dtype)
+            meter.free(extra)
+
+    def norm(self, path: tuple, fmt: str, shape: tuple, L: int, dtype: torch.dtype,
+             transpose: bool = False) -> tuple:
+        """A replicated leaf (a norm, the router): :func:`_plain_row`'s,
+        its bytes noted."""
+        path, spec, names, build = _plain_row(path, fmt, shape, transpose, L, dtype)
+
+        def noted(g):
+            out = build(g)
+            meter = HostMeter()
+            meter.hold(out.numel() * out.element_size())
+            self.peak.note(meter)
+            return out
+
+        return path, spec, names, noted
+
+
 def _llama_rows(cfg: LlamaConfig | MoEConfig, quantized: bool,
-                mlp: list | None = None) -> list[tuple]:
+                mlp: list | None = None, slicer: _Slicer | None = None) -> list[tuple]:
     """The Llama mapping of the module docstring, in the tree's order.
     ``quantized``: every matrix an int8 leaf, the norms in the activation
-    dtype. ``mlp``: rows in place of the MLP's three (Mixtral's)."""
+    dtype. ``mlp``: rows in place of the MLP's three (Mixtral's).
+    ``slicer``: a rank's rows, each leaf that rank's block."""
     c, L, p = cfg, cfg.num_layers, "model.layers.{}."
     H, V, I = c.hidden_size, c.vocab_size, c.intermediate_size
 
@@ -173,11 +293,16 @@ def _llama_rows(cfg: LlamaConfig | MoEConfig, quantized: bool,
         return ("layers", name) if "{}" in fmt else (name,)
 
     def matrix(name: str, fmt: str, shape: tuple, transpose: bool = True) -> tuple:
+        if slicer is not None:
+            return slicer.matrix(path(name, fmt), fmt, shape, transpose, L,
+                                 None if quantized else c.dtype)
         if quantized:
             return _int8_row(path(name, fmt), fmt, shape, transpose, L)
         return _plain_row(path(name, fmt), fmt, shape, transpose, L, c.dtype)
 
     def norm(name: str, fmt: str, shape: tuple) -> tuple:
+        if slicer is not None:
+            return slicer.norm(path(name, fmt), fmt, shape, L, c.dtype)
         return _plain_row(path(name, fmt), fmt, shape, False, L, c.dtype)
 
     rows = [matrix("embed", "model.embed_tokens.weight", (V, H), transpose=False),
@@ -227,11 +352,32 @@ class _TimedReads:
         self.seconds += time.monotonic() - t0
         return out
 
+    def spec(self, name: str) -> TensorSpec:
+        return self._readers.reader(name).spec(name)
+
+    def row_blocks(self, name: str, lo: int, hi: int, **kw):
+        """:meth:`SafetensorsReader.row_blocks` of ``name``, each block's
+        read timed."""
+        blocks = self._readers.reader(name).row_blocks(name, lo, hi, **kw)
+        while True:
+            t0 = time.monotonic()
+            try:
+                item = next(blocks)
+            except StopIteration:
+                return
+            finally:
+                self.seconds += time.monotonic() - t0
+            yield item
+
 
 def _stream(checkpoint_dir: str, cfg, rows: list[tuple], *, threads: int, buffer: int,
-            materialized: bool = False) -> CheckpointStream:
+            materialized: bool = False, slicer: _Slicer | None = None,
+            full_rows: list[tuple] | None = None) -> CheckpointStream:
     """A stream with one reader job a row; its abstract tree is the rows'
-    specs, so no tensor byte is read before the first job."""
+    specs, so no tensor byte is read before the first job. With
+    ``slicer`` (a rank's rows), its ``bytes`` count the full leaves' bytes
+    (the one-device ``full_rows``'), ``read_bytes`` what was requested from disk, and
+    ``job_peak_bytes`` the slicer's peak."""
     where = _open_shards(checkpoint_dir)
     _check_mapped(where, rows, materialized)
     readers = _ThreadReaders(where)
@@ -253,8 +399,27 @@ def _stream(checkpoint_dir: str, cfg, rows: list[tuple], *, threads: int, buffer
             return pairs, reads.seconds, total - reads.seconds
         return job
 
+    count = extra = None
+    if slicer is not None:
+        full = _full_bytes(full_rows)
+        count = lambda p, t: full[p]                                   # noqa: E731
+        extra = lambda: {"read_bytes": readers.bytes_read(),                  # noqa: E731
+                         "job_peak_bytes": slicer.peak.bytes}
     return CheckpointStream(abstract, cfg, [make_job(path, build) for path, _, _, build in rows],
-                            threads=threads, buffer=buffer, finalize=readers.close_local)
+                            threads=threads, buffer=buffer, finalize=readers.close_local,
+                            count=count, extra_stats=extra)
+
+
+def _full_bytes(rows: list[tuple]) -> dict[tuple, int]:
+    """Each leaf path's bytes in the one-device ``rows``: what a rank's
+    slice of it counts, the leaf the reference loads."""
+    out = {}
+    for path, spec, _, _ in rows:
+        if isinstance(spec, dict):
+            out.update({path + (k,): v.nbytes for k, v in spec.items()})
+        else:
+            out[path] = spec.nbytes
+    return out
 
 
 def _loaded(checkpoint_dir: str, cfg, rows: list[tuple]) -> Params:
@@ -296,23 +461,45 @@ def load_params_quantized(checkpoint_dir: str,
 
 def stream_params(checkpoint_dir: str, cfg: LlamaConfig | None = None,
                   dtype: torch.dtype = torch.bfloat16, *, threads: int = 2,
-                  buffer: int = 4) -> CheckpointStream:
+                  buffer: int = 4, rank: int = 0, world: int | None = None,
+                  kv_shard: bool = True) -> CheckpointStream:
     """The streamed twin of :func:`load_params`: a :class:`CheckpointStream`
     whose abstract tree comes from the config alone, one reader job per
     final leaf (a stacked leaf's job reads its L tensors, transposes,
-    stacks and casts)."""
+    stacks and casts). With ``world``, rank ``rank``'s stream: each leaf
+    that rank's block (:class:`_Slicer`), the abstract tree
+    ``sharding.local_meta``'s."""
     cfg = dataclasses.replace(cfg or config_from_hf(checkpoint_dir), dtype=dtype)
-    return _stream(checkpoint_dir, cfg, _llama_rows(cfg, False), threads=threads, buffer=buffer)
+    return _rank_stream(checkpoint_dir, cfg, False, threads, buffer, rank, world, kv_shard)
 
 
 def stream_params_quantized(checkpoint_dir: str, cfg: LlamaConfig | None = None,
                             dtype: torch.dtype | None = None, *, threads: int = 2,
-                            buffer: int = 4) -> CheckpointStream:
+                            buffer: int = 4, rank: int = 0, world: int | None = None,
+                            kv_shard: bool = True) -> CheckpointStream:
     """The streamed twin of :func:`load_params_quantized`: quantized on the
     host as it loads, one reader job per final {"q", "s"} (or norm) leaf,
-    so the transient host memory is about one f32 leaf a reader thread."""
+    so the transient host memory is about one f32 leaf a reader thread.
+    With ``world``, rank ``rank``'s stream, as :func:`stream_params`'s; a
+    row-parallel leaf's scale still from its whole rows."""
     cfg = _int8_cfg(checkpoint_dir, cfg, dtype)
-    return _stream(checkpoint_dir, cfg, _llama_rows(cfg, True), threads=threads, buffer=buffer)
+    return _rank_stream(checkpoint_dir, cfg, True, threads, buffer, rank, world, kv_shard)
+
+
+def _rank_stream(checkpoint_dir: str, cfg, quantized: bool, threads: int, buffer: int,
+                 rank: int, world: int | None, kv_shard: bool) -> CheckpointStream:
+    rows = _llama_rows(cfg, quantized)
+    if world is None:
+        return _stream(checkpoint_dir, cfg, rows, threads=threads, buffer=buffer)
+    slicer = _Slicer(_layout(cfg, rank, world, kv_shard))
+    return _stream(checkpoint_dir, cfg, _llama_rows(cfg, quantized, slicer=slicer),
+                   threads=threads, buffer=buffer, slicer=slicer, full_rows=rows)
+
+
+def _layout(cfg, rank: int, world: int, kv_shard: bool):
+    from kukeon_tpu_torch.parallel.sharding import Layout
+
+    return Layout(cfg, rank, world, kv_shard)
 
 
 # --- Mixtral (sparse MoE) -----------------------------------------------------
@@ -357,13 +544,81 @@ def load_moe_params(checkpoint_dir: str, cfg: MoEConfig | None = None,
     return _loaded(checkpoint_dir, cfg, _moe_rows(cfg)), cfg
 
 
-def stream_moe_params(checkpoint_dir: str, cfg: MoEConfig | None = None,
-                      dtype: torch.dtype = torch.bfloat16) -> CheckpointStream:
-    """:func:`load_moe_params`' leaves as a stream, one leaf at a time (one
-    reader, a buffer of one: an expert stack of Mixtral-8x7B is 30 GB in
-    bf16): what a tensor-parallel rank's recipe cuts its slices from."""
-    cfg = dataclasses.replace(cfg or moe_config_from_hf(checkpoint_dir), dtype=dtype)
-    return _stream(checkpoint_dir, cfg, _moe_rows(cfg), threads=1, buffer=1, materialized=True)
+def moe_rank_leaves(checkpoint_dir: str, cfg: MoEConfig, *, rank: int, world: int,
+                    kv_shard: bool, device: torch.device | str, quantize: bool,
+                    peak: JobPeak | None = None):
+    """Rank ``rank``'s blocks of an HF Mixtral checkpoint (``cfg``'s
+    activation dtype; int8 when ``quantize``), ``(path, tensor on
+    device)`` one leaf at a time: the cut of :func:`load_moe_params` (then
+    ``moe.quantize_params``) bit for bit. The trunk through
+    :class:`_Slicer` (cast, then quantized on the host, as the one-device
+    load does); each expert matrix's rows (``w1``, ``w3``) or columns
+    (``w2``, whose scale its whole rows give) read in staging blocks, moved
+    to ``device``, cast and quantized there into the rank's stacked leaf,
+    so the host holds one staging block of an expert, never a stack.
+    ``peak`` (when given) notes the most a leaf's read held on the host at
+    once."""
+    where = _open_shards(checkpoint_dir)
+    _check_mapped(where, _moe_rows(cfg), True)
+    L, E, H, I = cfg.num_layers, cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    layout = _layout(cfg, rank, world, kv_shard)
+    slicer = _Slicer(layout, cast=cfg.dtype if quantize else None)
+    if peak is not None:
+        slicer.peak = peak
+    readers = _ThreadReaders(where)
+    g = _TimedReads(readers)
+    router = slicer.norm(("layers", "router"), "model.layers.{}.block_sparse_moe.gate.weight",
+                         (L, H, E), L, torch.float32, transpose=True)
+    try:
+        for path, _, _, build in _llama_rows(cfg, quantize, mlp=[router], slicer=slicer):
+            leaf = build(g)
+            for p, t in ([(path + (k,), leaf[k]) for k in ("q", "s")] if isinstance(leaf, dict)
+                         else [(path, leaf)]):
+                yield p, t.to(device)
+            del leaf
+        for name, w, shape in (("w_gate", "w1", (L, E, H, I)), ("w_up", "w3", (L, E, H, I)),
+                               ("w_down", "w2", (L, E, I, H))):
+            fmt = "model.layers.{}.block_sparse_moe.experts.{}." + w + ".weight"
+            yield from _expert_slices(readers, fmt, ("layers", name), shape, layout, slicer,
+                                      device, cfg.dtype, quantize)
+    finally:
+        readers.close_local()
+
+
+def _expert_slices(readers: _ThreadReaders, fmt: str, path: tuple, shape: tuple, layout,
+                   slicer: _Slicer, device, dtype: torch.dtype, quantize: bool):
+    """A rank's block of one expert stack ``[L, E, in, out]`` on ``device``
+    (:func:`moe_rank_leaves`), one HF matrix at a time."""
+    L, E = shape[:2]
+    qb = layout.block(path + (("q",) if quantize else ()), shape)
+    local = qb.local_shape(shape)
+    cut = None if qb.axis is None else qb.axis - 2
+    q = torch.empty(local, dtype=torch.int8 if quantize else dtype, device=device)
+    s = (torch.empty((L, E, local[3]), dtype=torch.float32, device=device) if quantize
+         else None)
+    meter = HostMeter()
+    for i in range(L):
+        for e in range(E):
+            name = fmt.format(i, e)
+            reader = readers.reader(name)
+            rows_n, cols_n = reader.spec(name).shape
+            r_lo, r_hi = (qb.lo, qb.hi) if cut == 1 else (0, rows_n)
+            c_lo, c_hi = (qb.lo, qb.hi) if cut == 0 else (0, cols_n)
+            for r0, rows in reader.row_blocks(name, r_lo, r_hi, meter=meter):
+                at, n = r0 - r_lo, rows.shape[0]
+                wt = rows.to(device).to(dtype).T          # [in, n], as the one-device leaf
+                if quantize:
+                    qw, sw = _int8_sym(wt, 0)
+                    q[i, e, :, at:at + n] = qw[c_lo:c_hi]
+                    s[i, e, at:at + n] = sw[0]
+                else:
+                    q[i, e, :, at:at + n] = wt[c_lo:c_hi]
+    slicer.peak.note(meter)
+    if quantize:
+        yield path + ("q",), q
+        yield path + ("s",), s
+    else:
+        yield path, q
 
 
 def _moe_rows(cfg: MoEConfig) -> list[tuple]:

@@ -267,12 +267,16 @@ def quantize_leaf(path: tuple[str, ...], w: torch.Tensor):
     return {"q": qw, "s": s.squeeze(axis)}
 
 
-def quantize_np(w, axis: int):
+def quantize_np(w, axis: int, part: tuple[int, int] | None = None):
     """Per-output-channel symmetric int8 on the host (numpy): w ~= q * s.
-    Must match :func:`_int8_sym` exactly."""
+    Must match :func:`_int8_sym` exactly. ``part``: ``(lo, hi)`` along
+    ``axis``, ``q`` of that range only, its scale still over all of
+    ``axis`` (a row-parallel rank's block of the one-device ``q``)."""
     w = np.asarray(w, np.float32)
     a = np.max(np.abs(w), axis=axis, keepdims=True)
     s = np.maximum(a / 127.0, 1e-12).astype(np.float32)
+    if part is not None:
+        w = w[(slice(None),) * (axis % w.ndim) + (slice(*part),)]
     q = np.round(w / s).astype(np.int8)
     return {"q": q, "s": np.squeeze(s, axis=axis)}
 

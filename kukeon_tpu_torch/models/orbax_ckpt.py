@@ -30,6 +30,12 @@ The writer stores one chunk per array in a stored zstd frame
 (:func:`zstd.compress_stored`), where orbax compresses at level 1: the
 values are equal, the files larger.
 
+A tensor-parallel rank reads its blocks (:func:`rank_leaves`): each
+array's region through :meth:`OrbaxCheckpoint.read_array`, which decodes
+only the chunks the region overlaps (a one-chunk array, what one device
+saves, whole). :func:`load_params` reads leaf by leaf too, never the tree
+at once.
+
 The trees: a Llama or BERT parameter tree reads as the reference's nested
 dict and goes through ``convert.params_from_numpy``; the JAX ``TrainState``
 (``params``, ``opt_state`` = (clip: None, (adam: {count, mu, nu}, None,
@@ -43,6 +49,7 @@ from __future__ import annotations
 import ast
 import base64
 import concurrent.futures
+import itertools
 import json
 import math
 import os
@@ -53,8 +60,8 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-from kukeon_tpu_torch.models import ocdbt, zstd
-from kukeon_tpu_torch.models.convert import BFloat16Bits, params_from_numpy
+from kukeon_tpu_torch.models import llama, ocdbt, zstd
+from kukeon_tpu_torch.models.convert import BFloat16Bits, tensor_from_numpy
 
 METADATA = "_METADATA"
 CHECKPOINT_METADATA = "_CHECKPOINT_METADATA"
@@ -189,8 +196,7 @@ class OrbaxCheckpoint:
             self.stats["bytes_read"] += len(raw)
         return True
 
-    def read_array(self, name: str) -> np.ndarray:
-        """Array ``name`` (``"params.layers.wq"``) in host memory."""
+    def _meta(self, name: str) -> tuple[dict, np.dtype]:
         meta = self.zarray(name)
         if meta.get("zarr_format") != 2 or meta.get("order", "C") != "C" or meta.get("filters"):
             raise CheckpointError(f"{self.path}: {name}: only C-order zarr v2 arrays "
@@ -199,25 +205,55 @@ class OrbaxCheckpoint:
         if comp is not None and comp.get("id") != "zstd":
             raise CheckpointError(f"{self.path}: {name}: compressor {comp.get('id')!r} "
                                   "is not supported (zstd or none)")
-        dt = _numpy_dtype(meta["dtype"])
+        return meta, _numpy_dtype(meta["dtype"])
+
+    def one_chunk(self, name: str) -> bool:
+        """Whether array ``name`` is stored as one chunk (the port's writer
+        and a one-device save): any region of it decodes the whole."""
+        meta = self.zarray(name)
+        return tuple(meta["chunks"]) == tuple(meta["shape"])
+
+    def read_array(self, name: str,
+                   region: tuple[int, int, int] | None = None) -> np.ndarray:
+        """Array ``name`` (``"params.layers.wq"``) in host memory; with
+        ``region`` ``(axis, lo, hi)`` only ``[lo, hi)`` along ``axis``,
+        decoding only the chunks that overlap it (a one-chunk array is
+        decoded whole into a staging buffer, then cut)."""
+        meta, dt = self._meta(name)
+        comp = meta.get("compressor")
         shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
         sep = meta.get("dimension_separator", ".")
-        arr = np.empty(shape, dt)
+        axis, lo, hi = region if region is not None else (0, 0, shape[0] if shape else 0)
+        if region is not None and not 0 <= lo <= hi <= shape[axis]:
+            raise CheckpointError(f"{self.path}: {name}: region {region} is outside {shape}")
+        want = tuple(hi - lo if i == axis else d for i, d in enumerate(shape))
+        arr = np.empty(want, dt)
         grid = [math.ceil(s / c) if c else 0 for s, c in zip(shape, chunks)]
-        if chunks == shape:      # one chunk: decode in place
+        if chunks == shape and (region is None or want == shape):   # one chunk: in place
             key = f"{name}/{sep.join('0' * len(shape)) if shape else '0'}".encode()
             if not self._chunk(key, comp, arr):
                 arr.fill(_fill(meta, dt))
         elif all(grid):
             buf = np.empty(chunks, dt)
-            for idx in np.ndindex(*grid):
+            ranges = [range(g) for g in grid]
+            if region is not None and hi > lo:
+                ranges[axis] = range(lo // chunks[axis], (hi - 1) // chunks[axis] + 1)
+            elif region is not None:
+                ranges[axis] = range(0)
+            for idx in itertools.product(*ranges):
                 key = f"{name}/{sep.join(map(str, idx))}".encode()
-                sl = tuple(slice(i * c, min((i + 1) * c, s))
-                           for i, c, s in zip(idx, chunks, shape))
+                full = [slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape)]
+                if region is not None:
+                    full[axis] = slice(max(full[axis].start, lo), min(full[axis].stop, hi))
+                src = tuple(slice(f.start - i * c, f.stop - i * c)
+                            for f, i, c in zip(full, idx, chunks))
+                dst = list(full)
+                if region is not None:
+                    dst[axis] = slice(full[axis].start - lo, full[axis].stop - lo)
                 if self._chunk(key, comp, buf):
-                    arr[sl] = buf[tuple(slice(0, s.stop - s.start) for s in sl)]
+                    arr[tuple(dst)] = buf[src]
                 else:
-                    arr[sl] = _fill(meta, dt)
+                    arr[tuple(dst)] = _fill(meta, dt)
         if meta["dtype"] == "bfloat16":
             arr = arr.view(BFloat16Bits)
         return arr
@@ -284,46 +320,160 @@ def read_tree(path: str) -> Any:
     return OrbaxCheckpoint(path).read_tree()
 
 
+def _open_checked(path: str, abstract: dict) -> tuple[OrbaxCheckpoint, list]:
+    """The checkpoint at ``path`` and ``abstract``'s ``(keys, meta leaf)``
+    pairs, every leaf checked against the arrays' metadata before any frame
+    is read: each leaf of ``abstract`` must be in the checkpoint at its
+    shape, and nothing else may be, or :class:`CheckpointError` names the
+    leaf."""
+    try:
+        ckpt = OrbaxCheckpoint(path)
+        leaves = list(_flatten(abstract))
+        want = {".".join(k for k, _ in keys): tuple(v.shape) for keys, v in leaves}
+        arrays = set(ckpt.array_names())
+        stored = {lf.name for lf in ckpt.leaves}
+        for name in sorted(want.keys() | stored):
+            if name not in stored:
+                raise CheckpointError(f"checkpoint {path!r} has no leaf {name} "
+                                      f"(the model's is {want[name]})")
+            if name not in want:
+                raise CheckpointError(f"checkpoint {path!r} has a leaf {name} the model "
+                                      "does not")
+            shape = tuple(ckpt.zarray(name)["shape"]) if name in arrays else None
+            if shape != want[name]:
+                raise CheckpointError(f"checkpoint {path!r}: leaf {name} is {shape}, the "
+                                      f"model's is {want[name]}")
+    except CheckpointError as e:
+        raise CheckpointError(str(e) if str(e).startswith("checkpoint ")
+                              else f"checkpoint {path!r}: {e}") from e
+    except OSError as e:
+        raise CheckpointError(f"checkpoint {path!r}: {e}") from e
+    return ckpt, leaves
+
+
+def _cast(a: np.ndarray, key: str, dtype: torch.dtype) -> torch.Tensor:
+    """A host array as a CPU tensor cast as ``convert.params_from_numpy``
+    casts a leaf: floating leaves but int8 scales and the router."""
+    t = tensor_from_numpy(a)
+    return t.to(dtype) if t.is_floating_point() and key not in ("s", "router") else t
+
+
+def _stats(ckpt: OrbaxCheckpoint, leaf_bytes: int, leaves: int, t0: float, t1: float,
+           device) -> dict:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"format": "orbax", "bytes_on_disk": ckpt.bytes_on_disk(),
+            "frame_bytes": ckpt.stats["bytes_read"], "leaf_bytes": leaf_bytes,
+            "leaves": leaves, "disk_s": ckpt.stats["disk_s"],
+            "decode_s": ckpt.stats["decode_s"], "read_s": t1 - t0,
+            "upload_s": time.monotonic() - t1}
+
+
 def load_params(path: str, abstract: dict, dtype: torch.dtype,
                 device: torch.device | str) -> tuple[dict, dict]:
     """(parameter tree on ``device``, the load's stats) of an orbax
     checkpoint, as the reference restores one into ``init_params``'
     abstract tree: every leaf of ``abstract`` (meta tensors) must be in the
     checkpoint at its shape, and nothing else may be, or
-    :class:`CheckpointError` names the leaf; floating leaves are cast to
-    ``dtype`` (``convert.params_from_numpy``). The stats: the bytes on
-    disk, the frame bytes read, the leaf bytes placed, the reader threads'
-    summed ``disk_s`` and ``decode_s``, and the wall seconds of the read
-    (``read_s``) and of the placing (``upload_s``)."""
+    :class:`CheckpointError` names the leaf (from the metadata, before any
+    frame is read); floating leaves are cast to ``dtype``
+    (``convert.params_from_numpy``). Read leaf by leaf
+    (:meth:`OrbaxCheckpoint.iter_arrays`), each placed before the reader
+    threads run further ahead. The stats: the bytes on disk, the frame
+    bytes read, the leaf bytes placed, the reader threads' summed
+    ``disk_s`` and ``decode_s``, and the wall seconds of the read and
+    placing (``read_s``) and of the last copies' wait (``upload_s``)."""
     t0 = time.monotonic()
+    ckpt, leaves = _open_checked(path, abstract)
+    keys_of = {".".join(k for k, _ in keys): keys for keys, _ in leaves}
+    placed = {}
     try:
-        ckpt = OrbaxCheckpoint(path)
-        tree = ckpt.read_tree()
+        for name, arr in ckpt.iter_arrays(list(keys_of)):
+            placed[name] = _cast(arr, keys_of[name][-1][0], dtype).to(device)
+            del arr
     except (CheckpointError, OSError) as e:
         raise CheckpointError(f"checkpoint {path!r}: {e}") from e
     t1 = time.monotonic()
-    want = {".".join(k for k, _ in keys): tuple(v.shape) for keys, v in _flatten(abstract)}
-    got = {".".join(k for k, _ in keys): v for keys, v in _flatten(tree)}
-    for name in sorted(want.keys() | got.keys()):
-        if name not in got:
-            raise CheckpointError(f"checkpoint {path!r} has no leaf {name} "
-                                  f"(the model's is {want[name]})")
-        if name not in want:
-            raise CheckpointError(f"checkpoint {path!r} has a leaf {name} the model does not")
-        if got[name] is None or tuple(got[name].shape) != want[name]:
-            shape = None if got[name] is None else tuple(got[name].shape)
-            raise CheckpointError(f"checkpoint {path!r}: leaf {name} is {shape}, the "
-                                  f"model's is {want[name]}")
-    params = params_from_numpy(tree, device, dtype=dtype)
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    upload_s = time.monotonic() - t1
-    return params, {"format": "orbax", "bytes_on_disk": ckpt.bytes_on_disk(),
-                    "frame_bytes": ckpt.stats["bytes_read"],
-                    "leaf_bytes": sum(t.numel() * t.element_size() for _, t in _flatten(params)),
-                    "leaves": len(want), "disk_s": ckpt.stats["disk_s"],
-                    "decode_s": ckpt.stats["decode_s"], "read_s": t1 - t0,
-                    "upload_s": upload_s}
+    params = _unflatten([(keys, placed[name]) for name, keys in keys_of.items()])
+    return params, _stats(ckpt, sum(t.numel() * t.element_size() for t in placed.values()),
+                          len(leaves), t0, t1, device)
+
+
+def rank_leaves(path: str, abstract: dict, layout, dtype: torch.dtype,
+                device: torch.device | str, *, quantize: bool = False, stats: dict | None = None):
+    """A tensor-parallel rank's blocks of an orbax checkpoint
+    (``parallel.sharding.Layout``), ``(path tuple, tensor on device)`` one
+    leaf at a time, checked as :func:`load_params` checks: each array's
+    region decoded (:meth:`OrbaxCheckpoint.read_array`), cast, padded and
+    placed; a one-chunk array is decoded whole, once, one leaf at a time.
+    ``quantize``: a decoder's matrices as int8 ``{"q", "s"}`` on the
+    device, as ``llama.quantize_params`` quantizes the one-device tree; a
+    row-parallel matrix (its cut on the contracted axis) a layer at a time
+    from its whole layer, so its scale is the one-device scale. ``stats``
+    (when given) gets :func:`load_params`' keys, ``leaf_bytes`` the full
+    leaves' (the reference's count)."""
+    t0 = time.monotonic()
+    ckpt, leaves = _open_checked(path, abstract)
+    leaf_bytes = 0
+    try:
+        for keys, meta in leaves:
+            tpath = tuple(k for k, _ in keys)
+            name = ".".join(tpath)
+            shape = tuple(meta.shape)
+            leaf_bytes += meta.numel() * meta.element_size()
+            if quantize and tpath[-1] not in ("attn_norm", "mlp_norm", "final_norm"):
+                yield from _rank_int8(ckpt, name, tpath, shape, layout, dtype, device)
+                continue
+            blk = layout.block(tpath, shape)
+            whole = blk.axis is None or (blk.lo, blk.hi) == (0, shape[blk.axis])
+            host = ckpt.read_array(name, None if whole else (blk.axis, blk.lo, blk.hi))
+            t = _cast(host, tpath[-1], dtype)
+            del host
+            if blk.axis is not None and blk.size != blk.hi - blk.lo:
+                t = blk.place(t)
+            yield tpath, t.to(device)
+            del t
+    except (CheckpointError, OSError) as e:
+        raise CheckpointError(f"checkpoint {path!r}: {e}") from e
+    if stats is not None:
+        t1 = time.monotonic()
+        stats.update(_stats(ckpt, leaf_bytes, len(leaves), t0, t1, device))
+
+
+def _rank_int8(ckpt: OrbaxCheckpoint, name: str, tpath: tuple, shape: tuple, layout,
+               dtype: torch.dtype, device):
+    """:func:`rank_leaves`' int8 leaf: ``q`` and ``s`` of this rank."""
+    axis = 0 if tpath[-1] == "lm_head" else 1     # the contracted axis (quantize_leaf's)
+    qb = layout.block(tpath + ("q",), shape)
+    s_shape = tuple(d for i, d in enumerate(shape) if i != axis)
+    sb = layout.block(tpath + ("s",), s_shape)
+    if qb.axis != axis:
+        # The block holds every contracted entry: its scale is the full one.
+        whole = qb.axis is None or (qb.lo, qb.hi) == (0, shape[qb.axis])
+        host = ckpt.read_array(name, None if whole else (qb.axis, qb.lo, qb.hi))
+        w = _cast(host, tpath[-1], dtype).to(device)
+        del host
+        leaf = llama.quantize_leaf(tpath, w)
+        del w
+        q, s = leaf["q"], leaf["s"]
+        if qb.axis is not None and qb.size != qb.hi - qb.lo:
+            q, s = qb.place(q), sb.place(s)
+        yield tpath + ("q",), q
+        yield tpath + ("s",), s
+        return
+    # Row-parallel ([L, in, out], ``in`` cut): a layer at a time, whole.
+    src = ckpt.read_array(name) if ckpt.one_chunk(name) else None
+    q = torch.empty(qb.local_shape(shape), dtype=torch.int8, device=device)
+    s = torch.empty(s_shape, dtype=torch.float32, device=device)
+    for i in range(shape[0]):
+        layer = src[i:i + 1] if src is not None else ckpt.read_array(name, (0, i, i + 1))
+        w = _cast(np.ascontiguousarray(layer), tpath[-1], dtype).to(device)
+        qw, sw = llama._int8_sym(w[0], 0)
+        q[i], s[i] = qw[qb.lo:qb.hi], sw[0]
+        del layer, w
+    del src
+    yield tpath + ("q",), q
+    yield tpath + ("s",), s
 
 
 # ------------------------------------------------------------------ writer --

@@ -144,6 +144,9 @@ class Group:
         self.failed: str | None = None
         self.on_failure: Callable[[str], None] | None = None
         self.peer_stats: dict[int, dict] = {}
+        # (object id, what) -> the followers that acknowledged it.
+        self._acks: dict[tuple, set[int]] = {}
+        self._ack_cond = threading.Condition()
         if rank == 0:
             for r, conn in enumerate(conns, start=1):
                 threading.Thread(target=self._watch, args=(r, conn), daemon=True,
@@ -206,6 +209,10 @@ class Group:
                 break
             if kind == "stats":
                 self.peer_stats[rank] = body
+            elif kind == "ack":
+                with self._ack_cond:
+                    self._acks.setdefault(tuple(body), set()).add(rank)
+                    self._ack_cond.notify_all()
             elif kind == "error":
                 self._fail(f"rank {rank} failed: {body}")
         if not self._closing:
@@ -215,6 +222,24 @@ class Group:
             except subprocess.TimeoutExpired:
                 code = None
             self._fail(f"rank {rank} exited (code {code})")
+
+    def wait_acks(self, key: tuple, timeout: float | None = None) -> None:
+        """Until every follower has acknowledged ``key`` (a follower's
+        :meth:`report` ``("ack", key)``), over the control channel, with no
+        collective. Raises :class:`RankFailure` once a rank has failed, or
+        at the timeout (``KUKEON_TP_TIMEOUT_S``)."""
+        deadline = time.monotonic() + (timeout_s() if timeout is None else timeout)
+        with self._ack_cond:
+            while len(self._acks.get(key, ())) < self.world - 1:
+                if self.failed is not None:
+                    raise RankFailure(self.failed)
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    missing = sorted(set(range(1, self.world)) - self._acks.get(key, set()))
+                    raise RankFailure(f"ranks {missing} did not acknowledge {key} within "
+                                      f"{timeout_s() if timeout is None else timeout:.0f} s")
+                self._ack_cond.wait(min(left, 0.1))
+            self._acks.pop(key)
 
     def _fail(self, why: str, *, kill: bool = False) -> None:
         with self._fail_lock:
@@ -228,6 +253,8 @@ class Group:
                 p.kill()
         if first:
             print(f"rank group: {why}", file=sys.stderr, flush=True)
+            with self._ack_cond:
+                self._ack_cond.notify_all()
             if self.on_failure is not None:
                 self.on_failure(why)
 

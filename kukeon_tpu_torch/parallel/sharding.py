@@ -34,6 +34,17 @@ local tree (:func:`shard_params`), and the forwards (``models/llama.py``,
   reference's ``_cache_shardings``), ``wk``, ``wv`` and the cache are
   replicated and each rank attends its q heads to their groups.
 
+One rule cuts every leaf, in memory and on disk: :func:`rank_block` gives a
+rank's :class:`Block` of a leaf (the ``ceil(n / world)`` blocks, their
+zero padding, an int8 head's tile padding); :func:`_cut` cuts a full leaf
+by it, and :class:`Layout` gives it by leaf path to the readers of
+``models/`` (``checkpoints.stream_quantized``, ``hf_convert``'s streams
+and ``moe_rank_leaves``, ``orbax_ckpt.rank_leaves``), which read only a
+rank's blocks from a checkpoint. :func:`local_meta` is a rank's abstract
+local tree, what its streamed engine allocates; a :class:`Recipe` says
+whether its factory yields full leaves, a rank's blocks, or a rank's
+stream (:func:`open_stream`).
+
 Counterparts in the reference: ``llama_param_specs`` :34,
 ``specs_for_params`` :63, ``_quant_scale_spec`` :68, ``shard_params``
 :102, ``moe_param_specs`` :130, ``moe_specs_for_params`` :161,
@@ -190,7 +201,7 @@ def kv_sharded(num_kv_heads: int, world: int, kv_shard: bool | None = None) -> b
 
 
 def check_tensor_parallel(cfg, world: int, kv_shard: bool | None = None) -> bool:
-    """Refuse (``SystemExit``, naming A13b2) a tensor axis the port cannot
+    """Refuse (``SystemExit``, naming A13b2b) a tensor axis the port cannot
     cut ``cfg`` over: one that does not divide the heads or the
     intermediate size, or, with a replicated cache, whose q-head groups
     would straddle kv heads. A vocabulary it does not divide is padded
@@ -201,44 +212,95 @@ def check_tensor_parallel(cfg, world: int, kv_shard: bool | None = None) -> bool
         if n % world:
             raise SystemExit(
                 f"tensor parallelism over {world} ranks: {what} {n} is not a multiple of "
-                f"{world}; uneven shards are not ported yet (ROADMAP.md A13b2)")
+                f"{world}; uneven shards are not ported yet (ROADMAP.md A13b2b)")
     kv_heads = getattr(cfg, "num_kv_heads", cfg.num_heads)
     sharded = kv_sharded(kv_heads, world, kv_shard)
     if not sharded and world % kv_heads and kv_heads % world:
         raise SystemExit(
             f"tensor parallelism over {world} ranks: {kv_heads} kv heads neither "
             f"divide nor are divided by {world}, so a rank's q heads would span part of a "
-            "kv group; not ported yet (ROADMAP.md A13b2)")
+            "kv group; not ported yet (ROADMAP.md A13b2b)")
     return sharded
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """A rank's block of one leaf: ``[lo, hi)`` of the full leaf along
+    ``axis`` (the spec's ``tensor`` axis; None: the whole leaf, replicated),
+    held as ``size`` entries along it: the ``hi - lo`` real ones, zeros up
+    to ``rows`` (:func:`vocab_rows`), then ``fill`` up to ``size`` (an int8
+    head's tile padding, :func:`pad_vocab`: ones for its scale)."""
+
+    axis: int | None
+    lo: int
+    hi: int
+    rows: int
+    size: int
+    fill: int = 0
+
+    def local_shape(self, shape) -> tuple[int, ...]:
+        """The rank's shape of a leaf of full ``shape``."""
+        if self.axis is None:
+            return tuple(shape)
+        return tuple(self.size if i == self.axis else d for i, d in enumerate(shape))
+
+    def take(self, x):
+        """The real part of the block of ``x`` (a full leaf): a view."""
+        if self.axis is None:
+            return x
+        if isinstance(x, torch.Tensor):
+            return x.narrow(self.axis, self.lo, self.hi - self.lo)
+        index = [slice(None)] * x.ndim
+        index[self.axis] = slice(self.lo, self.hi)
+        return x[tuple(index)]
+
+    def place(self, part):
+        """``part`` (the real ``hi - lo`` entries along ``axis``, numpy or
+        torch) padded to the local shape, as a contiguous copy that holds no
+        reference to what ``part`` views."""
+        torch_part = isinstance(part, torch.Tensor)
+        if self.axis is None or (self.size == self.hi - self.lo):
+            return (part.clone(memory_format=torch.contiguous_format) if torch_part
+                    else np.array(part, order="C", copy=True))
+        pads = ((self.rows - (self.hi - self.lo), 0), (self.size - self.rows, self.fill))
+        pieces = [part]
+        for n, value in pads:
+            if n:
+                shape = list(part.shape)
+                shape[self.axis] = n
+                pieces.append(part.new_full(shape, value) if torch_part
+                              else np.full(shape, value, part.dtype))
+        return torch.cat(pieces, self.axis) if torch_part else np.concatenate(pieces, self.axis)
+
+
+def rank_block(spec: Spec, shape, rank: int, world: int, head: str | None = None) -> Block:
+    """THE rule for a rank's block of a leaf of full ``shape`` and ``spec``:
+    along the spec's ``tensor`` axis, blocks of ``ceil(n / world)``, the
+    last one(s) zero-padded (only a vocabulary is cut so:
+    :func:`check_tensor_parallel` refuses the rest); ``head`` (``"q"`` or
+    ``"s"``, an int8 LM head's leaves) pads the block further to a multiple
+    of :data:`VOCAB_TILE` (with ones for ``"s"``). Every cut in memory
+    (:func:`_cut`) and every slice read from disk goes through it."""
+    if AXIS_TENSOR not in spec:
+        return Block(None, 0, 0, 0, 0)
+    axis = spec.index(AXIS_TENSOR)
+    n = shape[axis]
+    m = vocab_rows(n, world)
+    lo, hi = min(rank * m, n), min((rank + 1) * m, n)
+    size = m + (-m % VOCAB_TILE if head else 0)
+    return Block(axis, lo, hi, m, size, 1 if head == "s" else 0)
 
 
 def _cut(x, spec: Spec, rank: int, world: int):
     """The ``rank``-th of ``world`` blocks of ``x`` along the axis ``spec``
-    puts on ``tensor`` (``x`` itself when none does), as a copy:
-    contiguous, and holding no reference to ``x`` (a view of a row block
-    would keep the whole leaf's storage alive). An axis the world does
-    not divide is cut in blocks of ``ceil(n / world)``, the last one(s)
-    zero-padded (only a vocabulary is cut so: :func:`check_tensor_parallel`
-    refuses the rest)."""
+    puts on ``tensor`` (``x`` itself when none does, or at one rank), as a
+    copy: contiguous, and holding no reference to ``x`` (a view of a row
+    block would keep the whole leaf's storage alive); :func:`rank_block`'s
+    rule."""
     if AXIS_TENSOR not in spec or world == 1:
         return x
-    axis = spec.index(AXIS_TENSOR)
-    n = x.shape[axis]
-    m = vocab_rows(n, world)
-    lo, hi = min(rank * m, n), min((rank + 1) * m, n)
-    if isinstance(x, torch.Tensor):
-        part = x.narrow(axis, lo, hi - lo)
-        if hi - lo == m:
-            return part.clone(memory_format=torch.contiguous_format)
-        shape = list(x.shape)
-        shape[axis] = m - (hi - lo)
-        return torch.cat([part, x.new_zeros(shape)], axis)
-    part = np.take(x, np.arange(lo, hi), axis=axis)
-    if hi - lo < m:
-        pad = [(0, 0)] * x.ndim
-        pad[axis] = (0, m - (hi - lo))
-        part = np.pad(part, pad)
-    return np.ascontiguousarray(part)
+    block = rank_block(spec, x.shape, rank, world)
+    return block.place(block.take(x))
 
 
 def param_specs(params, kv_shard: bool = True) -> dict:
@@ -287,13 +349,27 @@ def pad_vocab(params, rows: int) -> dict[str, Any]:
 class Recipe:
     """How every rank of a group makes the same weights, so none is sent
     over the control channel: ``factory`` (``"module:function"``, in a
-    module that imports no jax), called as ``factory(device=, **kwargs)``,
-    yields the full tree's ``(path tuple, tensor)`` leaves one at a time,
-    the same on every rank (drawn from a seed, or read from a checkpoint).
-    :func:`local_params` keeps each rank's slice."""
+    module that imports no jax) and its ``kwargs``. ``reads`` says what the
+    factory gives:
+
+    - ``"leaves"``: called as ``factory(device=, **kwargs)``, it yields the
+      full tree's ``(path tuple, tensor)`` leaves one at a time, the same on
+      every rank (drawn from a seed), and :func:`local_params` cuts each;
+    - ``"slices"``: called as ``factory(device=, rank=, world=, kv_shard=,
+      **kwargs)``, it yields this rank's block of each leaf
+      (:class:`Layout`), read from a checkpoint, padding included;
+    - ``"stream"``: called as ``factory(rank=, world=, kv_shard=,
+      **kwargs)``, it returns a ``CheckpointStream`` of this rank's blocks
+      on the host, whose abstract tree is :func:`local_meta`'s: the engine
+      boots from it as from a one-device stream (:func:`open_stream`)."""
 
     factory: str
     kwargs: dict
+    reads: str = "leaves"
+
+    def resolve(self):
+        module, _, name = self.factory.partition(":")
+        return getattr(importlib.import_module(module), name)
 
 
 def meta_params(cfg) -> dict:
@@ -301,37 +377,106 @@ def meta_params(cfg) -> dict:
     decoder families, whose ``{"q", "s"}`` node also gives a
     full-precision matrix's spec; full precision for BERT, which has no
     int8 form."""
+    return _meta(cfg, quantized=True)
+
+
+def _meta(cfg, quantized: bool) -> dict:
     if isinstance(cfg, bert.BertConfig):
         return bert.init_params(cfg, None, "meta")
-    if isinstance(cfg, moe.MoEConfig):
-        return moe.quantize_params(moe.init_params(cfg, None, "meta"))
-    return llama.quantize_params(llama.init_params(cfg, None, "meta"))
+    mod = moe if isinstance(cfg, moe.MoEConfig) else llama
+    tree = mod.init_params(cfg, None, "meta")
+    return mod.quantize_params(tree) if quantized else tree
+
+
+class Layout:
+    """Where each leaf of ``cfg``'s tree lies on rank ``rank`` of ``world``:
+    its spec and its :func:`rank_block` (the int8 head's leaves tile-padded:
+    the tied embedding's, else the untied ``lm_head``'s). The readers of
+    ``models/`` cut what they read from disk by it."""
+
+    def __init__(self, cfg, rank: int, world: int, kv_shard: bool = True):
+        meta = meta_params(cfg)
+        self.rank, self.world = rank, world
+        self.specs = param_specs(meta, kv_shard)
+        self.head = (None if isinstance(cfg, bert.BertConfig)
+                     else ("lm_head",) if "lm_head" in meta else ("embed",))
+
+    def spec(self, path: tuple[str, ...]) -> Spec:
+        spec = self.specs
+        for k in path:
+            spec = spec[k]
+        return spec["q"] if isinstance(spec, dict) else spec
+
+    def block(self, path: tuple[str, ...], shape) -> Block:
+        head = path[-1] if path[:-1] == self.head and path[-1] in ("q", "s") else None
+        return rank_block(self.spec(path), tuple(shape), self.rank, self.world, head)
+
+
+def local_meta(cfg, mesh, kv_shard: bool = True, *, quantized: bool = False) -> dict:
+    """The abstract local tree of ``mesh.rank`` (``TensorSpec`` leaves:
+    shape and dtype), padding included, from ``cfg``'s meta tree (int8
+    ``{"q", "s"}`` leaves when ``quantized``; BERT is never) and the
+    specs: the shapes :func:`local_params` gives that rank."""
+    from kukeon_tpu_torch.models.checkpoints import TensorSpec, _walk_tree
+
+    layout = Layout(cfg, mesh.rank, mesh.world, kv_shard)
+    leaves = [(path, TensorSpec(layout.block(path, t.shape).local_shape(t.shape), t.dtype))
+              for path, t in _walk_tree(_meta(cfg, quantized))]
+    return llama.nest(leaves)
 
 
 def local_params(recipe: Recipe, cfg, mesh, kv_shard: bool = True) -> dict[str, Any]:
-    """This rank's tree, on its device, from ``recipe`` (any family; its
-    specs from ``cfg``'s): each full leaf is cut by its spec as it comes
-    and freed before the next is made, so a rank holds its local tree and
-    at most one full leaf (plus what the factory holds to make it), never
-    the model. The vocabulary rows come zero-padded to
-    :func:`vocab_rows`, and an int8 LM head's shard padded further to the
-    kernel's tile (:func:`pad_vocab`)."""
-    module, _, name = recipe.factory.partition(":")
-    factory = getattr(importlib.import_module(module), name)
-    specs = param_specs(meta_params(cfg), kv_shard)
-    local = []
-    for path, full in factory(device=mesh.device, **recipe.kwargs):
-        spec = specs
-        for k in path:
-            spec = spec[k]
-        if isinstance(spec, dict):
-            spec = spec["q"]
-        local.append((path, _cut(full, spec, mesh.rank, mesh.world).to(mesh.device)))
-        del full
-    tree = llama.nest(local)
+    """This rank's tree, on its device, from a ``"leaves"`` or ``"slices"``
+    ``recipe`` (any family; its specs from ``cfg``'s). Full leaves are cut
+    by their spec as they come and each freed before the next is made, so
+    a rank holds its local tree and at most one full leaf (plus what the
+    factory holds to make it), never the model; slices come cut. The
+    vocabulary rows come zero-padded to :func:`vocab_rows`, and an int8
+    LM head's shard padded further to the kernel's tile
+    (:func:`pad_vocab`)."""
+    factory = recipe.resolve()
+    if recipe.reads == "slices":
+        tree = llama.nest(list(factory(device=mesh.device, rank=mesh.rank, world=mesh.world,
+                                       kv_shard=kv_shard, **recipe.kwargs)))
+    elif recipe.reads == "leaves":
+        specs = param_specs(meta_params(cfg), kv_shard)
+        local = []
+        for path, full in factory(device=mesh.device, **recipe.kwargs):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            if isinstance(spec, dict):
+                spec = spec["q"]
+            local.append((path, _cut(full, spec, mesh.rank, mesh.world).to(mesh.device)))
+            del full
+        tree = llama.nest(local)
+    else:
+        raise ValueError(f"a {recipe.reads!r} recipe boots through open_stream")
     if isinstance(cfg, bert.BertConfig):
         return tree
     return pad_vocab(tree, vocab_rows(cfg.vocab_size, mesh.world))
+
+
+def open_stream(recipe: Recipe, cfg, mesh, kv_shard: bool = True):
+    """This rank's ``CheckpointStream`` of a ``"stream"`` ``recipe``: its
+    blocks on the host, read by the stream's own threads. Its abstract tree
+    must have :func:`local_meta`'s shapes (a ``ValueError`` names the first
+    leaf that does not)."""
+    from kukeon_tpu_torch.models.checkpoints import _walk_tree
+
+    stream = recipe.resolve()(rank=mesh.rank, world=mesh.world, kv_shard=kv_shard,
+                              **recipe.kwargs)
+    got = dict(_walk_tree(stream.abstract_params))
+    quantized = any(p[-1] == "q" for p in got)
+    want = dict(_walk_tree(local_meta(cfg, mesh, kv_shard, quantized=quantized)))
+    for path in sorted(got.keys() | want.keys()):
+        if path not in got or path not in want or got[path].shape != want[path].shape:
+            stream.close()
+            raise ValueError(
+                f"rank {mesh.rank}'s stream leaf {'.'.join(path)} is "
+                f"{getattr(got.get(path), 'shape', None)}, its layout's "
+                f"{getattr(want.get(path), 'shape', None)}")
+    return stream
 
 
 def shard_params(params, mesh, kv_shard: bool = True) -> dict[str, Any]:

@@ -133,23 +133,36 @@ refused (:func:`cell_world`). This process is rank 0, the leader: it owns
 the HTTP server, the scheduler, the tokenizer, the prefix index and the
 page allocator, and starts N - 1 followers (``python -m
 kukeon_tpu_torch.parallel.launch``) on ``cuda:1..N-1``. Every rank runs
-one weight recipe (:func:`rank_leaves`: drawn from the seed, or
-``--checkpoint`` read on the host), keeping its slice of each leaf as it
-comes, and the followers apply the leader's device actions
-(``serving/engine.py``). A
-follower that dies ends the cell (exit 1 under :func:`main`): it never
-serves on fewer devices. ``/v1/stats`` ``mesh`` reports ``chips``,
-``shape`` and ``kvSharded``; ``/metrics`` carries every rank's
-``kukeon_hbm_bytes_*{device=}``. Mixtral's recipe draws the one-device
-cell's leaves from the seed, or reads an HF Mixtral directory leaf by leaf
-(quantized on the rank's device under int8); the embedding cell's draws
-``bert.init_params``' leaves or reads its orbax checkpoint on the host; its
-leader posts each grid to the followers and alone pools. A vocabulary the
-world does not divide is padded (bge-base's 30522 at 4). At ``--chips``
-above 1 the streamed boot, ``/v1/profile {"layers": true}`` and uneven
-heads or intermediate sizes are not ported yet (ROADMAP.md A13b2): a
-checkpoint is read by the recipe, not streamed into a booting engine,
-the profile answers 501, and uneven shards exit at boot.
+one weight recipe (:func:`_mesh_recipe`) and the followers apply the
+leader's device actions (``serving/engine.py``):
+
+- random weights: :func:`rank_leaves` draws the one-device cell's leaves
+  from the seed, and each rank keeps its slice of each as it comes;
+- a Llama kukeon int8 or HF ``--checkpoint``: :func:`rank_stream`, each
+  rank streaming only its blocks of each leaf from disk (a column block
+  read as whole rows in staging blocks; an int8 row-parallel scale from
+  the whole rows) into its engine while its programs capture, as the
+  one-device cell streams the whole;
+- a Llama orbax checkpoint or an HF Mixtral directory:
+  :func:`rank_slices`, each rank decoding only the zarr chunks its blocks
+  overlap (a one-chunk array whole, once, one leaf at a time), or reading
+  each expert matrix's rows or columns, quantized on its device under
+  int8; the embedding cell's orbax checkpoint likewise
+  (:func:`embedding_slices`).
+
+No rank holds a full leaf of a checkpoint on its host (but a one-chunk
+orbax array), and the cell turns ready only once every rank has loaded;
+a rank whose read fails ends the group, named. A follower that dies ends
+the cell (exit 1 under :func:`main`): it never serves on fewer devices.
+``/v1/stats`` ``mesh`` reports ``chips``, ``shape`` and ``kvSharded``;
+``/metrics`` carries every rank's ``kukeon_hbm_bytes_*{device=}``, and
+``kukeon_checkpoint_load_bytes_total`` the full tree's leaf bytes. The
+embedding cell's leader posts each grid to the followers and alone pools.
+A vocabulary the world does not divide is padded (bge-base's 30522 at
+4). At ``--chips`` above 1, ``/v1/profile {"layers": true}``, a ``data``
+axis and uneven heads or intermediate sizes are not ported yet
+(ROADMAP.md A13b2b): the profile answers 501, and the others exit at
+boot.
 """
 
 from __future__ import annotations
@@ -201,7 +214,7 @@ from kukeon_tpu_torch.parallel.mesh import (
     serving_mesh,
     visible_devices,
 )
-from kukeon_tpu_torch.parallel.sharding import Recipe, check_tensor_parallel
+from kukeon_tpu_torch.parallel.sharding import Layout, Recipe, check_tensor_parallel
 from kukeon_tpu_torch.obs import trace as obs_trace
 from kukeon_tpu_torch.runtime.devices import probe_cuda_runtime
 from kukeon_tpu_torch.serving.embedding import EmbeddingEngine
@@ -433,11 +446,13 @@ class ServingCell(LifecycleMixin):
             kv_cache_int8 = False
             forward_fn = moe.forward
         if mesh is not None:
-            # Every rank (this one inside the engine) runs one recipe and
-            # keeps its slice of each leaf as it comes.
-            params = Recipe("kukeon_tpu_torch.runtime.serving_cell:rank_leaves", {
-                "model": model, "dtype": dtype, "checkpoint": checkpoint, "seed": seed,
-                "max_seq_len": max_seq_len})
+            # Every rank (this one inside the engine) runs one recipe: the
+            # draws, each full leaf cut as it comes; a checkpoint, each
+            # rank reading only its blocks (streamed from a kukeon int8 or
+            # HF directory, as the one-device cell streams them).
+            params = _mesh_recipe(model, dtype, checkpoint, seed, max_seq_len)
+            if params.reads == "slices":
+                self.checkpoint_load = _slices_load(cfg, model)
         elif model in MOE_MODELS and checkpoint:
             params, cfg = hf_convert.load_moe_params(checkpoint, dtype=cfg.dtype)
             if quantize:
@@ -468,6 +483,8 @@ class ServingCell(LifecycleMixin):
             forward_fn=forward_fn, kv_page_tokens=kv_page_tokens, registry=registry,
             model_name=model, mesh=mesh)
         del params
+        if mesh is not None and self.checkpoint_load:
+            self.checkpoint_load["upload_s"] = time.monotonic() - self._boot_marks["init_entry"]
         if self.checkpoint_load:
             # The materialized load moved its leaves host->device before
             # the engine: kukeon_checkpoint_load_* count them as a stream's.
@@ -638,7 +655,7 @@ class ServingCell(LifecycleMixin):
         if eng.world > 1:
             raise NotImplementedError(
                 f"the per-layer profile of a {eng.world}-rank cell is not ported yet "
-                "(ROADMAP.md A13b2)")
+                "(ROADMAP.md A13b2b)")
         eng._ensure_loaded()
         prof = obs_profile.profile_layers(
             eng.params, eng.cfg, eng.device,
@@ -965,7 +982,7 @@ def grant(chips: int | None, device_type: str) -> int:
     if shape["data"] > 1:
         raise SystemExit(
             f"{n} visible GPUs lay out as data {shape['data']} x tensor {shape['tensor']}; "
-            "a data axis is not ported yet (ROADMAP.md A13b2): pass --chips")
+            "a data axis is not ported yet (ROADMAP.md A13b2b): pass --chips")
     return n
 
 
@@ -1001,91 +1018,113 @@ def _drawn_leaves(cfg, quantize: bool, gen: torch.Generator):
     return llama.iter_params(cfg, gen, gen.device)
 
 
+def _mesh_recipe(model: str, dtype: str | None, checkpoint: str | None, seed: int,
+                 max_seq_len: int | None) -> Recipe:
+    """A decoder cell's weight recipe on a rank group: :func:`rank_leaves`
+    (the draws), :func:`rank_stream` (a Llama kukeon int8 or HF
+    checkpoint) or :func:`rank_slices` (a Llama orbax checkpoint, a
+    Mixtral HF directory)."""
+    kwargs = {"model": model, "dtype": dtype, "checkpoint": checkpoint,
+              "max_seq_len": max_seq_len}
+    if not checkpoint:
+        return Recipe("kukeon_tpu_torch.runtime.serving_cell:rank_leaves",
+                      {**kwargs, "seed": seed})
+    if model not in MOE_MODELS and _checkpoint_kind(checkpoint) != "orbax":
+        return Recipe("kukeon_tpu_torch.runtime.serving_cell:rank_stream", kwargs,
+                      reads="stream")
+    return Recipe("kukeon_tpu_torch.runtime.serving_cell:rank_slices", kwargs, reads="slices")
+
+
+def _slices_load(cfg, model: str) -> dict:
+    """The leader's ``checkpoint_load`` of a ``"slices"`` recipe: the full
+    tree's leaf bytes, as a one-device materialized load places them (the
+    sum of the ranks' blocks, less their padding)."""
+    tree = (moe if model in MOE_MODELS else llama).init_params(cfg, None, "meta")
+    leaves = [t for _, t in checkpoints._walk_tree(tree)]
+    return {"leaf_bytes": sum(t.numel() * t.element_size() for t in leaves),
+            "leaves": len(leaves)}
+
+
 def rank_leaves(*, device: torch.device, model: str, dtype: str | None,
                 checkpoint: str | None, seed: int, max_seq_len: int | None):
-    """A tensor-parallel cell's weight recipe (``parallel.sharding.Recipe``):
-    the leaves of the tree the one-device cell would serve, one at a time,
-    each rank keeping its slice. Drawn on ``device`` from ``seed`` (the
-    one-device cell's draws); or read from ``checkpoint``: a kukeon int8
-    or HF checkpoint through its stream (host leaves), an orbax one read
-    whole on the host, each leaf then placed on ``device`` and quantized
-    there under int8. Mixtral: its draws, or an HF Mixtral directory read
-    leaf by leaf (the rows of ``hf_convert.load_moe_params``), each leaf
-    quantized on ``device`` under int8, an expert stack one matrix at a
-    time."""
+    """A tensor-parallel cell's weight recipe of random weights
+    (``parallel.sharding.Recipe``, ``"leaves"``): the leaves the one-device
+    cell would draw on ``device`` from ``seed``, one at a time, each rank
+    keeping its slice (drawing only a slice would change the stream).
+    ``checkpoint`` is None: a checkpoint goes through :func:`rank_stream`
+    or :func:`rank_slices`."""
+    if checkpoint:
+        raise ValueError("rank_leaves draws; a checkpoint is read by rank_stream or rank_slices")
     quantize = dtype == "int8"
     cfg = _preset_cfg(model, dtype, max_seq_len)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
     if model in MOE_MODELS:
-        yield from _moe_leaves(cfg, device, quantize, checkpoint, seed)
-        return
-    if not checkpoint:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        yield from _drawn_leaves(cfg, quantize, gen)
-        return
-    src, cfg = ServingCell._load_checkpoint(checkpoint, cfg, quantize and _checkpoint_kind(
-        checkpoint) != "orbax")
-    if isinstance(src, checkpoints.CheckpointStream):
-        try:
-            yield from src
-        except checkpoints.CheckpointStreamError as e:
-            raise (e.__cause__ or e) from None
-        finally:
-            src.close()
-        return
-    for path, host in checkpoints._walk_tree(src):
-        leaf = host.to(device)
-        if quantize:
-            leaf = llama.quantize_leaf(path, leaf)
-        if isinstance(leaf, dict):
-            yield path + ("q",), leaf["q"]
-            yield path + ("s",), leaf["s"]
-        else:
-            yield path, leaf
-        del leaf
-
-
-def _moe_leaves(cfg, device: torch.device, quantize: bool, checkpoint: str | None,
-                seed: int):
-    """:func:`rank_leaves` of the MoE family."""
-    if not checkpoint:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
         if quantize:
             yield from convert.iter_quantized_moe_params_device(cfg, gen, device)
         else:
             yield from moe.iter_params(cfg, gen, device)
         return
-    stream = hf_convert.stream_moe_params(checkpoint, dtype=cfg.dtype)
-    try:
-        for path, host in stream:
-            leaf = moe.quantize_leaf(path, host.to(device)) if quantize else host
-            del host
-            if isinstance(leaf, dict):
-                yield path + ("q",), leaf["q"]
-                yield path + ("s",), leaf["s"]
-            else:
-                yield path, leaf
-            del leaf
-    except checkpoints.CheckpointStreamError as e:
-        raise (e.__cause__ or e) from None
-    finally:
-        stream.close()
+    yield from _drawn_leaves(cfg, quantize, gen)
 
 
-def embedding_leaves(*, device: torch.device, cfg, checkpoint: str | None, seed: int):
-    """An embedding cell's weight recipe on a mesh: ``bert.init_params``'
-    leaves of ``cfg`` drawn on ``device`` from ``seed`` (the one-device
-    cell's draws), or the orbax checkpoint read whole on the host, each
-    leaf then placed on ``device``."""
-    if not checkpoint:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        yield from bert.iter_params(cfg, gen, device)
+def rank_stream(*, rank: int, world: int, kv_shard: bool, model: str, dtype: str | None,
+                checkpoint: str, max_seq_len: int | None) -> checkpoints.CheckpointStream:
+    """A ``"stream"`` recipe: rank ``rank``'s ``CheckpointStream`` of a
+    Llama kukeon int8 or HF checkpoint (quantized on the host under int8),
+    each leaf that rank's block read from disk, its abstract tree the
+    rank's local tree: what the one-device cell streams
+    (:meth:`ServingCell._load_checkpoint`), cut."""
+    cfg = _preset_cfg(model, dtype, max_seq_len)
+    where = {"rank": rank, "world": world, "kv_shard": kv_shard}
+    if _checkpoint_kind(checkpoint) == "int8":
+        return checkpoints.stream_quantized(checkpoint, dtype=cfg.dtype, **where)
+    read = hf_convert.stream_params_quantized if dtype == "int8" else hf_convert.stream_params
+    return read(checkpoint, dtype=cfg.dtype, **where)
+
+
+def rank_slices(*, device: torch.device, rank: int, world: int, kv_shard: bool, model: str,
+                dtype: str | None, checkpoint: str, max_seq_len: int | None):
+    """A ``"slices"`` recipe: rank ``rank``'s blocks of a Llama orbax
+    checkpoint (``orbax_ckpt.rank_leaves``: each array's region decoded,
+    cast, placed, quantized on ``device`` under int8) or of an HF Mixtral
+    directory (``hf_convert.moe_rank_leaves``: each expert matrix's rows or
+    columns, quantized on ``device`` one matrix at a time), one leaf at a
+    time."""
+    quantize = dtype == "int8"
+    cfg = ServingCell._checkpoint_cfg(checkpoint, _preset_cfg(model, dtype, max_seq_len))
+    if model in MOE_MODELS:
+        yield from hf_convert.moe_rank_leaves(checkpoint, cfg, rank=rank, world=world,
+                                              kv_shard=kv_shard, device=device,
+                                              quantize=quantize)
         return
-    params, _ = _embedding_checkpoint(checkpoint, cfg, "cpu")
-    for path, host in checkpoints._walk_tree(params):
-        yield path, host.to(device)
+    layout = Layout(cfg, rank, world, kv_shard)
+    try:
+        yield from orbax_ckpt.rank_leaves(checkpoint, llama.init_params(cfg, None, "meta"),
+                                          layout, cfg.dtype, device, quantize=quantize)
+    except orbax_ckpt.CheckpointError as e:
+        raise SystemExit(str(e)) from e
+
+
+def embedding_leaves(*, device: torch.device, cfg, seed: int):
+    """An embedding cell's weight recipe of random weights on a mesh
+    (``"leaves"``): ``bert.init_params``' leaves of ``cfg`` drawn on
+    ``device`` from ``seed`` (the one-device cell's draws)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    yield from bert.iter_params(cfg, gen, device)
+
+
+def embedding_slices(*, device: torch.device, rank: int, world: int, kv_shard: bool, cfg,
+                     checkpoint: str):
+    """An embedding cell's ``"slices"`` recipe: rank ``rank``'s blocks of
+    its orbax checkpoint (``orbax_ckpt.rank_leaves``), one leaf at a
+    time."""
+    try:
+        yield from orbax_ckpt.rank_leaves(checkpoint, bert.init_params(cfg, None, "meta"),
+                                          Layout(cfg, rank, world, kv_shard), cfg.dtype, device)
+    except orbax_ckpt.CheckpointError as e:
+        raise SystemExit(str(e)) from e
 
 
 def _require_orbax(path: str) -> None:
@@ -1157,8 +1196,11 @@ class EmbeddingCell(LifecycleMixin):
                 _require_orbax(checkpoint)
             mesh = serving_mesh(world, self.device.type)
             self.device = mesh.device
-            params = Recipe("kukeon_tpu_torch.runtime.serving_cell:embedding_leaves", {
-                "cfg": cfg, "checkpoint": checkpoint, "seed": seed})
+            params = (Recipe("kukeon_tpu_torch.runtime.serving_cell:embedding_slices",
+                             {"cfg": cfg, "checkpoint": checkpoint}, reads="slices")
+                      if checkpoint else
+                      Recipe("kukeon_tpu_torch.runtime.serving_cell:embedding_leaves",
+                             {"cfg": cfg, "seed": seed}))
         elif checkpoint:
             params, self.checkpoint_load = _embedding_checkpoint(checkpoint, cfg, self.device)
         else:

@@ -116,8 +116,15 @@
   rank samples the same gathered logits with the same generator state,
   so the tokens agree without a broadcast, and only the leader reads
   them back: the host-sync budget holds per rank. The tuning profile is
-  the one stored under ``model|backend|world``. A streamed boot is
-  refused on a mesh (ROADMAP.md A13b2).
+  the one stored under ``model|backend|world``. A ``"stream"`` recipe
+  boots each rank streamed (``sharding.open_stream``: its blocks read from
+  the checkpoint by its stream's threads into its zero-filled local tree
+  while it captures, as on one device); the leader's first
+  :meth:`_ensure_loaded` waits for every follower's ``loaded``
+  acknowledgement over the control channel, so a cell turns ready only
+  once all have loaded, and a follower whose load failed ends the group,
+  named. The followers get their recipe before the
+  leader reads its own weights, so the ranks read at once.
 
 Python orchestrates: queueing, slot choice, emitting tokens.
 """
@@ -148,6 +155,7 @@ from kukeon_tpu_torch.parallel.sharding import (
     check_tensor_parallel,
     kv_sharded,
     local_params,
+    open_stream,
 )
 from kukeon_tpu_torch.obs import (
     CompileTracker,
@@ -367,7 +375,7 @@ class ServingEngine:
         if mesh is not None and not isinstance(params, Recipe):
             raise TypeError(
                 "on a mesh the weights come as a parallel.sharding.Recipe, which every "
-                "rank makes and cuts its slice of (a streamed boot there is ROADMAP.md A13b2)")
+                "rank runs (a streamed boot there: a Recipe whose reads are 'stream')")
         # The tuning profile (the reference's :310-335): levers the caller
         # left None take the stored winner for this model on this backend,
         # then the defaults; a missing or stale profile is a miss.
@@ -381,7 +389,7 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"tuning profile {tuning.profile_key(*key)} asks for tensor axis "
                     f"{self.tune.mesh_tensor} on {self.world} devices; a data axis is not "
-                    "ported yet (ROADMAP.md A13b2)")
+                    "ported yet (ROADMAP.md A13b2b)")
         if self.tune is not None:
             if decode_chunk is None:
                 decode_chunk = self.tune.decode_chunk
@@ -399,38 +407,9 @@ class ServingEngine:
         self.kv_sharded = (check_tensor_parallel(cfg, self.world, kv_shard) if mesh is not None
                            else kv_sharded(cfg.num_kv_heads, 1, kv_shard))
         recipe = params if mesh is not None else None
-        if mesh is not None:
-            params = local_params(recipe, cfg, mesh, self.kv_sharded)
-        ptree = self._ckpt_stream.abstract_params if self._ckpt_stream is not None else params
-        int8_weights = llama._is_q(ptree["layers"]["wq"])
-        # int8 weights on a CUDA device always decode through the kernel; a
-        # model whose dims it does not take fails at the kernel's shape check.
-        if self.device.type == "cuda" and int8_weights and not cfg.int8_pallas:
-            cfg = dataclasses.replace(cfg, int8_pallas=True)
-        self.cfg = cfg
         # The kv heads this rank's cache holds.
         self.kv_heads = (cfg.num_kv_heads // self.world if self.kv_sharded
                          else cfg.num_kv_heads)
-        # Streamed-boot accounting, apart from sync_stats (the serving
-        # path's host-sync budget): kukeon_checkpoint_load_* read it, and
-        # boot_marks the monotonic times of the load's first and last leaf,
-        # its end, and the programs' captures.
-        self.load_stats = {"upload_s": 0.0, "bytes": 0, "tensors": 0}
-        self.boot_marks: dict[str, float] = {"init": t_init}
-        self._load_exc: Exception | None = None
-        self._loaded = threading.Event()
-        self._load_waited = False
-        self._stager: _Stager | None = None
-        self._load_stream = None
-        if self._ckpt_stream is not None:
-            # Allocated before any capture, zero-filled: the graphs bake in
-            # these addresses, and their warm-up runs read finite values.
-            self.params = _zeros(ptree, self.device)
-            self._stager = _Stager(self.device)
-            self._load_stream = self._stager.stream
-        else:
-            self.params = _to_device(params, self.device)
-            self._loaded.set()
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len or cfg.max_seq_len
         self.eos_ids = set(eos_ids)
@@ -465,6 +444,56 @@ class ServingEngine:
             self._page_bytes = 2 * pt * row * itemsize
             if self.kv_cache_int8:
                 self._page_bytes += 2 * pt * cfg.num_layers * self.kv_heads * 4
+        # The leader's followers build their engines now, from the same
+        # recipe with the levers resolved here (each applies the int8
+        # kernel rule to its own weights), before this rank reads its own,
+        # so every rank reads at once; they drop theirs when this one goes.
+        self._group = mesh.group if mesh is not None and mesh.leader and mesh.world > 1 else None
+        if self._group is not None:
+            self._oid = self._group.new_id()
+            followers = dict(
+                num_slots=num_slots, max_seq_len=self.max_seq_len, decode_chunk=self.decode_chunk,
+                seed=seed, kv_cache_int8=self.kv_cache_int8, prefill_buckets=self.prefill_buckets,
+                prefix_cache_size=prefix_cache_size, prefix_cache_bytes=prefix_cache_bytes,
+                kv_page_tokens=self.page_tokens, kv_pool_pages=self.kv_pool_pages,
+                kv_shard=self.kv_sharded, forward_fn=forward_fn)
+            self._group.post(self._oid, "new", (
+                "kukeon_tpu_torch.serving.engine:follower_engine",
+                {"cfg": cfg, "recipe": recipe, "kwargs": followers}), flush=True)
+            weakref.finalize(self, self._group.drop, self._oid)
+        if mesh is not None and recipe.reads == "stream":
+            # A streamed boot on a mesh: this rank's blocks, read by its
+            # stream's threads while its programs capture.
+            self._ckpt_stream = open_stream(recipe, cfg, mesh, self.kv_sharded)
+        elif mesh is not None:
+            params = local_params(recipe, cfg, mesh, self.kv_sharded)
+        ptree = self._ckpt_stream.abstract_params if self._ckpt_stream is not None else params
+        int8_weights = llama._is_q(ptree["layers"]["wq"])
+        # int8 weights on a CUDA device always decode through the kernel; a
+        # model whose dims it does not take fails at the kernel's shape check.
+        if self.device.type == "cuda" and int8_weights and not cfg.int8_pallas:
+            cfg = dataclasses.replace(cfg, int8_pallas=True)
+        self.cfg = cfg
+        # Streamed-boot accounting, apart from sync_stats (the serving
+        # path's host-sync budget): kukeon_checkpoint_load_* read it, and
+        # boot_marks the monotonic times of the load's first and last leaf,
+        # its end, and the programs' captures.
+        self.load_stats = {"upload_s": 0.0, "bytes": 0, "tensors": 0}
+        self.boot_marks: dict[str, float] = {"init": t_init}
+        self._load_exc: Exception | None = None
+        self._loaded = threading.Event()
+        self._load_waited = False
+        self._stager: _Stager | None = None
+        self._load_stream = None
+        if self._ckpt_stream is not None:
+            # Allocated before any capture, zero-filled: the graphs bake in
+            # these addresses, and their warm-up runs read finite values.
+            self.params = _zeros(ptree, self.device)
+            self._stager = _Stager(self.device)
+            self._load_stream = self._stager.stream
+        else:
+            self.params = _to_device(params, self.device)
+            self._loaded.set()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # Transfer-counting seam: every blocking device->host read goes
@@ -535,22 +564,6 @@ class ServingEngine:
         # queued: what stalled_s() reports.
         self.last_progress = time.monotonic()   # guarded-by: _lock
         self.boot_marks["init_done"] = time.monotonic()
-        # The leader's followers build their engines now, from the same
-        # recipe with the levers resolved here, and drop them when this
-        # one goes.
-        self._group = mesh.group if mesh is not None and mesh.leader and mesh.world > 1 else None
-        if self._group is not None:
-            self._oid = self._group.new_id()
-            followers = dict(
-                num_slots=num_slots, max_seq_len=self.max_seq_len, decode_chunk=self.decode_chunk,
-                seed=seed, kv_cache_int8=self.kv_cache_int8, prefill_buckets=self.prefill_buckets,
-                prefix_cache_size=prefix_cache_size, prefix_cache_bytes=prefix_cache_bytes,
-                kv_page_tokens=self.page_tokens, kv_pool_pages=self.kv_pool_pages,
-                kv_shard=self.kv_sharded, forward_fn=forward_fn)
-            self._group.post(self._oid, "new", (
-                "kukeon_tpu_torch.serving.engine:follower_engine",
-                {"cfg": self.cfg, "recipe": recipe, "kwargs": followers}), flush=True)
-            weakref.finalize(self, self._group.drop, self._oid)
         if not self._loaded.is_set():
             # Started last: everything the load thread writes exists by now.
             threading.Thread(target=self._load_weights, daemon=True,
@@ -578,7 +591,10 @@ class ServingEngine:
             raise
 
     def follow(self, action: str, args: tuple) -> None:
-        """A follower applies one of its leader's descriptors."""
+        """A follower applies one of its leader's descriptors (a program
+        run only once its own weights are loaded)."""
+        if action == "run":
+            self._ensure_loaded()
         getattr(self, "_act_" + action)(*args)
 
     def close(self) -> None:
@@ -595,6 +611,14 @@ class ServingEngine:
 
     def _act_stage(self, packed: np.ndarray) -> None:
         self._upload(packed, self._prefill_programs.inputs[:packed.size])
+
+    def _act_loaded(self, oid: int) -> None:
+        """A follower's load done: it waits for its own load (one whose load
+        failed raises here, which ends the group naming it), then
+        acknowledges ``oid``'s ``loaded`` over the control channel (no
+        collective: a rank that failed never enters one)."""
+        self._ensure_loaded()
+        self.mesh.group.report("ack", (oid, "loaded"))
 
     def _act_build(self, kind: str, key) -> None:
         self._programs_of(kind).build(key)
@@ -704,16 +728,28 @@ class ServingEngine:
         """Block until the weights are on the device (the reference's
         ``_ensure_loaded``, ``:1215-1220``) and raise if their load failed;
         then, once, make the engine's stream wait for the load stream's
-        last copy, so no replay or eager forward reads a weight early."""
+        last copy, so no replay or eager forward reads a weight early. A
+        streamed mesh leader also waits for every follower's ``loaded``
+        acknowledgement (:meth:`_act_loaded`, ``launch.Group.wait_acks``):
+        a follower's failed load raises ``launch.RankFailure`` naming it."""
         if self._load_waited:
             return
         self._loaded.wait()
         if self._load_exc is not None:
-            raise RuntimeError("engine weight load failed") from self._load_exc
+            where = f"rank {self.mesh.rank}: " if self.mesh is not None else ""
+            raise RuntimeError(f"{where}engine weight load failed: "
+                               f"{type(self._load_exc).__name__}: {self._load_exc}"
+                               ) from self._load_exc
         if self._load_stream is not None:
             done = torch.cuda.Event()
             done.record(self._load_stream)
             torch.cuda.current_stream(self.device).wait_event(done)
+        if self._group is not None and self._ckpt_stream is not None:
+            # A streamed mesh boot is done when every rank's is: the leader
+            # turns ready only once each follower acknowledged its load,
+            # and a follower whose load failed ends the group, named.
+            self._group.post(self._oid, "loaded", (self._oid,), flush=True)
+            self._group.wait_acks((self._oid, "loaded"))
         self._load_waited = True
 
     # --- observability (obs/) ---------------------------------------------

@@ -436,8 +436,8 @@ def test_mixtral_cell_chips2_serves_one_devices_tokens(mesh2):
 
 
 def test_mixtral_cell_chips2_from_an_hf_checkpoint(mesh2, tmp_path):
-    """An HF Mixtral directory at two ranks: each rank reads it leaf by
-    leaf (``hf_convert.stream_moe_params``), int8 quantized on the rank's
+    """An HF Mixtral directory at two ranks: each rank reads only its
+    blocks (``hf_convert.moe_rank_leaves``), int8 quantized on the rank's
     device an expert matrix at a time; the one-device cell's tokens from
     the same directory, f32 and int8."""
     cfg = jm.moe_tiny()
@@ -475,11 +475,13 @@ def test_embedding_cell_chips2_stats_metrics_and_vectors(mesh2):
 # --- what stays refused ----------------------------------------------------------------
 
 
-def test_a13b2_refusals(mesh2, moe_trees, monkeypatch):
+def test_a13b2_refusals(mesh2, moe_trees, monkeypatch, tmp_path):
     """Uneven heads exit naming A13b2 before any weight or rank (bge-base's
-    12 heads at 8, mixtral-tiny's 4 at 3); a streamed boot on a mesh is a
-    TypeError naming A13b2; a two-rank Mixtral cell's layer profile is
-    refused naming A13b2."""
+    12 heads at 8, mixtral-tiny's 4 at 3); a streamed boot on a mesh, no
+    longer refused, boots (a ``"stream"`` recipe of a kukeon int8
+    checkpoint: each rank streams its blocks) and gives the one-device
+    engine's tokens; a two-rank Mixtral cell's layer profile is refused
+    naming A13b2."""
     def no_weights(*a, **k):
         raise AssertionError("weights made before the grant was checked")
 
@@ -493,11 +495,22 @@ def test_a13b2_refusals(mesh2, moe_trees, monkeypatch):
     assert launch.current() is before
     monkeypatch.undo()
 
-    class Stream:
-        abstract_params = {}
+    from kukeon_tpu_torch.models import checkpoints
 
-    with pytest.raises(TypeError, match="A13b2"):
-        ServingEngine(tm.moe_tiny(), Stream(), mesh=mesh2, forward_fn=tm.forward, **KW)
+    cfg = tl.llama_tiny()
+    checkpoints.save_quantized(str(tmp_path / "q"), convert.params_from_numpy(
+        tl.init_quantized_params_host(cfg, seed=1), "cpu"), cfg)
+    recipe = Recipe("kukeon_tpu_torch.runtime.serving_cell:rank_stream", {
+        "model": "tiny", "dtype": None, "checkpoint": str(tmp_path / "q"),
+        "max_seq_len": None}, reads="stream")
+    eng = ServingEngine(cfg, recipe, mesh=mesh2, **KW)
+    one = ServingEngine(cfg, checkpoints.stream_quantized(str(tmp_path / "q"), cfg.dtype),
+                        device="cpu", **KW)
+    assert eng._ckpt_stream is not None
+    assert eng.generate(PROMPTS[0], GREEDY) == one.generate(PROMPTS[0], GREEDY)
+    # The leader's stream counts the full leaves' bytes, the one-device count.
+    assert eng._ckpt_stream.stat_snapshot()["bytes"] == one._ckpt_stream.stat_snapshot()["bytes"]
+    eng.close()
     cell = ServingCell("mixtral-tiny", num_slots=2, max_seq_len=96, device="cpu", chips=2)
     with pytest.raises(NotImplementedError, match="A13b2"):
         cell.profile_layers()

@@ -399,9 +399,9 @@ def test_cell_chips2_stats_metrics_and_refusals(mesh2):
 
 
 def test_cell_chips2_from_a_checkpoint_matches_one_device(mesh2, trees, tmp_path):
-    """``--checkpoint`` at two ranks: each rank reads the kukeon int8
-    checkpoint leaf by leaf through the cell's recipe (not streamed into a
-    booting engine) and keeps its slice; the cell gives the one-device
+    """``--checkpoint`` at two ranks: each rank streams its blocks of the
+    kukeon int8 checkpoint into its booting engine (a ``"stream"`` recipe),
+    as the one-device cell streams the whole; the cell gives the one-device
     cell's tokens from the same directory."""
     from kukeon_tpu_torch.models import checkpoints
 
@@ -411,7 +411,7 @@ def test_cell_chips2_from_a_checkpoint_matches_one_device(mesh2, trees, tmp_path
     for chips in (2, None):
         cell = ServingCell("tiny", num_slots=2, max_seq_len=96, device="cpu", chips=chips,
                            checkpoint=str(tmp_path / "q"))
-        assert cell.engine._ckpt_stream is None if chips else cell.engine._ckpt_stream
+        assert cell.engine._ckpt_stream is not None
         out.append(cell.generate(body)["tokens"])
         cell.engine.close()
     assert out[0] == out[1]
