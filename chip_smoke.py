@@ -108,9 +108,9 @@ time; any failure ends the run with a nonzero exit and no result line:
               chips=1, a one-rank NCCL group whose rank streams its blocks
               (a "stream" recipe), with the same gates and reports; and (c)
               the rank readers at t = 2, 4 and 8 on the same directory,
-              each rank in turn in a process of its own (forked from a
-              fork server that has only imported the readers) without a
-              group, its leaves copied onto the card: every leaf's shape,
+              the ranks of a t at once, each in a process of its own
+              (forked from a fork server that has only imported the
+              readers) without a group, its leaves copied onto the card: every leaf's shape,
               dtype and two exact integer sums equal those of the block of
               serve's tree, summed on the card leaf by leaf; per rank its
               seconds, the bytes it requested from disk, its blocks' bytes,
@@ -144,10 +144,16 @@ time; any failure ends the run with a nonzero exit and no result line:
               one-rank NCCL group, the
               forward's collectives inside the captured graphs, serve's
               greedy tokens bitwise, 225 K1 and 0 K1t a step, its ms a step
-              and tok/s beside serve's; (c) the runner's command line with
-              --chips 2 on the one card exits non-zero with the over-grant
-              message, and in this process the grant is refused with no
-              byte allocated. Times only: nothing here spans two GPUs
+              and tok/s beside serve's; then, on that cell, POST
+              /v1/profile {"layers": true} through the group path: 34
+              components, no error, under llama3-8b|gpu|1, each
+              component's FLOPs and bytes those of serve_tune's one-device
+              profile (or, when serve_tune did not run, of layer_cost's),
+              K1 launched by its int8 components (the launch counter, zeroed
+              just before); (c) the runner's command line with
+              --chips 2 on the one card (started beside (a)) exits non-zero
+              with the over-grant message, and in this process the grant is
+              refused with no byte allocated. Times only: nothing here spans two GPUs
   serve_tied  a short llama3-1b run, whose tied LM head takes the
               transposed kernel (K1t 1 and K1 112 a step)
   serve_ckpt  serving from checkpoints: a llama3-1b HF checkpoint at full
@@ -307,11 +313,12 @@ time; any failure ends the run with a nonzero exit and no result line:
               bitwise, 129 K1 and 96 K2 a step in the replays, its ms a
               step beside serve_moe's; (c) EmbeddingCell("bge-base",
               chips=1) over the same group: serve_embed's vectors bit for
-              bit; (d) both cells' main with --chips 2 on the one card exit
-              1 with the over-grant message; (e) an HF Mixtral-8x7B
+              bit; (d) both cells' main with --chips 2 on the one card
+              (started beside (a)) exit 1 with the over-grant message; (e)
+              an HF Mixtral-8x7B
               directory at full width cut to 2 of 32 layers (bf16, ~6 GB,
               drawn on the card and written by the port's writer), read by
-              each rank of t = 8 in turn, each in a process of its own, as
+              the ranks of t = 8 at once, each in a process of its own, as
               serve_stream's (c), through hf_convert.moe_rank_leaves (int8:
               every expert matrix's rows or columns in staging blocks,
               quantized on the card): each rank's leaves sum as the block
@@ -321,8 +328,8 @@ time; any failure ends the run with a nonzero exit and no result line:
               here spans two GPUs
   train       the port's trainer through its entry point
               (kukeon_tpu_torch.training.cli.main): llama3-1b at full width
-              and depth, bf16, B 4, S 2048, 8 steps with checkpoints at 4
-              and 8 (orbax, the JAX TrainState's layout), then a resumed run
+              and depth, bf16, B 4, S 2048, 8 steps with a checkpoint at 8
+              (orbax, the JAX TrainState's layout), then a resumed run
               of 2 more steps; the loss falls, 32 flash launches a step,
               restored params equal the saved ones; each save's seconds and
               its step directory's bytes
@@ -361,6 +368,7 @@ import json
 import math
 import os
 import re
+import resource
 import shutil
 import statistics
 import subprocess
@@ -1092,6 +1100,9 @@ def stream_stop_check(base: str, cell, prompt: list, answer: dict) -> dict:
 # label: serve_paged, the paged serve_moe check and serve_disagg hold theirs
 # to the legacy layout's.
 SERVED_TOKENS: dict = {}
+# serve_tune's one-device layer profile: its shapes and each component's
+# counts, which serve_tp's group profile must give.
+TUNE_PROFILE: dict = {}
 SERVED_PROMPTS: dict = {}
 
 
@@ -3218,8 +3229,8 @@ def serve_stream(k1, pre) -> dict:
     profiled replays, and ``kukeon_checkpoint_load_bytes_total`` the tree's
     leaf bytes; (b) the same with ``chips=1``: a one-rank NCCL group whose
     rank streams its blocks (a ``"stream"`` recipe), with the same gates;
-    (c) the rank readers at t 2, 4 and 8 on the same directory, each rank
-    in turn in a process of its own without a group
+    (c) the rank readers at t 2, 4 and 8 on the same directory, the ranks
+    of a t at once, each in a process of its own without a group
     (:func:`rank_readers`): each leaf's block sums as the block of serve's
     tree on the card. Reports the temp dir's free space, the save,
     construction to ready, the load's stages and the engine's boot marks
@@ -3282,32 +3293,44 @@ def serve_stream(k1, pre) -> dict:
 class _RssPeak(threading.Thread):
     """This process's resident set (``VmRSS`` of /proc/self/status), read
     every 5 ms: its peak above the level when started. A rank reader runs
-    it in a process of its own (:func:`fresh_reader`), where no heap freed
-    by earlier work can be reused unseen. (``VmHWM``, the kernel's own
-    high-water mark, is not read: some hosts' /proc lacks it.)"""
+    it in a process of its own (:func:`fresh_readers`), where no heap freed
+    by earlier work can be reused unseen. ``VmHWM``, the kernel's own
+    high-water mark of the process, is read at the start and the end too,
+    where /proc has it (None where it does not); ``ru_maxrss``
+    (``getrusage``), the kernel's high-water mark again, at the end, where
+    /proc has no ``VmHWM``."""
 
     def __init__(self):
         super().__init__(daemon=True)
-        self.base = self.peak = _vm_rss_kb()
+        self.base = self.peak = _vm_kb("VmRSS")
+        self.hwm_base = _vm_kb("VmHWM", required=False)
         self._done = threading.Event()
 
     def run(self):
         while not self._done.wait(0.005):
-            self.peak = max(self.peak, _vm_rss_kb())
+            self.peak = max(self.peak, _vm_kb("VmRSS"))
 
     def finish(self) -> dict:
         self._done.set()
         self.join()
+        hwm = _vm_kb("VmHWM", required=False)
+        mb = (lambda kb: None if kb is None else round(kb / 1024, 1))  # noqa: E731
         return {"rss_base_mb": round(self.base / 1024, 1),
-                "rss_peak_growth_mb": round((self.peak - self.base) / 1024, 1)}
+                "rss_peak_growth_mb": round((self.peak - self.base) / 1024, 1),
+                "vmhwm_base_mb": mb(self.hwm_base), "vmhwm_mb": mb(hwm),
+                "ru_maxrss_mb": mb(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)}
 
 
-def _vm_rss_kb() -> int:
+def _vm_kb(key: str, required: bool = True) -> int | None:
+    """``key``'s kB in /proc/self/status (None if absent and not
+    ``required``)."""
     with open("/proc/self/status") as f:
         for line in f:
-            if line.startswith("VmRSS:"):
+            if line.startswith(key + ":"):
                 return int(line.split()[1])
-    raise RuntimeError("/proc/self/status has no VmRSS line")
+    if required:
+        raise RuntimeError(f"/proc/self/status has no {key} line")
+    return None
 
 
 # The words block_sums takes at once: a multiple of its weights' period.
@@ -3354,7 +3377,7 @@ def _rank_stream(spec: dict):
 
 
 def _reader_child(spec: dict, conn) -> None:
-    """One rank's reader in a process of its own (:func:`fresh_reader`):
+    """One rank's reader in a process of its own (:func:`fresh_readers`):
     its CUDA context first, then the resident set's baseline, then its
     leaves read to the end, each copied onto the card as an engine's load
     thread copies it and summed there (:func:`block_sums`). Sends the
@@ -3375,7 +3398,8 @@ def _reader_child(spec: dict, conn) -> None:
             sums[".".join(path)] = [list(leaf.shape), str(leaf.dtype), *block_sums(leaf)]
             del host, leaf
         conn.send({"rank": spec["rank"], "seconds": round(time.monotonic() - t0, 3),
-                   **stats(), "slice_bytes": slice_bytes, **rss.finish(), "sums": sums})
+                   **stats(), "slice_bytes": slice_bytes, **rss.finish(), "sums": sums,
+                   "wall_s": round(time.monotonic() - spec["started"], 3)})
     except BaseException:
         conn.send({"error": traceback.format_exc()})
     finally:
@@ -3391,17 +3415,13 @@ def _card() -> str:
 _FORK = None
 
 
-def fresh_reader(spec: dict, exiting: list, timeout: float = 300.0) -> dict:
-    """:func:`_reader_child` for ``spec`` in a process forked from
-    multiprocessing's fork server, which has imported this script, the
-    port's readers and ``torch._dynamo`` (which the readers' meta-device
-    draws import, 2 s and ~70 MB on a first use) and touched no card and
-    no large buffer: each rank starts with a fresh heap and its own
-    resident set. Its report, with ``wall_s`` from the start to the report
-    (the fork, the CUDA context, the reads); a child that reported goes on
-    ``exiting`` (its context torn down meanwhile, :func:`reap`). Raises
-    with the child's traceback, or its exit code."""
+def fork_server():
+    """The readers' multiprocessing context, its fork server started (once)
+    with the preloads :func:`fresh_readers` describes. The server imports
+    them in a process of its own, so a caller that starts it early hides
+    that time behind its other work."""
     import multiprocessing
+    from multiprocessing import forkserver
 
     global _FORK
     if _FORK is None:
@@ -3410,25 +3430,53 @@ def fresh_reader(spec: dict, exiting: list, timeout: float = 300.0) -> dict:
                                       "kukeon_tpu_torch.models.hf_convert",
                                       "kukeon_tpu_torch.parallel.sharding"])
         atexit.register(_stop_fork)
-    t0 = time.monotonic()
-    recv, send = _FORK.Pipe(duplex=False)
-    proc = _FORK.Process(target=_reader_child, args=(spec, send), daemon=True)
-    proc.start()
-    send.close()
-    who = f"rank reader {spec['rank']} of {spec['world']} ({spec['kind']})"
-    try:
-        if not recv.poll(timeout):
-            raise AssertionError(f"{who}: no report in {timeout} s")
-        got = recv.recv()
-    except EOFError:
-        proc.join(30)
-        raise AssertionError(f"{who}: exited {proc.exitcode} with no report") from None
-    finally:
-        recv.close()
-        exiting.append(proc)
-    if "error" in got:
-        raise AssertionError(f"{who}:\n{got['error']}")
-    return {**got, "wall_s": round(time.monotonic() - t0, 3)}
+        forkserver.ensure_running()
+    return _FORK
+
+
+def fresh_readers(specs: list, exiting: list, timeout: float = 300.0) -> list:
+    """:func:`_reader_child` for every spec at once, each in a process
+    forked from multiprocessing's fork server, which has imported this
+    script, the port's readers and ``torch._dynamo`` (which the readers'
+    meta-device draws import, 2 s and ~70 MB on a first use) and touched
+    no card and no large buffer: each rank starts with a fresh heap and its
+    own resident set, and the ranks read side by side, as a group's ranks
+    read on one host. Their reports in the specs' order, each with
+    ``wall_s`` from its start to its report (the fork, the CUDA context,
+    the reads); a child that reported goes on ``exiting`` (its context torn
+    down meanwhile, :func:`reap`). Raises with a child's traceback, or its
+    exit code."""
+    fork = fork_server()
+    started = []
+    for spec in specs:
+        recv, send = fork.Pipe(duplex=False)
+        proc = fork.Process(target=_reader_child,
+                            args=({**spec, "started": time.monotonic()}, send), daemon=True)
+        proc.start()
+        send.close()
+        started.append((spec, proc, recv))
+    deadline = time.monotonic() + timeout
+    out, failed = [], None
+    for spec, proc, recv in started:
+        who = f"rank reader {spec['rank']} of {spec['world']} ({spec['kind']})"
+        try:
+            if not recv.poll(max(0.0, deadline - time.monotonic())):
+                failed = failed or f"{who}: no report in {timeout} s"
+                continue
+            got = recv.recv()
+        except EOFError:
+            proc.join(30)
+            failed = failed or f"{who}: exited {proc.exitcode} with no report"
+            continue
+        finally:
+            recv.close()
+            exiting.append(proc)
+        if "error" in got:
+            failed = failed or f"{who}:\n{got['error']}"
+        out.append(got)
+    if failed:
+        raise AssertionError(failed)
+    return out
 
 
 def reap(procs: list) -> None:
@@ -3452,8 +3500,9 @@ def _stop_fork() -> None:
 
 def rank_readers(spec: dict, ref_tree: dict, cfg, worlds) -> dict:
     """Each rank's reader of a tensor-parallel group of each world in
-    ``worlds``, run in turn, each in a process of its own without a group
-    (:func:`fresh_reader`, ``spec`` less the rank's place): the shape,
+    ``worlds``, the ranks of a world at once, each in a process of its own
+    without a group (:func:`fresh_readers`, ``spec`` less the rank's
+    place): the shape,
     dtype and sums (:func:`block_sums`) of each leaf it yields must be
     those of ``Layout``'s block of ``ref_tree``'s leaf (the one-device
     tree), padding included, summed on the card leaf by leaf, so no
@@ -3461,7 +3510,8 @@ def rank_readers(spec: dict, ref_tree: dict, cfg, worlds) -> dict:
     seconds (its reads, the copies to the card and the sums), the bytes it
     requested from disk, its leaves' bytes, the most a reader job declared
     at once (``job_peak_bytes``) and its process's resident-set growth
-    over the baseline taken after its CUDA context."""
+    over the baseline taken after its CUDA context; a world's ``wall_s``,
+    its ranks started to the last one's report."""
     from kukeon_tpu_torch.models.checkpoints import _walk_tree
     from kukeon_tpu_torch.parallel.sharding import Layout, kv_sharded
 
@@ -3470,13 +3520,14 @@ def rank_readers(spec: dict, ref_tree: dict, cfg, worlds) -> dict:
     try:
         for t in worlds:
             kv = kv_sharded(cfg.num_kv_heads, t)
-            ranks = []
-            for r in range(t):
-                got = fresh_reader({**spec, "rank": r, "world": t, "kv_shard": kv}, exiting)
+            t0 = time.monotonic()
+            ranks = fresh_readers([{**spec, "rank": r, "world": t, "kv_shard": kv}
+                                   for r in range(t)], exiting)
+            wall = time.monotonic() - t0
+            for r, got in enumerate(ranks):
                 check_rank_sums(got.pop("sums"), ref, Layout(cfg, r, t, kv),
                                 f"rank {r} of {t}")
-                ranks.append(got)
-            out[f"t{t}"] = {"kv_sharded": kv, "ranks": ranks,
+            out[f"t{t}"] = {"kv_sharded": kv, "ranks": ranks, "wall_s": round(wall, 3),
                             "seconds": round(sum(x["seconds"] for x in ranks), 3)}
     finally:
         reap(exiting)
@@ -3580,6 +3631,8 @@ def serve_tune(pre) -> dict:
                                  f"({[c for c in prof['components'] if 'error' in c][:3]}), "
                                  f"{len(names)} components, key {prof.get('key')}, "
                                  f"stored {stored is not None}, tuning {stats_tuning}")
+        TUNE_PROFILE.update(shape=(prof["prefill_len"], prof["decode_batch"]),
+                            counts=profile_counts(prof))
         with seated(cell, 128), torch.no_grad():
             replay = replay_timing(eng._programs, program_key(16, False, False))
     finally:
@@ -3920,14 +3973,14 @@ def phase_train(fa) -> dict:
         common = ["--dataset", data, "--model", "llama3-1b", "--batch", str(TRAIN_B),
                   "--seq-len", str(TRAIN_S), "--lr", "3e-4", "--warmup-steps", "1",
                   "--log-every", "1", "--ckpt-dir", os.path.join(tmp, "ckpt"),
-                  "--save-every", "4"]
+                  "--save-every", str(TRAIN_STEPS)]
         r = cli_train_twice(fa, common, TRAIN_STEPS, TRAIN_MORE)
         gc.collect()
         torch.cuda.empty_cache()
         prof = profile_train_step(data)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    run1, _run2, losses = check_cli_runs(r, TRAIN_STEPS, TRAIN_MORE, [4, 8])
+    run1, _run2, losses = check_cli_runs(r, TRAIN_STEPS, TRAIN_MORE, [TRAIN_STEPS])
     launches, launches2 = r["first"]["launches"], r["second"]["launches"]
     per_step = 2 * cfg.num_layers       # forward + remat recompute, every layer
     if launches != per_step * TRAIN_STEPS or launches2 != per_step * TRAIN_MORE:
@@ -4182,13 +4235,86 @@ def serve_tp_kernels(k1, bps: float) -> dict:
             "tolerance": "|err| <= 2^-7 |ref| + 1e-3 rms(ref) (bf16), the kernel phase's"}
 
 
-def tp1_serve(k1, make, label: str) -> dict:
+def profile_counts(prof: dict) -> list:
+    """Each component's (name, prefill FLOPs, prefill bytes, decode FLOPs,
+    decode bytes) of a layer profile."""
+    return [[c["name"], c["prefill"]["flops"], c["prefill"]["bytes"], c["decode"]["flops"],
+             c["decode"]["bytes"]] for c in prof["components"]]
+
+
+def group_profile(k1, cell) -> dict:
+    """``POST /v1/profile {"layers": true}`` on a ``chips=1`` llama3-8b cell
+    (its rank group's path: every rank runs each component with its
+    collectives, on the engine's thread), at serve_tune's shapes. Gates: 34
+    components and no error, persisted under ``llama3-8b|gpu|1``; each
+    component's FLOPs and bytes those of serve_tune's one-device profile
+    (``TUNE_PROFILE``), or of ``layer_cost`` when serve_tune did not run;
+    K1 launched (its counter zeroed just before: the eager run and the
+    capture of each int8 decode component; replays do not count)."""
+    from kukeon_tpu_torch.obs.profile import component_names, layer_cost
+    from kukeon_tpu_torch.runtime.serving_cell import serve
+    from kukeon_tpu_torch.serving import tuning
+
+    eng = cell.engine
+    shape = TUNE_PROFILE.get("shape", (128, eng.num_slots))
+    eng.start()
+    server = serve(cell)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        k1.int8_matmul.launches = k1.int8_matmul.launches_t = 0
+        t0 = time.monotonic()
+        prof = post(base + "/v1/profile", {"layers": True, "prefillLen": shape[0],
+                                           "decodeBatch": shape[1]})
+        seconds = time.monotonic() - t0
+        launched = k1.int8_matmul.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.stop()
+    key = tuning.profile_key("llama3-8b", "gpu", 1)
+    stored = tuning.load_layer_profile("llama3-8b", "gpu", 1)
+    if TUNE_PROFILE:
+        want, against = TUNE_PROFILE["counts"], "serve_tune"
+    else:
+        cfg, (S, B) = cell.cfg, shape
+        want = []
+        for name in component_names(cfg.num_layers):
+            kind = name if name in ("embed", "head") else "layer"
+            want.append([name, *layer_cost(cfg, kind, 1, S, int8_weights=True),
+                         *layer_cost(cfg, kind, B, 1, int8_weights=True)])
+        against = "layer_cost"
+    if (prof.get("errors") or len(prof["components"]) != 34 or prof.get("key") != key
+            or stored is None or stored["components"] != prof["components"]):
+        raise AssertionError(f"serve_tp (b) group profile: errors {prof.get('errors')} "
+                             f"({[c for c in prof['components'] if 'error' in c][:3]}), "
+                             f"{len(prof['components'])} components, key {prof.get('key')}, "
+                             f"stored {stored is not None}")
+    if profile_counts(prof) != want:
+        raise AssertionError(f"serve_tp (b) group profile: FLOPs or bytes differ from "
+                             f"{against}'s")
+    if launched <= 0:
+        raise AssertionError("serve_tp (b) group profile: its int8 components launched no K1")
+    decode_ms = {c["name"]: c["decode"]["wall_s"] * 1e3 for c in prof["components"]}
+    layers = [v for n, v in decode_ms.items() if n.startswith("layer")]
+    return {"key": key, "components": len(prof["components"]), "errors": prof["errors"],
+            "seconds": round(seconds, 3), "counts_equal": against, "k1_launches": launched,
+            "prefill_len": prof["prefill_len"], "decode_batch": prof["decode_batch"],
+            "decode_ms": {"embed": round(decode_ms["embed"], 4),
+                          "layers_sum": round(sum(layers), 4),
+                          "layer_median": round(statistics.median(layers), 4),
+                          "head": round(decode_ms["head"], 4),
+                          "all_sum": round(sum(decode_ms.values()), 4)},
+            "prefill_ms_sum": round(sum(c["prefill"]["wall_s"] for c in prof["components"])
+                                    * 1e3, 4)}
+
+
+def tp1_serve(k1, make, label: str, profile: bool = False) -> dict:
     """A ``chips=1`` llama3-8b cell from ``make()`` through serve_model: a
     one-rank NCCL group, serve's greedy tokens bitwise, 225 K1 a step in
-    the replays; then its graphs freed (this function holds the only
-    reference) and the group shut down. -> serve_tp's (b) report (drawn)
-    or serve_stream's (streamed), with the cell's :func:`boot_report` under
-    ``"boot"``."""
+    the replays; with ``profile``, then its :func:`group_profile`; then its
+    graphs freed (this function holds the only reference) and the group
+    shut down. -> serve_tp's (b) report (drawn) or serve_stream's
+    (streamed), with the cell's :func:`boot_report` under ``"boot"``."""
     import torch.distributed as dist
 
     from kukeon_tpu_torch.parallel import launch
@@ -4208,6 +4334,7 @@ def tp1_serve(k1, make, label: str) -> dict:
                     cell=cell, label=label)
     report = {"construct_s": round(construct_s, 3),
               **boot_report(cell, t0, construct_s + b["boot_s"])}
+    prof = group_profile(k1, cell) if profile else None
     # The graphs that captured the group's collectives go before the group.
     del cell
     gc.collect()
@@ -4226,30 +4353,36 @@ def tp1_serve(k1, make, label: str) -> dict:
             "launches_per_step": b["profile"]["launches_per_step"],
             "nccl_kernels_in_top_rows": nccl, "mesh": mesh_info, "label": label,
             "tokens_equal_serve": b.get("tokens_equal_serve", "serve did not run"),
-            "boot": report}
+            "boot": report, **({"group_profile": prof} if prof else {})}
 
 
 def serve_tp(k1, bps: float) -> dict:
     """(a) the shard shapes; (b) llama3-8b int8 through ServingCell(chips=1)
-    over a one-rank NCCL group, serve's traffic, its tokens against serve's;
-    (c) the over-grant on one card, in a child process through the cell's
+    over a one-rank NCCL group, serve's traffic, its tokens against serve's,
+    then its group profile (:func:`group_profile`); (c) the over-grant on one card, in a child process through the cell's
     main and in this process before any byte."""
     from kukeon_tpu_torch.runtime.serving_cell import ServingCell
 
-    out = {"a_shards": serve_tp_kernels(k1, bps)}
-    out["b_serve"] = tp1_serve(k1, lambda: make_cell("llama3-8b", 1024, chips=1),
-                               "llama3-8b tp1")
-    # (c): the runner's way (the cell's main, --chips 2), then in-process.
+    # (c) the runner's way (the cell's main, --chips 2) starts first: it
+    # exits before it touches the card, while (a) times kernels on it.
     t0 = time.monotonic()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "kukeon_tpu_torch.runtime.serving_cell", "--model", "llama3-8b",
          "--dtype", "int8", "--chips", "2", "--port", "0"],
-        capture_output=True, text=True, timeout=300)
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        out = {"a_shards": serve_tp_kernels(k1, bps)}
+        _, stderr = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
     child_s = time.monotonic() - t0
     want = "--chips 2: serving mesh wants 2 GPUs but only 1 visible"
-    if proc.returncode == 0 or want not in proc.stderr:
+    if proc.returncode == 0 or want not in stderr:
         raise AssertionError(f"--chips 2 on one card: exit {proc.returncode}, "
-                             f"stderr {proc.stderr[-2000:]}")
+                             f"stderr {stderr[-2000:]}")
+    out["b_serve"] = tp1_serve(k1, lambda: make_cell("llama3-8b", 1024, chips=1),
+                               "llama3-8b tp1", profile=True)
+    # (c), then in-process.
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     try:
@@ -4420,13 +4553,36 @@ def serve_tp_cells(k1, bps: float) -> dict:
     traffic, its tokens against serve_moe's; (c) bge-base through
     EmbeddingCell(chips=1), serve_embed's bursts, its vectors against
     serve_embed's bit for bit; (d) both cells' main with --chips 2 on the
-    one card exit 1 before any weight; (e) :func:`mixtral_expert_readers`."""
+    one card exit 1 before any weight (started beside (a)); (e)
+    :func:`mixtral_expert_readers`."""
     import torch.distributed as dist
 
     from kukeon_tpu_torch.parallel import launch
     from kukeon_tpu_torch.runtime.serving_cell import EmbeddingCell
 
-    out = {"a_shards": serve_tp_cells_kernels(k1, bps)}
+    # (d) the runner's way, --chips 2 on one card, for both cells at once,
+    # started first: they exit before they touch the card, while (a)
+    # times kernels on it.
+    want_msg = "--chips 2: serving mesh wants 2 GPUs but only 1 visible"
+    t_d = time.monotonic()
+    procs = {model: subprocess.Popen(
+        [sys.executable, "-m", "kukeon_tpu_torch.runtime.serving_cell", "--model", model,
+         *extra, "--chips", "2", "--port", "0"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for model, extra in (("mixtral-8x7b", ["--dtype", "int8"]), ("bge-base", []))}
+    children = {}
+    try:
+        out = {"a_shards": serve_tp_cells_kernels(k1, bps)}
+        for model, proc in procs.items():
+            _, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 1 or want_msg not in stderr:
+                raise AssertionError(f"{model} --chips 2 on one card: exit {proc.returncode}, "
+                                     f"stderr {stderr[-2000:]}")
+            children[model] = {"exit_code": proc.returncode,
+                               "child_s": round(time.monotonic() - t_d, 3)}
+    finally:
+        for proc in procs.values():
+            proc.kill()
     t0 = time.monotonic()
     cell = make_cell("mixtral-8x7b", 1024, chips=1)
     construct_s = time.monotonic() - t0
@@ -4491,20 +4647,6 @@ def serve_tp_cells(k1, bps: float) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launch.shutdown()
-    # (d) the runner's way, --chips 2 on one card, for both cells.
-    want_msg = "--chips 2: serving mesh wants 2 GPUs but only 1 visible"
-    children = {}
-    for model, extra in (("mixtral-8x7b", ["--dtype", "int8"]), ("bge-base", [])):
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "kukeon_tpu_torch.runtime.serving_cell", "--model", model,
-             *extra, "--chips", "2", "--port", "0"],
-            capture_output=True, text=True, timeout=300)
-        if proc.returncode != 1 or want_msg not in proc.stderr:
-            raise AssertionError(f"{model} --chips 2 on one card: exit {proc.returncode}, "
-                                 f"stderr {proc.stderr[-2000:]}")
-        children[model] = {"exit_code": proc.returncode,
-                           "child_s": round(time.monotonic() - t0, 3)}
     out["d_overgrant"] = children
     out["e_expert_reader"] = mixtral_expert_readers()
     return out
@@ -4605,8 +4747,8 @@ def write_mixtral_hf(path: str, cfg, seed: int, device: str = "cuda") -> dict:
 
 def mixtral_expert_readers(cfg=None) -> dict:
     """serve_tp_cells (e): an HF Mixtral-8x7B directory at full width, cut
-    to :data:`MIXTRAL_CUT_LAYERS` of 32 layers, read by each rank of t 8
-    in turn, each in a process of its own (``hf_convert.moe_rank_leaves``,
+    to :data:`MIXTRAL_CUT_LAYERS` of 32 layers, read by the ranks of t 8
+    at once, each in a process of its own (``hf_convert.moe_rank_leaves``,
     int8: every expert matrix's rows or columns read in staging blocks and
     quantized on the card; :func:`rank_readers`): each rank's leaves sum
     as the blocks of the one-device tree quantized on the card
@@ -4742,6 +4884,10 @@ def run_phases(phases: list) -> int:
     run("flash", lambda: {**phase_flash(fa, bps, flush), "long_s": flash_long(fa)})
     run("moe_kernel", lambda: phase_moe_kernel(k1, bps, flush))
     del flush
+    if {"serve_stream", "serve_ckpt", "serve_tp_cells"} & set(phases):
+        # The rank readers' fork server imports while the model phase runs
+        # (after the kernels' timings, which a busy host would disturb).
+        fork_server()
     run("model", lambda: phase_model(k1))
     kept = {}
     run("serve", lambda: {
@@ -4964,6 +5110,7 @@ def run_phases(phases: list) -> int:
     e2e_keys = ("decode_tok_s", "ttft_ms", "ms_per_decode_step", "launches", "capture_s",
                 "pool_bytes", "prefill")
     emit({"end_to_end": {
+        "phase_s": {n: r["wall_s"] for n, r in res.items()},
         "llama3-8b": {**{k: serve8[k] for k in e2e_keys},
                       "bound_ms_per_decode_step": serve8["bound_ms_per_decode_step"],
                       "device_idle_share": serve8["profile"]["device_idle_share"]},
@@ -5022,7 +5169,8 @@ def run_phases(phases: list) -> int:
                 "load_bytes_counter", "leaf_bytes", "tokens_equal_serve", "launches_per_step",
                 "ms_per_decode_step")},
             "c_readers": {w: [[x["seconds"], x["read_bytes"], x["slice_bytes"],
-                               x["job_peak_bytes"], x["rss_peak_growth_mb"], x["wall_s"]]
+                               x["job_peak_bytes"], x["rss_peak_growth_mb"], x["wall_s"],
+                               x["vmhwm_base_mb"], x["vmhwm_mb"], x["ru_maxrss_mb"]]
                               for x in v["ranks"]]
                           for w, v in stream["c_readers"].items()}},
         "serve_tune_llama3-8b": {
@@ -5058,7 +5206,8 @@ def run_phases(phases: list) -> int:
             "a_dequant_routes": {w: v["dequant_routes"] for w, v in
                                  tp["a_shards"]["worlds"].items()},
             "b": {k: tp["b_serve"][k] for k in ("ms_per_decode_step", "decode_tok_s",
-                                                 "launches_per_step", "tokens_equal_serve")},
+                                                 "launches_per_step", "tokens_equal_serve",
+                                                 "group_profile")},
             "serve_ms_per_decode_step": serve8["ms_per_decode_step"],
             "serve_decode_tok_s": serve8["decode_tok_s"],
             "c_exit_code": tp["c_overgrant"]["exit_code"]},

@@ -53,10 +53,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import queue
 import struct
 import threading
 import time
+from collections import deque
 from collections.abc import Callable, Iterator
 from typing import Any
 
@@ -514,7 +514,7 @@ def load_quantized(path: str, dtype: torch.dtype | None = None) -> tuple[dict, L
     activation dtype ``dtype`` when given). f32 leaves other than the ``.s``
     scales (the norms) are cast to the activation dtype. Read through
     :func:`stream_quantized` with one reader, drained."""
-    stream = stream_quantized(path, dtype, threads=1, buffer=1)
+    stream = stream_quantized(path, dtype, threads=1, buffer_bytes=0)
     return drain(stream), stream.cfg
 
 
@@ -536,15 +536,26 @@ def _walk_tree(node, prefix: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, 
         yield prefix, node
 
 
+# The leaves a stream's readers may queue ahead of its consumer, in bytes
+# (a job's leaves larger than this queue alone). Every reader runs its
+# job whatever the bound: it waits only to queue what it read.
+STREAM_BUFFER_BYTES = 256 << 20
+
+
 class CheckpointStream:
-    """Bounded-buffer, tensor-granular checkpoint reader.
+    """Byte-bounded, tensor-granular checkpoint reader.
 
     ``jobs`` are zero-argument callables, each returning ``(leaves, disk_s,
     cast_s)`` with ``leaves`` a list of ``(path tuple, CPU tensor)`` pairs
     in their final dtype and layout. ``threads`` reader threads take the
-    jobs in order and push the leaves through a queue of ``buffer``
-    entries, so host memory holds at most ``buffer + threads`` jobs' leaves
-    however far the disk runs ahead of the consumer. ``finalize``, if
+    jobs in order and run them, all at once. A reader queues a job's
+    leaves once the queue holds none, or holds them within
+    ``buffer_bytes``, and the consumer gives a leaf's bytes back as it
+    takes it. So host memory holds at most ``buffer_bytes`` of queued
+    leaves (or one job's), plus ``threads`` jobs in flight (each with its
+    own temporaries) and the leaf the consumer holds, however far the disk
+    runs ahead of it; the bound never changes how many readers work.
+    ``finalize``, if
     given, runs in each reader thread as it exits (closing the files it
     opened). The readers start at construction, as the reference's do, so
     the disk runs while the consumer builds what the leaves go into.
@@ -563,7 +574,8 @@ class CheckpointStream:
     """
 
     def __init__(self, abstract_params: dict, cfg, jobs: list[Callable], *,
-                 threads: int = 4, buffer: int = 16, finalize: Callable | None = None,
+                 threads: int = 4, buffer_bytes: int = STREAM_BUFFER_BYTES,
+                 finalize: Callable | None = None,
                  count: Callable | None = None, extra_stats: Callable | None = None):
         self.abstract_params = abstract_params
         self.cfg = cfg
@@ -572,7 +584,10 @@ class CheckpointStream:
         self._jobs_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.stats = {"disk_s": 0.0, "cast_s": 0.0, "bytes": 0, "tensors": 0}  # guarded-by: _stats_lock
-        self._q: queue.Queue = queue.Queue(maxsize=max(1, buffer))
+        self._limit = max(0, int(buffer_bytes))
+        self._cond = threading.Condition()
+        self._items: deque = deque()   # guarded-by: _cond; (item, bytes)
+        self._queued = 0               # guarded-by: _cond; bytes of the queued leaves
         self._closed = threading.Event()
         self._finalize = finalize
         self._count = count
@@ -602,30 +617,50 @@ class CheckpointStream:
                 faults.maybe_fail("checkpoint.stream")
                 leaves, disk_s, cast_s = job()
             except BaseException as e:  # noqa: BLE001 — surfaced to the consumer
-                self._put(("err", CheckpointStreamError(
-                    f"checkpoint stream reader failed: {type(e).__name__}: {e}"), e))
+                self._put([(("err", CheckpointStreamError(
+                    f"checkpoint stream reader failed: {type(e).__name__}: {e}"), e), 0)])
                 return
-            nbytes = sum(self._count(p, t) if self._count is not None
-                         else t.numel() * t.element_size() for p, t in leaves)
+            sizes = [t.numel() * t.element_size() for _, t in leaves]
+            nbytes = sum(self._count(p, t) if self._count is not None else n
+                         for (p, t), n in zip(leaves, sizes))
             with self._stats_lock:
                 self.stats["disk_s"] += disk_s
                 self.stats["cast_s"] += cast_s
                 self.stats["bytes"] += nbytes
                 self.stats["tensors"] += len(leaves)
-            for path, t in leaves:
-                if not self._put(("leaf", path, t)):
-                    return
+            if not self._put([(("leaf", path, t), n) for (path, t), n in zip(leaves, sizes)]):
+                return
 
-    def _put(self, item) -> bool:
-        """A bounded put that gives up once the stream is closed (a consumer
-        that stopped must not leave readers blocked)."""
-        while not self._closed.is_set():
-            try:
-                self._q.put(item, timeout=0.2)
-                return True
-            except queue.Full:
-                continue
-        return False
+    def _put(self, items: list) -> bool:
+        """Queue one job's ``(item, bytes)`` pairs together, waiting while
+        the queue holds leaves and these would take it past
+        ``buffer_bytes``; False once the stream is closed (a consumer that
+        stopped must not leave readers blocked)."""
+        n = sum(b for _, b in items)
+        with self._cond:
+            while self._items and self._queued + n > self._limit:
+                if self._closed.is_set():
+                    return False
+                self._cond.wait(0.2)
+            if self._closed.is_set():
+                return False
+            self._items.extend(items)
+            self._queued += n
+            self._cond.notify_all()
+            return True
+
+    def _get(self, timeout: float):
+        """The next queued item, its bytes given back; None after
+        ``timeout``."""
+        with self._cond:
+            if not self._items:
+                self._cond.wait(timeout)
+                if not self._items:
+                    return None
+            item, n = self._items.popleft()
+            self._queued -= n
+            self._cond.notify_all()
+            return item
 
     # --- consumer side -------------------------------------------------------
 
@@ -633,10 +668,9 @@ class CheckpointStream:
         remaining = self.total_leaves
         try:
             while remaining:
-                try:
-                    item = self._q.get(timeout=0.2)
-                except queue.Empty:
-                    if any(t.is_alive() for t in self._threads) or not self._q.empty():
+                item = self._get(0.2)
+                if item is None:
+                    if any(t.is_alive() for t in self._threads) or self._items:
                         continue
                     raise CheckpointStreamError(
                         f"checkpoint stream ended after {self.total_leaves - remaining} of "
@@ -652,6 +686,8 @@ class CheckpointStream:
         """Stop the readers (idempotent). Iteration closes on completion
         and on error; a consumer that stops early calls this too."""
         self._closed.set()
+        with self._cond:
+            self._cond.notify_all()
 
     def stat_snapshot(self) -> dict:
         with self._stats_lock:
@@ -725,7 +761,8 @@ class _ThreadReaders:
 
 
 def stream_quantized(path: str, dtype: torch.dtype | None = None, *, threads: int = 4,
-                     buffer: int = 16, rank: int = 0, world: int | None = None,
+                     buffer_bytes: int = STREAM_BUFFER_BYTES, rank: int = 0,
+                     world: int | None = None,
                      kv_shard: bool = True) -> CheckpointStream:
     """The streamed twin of :func:`load_quantized`: the abstract tree and
     the config come from the manifest and the safetensors header alone (no
@@ -780,7 +817,7 @@ def stream_quantized(path: str, dtype: torch.dtype | None = None, *, threads: in
             for name, spec in header.items()}
     return CheckpointStream(
         _unflatten_quant(abstract_flat), cfg, [make_job(name) for name in header],
-        threads=threads, buffer=buffer, finalize=readers.close_local,
+        threads=threads, buffer_bytes=buffer_bytes, finalize=readers.close_local,
         count=(lambda p, t: full[p]) if layout else None,
         extra_stats=(lambda: {"read_bytes": readers.bytes_read(), "job_peak_bytes": peak.bytes})
         if layout else None)

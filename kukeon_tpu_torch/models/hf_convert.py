@@ -57,6 +57,7 @@ from kukeon_tpu_torch.models import checkpoints
 from kukeon_tpu_torch.models.checkpoints import (
     CheckpointStream,
     HostMeter,
+    STREAM_BUFFER_BYTES,
     JobPeak,
     TensorSpec,
     _ThreadReaders,
@@ -238,6 +239,9 @@ class _Slicer:
         rows_out = (transpose and cut == 1) or (not transpose and cut == 0)
         r_lo, r_hi = (qb.lo, qb.hi) if rows_out else (0, spec.shape[0])
         c_lo, c_hi = (qb.lo, qb.hi) if transpose and cut == 0 else (0, spec.shape[1])
+        if transpose and cut == 0:
+            # A row-parallel block's real rows (a padded block's zeros after).
+            q = q.narrow(0, 0, c_hi - c_lo)
         # Staging: the raw block and its f32 (or cast) copy within STAGE_BYTES.
         item = spec.dtype.itemsize
         stage = checkpoints.STAGE_BYTES * item // (item + 4)
@@ -370,7 +374,7 @@ class _TimedReads:
             yield item
 
 
-def _stream(checkpoint_dir: str, cfg, rows: list[tuple], *, threads: int, buffer: int,
+def _stream(checkpoint_dir: str, cfg, rows: list[tuple], *, threads: int, buffer_bytes: int,
             materialized: bool = False, slicer: _Slicer | None = None,
             full_rows: list[tuple] | None = None) -> CheckpointStream:
     """A stream with one reader job a row; its abstract tree is the rows'
@@ -406,8 +410,8 @@ def _stream(checkpoint_dir: str, cfg, rows: list[tuple], *, threads: int, buffer
         extra = lambda: {"read_bytes": readers.bytes_read(),                  # noqa: E731
                          "job_peak_bytes": slicer.peak.bytes}
     return CheckpointStream(abstract, cfg, [make_job(path, build) for path, _, _, build in rows],
-                            threads=threads, buffer=buffer, finalize=readers.close_local,
-                            count=count, extra_stats=extra)
+                            threads=threads, buffer_bytes=buffer_bytes,
+                            finalize=readers.close_local, count=count, extra_stats=extra)
 
 
 def _full_bytes(rows: list[tuple]) -> dict[tuple, int]:
@@ -424,7 +428,8 @@ def _full_bytes(rows: list[tuple]) -> dict[tuple, int]:
 
 def _loaded(checkpoint_dir: str, cfg, rows: list[tuple]) -> Params:
     """The materialized loaders' tree: the rows' stream, one reader, drained."""
-    return drain(_stream(checkpoint_dir, cfg, rows, threads=1, buffer=1, materialized=True))
+    return drain(_stream(checkpoint_dir, cfg, rows, threads=1, buffer_bytes=0,
+                         materialized=True))
 
 
 def _int8_cfg(checkpoint_dir: str, cfg: LlamaConfig | None,
@@ -461,8 +466,8 @@ def load_params_quantized(checkpoint_dir: str,
 
 def stream_params(checkpoint_dir: str, cfg: LlamaConfig | None = None,
                   dtype: torch.dtype = torch.bfloat16, *, threads: int = 2,
-                  buffer: int = 4, rank: int = 0, world: int | None = None,
-                  kv_shard: bool = True) -> CheckpointStream:
+                  buffer_bytes: int = STREAM_BUFFER_BYTES, rank: int = 0,
+                  world: int | None = None, kv_shard: bool = True) -> CheckpointStream:
     """The streamed twin of :func:`load_params`: a :class:`CheckpointStream`
     whose abstract tree comes from the config alone, one reader job per
     final leaf (a stacked leaf's job reads its L tensors, transposes,
@@ -470,30 +475,33 @@ def stream_params(checkpoint_dir: str, cfg: LlamaConfig | None = None,
     that rank's block (:class:`_Slicer`), the abstract tree
     ``sharding.local_meta``'s."""
     cfg = dataclasses.replace(cfg or config_from_hf(checkpoint_dir), dtype=dtype)
-    return _rank_stream(checkpoint_dir, cfg, False, threads, buffer, rank, world, kv_shard)
+    return _rank_stream(checkpoint_dir, cfg, False, threads, buffer_bytes, rank, world,
+                        kv_shard)
 
 
 def stream_params_quantized(checkpoint_dir: str, cfg: LlamaConfig | None = None,
                             dtype: torch.dtype | None = None, *, threads: int = 2,
-                            buffer: int = 4, rank: int = 0, world: int | None = None,
-                            kv_shard: bool = True) -> CheckpointStream:
+                            buffer_bytes: int = STREAM_BUFFER_BYTES, rank: int = 0,
+                            world: int | None = None, kv_shard: bool = True
+                            ) -> CheckpointStream:
     """The streamed twin of :func:`load_params_quantized`: quantized on the
     host as it loads, one reader job per final {"q", "s"} (or norm) leaf,
     so the transient host memory is about one f32 leaf a reader thread.
     With ``world``, rank ``rank``'s stream, as :func:`stream_params`'s; a
     row-parallel leaf's scale still from its whole rows."""
     cfg = _int8_cfg(checkpoint_dir, cfg, dtype)
-    return _rank_stream(checkpoint_dir, cfg, True, threads, buffer, rank, world, kv_shard)
+    return _rank_stream(checkpoint_dir, cfg, True, threads, buffer_bytes, rank, world,
+                        kv_shard)
 
 
-def _rank_stream(checkpoint_dir: str, cfg, quantized: bool, threads: int, buffer: int,
+def _rank_stream(checkpoint_dir: str, cfg, quantized: bool, threads: int, buffer_bytes: int,
                  rank: int, world: int | None, kv_shard: bool) -> CheckpointStream:
     rows = _llama_rows(cfg, quantized)
     if world is None:
-        return _stream(checkpoint_dir, cfg, rows, threads=threads, buffer=buffer)
+        return _stream(checkpoint_dir, cfg, rows, threads=threads, buffer_bytes=buffer_bytes)
     slicer = _Slicer(_layout(cfg, rank, world, kv_shard))
     return _stream(checkpoint_dir, cfg, _llama_rows(cfg, quantized, slicer=slicer),
-                   threads=threads, buffer=buffer, slicer=slicer, full_rows=rows)
+                   threads=threads, buffer_bytes=buffer_bytes, slicer=slicer, full_rows=rows)
 
 
 def _layout(cfg, rank: int, world: int, kv_shard: bool):

@@ -324,18 +324,28 @@ def _cols(w) -> int:
     return (w["q"] if _is_q(w) else w).shape[-1]
 
 
-def _heads(params: Params, c: LlamaConfig, rank: int) -> tuple[int, int, slice]:
-    """(q heads, kv heads computed, kv heads attended) of this rank, from
-    the local shapes: its q heads are a contiguous block of the model's;
-    with a replicated cache (every kv head computed) it attends only the
-    kv heads of its q heads' groups."""
+def _heads(params: Params, c: LlamaConfig, rank: int
+           ) -> tuple[int, int, slice | torch.Tensor]:
+    """(q heads, kv heads computed, kv heads attended) of this rank, from the local shapes: its q heads are a contiguous block of
+    the model's (zero-padded past its last head, where the tensor size
+    does not divide the heads). With a replicated cache (every kv head
+    computed) it attends only the kv heads of its q heads' groups: a slice
+    of them when the block holds whole groups or lies inside one, else an
+    index of one kv head per local q head (a block that straddles groups;
+    a padded head takes the last kv head, and its zero ``wo`` rows drop
+    what it computes)."""
     w = params["layers"]
     nh = _cols(w["wq"]) // c.head_dim
     nkv = _cols(w["wk"]) // c.head_dim
     if nkv < c.num_kv_heads or nh == c.num_heads:
         return nh, nkv, slice(None)
     g = c.num_heads // c.num_kv_heads
-    return nh, nkv, slice(rank * nh // g, ((rank + 1) * nh - 1) // g + 1)
+    lo = rank * nh
+    if lo + nh <= c.num_heads and ((nh % g == 0 and lo % g == 0) or g % nh == 0):
+        return nh, nkv, slice(lo // g, (lo + nh - 1) // g + 1)
+    wq = w["wq"]["q"] if _is_q(w["wq"]) else w["wq"]
+    heads = torch.arange(lo, lo + nh, device=wq.device)
+    return nh, nkv, torch.clamp(heads // g, max=c.num_kv_heads - 1)
 
 
 def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -464,24 +474,27 @@ def transformer_block(
     attn_impl: str = "auto",
     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
     mesh=None,
+    kernel: bool = False,
 ) -> torch.Tensor:
     """One no-cache decoder block (attention + SwiGLU residual) over
     [B, S, H], ``w`` one layer's weights (:func:`layer_weights`); ``rope``
-    optionally the positions' precomputed (cos, sin) tables."""
+    optionally the positions' precomputed (cos, sin) tables; ``kernel``
+    routes int8 projections through :func:`int8_matmul`, as
+    :func:`_mm`."""
     c = cfg
     B, S = x.shape[:2]
     nh, nkv, sel = _heads({"layers": w}, c, mesh.rank if mesh is not None else 0)
     rope = rope or rope_tables(positions, c.head_dim, c.rope_theta)
     h = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
-    q = _mm(h, w["wq"]).reshape(B, S, nh, c.head_dim)
-    k = _mm(h, w["wk"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
-    v = _mm(h, w["wv"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
+    q = _mm(h, w["wq"], kernel).reshape(B, S, nh, c.head_dim)
+    k = _mm(h, w["wk"], kernel).reshape(B, S, nkv, c.head_dim)[:, :, sel]
+    v = _mm(h, w["wv"], kernel).reshape(B, S, nkv, c.head_dim)[:, :, sel]
     q = apply_rope(q, positions, c.rope_theta, rope)
     k = apply_rope(k, positions, c.rope_theta, rope)
     attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
                          impl=attn_impl)
-    x = x + _psum(_mm(attn.reshape(B, S, nh * c.head_dim), w["wo"]), mesh)
-    return _mlp(x, w, c, mesh=mesh)
+    x = x + _psum(_mm(attn.reshape(B, S, nh * c.head_dim), w["wo"], kernel), mesh)
+    return _mlp(x, w, c, kernel, mesh)
 
 
 def forward(

@@ -463,13 +463,14 @@ def _rank_int8(ckpt: OrbaxCheckpoint, name: str, tpath: tuple, shape: tuple, lay
         return
     # Row-parallel ([L, in, out], ``in`` cut): a layer at a time, whole.
     src = ckpt.read_array(name) if ckpt.one_chunk(name) else None
-    q = torch.empty(qb.local_shape(shape), dtype=torch.int8, device=device)
+    # Zeros past the real rows: a block of padded heads.
+    q = torch.zeros(qb.local_shape(shape), dtype=torch.int8, device=device)
     s = torch.empty(s_shape, dtype=torch.float32, device=device)
     for i in range(shape[0]):
         layer = src[i:i + 1] if src is not None else ckpt.read_array(name, (0, i, i + 1))
         w = _cast(np.ascontiguousarray(layer), tpath[-1], dtype).to(device)
         qw, sw = llama._int8_sym(w[0], 0)
-        q[i], s[i] = qw[qb.lo:qb.hi], sw[0]
+        q[i, :qb.hi - qb.lo], s[i] = qw[qb.lo:qb.hi], sw[0]
         del layer, w
     del src
     yield tpath + ("q",), q

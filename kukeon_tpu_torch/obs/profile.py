@@ -555,10 +555,42 @@ def _time_graph(fn: Callable, args: tuple, reps: int, pool, keep: list) -> float
     return best
 
 
+_SHAPES = ("prefill", "decode")
+
+
+def component_names(num_layers: int) -> list[str]:
+    """The profile's components, in the order they run."""
+    return ["embed"] + [f"layer{i}" for i in range(num_layers)] + ["head"]
+
+
+def fault_plan(num_layers: int) -> list[str | None]:
+    """The ``profile.layers`` fault point's draws for a profile of
+    ``num_layers`` layers, made up front, in the order
+    :func:`profile_layers` once drew them as it ran: once a shape of each
+    component, a component's draws ending at its first fire. -> per
+    component, the injected error's entry text, or None. A mesh's leader
+    draws the plan and hands it to every rank, so all skip the same
+    components: the followers arm no fault, and every rank must skip a
+    skipped component's collectives."""
+    from kukeon_tpu_torch import faults
+
+    plan: list[str | None] = []
+    for _name in component_names(num_layers):
+        why = None
+        for _shape in _SHAPES:
+            try:
+                faults.maybe_fail("profile.layers")
+            except Exception as e:  # noqa: BLE001 — recorded as the component's error
+                why = f"{type(e).__name__}: {e}"
+                break
+        plan.append(why)
+    return plan
+
+
 @torch.no_grad()
 def profile_layers(params, cfg, device: torch.device | str | None = None, *,
                    prefill_len: int = 64, decode_batch: int = 8, measure: bool = True,
-                   reps: int = 3, guard=None) -> dict:
+                   reps: int = 3, guard=None, mesh=None, plan: list | None = None) -> dict:
     """Per-component profile of a Llama model (the reference's
     ``profile_layers``, ``kukeon_tpu/obs/profile.py:441-560``): ``embed``,
     ``layer0`` .. ``layer{L-1}`` through the cacheless
@@ -567,36 +599,59 @@ def profile_layers(params, cfg, device: torch.device | str | None = None, *,
     ``flops`` and ``bytes`` from :func:`layer_cost` and, when ``measure``,
     ``wall_s``: on CUDA the best of ``reps`` replays of a CUDA graph
     captured for the component (device time, CUDA events), on the CPU the
-    best of ``reps`` eager calls. ``model_flops``/``model_bytes`` are the
-    whole model's prefill by :func:`program_cost`, the engine programs'
-    count, so the components' prefill FLOPs sum to it (the embed's casts
-    aside).
+    best of ``reps`` eager calls (without ``measure``, one untimed call).
+    Int8 weights take the route the engine's programs take
+    (``cfg.int8_pallas``: the hand-written kernel where ``int8_matmul``
+    routes a shape to it, as at decode). ``model_flops``/
+    ``model_bytes`` are the whole model's prefill by :func:`program_cost`,
+    the engine programs' count, so the components' prefill FLOPs sum to it
+    (the embed's casts aside).
 
-    Failures degrade, never crash: a component whose run raises (or the
-    armed ``profile.layers`` fault point, tried once a shape) becomes an
-    ``error`` entry, counted in ``errors``. ``guard``: a context manager
-    held throughout (the engine's capture lock, so no engine capture runs
-    beside these)."""
-    from kukeon_tpu_torch import faults
+    ``mesh``: ``params`` is this rank's local tree, and each component
+    runs with its collectives (the vocab-sharded lookup's ``all_reduce``,
+    the two of a block, the logits' ``all_gather``); every rank of the
+    group must make this call, in the same order, with the same ``plan``.
+    The counts stay the whole model's, as the reference's cost analysis
+    reports the same FLOPs and bytes on any mesh as on one device.
+
+    Failures degrade, never crash, where every rank fails alike: the armed
+    ``profile.layers`` fault point (drawn by :func:`fault_plan` unless
+    ``plan`` holds the draws) and a MoE tree's layers (not dense blocks:
+    the reference runs its dense block over the expert stacks, which fails
+    at a batch neither 1 nor the expert count and means nothing at those)
+    become ``error`` entries, counted in ``errors``, before any of their
+    collectives. So does a component whose run raises on one device. On a
+    mesh of more than one rank such a run error propagates instead: the
+    rank stopped partway through the component's collectives, which its
+    peers are in, so the caller ends the group (the engine's ``_dev``, a
+    follower's action). ``guard``: a context manager held throughout (the
+    engine's capture lock, so no engine capture runs beside these)."""
     from kukeon_tpu_torch.models import llama
     from kukeon_tpu_torch.ops.norms import rms_norm
 
     dev = torch.device(device) if device is not None else params["final_norm"].device
     n_layers, hidden = int(cfg.num_layers), int(cfg.hidden_size)
     prefill_len, decode_batch = max(1, int(prefill_len)), max(1, int(decode_batch))
-    shapes = (("prefill", (1, prefill_len)), ("decode", (decode_batch, 1)))
+    shapes = tuple(zip(_SHAPES, ((1, prefill_len), (decode_batch, 1))))
     int8 = llama._is_q(params["layers"]["wq"])
+    kern = int8 and cfg.int8_pallas
     cuda = dev.type == "cuda"
+    plan = fault_plan(n_layers) if plan is None else plan
+    rows = llama.vocab_rows(cfg.vocab_size, llama._world(mesh))
+    moe = "router" in params["layers"]
+    group = mesh is not None and mesh.size > 1
 
     def embed_fn(tokens):
-        return llama._embed(params, tokens, cfg.dtype)
+        return llama._embed(params, tokens, cfg.dtype, mesh, rows)
 
     def head_fn(x):
-        return llama._logits(params, cfg, rms_norm(x, params["final_norm"], cfg.rms_norm_eps))
+        return llama._logits(params, cfg, rms_norm(x, params["final_norm"], cfg.rms_norm_eps),
+                             kern, mesh)
 
     def layer_fn(i: int):
         w = llama.layer_weights(params, i)
-        return lambda x, positions: llama.transformer_block(x, w, cfg, positions)
+        return lambda x, positions: llama.transformer_block(x, w, cfg, positions, mesh=mesh,
+                                                            kernel=kern)
 
     def args_for(name: str, B: int, S: int) -> tuple:
         if name == "embed":
@@ -610,24 +665,34 @@ def profile_layers(params, cfg, device: torch.device | str | None = None, *,
     errors = 0
     pool = torch.cuda.graph_pool_handle() if cuda and measure else None
     graphs: list = []       # the pool's graphs, kept until the last capture
-    plan = [("embed", embed_fn)] + [(f"layer{i}", layer_fn(i)) for i in range(n_layers)]
-    plan += [("head", head_fn)]
+    fns = [embed_fn] + [layer_fn(i) for i in range(n_layers)] + [head_fn]
     with guard if guard is not None else contextlib.nullcontext():
-        for name, fn in plan:
+        for name, fn, fault in zip(component_names(n_layers), fns, plan):
             kind = name if name in ("embed", "head") else "layer"
             entry: dict[str, Any] = {"name": name}
+            if fault is None and moe and kind == "layer":
+                fault = "TypeError: a mixture-of-experts layer is not a dense transformer block"
+            if fault is not None:
+                errors += 1
+                components.append({"name": name, "error": fault})
+                continue
             try:
                 for shape_name, (B, S) in shapes:
-                    faults.maybe_fail("profile.layers")
                     flops, nbytes = layer_cost(cfg, kind, B, S, int8_weights=int8)
                     rec: dict[str, Any] = {"flops": flops, "bytes": nbytes}
+                    args = args_for(name, B, S)
                     if measure:
-                        args = args_for(name, B, S)
                         secs = (_time_graph(fn, args, reps, pool, graphs) if cuda
                                 else _time_eager(fn, args, reps))
                         rec["wall_s"] = round(secs, 6)
+                    else:
+                        # Run once, untimed: the reference lowers every
+                        # component, so one that cannot run fails either way.
+                        fn(*args)
                     entry[shape_name] = rec
             except Exception as e:  # noqa: BLE001 — a partial profile beats a dead cell
+                if group:
+                    raise
                 errors += 1
                 entry = {"name": name, "error": f"{type(e).__name__}: {e}"}
             components.append(entry)

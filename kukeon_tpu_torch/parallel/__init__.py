@@ -12,6 +12,7 @@ from kukeon_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     auto_mesh_shape,
     largest_pow2_leq,
+    make_mesh,
     serving_mesh,
 )
 from kukeon_tpu_torch.parallel.sharding import (  # noqa: F401

@@ -33,7 +33,7 @@ class TensorParallelForward:
         self.cache = llama.KVCache.create(
             cfg, batch, max_len, quantized=kv_int8, device=mesh.device,
             kv_heads=cfg.num_kv_heads // mesh.world if sharded else cfg.num_kv_heads)
-        self._group = mesh.group if mesh.leader and mesh.world > 1 else None
+        self._group = mesh.group if mesh.leader and mesh.size > 1 else None
         if self._group is not None:
             self._oid = self._group.new_id()
             self._group.post(self._oid, "new", (
@@ -50,8 +50,9 @@ class TensorParallelForward:
 
     @torch.no_grad()
     def routes(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """A MoE call that returns, instead of logits, every rank's expert
-        choices: ``[world, L, N, K]`` (rank-major, gathered to every rank),
+        """A MoE call that returns, instead of logits, every tensor peer's
+        expert choices: ``[tensor, L, N, K]`` (in tensor order, gathered to
+        every rank of the replica),
         each MoE block's top-k experts of each token as that rank routed
         them."""
         return self._run("routes", (tokens, positions))

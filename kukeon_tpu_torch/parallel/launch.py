@@ -19,6 +19,12 @@ applies, in order, the device actions the leader posts to them.
   follower when an action that meets a collective is posted: a decode
   chunk's host inputs and its program run go out together. An argument
   wrapped in :class:`PerRank` sends each follower its own element.
+- **Data x tensor**: a group of ``world`` ranks has a tensor size
+  ``tensor`` that divides it; its ranks ``d * tensor .. (d + 1) * tensor
+  - 1`` are data replica ``d``, and each replica gets a
+  ``torch.distributed`` subgroup of its own (:attr:`Group.tensor_pg`),
+  which the mesh's collectives run over. The leader drives every
+  follower of every replica with the same descriptors.
 - **Failures end the group**: a follower whose process exits, or whose
   action raises, marks the group failed and calls ``on_failure`` (a cell
   exits non-zero there: it never serves on fewer devices); the next post
@@ -99,11 +105,15 @@ def _device(device_type: str, rank: int) -> torch.device:
     return torch.device(f"cuda:{rank}") if device_type == "cuda" else torch.device("cpu")
 
 
-def _init_torch_group(device_type: str, store_path: str, rank: int, world: int) -> None:
+def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
+                      tensor: int):
     """``init_process_group`` on the rendezvous store, then one eager
     ``all_reduce`` that must sum to ``world``: NCCL builds its communicator
     there, outside any graph capture, and a rank that cannot reach the
-    others fails here, at boot."""
+    others fails here, at boot. With more than one data replica, every
+    rank then makes every replica's subgroup (``new_group`` is collective,
+    in one order on all ranks) and sums over its own the same way. ->
+    this rank's tensor subgroup (None: the whole group)."""
     timeout = datetime.timedelta(seconds=timeout_s())
     store = dist.FileStore(store_path, world)
     if device_type == "cuda":
@@ -118,19 +128,34 @@ def _init_torch_group(device_type: str, store_path: str, rank: int, world: int) 
     dist.all_reduce(one)
     if int(one.item()) != world:
         raise RankFailure(f"rendezvous all_reduce gave {one.item()}, want {world}")
+    if tensor == world:
+        return None
+    pgs = [dist.new_group(list(range(d * tensor, (d + 1) * tensor)))
+           for d in range(world // tensor)]
+    pg = pgs[rank // tensor]
+    one = torch.ones((1,), device=_device(device_type, rank))
+    dist.all_reduce(one, group=pg)
+    if int(one.item()) != tensor:
+        raise RankFailure(f"replica all_reduce gave {one.item()}, want {tensor}")
+    return pg
 
 
 class Group:
     """This process's rank group. The leader's holds the followers'
     processes and channels; a follower's, its channel to the leader.
+    ``tensor``: the ranks of one data replica; ``tensor_pg`` this rank's
+    replica's ``torch.distributed`` subgroup (None: the whole group).
     ``peer_stats[r]``: the latest allocator counters follower r reported
     (``{"in_use", "limit", "peak", "index"}``), read by the leader's
     scrapes without any CUDA call."""
 
     def __init__(self, rank: int, world: int, device_type: str, rdzv: str,
-                 conns: list[Connection], procs: list[subprocess.Popen] | None = None):
+                 conns: list[Connection], procs: list[subprocess.Popen] | None = None,
+                 tensor: int | None = None, tensor_pg=None):
         self.rank = rank
         self.world = world
+        self.tensor = tensor or world
+        self.tensor_pg = tensor_pg
         self.device_type = device_type
         self.device = _device(device_type, rank)
         self._rdzv = rdzv
@@ -321,21 +346,23 @@ def current() -> Group | None:
     return _GROUP
 
 
-def group(world: int, device_type: str) -> Group:
-    """This process's group of ``world`` ranks on ``device_type``: the open
+def group(world: int, device_type: str, tensor: int | None = None) -> Group:
+    """This process's group of ``world`` ranks on ``device_type``, in data
+    replicas of ``tensor`` ranks (None: one replica of ``world``): the open
     one when it matches, else a new one (:func:`start`). A second group of
     another shape in one process is a ``ValueError``."""
     global _GROUP
+    tensor = tensor or world
     with _GROUP_LOCK:
         if _GROUP is not None and _GROUP.failed is None:
-            if (_GROUP.world, _GROUP.device_type) != (world, device_type):
+            if (_GROUP.world, _GROUP.tensor, _GROUP.device_type) != (world, tensor, device_type):
                 raise ValueError(
                     f"this process already leads a group of {_GROUP.world} "
-                    f"{_GROUP.device_type} ranks; one group a process")
+                    f"{_GROUP.device_type} ranks (tensor {_GROUP.tensor}); one group a process")
             return _GROUP
         if _GROUP is not None:
             _GROUP.close()
-        _GROUP = start(world, device_type)
+        _GROUP = start(world, device_type, tensor)
         return _GROUP
 
 
@@ -362,18 +389,23 @@ def follower_env(key: bytes) -> dict[str, str]:
     return env
 
 
-def start(world: int, device_type: str) -> Group:
-    """Start ``world - 1`` followers and join them as rank 0. A follower
-    that exits before it connects, or a rendezvous that outlasts the
-    timeout, kills the others and raises :class:`RankFailure`."""
+def start(world: int, device_type: str, tensor: int | None = None) -> Group:
+    """Start ``world - 1`` followers and join them as rank 0, in data
+    replicas of ``tensor`` ranks (None: ``world``; it must divide
+    ``world``). A follower that exits before it connects, or a rendezvous
+    that outlasts the timeout, kills the others and raises
+    :class:`RankFailure`."""
+    tensor = tensor or world
+    if world % tensor:
+        raise ValueError(f"a tensor axis of {tensor} does not divide {world} ranks")
     rdzv = tempfile.mkdtemp(prefix="kukeon-tp-")
     key = os.urandom(16)
     listener = Listener(_control_address(rdzv), family="AF_UNIX", authkey=key)
     env = follower_env(key)
     procs = [subprocess.Popen(
         [sys.executable, "-m", "kukeon_tpu_torch.parallel.launch", "--rank", str(r),
-         "--world", str(world), "--rdzv", rdzv, "--device", device_type,
-         "--leader-pid", str(os.getpid())], env=env)
+         "--world", str(world), "--tensor", str(tensor), "--rdzv", rdzv,
+         "--device", device_type, "--leader-pid", str(os.getpid())], env=env)
         for r in range(1, world)]
     conns: dict[int, Connection] = {}
     accepted: list = []
@@ -404,7 +436,7 @@ def start(world: int, device_type: str) -> Group:
             if not conn.poll(timeout_s()):
                 raise RankFailure("a follower connected but never said its rank")
             conns[int(pickle.loads(conn.recv_bytes()))] = conn
-        _init_torch_group(device_type, os.path.join(rdzv, "store"), 0, world)
+        pg = _init_torch_group(device_type, os.path.join(rdzv, "store"), 0, world, tensor)
     except BaseException:
         for p in procs:
             p.kill()
@@ -415,7 +447,8 @@ def start(world: int, device_type: str) -> Group:
         raise
     finally:
         listener.close()
-    return Group(0, world, device_type, rdzv, [conns[r] for r in range(1, world)], procs)
+    return Group(0, world, device_type, rdzv, [conns[r] for r in range(1, world)], procs,
+                 tensor, pg)
 
 
 # --- the follower process ---------------------------------------------------
@@ -454,6 +487,7 @@ def follower_main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kukeon-tp-follower")
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--tensor", type=int, default=None)
     ap.add_argument("--rdzv", required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), required=True)
     ap.add_argument("--leader-pid", type=int, required=True)
@@ -465,8 +499,11 @@ def follower_main(argv=None) -> int:
     key = bytes.fromhex(os.environ.pop(_AUTHKEY_ENV))
     conn = Client(_control_address(args.rdzv), family="AF_UNIX", authkey=key)
     conn.send_bytes(pickle.dumps(args.rank))
-    _init_torch_group(args.device, os.path.join(args.rdzv, "store"), args.rank, args.world)
-    g = Group(args.rank, args.world, args.device, args.rdzv, [conn])
+    tensor = args.tensor or args.world
+    pg = _init_torch_group(args.device, os.path.join(args.rdzv, "store"), args.rank,
+                           args.world, tensor)
+    g = Group(args.rank, args.world, args.device, args.rdzv, [conn], tensor=tensor,
+              tensor_pg=pg)
     from kukeon_tpu_torch.parallel.mesh import Mesh
 
     mesh = Mesh(g)

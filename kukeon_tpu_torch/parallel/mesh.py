@@ -3,17 +3,27 @@
 The reference builds a ``jax.sharding.Mesh`` over the devices one
 controller sees and lets GSPMD insert the collectives. The port runs one
 process per device (PyTorch's idiom): a :class:`Mesh` is this process's
-view of a rank group (``parallel/launch.py``), its rank, the world, its
-device and the axis sizes, and it carries the two collectives the
-tensor-parallel forward calls, :meth:`Mesh.all_reduce` and
-:meth:`Mesh.all_gather`, through ``torch.distributed`` (NCCL on ``cuda``,
-gloo on ``cpu``). Serving puts every rank on ``tensor``; ``expert`` is size 1, as in the
-reference's ``serving_mesh`` (a MoE layer's experts are cut on
-``tensor`` inside each expert); the other axes keep the reference's names
-for the slices that add them (ROADMAP.md A13b2-d).
+view of a rank group (``parallel/launch.py``): its coordinates, the axis
+sizes, its device, and it carries the
+two collectives the tensor-parallel forward calls,
+:meth:`Mesh.all_reduce` and :meth:`Mesh.all_gather`, through
+``torch.distributed`` (NCCL on ``cuda``, gloo on ``cpu``) over its
+**tensor subgroup**. Serving lays the ranks out as ``data`` x ``tensor``
+(:func:`make_mesh`; ``tensor`` innermost, as the reference's
+``make_mesh`` orders its axes): each data replica is ``tensor``
+consecutive ranks holding the whole model between them, and the replicas
+hold the same weights and compute the same step (the reference
+replicates its weights and its cache over ``data``). So a mesh's
+``rank`` and ``world`` are its **tensor** coordinate and size: every cut
+of a weight and every collective reads those, and only the rank group
+itself (who leads, how many processes) sees the data axis. ``expert`` is size
+1, as in the reference's ``serving_mesh`` (a MoE layer's experts are cut
+on ``tensor`` inside each expert); the other axes keep the reference's
+names for the slices that add them (ROADMAP.md A13c-d).
 
-Counterparts in the reference: the axis names :28-33, ``serving_mesh``
-:121, ``largest_pow2_leq`` :146, ``auto_mesh_shape`` :151.
+Counterparts in the reference: the axis names :28-33, ``make_mesh`` :40,
+``serving_mesh`` :121, ``largest_pow2_leq`` :146, ``auto_mesh_shape``
+:151.
 """
 
 from __future__ import annotations
@@ -74,56 +84,77 @@ def serving_mesh(n_devices: int | None = None, device: str = "cuda") -> "Mesh":
     """All ranks on ``tensor``: the reference's latency layout for one
     model. ``n_devices`` is a hard request (None: every visible device):
     asking for more than the host shows fails here, before any process
-    starts. Returns rank 0's mesh over this process's group
+    starts. Returns rank 0's mesh (:func:`make_mesh`)."""
+    dtype = torch.device(device).type
+    n = check_grant(visible_devices(dtype) if n_devices is None else n_devices, dtype)
+    return make_mesh(tensor=n, device=device)
+
+
+def make_mesh(data: int = 1, tensor: int = 1, device: str = "cuda") -> "Mesh":
+    """The reference's ``make_mesh(data=, tensor=)`` for serving: rank 0's
+    mesh over this process's group of ``data * tensor`` ranks
     (:func:`kukeon_tpu_torch.parallel.launch.group`), started now with
-    ``n - 1`` followers or reused when one of that size is open."""
+    that many less one followers, or reused when one of that shape is
+    open. More ranks than the host shows is a ``ValueError``."""
     # Imported here: a follower runs launch as ``__main__``, after this
     # package's __init__ has imported this module.
     from kukeon_tpu_torch.parallel import launch
 
+    if data < 1 or tensor < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data {data} x tensor {tensor}")
     dtype = torch.device(device).type
-    n = check_grant(visible_devices(dtype) if n_devices is None else n_devices, dtype)
-    return Mesh(launch.group(n, dtype))
+    n = check_grant(data * tensor, dtype)
+    return Mesh(launch.group(n, dtype, tensor=tensor))
 
 
 class Mesh:
-    """This process's view of a rank group: ``rank``, ``world``, its
-    ``device`` and ``shape`` (every rank on ``tensor``), and the
-    collectives over the group. Each collective sums or gathers in the
-    tensor's own dtype, as the reference's ``psum`` does, and is one
-    ``torch.distributed`` call on the current stream (captured inside the
-    CUDA graphs like any kernel)."""
+    """This process's view of a rank group: ``rank`` and ``world``, its
+    coordinate on ``tensor`` and that axis's size (what every weight is cut
+    by); ``replica``, its coordinate on ``data``; ``size``, the ranks of the
+    mesh (``data * tensor``, the group's processes); ``shape``; its
+    ``device``; and the collectives over its tensor subgroup (the group's,
+    :attr:`launch.Group.tensor_pg`; the whole group when ``data`` is 1).
+    Each collective sums or gathers in the tensor's own dtype, as the
+    reference's ``psum`` does, and is one ``torch.distributed`` call on the
+    current stream (captured inside the CUDA graphs like any kernel)."""
 
     def __init__(self, group):
         self.group = group
-        self.rank = group.rank
-        self.world = group.world
+        self.size = group.world
+        self.world = group.tensor
+        self.rank = group.rank % group.tensor
+        self.replica = group.rank // group.tensor
         self.device = group.device
-        self.shape = {AXIS_DATA: 1, AXIS_EXPERT: 1, AXIS_TENSOR: group.world}
+        self.shape = {AXIS_DATA: self.size // self.world, AXIS_EXPERT: 1,
+                      AXIS_TENSOR: self.world}
+        self._pg = group.tensor_pg
 
     @property
     def leader(self) -> bool:
-        return self.rank == 0
+        return self.group.rank == 0
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the ranks, in place (a contiguous copy of a
-        strided ``x``); returns the sum."""
+        """Sum ``x`` over the tensor subgroup, in place (a contiguous copy
+        of a strided ``x``); returns the sum."""
         x = x.contiguous()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=self._pg)
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+        """Every tensor peer's ``x`` concatenated along ``dim`` in tensor
+        order."""
+        t = self.world
         flat = x.contiguous().reshape(-1)
-        out = torch.empty((self.world * flat.numel(),), dtype=x.dtype, device=x.device)
+        out = torch.empty((t * flat.numel(),), dtype=x.dtype, device=x.device)
         # torch 2.13 renames all_gather_into_tensor (and warns on the old
         # name); the GPU host's 2.11 has only the old one.
         gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-        gather(out, flat)
+        gather(out, flat, group=self._pg)
         dim = dim % x.ndim
-        parts = out.view(self.world, *x.shape)
+        parts = out.view(t, *x.shape)
         return parts.movedim(0, dim).reshape(
-            *x.shape[:dim], self.world * x.shape[dim], *x.shape[dim + 1:])
+            *x.shape[:dim], t * x.shape[dim], *x.shape[dim + 1:])
 
     def __repr__(self) -> str:
-        return f"Mesh(rank={self.rank}, world={self.world}, device={self.device})"
+        return (f"Mesh(data {self.replica}/{self.size // self.world}, "
+                f"tensor {self.rank}/{self.world}, device={self.device})")

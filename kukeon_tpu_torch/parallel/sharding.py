@@ -32,12 +32,26 @@ local tree (:func:`shard_params`), and the forwards (``models/llama.py``,
 - the KV cache holds each rank's kv heads (:func:`kv_cache_spec`). With
   ``kv_shard`` off, or kv heads that ``tensor`` does not divide (the
   reference's ``_cache_shardings``), ``wk``, ``wv`` and the cache are
-  replicated and each rank attends its q heads to their groups.
+  replicated and each rank attends each of its q heads to its own kv
+  head (``models/llama.py _heads``), whether or not its block of q heads
+  straddles a kv group;
+- the attention leaves (:data:`HEAD_LEAVES`) are cut in whole heads:
+  where ``tensor`` does not divide the heads, a rank holds ``ceil(heads /
+  tensor)`` of them and the trailing ranks' blocks are zero-padded, as a
+  vocabulary is; a zero head's columns of ``wq`` give a zero query and its
+  rows of ``wo`` are zero, so it adds exactly zero to the sum. The
+  reference's GSPMD cuts a head where it must instead; both compute the
+  same model. What the reference's shardings cannot cut,
+  :func:`check_tensor_parallel` refuses.
 
-One rule cuts every leaf, in memory and on disk: :func:`rank_block` gives a
-rank's :class:`Block` of a leaf (the ``ceil(n / world)`` blocks, their
-zero padding, an int8 head's tile padding); :func:`_cut` cuts a full leaf
-by it, and :class:`Layout` gives it by leaf path to the readers of
+Every cut goes by a rank's **tensor** coordinate and the tensor size
+(``Mesh.rank``, ``Mesh.world``): a data replica holds the
+blocks its tensor peer of replica 0 holds, and reads only those. One rule
+cuts every leaf, in memory and on disk: :func:`rank_block` gives a
+rank's :class:`Block` of a leaf (the ``ceil(n / world)`` blocks in whole
+units (a head's ``head_dim`` columns or rows on :data:`HEAD_LEAVES`),
+their zero padding, an int8 head's tile padding); :func:`_cut` cuts a full
+leaf by it, and :class:`Layout` gives it by leaf path to the readers of
 ``models/`` (``checkpoints.stream_quantized``, ``hf_convert``'s streams
 and ``moe_rank_leaves``, ``orbax_ckpt.rank_leaves``), which read only a
 rank's blocks from a checkpoint. :func:`local_meta` is a rank's abstract
@@ -201,26 +215,25 @@ def kv_sharded(num_kv_heads: int, world: int, kv_shard: bool | None = None) -> b
 
 
 def check_tensor_parallel(cfg, world: int, kv_shard: bool | None = None) -> bool:
-    """Refuse (``SystemExit``, naming A13b2b) a tensor axis the port cannot
-    cut ``cfg`` over: one that does not divide the heads or the
-    intermediate size, or, with a replicated cache, whose q-head groups
-    would straddle kv heads. A vocabulary it does not divide is padded
-    (:func:`vocab_rows`). -> whether the cache shards (BERT has none:
-    True)."""
-    for what, n in (("num_heads", cfg.num_heads),
-                    ("intermediate_size", cfg.intermediate_size)):
+    """Refuse (``SystemExit``) exactly the tensor sizes the reference's
+    shardings refuse, the vocabulary aside: one that does not divide a dim
+    its specs put on ``tensor`` (its ``device_put`` of the leaf raises
+    there): the attention width (``wq``'s columns, ``wo``'s rows; BERT's
+    hidden width), the kv width (``wk``'s and ``wv``'s columns, cut
+    whether or not the cache shards) or the intermediate size (each
+    expert's, in a MoE layer). Heads it does not divide are cut in whole,
+    zero-padded heads (:func:`rank_block`), and a vocabulary it does not
+    divide is padded (:func:`vocab_rows`). ``world`` is the tensor size.
+    -> whether the cache shards (BERT has none: True)."""
+    dims = ((("hidden width", cfg.hidden_size),) if isinstance(cfg, bert.BertConfig)
+            else (("num_heads*head_dim", cfg.q_dim), ("num_kv_heads*head_dim", cfg.kv_dim)))
+    for what, n in dims + (("intermediate_size", cfg.intermediate_size),):
         if n % world:
             raise SystemExit(
                 f"tensor parallelism over {world} ranks: {what} {n} is not a multiple of "
-                f"{world}; uneven shards are not ported yet (ROADMAP.md A13b2b)")
-    kv_heads = getattr(cfg, "num_kv_heads", cfg.num_heads)
-    sharded = kv_sharded(kv_heads, world, kv_shard)
-    if not sharded and world % kv_heads and kv_heads % world:
-        raise SystemExit(
-            f"tensor parallelism over {world} ranks: {kv_heads} kv heads neither "
-            f"divide nor are divided by {world}, so a rank's q heads would span part of a "
-            "kv group; not ported yet (ROADMAP.md A13b2b)")
-    return sharded
+                f"{world}; the reference's shardings cannot cut it over {world} devices "
+                "either")
+    return kv_sharded(getattr(cfg, "num_kv_heads", cfg.num_heads), world, kv_shard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,10 +286,14 @@ class Block:
         return torch.cat(pieces, self.axis) if torch_part else np.concatenate(pieces, self.axis)
 
 
-def rank_block(spec: Spec, shape, rank: int, world: int, head: str | None = None) -> Block:
-    """THE rule for a rank's block of a leaf of full ``shape`` and ``spec``:
-    along the spec's ``tensor`` axis, blocks of ``ceil(n / world)``, the
-    last one(s) zero-padded (only a vocabulary is cut so:
+def rank_block(spec: Spec, shape, rank: int, world: int, head: str | None = None,
+               unit: int = 1) -> Block:
+    """THE rule for a rank's block of a leaf of full ``shape`` and ``spec``
+    (``rank`` and ``world`` the tensor coordinate and size): along the
+    spec's ``tensor`` axis, blocks of ``ceil(n / unit / world)`` whole
+    units of ``unit`` entries (a head's ``head_dim`` on
+    :data:`HEAD_LEAVES`, else one), the last one(s) zero-padded (a
+    vocabulary, heads the world does not divide:
     :func:`check_tensor_parallel` refuses the rest); ``head`` (``"q"`` or
     ``"s"``, an int8 LM head's leaves) pads the block further to a multiple
     of :data:`VOCAB_TILE` (with ones for ``"s"``). Every cut in memory
@@ -285,22 +302,36 @@ def rank_block(spec: Spec, shape, rank: int, world: int, head: str | None = None
         return Block(None, 0, 0, 0, 0)
     axis = spec.index(AXIS_TENSOR)
     n = shape[axis]
-    m = vocab_rows(n, world)
+    m = vocab_rows(n // unit, world) * unit
     lo, hi = min(rank * m, n), min((rank + 1) * m, n)
     size = m + (-m % VOCAB_TILE if head else 0)
     return Block(axis, lo, hi, m, size, 1 if head == "s" else 0)
 
 
-def _cut(x, spec: Spec, rank: int, world: int):
+def _cut(x, spec: Spec, rank: int, world: int, unit: int = 1):
     """The ``rank``-th of ``world`` blocks of ``x`` along the axis ``spec``
     puts on ``tensor`` (``x`` itself when none does, or at one rank), as a
     copy: contiguous, and holding no reference to ``x`` (a view of a row
     block would keep the whole leaf's storage alive); :func:`rank_block`'s
-    rule."""
+    rule, in whole units of ``unit`` entries."""
     if AXIS_TENSOR not in spec or world == 1:
         return x
-    block = rank_block(spec, x.shape, rank, world)
+    block = rank_block(spec, x.shape, rank, world, unit=unit)
     return block.place(block.take(x))
+
+
+# The layer leaves cut in whole heads (their spec's ``tensor`` axis is a
+# heads x head_dim axis): the attention projections, and BERT's biases.
+HEAD_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv"})
+
+
+def head_unit(path: tuple[str, ...], head_dim: int) -> int:
+    """The unit :func:`rank_block` cuts the leaf at ``path`` in: one head's
+    ``head_dim`` entries on :data:`HEAD_LEAVES` (int8 ``q``/``s`` alike),
+    else 1."""
+    if len(path) >= 2 and path[0] == "layers" and path[1] in HEAD_LEAVES:
+        return head_dim
+    return 1
 
 
 def param_specs(params, kv_shard: bool = True) -> dict:
@@ -389,14 +420,16 @@ def _meta(cfg, quantized: bool) -> dict:
 
 
 class Layout:
-    """Where each leaf of ``cfg``'s tree lies on rank ``rank`` of ``world``:
-    its spec and its :func:`rank_block` (the int8 head's leaves tile-padded:
+    """Where each leaf of ``cfg``'s tree lies on tensor coordinate ``rank``
+    of a tensor axis of ``world``: its spec and its :func:`rank_block`
+    (attention leaves in whole heads; the int8 head's leaves tile-padded:
     the tied embedding's, else the untied ``lm_head``'s). The readers of
     ``models/`` cut what they read from disk by it."""
 
     def __init__(self, cfg, rank: int, world: int, kv_shard: bool = True):
         meta = meta_params(cfg)
         self.rank, self.world = rank, world
+        self.head_dim = cfg.head_dim
         self.specs = param_specs(meta, kv_shard)
         self.head = (None if isinstance(cfg, bert.BertConfig)
                      else ("lm_head",) if "lm_head" in meta else ("embed",))
@@ -407,16 +440,21 @@ class Layout:
             spec = spec[k]
         return spec["q"] if isinstance(spec, dict) else spec
 
+    def unit(self, path: tuple[str, ...]) -> int:
+        return head_unit(path, self.head_dim)
+
     def block(self, path: tuple[str, ...], shape) -> Block:
         head = path[-1] if path[:-1] == self.head and path[-1] in ("q", "s") else None
-        return rank_block(self.spec(path), tuple(shape), self.rank, self.world, head)
+        return rank_block(self.spec(path), tuple(shape), self.rank, self.world, head,
+                          self.unit(path))
 
 
 def local_meta(cfg, mesh, kv_shard: bool = True, *, quantized: bool = False) -> dict:
-    """The abstract local tree of ``mesh.rank`` (``TensorSpec`` leaves:
-    shape and dtype), padding included, from ``cfg``'s meta tree (int8
-    ``{"q", "s"}`` leaves when ``quantized``; BERT is never) and the
-    specs: the shapes :func:`local_params` gives that rank."""
+    """The abstract local tree of ``mesh``'s tensor coordinate
+    (``TensorSpec`` leaves: shape and dtype), padding included, from
+    ``cfg``'s meta tree (int8 ``{"q", "s"}`` leaves when ``quantized``;
+    BERT is never) and the specs: the shapes :func:`local_params` gives
+    that rank."""
     from kukeon_tpu_torch.models.checkpoints import TensorSpec, _walk_tree
 
     layout = Layout(cfg, mesh.rank, mesh.world, kv_shard)
@@ -427,7 +465,8 @@ def local_meta(cfg, mesh, kv_shard: bool = True, *, quantized: bool = False) -> 
 
 def local_params(recipe: Recipe, cfg, mesh, kv_shard: bool = True) -> dict[str, Any]:
     """This rank's tree, on its device, from a ``"leaves"`` or ``"slices"``
-    ``recipe`` (any family; its specs from ``cfg``'s). Full leaves are cut
+    ``recipe`` (any family; its specs from ``cfg``'s), cut by its tensor
+    coordinate (a data replica's tree is its replica-0 peer's). Full leaves are cut
     by their spec as they come and each freed before the next is made, so
     a rank holds its local tree and at most one full leaf (plus what the
     factory holds to make it), never the model; slices come cut. The
@@ -435,26 +474,23 @@ def local_params(recipe: Recipe, cfg, mesh, kv_shard: bool = True) -> dict[str, 
     LM head's shard padded further to the kernel's tile
     (:func:`pad_vocab`)."""
     factory = recipe.resolve()
+    rank, world = mesh.rank, mesh.world
     if recipe.reads == "slices":
-        tree = llama.nest(list(factory(device=mesh.device, rank=mesh.rank, world=mesh.world,
+        tree = llama.nest(list(factory(device=mesh.device, rank=rank, world=world,
                                        kv_shard=kv_shard, **recipe.kwargs)))
     elif recipe.reads == "leaves":
-        specs = param_specs(meta_params(cfg), kv_shard)
+        layout = Layout(cfg, rank, world, kv_shard)
         local = []
         for path, full in factory(device=mesh.device, **recipe.kwargs):
-            spec = specs
-            for k in path:
-                spec = spec[k]
-            if isinstance(spec, dict):
-                spec = spec["q"]
-            local.append((path, _cut(full, spec, mesh.rank, mesh.world).to(mesh.device)))
+            local.append((path, _cut(full, layout.spec(path), rank, world,
+                                     layout.unit(path)).to(mesh.device)))
             del full
         tree = llama.nest(local)
     else:
         raise ValueError(f"a {recipe.reads!r} recipe boots through open_stream")
     if isinstance(cfg, bert.BertConfig):
         return tree
-    return pad_vocab(tree, vocab_rows(cfg.vocab_size, mesh.world))
+    return pad_vocab(tree, vocab_rows(cfg.vocab_size, world))
 
 
 def open_stream(recipe: Recipe, cfg, mesh, kv_shard: bool = True):
@@ -464,8 +500,8 @@ def open_stream(recipe: Recipe, cfg, mesh, kv_shard: bool = True):
     leaf that does not)."""
     from kukeon_tpu_torch.models.checkpoints import _walk_tree
 
-    stream = recipe.resolve()(rank=mesh.rank, world=mesh.world, kv_shard=kv_shard,
-                              **recipe.kwargs)
+    stream = recipe.resolve()(rank=mesh.rank, world=mesh.world,
+                              kv_shard=kv_shard, **recipe.kwargs)
     got = dict(_walk_tree(stream.abstract_params))
     quantized = any(p[-1] == "q" for p in got)
     want = dict(_walk_tree(local_meta(cfg, mesh, kv_shard, quantized=quantized)))
@@ -479,22 +515,25 @@ def open_stream(recipe: Recipe, cfg, mesh, kv_shard: bool = True):
     return stream
 
 
-def shard_params(params, mesh, kv_shard: bool = True) -> dict[str, Any]:
+def shard_params(params, mesh, kv_shard: bool = True, *, head_dim: int) -> dict[str, Any]:
     """This rank's local tree of a full tree (host or device leaves, numpy
     or torch, int8 or full precision): each leaf cut by its spec on
-    ``mesh.rank`` of ``mesh.world``. The concatenation of every rank's
-    cut along the spec's axis is the leaf, bit for bit."""
-    return shard_tree(params, mesh.rank, mesh.world, kv_shard)
+    ``mesh.rank`` of ``mesh.world``. The concatenation of
+    every rank's cut along the spec's axis is the leaf, bit for bit."""
+    return shard_tree(params, mesh.rank, mesh.world, kv_shard, head_dim=head_dim)
 
 
-def shard_tree(params, rank: int, world: int, kv_shard: bool = True) -> dict[str, Any]:
-    """:func:`shard_params` by rank and world (a vocabulary the world does
-    not divide comes zero-padded, as :func:`local_params` cuts it)."""
+def shard_tree(params, rank: int, world: int, kv_shard: bool = True, *,
+               head_dim: int) -> dict[str, Any]:
+    """:func:`shard_params` by tensor coordinate and size (a vocabulary the
+    world does not divide comes zero-padded, as :func:`local_params` cuts
+    it), the attention leaves in whole heads of ``head_dim``
+    (:func:`head_unit`), as :class:`Layout` cuts them."""
     specs = param_specs(params, kv_shard)
 
-    def walk(node, spec):
+    def walk(node, spec, path):
         if isinstance(node, dict):
-            return {k: walk(v, spec[k]) for k, v in node.items()}
-        return _cut(node, spec, rank, world)
+            return {k: walk(v, spec[k], path + (k,)) for k, v in node.items()}
+        return _cut(node, spec, rank, world, head_unit(path, head_dim))
 
-    return walk(params, specs)
+    return walk(params, specs, ())

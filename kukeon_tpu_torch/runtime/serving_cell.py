@@ -128,8 +128,10 @@ always passes): ``--chips N`` serves one model (Llama, Mixtral, or the
 embedding cell's BERT) over exactly N
 devices, all on ``tensor`` (``parallel/mesh.py``), a grant above what the
 host shows exiting before any weight is allocated; without the flag, every
-visible GPU (one rank on the CPU), a count that would need a ``data`` axis
-refused (:func:`cell_world`). This process is rank 0, the leader: it owns
+visible GPU, laid out as the reference lays it out (``auto_mesh_shape``:
+tensor up to 8, ``data`` replicas beyond, each a whole copy of the model
+computing the same step; one rank on the CPU; :func:`cell_world`). This
+process is rank 0, the leader: it owns
 the HTTP server, the scheduler, the tokenizer, the prefix index and the
 page allocator, and starts N - 1 followers (``python -m
 kukeon_tpu_torch.parallel.launch``) on ``cuda:1..N-1``. Every rank runs
@@ -158,11 +160,11 @@ the cell (exit 1 under :func:`main`): it never serves on fewer devices.
 ``/metrics`` carries every rank's ``kukeon_hbm_bytes_*{device=}``, and
 ``kukeon_checkpoint_load_bytes_total`` the full tree's leaf bytes. The
 embedding cell's leader posts each grid to the followers and alone pools.
-A vocabulary the world does not divide is padded (bge-base's 30522 at
-4). At ``--chips`` above 1, ``/v1/profile {"layers": true}``, a ``data``
-axis and uneven heads or intermediate sizes are not ported yet
-(ROADMAP.md A13b2b): the profile answers 501, and the others exit at
-boot.
+A vocabulary the tensor size does not divide is padded (bge-base's 30522
+at 4), and so are heads it does not divide (whole zero heads); a tensor
+size the reference's shardings cannot cut (the attention, kv or
+intermediate width) exits at boot. ``/v1/profile {"layers": true}`` runs
+on every rank of the group, keyed by the mesh's size.
 """
 
 from __future__ import annotations
@@ -211,7 +213,7 @@ from kukeon_tpu_torch.parallel import launch
 from kukeon_tpu_torch.parallel.mesh import (
     auto_mesh_shape,
     check_grant,
-    serving_mesh,
+    make_mesh,
     visible_devices,
 )
 from kukeon_tpu_torch.parallel.sharding import Layout, Recipe, check_tensor_parallel
@@ -435,8 +437,8 @@ class ServingCell(LifecycleMixin):
             # rank started.
             if checkpoint:
                 cfg = self._checkpoint_cfg(checkpoint, cfg)
-            check_tensor_parallel(cfg, world)
-            mesh = serving_mesh(world, self.device.type)
+            check_tensor_parallel(cfg, world["tensor"])
+            mesh = make_mesh(**world, device=self.device.type)
             self.device = mesh.device
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -646,23 +648,21 @@ class ServingCell(LifecycleMixin):
                        decode_batch: int | None = None) -> dict:
         """The live model's per-layer profile (``obs/profile.py``
         ``profile_layers``, the reference's ``:1051-1075``), persisted beside
-        the serving tune under the same ``model|backend|1`` key. An armed
-        ``profile.layers`` fault or a failed component comes back as
-        ``error`` entries (and the profile is not persisted); it never
-        takes the cell down. The engine's capture lock is held throughout,
-        so no engine capture runs beside the profile's."""
+        the serving tune under the same ``model|backend|N`` key, N the
+        mesh's size. On a rank group every rank runs each component with
+        its local weights and collectives, and the leader times and
+        reports (``engine.profile_layers``: on the engine's thread, between
+        two steps). An armed ``profile.layers`` fault, a MoE tree's layers or
+        a component that fails on one device come back as ``error`` entries
+        (and the profile is not persisted). On a group of more than one
+        rank a component that fails as it runs ends the group, as any
+        device action does: its ranks are out of step in its collectives.
+        The engine's capture lock is held
+        throughout, so no engine capture runs beside the profile's."""
         eng = self.engine
-        if eng.world > 1:
-            raise NotImplementedError(
-                f"the per-layer profile of a {eng.world}-rank cell is not ported yet "
-                "(ROADMAP.md A13b2b)")
-        eng._ensure_loaded()
-        prof = obs_profile.profile_layers(
-            eng.params, eng.cfg, eng.device,
-            prefill_len=prefill_len or min(64, eng.max_seq_len - 1),
-            decode_batch=decode_batch or eng.num_slots,
-            guard=eng._programs.capture_lock)
-        key_args = (self.model_name, tuning.backend_name(eng.device), 1)
+        prof = eng.profile_layers(prefill_len=prefill_len or min(64, eng.max_seq_len - 1),
+                                  decode_batch=decode_batch or eng.num_slots)
+        key_args = (self.model_name, tuning.backend_name(eng.device), eng.world)
         prof["key"] = tuning.profile_key(*key_args)
         if not prof.get("errors"):
             prof["path"] = tuning.save_layer_profile(*key_args, prof)
@@ -956,8 +956,7 @@ class ServingCell(LifecycleMixin):
                         "viewBytes": eng.program_stats["view_bytes"]},
             # The serving mesh (the reference's keys): devices, the axes
             # above 1, and whether the KV cache is sharded over them.
-            "mesh": {"chips": eng.world,
-                     "shape": {"tensor": eng.world} if eng.world > 1 else {},
+            "mesh": {"chips": eng.world, "shape": _mesh_shape(eng.mesh),
                      "kvSharded": eng.kv_sharded},
             "bootSeconds": self.boot_s,
             "uptimeSeconds": round(reg.get("kukeon_cell_uptime_seconds").value(), 1),
@@ -967,32 +966,37 @@ class ServingCell(LifecycleMixin):
         }
 
 
-def grant(chips: int | None, device_type: str) -> int:
-    """The ranks a cell serves on (the reference's ``:440-454``): exactly
-    ``chips`` (more than the host shows exits naming the flag); without
-    the flag every visible GPU, all on ``tensor`` (one rank on the CPU),
-    and a count the reference would split over a ``data`` axis exits."""
+def _mesh_shape(mesh) -> dict[str, int]:
+    """``/v1/stats``' mesh ``shape``: the axes above 1 (the reference's)."""
+    if mesh is None:
+        return {}
+    return {k: mesh.shape[k] for k in ("data", "tensor") if mesh.shape[k] > 1}
+
+
+def grant(chips: int | None, device_type: str) -> dict[str, int]:
+    """The layout a cell serves on (the reference's ``:440-454``), as
+    ``{"data": d, "tensor": t}``: exactly ``chips`` ranks, all on
+    ``tensor`` (more than the host shows exits naming the flag); without
+    the flag every visible GPU laid out by the reference's
+    ``auto_mesh_shape`` (tensor up to 8, data beyond), one rank on the
+    CPU."""
     if chips is not None:
         try:
-            return check_grant(chips, device_type)
+            return {"data": 1, "tensor": check_grant(chips, device_type)}
         except ValueError as e:
             raise SystemExit(f"--chips {chips}: {e}") from e
     n = max(visible_devices("cuda"), 1) if device_type == "cuda" else 1
-    shape = auto_mesh_shape(n)
-    if shape["data"] > 1:
-        raise SystemExit(
-            f"{n} visible GPUs lay out as data {shape['data']} x tensor {shape['tensor']}; "
-            "a data axis is not ported yet (ROADMAP.md A13b2b): pass --chips")
-    return n
+    return auto_mesh_shape(n)
 
 
-def cell_world(model: str, chips: int | None, device_type: str) -> int | None:
-    """The size of a cell's rank group, None for the one-device code. Every
-    family (Llama, Mixtral, the embedding cell) takes its :func:`grant`: a
-    group whenever ``--chips`` is given (a one-rank group at ``--chips
-    1``) or the visible GPUs are more than one."""
-    world = grant(chips, device_type)
-    return world if chips is not None or world > 1 else None
+def cell_world(model: str, chips: int | None, device_type: str) -> dict[str, int] | None:
+    """The layout of a cell's rank group (:func:`grant`), None for the
+    one-device code. Every family (Llama, Mixtral, the embedding cell)
+    takes its grant: a group whenever ``--chips`` is given (a one-rank
+    group at ``--chips 1``) or the visible GPUs are more than one."""
+    shape = grant(chips, device_type)
+    many = shape["data"] * shape["tensor"] > 1
+    return shape if chips is not None or many else None
 
 
 def _preset_cfg(model: str, dtype: str | None, max_seq_len: int | None):
@@ -1191,10 +1195,10 @@ class EmbeddingCell(LifecycleMixin):
         mesh = None
         if world is not None:
             # Refused before a weight is allocated or a rank started.
-            check_tensor_parallel(cfg, world)
+            check_tensor_parallel(cfg, world["tensor"])
             if checkpoint:
                 _require_orbax(checkpoint)
-            mesh = serving_mesh(world, self.device.type)
+            mesh = make_mesh(**world, device=self.device.type)
             self.device = mesh.device
             params = (Recipe("kukeon_tpu_torch.runtime.serving_cell:embedding_slices",
                              {"cfg": cfg, "checkpoint": checkpoint}, reads="slices")
@@ -1218,7 +1222,7 @@ class EmbeddingCell(LifecycleMixin):
         self._stats_lock = threading.Lock()
         self.total_sequences = 0   # guarded-by: _stats_lock
         self._init_lifecycle()
-        group = mesh.group if mesh is not None and mesh.world > 1 else None
+        group = mesh.group if mesh is not None and mesh.size > 1 else None
         self._init_cell_obs(Registry(), "embedding", self.device,
                             peers=(lambda: list(group.peer_stats.values())) if group else None)
         self.registry.gauge("kukeon_embed_batch_size",
@@ -1275,8 +1279,7 @@ class EmbeddingCell(LifecycleMixin):
             # A cell on a rank group adds its mesh, as the decoder cell
             # reports it (without a cache); one device keeps the
             # reference's keys.
-            **({"mesh": {"chips": self.engine.world,
-                         "shape": {"tensor": self.engine.world} if self.engine.world > 1 else {}}}
+            **({"mesh": {"chips": self.engine.world, "shape": _mesh_shape(self.engine.mesh)}}
                if self.engine.mesh is not None else {}),
             "uptimeSeconds": round(
                 self.registry.get("kukeon_cell_uptime_seconds").value(), 1),
@@ -1695,7 +1698,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu")
     ap.add_argument("--chips", type=int, default=None,
                     help="serve over exactly this many devices, all on the tensor axis "
-                         "(one process each; absent: every visible GPU, one rank on the CPU)")
+                         "(one process each; absent: every visible GPU, laid out data x "
+                         "tensor as the reference's auto_mesh_shape; one rank on the CPU)")
     return ap
 
 

@@ -53,7 +53,7 @@ class EmbeddingEngine:
             raise ValueError(f"unknown pooling {pooling!r}")
         self.cfg = cfg
         self.mesh = mesh
-        self.world = mesh.world if mesh is not None else 1
+        self.world = mesh.size if mesh is not None else 1
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.batch_size = batch_size
         self.pooling = pooling
@@ -65,7 +65,7 @@ class EmbeddingEngine:
             raise TypeError("on a mesh the weights come as a parallel.sharding.Recipe")
         check_tensor_parallel(cfg, mesh.world)
         self.params = local_params(params, cfg, mesh)
-        if mesh.leader and mesh.world > 1:
+        if mesh.leader and mesh.size > 1:
             self._group = mesh.group
             self._oid = self._group.new_id()
             self._group.post(self._oid, "new", (

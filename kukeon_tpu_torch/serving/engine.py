@@ -87,9 +87,10 @@
   boot's accounting apart from ``sync_stats``.
 - **Tuning profile** (``serving/tuning.py``): with ``model_name``, a lever
   left ``None`` (``decode_chunk``, ``kv_cache_int8``, ``prefill_buckets``,
-  ``kv_page_tokens``) takes the profile stored under ``model|gpu|1`` (or
-  ``|cpu|1``), then the default; ``kv_page_tokens`` 0 forces the legacy
-  layout.
+  ``kv_page_tokens``) takes the profile stored under ``model|gpu|N`` (or
+  ``|cpu|N``; N the mesh's size, 1 on one device), then the default;
+  ``kv_page_tokens`` 0 forces the legacy layout. The profile's
+  ``mesh_tensor`` is not read (nor is it by the reference's engine).
 
 - **Tensor parallelism** (``mesh=``, a ``parallel.mesh.Mesh`` over a rank
   group, ``parallel/launch.py``; the reference's ``mesh``): the weights
@@ -116,7 +117,12 @@
   rank samples the same gathered logits with the same generator state,
   so the tokens agree without a broadcast, and only the leader reads
   them back: the host-sync budget holds per rank. The tuning profile is
-  the one stored under ``model|backend|world``. A ``"stream"`` recipe
+  the one stored under ``model|backend|world``, ``world`` the mesh's size.
+  On a mesh of ``data`` x ``tensor`` ranks (``parallel/mesh.py``) the
+  weights and the cache are cut over ``tensor`` alone: each data replica
+  holds the whole model, the leader posts every rank the same descriptors,
+  and every replica computes the same step (the reference replicates its
+  weights and its cache over ``data``). A ``"stream"`` recipe
   boots each rank streamed (``sharding.open_stream``: its blocks read from
   the checkpoint by its stream's threads into its zero-filled local tree
   while it captures, as on one device); the leader's first
@@ -157,6 +163,7 @@ from kukeon_tpu_torch.parallel.sharding import (
     local_params,
     open_stream,
 )
+from kukeon_tpu_torch.obs import profile as obs_profile
 from kukeon_tpu_torch.obs import (
     CompileTracker,
     FlightRecorder,
@@ -361,9 +368,12 @@ class ServingEngine:
         kv_shard: bool | None = None,
     ):
         # Tensor parallelism: this rank's device, and the forward with the
-        # mesh's collectives.
+        # mesh's collectives. ``world`` is the mesh's size (data x tensor:
+        # the tune key, the gauge, the stats), ``tensor`` what the weights
+        # and the cache are cut over.
         self.mesh = mesh
-        self.world = mesh.world if mesh is not None else 1
+        self.world = mesh.size if mesh is not None else 1
+        self.tensor = mesh.world if mesh is not None else 1
         self.device = mesh.device if mesh is not None else resolve_device(device)
         forward_fn = forward_fn or llama.forward
         self._forward = (functools.partial(forward_fn, mesh=mesh) if mesh is not None
@@ -378,18 +388,14 @@ class ServingEngine:
                 "rank runs (a streamed boot there: a Recipe whose reads are 'stream')")
         # The tuning profile (the reference's :310-335): levers the caller
         # left None take the stored winner for this model on this backend,
-        # then the defaults; a missing or stale profile is a miss.
+        # then the defaults; a missing or stale profile is a miss. Keyed by
+        # the mesh's size, as the reference keys ``mesh.size``; its
+        # ``mesh_tensor`` is a record of the tuned layout, which the
+        # reference's engine never reads, and neither does this one.
         self.tune: tuning.ServingTune | None = None
         if model_name and None in (decode_chunk, kv_cache_int8, prefill_buckets,
                                    kv_page_tokens, kv_shard):
-            # Keyed by the world, as the reference keys its mesh size.
-            key = (model_name, tuning.backend_name(self.device), self.world)
-            self.tune = tuning.load(*key)
-            if self.tune is not None and self.tune.mesh_tensor not in (None, self.world):
-                raise NotImplementedError(
-                    f"tuning profile {tuning.profile_key(*key)} asks for tensor axis "
-                    f"{self.tune.mesh_tensor} on {self.world} devices; a data axis is not "
-                    "ported yet (ROADMAP.md A13b2b)")
+            self.tune = tuning.load(model_name, tuning.backend_name(self.device), self.world)
         if self.tune is not None:
             if decode_chunk is None:
                 decode_chunk = self.tune.decode_chunk
@@ -404,11 +410,11 @@ class ServingEngine:
             if kv_shard is None:
                 kv_shard = self.tune.kv_shard
         decode_chunk = 16 if decode_chunk is None else decode_chunk
-        self.kv_sharded = (check_tensor_parallel(cfg, self.world, kv_shard) if mesh is not None
+        self.kv_sharded = (check_tensor_parallel(cfg, self.tensor, kv_shard) if mesh is not None
                            else kv_sharded(cfg.num_kv_heads, 1, kv_shard))
         recipe = params if mesh is not None else None
         # The kv heads this rank's cache holds.
-        self.kv_heads = (cfg.num_kv_heads // self.world if self.kv_sharded
+        self.kv_heads = (cfg.num_kv_heads // self.tensor if self.kv_sharded
                          else cfg.num_kv_heads)
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len or cfg.max_seq_len
@@ -448,7 +454,7 @@ class ServingEngine:
         # recipe with the levers resolved here (each applies the int8
         # kernel rule to its own weights), before this rank reads its own,
         # so every rank reads at once; they drop theirs when this one goes.
-        self._group = mesh.group if mesh is not None and mesh.leader and mesh.world > 1 else None
+        self._group = mesh.group if mesh is not None and mesh.leader and mesh.size > 1 else None
         if self._group is not None:
             self._oid = self._group.new_id()
             followers = dict(
@@ -555,6 +561,9 @@ class ServingEngine:
         self._pending_n = 0      # guarded-by: _lock
         self._running = False    # guarded-by: _lock
         self._thread: threading.Thread | None = None
+        # Calls other threads hand the engine's thread (on_engine_thread), run
+        # between its steps.
+        self._calls: list[_ThreadCall] = []      # guarded-by: _lock
         self.error: Exception | None = None
         self.max_pending = max_pending
         self.retry_after_s = 1.0
@@ -669,6 +678,28 @@ class ServingEngine:
             rows = tuple(self.mesh.all_gather(t, 3) for t in rows)
         return rows
 
+    def _act_profile(self, plan: list, kwargs: dict) -> dict:
+        """The per-layer profile on this rank's weights (``obs/profile.py
+        profile_layers``), every rank running each component and its
+        collectives in the leader's order; ``plan`` the leader's
+        ``profile.layers`` fault draws (the followers arm no fault)."""
+        return obs_profile.profile_layers(
+            self.params, self.cfg, self.device, mesh=self.mesh, plan=plan,
+            guard=self._programs.capture_lock, **kwargs)
+
+    def profile_layers(self, **kwargs) -> dict:
+        """The live model's per-layer profile (``obs/profile.py``
+        ``profile_layers``'s keywords), run on the engine's thread between two steps
+        (:meth:`on_engine_thread`) and, on a mesh, by every rank (:meth:`_dev`):
+        the leader's result, its timings the leader's."""
+        plan = obs_profile.fault_plan(self.cfg.num_layers)
+
+        def run():
+            self._ensure_loaded()
+            return self._dev("profile", plan, kwargs, flush=True)
+
+        return self.on_engine_thread(run)
+
     def _act_import_rows(self, k: torch.Tensor, v: torch.Tensor, bucket: int) -> None:
         """An import's rows (this rank's kv heads, ``rows`` of them) into
         the block, zero-padded to ``bucket``."""
@@ -736,7 +767,7 @@ class ServingEngine:
             return
         self._loaded.wait()
         if self._load_exc is not None:
-            where = f"rank {self.mesh.rank}: " if self.mesh is not None else ""
+            where = f"rank {self.mesh.group.rank}: " if self.mesh is not None else ""
             raise RuntimeError(f"{where}engine weight load failed: "
                                f"{type(self._load_exc).__name__}: {self._load_exc}"
                                ) from self._load_exc
@@ -1314,11 +1345,49 @@ class ServingEngine:
 
     def _idle_locked(self) -> bool:
         return (self._pending_n == 0 and not self._resume and self._inflight is None
-                and all(r is None for r in self._slot_req))
+                and all(r is None for r in self._slot_req) and not self._calls)
+
+    def on_engine_thread(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` run by the engine's thread between two steps (here, when
+        none runs or this is it), its result returned or its error
+        raised: a device action of another thread (a profile) then takes
+        its place in the order the steps post theirs, which is the order a
+        mesh's followers apply them in."""
+        call = _ThreadCall(fn)
+        with self._work:
+            queued = (self._running and self._thread is not None
+                      and threading.current_thread() is not self._thread)
+            if queued:
+                self._calls.append(call)
+                self._work.notify_all()
+        if not queued:
+            call.run()
+        call.done.wait()
+        if call.error is not None:
+            raise call.error
+        return call.result
+
+    def _run_calls(self, error: BaseException | None = None) -> None:
+        """Run (or, with ``error``, fail) every call handed to this thread."""
+        with self._lock:
+            calls, self._calls = self._calls, []
+        for call in calls:
+            if error is not None:
+                call.error = error
+                call.done.set()
+            else:
+                call.run()
 
     def _loop(self):
+        try:
+            self._serve()
+        finally:
+            self._run_calls(RuntimeError("the engine's thread stopped"))
+
+    def _serve(self):
         while self._running:
             try:
+                self._run_calls()
                 if not self.step():
                     with self._work:
                         if self._running and self._idle_locked():
@@ -1716,10 +1785,11 @@ class ServingEngine:
             x = imp[name]
             x = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x)))[:, :, :rows]
             if self.mesh is not None and self.kv_sharded:
-                # Each rank's kv heads, from the host block.
-                h = self.kv_heads
-                x = launch.PerRank([x[:, :, :, r * h:(r + 1) * h].contiguous()
-                                    for r in range(self.world)])
+                # Each rank's kv heads (by its tensor coordinate), from the
+                # host block.
+                h, t = self.kv_heads, self.tensor
+                parts = [x[:, :, :, r * h:(r + 1) * h].contiguous() for r in range(t)]
+                x = launch.PerRank([parts[r % t] for r in range(self.world)])
             kv.append(x)
         self._dev("import_rows", *kv, bucket)
         self._dev("run", "prefill", key, flush=True)
@@ -1981,6 +2051,24 @@ class ServingEngine:
         if terminal and req.emit:
             req.emit(-1, True)
         req.done.set()
+
+
+class _ThreadCall:
+    """One call handed to the engine's thread (``ServingEngine.on_engine_thread``)."""
+
+    def __init__(self, fn: Callable[[], Any]):
+        self.fn = fn
+        self.done = threading.Event()
+        self.result: Any = None
+        self.error: BaseException | None = None
+
+    def run(self) -> None:
+        try:
+            self.result = self.fn()
+        except BaseException as e:  # noqa: BLE001 — handed back to the caller
+            self.error = e
+        finally:
+            self.done.set()
 
 
 def follower_engine(mesh, *, cfg: llama.LlamaConfig, recipe: Recipe,

@@ -172,7 +172,7 @@ def test_stream_pipeline_overlaps_reads_and_consumer():
         return job
 
     stream = CheckpointStream(abstract, None, [make_job(i) for i in range(N)], threads=2,
-                              buffer=2)
+                              buffer_bytes=32)
     t0 = time.monotonic()
     seen = []
     for path, _t in stream:
@@ -181,6 +181,62 @@ def test_stream_pipeline_overlaps_reads_and_consumer():
     wall = time.monotonic() - t0
     assert len(seen) == N and wall < N * (D + U) * 0.75, wall
     assert stream.stat_snapshot()["disk_s"] >= N * D * 0.9
+
+
+@pytest.mark.parametrize("budget,held", [(1000, 800), (100, 400)], ids=["two_jobs", "one_job"])
+def test_stream_reads_ahead_by_at_most_its_byte_budget(budget, held):
+    """Four readers ahead of a slow consumer queue at most ``buffer_bytes``
+    of leaves (400 bytes a job: two in 1000), or one job alone when a job
+    is larger than the budget; every leaf still arrives, whole."""
+    N = 8
+    abstract = {f"t{i}": TensorSpec((100,), torch.float32) for i in range(N)}
+    peak = []
+
+    class Watched(CheckpointStream):
+        def _put(self, items):
+            ok = super()._put(items)
+            with self._cond:
+                peak.append(self._queued)
+            return ok
+
+    def make_job(i):
+        def job():
+            time.sleep(0.01)
+            return [((f"t{i}",), torch.full((100,), float(i)))], 0.0, 0.0
+        return job
+
+    stream = Watched(abstract, None, [make_job(i) for i in range(N)], threads=4,
+                     buffer_bytes=budget)
+    got = {}
+    for path, t in stream:
+        got[path] = t
+        time.sleep(0.03)
+    assert sorted(got) == sorted((k,) for k in abstract)
+    assert all(torch.equal(got[(f"t{i}",)], torch.full((100,), float(i))) for i in range(N))
+    assert max(peak) == held, peak
+
+
+@pytest.mark.parametrize("budget", [0, 1 << 30], ids=["none", "large"])
+def test_every_reader_runs_whatever_the_byte_budget(budget):
+    """The byte bound holds back only what is queued: four readers run
+    their jobs at once (each job waits for the other three at a barrier,
+    which times out if the readers ran one by one) even when nothing may
+    be queued ahead of the consumer."""
+    N = 8
+    abstract = {f"t{i}": TensorSpec((100,), torch.float32) for i in range(N)}
+    together = threading.Barrier(4, timeout=10)
+
+    def make_job(i):
+        def job():
+            if i < 4:
+                together.wait()
+            return [((f"t{i}",), torch.full((100,), float(i)))], 0.0, 0.0
+        return job
+
+    stream = CheckpointStream(abstract, None, [make_job(i) for i in range(N)], threads=4,
+                              buffer_bytes=budget)
+    got = dict(stream)
+    assert sorted(got) == sorted((k,) for k in abstract)
 
 
 def test_reader_errors_and_short_streams_fail_clean():

@@ -56,27 +56,24 @@ def test_serving_mesh_loud_failures():
 def test_a_cell_without_chips_takes_every_visible_gpu(monkeypatch, visible):
     """No ``--chips``: a cell's group (Llama, Mixtral or the embedding
     cell alike) is every visible GPU when that is more than one (none, the
-    one-device code, at one); a count the reference lays out with a data
-    axis (9, 12) exits naming A13b2. ``--chips N`` is a group of N, one
-    above what the host shows exits."""
+    one-device code, at one), laid out as the reference lays it out
+    (``auto_mesh_shape``: a data axis at 9 and 12, where this once
+    exited). ``--chips N`` is a group of N, all on tensor; one above what
+    the host shows exits."""
     from kukeon_tpu_torch.runtime import serving_cell as sc
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
     for model in ("llama3-8b", "mixtral-8x7b", "bge-base"):
-        if jmesh.auto_mesh_shape(visible)["data"] > 1:
-            with pytest.raises(SystemExit, match=f"{visible} visible GPUs lay out as data.*A13b2"):
-                sc.grant(None, "cuda")
-            with pytest.raises(SystemExit, match="A13b2"):
-                sc.cell_world(model, None, "cuda")
-        else:
-            assert sc.grant(None, "cuda") == visible
-            assert sc.cell_world(model, None, "cuda") == (visible if visible > 1 else None)
-        assert sc.cell_world(model, 1, "cuda") == 1
+        want = jmesh.auto_mesh_shape(visible)
+        assert sc.grant(None, "cuda") == want
+        assert sc.cell_world(model, None, "cuda") == (want if visible > 1 else None)
+        assert sc.cell_world(model, 1, "cuda") == {"data": 1, "tensor": 1}
         if visible >= 2:
-            assert sc.cell_world(model, 2, "cuda") == 2
+            assert sc.cell_world(model, 2, "cuda") == {"data": 1, "tensor": 2}
         with pytest.raises(SystemExit, match=f"--chips {visible + 1}: serving mesh wants"):
             sc.cell_world(model, visible + 1, "cuda")
-    assert sc.grant(None, "cpu") == 1 and sc.cell_world("tiny", None, "cpu") is None
+    assert sc.grant(None, "cpu") == {"data": 1, "tensor": 1}
+    assert sc.cell_world("tiny", None, "cpu") is None
 
 
 def test_followers_start_without_the_fault_table(monkeypatch):
@@ -149,21 +146,32 @@ def _leaves(tree, path=()):
 def test_shards_concatenate_to_the_leaf(tied, dtype, world, kind):
     """Every leaf's ``world`` shards, concatenated on the axis its spec
     puts on ``tensor``, give the leaf bit for bit (numpy and torch leaves
-    alike); a leaf with no ``tensor`` axis is the same on every rank; a
-    torch shard is contiguous (the kernels want it)."""
+    alike), followed by zeros where whole heads leave trailing ranks a
+    padded block (tiny's 2 kv heads at 4); a leaf with no ``tensor`` axis
+    is the same on every rank; a torch shard is contiguous (the kernels
+    want it)."""
     full = _trees(tied)[dtype]
     if kind == "torch":
         full = convert.params_from_numpy(full, "cpu")
     specs = dict(_leaves(tshd.param_specs(full)))
-    shards = [dict(_leaves(tshd.shard_tree(full, r, world))) for r in range(world)]
+    head_dim = jl.llama_tiny().head_dim
+    shards = [dict(_leaves(tshd.shard_tree(full, r, world, head_dim=head_dim)))
+              for r in range(world)]
     for path, leaf in _leaves(full):
         spec = specs[path]
         parts = [s[path] for s in shards]
         if "tensor" in spec:
-            axis = spec.index("tensor")
-            assert all(p.shape[axis] * world == leaf.shape[axis] for p in parts), path
+            axis, n = spec.index("tensor"), leaf.shape[spec.index("tensor")]
+            assert all(p.shape == parts[0].shape for p in parts), path
+            padded = parts[0].shape[axis] * world != n
+            assert not padded or path[1] in ("wk", "wv") and world == 4, path
             joined = (torch.cat(parts, axis) if kind == "torch"
                       else np.concatenate(parts, axis))
+            rest = np.asarray(joined).take(range(n, joined.shape[axis]), axis)
+            assert not rest.any(), path
+            joined = joined[(slice(None),) * axis + (slice(0, n),)]
+            if kind == "torch":
+                joined = joined.contiguous()
         else:
             assert all(p is leaf for p in parts), path
             joined = parts[0]
@@ -185,24 +193,33 @@ def test_kv_shard_off_replicates_wk_wv():
     specs = dict(_leaves(tshd.param_specs(full, kv_shard=False)))
     for name in ("wk", "wv"):
         assert specs[("layers", name, "q")] == (None, None, None)
-        shards = [tshd.shard_tree(full, r, 2, kv_shard=False) for r in range(2)]
+        shards = [tshd.shard_tree(full, r, 2, kv_shard=False,
+                                  head_dim=jl.llama_tiny().head_dim) for r in range(2)]
         for s in shards:
             np.testing.assert_array_equal(s["layers"][name]["q"], full["layers"][name]["q"])
     assert specs[("layers", "wq", "q")] == (None, None, "tensor")
 
 
 def test_tensor_parallel_refusals_name_a13b():
-    cfg = tl.llama_tiny()                      # 4 heads, 2 kv heads, I 256, V 512
+    """What the reference's shardings cannot cut is refused, saying so;
+    heads a tensor size does not divide, and q-head blocks that straddle a
+    replicated cache's kv groups, are served (they once exited naming
+    A13b2b)."""
+    cfg = tl.llama_tiny()                      # 4 heads, 2 kv heads, d 32, I 256, V 512
     assert tshd.check_tensor_parallel(cfg, 2) is True
     assert tshd.check_tensor_parallel(cfg, 2, kv_shard=False) is False
     assert tshd.check_tensor_parallel(cfg, 4) is False          # 2 kv heads, 4 ranks
-    with pytest.raises(SystemExit, match="num_heads 4 is not a multiple of 3.*A13b2"):
+    assert tshd.check_tensor_parallel(cfg, 8) is False          # half a head a device there
+    with pytest.raises(SystemExit, match="num_heads\\*head_dim 128 is not a multiple of 3.*"
+                                         "reference's shardings cannot cut it"):
         tshd.check_tensor_parallel(cfg, 3)
     odd = dataclasses.replace(cfg, num_heads=12, num_kv_heads=6, intermediate_size=256)
-    with pytest.raises(SystemExit, match="6 kv heads neither divide.*A13b2"):
-        tshd.check_tensor_parallel(odd, 4)
+    assert tshd.check_tensor_parallel(odd, 4) is False          # straddling groups
     with pytest.raises(SystemExit, match="intermediate_size 256 is not a multiple of 6"):
         tshd.check_tensor_parallel(dataclasses.replace(odd, num_heads=6, num_kv_heads=6), 6)
+    with pytest.raises(SystemExit, match="num_kv_heads\\*head_dim 96 is not a multiple of 64"):
+        tshd.check_tensor_parallel(dataclasses.replace(odd, num_kv_heads=3,
+                                                       intermediate_size=1024), 64)
 
 
 @pytest.mark.parametrize("tied", [True, False])
@@ -213,7 +230,7 @@ def test_pad_vocab_pads_the_int8_head_to_the_kernel_tile(tied):
     is."""
     cfg = dataclasses.replace(tl.llama_tiny(), vocab_size=640, tie_embeddings=tied)
     full = tl.quantize_params(tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
-    local = tshd.shard_tree(full, 1, 2)
+    local = tshd.shard_tree(full, 1, 2, head_dim=cfg.head_dim)
     key, axis = ("embed", 0) if tied else ("lm_head", 1)
     padded = tshd.pad_vocab(local, 320)
     q, s = padded[key]["q"], padded[key]["s"]
@@ -227,9 +244,11 @@ def test_pad_vocab_pads_the_int8_head_to_the_kernel_tile(tied):
     assert tshd.pad_vocab(padded, 320) is padded
     wide = dataclasses.replace(cfg, vocab_size=512)
     tiled = tshd.shard_tree(tl.quantize_params(
-        tl.init_params(wide, torch.Generator().manual_seed(0), "cpu")), 0, 2)
+        tl.init_params(wide, torch.Generator().manual_seed(0), "cpu")), 0, 2,
+        head_dim=cfg.head_dim)
     assert tshd.pad_vocab(tiled, 256) is tiled
-    plain = tshd.shard_tree(tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), 0, 2)
+    plain = tshd.shard_tree(tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), 0, 2,
+                            head_dim=cfg.head_dim)
     assert tshd.pad_vocab(plain, 320) is plain
 
 
@@ -380,7 +399,8 @@ def test_local_params_cuts_each_leaf_as_it_is_drawn(quantize, tied):
             refs.clear()
             alive_at_draw.clear()
             got = dict(_leaves(local_params(recipe, cfg, _Rank(rank, 2))))
-            want = tshd.pad_vocab(tshd.shard_tree(whole, rank, 2), cfg.vocab_size // 2)
+            want = tshd.pad_vocab(tshd.shard_tree(whole, rank, 2, head_dim=cfg.head_dim),
+                                   cfg.vocab_size // 2)
             assert got.keys() == dict(_leaves(want)).keys()
             for path, leaf in _leaves(want):
                 assert torch.equal(_bits(got[path]), _bits(leaf)), path

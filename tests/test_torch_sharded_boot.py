@@ -179,19 +179,21 @@ CASES = ([("llama", c) for c in LLAMA_CASES] + [("mixtral", "bfloat16"), ("mixtr
 CFGS = {"llama": tl.llama_tiny(), "mixtral": tm.moe_tiny(), "bge": tb.bge_tiny()}
 
 
-@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("world", [2, 4, 8])
 @pytest.mark.parametrize("family,case", CASES, ids=[f"{f}-{c}" for f, c in CASES])
 def test_rank_blocks_equal_the_cut_of_the_one_device_load(dirs, family, case, world):
     """Every rank's blocks, read from disk by the cell's recipe, equal the
     one-device load cut by ``shard_tree`` (and an int8 head tile-padded,
     ``pad_vocab``) bit for bit: dtype, shape and bytes, ``q`` and ``s``
-    alike; a row-parallel leaf's int8 scale is its whole column's."""
+    alike; a row-parallel leaf's int8 scale is its whole column's. At 8
+    ranks the decoders' 4 heads are cut in whole heads, ranks 4-7 reading
+    none and holding zeros."""
     cfg = CFGS[family]
     full = _one_device(dirs, family, case)
     kv = tshd.kv_sharded(getattr(cfg, "num_kv_heads", cfg.num_heads), world)
     for rank in range(world):
         got = _rank_blocks(dirs, family, case, rank, world, kv)
-        want = tshd.shard_tree(full, rank, world, kv)
+        want = tshd.shard_tree(full, rank, world, kv, head_dim=cfg.head_dim)
         if family != "bge":
             want = tshd.pad_vocab(want, tshd.vocab_rows(cfg.vocab_size, world))
         want = dict(_walk_tree(want))
@@ -219,7 +221,7 @@ LOCAL = {
 }
 
 
-@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("world", [2, 4, 8])
 @pytest.mark.parametrize("name", list(LOCAL))
 def test_local_meta_has_local_params_shapes(name, world, tmp_path):
     """``local_meta`` (what a rank's stream and engine allocate from) has
@@ -279,13 +281,13 @@ def test_a_rank_reader_holds_its_slice_and_one_staging_block(dirs, case, monkeyp
         peak = job.bytes
     else:
         if case == "kukeon_int8":
-            stream = tck.stream_quantized(dirs["quant"], torch.float32, threads=1, buffer=1,
+            stream = tck.stream_quantized(dirs["quant"], torch.float32, threads=1, buffer_bytes=0,
                                           **where)
             full = tck.load_quantized(dirs["quant"], torch.float32)[0]
         else:
             fn = thf.stream_params_quantized if case == "hf_int8" else thf.stream_params
             dtype = torch.float32 if case == "hf_int8" else torch.bfloat16
-            stream = fn(dirs["hf"], dtype=dtype, threads=1, buffer=1, **where)
+            stream = fn(dirs["hf"], dtype=dtype, threads=1, buffer_bytes=0, **where)
             full = (thf.load_params_quantized(dirs["hf"], dtype=dtype) if case == "hf_int8"
                     else thf.load_params(dirs["hf"], dtype=dtype))[0]
         local = tck.drain(stream)

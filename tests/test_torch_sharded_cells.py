@@ -180,7 +180,8 @@ def test_shards_concatenate_to_each_leaf(model, dtype, world):
     ``w_down``'s whole); a leaf with no ``tensor`` axis is the same
     object on every rank."""
     if model == "mixtral":
-        jp = jm.init_params(jax.random.key(0), jm.moe_tiny())
+        cfg = jm.moe_tiny()
+        jp = jm.init_params(jax.random.key(0), cfg)
         jp = jm.quantize_params(jp) if dtype == "int8" else jp
         ref_specs = jshd.moe_specs_for_params(jp)
     else:
@@ -204,7 +205,8 @@ def test_shards_concatenate_to_each_leaf(model, dtype, world):
         if dtype == "int8":
             assert specs[("layers", "w_gate", "s")] == (None, "expert", "tensor")
             assert specs[("layers", "w_down", "s")] == (None, "expert", None)
-    shards = [dict(_leaves(tshd.shard_tree(full, r, world))) for r in range(world)]
+    shards = [dict(_leaves(tshd.shard_tree(full, r, world, head_dim=cfg.head_dim)))
+              for r in range(world)]
     for path, leaf in _leaves(full):
         spec, parts = specs[path], [s[path] for s in shards]
         if "tensor" in spec:
@@ -476,21 +478,25 @@ def test_embedding_cell_chips2_stats_metrics_and_vectors(mesh2):
 
 
 def test_a13b2_refusals(mesh2, moe_trees, monkeypatch, tmp_path):
-    """Uneven heads exit naming A13b2 before any weight or rank (bge-base's
-    12 heads at 8, mixtral-tiny's 4 at 3); a streamed boot on a mesh, no
-    longer refused, boots (a ``"stream"`` recipe of a kukeon int8
-    checkpoint: each rank streams its blocks) and gives the one-device
-    engine's tokens; a two-rank Mixtral cell's layer profile is refused
-    naming A13b2."""
+    """A tensor size the reference's shardings cannot cut exits before any
+    weight or rank, saying so (bge-base's hidden width 768 at 5,
+    mixtral-tiny's attention width 64 at 3; uneven heads alone are served
+    now); a streamed boot on a mesh, no longer refused, boots (a
+    ``"stream"`` recipe of a kukeon int8 checkpoint: each rank streams its
+    blocks) and gives the one-device engine's tokens; a two-rank Mixtral
+    cell's layer profile, once refused, answers as the reference's does on
+    a MoE tree: its layers fail (a dense block's shapes), embed and head
+    are profiled, and nothing is persisted."""
     def no_weights(*a, **k):
         raise AssertionError("weights made before the grant was checked")
 
     for name in ("rank_leaves", "embedding_leaves", "_drawn_params"):
         monkeypatch.setattr(serving_cell, name, no_weights)
     before = launch.current()
-    with pytest.raises(SystemExit, match="num_heads 12 is not a multiple of 8.*A13b2"):
-        EmbeddingCell("bge-base", device="cpu", chips=8)
-    with pytest.raises(SystemExit, match="num_heads 4 is not a multiple of 3.*A13b2"):
+    with pytest.raises(SystemExit, match="hidden width 768 is not a multiple of 5.*"
+                                         "reference's shardings cannot cut it"):
+        EmbeddingCell("bge-base", device="cpu", chips=5)
+    with pytest.raises(SystemExit, match="num_heads\\*head_dim 64 is not a multiple of 3"):
         ServingCell("mixtral-tiny", num_slots=2, max_seq_len=96, device="cpu", chips=3)
     assert launch.current() is before
     monkeypatch.undo()
@@ -512,8 +518,12 @@ def test_a13b2_refusals(mesh2, moe_trees, monkeypatch, tmp_path):
     assert eng._ckpt_stream.stat_snapshot()["bytes"] == one._ckpt_stream.stat_snapshot()["bytes"]
     eng.close()
     cell = ServingCell("mixtral-tiny", num_slots=2, max_seq_len=96, device="cpu", chips=2)
-    with pytest.raises(NotImplementedError, match="A13b2"):
-        cell.profile_layers()
+    monkeypatch.setenv("KUKEON_LAYER_PROFILE_PATH", str(tmp_path / "layers.json"))
+    prof = cell.profile_layers(prefill_len=8, decode_batch=2)
+    assert prof["key"] == "mixtral-tiny|cpu|2" and "path" not in prof
+    assert [("error" in c) for c in prof["components"]] == [False, True, True, False]
+    assert prof["errors"] == cell.cfg.num_layers == 2
+    assert cell.generate({"promptTokens": [1, 2, 3], "maxNewTokens": 3})["numTokens"] == 3
     cell.engine.close()
 
 

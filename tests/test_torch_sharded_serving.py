@@ -370,10 +370,11 @@ def test_an_armed_upload_fails_one_request_not_the_group(mesh2, trees, monkeypat
 # --- the serving cell ----------------------------------------------------------
 
 
-def test_cell_chips2_stats_metrics_and_refusals(mesh2):
+def test_cell_chips2_stats_metrics_and_refusals(mesh2, tmp_path, monkeypatch):
     """``ServingCell(chips=2)``: /v1/stats ``mesh`` with the reference's
-    keys, the gauge at 2, a request served; the layer profile refused
-    naming A13b2 (501 over HTTP)."""
+    keys, the gauge at 2, a request served; the layer profile, once
+    refused (501), answered over HTTP by both ranks, keyed ``tiny|cpu|2``
+    and persisted, and a request served after it."""
     cell = ServingCell("tiny", num_slots=2, max_seq_len=96, device="cpu", chips=2)
     try:
         assert cell.stats()["mesh"] == {"chips": 2, "shape": {"tensor": 2}, "kvSharded": True}
@@ -381,19 +382,26 @@ def test_cell_chips2_stats_metrics_and_refusals(mesh2):
         cell.warmup(8)
         out = cell.generate({"promptTokens": [1, 2, 3, 4], "maxNewTokens": 4})
         assert out["numTokens"] == 4
-        with pytest.raises(NotImplementedError, match="A13b2"):
-            cell.profile_layers()
+        monkeypatch.setenv("KUKEON_LAYER_PROFILE_PATH", str(tmp_path / "layers.json"))
+        prof = cell.profile_layers(prefill_len=8, decode_batch=2)
+        assert prof["errors"] == 0 and prof["key"] == "tiny|cpu|2"
+        cell.engine.start()
         server = serving_cell.serve(cell)
         try:
             req = urllib.request.Request(
                 f"http://127.0.0.1:{server.server_address[1]}/v1/profile",
-                data=json.dumps({"layers": True}).encode(), method="POST")
-            with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(req, timeout=30)
-            assert e.value.code == 501
+                data=json.dumps({"layers": True, "prefillLen": 8}).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                got = json.loads(resp.read())
+            assert resp.status == 200 and got["errors"] == 0 and got["key"] == "tiny|cpu|2"
+            assert got["path"] == str(tmp_path / "layers.json")
+            assert len(got["components"]) == tl.llama_tiny().num_layers + 2
+            out = cell.generate({"promptTokens": [1, 2, 3, 4], "maxNewTokens": 4})
+            assert out["numTokens"] == 4
         finally:
             server.shutdown()
             server.server_close()
+            cell.engine.stop()
     finally:
         cell.engine.close()
 
@@ -519,8 +527,9 @@ def test_runner_command_line_parses():
 def test_tune_mesh_fields_roundtrip_and_world_key(mesh2, trees, tmp_path, monkeypatch):
     """``mesh_tensor`` and ``kv_shard`` cross both packages' ServingTune;
     a two-rank engine reads the profile stored under ``tiny|cpu|2`` (its
-    kv_shard False replicates the cache) and refuses one whose tensor axis
-    is not the world's (a data axis, A13b2)."""
+    kv_shard False replicates the cache), and takes the levers of one whose
+    tensor axis is not the world's as well, as the reference's engine,
+    which never reads ``mesh_tensor`` (C11: this once raised)."""
     from kukeon_tpu.serving.tuning import ServingTune as JaxTune
     from kukeon_tpu_torch.serving import tuning
 
@@ -535,8 +544,10 @@ def test_tune_mesh_fields_roundtrip_and_world_key(mesh2, trees, tmp_path, monkey
     assert not eng.kv_sharded and eng.decode_chunk == 4
     eng.close()
     tuning.save("tiny", "cpu", 2, dataclasses.replace(ours, mesh_tensor=1))
-    with pytest.raises(NotImplementedError, match="tensor axis 1 on 2 devices.*A13b2"):
-        _engine(trees, mesh2, model_name="tiny")
+    eng = _engine(trees, mesh2, model_name="tiny")
+    assert eng.tune.mesh_tensor == 1
+    assert not eng.kv_sharded and eng.decode_chunk == 4
+    eng.close()
 
 
 # --- a rank's death ends the cell ----------------------------------------------

@@ -162,15 +162,16 @@ def test_stale_or_absent_profile_boots_the_defaults(tune_path, params):
 @pytest.mark.parametrize("entry", [{"mesh_tensor": 2}, {"kv_shard": True}],
                          ids=["mesh_tensor", "kv_shard"])
 def test_a_sharded_profile_is_refused_naming_a13(tune_path, params, entry):
-    """A profile whose tensor axis is not the engine's device count (a data
-    axis, A13b2) is refused. Its ``kv_shard``, a lever since tensor
-    parallelism is ported (A13a), is taken, as the reference takes it; a
-    caller that pins it keeps its own."""
+    """A profile whose tensor axis is not the engine's device count, once
+    refused naming A13b2, gives the engine its levers, as the reference's
+    engine, which never reads ``mesh_tensor`` (C11). Its ``kv_shard``, a
+    lever since tensor parallelism is ported (A13a), is taken, as the
+    reference takes it; a caller that pins it keeps its own."""
     with open(tune_path, "w") as f:
         json.dump({"tiny|cpu|1": {"decode_chunk": 4, **entry}}, f)
     if "mesh_tensor" in entry:
-        with pytest.raises(NotImplementedError, match="A13b2"):
-            _engine(params, model_name="tiny")
+        eng = _engine(params, model_name="tiny")
+        assert eng.tune.mesh_tensor == 2 and eng.decode_chunk == 4
     else:
         eng = _engine(params, model_name="tiny")
         assert eng.tune.kv_shard is True and eng.kv_sharded and eng.decode_chunk == 4
