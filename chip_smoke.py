@@ -333,6 +333,19 @@ time; any failure ends the run with a nonzero exit and no result line:
               of 2 more steps; the loss falls, 32 flash launches a step,
               restored params equal the saved ones; each save's seconds and
               its step directory's bytes
+  train_tp    the trainer on a mesh: (a) the flash kernel at a llama3-8b
+              train rank's shard shapes (train's B 4, S 2048; D 128; H
+              32/t, KV 8/t at t 2, 4, 8) against its plain version, cold-L2
+              and device ms beside the bound and SDPA's; (b) llama3-1b at
+              full width and depth through MeshTrainer on a one-rank NCCL
+              group (parallel.mesh.make_mesh), train's init, dataset and
+              batches: its losses equal train's at the same steps bit for
+              bit, 32 flash launches a step, step ms beside train's, peak
+              memory, and a llama3-8b rank's train-state bytes at fsdp 8
+              and at fsdp 4 x tensor 2, counted from its local meta tree
+              (nothing allocated); (c) the CLI's --fsdp 2 on one card exits
+              with the over-grant message before any byte is allocated.
+              Nothing here spans two GPUs
   train_moe   Mixtral-8x7B at full width and 4 layers (6.07 B parameters),
               bf16, B 2, S 2048, 6 steps through create_moe_train_state and
               make_moe_train_step: a no-grad forward with the reference
@@ -458,7 +471,7 @@ PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs"
           "serve_stream", "serve_tune", "serve_tp", "serve_tied", "serve_ckpt", "serve_orbax",
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
           "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed",
-          "serve_tp_cells", "train", "train_moe")   # in run order
+          "serve_tp_cells", "train", "train_tp", "train_moe")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
 STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
                  "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
@@ -3882,8 +3895,18 @@ def cli_train_twice(fa, common: list, steps: int, more: int) -> dict:
     from kukeon_tpu_torch.training.train_step import tree_leaves
 
     ckpt = common[common.index("--ckpt-dir") + 1]
-    saved, restored, saves = {}, {}, []
+    saved, restored, saves, exact = {}, {}, [], []
     real_save, real_restore = training.save_checkpoint, training.restore_checkpoint
+    real_make_step = training.make_train_step
+
+    def make_step(*a, **kw):        # each step's loss as the float it is
+        step = real_make_step(*a, **kw)
+
+        def run(*sa):
+            state, loss = step(*sa)
+            exact.append(float(loss))
+            return state, loss
+        return run
 
     def save(root, state):          # keeps a host copy of what was saved at the end
         if state.step == steps and "params" not in saved:
@@ -3905,6 +3928,7 @@ def cli_train_twice(fa, common: list, steps: int, more: int) -> dict:
 
     out = {}
     training.save_checkpoint, training.restore_checkpoint = save, restore
+    training.make_train_step = make_step
     try:
         for run, total in (("first", steps), ("second", steps + more)):
             gc.collect()
@@ -3924,7 +3948,9 @@ def cli_train_twice(fa, common: list, steps: int, more: int) -> dict:
                     shutil.rmtree(os.path.join(ckpt, d))
     finally:
         training.save_checkpoint, training.restore_checkpoint = real_save, real_restore
-    out["saved"], out["restored"], out["saves"] = saved, restored, saves
+        training.make_train_step = real_make_step
+    out["saved"], out["restored"], out["saves"], out["exact_losses"] = (saved, restored, saves,
+                                                                        exact)
     sys.stdout.write(out["first"]["log"] + out["second"]["log"])
     return out
 
@@ -3992,7 +4018,7 @@ def phase_train(fa) -> dict:
              + 3 * cfg.num_layers * flash_flops(TRAIN_B, TRAIN_S, cfg.num_heads, cfg.head_dim))
     return {"model": "llama3-1b", "batch": TRAIN_B, "seq_len": TRAIN_S,
             "steps": TRAIN_STEPS, "resumed_steps": TRAIN_MORE,
-            "params": cfg.param_count(), "losses": losses,
+            "params": cfg.param_count(), "losses": losses, "exact_losses": r["exact_losses"],
             "first_loss": losses[0], "last_loss": losses[-1],
             "step_ms_median_3_8": round(step_ms, 3),
             "tokens_per_s": round(tokens / step_ms * 1e3, 1),
@@ -4006,6 +4032,180 @@ def phase_train(fa) -> dict:
             "save_s": [x["s"] for x in r["saves"]],
             "step_dir_bytes": r["saves"][-1]["bytes"] if r["saves"] else None,
             "profile": prof}
+
+
+# train_tp: steps of (b), and the tensor sizes of (a)'s shard shapes.
+TRAIN_TP_STEPS = 3
+TRAIN_TP_WORLDS = (2, 4, 8)
+
+
+def train_tp_kernels(fa, bps: float) -> dict:
+    """(a): the flash kernel at a llama3-8b train rank's heads, train's B
+    and S, D 128, H 32/t and KV 8/t at each t of TRAIN_TP_WORLDS, against
+    its plain version; cold-L2 kernel, plain and SDPA ms, the kernel's
+    device ms, and its bound."""
+    import torch.nn.functional as F
+
+    from kukeon_tpu_torch.ops.attention import repeat_kv
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    B, S, D = TRAIN_B, TRAIN_S, 128
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :].expand(B, S).contiguous()
+    out, worst = {}, 0.0
+    for t in TRAIN_TP_WORLDS:
+        H, KV = 32 // t, 8 // t
+        q, k, v = (torch.randn((B, S, n, D), generator=g, device="cuda").to(torch.bfloat16)
+                   for n in (H, KV, KV))
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, pos, pos)
+        launched = fa.flash_attention.launches - before
+        ref = fa.flash_attention_reference(q, k, v, pos, pos)
+        torch.cuda.synchronize()
+        ok, ea, rel = flash_within_tol(got, ref, v)
+        if not ok or launched != 1:
+            raise AssertionError(f"flash_attention at the t={t} train shard (H {H}, KV {KV}): "
+                                 f"max abs {ea}, rel rms {rel}, {launched} launches")
+        worst = max(worst, ea)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, repeat_kv(k, H // KV),
+                                                  repeat_kv(v, H // KV)))
+        call = (lambda: fa.flash_attention(q, k, v, pos, pos))
+        t_bytes = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 / bps * 1e3
+        t_ops = flash_flops(B, S, H, D) / BF16_FLOPS * 1e3
+        out[f"t{t}"] = {
+            "shape": [B, S, H, KV, D], "max_abs_err": ea, "rel_rms_err": rel,
+            "ms": round(cold_median_ms(call, flush), 4),
+            "plain_ms": round(cold_median_ms(
+                lambda: fa.flash_attention_reference(q, k, v, pos, pos), flush), 4),
+            "library_ms": round(cold_median_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), flush), 4),
+            "device_ms": round(sum(kernel_device_ms(call, flush).values()), 4),
+            "bound_ms": round(max(t_ops, t_bytes), 4),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "launches_per_rank_step": 2 * 32}
+        del q, k, v, qt, kt, vt, got, ref
+    del flush
+    return {"worlds": out, "max_abs_err": worst,
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True) on expanded K/V",
+            "tolerance": "bf16: |err| <= 2^-7 (|ref| + max|v|) and rms(err) <= 2^-7 rms(ref)"}
+
+
+def one_device_losses(data: str, steps: int) -> list:
+    """train's first ``steps`` losses, from its init, optimizer and batches
+    on one device, outside the CLI (when train did not run)."""
+    from kukeon_tpu_torch.models import llama
+    from kukeon_tpu_torch.training import TokenDataset, batches, create_train_state
+    from kukeon_tpu_torch.training.train_step import make_optimizer, make_train_step
+
+    cfg = llama.llama3_1b()
+    opt = make_optimizer(3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    state, opt = create_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                    "cuda", opt)
+    step = make_train_step(cfg, opt)
+    losses = []
+    for _s, *batch in batches(TokenDataset(data), TRAIN_B, TRAIN_S, num_steps=steps,
+                              device="cuda"):
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+    del state, step
+    return losses
+
+
+def train_tp_mesh(fa, want: list | None) -> dict:
+    """(b): llama3-1b through MeshTrainer on a one-rank NCCL group,
+    TRAIN_TP_STEPS steps of train's configuration (seed 0, lr 3e-4, warmup
+    1, total TRAIN_STEPS, its zipf dataset): the losses against ``want``
+    (train's exact losses; None: one_device_losses) bit for bit, flash
+    launches a step (the counter set to 0 just before the steps), ms a step
+    and peak memory; the group shut down after."""
+    import torch.distributed as dist
+
+    from kukeon_tpu_torch.models import llama
+    from kukeon_tpu_torch.parallel import launch
+    from kukeon_tpu_torch.parallel.mesh import make_mesh
+    from kukeon_tpu_torch.parallel.sharding import TrainLayout
+    from kukeon_tpu_torch.training.mesh_trainer import MeshTrainer
+
+    cfg = llama.llama3_1b()
+    tmp = tempfile.mkdtemp(prefix="kukeon-train-tp-")
+    try:
+        data = os.path.join(tmp, "tokens.bin")
+        zipf_dataset(data, 4_000_000, seed=0)
+        if want is None:
+            want = one_device_losses(data, TRAIN_TP_STEPS)
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh(device="cuda")
+        backend = dist.get_backend()
+        if mesh.size != 1 or launch.current() is None or backend != "nccl":
+            raise AssertionError(f"make_mesh() on one card: {mesh}, backend {backend}")
+        t0 = time.monotonic()
+        tr = MeshTrainer(mesh, model="llama3-1b", dataset=data, batch=TRAIN_B,
+                         seq_len=TRAIN_S, seed=0, lr=3e-4, warmup_steps=1,
+                         total_steps=TRAIN_STEPS)
+        init_s = time.monotonic() - t0
+        fa.flash_attention.launches = 0
+        losses, step_ms = [], []
+        for i in range(TRAIN_TP_STEPS):
+            t0 = time.monotonic()
+            losses.append(float(tr.step(i)))             # waits for the device
+            step_ms.append((time.monotonic() - t0) * 1e3)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        tr.close()
+        del tr
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_step = 2 * cfg.num_layers
+    if losses != want[:TRAIN_TP_STEPS]:
+        raise AssertionError(f"mesh trainer losses {losses} differ from train's "
+                             f"{want[:TRAIN_TP_STEPS]}")
+    if launches != per_step * TRAIN_TP_STEPS:
+        raise AssertionError(f"mesh trainer: {launches} flash launches, want {per_step} a step")
+    cfg8 = llama.llama3_8b()
+    state_gb = {name: round(TrainLayout(cfg8, 0, f, 0, t).state_bytes() / 1e9, 3)
+                for name, f, t in (("one_device", 1, 1), ("fsdp8", 8, 1),
+                                   ("fsdp4_tensor2", 4, 2))}
+    return {"model": "llama3-1b", "batch": TRAIN_B, "seq_len": TRAIN_S, "backend": backend,
+            "losses": losses, "losses_equal_train": True, "init_s": round(init_s, 3),
+            "step_ms": [round(x, 3) for x in step_ms],
+            "step_ms_median_2_3": round(statistics.median(step_ms[1:]), 3),
+            "peak_mem_gb": round(peak / 1e9, 2),
+            "flash_launches": launches, "flash_launches_per_step": launches // TRAIN_TP_STEPS,
+            "llama3-8b_rank_state_gb": state_gb}
+
+
+def train_tp_overgrant() -> dict:
+    """(c): the CLI with --fsdp 2 on one card exits with the over-grant
+    message, and no byte reaches the card."""
+    from kukeon_tpu_torch.training import cli
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        cli.main(["--dataset", "unused.bin", "--model", "llama3-8b", "--fsdp", "2"])
+        raise AssertionError("--fsdp 2 on one card did not exit")
+    except SystemExit as e:
+        message = str(e)
+    want = "wants 2 GPUs but only 1 visible"
+    if want not in message or torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"over-grant: {message!r}, allocated {before} -> "
+                             f"{torch.cuda.memory_allocated()}")
+    return {"message": message, "bytes_allocated": 0}
+
+
+def phase_train_tp(fa, bps: float, train: dict | None) -> dict:
+    out = {"c_overgrant": train_tp_overgrant(), "a_shards": train_tp_kernels(fa, bps)}
+    out["b_mesh"] = train_tp_mesh(fa, train["exact_losses"] if train else None)
+    if train:
+        out["b_mesh"]["train_step_ms_median_3_8"] = train["step_ms_median_3_8"]
+        out["b_mesh"]["train_peak_mem_gb"] = train["peak_mem_gb"]
+    return out
 
 
 def moe_active_params(cfg) -> int:
@@ -4990,6 +5190,7 @@ def run_phases(phases: list) -> int:
     run("serve_embed", serve_embed)
     run("serve_tp_cells", lambda: serve_tp_cells(k1, bps))
     run("train", train)
+    run("train_tp", lambda: phase_train_tp(fa, bps, res.get("train")))
 
     def train_moe():
         out = phase_train_moe(fa)
@@ -5008,6 +5209,7 @@ def run_phases(phases: list) -> int:
     serve8, serve1, serve_moe, train = (res["serve"], res["serve_tied"], res["serve_moe"],
                                         res["train"])
     train_moe, embed, ckpt = res["train_moe"], res["serve_embed"], res["serve_ckpt"]
+    ttp = res["train_tp"]
     stream, tune, orbax = res["serve_stream"], res["serve_tune"], res["serve_orbax"]
     tp, tpc = res["serve_tp"], res["serve_tp_cells"]
     ft, fm = flash["timing"], flash["timing_mixtral_train"]
@@ -5071,9 +5273,14 @@ def run_phases(phases: list) -> int:
                  "further transposed (K x N), B=4"},
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES,
-         "launches": train["flash_launches"] + train_moe["flash_launches"],
+         "launches": (train["flash_launches"] + train_moe["flash_launches"]
+                      + ttp["b_mesh"]["flash_launches"]),
          "launches_train": train["flash_launches"],
          "launches_train_moe": train_moe["flash_launches"],
+         "launches_train_tp": ttp["b_mesh"]["flash_launches"],
+         "train_tp_shards": {w: {k: v[k] for k in (
+             "shape", "ms", "plain_ms", "library_ms", "device_ms", "bound_ms", "bound_by",
+             "max_abs_err")} for w, v in ttp["a_shards"]["worlds"].items()},
          "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),
          **{f: round(ft[f], 4) for f in fields},
          "bound_by": ft["bound_by"], "library_ms_call": ft["library_call"],
@@ -5156,6 +5363,16 @@ def run_phases(phases: list) -> int:
             "step_ms_median_3_8", "tokens_per_s", "mfu", "peak_mem_gb", "first_loss",
             "last_loss", "flash_launches_per_step", "flash_share_of_step", "save_s",
             "step_dir_bytes")},
+        "train_tp_llama3-1b": {
+            **{k: ttp["b_mesh"][k] for k in (
+                "losses", "losses_equal_train", "step_ms_median_2_3", "peak_mem_gb",
+                "flash_launches_per_step", "llama3-8b_rank_state_gb")},
+            "train_step_ms_median_3_8": train["step_ms_median_3_8"],
+            "a_flash_device_ms": {w: v["device_ms"] for w, v in
+                                  ttp["a_shards"]["worlds"].items()},
+            "a_flash_bound_ms": {w: v["bound_ms"] for w, v in
+                                 ttp["a_shards"]["worlds"].items()},
+            "c_message": ttp["c_overgrant"]["message"]},
         "train_moe_mixtral-8x7b_4_layers": {k: train_moe[k] for k in (
             "step_ms_median_3_6", "tokens_per_s", "mfu", "peak_mem_gb", "losses",
             "step1_rel_diff", "flash_launches_per_step")},

@@ -590,6 +590,72 @@ def forward(
     return _logits(params, c, x, mesh=mesh), cache
 
 
+# The per-layer matrices' fsdp axis (the hidden width) in one layer's
+# slice: the rows of a column-parallel [H, N], the columns of a
+# row-parallel [N, H] (``parallel/sharding.py`` ``train_specs``).
+_FSDP_DIM = {"wq": 0, "wk": 0, "wv": 0, "w_gate": 0, "w_up": 0, "wo": 1, "w_down": 1}
+
+
+def train_block(x: torch.Tensor, w: dict, cfg: LlamaConfig, positions: torch.Tensor,
+                attn_impl: str, rope: tuple[torch.Tensor, torch.Tensor], mesh) -> torch.Tensor:
+    """:func:`transformer_block` on a training mesh, under autograd: ``w``
+    one layer's local blocks, each fsdp-cut matrix gathered over ``fsdp``
+    here (inside the block that remat wraps, so the backward gathers it
+    again and a rank holds one gathered layer at a time), the attention
+    and MLP inputs copied to ``tensor`` and their row-parallel partials
+    summed over it (``parallel/autograd.py``). At one rank it is
+    :func:`transformer_block`, op for op."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+
+    c = cfg
+    w = {name: pa.fsdp_gather(t, _FSDP_DIM[name], mesh) if name in _FSDP_DIM else t
+         for name, t in w.items()}
+    B, S = x.shape[:2]
+    nh, nkv, sel = _heads({"layers": w}, c, mesh.rank)
+    h = pa.copy_to_tensor(rms_norm(x, w["attn_norm"], c.rms_norm_eps), mesh)
+    q = (h @ w["wq"]).reshape(B, S, nh, c.head_dim)
+    k = (h @ w["wk"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
+    v = (h @ w["wv"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
+    q = apply_rope(q, positions, c.rope_theta, rope)
+    k = apply_rope(k, positions, c.rope_theta, rope)
+    attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
+                         impl=attn_impl)
+    x = x + pa.reduce_from_tensor(attn.reshape(B, S, nh * c.head_dim) @ w["wo"], mesh)
+    h = pa.copy_to_tensor(rms_norm(x, w["mlp_norm"], c.rms_norm_eps), mesh)
+    gate = F.silu((h @ w["w_gate"]).float()).to(c.dtype)
+    up = h @ w["w_up"]
+    return x + pa.reduce_from_tensor((gate * up) @ w["w_down"], mesh)
+
+
+def forward_train(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor, mesh, *, remat: bool = True) -> torch.Tensor:
+    """The cacheless forward of a training mesh's rank (``mesh``, a
+    ``parallel.mesh.Mesh``; ``params`` its local blocks,
+    ``parallel/sharding.py`` ``TrainLayout``; ``tokens`` its batch rows),
+    under autograd -> logits [B, S, V] f32, the whole vocabulary on every
+    tensor peer. The embedding is gathered over ``fsdp`` for the lookup
+    and again for a tied LM head; each block is :func:`train_block`, under
+    non-reentrant remat when ``remat``. At one rank it is :func:`forward`
+    without a cache, op for op."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+
+    c = cfg
+    x = pa.masked_lookup(pa.fsdp_gather(params["embed"], 1, mesh), tokens, mesh).to(c.dtype)
+    rope = rope_tables(positions, c.head_dim, c.rope_theta)
+    for w in layer_slices(params):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                train_block, x, w, c, positions, "auto", rope, mesh, use_reentrant=False)
+        else:
+            x = train_block(x, w, c, positions, "auto", rope, mesh)
+    x = pa.copy_to_tensor(rms_norm(x, params["final_norm"], c.rms_norm_eps), mesh)
+    if c.tie_embeddings:
+        logits = torch.einsum("bsh,vh->bsv", x, pa.fsdp_gather(params["embed"], 1, mesh))
+    else:
+        logits = x @ pa.fsdp_gather(params["lm_head"], 0, mesh)
+    return pa.gather_from_tensor(logits, -1, mesh).float()
+
+
 def _decode_forward(
     params: Params,
     c: LlamaConfig,

@@ -423,7 +423,7 @@ def forward_with_aux(
     B, S = tokens.shape
     if mesh is not None and cache is None:
         raise NotImplementedError("the MoE forward over a mesh serves (a cache); "
-                                  "training on a mesh is ROADMAP.md A13c")
+                                  "MoE training on a mesh is ROADMAP.md A13c2")
     x = _embed(params, tokens, c.dtype, mesh, vocab_rows(c.vocab_size, _world(mesh)))
 
     if cache is not None and S == 1 and attn_impl in ("auto", "reference"):

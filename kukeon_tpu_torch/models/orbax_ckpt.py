@@ -213,60 +213,62 @@ class OrbaxCheckpoint:
         meta = self.zarray(name)
         return tuple(meta["chunks"]) == tuple(meta["shape"])
 
-    def read_array(self, name: str,
-                   region: tuple[int, int, int] | None = None) -> np.ndarray:
+    def read_array(self, name: str, region=None) -> np.ndarray:
         """Array ``name`` (``"params.layers.wq"``) in host memory; with
-        ``region`` ``(axis, lo, hi)`` only ``[lo, hi)`` along ``axis``,
-        decoding only the chunks that overlap it (a one-chunk array is
-        decoded whole into a staging buffer, then cut)."""
+        ``region`` ``(axis, lo, hi)``, or a tuple of such on distinct axes
+        (empty: the whole array), only ``[lo, hi)`` along each ``axis``, decoding only the chunks that
+        overlap it (a one-chunk array is decoded whole into a staging
+        buffer, then cut)."""
         meta, dt = self._meta(name)
         comp = meta.get("compressor")
         shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
         sep = meta.get("dimension_separator", ".")
-        axis, lo, hi = region if region is not None else (0, 0, shape[0] if shape else 0)
-        if region is not None and not 0 <= lo <= hi <= shape[axis]:
-            raise CheckpointError(f"{self.path}: {name}: region {region} is outside {shape}")
-        want = tuple(hi - lo if i == axis else d for i, d in enumerate(shape))
+        regions = () if not region else (
+            (region,) if isinstance(region[0], int) else tuple(region))
+        box = [(0, d) for d in shape]
+        for axis, lo, hi in regions:
+            if not 0 <= lo <= hi <= shape[axis]:
+                raise CheckpointError(f"{self.path}: {name}: region {region} is outside "
+                                      f"{shape}")
+            box[axis] = (lo, hi)
+        want = tuple(hi - lo for lo, hi in box)
         arr = np.empty(want, dt)
         grid = [math.ceil(s / c) if c else 0 for s, c in zip(shape, chunks)]
-        if chunks == shape and (region is None or want == shape):   # one chunk: in place
+        if chunks == shape and want == shape:           # one chunk, whole: in place
             key = f"{name}/{sep.join('0' * len(shape)) if shape else '0'}".encode()
             if not self._chunk(key, comp, arr):
                 arr.fill(_fill(meta, dt))
         elif all(grid):
             buf = np.empty(chunks, dt)
-            ranges = [range(g) for g in grid]
-            if region is not None and hi > lo:
-                ranges[axis] = range(lo // chunks[axis], (hi - 1) // chunks[axis] + 1)
-            elif region is not None:
-                ranges[axis] = range(0)
+            ranges = [range(lo // c, (hi - 1) // c + 1) if hi > lo else range(0)
+                      for (lo, hi), c in zip(box, chunks)]
             for idx in itertools.product(*ranges):
                 key = f"{name}/{sep.join(map(str, idx))}".encode()
-                full = [slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape)]
-                if region is not None:
-                    full[axis] = slice(max(full[axis].start, lo), min(full[axis].stop, hi))
+                full = [slice(max(i * c, lo), min((i + 1) * c, s, hi))
+                        for i, c, s, (lo, hi) in zip(idx, chunks, shape, box)]
                 src = tuple(slice(f.start - i * c, f.stop - i * c)
                             for f, i, c in zip(full, idx, chunks))
-                dst = list(full)
-                if region is not None:
-                    dst[axis] = slice(full[axis].start - lo, full[axis].stop - lo)
+                dst = tuple(slice(f.start - lo, f.stop - lo) for f, (lo, _) in zip(full, box))
                 if self._chunk(key, comp, buf):
-                    arr[tuple(dst)] = buf[src]
+                    arr[dst] = buf[src]
                 else:
-                    arr[tuple(dst)] = _fill(meta, dt)
+                    arr[dst] = _fill(meta, dt)
         if meta["dtype"] == "bfloat16":
             arr = arr.view(BFloat16Bits)
         return arr
 
-    def iter_arrays(self, names: list[str]) -> Iterator[tuple[str, np.ndarray]]:
+    def iter_arrays(self, names: list[str],
+                    regions: dict | None = None) -> Iterator[tuple[str, np.ndarray]]:
         """(name, array) for each of ``names`` as the reader threads finish
         them, at most :data:`_READ_THREADS` arrays in host memory ahead of
-        the consumer."""
+        the consumer; ``regions`` maps a name to its :meth:`read_array`
+        region (a mesh rank's block)."""
+        regions = regions or {}
         with concurrent.futures.ThreadPoolExecutor(_READ_THREADS) as pool:
             pending: dict = {}
             todo = iter(names)
             for name in todo:
-                pending[pool.submit(self.read_array, name)] = name
+                pending[pool.submit(self.read_array, name, regions.get(name))] = name
                 if len(pending) >= _READ_THREADS:
                     break
             while pending:
@@ -277,7 +279,7 @@ class OrbaxCheckpoint:
                     yield name, fut.result()
                     nxt = next(todo, None)
                     if nxt is not None:
-                        pending[pool.submit(self.read_array, nxt)] = nxt
+                        pending[pool.submit(self.read_array, nxt, regions.get(nxt))] = nxt
 
     def read_tree(self) -> Any:
         """The whole tree: nested dicts (dict keys) and lists (sequence
@@ -328,7 +330,7 @@ def _open_checked(path: str, abstract: dict) -> tuple[OrbaxCheckpoint, list]:
     leaf."""
     try:
         ckpt = OrbaxCheckpoint(path)
-        leaves = list(_flatten(abstract))
+        leaves = list(flatten(abstract))
         want = {".".join(k for k, _ in keys): tuple(v.shape) for keys, v in leaves}
         arrays = set(ckpt.array_names())
         stored = {lf.name for lf in ckpt.leaves}
@@ -479,20 +481,26 @@ def _rank_int8(ckpt: OrbaxCheckpoint, name: str, tpath: tuple, shape: tuple, lay
 
 # ------------------------------------------------------------------ writer --
 
-def _flatten(tree, keys=()) -> Iterator[tuple[list[tuple[str, int]], Any]]:
+def flatten(tree, keys=()) -> Iterator[tuple[list[tuple[str, int]], Any]]:
+    """``(keys, leaf)`` of ``tree`` in the order :func:`write_tree` writes
+    it (dict keys sorted), each key with its orbax key type."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _flatten(tree[k], keys + ((str(k), KEY_DICT),))
+            yield from flatten(tree[k], keys + ((str(k), KEY_DICT),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, keys + ((str(i), KEY_SEQUENCE),))
+            yield from flatten(v, keys + ((str(i), KEY_SEQUENCE),))
     else:
         yield list(keys), tree
 
 
 def _host_array(value) -> tuple[np.ndarray, str]:
     """(C-contiguous host array, zarr dtype) of a leaf: a tensor on any
-    device, a numpy array or a Python number."""
+    device, a numpy array, a Python number, or a callable that returns one
+    of those when the writer reaches the leaf (a mesh's leaf, gathered
+    then)."""
+    if callable(value):
+        value = value()
     if isinstance(value, torch.Tensor):
         t = value.detach().to("cpu").contiguous()
         if t.dtype not in _TORCH_DTYPES:
@@ -531,7 +539,8 @@ def _write_json(path: str, obj) -> None:
 
 def write_tree(path: str, tree) -> dict:
     """Write ``tree`` (nested dicts, lists and tuples of tensors on any
-    device, numpy arrays, Python numbers and ``None``) at ``path`` in the
+    device, numpy arrays, Python numbers, callables that return one of
+    those, and ``None``) at ``path`` in the
     layout ``StandardCheckpointer().save`` writes, so orbax restores it and
     :class:`OrbaxCheckpoint` reads it. Dict keys are written sorted (JAX's
     order). One leaf at a time is copied to the host and written before the
@@ -546,7 +555,7 @@ def write_tree(path: str, tree) -> dict:
 
     def items():
         nonlocal leaf_bytes
-        for keys, value in _flatten(tree):
+        for keys, value in flatten(tree):
             if not keys:
                 raise CheckpointError("write_tree: the tree's root must be a dict or a "
                                       "sequence")

@@ -1,6 +1,7 @@
-"""Tensor-parallel serving of the port: torch counterparts of
-``kukeon_tpu/parallel`` (mesh and sharding), and the rank groups they run
-over (``launch``)."""
+"""Serving and training on a mesh of the port: torch counterparts of
+``kukeon_tpu/parallel`` (mesh and sharding), the rank groups they run over
+(``launch``), and the collectives that autograd differentiates
+(``autograd``)."""
 
 from kukeon_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_DATA,

@@ -19,12 +19,15 @@ applies, in order, the device actions the leader posts to them.
   follower when an action that meets a collective is posted: a decode
   chunk's host inputs and its program run go out together. An argument
   wrapped in :class:`PerRank` sends each follower its own element.
-- **Data x tensor**: a group of ``world`` ranks has a tensor size
-  ``tensor`` that divides it; its ranks ``d * tensor .. (d + 1) * tensor
-  - 1`` are data replica ``d``, and each replica gets a
-  ``torch.distributed`` subgroup of its own (:attr:`Group.tensor_pg`),
-  which the mesh's collectives run over. The leader drives every
-  follower of every replica with the same descriptors.
+- **Data x fsdp x tensor**: a group of ``world`` ranks is laid out as the
+  reference's mesh orders its axes, ``tensor`` innermost: global rank
+  ``(d * fsdp + f) * tensor + t``. Serving has no fsdp axis, so its
+  ranks ``d * tensor .. (d + 1) * tensor - 1`` are data replica ``d``.
+  Every axis of more than one rank gets a ``torch.distributed`` subgroup
+  per coordinate of the others (:attr:`Group.pgs`: ``tensor``, ``fsdp``,
+  ``data`` and ``batch``, data x fsdp), made at the rendezvous in one
+  order on every rank, which the mesh's collectives run over. The leader
+  drives every follower with the same descriptors.
 - **Failures end the group**: a follower whose process exits, or whose
   action raises, marks the group failed and calls ``on_failure`` (a cell
   exits non-zero there: it never serves on fewer devices); the next post
@@ -32,7 +35,9 @@ applies, in order, the device actions the leader posts to them.
   sent (it may hold a collective the followers now wait in) ends the
   group at once, its followers killed (:meth:`Group.abort`); a follower
   already dead is named as the cause (a peer's death is what makes a
-  leader's collective raise), the leader only when all are alive. Fault points
+  leader's collective raise), the leader only when all are alive; so is
+  a follower's error report (its collective raises when a peer dies),
+  the reporting follower named only when no other died. Fault points
   (``faults.py``) fire on the leader alone: the followers start without
   ``KUKEON_FAULTS``, so none fails an action on its own count. A follower
   exits when the leader's channel closes or the leader process is gone
@@ -105,15 +110,36 @@ def _device(device_type: str, rank: int) -> torch.device:
     return torch.device(f"cuda:{rank}") if device_type == "cuda" else torch.device("cpu")
 
 
+def _axis_groups(world: int, tensor: int, fsdp: int) -> dict[str, list[list[int]]]:
+    """Every axis group's ranks of a ``data`` x ``fsdp`` x ``tensor`` group
+    (global rank ``(d * fsdp + f) * tensor + t``), in one order: ``tensor``
+    (a data replica's fsdp block), ``fsdp``, ``data``, and ``batch`` (data
+    x fsdp, the ranks of one tensor coordinate). Axes of one rank are
+    absent, but for ``tensor`` on a group of more ranks: the serving
+    collectives run over a subgroup of each replica's own."""
+    data = world // (tensor * fsdp)
+    r = lambda d, f, t: (d * fsdp + f) * tensor + t  # noqa: E731
+    groups = {
+        "tensor": [[r(d, f, t) for t in range(tensor)] for d in range(data) for f in range(fsdp)],
+        "fsdp": [[r(d, f, t) for f in range(fsdp)] for d in range(data) for t in range(tensor)],
+        "data": [[r(d, f, t) for d in range(data)] for f in range(fsdp) for t in range(tensor)],
+        "batch": [[r(d, f, t) for d in range(data) for f in range(fsdp)] for t in range(tensor)],
+    }
+    return {axis: g for axis, g in groups.items()
+            if len(g[0]) > 1 or (axis == "tensor" and world > 1)}
+
+
 def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
-                      tensor: int):
+                      tensor: int, fsdp: int = 1) -> dict:
     """``init_process_group`` on the rendezvous store, then one eager
     ``all_reduce`` that must sum to ``world``: NCCL builds its communicator
     there, outside any graph capture, and a rank that cannot reach the
-    others fails here, at boot. With more than one data replica, every
-    rank then makes every replica's subgroup (``new_group`` is collective,
-    in one order on all ranks) and sums over its own the same way. ->
-    this rank's tensor subgroup (None: the whole group)."""
+    others fails here, at boot. Then every rank makes every axis group
+    (:func:`_axis_groups`; ``new_group`` is collective, in one order on
+    all ranks; an axis that spans the world is the default group, one that
+    has the ranks of another already made is that one) and sums over its
+    tensor subgroup the same way. -> this rank's group of each axis
+    (``torch.distributed`` group; None: the whole group)."""
     timeout = datetime.timedelta(seconds=timeout_s())
     store = dist.FileStore(store_path, world)
     if device_type == "cuda":
@@ -128,34 +154,44 @@ def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
     dist.all_reduce(one)
     if int(one.item()) != world:
         raise RankFailure(f"rendezvous all_reduce gave {one.item()}, want {world}")
-    if tensor == world:
-        return None
-    pgs = [dist.new_group(list(range(d * tensor, (d + 1) * tensor)))
-           for d in range(world // tensor)]
-    pg = pgs[rank // tensor]
-    one = torch.ones((1,), device=_device(device_type, rank))
-    dist.all_reduce(one, group=pg)
-    if int(one.item()) != tensor:
-        raise RankFailure(f"replica all_reduce gave {one.item()}, want {tensor}")
-    return pg
+    pgs: dict = {}
+    made: dict[tuple, Any] = {tuple(range(world)): None}
+    for axis, groups in _axis_groups(world, tensor, fsdp).items():
+        for ranks in groups:
+            key = tuple(ranks)
+            if key not in made:
+                made[key] = dist.new_group(ranks)
+            if rank in ranks:
+                pgs[axis] = made[key]
+    if pgs.get("tensor") is not None:
+        one = torch.ones((1,), device=_device(device_type, rank))
+        dist.all_reduce(one, group=pgs["tensor"])
+        if int(one.item()) != tensor:
+            raise RankFailure(f"replica all_reduce gave {one.item()}, want {tensor}")
+    return pgs
 
 
 class Group:
     """This process's rank group. The leader's holds the followers'
     processes and channels; a follower's, its channel to the leader.
-    ``tensor``: the ranks of one data replica; ``tensor_pg`` this rank's
-    replica's ``torch.distributed`` subgroup (None: the whole group).
+    ``tensor``: the ranks of one data replica's fsdp block, ``fsdp`` the
+    size of that axis; ``pgs`` this rank's ``torch.distributed`` group of
+    each axis of more than one rank (``tensor``, ``fsdp``, ``data``,
+    ``batch``; None: the whole group), ``tensor_pg`` its tensor subgroup
+    (None: the whole group, or one rank).
     ``peer_stats[r]``: the latest allocator counters follower r reported
     (``{"in_use", "limit", "peak", "index"}``), read by the leader's
     scrapes without any CUDA call."""
 
     def __init__(self, rank: int, world: int, device_type: str, rdzv: str,
                  conns: list[Connection], procs: list[subprocess.Popen] | None = None,
-                 tensor: int | None = None, tensor_pg=None):
+                 tensor: int | None = None, pgs: dict | None = None, fsdp: int = 1):
         self.rank = rank
         self.world = world
         self.tensor = tensor or world
-        self.tensor_pg = tensor_pg
+        self.fsdp = fsdp
+        self.pgs = pgs or {}
+        self.tensor_pg = self.pgs.get("tensor")
         self.device_type = device_type
         self.device = _device(device_type, rank)
         self._rdzv = rdzv
@@ -169,6 +205,10 @@ class Group:
         self.failed: str | None = None
         self.on_failure: Callable[[str], None] | None = None
         self.peer_stats: dict[int, dict] = {}
+        # Followers that reported an error, and those whose channel the
+        # watch thread has read to its end (every report of theirs seen).
+        self._reported: set[int] = set()
+        self._ended: set[int] = set()
         # (object id, what) -> the followers that acknowledged it.
         self._acks: dict[tuple, set[int]] = {}
         self._ack_cond = threading.Condition()
@@ -239,7 +279,13 @@ class Group:
                     self._acks.setdefault(tuple(body), set()).add(rank)
                     self._ack_cond.notify_all()
             elif kind == "error":
-                self._fail(f"rank {rank} failed: {body}")
+                # A follower whose collective raised because a peer died
+                # reports an error too: the dead peer, when one shows
+                # within ABORT_WAIT_S, is the cause (C12).
+                self._reported.add(rank)
+                self._fail(self._dead_follower(ABORT_WAIT_S, besides=rank)
+                           or f"rank {rank} failed: {body}")
+        self._ended.add(rank)
         if not self._closing:
             proc = self._procs[rank - 1]
             try:
@@ -283,19 +329,25 @@ class Group:
             if self.on_failure is not None:
                 self.on_failure(why)
 
-    def _dead_follower(self, wait_s: float) -> str | None:
+    def _dead_follower(self, wait_s: float, besides: int | None = None) -> str | None:
         """Why the group failed if a follower is gone: the cause a watch
-        thread recorded, else the first follower whose process has exited
-        (``rank r exited (code c)``, as :meth:`_watch` words it). Polls for
+        thread recorded, else the first follower other than ``besides``
+        that died (``rank r exited (code c)``, as :meth:`_watch` words
+        it): killed by a signal, or exited without reporting an error once
+        its channel was read to its end (a follower that reported one
+        exits after it: it is not the cause of another's error). Polls for
         up to ``wait_s``: a follower killed mid-collective resets its
-        sockets before its process is reaped, so the leader's collective
-        can raise before either shows. None when every follower is alive."""
+        sockets before its process is reaped, so a peer's collective can
+        raise before either shows. None when no follower died."""
         deadline = time.monotonic() + wait_s
         while True:
             if self.failed is not None:
                 return self.failed
             for r, p in enumerate(self._procs, start=1):
-                if p.poll() is not None:
+                if r == besides or p.poll() is None:
+                    continue
+                read = r in self._ended or r > len(self._conns)
+                if p.returncode < 0 or (read and r not in self._reported):
                     return f"rank {r} exited (code {p.returncode})"
             if time.monotonic() >= deadline:
                 return None
@@ -346,23 +398,25 @@ def current() -> Group | None:
     return _GROUP
 
 
-def group(world: int, device_type: str, tensor: int | None = None) -> Group:
-    """This process's group of ``world`` ranks on ``device_type``, in data
-    replicas of ``tensor`` ranks (None: one replica of ``world``): the open
-    one when it matches, else a new one (:func:`start`). A second group of
-    another shape in one process is a ``ValueError``."""
+def group(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1) -> Group:
+    """This process's group of ``world`` ranks on ``device_type``, laid out
+    data x ``fsdp`` x ``tensor`` (``tensor`` None: the whole world, one
+    replica): the open one when it matches, else a new one (:func:`start`).
+    A second group of another shape in one process is a ``ValueError``."""
     global _GROUP
     tensor = tensor or world
     with _GROUP_LOCK:
         if _GROUP is not None and _GROUP.failed is None:
-            if (_GROUP.world, _GROUP.tensor, _GROUP.device_type) != (world, tensor, device_type):
+            if ((_GROUP.world, _GROUP.tensor, _GROUP.fsdp, _GROUP.device_type)
+                    != (world, tensor, fsdp, device_type)):
                 raise ValueError(
                     f"this process already leads a group of {_GROUP.world} "
-                    f"{_GROUP.device_type} ranks (tensor {_GROUP.tensor}); one group a process")
+                    f"{_GROUP.device_type} ranks (fsdp {_GROUP.fsdp}, tensor "
+                    f"{_GROUP.tensor}); one group a process")
             return _GROUP
         if _GROUP is not None:
             _GROUP.close()
-        _GROUP = start(world, device_type, tensor)
+        _GROUP = start(world, device_type, tensor, fsdp)
         return _GROUP
 
 
@@ -389,22 +443,22 @@ def follower_env(key: bytes) -> dict[str, str]:
     return env
 
 
-def start(world: int, device_type: str, tensor: int | None = None) -> Group:
-    """Start ``world - 1`` followers and join them as rank 0, in data
-    replicas of ``tensor`` ranks (None: ``world``; it must divide
-    ``world``). A follower that exits before it connects, or a rendezvous
-    that outlasts the timeout, kills the others and raises
+def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1) -> Group:
+    """Start ``world - 1`` followers and join them as rank 0, laid out data
+    x ``fsdp`` x ``tensor`` (``tensor`` None: ``world``; ``fsdp * tensor``
+    must divide ``world``). A follower that exits before it connects, or a
+    rendezvous that outlasts the timeout, kills the others and raises
     :class:`RankFailure`."""
     tensor = tensor or world
-    if world % tensor:
-        raise ValueError(f"a tensor axis of {tensor} does not divide {world} ranks")
+    if world % (tensor * fsdp):
+        raise ValueError(f"fsdp {fsdp} x tensor {tensor} does not divide {world} ranks")
     rdzv = tempfile.mkdtemp(prefix="kukeon-tp-")
     key = os.urandom(16)
     listener = Listener(_control_address(rdzv), family="AF_UNIX", authkey=key)
     env = follower_env(key)
     procs = [subprocess.Popen(
         [sys.executable, "-m", "kukeon_tpu_torch.parallel.launch", "--rank", str(r),
-         "--world", str(world), "--tensor", str(tensor), "--rdzv", rdzv,
+         "--world", str(world), "--tensor", str(tensor), "--fsdp", str(fsdp), "--rdzv", rdzv,
          "--device", device_type, "--leader-pid", str(os.getpid())], env=env)
         for r in range(1, world)]
     conns: dict[int, Connection] = {}
@@ -436,7 +490,8 @@ def start(world: int, device_type: str, tensor: int | None = None) -> Group:
             if not conn.poll(timeout_s()):
                 raise RankFailure("a follower connected but never said its rank")
             conns[int(pickle.loads(conn.recv_bytes()))] = conn
-        pg = _init_torch_group(device_type, os.path.join(rdzv, "store"), 0, world, tensor)
+        pgs = _init_torch_group(device_type, os.path.join(rdzv, "store"), 0, world, tensor,
+                                fsdp)
     except BaseException:
         for p in procs:
             p.kill()
@@ -448,7 +503,7 @@ def start(world: int, device_type: str, tensor: int | None = None) -> Group:
     finally:
         listener.close()
     return Group(0, world, device_type, rdzv, [conns[r] for r in range(1, world)], procs,
-                 tensor, pg)
+                 tensor, pgs, fsdp)
 
 
 # --- the follower process ---------------------------------------------------
@@ -488,6 +543,7 @@ def follower_main(argv=None) -> int:
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--tensor", type=int, default=None)
+    ap.add_argument("--fsdp", type=int, default=1)
     ap.add_argument("--rdzv", required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), required=True)
     ap.add_argument("--leader-pid", type=int, required=True)
@@ -500,10 +556,10 @@ def follower_main(argv=None) -> int:
     conn = Client(_control_address(args.rdzv), family="AF_UNIX", authkey=key)
     conn.send_bytes(pickle.dumps(args.rank))
     tensor = args.tensor or args.world
-    pg = _init_torch_group(args.device, os.path.join(args.rdzv, "store"), args.rank,
-                           args.world, tensor)
-    g = Group(args.rank, args.world, args.device, args.rdzv, [conn], tensor=tensor,
-              tensor_pg=pg)
+    pgs = _init_torch_group(args.device, os.path.join(args.rdzv, "store"), args.rank,
+                            args.world, tensor, args.fsdp)
+    g = Group(args.rank, args.world, args.device, args.rdzv, [conn], tensor=tensor, pgs=pgs,
+              fsdp=args.fsdp)
     from kukeon_tpu_torch.parallel.mesh import Mesh
 
     mesh = Mesh(g)

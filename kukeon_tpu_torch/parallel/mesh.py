@@ -19,11 +19,24 @@ of a weight and every collective reads those, and only the rank group
 itself (who leads, how many processes) sees the data axis. ``expert`` is size
 1, as in the reference's ``serving_mesh`` (a MoE layer's experts are cut
 on ``tensor`` inside each expert); the other axes keep the reference's
-names for the slices that add them (ROADMAP.md A13c-d).
+names for the slices that add them (ROADMAP.md A13c2-d).
+
+Training adds ``fsdp`` (:func:`make_mesh`'s ``fsdp=``, :func:`training_mesh`):
+the ranks are laid out ``data`` x ``fsdp`` x ``tensor`` in the reference's
+order (``tensor`` innermost), so global rank ``(d * fsdp + f) * tensor + t``
+holds coordinates ``(d, f, t)``. ``rank`` and ``world`` stay the tensor
+coordinate and size, ``fsdp_rank`` is the fsdp coordinate, and
+:meth:`Mesh.reduce`, :meth:`Mesh.gather` and :meth:`Mesh.reduce_scatter`
+run over a named axis group: ``tensor``, ``fsdp``, ``data``, or
+``batch`` (data x fsdp: the ranks that split a batch's rows, where
+gradients and the loss's sums are reduced), each a ``torch.distributed``
+subgroup made at the rendezvous (``launch.py``). A collective over an axis
+of size 1 is the identity, so a one-rank mesh computes what one device
+does, bit for bit.
 
 Counterparts in the reference: the axis names :28-33, ``make_mesh`` :40,
-``serving_mesh`` :121, ``largest_pow2_leq`` :146, ``auto_mesh_shape``
-:151.
+``serving_mesh`` :121, ``training_mesh`` :136, ``largest_pow2_leq`` :146,
+``auto_mesh_shape`` :151.
 """
 
 from __future__ import annotations
@@ -37,6 +50,10 @@ AXIS_TENSOR = "tensor"
 AXIS_SEQ = "seq"
 AXIS_EXPERT = "expert"
 AXIS_PIPE = "pipe"
+# Not a reference axis: the ranks that split a batch's rows, data x fsdp
+# (the reference's batch spec ``P((data, fsdp), seq)``).
+AXIS_BATCH = "batch"
+AXIS_WORLD = "world"        # every rank of the mesh
 
 # Gloo ranks a CPU host offers a grant: the CPU has no device count, so the
 # port takes the reference's forced host-platform count (its tests' 8).
@@ -90,9 +107,10 @@ def serving_mesh(n_devices: int | None = None, device: str = "cuda") -> "Mesh":
     return make_mesh(tensor=n, device=device)
 
 
-def make_mesh(data: int = 1, tensor: int = 1, device: str = "cuda") -> "Mesh":
-    """The reference's ``make_mesh(data=, tensor=)`` for serving: rank 0's
-    mesh over this process's group of ``data * tensor`` ranks
+def make_mesh(data: int = 1, tensor: int = 1, device: str = "cuda", *,
+              fsdp: int = 1) -> "Mesh":
+    """The reference's ``make_mesh(data=, fsdp=, tensor=)``: rank 0's mesh
+    over this process's group of ``data * fsdp * tensor`` ranks
     (:func:`kukeon_tpu_torch.parallel.launch.group`), started now with
     that many less one followers, or reused when one of that shape is
     open. More ranks than the host shows is a ``ValueError``."""
@@ -100,34 +118,56 @@ def make_mesh(data: int = 1, tensor: int = 1, device: str = "cuda") -> "Mesh":
     # package's __init__ has imported this module.
     from kukeon_tpu_torch.parallel import launch
 
-    if data < 1 or tensor < 1:
-        raise ValueError(f"mesh axes must be >= 1, got data {data} x tensor {tensor}")
+    if data < 1 or tensor < 1 or fsdp < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data {data} x fsdp {fsdp} x "
+                         f"tensor {tensor}")
     dtype = torch.device(device).type
-    n = check_grant(data * tensor, dtype)
-    return Mesh(launch.group(n, dtype, tensor=tensor))
+    n = check_grant(data * fsdp * tensor, dtype)
+    return Mesh(launch.group(n, dtype, tensor=tensor, fsdp=fsdp))
+
+
+def training_mesh(n_devices: int | None = None, tensor: int = 1,
+                  device: str = "cuda") -> "Mesh":
+    """The reference's ``training_mesh``: ``fsdp`` over whatever
+    ``tensor`` leaves of ``n_devices`` (None: every visible device)."""
+    dtype = torch.device(device).type
+    n = visible_devices(dtype) if n_devices is None else n_devices
+    if n % tensor:
+        raise ValueError(f"{n} devices not divisible by tensor={tensor}")
+    return make_mesh(fsdp=n // tensor, tensor=tensor, device=device)
 
 
 class Mesh:
     """This process's view of a rank group: ``rank`` and ``world``, its
     coordinate on ``tensor`` and that axis's size (what every weight is cut
-    by); ``replica``, its coordinate on ``data``; ``size``, the ranks of the
-    mesh (``data * tensor``, the group's processes); ``shape``; its
-    ``device``; and the collectives over its tensor subgroup (the group's,
-    :attr:`launch.Group.tensor_pg`; the whole group when ``data`` is 1).
-    Each collective sums or gathers in the tensor's own dtype, as the
-    reference's ``psum`` does, and is one ``torch.distributed`` call on the
-    current stream (captured inside the CUDA graphs like any kernel)."""
+    by); ``replica``, its coordinate on ``data``; ``fsdp_rank`` and
+    ``fsdp``, its coordinate on ``fsdp`` and that axis's size; ``size``,
+    the ranks of the mesh (``data * fsdp * tensor``, the group's
+    processes); ``shape`` (serving's axes) and ``axes`` (all six, in the
+    reference's order); its ``device``; and the collectives. Each
+    collective sums or gathers in the tensor's own dtype, as the
+    reference's ``psum`` does, and is one ``torch.distributed`` call on
+    the current stream (captured inside the CUDA graphs like any kernel).
+    :meth:`all_reduce` and :meth:`all_gather` run over the tensor subgroup
+    (the serving forwards'); :meth:`reduce`, :meth:`gather` and
+    :meth:`reduce_scatter` over a named axis group."""
 
     def __init__(self, group):
         self.group = group
         self.size = group.world
         self.world = group.tensor
+        self.fsdp = group.fsdp
         self.rank = group.rank % group.tensor
-        self.replica = group.rank // group.tensor
+        self.fsdp_rank = group.rank // group.tensor % group.fsdp
+        self.replica = group.rank // (group.tensor * group.fsdp)
+        self.data = self.size // (self.world * self.fsdp)
         self.device = group.device
-        self.shape = {AXIS_DATA: self.size // self.world, AXIS_EXPERT: 1,
-                      AXIS_TENSOR: self.world}
+        self.shape = {AXIS_DATA: self.data, AXIS_EXPERT: 1, AXIS_TENSOR: self.world}
+        self.axes = {AXIS_PIPE: 1, AXIS_DATA: self.data, AXIS_FSDP: self.fsdp,
+                     AXIS_EXPERT: 1, AXIS_SEQ: 1, AXIS_TENSOR: self.world}
         self._pg = group.tensor_pg
+        self._sizes = {AXIS_TENSOR: self.world, AXIS_FSDP: self.fsdp, AXIS_DATA: self.data,
+                       AXIS_BATCH: self.data * self.fsdp, AXIS_WORLD: self.size}
 
     @property
     def leader(self) -> bool:
@@ -143,18 +183,51 @@ class Mesh:
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every tensor peer's ``x`` concatenated along ``dim`` in tensor
         order."""
-        t = self.world
-        flat = x.contiguous().reshape(-1)
-        out = torch.empty((t * flat.numel(),), dtype=x.dtype, device=x.device)
-        # torch 2.13 renames all_gather_into_tensor (and warns on the old
-        # name); the GPU host's 2.11 has only the old one.
-        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-        gather(out, flat, group=self._pg)
+        return _gather(x, dim, self.world, self._pg)
+
+    def reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``x`` over this rank's ``axis`` group, as a new
+        tensor (``x`` itself over an axis of one rank)."""
+        if self._sizes[axis] == 1:
+            return x
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=self.group.pgs.get(axis))
+        return out
+
+    def gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """Every ``axis`` peer's ``x`` concatenated along ``dim`` in the
+        axis's order (``x`` itself over one rank)."""
+        n = self._sizes[axis]
+        return x if n == 1 else _gather(x, dim, n, self.group.pgs.get(axis))
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of ``x`` over its
+        ``axis`` group (``x`` itself over one rank): :meth:`gather`'s
+        adjoint."""
+        n = self._sizes[axis]
+        if n == 1:
+            return x
         dim = dim % x.ndim
-        parts = out.view(t, *x.shape)
-        return parts.movedim(0, dim).reshape(
-            *x.shape[:dim], t * x.shape[dim], *x.shape[dim + 1:])
+        parts = x.movedim(dim, 0).contiguous()           # n blocks along dim 0
+        out = parts.new_empty((parts.shape[0] // n, *parts.shape[1:]))
+        # (torch 2.13's name; the GPU host's 2.11 has only the old one.)
+        scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        scatter(out, parts, group=self.group.pgs.get(axis))
+        return out.movedim(0, dim)
 
     def __repr__(self) -> str:
-        return (f"Mesh(data {self.replica}/{self.size // self.world}, "
+        return (f"Mesh(data {self.replica}/{self.data}, fsdp {self.fsdp_rank}/{self.fsdp}, "
                 f"tensor {self.rank}/{self.world}, device={self.device})")
+
+
+def _gather(x: torch.Tensor, dim: int, n: int, pg) -> torch.Tensor:
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty((n * flat.numel(),), dtype=x.dtype, device=x.device)
+    # torch 2.13 renames all_gather_into_tensor (and warns on the old
+    # name); the GPU host's 2.11 has only the old one.
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, flat, group=pg)
+    dim = dim % x.ndim
+    parts = out.view(n, *x.shape)
+    return parts.movedim(0, dim).reshape(
+        *x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])

@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from typing import Any
 
 import numpy as np
@@ -287,7 +288,7 @@ class Block:
 
 
 def rank_block(spec: Spec, shape, rank: int, world: int, head: str | None = None,
-               unit: int = 1) -> Block:
+               unit: int = 1, axis_name: str = AXIS_TENSOR) -> Block:
     """THE rule for a rank's block of a leaf of full ``shape`` and ``spec``
     (``rank`` and ``world`` the tensor coordinate and size): along the
     spec's ``tensor`` axis, blocks of ``ceil(n / unit / world)`` whole
@@ -297,10 +298,12 @@ def rank_block(spec: Spec, shape, rank: int, world: int, head: str | None = None
     :func:`check_tensor_parallel` refuses the rest); ``head`` (``"q"`` or
     ``"s"``, an int8 LM head's leaves) pads the block further to a multiple
     of :data:`VOCAB_TILE` (with ones for ``"s"``). Every cut in memory
-    (:func:`_cut`) and every slice read from disk goes through it."""
-    if AXIS_TENSOR not in spec:
+    (:func:`_cut`) and every slice read from disk goes through it; a train
+    state's cut takes it once an axis, ``axis_name`` ``tensor`` and then
+    ``fsdp`` (:class:`TrainLayout`)."""
+    if axis_name not in spec:
         return Block(None, 0, 0, 0, 0)
-    axis = spec.index(AXIS_TENSOR)
+    axis = spec.index(axis_name)
     n = shape[axis]
     m = vocab_rows(n // unit, world) * unit
     lo, hi = min(rank * m, n), min((rank + 1) * m, n)
@@ -537,3 +540,125 @@ def shard_tree(params, rank: int, world: int, kv_shard: bool = True, *,
         return _cut(node, spec, rank, world, head_unit(path, head_dim))
 
     return walk(params, specs, ())
+
+
+# --- training: a train state over data x fsdp x tensor --------------------------
+
+
+def check_train_mesh(cfg, fsdp: int, tensor: int) -> None:
+    """Refuse (``SystemExit``) a training mesh whose ``fsdp`` or ``tensor``
+    axis does not divide what its specs cut: ``fsdp`` the hidden width
+    (every matrix's ``fsdp`` axis), ``tensor`` the vocabulary, the kv
+    width and the intermediate size (the reference's ``device_put`` of the
+    train state raises there too), and the heads: the port's training
+    step cuts whole heads and pads none (zero-padded heads would take
+    gradient steps in ``wo``'s padded rows), where the reference's GSPMD
+    would cut a head's columns."""
+    dims = ((AXIS_FSDP, fsdp, "hidden_size", cfg.hidden_size),
+            (AXIS_TENSOR, tensor, "vocab_size", cfg.vocab_size),
+            (AXIS_TENSOR, tensor, "num_kv_heads*head_dim", cfg.kv_dim),
+            (AXIS_TENSOR, tensor, "intermediate_size", cfg.intermediate_size),
+            (AXIS_TENSOR, tensor, "num_heads", cfg.num_heads))
+    for axis, n, what, dim in dims:
+        if dim % n:
+            raise SystemExit(
+                f"training mesh: {axis} {n} does not divide {what} {dim}"
+                + (" (the port's training step cuts whole heads)" if what == "num_heads"
+                   else "; the reference's shardings cannot cut it either"))
+
+
+def train_specs(cfg, tensor: int) -> dict:
+    """The spec of every leaf of ``cfg``'s train-state params (the
+    reference's ``llama_param_specs(fsdp=True)``, pruned to the tree), with
+    ``wk``/``wv`` replicated over ``tensor`` when it does not divide the kv
+    heads (each rank then computes every kv head and attends its q heads'
+    own, as serving does)."""
+    specs = specs_for_params(llama.init_params(cfg, None, "meta"), fsdp=True)
+    if cfg.num_kv_heads % tensor:
+        specs["layers"] = {**specs["layers"], "wk": (None, AXIS_FSDP, None),
+                           "wv": (None, AXIS_FSDP, None)}
+    return specs
+
+
+class TrainLayout:
+    """Where each leaf of a Llama train state lies on the rank at fsdp
+    coordinate ``fsdp_rank`` of ``fsdp`` and tensor coordinate ``rank`` of
+    ``world`` (:func:`train_specs`; every data replica holds the same
+    blocks): a block on each cut axis by :func:`rank_block`, in whole heads
+    on :data:`HEAD_LEAVES`' tensor axis, with no padding
+    (:func:`check_train_mesh`). The moments mirror the params. A mesh's
+    :meth:`of` gives its rank's layout; the checkpoint readers and writers
+    cut and place by :meth:`regions`."""
+
+    def __init__(self, cfg, fsdp_rank: int, fsdp: int, rank: int, world: int):
+        check_train_mesh(cfg, fsdp, world)
+        self.cfg = cfg
+        self.fsdp_rank, self.fsdp, self.rank, self.world = fsdp_rank, fsdp, rank, world
+        self.specs = train_specs(cfg, world)
+        self.kv_shard = cfg.num_kv_heads % world == 0
+
+    @classmethod
+    def of(cls, cfg, mesh) -> "TrainLayout":
+        return cls(cfg, mesh.fsdp_rank, mesh.fsdp, mesh.rank, mesh.world)
+
+    def spec(self, path: tuple[str, ...]) -> Spec:
+        spec = self.specs
+        for k in path:
+            spec = spec[k]
+        return spec
+
+    def blocks(self, path: tuple[str, ...], shape) -> tuple[Block, Block]:
+        """The leaf's (tensor, fsdp) blocks (``axis`` None where its spec
+        does not cut that axis)."""
+        spec = self.spec(path)
+        return (rank_block(spec, tuple(shape), self.rank, self.world,
+                           unit=head_unit(path, self.cfg.head_dim)),
+                rank_block(spec, tuple(shape), self.fsdp_rank, self.fsdp,
+                           axis_name=AXIS_FSDP))
+
+    def regions(self, path: tuple[str, ...], shape) -> tuple[tuple[int, int, int], ...]:
+        """``(axis, lo, hi)`` of each cut axis: this rank's block of a full
+        leaf of ``shape`` (empty: the whole leaf)."""
+        return tuple((b.axis, b.lo, b.hi) for b in self.blocks(path, shape)
+                     if b.axis is not None and (b.lo, b.hi) != (0, shape[b.axis]))
+
+    def local_shape(self, path: tuple[str, ...], shape) -> tuple[int, ...]:
+        out = list(shape)
+        for axis, lo, hi in self.regions(path, shape):
+            out[axis] = hi - lo
+        return tuple(out)
+
+    def cut(self, path: tuple[str, ...], x):
+        """This rank's block of the full leaf ``x``, a contiguous copy that
+        holds no reference to ``x`` (``x`` itself when no axis cuts it)."""
+        regions = self.regions(path, x.shape)
+        if not regions:
+            return x
+        for axis, lo, hi in regions:
+            x = x.narrow(axis, lo, hi - lo)
+        return x.clone(memory_format=torch.contiguous_format)
+
+    def gathered(self, path: tuple[str, ...]) -> bool:
+        """Whether the leaf's spec cuts its ``fsdp`` axis: its block is
+        gathered over ``fsdp`` where a layer runs, and its gradient
+        reduce-scattered back."""
+        return AXIS_FSDP in self.spec(path)
+
+    def owned(self, path: tuple[str, ...], replica: int) -> bool:
+        """Whether the rank of data coordinate ``replica`` counts the
+        leaf's block once in a global sum over every rank: it is the first
+        of the ranks holding that block (coordinate 0 on every axis the
+        spec does not cut: ``data`` always, ``fsdp`` and ``tensor`` where
+        the leaf is replicated on them)."""
+        spec = self.spec(path)
+        return (replica == 0 and (AXIS_FSDP in spec or self.fsdp_rank == 0)
+                and (AXIS_TENSOR in spec or self.rank == 0))
+
+    def state_bytes(self) -> int:
+        """The bytes of the rank's train state: its params and the two
+        moments (kept in the params' dtype), counted from the local shapes
+        of ``cfg``'s meta tree (nothing allocated)."""
+        from kukeon_tpu_torch.models.checkpoints import _walk_tree
+
+        return 3 * sum(math.prod(self.local_shape(path, t.shape)) * t.element_size()
+                       for path, t in _walk_tree(llama.init_params(self.cfg, None, "meta")))

@@ -14,7 +14,9 @@ The payload is the JAX package's: an orbax checkpoint of its ``TrainState``
 (:func:`orbax_ckpt.write_tree`), so the JAX trainer resumes from a step
 the port saved and the port from one the JAX trainer saved. A step
 directory that holds a ``state.pt`` (what the port saved before it wrote
-orbax) is still read.
+orbax) is still read. A training mesh saves the same layout, gathered leaf
+by leaf to its leader, and restores from any checkpoint onto any mesh,
+each rank reading its own blocks.
 """
 
 from __future__ import annotations
@@ -24,17 +26,19 @@ import re
 import shutil
 
 import torch
+import torch.distributed as dist
 
 from kukeon_tpu_torch import faults
-from kukeon_tpu_torch.models import convert, orbax_ckpt
-from kukeon_tpu_torch.training.train_step import TrainState, tree_leaves
+from kukeon_tpu_torch.models import convert, llama, orbax_ckpt
+from kukeon_tpu_torch.training.train_step import TrainState, tree_items, tree_leaves
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 _TMP_PREFIX = "tmp-"
 _LEGACY_PAYLOAD = "state.pt"
 
 
-def _step_dir(root: str, step: int) -> str:
+def step_dir(root: str, step: int) -> str:
+    """The directory of ``step``'s checkpoint under ``root``."""
     return os.path.join(root, f"step_{step:08d}")
 
 
@@ -67,13 +71,26 @@ def latest_step(root: str) -> int | None:
     return max(steps) if steps else None
 
 
-def save_checkpoint(root: str, state: TrainState) -> str:
+def save_checkpoint(root: str, state: TrainState, *, mesh=None, layout=None) -> str | None:
     """Write ``state`` as ``<root>/step_<state.step>``; returns the path.
     Idempotent per step: a completed checkpoint for this exact step is
     left as it is (a save-every boundary that coincides with the final
-    save must not error)."""
+    save must not error).
+
+    On a training ``mesh`` (``state`` the rank's, cut by ``layout``, a
+    ``sharding.TrainLayout``) every rank calls it: the leader writes the
+    one-device layout, each leaf gathered to its host as the writer
+    reaches it (:func:`gather_leaf`), so the host holds one full leaf at a
+    time; the others send it their blocks and return None. The leader
+    decides whether the step is on disk already before any rank calls it
+    (``step_dir``)."""
+    if mesh is not None and not mesh.leader:
+        for _keys, leaf in orbax_ckpt.flatten(gathered_tree(state, mesh, layout)):
+            if callable(leaf):
+                leaf()
+        return None
     step = int(state.step)
-    path = _step_dir(root, step)
+    path = step_dir(root, step)
     if os.path.isdir(path):
         return path
     os.makedirs(root, exist_ok=True)
@@ -85,7 +102,8 @@ def save_checkpoint(root: str, state: TrainState) -> str:
     try:
         # write_tree fsyncs every file it writes.
         orbax_ckpt.write_tree(tmp, orbax_ckpt.train_state_tree(
-            state.params, state.opt_state, step))
+            state.params, state.opt_state, step) if mesh is None
+            else gathered_tree(state, mesh, layout))
         # The injected mid-save kill: everything is written under the temp
         # name, nothing published yet.
         faults.maybe_fail("checkpoint.save")
@@ -99,38 +117,93 @@ def save_checkpoint(root: str, state: TrainState) -> str:
     return path
 
 
+def gathered_tree(state: TrainState, mesh, layout) -> dict:
+    """The JAX ``TrainState`` tree of a training mesh's ``state`` whose
+    tensor leaves are callables, each gathering its leaf
+    (:func:`gather_leaf`): what the leader's writer reaches leaf by leaf,
+    and what every other rank walks in the same order
+    (``orbax_ckpt.flatten``), calling each."""
+    cfg = layout.cfg
+    full = dict(tree_items(llama.init_params(cfg, None, "meta")))
+    layouts = [layout.__class__(cfg, f, mesh.fsdp, t, mesh.world)
+               for f in range(mesh.fsdp) for t in range(mesh.world)]
+
+    def lazy(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: lazy(v, path + (k,)) for k, v in tree.items()}
+        return lambda: gather_leaf(tree, path, full[path].shape, mesh, layouts)
+
+    opt = {"count": state.opt_state["count"], "mu": lazy(state.opt_state["mu"]),
+           "nu": lazy(state.opt_state["nu"])}
+    return orbax_ckpt.train_state_tree(lazy(state.params), opt, int(state.step))
+
+
+def gather_leaf(x: torch.Tensor, path: tuple[str, ...], shape, mesh, layouts: list):
+    """The full leaf of shape ``shape`` whose block on this rank is ``x``,
+    on the leader's host (None on the other ranks): each block of data
+    replica 0 (rank ``f * tensor + t``, cut by ``layouts[f * tensor + t]``)
+    held by the first of its holders (``TrainLayout.owned``) is sent to the
+    leader, which places it. Every rank calls it for the same leaves in
+    the same order."""
+    if not mesh.leader:
+        if layouts[mesh.group.rank % len(layouts)].owned(path, mesh.replica):
+            dist.send(x.detach().contiguous().view(-1).view(torch.uint8), dst=0)
+        return None
+    full = torch.empty(tuple(shape), dtype=x.dtype)
+    for src, lay in enumerate(layouts):
+        if not lay.owned(path, 0):
+            continue
+        block = x.detach()
+        if src:
+            block = torch.empty(lay.local_shape(path, shape), dtype=x.dtype, device=x.device)
+            dist.recv(block.view(-1).view(torch.uint8), src=src)
+        index = [slice(None)] * len(shape)
+        for axis, lo, hi in lay.regions(path, shape):
+            index[axis] = slice(lo, hi)
+        full[tuple(index)] = block.to("cpu")
+    return full
+
+
 def restore_checkpoint(root: str, template: TrainState,
-                       step: int | None = None) -> TrainState:
+                       step: int | None = None, *, layout=None) -> TrainState:
     """Restore the checkpoint at ``step`` (default: newest) into
     ``template``, a state of the same structure (e.g. a freshly created
     one): every tensor is copied in place, so the restored state lives on
     the template's device, in its dtypes, with its ``requires_grad``
     flags, and no second copy of the state is held on the device. An orbax
     step (either package's) is read leaf by leaf on the reader's threads,
-    so the host holds a few leaves at a time."""
+    so the host holds a few leaves at a time. With ``layout`` (a training
+    mesh's rank, ``sharding.TrainLayout``; ``template`` its state) each
+    array's region is the rank's block: every rank reads its own, params
+    and moments alike, from a checkpoint saved on any mesh or one
+    device."""
     faults.maybe_fail("checkpoint.load")
     if step is None:
         step = latest_step(root)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {root}")
-    path = _step_dir(root, step)
+    path = step_dir(root, step)
     if os.path.exists(os.path.join(path, _LEGACY_PAYLOAD)):
         return _restore_legacy(path, template)
     ckpt = orbax_ckpt.OrbaxCheckpoint(path)
     # Template leaves by the names the JAX TrainState gives them.
-    dst = {}
+    dst, paths = {}, {}
     for prefix, tree in (("params", template.params),
                          ("opt_state.1.0.mu", template.opt_state["mu"]),
                          ("opt_state.1.0.nu", template.opt_state["nu"])):
         for keys, leaf in _named_leaves(tree):
             dst[".".join((prefix, *keys))] = leaf
+            paths[".".join((prefix, *keys))] = keys
     scalars = {"step": None, "opt_state.1.0.count": None, "opt_state.1.2.count": None}
     names = ckpt.array_names()
     if (diff := set(names) ^ (set(dst) | set(scalars))):
         raise ValueError(f"checkpoint {path} does not match the template's structure: "
                          f"{sorted(diff)}")
+    regions = ({} if layout is None else
+               {name: layout.regions(keys, ckpt.zarray(name)["shape"])
+                for name, keys in paths.items()})
     with torch.no_grad():
-        for name, arr in ckpt.iter_arrays(names):
+        for name, arr in ckpt.iter_arrays(names, regions):
             if name in scalars:
                 scalars[name] = int(arr)
                 continue

@@ -1,26 +1,39 @@
 """Training entry point, the port of ``kukeon_tpu/training/cli.py``:
-data pipeline + train step + checkpoints, on one device.
+data pipeline + train step + checkpoints, on one device or a mesh.
 
     python -m kukeon_tpu_torch.training.cli \\
-        --dataset /data/tokens.bin --model llama3-1b \\
-        --batch 4 --seq-len 2048 --steps 1000 --ckpt-dir /ckpts --save-every 500
+        --dataset /data/tokens.bin --model llama3-8b \\
+        --fsdp 4 --tensor 2 --steps 1000 --ckpt-dir /ckpts --save-every 500
 
 The flags are the JAX entry point's, plus ``--device`` (default ``cuda``,
-which raises without a GPU; ``--device cpu`` runs the plain PyTorch path).
-Batches are memmapped and a pure function of (seed, step); the run resumes
-from the newest checkpoint in ``--ckpt-dir``. ``mixtral-*`` trains the MoE
-family through :func:`~kukeon_tpu_torch.training.train_step.make_moe_train_step`
-and prints the load-balance loss on each step line (``lb=``); at full
-depth, Mixtral-8x7B's training state (about 374 GB) does not fit one GPU
-and the run fails with CUDA's out-of-memory error, as the reference's does
-on a chip too small. A mesh axis above 1 (``--data``, ``--fsdp``,
-``--tensor``, ``--seq``, ``--expert``, ``--pipe``) is not ported yet and
-raises (ROADMAP A13c).
+which raises without a GPU; ``--device cpu`` runs the plain PyTorch path,
+a mesh's ranks as gloo processes). Batches are memmapped and a pure
+function of (seed, step); the run resumes from the newest checkpoint in
+``--ckpt-dir``.
+
+``--data``, ``--fsdp`` and ``--tensor`` lay the Llama family
+(``tiny``, ``llama3-1b``, ``llama3-8b``) over a rank group of one process
+per device (``training/mesh_trainer.py``); with no axis given and more than
+one visible device (``mesh.visible_devices``: the visible GPUs, 8 gloo
+ranks on the CPU), the default is the reference's, ``data = gcd(devices,
+batch)``. The first line prints the mesh as the reference prints it.
+More ranks than the host shows exits before any byte reaches a device.
+``--seq`` and ``--pipe`` (sequence and pipeline parallelism) are not ported
+yet and raise (ROADMAP A13d); nor is the MoE family on a mesh (``--expert``,
+or any axis above 1 with ``mixtral-*``: ROADMAP A13c2), which trains on one
+device without a mesh flag: ``mixtral-*`` trains through
+:func:`~kukeon_tpu_torch.training.train_step.make_moe_train_step` and
+prints the load-balance loss on each step line (``lb=``); at full depth,
+Mixtral-8x7B's training state (about 374 GB) does not fit one GPU and the
+run fails with CUDA's out-of-memory error, as the reference's does on a
+chip too small.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import sys
 import time
 
@@ -54,14 +67,41 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def refuse(args) -> None:
+    """What the port does not train yet raises ``NotImplementedError``
+    naming its ROADMAP item, before anything else runs."""
+    for axis in ("seq", "pipe"):
+        if getattr(args, axis) > 1:
+            raise NotImplementedError(
+                f"--{axis} {getattr(args, axis)}: sequence and pipeline parallelism are not "
+                "ported yet (ROADMAP.md A13d)")
+    sharded = {a: getattr(args, a) for a in MESH_AXES if getattr(args, a) > 1}
+    if sharded and (args.expert > 1 or args.model.startswith("mixtral")):
+        raise NotImplementedError(
+            f"mesh axes {sharded} with --model {args.model}: the MoE family and the expert "
+            "axis train on one GPU until ROADMAP.md A13c2")
+
+
+def mesh_axes(args, device: torch.device) -> dict[str, int]:
+    """``{"data", "fsdp", "tensor"}`` of the run: the flags, or with none
+    above 1 the reference's default, ``data = gcd(devices, batch)`` over
+    the visible devices (the MoE family: one device)."""
+    from kukeon_tpu_torch.parallel.mesh import visible_devices
+
+    axes = {a: getattr(args, a) for a in ("data", "fsdp", "tensor")}
+    n = visible_devices(device.type)
+    if math.prod(axes.values()) == 1 and n > 1 and not args.model.startswith("mixtral"):
+        axes["data"] = math.gcd(n, args.batch)
+    return axes
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    sharded = {a: getattr(args, a) for a in MESH_AXES if getattr(args, a) > 1}
-    if sharded:
-        raise NotImplementedError(
-            f"mesh axes {sharded}: the port trains on one GPU; multi-GPU "
-            "(data/fsdp/tensor/seq/expert/pipeline parallelism) is ROADMAP.md A13c")
+    refuse(args)
     device = resolve_device(args.device)
+    axes = mesh_axes(args, device)
+    if math.prod(axes.values()) > 1:
+        return train_on_mesh(args, device, axes)
 
     from kukeon_tpu_torch.training import (
         TokenDataset,
@@ -81,8 +121,9 @@ def main(argv=None) -> int:
             "llama3-8b": llama.llama3_8b,
             "mixtral-tiny": moe.moe_tiny, "mixtral-8x7b": moe.mixtral_8x7b}
     cfg = cfgs[args.model]()
-    print(f"train: model={args.model} device={device} "
-          f"batch={args.batch} seq={args.seq_len}", flush=True)
+    mesh_shape = {"pipe": 1, "data": 1, "fsdp": 1, "expert": 1, "seq": 1, "tensor": 1}
+    print(f"train: model={args.model} mesh={mesh_shape} batch={args.batch} "
+          f"seq={args.seq_len}", flush=True)
 
     ds = TokenDataset(args.dataset)
     optimizer = make_optimizer(
@@ -104,13 +145,32 @@ def main(argv=None) -> int:
         start = state.step
         print(f"train: resumed from step {start}", flush=True)
 
+    feed = batches(ds, args.batch, args.seq_len, start_step=start,
+                   num_steps=args.steps - start, seed=args.seed, device=device)
+
+    def run(_step: int):
+        nonlocal state
+        _s, tok, tgt, mask = next(feed)
+        state, out = step_fn(state, tok, tgt, mask)
+        return out
+
+    def save() -> int:
+        save_checkpoint(args.ckpt_dir, state)
+        return state.step
+
+    train_loop(args, start, run, save, is_moe)
+    return 0
+
+
+def train_loop(args, start: int, run, save, is_moe: bool = False) -> None:
+    """Steps ``start`` .. ``--steps`` - 1: ``run(step)`` -> the step's loss
+    (the MoE step's metrics), a step line every ``--log-every`` steps and
+    at the last, ``save()`` every ``--save-every`` steps and at the end
+    (it returns the step it saved)."""
     t0 = time.monotonic()
     last_logged = start
-    for step, tok, tgt, mask in batches(
-        ds, args.batch, args.seq_len, start_step=start,
-        num_steps=args.steps - start, seed=args.seed, device=device,
-    ):
-        state, out = step_fn(state, tok, tgt, mask)
+    for step in range(start, args.steps):
+        out = run(step)
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
             loss = float(out["loss"] if is_moe else out)    # waits for the device
             dt = time.monotonic() - t0
@@ -122,10 +182,52 @@ def main(argv=None) -> int:
             last_logged = step + 1
         if (args.ckpt_dir and args.save_every
                 and (step + 1) % args.save_every == 0):
-            save_checkpoint(args.ckpt_dir, state)
+            save()
     if args.ckpt_dir:
-        save_checkpoint(args.ckpt_dir, state)
-        print(f"train: checkpoint at step {state.step} -> {args.ckpt_dir}", flush=True)
+        print(f"train: checkpoint at step {save()} -> {args.ckpt_dir}", flush=True)
+
+
+def train_on_mesh(args, device: torch.device, axes: dict[str, int]) -> int:
+    """The Llama family over ``axes`` (data x fsdp x tensor), this process
+    the group's leader: :func:`train_loop` through a
+    :class:`~kukeon_tpu_torch.training.mesh_trainer.MeshTrainer`. A rank
+    that dies ends the run with exit 1."""
+    from kukeon_tpu_torch.parallel import launch
+    from kukeon_tpu_torch.parallel.mesh import make_mesh
+    from kukeon_tpu_torch.training.checkpointing import latest_step
+    from kukeon_tpu_torch.training.mesh_trainer import MeshTrainer
+
+    try:
+        mesh = make_mesh(axes["data"], axes["tensor"], device.type, fsdp=axes["fsdp"])
+    except ValueError as e:
+        raise SystemExit(f"--data {axes['data']} --fsdp {axes['fsdp']} --tensor "
+                         f"{axes['tensor']}: {e}") from e
+
+    def _rank_failed(why: str):
+        print(f"train: {why}; exiting 1", file=sys.stderr, flush=True)
+        os._exit(1)
+
+    mesh.group.on_failure = _rank_failed
+    print(f"train: model={args.model} mesh={mesh.axes} batch={args.batch} "
+          f"seq={args.seq_len}", flush=True)
+    try:
+        trainer = MeshTrainer(mesh, model=args.model, dataset=args.dataset, batch=args.batch,
+                              seq_len=args.seq_len, seed=args.seed, lr=args.lr,
+                              warmup_steps=args.warmup_steps,
+                              total_steps=max(args.steps, args.warmup_steps + 1))
+        start = 0
+        if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+            start = trainer.restore(args.ckpt_dir)
+            print(f"train: resumed from step {start}", flush=True)
+
+        def save() -> int:
+            trainer.save(args.ckpt_dir)
+            return trainer.state.step
+
+        train_loop(args, start, trainer.step, save)
+        trainer.close()
+    finally:
+        launch.shutdown()
     return 0
 
 

@@ -4,7 +4,8 @@
 they are (pure numpy): the same ``(seed, step)`` gives the same batch in
 both packages, so a job resumed from a checkpoint at step N continues on
 the exact data schedule. :func:`batches` moves each batch to a torch
-device where the JAX package places it on a mesh.
+device where the JAX package places it on a mesh; on a training mesh each
+rank takes its own rows of it (:func:`rank_rows`).
 
 Format: a flat ``.bin`` of token ids (uint16 when vocab < 65536, else
 uint32) with a sibling ``<name>.meta.json`` {"dtype", "num_tokens"}.
@@ -72,13 +73,34 @@ def sample_batch(ds: TokenDataset, step: int, batch_size: int, seq_len: int,
     return tokens.astype(np.int32), targets.astype(np.int32), mask
 
 
+def rank_rows(batch_size: int, mesh) -> slice:
+    """The rows of a ``batch_size`` batch that ``mesh``'s rank trains on:
+    the reference's batch spec ``P((data, fsdp), seq)`` cuts them over
+    data x fsdp, data-major, so block ``replica * fsdp + fsdp_rank`` of
+    ``data * fsdp`` equal blocks; tensor peers share their rows. A batch
+    those axes do not divide is a ``ValueError`` (the reference's
+    ``device_put`` refuses it too)."""
+    n = mesh.data * mesh.fsdp
+    if batch_size % n:
+        raise ValueError(f"batch {batch_size} does not divide over data {mesh.data} x "
+                         f"fsdp {mesh.fsdp}")
+    rows = batch_size // n
+    i = mesh.replica * mesh.fsdp + mesh.fsdp_rank
+    return slice(i * rows, (i + 1) * rows)
+
+
 def batches(ds: TokenDataset, batch_size: int, seq_len: int, *,
             device: torch.device | str, start_step: int = 0,
-            num_steps: int | None = None, seed: int = 0):
+            num_steps: int | None = None, seed: int = 0, mesh=None):
     """Yield (step, tokens, targets, mask) from ``start_step`` (resume
-    point), as torch tensors on ``device``."""
+    point), as torch tensors on ``device``; with a training ``mesh``, only
+    its rank's rows (:func:`rank_rows`), which every rank computes from
+    ``(seed, step)`` on its own, as the reference's ``batches(...,
+    sharding=)`` places them."""
     steps = (range(start_step, start_step + num_steps)
              if num_steps is not None else itertools.count(start_step))
+    rows = slice(None) if mesh is None else rank_rows(batch_size, mesh)
     for step in steps:
         batch = sample_batch(ds, step, batch_size, seq_len, seed=seed)
-        yield (step, *(torch.from_numpy(a).to(device) for a in batch))
+        yield (step, *(torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)
+                       for a in batch))

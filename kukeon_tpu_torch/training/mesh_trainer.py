@@ -1,0 +1,138 @@
+"""The Llama family's training on a ``data`` x ``fsdp`` x ``tensor`` rank
+group: the port of what the reference's ``training/cli.py`` runs on a
+mesh (``create_train_state``, ``make_train_step`` and the checkpoints over
+``make_mesh(data=, fsdp=, tensor=)``).
+
+The reference drives every device of its mesh from one controller. The
+port runs one process per device (``parallel/launch.py``): the leader's
+:class:`MeshTrainer` posts each action (``new``, ``step``, ``restore``,
+``save``, ``gather``) to its followers, which build their own trainer from
+the same keyword arguments and apply the same actions in the same order.
+No tensor crosses the control socket: every rank draws its blocks of the
+init from the seed (or reads them from a recipe), computes its batch rows
+from ``(dataset, seed, step)`` (``data.rank_rows``), and reads its blocks
+of a checkpoint itself; a save sends the blocks to the leader through
+``torch.distributed``. A rank that dies ends the group, as in serving.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from kukeon_tpu_torch.models import llama, orbax_ckpt
+from kukeon_tpu_torch.parallel.sharding import Recipe, TrainLayout
+from kukeon_tpu_torch.training import checkpointing
+from kukeon_tpu_torch.training.data import TokenDataset, batches
+from kukeon_tpu_torch.training.train_step import (create_train_state, make_optimizer,
+                                                  make_train_step)
+
+MODELS = {"tiny": llama.llama_tiny, "llama3-1b": llama.llama3_1b,
+          "llama3-8b": llama.llama3_8b}
+
+
+class MeshTrainer:
+    """One rank's train state and step on ``mesh`` (a training
+    ``parallel.mesh.Mesh``): ``model`` one of :data:`MODELS`, batches of
+    ``batch`` rows of ``seq_len`` from ``dataset`` (``--seed``'s schedule),
+    the optimizer ``make_optimizer(lr, warmup_steps=, total_steps=)``, the
+    init drawn from ``seed`` on the mesh's device as one device draws it,
+    or an ``init`` recipe's full leaves (``sharding.Recipe``, ``"leaves"``).
+    The leader's calls post the same call to every follower."""
+
+    def __init__(self, mesh, *, model: str, dataset: str, batch: int, seq_len: int,
+                 seed: int = 0, lr: float = 3e-4, warmup_steps: int = 100,
+                 total_steps: int = 10_000, init: Recipe | None = None):
+        kwargs = dict(model=model, dataset=dataset, batch=batch, seq_len=seq_len, seed=seed,
+                      lr=lr, warmup_steps=warmup_steps, total_steps=total_steps, init=init)
+        self.mesh = mesh
+        self.cfg = MODELS[model]()
+        self.layout = TrainLayout.of(self.cfg, mesh)
+        self.batch, self.seq_len, self.seed = batch, seq_len, seed
+        self.ds = TokenDataset(dataset)
+        self._group = mesh.group if mesh.leader and mesh.size > 1 else None
+        if self._group is not None:
+            # Posted first: the followers draw their blocks while this rank
+            # draws its own.
+            self._oid = self._group.new_id()
+            self._group.post(self._oid, "new", (
+                "kukeon_tpu_torch.training.mesh_trainer:MeshTrainer", kwargs), flush=True)
+        optimizer = make_optimizer(lr, warmup_steps=warmup_steps, total_steps=total_steps)
+        generator = torch.Generator(device=mesh.device).manual_seed(seed)
+        leaves = None if init is None else init.resolve()(device=mesh.device, **init.kwargs)
+        self.state, self.optimizer = create_train_state(
+            self.cfg, generator, mesh.device, optimizer, mesh=mesh, leaves=leaves)
+        self._step = make_train_step(self.cfg, optimizer, mesh=mesh)
+
+    def step(self, step: int) -> torch.Tensor:
+        """One train step on step ``step``'s batch -> the global loss (a 0-d
+        tensor on the device, the same on every rank)."""
+        return self._run("step", (step,))
+
+    def restore(self, root: str, step: int | None = None) -> int:
+        """Every rank reads its blocks of ``root``'s checkpoint at ``step``
+        (default: the newest) into its state -> the step restored."""
+        if step is None:
+            step = checkpointing.latest_step(root)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints under {root}")
+        return self._run("restore", (root, step))
+
+    def save(self, root: str) -> str:
+        """The state as ``<root>/step_<step>`` in the one-device layout,
+        written by the leader (a step already on disk is left as it is)."""
+        path = checkpointing.step_dir(root, int(self.state.step))
+        if os.path.isdir(path):
+            return path
+        self._run("save", (root,))
+        return path
+
+    def full_state(self) -> dict:
+        """The whole state on the leader's host, ``{"params.<path>",
+        "opt_state.1.0.mu.<path>", "opt_state.1.0.nu.<path>": tensor}``
+        (the checkpoint's names), each leaf gathered as a save gathers it;
+        None on the other ranks."""
+        return self._run("gather", ())
+
+    def _run(self, action: str, args: tuple):
+        if self._group is None:
+            return self.follow(action, args)
+        self._group.post(self._oid, action, args, flush=True)
+        try:
+            return self.follow(action, args)
+        except Exception as e:
+            # Its peers may wait in a collective this rank left: end the
+            # group (a dead follower, if one caused it, is named).
+            self._group.abort(f"rank 0 failed in {action}: {type(e).__name__}: {e}")
+            raise
+
+    def follow(self, action: str, args: tuple):
+        if action == "step":
+            (step,) = args
+            _s, tokens, targets, mask = next(batches(
+                self.ds, self.batch, self.seq_len, device=self.mesh.device, start_step=step,
+                num_steps=1, seed=self.seed, mesh=self.mesh))
+            self.state, loss = self._step(self.state, tokens, targets, mask)
+            return loss
+        if action == "restore":
+            root, step = args
+            self.state = checkpointing.restore_checkpoint(root, self.state, step,
+                                                          layout=self.layout)
+            return self.state.step
+        if action == "save":
+            (root,) = args
+            return checkpointing.save_checkpoint(root, self.state, mesh=self.mesh,
+                                                 layout=self.layout)
+        if action == "gather":
+            tree = checkpointing.gathered_tree(self.state, self.mesh, self.layout)
+            got = {".".join(k for k, _ in keys): leaf()
+                   for keys, leaf in orbax_ckpt.flatten(tree) if callable(leaf)}
+            return got if self.mesh.leader else None
+        raise ValueError(f"unknown trainer action {action!r}")
+
+    def close(self) -> None:
+        if self._group is not None:
+            self._group.drop(self._oid)
+            self._group.flush()
+            self._group = None

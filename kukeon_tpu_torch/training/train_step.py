@@ -2,7 +2,9 @@
 ``kukeon_tpu/training/train_step.py``.
 
 The JAX step is a jitted, donated GSPMD program over a mesh; the port's is
-eager PyTorch on one device. What it computes is the same: next-token
+eager PyTorch on one device, or on each rank of a training mesh
+(``mesh=``: data x fsdp x tensor, one process per device,
+:func:`make_train_step`). What it computes is the same: next-token
 cross entropy of ``llama.forward`` without a cache (attention through
 :func:`kukeon_tpu_torch.ops.attention.gqa_attention`, which takes the flash
 kernel on the GPU at S >= 1024), its gradients, and the optax chain of
@@ -46,6 +48,13 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
+def tree_items(tree, path=()) -> list[tuple[tuple[str, ...], Any]]:
+    """``(path, leaf)`` of a nested dict in :func:`tree_leaves`' order."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in tree_items(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -53,15 +62,19 @@ def tree_map(fn, tree):
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       mask: torch.Tensor) -> torch.Tensor:
+                       mask: torch.Tensor, count=None) -> torch.Tensor:
     """Mean next-token cross entropy over masked positions.
 
     logits: [B, S, V] f32; targets: [B, S] integer; mask: [B, S] {0,1}.
+    ``count`` (a mesh's sum over the ranks of a batch) turns the mask's sum
+    into the whole batch's: the result is then this rank's share of the
+    global mean, its rows' sum over every row's count.
     """
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     total = torch.sum(nll * mask)
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    n = torch.sum(mask)
+    denom = torch.clamp(n if count is None else count(n), min=1.0)
     return total / denom
 
 
@@ -118,11 +131,21 @@ class AdamW:
         return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update_(self, grads: list[torch.Tensor], opt_state: dict, params) -> None:
+    def update_(self, grads: list[torch.Tensor], opt_state: dict, params,
+                owned: list[bool] | None = None, total=None) -> None:
         """Apply one update in place to ``params`` and ``opt_state``;
-        ``grads`` in :func:`tree_leaves` order of ``params``."""
+        ``grads`` in :func:`tree_leaves` order of ``params``. On a mesh
+        (each leaf a rank's block): ``owned[i]`` whether this rank counts
+        leaf i's squares in the global norm (one rank of those holding a
+        block), and ``total`` sums the count over every rank."""
         count = opt_state["count"]
-        sq = sum(torch.sum(torch.square(g), dtype=torch.float32) for g in grads)
+        owned = owned or [True] * len(grads)
+        sq = sum(torch.sum(torch.square(g), dtype=torch.float32)
+                 for g, own in zip(grads, owned) if own)
+        if total is not None:
+            if not isinstance(sq, torch.Tensor):       # no leaf owned here
+                sq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+            sq = total(sq)
         norm = float(torch.sqrt(sq))
         clip = norm >= self.max_norm
         lr = -self.schedule(count)
@@ -151,18 +174,39 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
 
 def create_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
                        device: torch.device | str,
-                       optimizer: AdamW | None = None) -> tuple[TrainState, AdamW]:
+                       optimizer: AdamW | None = None, *, mesh=None,
+                       leaves=None) -> tuple[TrainState, AdamW]:
     """Random parameters (``llama.init_params`` on ``device``) and fresh
-    optimizer state."""
+    optimizer state. On a training ``mesh`` (``parallel.mesh.Mesh``) the
+    state is this rank's: each full leaf drawn as one device draws it
+    (``llama.iter_params`` on ``generator``, which lives on the mesh's
+    device), or taken from ``leaves`` (``(path, tensor)`` pairs, e.g. a
+    ``sharding.Recipe``'s), cut to the rank's block
+    (``sharding.TrainLayout``) and freed before the next is drawn, so its
+    blocks are the cut of the one-device state; the moments are zeros of
+    the blocks' shapes."""
     optimizer = optimizer or make_optimizer()
-    params = llama.init_params(cfg, generator, device)
+    if mesh is None:
+        params = llama.init_params(cfg, generator, device)
+    else:
+        from kukeon_tpu_torch.parallel.sharding import TrainLayout
+
+        layout = TrainLayout.of(cfg, mesh)
+        local = []
+        for path, full in (leaves if leaves is not None
+                           else llama.iter_params(cfg, generator, mesh.device)):
+            local.append((path, layout.cut(path, full).to(mesh.device)))
+            del full
+        params = llama.nest(local)
     return TrainState(params=params, opt_state=optimizer.init(params), step=0), optimizer
 
 
-def _make_step(optimizer: AdamW, loss_fn):
+def _make_step(optimizer: AdamW, loss_fn, reduce_grads=None, owned=None, total=None):
     """``step(state, tokens, targets, mask) -> (state, out)``: ``loss_fn(params,
     tokens, targets, mask, positions) -> (loss, out)`` under autograd, its
-    gradients, and the optimizer's update in place of params and moments."""
+    gradients (through ``reduce_grads`` on a mesh), and the optimizer's
+    update in place of params and moments (``owned`` and ``total``: the
+    global norm's, :meth:`AdamW.update_`)."""
 
     def train_step(state: TrainState, tokens, targets, mask):
         B, S = tokens.shape
@@ -173,25 +217,69 @@ def _make_step(optimizer: AdamW, loss_fn):
             p.requires_grad_(True)
         with torch.enable_grad():
             loss, out = loss_fn(state.params, tokens, targets, mask, positions)
-            grads = torch.autograd.grad(loss, leaves)
-        optimizer.update_(list(grads), state.opt_state, state.params)
+            grads = list(torch.autograd.grad(loss, leaves))
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
+        optimizer.update_(grads, state.opt_state, state.params, owned, total)
         state.step += 1
         return state, out
 
     return train_step
 
 
-def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = True):
+def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = True,
+                    mesh=None):
     """``step(state, tokens, targets, mask) -> (state, loss)``: one forward,
     backward and update, with params and moments updated in place. ``remat``
-    recomputes each block's activations in the backward."""
+    recomputes each block's activations in the backward.
+
+    On a training ``mesh`` (the reference's GSPMD step over data x fsdp x
+    tensor): ``state`` is the rank's (:func:`create_train_state` with
+    ``mesh=``) and the batch its rows (``data.batches(mesh=)``); the
+    forward is ``llama.forward_train``; the loss is the global masked mean,
+    each rank's rows' sum over the mask count summed over the batch's
+    ranks, and the step returns the global loss. The gradients then hold
+    each rank's share: an fsdp-cut leaf's is reduce-scattered over
+    ``fsdp`` in the backward and summed here over ``data``, a leaf the
+    fsdp axis does not cut (the norms) summed over data x fsdp, and a
+    ``wk``/``wv`` replicated over ``tensor`` (partial on each peer, which
+    attends only its q heads' kv heads) summed over ``tensor`` first. The
+    clip's global norm counts each block once over every rank; the update
+    is elementwise on the blocks. At one rank it is the one-device step,
+    bit for bit."""
+    if mesh is None:
+        def loss_fn(params, tokens, targets, mask, positions):
+            logits, _ = llama.forward(params, cfg, tokens, positions, remat=remat)
+            loss = cross_entropy_loss(logits, targets, mask)
+            return loss, loss.detach()
+
+        return _make_step(optimizer, loss_fn)
+
+    from kukeon_tpu_torch.parallel.mesh import (AXIS_BATCH, AXIS_DATA, AXIS_TENSOR,
+                                                AXIS_WORLD)
+    from kukeon_tpu_torch.parallel.sharding import TrainLayout
+
+    layout = TrainLayout.of(cfg, mesh)
+    paths = [p for p, _ in tree_items(llama.init_params(cfg, None, "meta"))]
+    partial = {p for p in paths if p[-1] in ("wk", "wv") and not layout.kv_shard}
+    owned = [layout.owned(p, mesh.replica) for p in paths]
 
     def loss_fn(params, tokens, targets, mask, positions):
-        logits, _ = llama.forward(params, cfg, tokens, positions, remat=remat)
-        loss = cross_entropy_loss(logits, targets, mask)
-        return loss, loss.detach()
+        logits = llama.forward_train(params, cfg, tokens, positions, mesh, remat=remat)
+        local = cross_entropy_loss(logits, targets, mask,
+                                   count=lambda n: mesh.reduce(n, AXIS_BATCH))
+        return local, mesh.reduce(local.detach(), AXIS_BATCH)
 
-    return _make_step(optimizer, loss_fn)
+    def reduce_grads(grads):
+        out = []
+        for path, g in zip(paths, grads):
+            if path in partial:
+                g = mesh.reduce(g, AXIS_TENSOR)
+            out.append(mesh.reduce(g, AXIS_DATA if layout.gathered(path) else AXIS_BATCH))
+        return out
+
+    return _make_step(optimizer, loss_fn, reduce_grads, owned,
+                      lambda sq: mesh.reduce(sq, AXIS_WORLD))
 
 
 def create_moe_train_state(cfg: moe.MoEConfig, generator: torch.Generator,

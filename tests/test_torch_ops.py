@@ -279,7 +279,8 @@ for mod in ("obs", "obs.registry", "obs.expo", "obs.trace", "obs.slo", "obs.devi
             "obs.profile", "runtime.devices", "models.bert", "serving.embedding",
             "models.checkpoints", "models.hf_convert", "serving.tuning", "models.zstd",
             "models.ocdbt", "models.orbax_ckpt", "parallel", "parallel.mesh",
-            "parallel.sharding", "parallel.launch", "parallel.forward"):
+            "parallel.sharding", "parallel.launch", "parallel.forward", "parallel.autograd",
+            "training.mesh_trainer"):
     assert "kukeon_tpu_torch." + mod in names, (mod, names)
 print("ok", len(names))
 """

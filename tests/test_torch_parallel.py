@@ -353,6 +353,63 @@ def test_a_leader_action_failing_after_its_follower_died_names_the_follower(tmp_
                 end.close()
 
 
+def test_a_followers_error_after_a_peer_died_names_the_dead_peer(tmp_path):
+    """The race of C12: a follower whose collective raised because its
+    peer was killed reports an error, and that report can reach the leader
+    before the dead peer's channel closes. Forced here: rank 2 is dead
+    (killed, not reaped) with its channel still open, so its watch thread
+    blocks in its read, and rank 1 reports the error its collective
+    raised. The group records ``rank 2 exited (code -9)``, not rank 1's
+    error, and ``on_failure`` hears the same. A report with every other
+    follower alive still names its sender, after ``ABORT_WAIT_S``."""
+    import multiprocessing
+    import pickle
+    import subprocess
+    import sys
+
+    live = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"])
+    dead = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"])
+    pipes = [multiprocessing.Pipe(), multiprocessing.Pipe()]
+    try:
+        dead.kill()
+        while open(f"/proc/{dead.pid}/stat").read().split()[2] != "Z":
+            time.sleep(0.01)
+        group = launch.Group(0, 3, "cpu", str(tmp_path), [p[0] for p in pipes], [live, dead])
+        heard = []
+        group.on_failure = heard.append
+        pipes[0][1].send_bytes(pickle.dumps(("error", "RuntimeError: gloo: Connection "
+                                                      "reset by peer")))
+        deadline = time.monotonic() + 10
+        while group.failed is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert group.failed == heard[0] == "rank 2 exited (code -9)"
+        with pytest.raises(launch.RankFailure, match="rank 2 exited"):
+            launch.Group.post(group, 1, "noop")
+    finally:
+        for p in (live, dead):
+            p.kill()
+            p.wait()
+        for pair in pipes:
+            for end in pair:
+                end.close()
+
+    live = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"])
+    ends = multiprocessing.Pipe()
+    try:
+        group = launch.Group(0, 2, "cpu", str(tmp_path), [ends[0]], [live])
+        t0 = time.monotonic()
+        ends[1].send_bytes(pickle.dumps(("error", "ValueError: its own fault")))
+        while group.failed is None and time.monotonic() < t0 + 10:
+            time.sleep(0.01)
+        assert group.failed == "rank 1 failed: ValueError: its own fault"
+        assert time.monotonic() - t0 >= launch.ABORT_WAIT_S * 0.9
+    finally:
+        live.kill()
+        live.wait()
+        for end in ends:
+            end.close()
+
+
 class _Rank:
     """A rank's view (``rank``, ``world``, ``device``) for ``local_params``."""
 

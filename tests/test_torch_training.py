@@ -321,7 +321,7 @@ def test_cli_trains_saves_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--model", "mixtral-tiny", "--expert", "2"],
-                                   ["--fsdp", "2"], ["--pipe", "2"]])
+                                   ["--seq", "2"], ["--pipe", "2"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
     argv = ["--dataset", str(tmp_path / "x.bin"), "--device", "cpu"] + extra
     with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
