@@ -348,11 +348,24 @@ time; any failure ends the run with a nonzero exit and no result line:
               Nothing here spans two GPUs
   train_moe   Mixtral-8x7B at full width and 4 layers (6.07 B parameters),
               bf16, B 2, S 2048, 6 steps through create_moe_train_state and
-              make_moe_train_step: a no-grad forward with the reference
+              make_moe_train_step (init and batches from one seed, as the
+              CLI's --seed): a no-grad forward with the reference
               attention first (its loss within 1e-2 of step 1's), the
               losses finite and falling, 8 flash launches a step; step ms,
               tok/s, peak memory and mfu; then the CLI's mixtral-tiny branch,
               4 steps and 2 resumed from its orbax checkpoint, gated as train
+  train_moe_tp  MoE training on a mesh: (a) the flash kernel at a Mixtral
+              train rank's shard shapes (B 2, S 2048, D 128; H 32/t, KV 8/t
+              at t 2, 4, 8) against its plain version, cold-L2 and device
+              ms beside the bound and SDPA's; (b) train_moe's Mixtral-8x7B
+              cut through MeshTrainer (cfg=) on a one-rank NCCL group,
+              train_moe's init, dataset and batches: its losses, ce, lb and z
+              equal train_moe's first 3 steps bit for bit, 8 flash launches
+              a step, step ms beside train_moe's, peak memory, and a
+              full-depth Mixtral rank's train-state bytes at expert 8 and at
+              fsdp 4 x expert 2 (counted, nothing allocated); (c) the CLI's
+              --expert 2 on one card exits with the over-grant message
+              before any byte is allocated. Nothing here spans two GPUs
 
 Serving decodes through CUDA graph replays, where the kernels' Python
 launch counters move only while a graph is captured. So a serve phase
@@ -435,6 +448,9 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_MORE = 4, 2048, 8, 2
 # (bf16 params, grads and both moments: 8 bytes a parameter, 48.5 GB at 4
 # layers), and the CLI's mixtral-tiny run.
 MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 2, 2048, 6
+# train_moe's seed (its init and its batches, as the CLI's --seed), and the
+# steps train_moe_tp (b) holds to train_moe's.
+MOE_TRAIN_SEED, MOE_TP_STEPS = 2, 3
 TINY_MOE_B, TINY_MOE_S, TINY_MOE_STEPS, TINY_MOE_MORE = 4, 128, 4, 2
 # serve_ckpt: the checkpoint's model and shard size, and serve_tied's
 # traffic (max_seq_len, prompt length, new tokens).
@@ -471,7 +487,8 @@ PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs"
           "serve_stream", "serve_tune", "serve_tp", "serve_tied", "serve_ckpt", "serve_orbax",
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
           "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed",
-          "serve_tp_cells", "train", "train_tp", "train_moe")   # in run order
+          "serve_tp_cells", "train", "train_tp", "train_moe",
+          "train_moe_tp")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
 STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
                  "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
@@ -4039,18 +4056,19 @@ TRAIN_TP_STEPS = 3
 TRAIN_TP_WORLDS = (2, 4, 8)
 
 
-def train_tp_kernels(fa, bps: float) -> dict:
-    """(a): the flash kernel at a llama3-8b train rank's heads, train's B
-    and S, D 128, H 32/t and KV 8/t at each t of TRAIN_TP_WORLDS, against
-    its plain version; cold-L2 kernel, plain and SDPA ms, the kernel's
-    device ms, and its bound."""
+def train_tp_kernels(fa, bps: float, B: int = TRAIN_B, layers: int = 32) -> dict:
+    """(a): the flash kernel at a train rank's heads of a model with H 32,
+    KV 8, D 128 and ``layers`` layers (llama3-8b at train's B; Mixtral-8x7B
+    at train_moe's), S 2048, H 32/t and KV 8/t at each t of
+    TRAIN_TP_WORLDS, against its plain version; cold-L2 kernel, plain and
+    SDPA ms, the kernel's device ms, and its bound."""
     import torch.nn.functional as F
 
     from kukeon_tpu_torch.ops.attention import repeat_kv
 
     g = torch.Generator(device="cuda").manual_seed(23)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    B, S, D = TRAIN_B, TRAIN_S, 128
+    S, D = TRAIN_S, 128
     pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :].expand(B, S).contiguous()
     out, worst = {}, 0.0
     for t in TRAIN_TP_WORLDS:
@@ -4082,7 +4100,7 @@ def train_tp_kernels(fa, bps: float) -> dict:
             "device_ms": round(sum(kernel_device_ms(call, flush).values()), 4),
             "bound_ms": round(max(t_ops, t_bytes), 4),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "launches_per_rank_step": 2 * 32}
+            "launches_per_rank_step": 2 * layers}
         del q, k, v, qt, kt, vt, got, ref
     del flush
     return {"worlds": out, "max_abs_err": worst,
@@ -4244,12 +4262,13 @@ def phase_train_moe(fa) -> dict:
         zipf_dataset(data, 1_000_000, seed=1, vocab=cfg.vocab_size)
         opt = make_optimizer(3e-4, warmup_steps=1, total_steps=steps)
         t0 = time.monotonic()
-        state, opt = create_moe_train_state(cfg, torch.Generator(device="cuda").manual_seed(2),
-                                            "cuda", opt)
+        state, opt = create_moe_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(MOE_TRAIN_SEED), "cuda", opt)
         torch.cuda.synchronize()
         init_s = time.monotonic() - t0
         step = make_moe_train_step(cfg, opt)
-        feed = list(batches(TokenDataset(data), B, S, num_steps=steps, seed=0, device="cuda"))
+        feed = list(batches(TokenDataset(data), B, S, num_steps=steps, seed=MOE_TRAIN_SEED,
+                            device="cuda"))
 
         # The same params and first batch through the reference attention,
         # no grad: the loss step 1 must report.
@@ -4353,6 +4372,128 @@ def phase_train_moe(fa) -> dict:
                          "restored_params_bitwise_equal": True, "checkpoint_format": "orbax",
                          "saves": r["saves"],
                          "flash_launches": [r["first"]["launches"], r["second"]["launches"]]}}
+
+
+def moe_one_device_rows(cfg, data: str, steps: int) -> list:
+    """train_moe's first ``steps`` metrics, from its init, optimizer and
+    batches on one device (when train_moe did not run)."""
+    from kukeon_tpu_torch.training import (TokenDataset, batches, create_moe_train_state,
+                                           make_moe_train_step)
+    from kukeon_tpu_torch.training.train_step import make_optimizer
+
+    opt = make_optimizer(3e-4, warmup_steps=1, total_steps=MOE_TRAIN_STEPS)
+    state, opt = create_moe_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(MOE_TRAIN_SEED), "cuda", opt)
+    step = make_moe_train_step(cfg, opt)
+    rows = []
+    for _s, *batch in batches(TokenDataset(data), MOE_TRAIN_B, MOE_TRAIN_S, num_steps=steps,
+                              seed=MOE_TRAIN_SEED, device="cuda"):
+        state, m = step(state, *batch)
+        rows.append({k: float(v) for k, v in m.items()})
+    del state, step
+    return rows
+
+
+def train_moe_mesh(fa, want: list | None) -> dict:
+    """(b): train_moe's Mixtral-8x7B cut through MeshTrainer (``cfg=``) on
+    a one-rank NCCL group, MOE_TP_STEPS steps of train_moe's configuration
+    (seed, lr 3e-4, warmup 1, total MOE_TRAIN_STEPS, its Zipf dataset): the
+    metrics against ``want`` (train_moe's; None: moe_one_device_rows) bit
+    for bit, flash launches a step (the counter set to 0 just before the
+    steps), ms a step and peak memory; the group shut down after."""
+    import torch.distributed as dist
+
+    from kukeon_tpu_torch.models import moe
+    from kukeon_tpu_torch.parallel import launch
+    from kukeon_tpu_torch.parallel.mesh import make_mesh
+    from kukeon_tpu_torch.parallel.sharding import TrainLayout
+    from kukeon_tpu_torch.training.mesh_trainer import MeshTrainer
+
+    cfg = dataclasses.replace(moe.mixtral_8x7b(), num_layers=MOE_TRAIN_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="kukeon-train-moe-tp-")
+    try:
+        data = os.path.join(tmp, "tokens.bin")
+        zipf_dataset(data, 1_000_000, seed=1, vocab=cfg.vocab_size)
+        if want is None:
+            want = moe_one_device_rows(cfg, data, MOE_TP_STEPS)
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh(device="cuda")
+        backend = dist.get_backend()
+        if mesh.size != 1 or launch.current() is None or backend != "nccl":
+            raise AssertionError(f"make_mesh() on one card: {mesh}, backend {backend}")
+        t0 = time.monotonic()
+        tr = MeshTrainer(mesh, model="mixtral-8x7b", cfg=cfg, dataset=data, batch=MOE_TRAIN_B,
+                         seq_len=MOE_TRAIN_S, seed=MOE_TRAIN_SEED, lr=3e-4, warmup_steps=1,
+                         total_steps=MOE_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        fa.flash_attention.launches = 0
+        rows, step_ms = [], []
+        for i in range(MOE_TP_STEPS):
+            t0 = time.monotonic()
+            rows.append({k: float(v) for k, v in tr.step(i).items()})   # waits for the device
+            step_ms.append((time.monotonic() - t0) * 1e3)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        tr.close()
+        del tr
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_step = 2 * cfg.num_layers
+    if rows != want[:MOE_TP_STEPS]:
+        raise AssertionError(f"MoE mesh trainer metrics {rows} differ from train_moe's "
+                             f"{want[:MOE_TP_STEPS]}")
+    if launches != per_step * MOE_TP_STEPS:
+        raise AssertionError(f"MoE mesh trainer: {launches} flash launches, want {per_step} "
+                             "a step")
+    full = moe.mixtral_8x7b()
+    state_gb = {name: round(TrainLayout(full, 0, f, 0, 1, expert_rank=0, expert=x)
+                            .state_bytes() / 1e9, 3)
+                for name, f, x in (("one_device", 1, 1), ("expert8", 1, 8),
+                                   ("fsdp4_expert2", 4, 2))}
+    return {"model": f"mixtral-8x7b, {cfg.num_layers} layers", "batch": MOE_TRAIN_B,
+            "seq_len": MOE_TRAIN_S, "backend": backend, "metrics": rows,
+            "metrics_equal_train_moe": True, "init_s": round(init_s, 3),
+            "step_ms": [round(x, 3) for x in step_ms],
+            "step_ms_median_2_3": round(statistics.median(step_ms[1:]), 3),
+            "peak_mem_gb": round(peak / 1e9, 2), "flash_launches": launches,
+            "flash_launches_per_step": launches // MOE_TP_STEPS,
+            "mixtral-8x7b_rank_state_gb": state_gb}
+
+
+def train_moe_tp_overgrant() -> dict:
+    """(c): the CLI with --expert 2 on one card exits with the over-grant
+    message, and no byte reaches the card."""
+    from kukeon_tpu_torch.training import cli
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        cli.main(["--dataset", "unused.bin", "--model", "mixtral-8x7b", "--expert", "2"])
+        raise AssertionError("--expert 2 on one card did not exit")
+    except SystemExit as e:
+        message = str(e)
+    want = "wants 2 GPUs but only 1 visible"
+    if want not in message or torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"over-grant: {message!r}, allocated {before} -> "
+                             f"{torch.cuda.memory_allocated()}")
+    return {"message": message, "bytes_allocated": 0}
+
+
+def phase_train_moe_tp(fa, bps: float, train_moe: dict | None) -> dict:
+    out = {"c_overgrant": train_moe_tp_overgrant(),
+           "a_shards": train_tp_kernels(fa, bps, B=MOE_TRAIN_B, layers=32)}
+    out["b_mesh"] = train_moe_mesh(fa, train_moe["metrics"] if train_moe else None)
+    if train_moe:
+        out["b_mesh"]["train_moe_step_ms_median_3_6"] = train_moe["step_ms_median_3_6"]
+        out["b_mesh"]["train_moe_step_ms_1_3"] = train_moe["step_ms"][:MOE_TP_STEPS]
+        out["b_mesh"]["train_moe_peak_mem_gb"] = train_moe["peak_mem_gb"]
+    return out
 
 
 TP_WORLDS = (2, 4, 8)
@@ -5201,6 +5342,7 @@ def run_phases(phases: list) -> int:
         return out
 
     run("train_moe", train_moe)
+    run("train_moe_tp", lambda: phase_train_moe_tp(fa, bps, res.get("train_moe")))
     if set(phases) != set(PHASES):
         print("chip_smoke: ran a subset of the phases; no result line", file=sys.stderr)
         return 0
@@ -5209,7 +5351,7 @@ def run_phases(phases: list) -> int:
     serve8, serve1, serve_moe, train = (res["serve"], res["serve_tied"], res["serve_moe"],
                                         res["train"])
     train_moe, embed, ckpt = res["train_moe"], res["serve_embed"], res["serve_ckpt"]
-    ttp = res["train_tp"]
+    ttp, tmtp = res["train_tp"], res["train_moe_tp"]
     stream, tune, orbax = res["serve_stream"], res["serve_tune"], res["serve_orbax"]
     tp, tpc = res["serve_tp"], res["serve_tp_cells"]
     ft, fm = flash["timing"], flash["timing_mixtral_train"]
@@ -5274,13 +5416,15 @@ def run_phases(phases: list) -> int:
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES,
          "launches": (train["flash_launches"] + train_moe["flash_launches"]
-                      + ttp["b_mesh"]["flash_launches"]),
+                      + ttp["b_mesh"]["flash_launches"] + tmtp["b_mesh"]["flash_launches"]),
          "launches_train": train["flash_launches"],
          "launches_train_moe": train_moe["flash_launches"],
          "launches_train_tp": ttp["b_mesh"]["flash_launches"],
-         "train_tp_shards": {w: {k: v[k] for k in (
+         "launches_train_moe_tp": tmtp["b_mesh"]["flash_launches"],
+         **{f"{name}_shards": {w: {k: v[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "device_ms", "bound_ms", "bound_by",
-             "max_abs_err")} for w, v in ttp["a_shards"]["worlds"].items()},
+             "max_abs_err")} for w, v in r["a_shards"]["worlds"].items()}
+            for name, r in (("train_tp", ttp), ("train_moe_tp", tmtp))},
          "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),
          **{f: round(ft[f], 4) for f in fields},
          "bound_by": ft["bound_by"], "library_ms_call": ft["library_call"],
@@ -5376,6 +5520,16 @@ def run_phases(phases: list) -> int:
         "train_moe_mixtral-8x7b_4_layers": {k: train_moe[k] for k in (
             "step_ms_median_3_6", "tokens_per_s", "mfu", "peak_mem_gb", "losses",
             "step1_rel_diff", "flash_launches_per_step")},
+        "train_moe_tp_mixtral-8x7b_4_layers": {
+            **{k: tmtp["b_mesh"][k] for k in (
+                "metrics", "metrics_equal_train_moe", "step_ms", "step_ms_median_2_3",
+                "peak_mem_gb", "flash_launches_per_step", "mixtral-8x7b_rank_state_gb")},
+            "train_moe_step_ms_median_3_6": train_moe["step_ms_median_3_6"],
+            "a_flash_device_ms": {w: v["device_ms"] for w, v in
+                                  tmtp["a_shards"]["worlds"].items()},
+            "a_flash_bound_ms": {w: v["bound_ms"] for w, v in
+                                 tmtp["a_shards"]["worlds"].items()},
+            "c_message": tmtp["c_overgrant"]["message"]},
         "serve_stream_llama3-8b": {
             **{k: stream[k] for k in (
                 "tmp_free_gb", "save_s", "checkpoint_bytes", "construct_s", "ready_s",

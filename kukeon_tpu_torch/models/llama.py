@@ -596,6 +596,38 @@ def forward(
 _FSDP_DIM = {"wq": 0, "wk": 0, "wv": 0, "w_gate": 0, "w_up": 0, "wo": 1, "w_down": 1}
 
 
+def gather_layer(w: dict, dims: dict, mesh) -> dict:
+    """One layer's local blocks with each fsdp-cut matrix (``dims``: its
+    fsdp axis by name) gathered over ``fsdp``; its gradient is
+    reduce-scattered back (``parallel/autograd.py``)."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+
+    return {name: pa.fsdp_gather(t, dims[name], mesh) if name in dims else t
+            for name, t in w.items()}
+
+
+def train_attention(x: torch.Tensor, w: dict, cfg, positions: torch.Tensor, attn_impl: str,
+                    rope: tuple[torch.Tensor, torch.Tensor], mesh) -> torch.Tensor:
+    """The attention half of a block on a training mesh, ``w`` one layer's
+    gathered weights: ``x`` plus the attention of the rank's heads, its
+    input copied to ``tensor`` and its row-parallel partial summed over
+    it. The trunk of both families' training blocks."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+
+    c = cfg
+    B, S = x.shape[:2]
+    nh, nkv, sel = _heads({"layers": w}, c, mesh.rank)
+    h = pa.copy_to_tensor(rms_norm(x, w["attn_norm"], c.rms_norm_eps), mesh)
+    q = (h @ w["wq"]).reshape(B, S, nh, c.head_dim)
+    k = (h @ w["wk"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
+    v = (h @ w["wv"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
+    q = apply_rope(q, positions, c.rope_theta, rope)
+    k = apply_rope(k, positions, c.rope_theta, rope)
+    attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
+                         impl=attn_impl)
+    return x + pa.reduce_from_tensor(attn.reshape(B, S, nh * c.head_dim) @ w["wo"], mesh)
+
+
 def train_block(x: torch.Tensor, w: dict, cfg: LlamaConfig, positions: torch.Tensor,
                 attn_impl: str, rope: tuple[torch.Tensor, torch.Tensor], mesh) -> torch.Tensor:
     """:func:`transformer_block` on a training mesh, under autograd: ``w``
@@ -608,23 +640,36 @@ def train_block(x: torch.Tensor, w: dict, cfg: LlamaConfig, positions: torch.Ten
     from kukeon_tpu_torch.parallel import autograd as pa
 
     c = cfg
-    w = {name: pa.fsdp_gather(t, _FSDP_DIM[name], mesh) if name in _FSDP_DIM else t
-         for name, t in w.items()}
-    B, S = x.shape[:2]
-    nh, nkv, sel = _heads({"layers": w}, c, mesh.rank)
-    h = pa.copy_to_tensor(rms_norm(x, w["attn_norm"], c.rms_norm_eps), mesh)
-    q = (h @ w["wq"]).reshape(B, S, nh, c.head_dim)
-    k = (h @ w["wk"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
-    v = (h @ w["wv"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
-    q = apply_rope(q, positions, c.rope_theta, rope)
-    k = apply_rope(k, positions, c.rope_theta, rope)
-    attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
-                         impl=attn_impl)
-    x = x + pa.reduce_from_tensor(attn.reshape(B, S, nh * c.head_dim) @ w["wo"], mesh)
+    w = gather_layer(w, _FSDP_DIM, mesh)
+    x = train_attention(x, w, c, positions, attn_impl, rope, mesh)
     h = pa.copy_to_tensor(rms_norm(x, w["mlp_norm"], c.rms_norm_eps), mesh)
     gate = F.silu((h @ w["w_gate"]).float()).to(c.dtype)
     up = h @ w["w_up"]
     return x + pa.reduce_from_tensor((gate * up) @ w["w_down"], mesh)
+
+
+def train_embed(params: Params, cfg, tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """The embedding rows of a training rank's ``tokens``: the table
+    gathered over ``fsdp``, looked up in the rank's vocabulary block and
+    summed over ``tensor``."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+
+    return pa.masked_lookup(pa.fsdp_gather(params["embed"], 1, mesh), tokens,
+                            mesh).to(cfg.dtype)
+
+
+def train_logits(params: Params, cfg, x: torch.Tensor, mesh) -> torch.Tensor:
+    """The final norm and the LM head of a training rank -> f32 logits over
+    the whole vocabulary, gathered over ``tensor`` (a tied head the
+    embedding, gathered over ``fsdp`` again)."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+
+    x = pa.copy_to_tensor(rms_norm(x, params["final_norm"], cfg.rms_norm_eps), mesh)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsh,vh->bsv", x, pa.fsdp_gather(params["embed"], 1, mesh))
+    else:
+        logits = x @ pa.fsdp_gather(params["lm_head"], 0, mesh)
+    return pa.gather_from_tensor(logits, -1, mesh).float()
 
 
 def forward_train(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -637,10 +682,8 @@ def forward_train(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     and again for a tied LM head; each block is :func:`train_block`, under
     non-reentrant remat when ``remat``. At one rank it is :func:`forward`
     without a cache, op for op."""
-    from kukeon_tpu_torch.parallel import autograd as pa
-
     c = cfg
-    x = pa.masked_lookup(pa.fsdp_gather(params["embed"], 1, mesh), tokens, mesh).to(c.dtype)
+    x = train_embed(params, c, tokens, mesh)
     rope = rope_tables(positions, c.head_dim, c.rope_theta)
     for w in layer_slices(params):
         if remat:
@@ -648,12 +691,7 @@ def forward_train(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                 train_block, x, w, c, positions, "auto", rope, mesh, use_reentrant=False)
         else:
             x = train_block(x, w, c, positions, "auto", rope, mesh)
-    x = pa.copy_to_tensor(rms_norm(x, params["final_norm"], c.rms_norm_eps), mesh)
-    if c.tie_embeddings:
-        logits = torch.einsum("bsh,vh->bsv", x, pa.fsdp_gather(params["embed"], 1, mesh))
-    else:
-        logits = x @ pa.fsdp_gather(params["lm_head"], 0, mesh)
-    return pa.gather_from_tensor(logits, -1, mesh).float()
+    return train_logits(params, c, x, mesh)
 
 
 def _decode_forward(

@@ -35,6 +35,20 @@ Training (the reference's ``forward_with_aux`` under ``jax.value_and_grad``)
 runs the no-cache path, with ``remat=True`` each block under non-reentrant
 ``torch.utils.checkpoint``; the block returns its aux losses beside its
 output, so their gradients reach the router through the recompute.
+
+**Training on a mesh** (:func:`forward_train`, a ``data`` x ``fsdp`` x
+``expert`` x ``tensor`` rank group; the reference's ``make_moe_train_step``
+on ``make_mesh(data=, fsdp=, expert=, tensor=)``): the reference's batch
+spec cuts the rows over data x fsdp only, so the expert peers of a batch
+rank see the same rows and compute the same trunk, and only the expert
+stacks ``[L, E, ...]`` are cut on ``expert``. The dispatch is therefore
+local and no all-to-all is needed: each rank runs its ``E / expert``
+experts over its rows, and the MoE block's partial ``[N, H]`` is summed
+once over expert x tensor (:func:`train_moe_block`). What the reference
+computes over the global batch stays global: the capacity counts the
+global tokens, each assignment's slot is its place in the global (K, N)
+order (one all-gather of every batch rank's ``[K, E]`` counts), and the
+load-balance ``f`` and ``p`` and the z-loss are global means.
 """
 
 from __future__ import annotations
@@ -62,6 +76,7 @@ from kukeon_tpu_torch.ops.attention import decode_gqa_attention, gqa_attention
 from kukeon_tpu_torch.ops.int8_matmul import int8_matmul_expert
 from kukeon_tpu_torch.ops.norms import rms_norm
 from kukeon_tpu_torch.ops.rope import apply_rope, rope_tables
+from kukeon_tpu_torch.parallel.mesh import AXIS_BATCH, AXIS_EXPERT_TENSOR
 
 Params = dict[str, Any]
 
@@ -144,8 +159,10 @@ def iter_params(cfg: MoEConfig, generator: torch.Generator, device: torch.device
     c = cfg
 
     def normal(shape, fan_in):
+        # Scaled in place: one f32 leaf at a time on the device (an expert
+        # stack of Mixtral-8x7B at 16 layers is 30 GB in f32).
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-        return w * fan_in ** -0.5
+        return w.mul_(fan_in ** -0.5)
 
     def dense(shape, fan_in):
         return normal(shape, fan_in).to(c.dtype)
@@ -282,6 +299,45 @@ def record_routes():
         _route_log = prev
 
 
+def _route(x: torch.Tensor, w: dict, cfg: MoEConfig):
+    """Top-k routing of the tokens ``x`` [N, H] -> (router logits [N, E],
+    probabilities [N, E], normalized gate values [N, K], the choices'
+    one-hot mask [K, N, E]), all f32."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    router_logits = x.float() @ w["router"]                          # [N, E]
+    probs = torch.softmax(router_logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1, sorted=True)   # [N, K]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    if _route_log is not None:
+        _route_log.append(expert_idx)
+    return router_logits, probs, gate_vals, F.one_hot(expert_idx.T, E).float()
+
+
+def _dispatch(mask: torch.Tensor, C: int, offset: torch.Tensor | None = None) -> torch.Tensor:
+    """The one-hot dispatch [N, E, C] of the choices ``mask`` [K, N, E]:
+    priority dispatch, choice 0 of every token before choice 1 (GShard),
+    through a cumulative count over the flattened (K, N) order; ``offset``
+    [K, E] adds the assignments that come before these tokens' in a
+    larger batch's order. A slot at or past ``C`` is dropped."""
+    K, N, E = mask.shape
+    flat = mask.reshape(K * N, E)
+    pos = torch.cumsum(flat, dim=0) - flat                           # tokens ahead
+    if offset is not None:
+        pos = (pos.reshape(K, N, E) + offset[:, None, :]).reshape(K * N, E)
+    keep = (pos < C).float() * flat                                  # drop overflow
+    # One-hot of each slot; a position >= C (dropped) is an all-zero row,
+    # as jax.nn.one_hot gives (F.one_hot would raise).
+    slot = (pos.long()[..., None] == torch.arange(C, device=mask.device)).float()
+    return (keep[..., None] * slot).reshape(K, N, E, C).sum(dim=0)
+
+
+def _experts(xe: torch.Tensor, w: dict, cfg: MoEConfig, kernel: bool = False) -> torch.Tensor:
+    """Every expert's SwiGLU over its capacity slots: [E, C, H] -> [E, C, H]."""
+    gate = F.silu(_expert_mm(xe, w["w_gate"], "ech,ehi->eci", kernel).float()).to(cfg.dtype)
+    up = _expert_mm(xe, w["w_up"], "ech,ehi->eci", kernel)
+    return _expert_mm(gate * up, w["w_down"], "eci,eih->ech", kernel)
+
+
 def moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, inference: bool = False,
               kernel: bool = False, mesh=None) -> tuple[torch.Tensor, dict]:
     """Sparse-MoE SwiGLU over [B, S, H] -> ([B, S, H], aux losses), ``w``
@@ -291,40 +347,92 @@ def moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, inference: bool = False,
     c = cfg
     B, S, H = h.shape
     N = B * S
-    E, K = c.num_experts, c.experts_per_token
     C = _capacity(c, N, inference)
     x = h.reshape(N, H)
-
-    router_logits = x.float() @ w["router"]                          # [N, E]
-    probs = torch.softmax(router_logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, K, dim=-1, sorted=True)   # [N, K]
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
-    if _route_log is not None:
-        _route_log.append(expert_idx)
-
-    # Priority dispatch: choice 0 of every token before choice 1 (GShard),
-    # through a cumulative count over the flattened (K, N) order.
-    mask = F.one_hot(expert_idx.T, E).float()                        # [K, N, E]
-    flat = mask.reshape(K * N, E)
-    pos = torch.cumsum(flat, dim=0) - flat                           # tokens ahead
-    keep = (pos < C).float() * flat                                  # drop overflow
-    # One-hot of each slot; a position >= C (dropped) is an all-zero row,
-    # as jax.nn.one_hot gives (F.one_hot would raise).
-    slot = (pos.long()[..., None] == torch.arange(C, device=h.device)).float()
-    dispatch = (keep[..., None] * slot).reshape(K, N, E, C).sum(dim=0)  # [N, E, C]
+    router_logits, probs, gate_vals, mask = _route(x, w, c)
+    dispatch = _dispatch(mask, C)                                    # [N, E, C]
     combine = dispatch * (mask * gate_vals.T[..., None]).sum(dim=0)[..., None]
 
     xe = torch.einsum("nec,nh->ech", dispatch, x.float()).to(c.dtype)   # [E, C, H]
-    gate = F.silu(_expert_mm(xe, w["w_gate"], "ech,ehi->eci", kernel).float()).to(c.dtype)
-    up = _expert_mm(xe, w["w_up"], "ech,ehi->eci", kernel)
-    ye = _expert_mm(gate * up, w["w_down"], "eci,eih->ech", kernel)     # [E, C, H]
+    ye = _experts(xe, w, c, kernel)                                      # [E, C, H]
     y = _psum(torch.einsum("nec,ech->nh", combine.to(c.dtype), ye), mesh)
 
     # Switch load balance over first choices, and the router z-loss.
     f = mask[0].mean(dim=0)
     p = probs.mean(dim=0)
-    lb = E * torch.sum(f * p)
+    lb = c.num_experts * torch.sum(f * p)
     z = torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
+    return y.reshape(B, S, H), {"load_balance": lb, "router_z": z}
+
+
+def _slot_offset(mask: torch.Tensor, mesh) -> torch.Tensor | None:
+    """[K, E]: the assignments to each expert that the global batch's
+    (K, N) order puts before this batch rank's choice-k ones, beyond those
+    its own cumulative count sees: every other batch rank's choices k' < k,
+    and the choice-k ones of the batch ranks before it (its rows follow
+    theirs, ``data.rank_rows``). One all-gather of each rank's ``[K, E]``
+    counts over ``batch``; None at one batch rank."""
+    if mesh.axis_size(AXIS_BATCH) == 1:
+        return None
+    counts = mask.sum(dim=1)                                         # [K, E]
+    every = mesh.gather(counts[None], 0, AXIS_BATCH)                 # [ranks, K, E]
+    others = every.sum(dim=0) - counts
+    b = mesh.replica * mesh.fsdp + mesh.fsdp_rank
+    return torch.cumsum(others, dim=0) - others + every[:b].sum(dim=0)
+
+
+def _batch_mean(t: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """The mean over the global batch's ``n`` tokens of ``t`` [N, ...]
+    (this rank's), the same on every rank; its gradient reaches only this
+    rank's tokens (``autograd.reduce_from`` over ``batch``)."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+
+    if mesh.axis_size(AXIS_BATCH) == 1:
+        return t.mean(dim=0)
+    return pa.reduce_from(t.sum(dim=0), mesh, AXIS_BATCH) / n
+
+
+def train_moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, mesh) -> tuple[torch.Tensor, dict]:
+    """:func:`moe_block` of a training mesh's rank over its batch rows
+    ``h`` [B, S, H], under autograd, with the global batch's semantics (the
+    reference's GSPMD over global arrays): the capacity of the global
+    token count, each slot where the global (K, N) order puts it
+    (:func:`_slot_offset`), and ``f``, ``p`` and the z-loss as global means
+    (:func:`_batch_mean`). The router runs on the replicated activations;
+    the rank runs its ``E / expert`` experts ``w`` (their ``tensor``
+    columns) over every capacity slot, its own tokens' filled, and its
+    partial ``[N, H]`` is summed once over ``expert_tensor``. The expert
+    input and the gate weights enter through ``autograd.copy_to`` over
+    that group, so every expert and tensor peer ends with the whole router
+    and trunk gradient of its rows. At one rank it is :func:`moe_block`,
+    op for op."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+
+    c = cfg
+    B, S, H = h.shape
+    N = B * S
+    n = N * mesh.axis_size(AXIS_BATCH)
+    C = _capacity(c, n)
+    x = h.reshape(N, H)
+    router_logits, probs, gate_vals, mask = _route(x, w, c)
+    dispatch = _dispatch(mask, C, _slot_offset(mask, mesh))          # [N, E, C]
+    gates = pa.copy_to((mask * gate_vals.T[..., None]).sum(dim=0), mesh, AXIS_EXPERT_TENSOR)
+    if mesh.expert > 1:
+        local = c.num_experts // mesh.expert
+        lo = mesh.expert_rank * local
+        dispatch, gates = dispatch[:, lo:lo + local], gates[:, lo:lo + local]
+    combine = dispatch * gates[..., None]
+
+    xe = torch.einsum("nec,nh->ech", dispatch,
+                      pa.copy_to(x, mesh, AXIS_EXPERT_TENSOR).float()).to(c.dtype)
+    ye = _experts(xe, w, c)
+    y = pa.reduce_from(torch.einsum("nec,ech->nh", combine.to(c.dtype), ye), mesh,
+                       AXIS_EXPERT_TENSOR)
+
+    f = _batch_mean(mask[0], n, mesh)
+    p = _batch_mean(probs, n, mesh)
+    lb = c.num_experts * torch.sum(f * p)
+    z = _batch_mean(torch.logsumexp(router_logits, dim=-1) ** 2, n, mesh)
     return y.reshape(B, S, H), {"load_balance": lb, "router_z": z}
 
 
@@ -396,6 +504,57 @@ def moe_transformer_block(
     return x + y, aux["load_balance"], aux["router_z"]
 
 
+# One layer's fsdp-cut matrices, by their fsdp axis (the hidden width): the
+# trunk's as Llama's, the expert stacks' [E, H, I] rows and [E, I, H]
+# columns (``parallel/sharding.py`` ``train_specs``).
+_FSDP_DIM = {**llama._FSDP_DIM, "w_gate": 1, "w_up": 1, "w_down": 2}
+
+
+def train_block(x: torch.Tensor, w: dict, cfg: MoEConfig, positions: torch.Tensor,
+                attn_impl: str, rope: tuple[torch.Tensor, torch.Tensor], mesh
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`moe_transformer_block` on a training mesh, under autograd:
+    ``w`` one layer's local blocks, gathered over ``fsdp`` inside the block
+    that remat wraps; the attention trunk is Llama's
+    (``llama.train_attention``), the MoE block :func:`train_moe_block`. At
+    one rank it is :func:`moe_transformer_block`, op for op."""
+    c = cfg
+    w = llama.gather_layer(w, _FSDP_DIM, mesh)
+    x = llama.train_attention(x, w, c, positions, attn_impl, rope, mesh)
+    h = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
+    y, aux = train_moe_block(h, w, c, mesh)
+    return x + y, aux["load_balance"], aux["router_z"]
+
+
+def forward_train(params: Params, cfg: MoEConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor, mesh, *, remat: bool = True,
+                  attn_impl: str = "auto") -> tuple[torch.Tensor, dict]:
+    """The cacheless forward of a training mesh's rank (``params`` its
+    local blocks, ``parallel/sharding.py`` ``TrainLayout``; ``tokens`` its
+    batch rows), under autograd -> (logits [B, S, V] f32, the whole
+    vocabulary on every tensor peer; the aux losses averaged over layers,
+    each the global batch's, the same on every rank). The embedding and
+    the LM head are Llama's (``llama.train_embed``, ``llama.train_logits``);
+    each block is :func:`train_block`, under non-reentrant remat when
+    ``remat``. At one rank it is :func:`forward_with_aux` without a cache,
+    op for op."""
+    c = cfg
+    x = llama.train_embed(params, c, tokens, mesh)
+    rope = rope_tables(positions, c.head_dim, c.rope_theta)
+    lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for w in llama.layer_slices(params):
+        if remat:
+            x, lb, z = torch.utils.checkpoint.checkpoint(
+                train_block, x, w, c, positions, attn_impl, rope, mesh, use_reentrant=False)
+        else:
+            x, lb, z = train_block(x, w, c, positions, attn_impl, rope, mesh)
+        lb_sum = lb_sum + lb
+        z_sum = z_sum + z
+    logits = llama.train_logits(params, c, x, mesh)
+    return logits, {"load_balance": lb_sum / c.num_layers, "router_z": z_sum / c.num_layers}
+
+
 def forward_with_aux(
     params: Params,
     cfg: MoEConfig,
@@ -418,12 +577,17 @@ def forward_with_aux(
     ``torch.utils.checkpoint`` (training; the reference checkpoints the
     whole forward, with the same numbers). ``mesh``: ``params`` is the
     rank's local tree and ``cache`` holds its kv heads (serving; the
-    module docstring)."""
+    module docstring); without a cache, a training mesh's forward
+    (:func:`forward_train`, its rank's rows)."""
     c = cfg
     B, S = tokens.shape
     if mesh is not None and cache is None:
-        raise NotImplementedError("the MoE forward over a mesh serves (a cache); "
-                                  "MoE training on a mesh is ROADMAP.md A13c2")
+        logits, aux = forward_train(params, c, tokens, positions, mesh, remat=remat,
+                                    attn_impl=attn_impl)
+        if logit_positions is not None:
+            idx = logit_positions.reshape(B, 1, 1).expand(B, 1, logits.shape[-1])
+            logits = torch.gather(logits, 1, idx)
+        return logits, None, aux
     x = _embed(params, tokens, c.dtype, mesh, vocab_rows(c.vocab_size, _world(mesh)))
 
     if cache is not None and S == 1 and attn_impl in ("auto", "reference"):

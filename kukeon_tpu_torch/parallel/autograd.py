@@ -1,5 +1,5 @@
 """Collectives that autograd differentiates: the training step's seams on
-a ``data`` x ``fsdp`` x ``tensor`` mesh (``parallel/mesh.py``).
+a ``data`` x ``fsdp`` x ``expert`` x ``tensor`` mesh (``parallel/mesh.py``).
 
 The reference's training step is one GSPMD program: XLA places an
 all-gather of each fsdp-cut weight where a layer runs, a reduce-scatter
@@ -12,6 +12,14 @@ runs one process per device and places them itself, each a
   gradient of it is a partial sum over that peer's columns);
 - :func:`reduce_from_tensor`: a sum over ``tensor`` forward, identity
   backward. A row-parallel product's partial;
+- :func:`copy_to` and :func:`reduce_from`: the same pair over any named
+  axis group. A MoE block's expert input and gate weights are copied to
+  ``expert_tensor`` (each rank's gradient of them is a partial over its
+  local experts and intermediate columns) and its output partial summed
+  over it; the load-balance and z-loss sums are summed over ``batch``
+  with an identity backward (every rank's loss holds the global term
+  once, and its gradient reaches only that rank's tokens, which the
+  step's sum of gradients over ``batch`` then adds up);
 - :func:`gather_from_tensor`: an all-gather over ``tensor`` forward, the
   rank's slice backward. The vocabulary-sharded logits: every tensor
   peer computes the same loss from the gathered logits, so the gradient
@@ -33,25 +41,25 @@ import torch
 from kukeon_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_TENSOR
 
 
-class _CopyToTensor(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.reduce(g, AXIS_TENSOR), None
+        return ctx.mesh.reduce(g, ctx.axis), None, None
 
 
-class _ReduceFromTensor(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.reduce(x, AXIS_TENSOR)
+    def forward(ctx, x, mesh, axis):
+        return mesh.reduce(x, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherFromTensor(torch.autograd.Function):
@@ -77,11 +85,21 @@ class _FsdpGather(torch.autograd.Function):
 
 
 def copy_to_tensor(x: torch.Tensor, mesh) -> torch.Tensor:
-    return x if mesh.world == 1 else _CopyToTensor.apply(x, mesh)
+    return x if mesh.world == 1 else _CopyTo.apply(x, mesh, AXIS_TENSOR)
 
 
 def reduce_from_tensor(x: torch.Tensor, mesh) -> torch.Tensor:
-    return x if mesh.world == 1 else _ReduceFromTensor.apply(x, mesh)
+    return x if mesh.world == 1 else _ReduceFrom.apply(x, mesh, AXIS_TENSOR)
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Identity forward, a sum over ``axis`` backward."""
+    return x if mesh.axis_size(axis) == 1 else _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """A sum over ``axis`` forward, identity backward."""
+    return x if mesh.axis_size(axis) == 1 else _ReduceFrom.apply(x, mesh, axis)
 
 
 def gather_from_tensor(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:

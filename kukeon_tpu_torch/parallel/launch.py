@@ -19,15 +19,17 @@ applies, in order, the device actions the leader posts to them.
   follower when an action that meets a collective is posted: a decode
   chunk's host inputs and its program run go out together. An argument
   wrapped in :class:`PerRank` sends each follower its own element.
-- **Data x fsdp x tensor**: a group of ``world`` ranks is laid out as the
-  reference's mesh orders its axes, ``tensor`` innermost: global rank
-  ``(d * fsdp + f) * tensor + t``. Serving has no fsdp axis, so its
-  ranks ``d * tensor .. (d + 1) * tensor - 1`` are data replica ``d``.
-  Every axis of more than one rank gets a ``torch.distributed`` subgroup
-  per coordinate of the others (:attr:`Group.pgs`: ``tensor``, ``fsdp``,
-  ``data`` and ``batch``, data x fsdp), made at the rendezvous in one
-  order on every rank, which the mesh's collectives run over. The leader
-  drives every follower with the same descriptors.
+- **Data x fsdp x expert x tensor**: a group of ``world`` ranks is laid
+  out as the reference's mesh orders its axes, ``tensor`` innermost:
+  global rank ``((d * fsdp + f) * expert + x) * tensor + t``. Serving has
+  no fsdp or expert axis, so its ranks ``d * tensor .. (d + 1) * tensor -
+  1`` are data replica ``d``. Every axis of more than one rank gets a
+  ``torch.distributed`` subgroup per coordinate of the others
+  (:attr:`Group.pgs`: ``tensor``, ``fsdp``, ``expert``, ``data``,
+  ``batch`` (data x fsdp) and ``expert_tensor`` (expert x tensor)), made
+  at the rendezvous in one order on every rank, which the mesh's
+  collectives run over. The leader drives every follower with the same
+  descriptors.
 - **Failures end the group**: a follower whose process exits, or whose
   action raises, marks the group failed and calls ``on_failure`` (a cell
   exits non-zero there: it never serves on fewer devices); the next post
@@ -110,27 +112,33 @@ def _device(device_type: str, rank: int) -> torch.device:
     return torch.device(f"cuda:{rank}") if device_type == "cuda" else torch.device("cpu")
 
 
-def _axis_groups(world: int, tensor: int, fsdp: int) -> dict[str, list[list[int]]]:
-    """Every axis group's ranks of a ``data`` x ``fsdp`` x ``tensor`` group
-    (global rank ``(d * fsdp + f) * tensor + t``), in one order: ``tensor``
-    (a data replica's fsdp block), ``fsdp``, ``data``, and ``batch`` (data
-    x fsdp, the ranks of one tensor coordinate). Axes of one rank are
-    absent, but for ``tensor`` on a group of more ranks: the serving
-    collectives run over a subgroup of each replica's own."""
-    data = world // (tensor * fsdp)
-    r = lambda d, f, t: (d * fsdp + f) * tensor + t  # noqa: E731
+def _axis_groups(world: int, tensor: int, fsdp: int,
+                 expert: int = 1) -> dict[str, list[list[int]]]:
+    """Every axis group's ranks of a ``data`` x ``fsdp`` x ``expert`` x
+    ``tensor`` group (global rank ``((d * fsdp + f) * expert + x) * tensor
+    + t``), in one order: ``tensor`` (a data replica's block of one fsdp
+    and expert coordinate), ``fsdp``, ``expert``, ``data``, ``batch`` (data
+    x fsdp, the ranks of one expert and tensor coordinate) and
+    ``expert_tensor`` (the ranks of one data and fsdp coordinate). Axes of
+    one rank are absent, but for ``tensor`` on a group of more ranks: the
+    serving collectives run over a subgroup of each replica's own."""
+    data = world // (tensor * expert * fsdp)
+    D, F, X, T = range(data), range(fsdp), range(expert), range(tensor)
+    r = lambda d, f, x, t: ((d * fsdp + f) * expert + x) * tensor + t  # noqa: E731
     groups = {
-        "tensor": [[r(d, f, t) for t in range(tensor)] for d in range(data) for f in range(fsdp)],
-        "fsdp": [[r(d, f, t) for f in range(fsdp)] for d in range(data) for t in range(tensor)],
-        "data": [[r(d, f, t) for d in range(data)] for f in range(fsdp) for t in range(tensor)],
-        "batch": [[r(d, f, t) for d in range(data) for f in range(fsdp)] for t in range(tensor)],
+        "tensor": [[r(d, f, x, t) for t in T] for d in D for f in F for x in X],
+        "fsdp": [[r(d, f, x, t) for f in F] for d in D for x in X for t in T],
+        "expert": [[r(d, f, x, t) for x in X] for d in D for f in F for t in T],
+        "data": [[r(d, f, x, t) for d in D] for f in F for x in X for t in T],
+        "batch": [[r(d, f, x, t) for d in D for f in F] for x in X for t in T],
+        "expert_tensor": [[r(d, f, x, t) for x in X for t in T] for d in D for f in F],
     }
     return {axis: g for axis, g in groups.items()
             if len(g[0]) > 1 or (axis == "tensor" and world > 1)}
 
 
 def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
-                      tensor: int, fsdp: int = 1) -> dict:
+                      tensor: int, fsdp: int = 1, expert: int = 1) -> dict:
     """``init_process_group`` on the rendezvous store, then one eager
     ``all_reduce`` that must sum to ``world``: NCCL builds its communicator
     there, outside any graph capture, and a rank that cannot reach the
@@ -156,7 +164,7 @@ def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
         raise RankFailure(f"rendezvous all_reduce gave {one.item()}, want {world}")
     pgs: dict = {}
     made: dict[tuple, Any] = {tuple(range(world)): None}
-    for axis, groups in _axis_groups(world, tensor, fsdp).items():
+    for axis, groups in _axis_groups(world, tensor, fsdp, expert).items():
         for ranks in groups:
             key = tuple(ranks)
             if key not in made:
@@ -174,22 +182,24 @@ def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
 class Group:
     """This process's rank group. The leader's holds the followers'
     processes and channels; a follower's, its channel to the leader.
-    ``tensor``: the ranks of one data replica's fsdp block, ``fsdp`` the
-    size of that axis; ``pgs`` this rank's ``torch.distributed`` group of
-    each axis of more than one rank (``tensor``, ``fsdp``, ``data``,
-    ``batch``; None: the whole group), ``tensor_pg`` its tensor subgroup
-    (None: the whole group, or one rank).
+    ``tensor``, ``fsdp`` and ``expert`` the sizes of those axes; ``pgs``
+    this rank's ``torch.distributed`` group of each axis of more than one
+    rank (``tensor``, ``fsdp``, ``expert``, ``data``, ``batch``,
+    ``expert_tensor``; None: the whole group), ``tensor_pg`` its tensor
+    subgroup (None: the whole group, or one rank).
     ``peer_stats[r]``: the latest allocator counters follower r reported
     (``{"in_use", "limit", "peak", "index"}``), read by the leader's
     scrapes without any CUDA call."""
 
     def __init__(self, rank: int, world: int, device_type: str, rdzv: str,
                  conns: list[Connection], procs: list[subprocess.Popen] | None = None,
-                 tensor: int | None = None, pgs: dict | None = None, fsdp: int = 1):
+                 tensor: int | None = None, pgs: dict | None = None, fsdp: int = 1,
+                 expert: int = 1):
         self.rank = rank
         self.world = world
         self.tensor = tensor or world
         self.fsdp = fsdp
+        self.expert = expert
         self.pgs = pgs or {}
         self.tensor_pg = self.pgs.get("tensor")
         self.device_type = device_type
@@ -398,25 +408,27 @@ def current() -> Group | None:
     return _GROUP
 
 
-def group(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1) -> Group:
+def group(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1,
+          expert: int = 1) -> Group:
     """This process's group of ``world`` ranks on ``device_type``, laid out
-    data x ``fsdp`` x ``tensor`` (``tensor`` None: the whole world, one
-    replica): the open one when it matches, else a new one (:func:`start`).
+    data x ``fsdp`` x ``expert`` x ``tensor`` (``tensor`` None: the whole
+    world, one replica): the open one when it matches, else a new one
+    (:func:`start`).
     A second group of another shape in one process is a ``ValueError``."""
     global _GROUP
     tensor = tensor or world
     with _GROUP_LOCK:
         if _GROUP is not None and _GROUP.failed is None:
-            if ((_GROUP.world, _GROUP.tensor, _GROUP.fsdp, _GROUP.device_type)
-                    != (world, tensor, fsdp, device_type)):
+            if ((_GROUP.world, _GROUP.tensor, _GROUP.fsdp, _GROUP.expert, _GROUP.device_type)
+                    != (world, tensor, fsdp, expert, device_type)):
                 raise ValueError(
                     f"this process already leads a group of {_GROUP.world} "
-                    f"{_GROUP.device_type} ranks (fsdp {_GROUP.fsdp}, tensor "
-                    f"{_GROUP.tensor}); one group a process")
+                    f"{_GROUP.device_type} ranks (fsdp {_GROUP.fsdp}, expert "
+                    f"{_GROUP.expert}, tensor {_GROUP.tensor}); one group a process")
             return _GROUP
         if _GROUP is not None:
             _GROUP.close()
-        _GROUP = start(world, device_type, tensor, fsdp)
+        _GROUP = start(world, device_type, tensor, fsdp, expert)
         return _GROUP
 
 
@@ -443,22 +455,25 @@ def follower_env(key: bytes) -> dict[str, str]:
     return env
 
 
-def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1) -> Group:
+def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1,
+          expert: int = 1) -> Group:
     """Start ``world - 1`` followers and join them as rank 0, laid out data
-    x ``fsdp`` x ``tensor`` (``tensor`` None: ``world``; ``fsdp * tensor``
-    must divide ``world``). A follower that exits before it connects, or a
-    rendezvous that outlasts the timeout, kills the others and raises
-    :class:`RankFailure`."""
+    x ``fsdp`` x ``expert`` x ``tensor`` (``tensor`` None: ``world``;
+    ``fsdp * expert * tensor`` must divide ``world``). A follower that
+    exits before it connects, or a rendezvous that outlasts the timeout,
+    kills the others and raises :class:`RankFailure`."""
     tensor = tensor or world
-    if world % (tensor * fsdp):
-        raise ValueError(f"fsdp {fsdp} x tensor {tensor} does not divide {world} ranks")
+    if world % (tensor * expert * fsdp):
+        raise ValueError(f"fsdp {fsdp} x expert {expert} x tensor {tensor} does not divide "
+                         f"{world} ranks")
     rdzv = tempfile.mkdtemp(prefix="kukeon-tp-")
     key = os.urandom(16)
     listener = Listener(_control_address(rdzv), family="AF_UNIX", authkey=key)
     env = follower_env(key)
     procs = [subprocess.Popen(
         [sys.executable, "-m", "kukeon_tpu_torch.parallel.launch", "--rank", str(r),
-         "--world", str(world), "--tensor", str(tensor), "--fsdp", str(fsdp), "--rdzv", rdzv,
+         "--world", str(world), "--tensor", str(tensor), "--fsdp", str(fsdp),
+         "--expert", str(expert), "--rdzv", rdzv,
          "--device", device_type, "--leader-pid", str(os.getpid())], env=env)
         for r in range(1, world)]
     conns: dict[int, Connection] = {}
@@ -491,7 +506,7 @@ def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1
                 raise RankFailure("a follower connected but never said its rank")
             conns[int(pickle.loads(conn.recv_bytes()))] = conn
         pgs = _init_torch_group(device_type, os.path.join(rdzv, "store"), 0, world, tensor,
-                                fsdp)
+                                fsdp, expert)
     except BaseException:
         for p in procs:
             p.kill()
@@ -503,7 +518,7 @@ def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1
     finally:
         listener.close()
     return Group(0, world, device_type, rdzv, [conns[r] for r in range(1, world)], procs,
-                 tensor, pgs, fsdp)
+                 tensor, pgs, fsdp, expert)
 
 
 # --- the follower process ---------------------------------------------------
@@ -544,6 +559,7 @@ def follower_main(argv=None) -> int:
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--tensor", type=int, default=None)
     ap.add_argument("--fsdp", type=int, default=1)
+    ap.add_argument("--expert", type=int, default=1)
     ap.add_argument("--rdzv", required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), required=True)
     ap.add_argument("--leader-pid", type=int, required=True)
@@ -557,9 +573,9 @@ def follower_main(argv=None) -> int:
     conn.send_bytes(pickle.dumps(args.rank))
     tensor = args.tensor or args.world
     pgs = _init_torch_group(args.device, os.path.join(args.rdzv, "store"), args.rank,
-                            args.world, tensor, args.fsdp)
+                            args.world, tensor, args.fsdp, args.expert)
     g = Group(args.rank, args.world, args.device, args.rdzv, [conn], tensor=tensor, pgs=pgs,
-              fsdp=args.fsdp)
+              fsdp=args.fsdp, expert=args.expert)
     from kukeon_tpu_torch.parallel.mesh import Mesh
 
     mesh = Mesh(g)

@@ -16,23 +16,27 @@ hold the same weights and compute the same step (the reference
 replicates its weights and its cache over ``data``). So a mesh's
 ``rank`` and ``world`` are its **tensor** coordinate and size: every cut
 of a weight and every collective reads those, and only the rank group
-itself (who leads, how many processes) sees the data axis. ``expert`` is size
-1, as in the reference's ``serving_mesh`` (a MoE layer's experts are cut
-on ``tensor`` inside each expert); the other axes keep the reference's
-names for the slices that add them (ROADMAP.md A13c2-d).
+itself (who leads, how many processes) sees the data axis. Serving keeps
+``expert`` at 1, as the reference's ``serving_mesh`` does (a MoE layer's
+experts are cut on ``tensor`` inside each expert); ``seq`` and ``pipe``
+keep the reference's names for the slice that adds them (ROADMAP.md A13d).
 
-Training adds ``fsdp`` (:func:`make_mesh`'s ``fsdp=``, :func:`training_mesh`):
-the ranks are laid out ``data`` x ``fsdp`` x ``tensor`` in the reference's
-order (``tensor`` innermost), so global rank ``(d * fsdp + f) * tensor + t``
-holds coordinates ``(d, f, t)``. ``rank`` and ``world`` stay the tensor
-coordinate and size, ``fsdp_rank`` is the fsdp coordinate, and
-:meth:`Mesh.reduce`, :meth:`Mesh.gather` and :meth:`Mesh.reduce_scatter`
-run over a named axis group: ``tensor``, ``fsdp``, ``data``, or
-``batch`` (data x fsdp: the ranks that split a batch's rows, where
-gradients and the loss's sums are reduced), each a ``torch.distributed``
-subgroup made at the rendezvous (``launch.py``). A collective over an axis
-of size 1 is the identity, so a one-rank mesh computes what one device
-does, bit for bit.
+Training adds ``fsdp`` and ``expert`` (:func:`make_mesh`'s ``fsdp=`` and
+``expert=``, :func:`training_mesh`): the ranks are laid out ``data`` x
+``fsdp`` x ``expert`` x ``tensor`` in the reference's order (``tensor``
+innermost), so global rank ``((d * fsdp + f) * expert + x) * tensor + t``
+holds coordinates ``(d, f, x, t)``. ``rank`` and ``world`` stay the tensor
+coordinate and size, ``fsdp_rank`` and ``expert_rank`` are the fsdp and
+expert coordinates, and :meth:`Mesh.reduce`, :meth:`Mesh.gather` and
+:meth:`Mesh.reduce_scatter` run over a named axis group: ``tensor``,
+``fsdp``, ``expert``, ``data``, ``batch`` (data x fsdp: the ranks that
+split a batch's rows, where gradients and the loss's sums are reduced; an
+expert peer shares its rows, as in the reference's batch spec), or
+``expert_tensor`` (expert x tensor: the ranks that share one batch rank's
+rows, over which a MoE block's partial sums once), each a
+``torch.distributed`` subgroup made at the rendezvous (``launch.py``). A
+collective over an axis of size 1 is the identity, so a one-rank mesh
+computes what one device does, bit for bit.
 
 Counterparts in the reference: the axis names :28-33, ``make_mesh`` :40,
 ``serving_mesh`` :121, ``training_mesh`` :136, ``largest_pow2_leq`` :146,
@@ -53,6 +57,9 @@ AXIS_PIPE = "pipe"
 # Not a reference axis: the ranks that split a batch's rows, data x fsdp
 # (the reference's batch spec ``P((data, fsdp), seq)``).
 AXIS_BATCH = "batch"
+# Nor this: the ranks of one batch rank, expert x tensor (a MoE block's
+# partial over its local experts and intermediate columns sums over them).
+AXIS_EXPERT_TENSOR = "expert_tensor"
 AXIS_WORLD = "world"        # every rank of the mesh
 
 # Gloo ranks a CPU host offers a grant: the CPU has no device count, so the
@@ -108,22 +115,23 @@ def serving_mesh(n_devices: int | None = None, device: str = "cuda") -> "Mesh":
 
 
 def make_mesh(data: int = 1, tensor: int = 1, device: str = "cuda", *,
-              fsdp: int = 1) -> "Mesh":
-    """The reference's ``make_mesh(data=, fsdp=, tensor=)``: rank 0's mesh
-    over this process's group of ``data * fsdp * tensor`` ranks
-    (:func:`kukeon_tpu_torch.parallel.launch.group`), started now with
-    that many less one followers, or reused when one of that shape is
-    open. More ranks than the host shows is a ``ValueError``."""
+              fsdp: int = 1, expert: int = 1) -> "Mesh":
+    """The reference's ``make_mesh(data=, fsdp=, expert=, tensor=)``: rank
+    0's mesh over this process's group of ``data * fsdp * expert *
+    tensor`` ranks (:func:`kukeon_tpu_torch.parallel.launch.group`),
+    started now with that many less one followers, or reused when one of
+    that shape is open. More ranks than the host shows is a
+    ``ValueError``."""
     # Imported here: a follower runs launch as ``__main__``, after this
     # package's __init__ has imported this module.
     from kukeon_tpu_torch.parallel import launch
 
-    if data < 1 or tensor < 1 or fsdp < 1:
+    if min(data, tensor, fsdp, expert) < 1:
         raise ValueError(f"mesh axes must be >= 1, got data {data} x fsdp {fsdp} x "
-                         f"tensor {tensor}")
+                         f"expert {expert} x tensor {tensor}")
     dtype = torch.device(device).type
-    n = check_grant(data * fsdp * tensor, dtype)
-    return Mesh(launch.group(n, dtype, tensor=tensor, fsdp=fsdp))
+    n = check_grant(data * fsdp * expert * tensor, dtype)
+    return Mesh(launch.group(n, dtype, tensor=tensor, fsdp=fsdp, expert=expert))
 
 
 def training_mesh(n_devices: int | None = None, tensor: int = 1,
@@ -141,11 +149,12 @@ class Mesh:
     """This process's view of a rank group: ``rank`` and ``world``, its
     coordinate on ``tensor`` and that axis's size (what every weight is cut
     by); ``replica``, its coordinate on ``data``; ``fsdp_rank`` and
-    ``fsdp``, its coordinate on ``fsdp`` and that axis's size; ``size``,
-    the ranks of the mesh (``data * fsdp * tensor``, the group's
-    processes); ``shape`` (serving's axes) and ``axes`` (all six, in the
-    reference's order); its ``device``; and the collectives. Each
-    collective sums or gathers in the tensor's own dtype, as the
+    ``fsdp``, ``expert_rank`` and ``expert``, its coordinates on those axes
+    and their sizes; ``size``, the ranks of the mesh (``data * fsdp *
+    expert * tensor``, the group's processes); ``shape`` (serving's axes:
+    ``expert`` 1, as the reference's ``serving_mesh``) and ``axes`` (all
+    six, in the reference's order); its ``device``; and the collectives.
+    Each collective sums or gathers in the tensor's own dtype, as the
     reference's ``psum`` does, and is one ``torch.distributed`` call on
     the current stream (captured inside the CUDA graphs like any kernel).
     :meth:`all_reduce` and :meth:`all_gather` run over the tensor subgroup
@@ -157,17 +166,24 @@ class Mesh:
         self.size = group.world
         self.world = group.tensor
         self.fsdp = group.fsdp
+        self.expert = group.expert
         self.rank = group.rank % group.tensor
-        self.fsdp_rank = group.rank // group.tensor % group.fsdp
-        self.replica = group.rank // (group.tensor * group.fsdp)
-        self.data = self.size // (self.world * self.fsdp)
+        self.expert_rank = group.rank // group.tensor % group.expert
+        self.fsdp_rank = group.rank // (group.tensor * group.expert) % group.fsdp
+        self.replica = group.rank // (group.tensor * group.expert * group.fsdp)
+        self.data = self.size // (self.world * self.expert * self.fsdp)
         self.device = group.device
         self.shape = {AXIS_DATA: self.data, AXIS_EXPERT: 1, AXIS_TENSOR: self.world}
         self.axes = {AXIS_PIPE: 1, AXIS_DATA: self.data, AXIS_FSDP: self.fsdp,
-                     AXIS_EXPERT: 1, AXIS_SEQ: 1, AXIS_TENSOR: self.world}
+                     AXIS_EXPERT: self.expert, AXIS_SEQ: 1, AXIS_TENSOR: self.world}
         self._pg = group.tensor_pg
         self._sizes = {AXIS_TENSOR: self.world, AXIS_FSDP: self.fsdp, AXIS_DATA: self.data,
-                       AXIS_BATCH: self.data * self.fsdp, AXIS_WORLD: self.size}
+                       AXIS_EXPERT: self.expert, AXIS_BATCH: self.data * self.fsdp,
+                       AXIS_EXPERT_TENSOR: self.expert * self.world, AXIS_WORLD: self.size}
+
+    def axis_size(self, axis: str) -> int:
+        """The ranks of this rank's ``axis`` group."""
+        return self._sizes[axis]
 
     @property
     def leader(self) -> bool:
@@ -217,7 +233,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         return (f"Mesh(data {self.replica}/{self.data}, fsdp {self.fsdp_rank}/{self.fsdp}, "
-                f"tensor {self.rank}/{self.world}, device={self.device})")
+                f"expert {self.expert_rank}/{self.expert}, tensor {self.rank}/{self.world}, "
+                f"device={self.device})")
 
 
 def _gather(x: torch.Tensor, dim: int, n: int, pg) -> torch.Tensor:

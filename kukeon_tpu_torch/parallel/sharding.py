@@ -542,18 +542,32 @@ def shard_tree(params, rank: int, world: int, kv_shard: bool = True, *,
     return walk(params, specs, ())
 
 
-# --- training: a train state over data x fsdp x tensor --------------------------
+# --- training: a train state over data x fsdp x expert x tensor ----------------
 
 
-def check_train_mesh(cfg, fsdp: int, tensor: int) -> None:
-    """Refuse (``SystemExit``) a training mesh whose ``fsdp`` or ``tensor``
-    axis does not divide what its specs cut: ``fsdp`` the hidden width
-    (every matrix's ``fsdp`` axis), ``tensor`` the vocabulary, the kv
-    width and the intermediate size (the reference's ``device_put`` of the
-    train state raises there too), and the heads: the port's training
-    step cuts whole heads and pads none (zero-padded heads would take
-    gradient steps in ``wo``'s padded rows), where the reference's GSPMD
-    would cut a head's columns."""
+def train_model(cfg):
+    """The model module of a config: ``moe`` for a ``MoEConfig``, else
+    ``llama``."""
+    return moe if isinstance(cfg, moe.MoEConfig) else llama
+
+
+def check_train_mesh(cfg, fsdp: int, tensor: int, expert: int = 1) -> None:
+    """Refuse (``SystemExit``) a training mesh whose ``fsdp``, ``expert``
+    or ``tensor`` axis does not divide what its specs cut: ``fsdp`` the
+    hidden width (every matrix's ``fsdp`` axis), ``expert`` a MoE model's
+    experts (the expert stacks' axis 1; a Llama model's leaves are
+    replicated over it), ``tensor`` the vocabulary, the kv width and the
+    intermediate size (the reference's ``device_put`` of the train state
+    raises there too), and the heads: the port's training step cuts whole
+    heads and pads none (zero-padded heads would take gradient steps in
+    ``wo``'s padded rows), where the reference's GSPMD would cut a head's
+    columns."""
+    if isinstance(cfg, moe.MoEConfig) and cfg.num_experts % expert:
+        raise SystemExit(
+            f"training mesh: expert {expert} does not divide num_experts {cfg.num_experts}: "
+            f"the global size of the expert stacks' dimension 1 should be divisible by "
+            f"{expert}, but it is equal to {cfg.num_experts}; the reference's shardings "
+            "cannot cut it either")
     dims = ((AXIS_FSDP, fsdp, "hidden_size", cfg.hidden_size),
             (AXIS_TENSOR, tensor, "vocab_size", cfg.vocab_size),
             (AXIS_TENSOR, tensor, "num_kv_heads*head_dim", cfg.kv_dim),
@@ -569,11 +583,12 @@ def check_train_mesh(cfg, fsdp: int, tensor: int) -> None:
 
 def train_specs(cfg, tensor: int) -> dict:
     """The spec of every leaf of ``cfg``'s train-state params (the
-    reference's ``llama_param_specs(fsdp=True)``, pruned to the tree), with
-    ``wk``/``wv`` replicated over ``tensor`` when it does not divide the kv
-    heads (each rank then computes every kv head and attends its q heads'
-    own, as serving does)."""
-    specs = specs_for_params(llama.init_params(cfg, None, "meta"), fsdp=True)
+    reference's ``llama_param_specs(fsdp=True)``, or
+    ``moe_specs_for_params(fsdp=True)`` for a ``MoEConfig``, pruned to the
+    tree), with ``wk``/``wv`` replicated over ``tensor`` when it does not
+    divide the kv heads (each rank then computes every kv head and attends
+    its q heads' own, as serving does)."""
+    specs = tree_specs(train_model(cfg).init_params(cfg, None, "meta"), fsdp=True)
     if cfg.num_kv_heads % tensor:
         specs["layers"] = {**specs["layers"], "wk": (None, AXIS_FSDP, None),
                            "wv": (None, AXIS_FSDP, None)}
@@ -581,25 +596,43 @@ def train_specs(cfg, tensor: int) -> dict:
 
 
 class TrainLayout:
-    """Where each leaf of a Llama train state lies on the rank at fsdp
-    coordinate ``fsdp_rank`` of ``fsdp`` and tensor coordinate ``rank`` of
+    """Where each leaf of a Llama or MoE train state lies on the rank at
+    fsdp coordinate ``fsdp_rank`` of ``fsdp``, expert coordinate
+    ``expert_rank`` of ``expert`` and tensor coordinate ``rank`` of
     ``world`` (:func:`train_specs`; every data replica holds the same
     blocks): a block on each cut axis by :func:`rank_block`, in whole heads
     on :data:`HEAD_LEAVES`' tensor axis, with no padding
-    (:func:`check_train_mesh`). The moments mirror the params. A mesh's
-    :meth:`of` gives its rank's layout; the checkpoint readers and writers
-    cut and place by :meth:`regions`."""
+    (:func:`check_train_mesh`). A leaf whose spec does not cut ``expert``
+    (the whole Llama tree, a MoE model's trunk and router) is the same on
+    every expert peer. The moments mirror the params. A mesh's :meth:`of`
+    gives its rank's layout; the checkpoint readers and writers cut and
+    place by :meth:`regions`."""
 
-    def __init__(self, cfg, fsdp_rank: int, fsdp: int, rank: int, world: int):
-        check_train_mesh(cfg, fsdp, world)
+    def __init__(self, cfg, fsdp_rank: int, fsdp: int, rank: int, world: int, *,
+                 expert_rank: int = 0, expert: int = 1):
+        check_train_mesh(cfg, fsdp, world, expert)
         self.cfg = cfg
         self.fsdp_rank, self.fsdp, self.rank, self.world = fsdp_rank, fsdp, rank, world
+        self.expert_rank, self.expert = expert_rank, expert
         self.specs = train_specs(cfg, world)
         self.kv_shard = cfg.num_kv_heads % world == 0
 
     @classmethod
     def of(cls, cfg, mesh) -> "TrainLayout":
-        return cls(cfg, mesh.fsdp_rank, mesh.fsdp, mesh.rank, mesh.world)
+        return cls(cfg, mesh.fsdp_rank, mesh.fsdp, mesh.rank, mesh.world,
+                   expert_rank=mesh.expert_rank, expert=mesh.expert)
+
+    def peers(self) -> list["TrainLayout"]:
+        """The layout of every rank of a data replica, in global rank order
+        (fsdp, then expert, then tensor coordinate)."""
+        return [TrainLayout(self.cfg, f, self.fsdp, t, self.world, expert_rank=x,
+                            expert=self.expert)
+                for f in range(self.fsdp) for x in range(self.expert) for t in range(self.world)]
+
+    def meta(self) -> dict:
+        """``cfg``'s params on the meta device (shapes and dtypes, no
+        storage)."""
+        return train_model(self.cfg).init_params(self.cfg, None, "meta")
 
     def spec(self, path: tuple[str, ...]) -> Spec:
         spec = self.specs
@@ -607,14 +640,14 @@ class TrainLayout:
             spec = spec[k]
         return spec
 
-    def blocks(self, path: tuple[str, ...], shape) -> tuple[Block, Block]:
-        """The leaf's (tensor, fsdp) blocks (``axis`` None where its spec
-        does not cut that axis)."""
-        spec = self.spec(path)
-        return (rank_block(spec, tuple(shape), self.rank, self.world,
+    def blocks(self, path: tuple[str, ...], shape) -> tuple[Block, Block, Block]:
+        """The leaf's (tensor, fsdp, expert) blocks (``axis`` None where its
+        spec does not cut that axis)."""
+        spec, shape = self.spec(path), tuple(shape)
+        return (rank_block(spec, shape, self.rank, self.world,
                            unit=head_unit(path, self.cfg.head_dim)),
-                rank_block(spec, tuple(shape), self.fsdp_rank, self.fsdp,
-                           axis_name=AXIS_FSDP))
+                rank_block(spec, shape, self.fsdp_rank, self.fsdp, axis_name=AXIS_FSDP),
+                rank_block(spec, shape, self.expert_rank, self.expert, axis_name=AXIS_EXPERT))
 
     def regions(self, path: tuple[str, ...], shape) -> tuple[tuple[int, int, int], ...]:
         """``(axis, lo, hi)`` of each cut axis: this rank's block of a full
@@ -648,10 +681,11 @@ class TrainLayout:
         """Whether the rank of data coordinate ``replica`` counts the
         leaf's block once in a global sum over every rank: it is the first
         of the ranks holding that block (coordinate 0 on every axis the
-        spec does not cut: ``data`` always, ``fsdp`` and ``tensor`` where
-        the leaf is replicated on them)."""
+        spec does not cut: ``data`` always, ``fsdp``, ``expert`` and
+        ``tensor`` where the leaf is replicated on them)."""
         spec = self.spec(path)
         return (replica == 0 and (AXIS_FSDP in spec or self.fsdp_rank == 0)
+                and (AXIS_EXPERT in spec or self.expert_rank == 0)
                 and (AXIS_TENSOR in spec or self.rank == 0))
 
     def state_bytes(self) -> int:
@@ -661,4 +695,4 @@ class TrainLayout:
         from kukeon_tpu_torch.models.checkpoints import _walk_tree
 
         return 3 * sum(math.prod(self.local_shape(path, t.shape)) * t.element_size()
-                       for path, t in _walk_tree(llama.init_params(self.cfg, None, "meta")))
+                       for path, t in _walk_tree(self.meta()))

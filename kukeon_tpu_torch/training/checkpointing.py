@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from kukeon_tpu_torch import faults
-from kukeon_tpu_torch.models import convert, llama, orbax_ckpt
+from kukeon_tpu_torch.models import convert, orbax_ckpt
 from kukeon_tpu_torch.training.train_step import TrainState, tree_items, tree_leaves
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
@@ -123,10 +123,8 @@ def gathered_tree(state: TrainState, mesh, layout) -> dict:
     (:func:`gather_leaf`): what the leader's writer reaches leaf by leaf,
     and what every other rank walks in the same order
     (``orbax_ckpt.flatten``), calling each."""
-    cfg = layout.cfg
-    full = dict(tree_items(llama.init_params(cfg, None, "meta")))
-    layouts = [layout.__class__(cfg, f, mesh.fsdp, t, mesh.world)
-               for f in range(mesh.fsdp) for t in range(mesh.world)]
+    full = dict(tree_items(layout.meta()))
+    layouts = layout.peers()
 
     def lazy(tree, path=()):
         if isinstance(tree, dict):
@@ -141,10 +139,11 @@ def gathered_tree(state: TrainState, mesh, layout) -> dict:
 def gather_leaf(x: torch.Tensor, path: tuple[str, ...], shape, mesh, layouts: list):
     """The full leaf of shape ``shape`` whose block on this rank is ``x``,
     on the leader's host (None on the other ranks): each block of data
-    replica 0 (rank ``f * tensor + t``, cut by ``layouts[f * tensor + t]``)
-    held by the first of its holders (``TrainLayout.owned``) is sent to the
-    leader, which places it. Every rank calls it for the same leaves in
-    the same order."""
+    replica 0 (rank ``(f * expert + e) * tensor + t``, cut by that index of
+    ``layouts``, ``TrainLayout.peers``) held by the first of its holders
+    (``TrainLayout.owned``) is sent to the leader, which places it in each
+    cut axis's region. Every rank calls it for the same leaves in the same
+    order."""
     if not mesh.leader:
         if layouts[mesh.group.rank % len(layouts)].owned(path, mesh.replica):
             dist.send(x.detach().contiguous().view(-1).view(torch.uint8), dst=0)

@@ -11,22 +11,23 @@ a mesh's ranks as gloo processes). Batches are memmapped and a pure
 function of (seed, step); the run resumes from the newest checkpoint in
 ``--ckpt-dir``.
 
-``--data``, ``--fsdp`` and ``--tensor`` lay the Llama family
-(``tiny``, ``llama3-1b``, ``llama3-8b``) over a rank group of one process
-per device (``training/mesh_trainer.py``); with no axis given and more than
-one visible device (``mesh.visible_devices``: the visible GPUs, 8 gloo
-ranks on the CPU), the default is the reference's, ``data = gcd(devices,
-batch)``. The first line prints the mesh as the reference prints it.
-More ranks than the host shows exits before any byte reaches a device.
+``--data``, ``--fsdp``, ``--expert`` and ``--tensor`` lay either family
+(``tiny``, ``llama3-1b``, ``llama3-8b``, ``mixtral-tiny``,
+``mixtral-8x7b``) over a rank group of one process per device
+(``training/mesh_trainer.py``); ``--expert`` cuts a MoE model's experts
+(a Llama model's leaves are replicated over it, as the reference's are).
+With no axis given and more than one visible device
+(``mesh.visible_devices``: the visible GPUs, 8 gloo ranks on the CPU),
+the default is the reference's, ``data = gcd(devices, batch)``, for every
+model. The first line prints the mesh as the reference prints it. More
+ranks than the host shows exits before any byte reaches a device.
 ``--seq`` and ``--pipe`` (sequence and pipeline parallelism) are not ported
-yet and raise (ROADMAP A13d); nor is the MoE family on a mesh (``--expert``,
-or any axis above 1 with ``mixtral-*``: ROADMAP A13c2), which trains on one
-device without a mesh flag: ``mixtral-*`` trains through
+yet and raise (ROADMAP A13d). ``mixtral-*`` trains through
 :func:`~kukeon_tpu_torch.training.train_step.make_moe_train_step` and
 prints the load-balance loss on each step line (``lb=``); at full depth,
 Mixtral-8x7B's training state (about 374 GB) does not fit one GPU and the
 run fails with CUDA's out-of-memory error, as the reference's does on a
-chip too small.
+chip too small: on eight, ``--expert 8`` holds about 47 GB a rank.
 """
 
 from __future__ import annotations
@@ -75,22 +76,17 @@ def refuse(args) -> None:
             raise NotImplementedError(
                 f"--{axis} {getattr(args, axis)}: sequence and pipeline parallelism are not "
                 "ported yet (ROADMAP.md A13d)")
-    sharded = {a: getattr(args, a) for a in MESH_AXES if getattr(args, a) > 1}
-    if sharded and (args.expert > 1 or args.model.startswith("mixtral")):
-        raise NotImplementedError(
-            f"mesh axes {sharded} with --model {args.model}: the MoE family and the expert "
-            "axis train on one GPU until ROADMAP.md A13c2")
 
 
 def mesh_axes(args, device: torch.device) -> dict[str, int]:
-    """``{"data", "fsdp", "tensor"}`` of the run: the flags, or with none
-    above 1 the reference's default, ``data = gcd(devices, batch)`` over
-    the visible devices (the MoE family: one device)."""
+    """``{"data", "fsdp", "expert", "tensor"}`` of the run: the flags, or
+    with none above 1 the reference's default, ``data = gcd(devices,
+    batch)`` over the visible devices."""
     from kukeon_tpu_torch.parallel.mesh import visible_devices
 
-    axes = {a: getattr(args, a) for a in ("data", "fsdp", "tensor")}
+    axes = {a: getattr(args, a) for a in ("data", "fsdp", "expert", "tensor")}
     n = visible_devices(device.type)
-    if math.prod(axes.values()) == 1 and n > 1 and not args.model.startswith("mixtral"):
+    if math.prod(axes.values()) == 1 and n > 1:
         axes["data"] = math.gcd(n, args.batch)
     return axes
 
@@ -100,8 +96,9 @@ def main(argv=None) -> int:
     refuse(args)
     device = resolve_device(args.device)
     axes = mesh_axes(args, device)
+    is_moe = args.model.startswith("mixtral")
     if math.prod(axes.values()) > 1:
-        return train_on_mesh(args, device, axes)
+        return train_on_mesh(args, device, axes, is_moe)
 
     from kukeon_tpu_torch.training import (
         TokenDataset,
@@ -116,7 +113,6 @@ def main(argv=None) -> int:
     )
     from kukeon_tpu_torch.training.train_step import make_optimizer
 
-    is_moe = args.model.startswith("mixtral")
     cfgs = {"tiny": llama.llama_tiny, "llama3-1b": llama.llama3_1b,
             "llama3-8b": llama.llama3_8b,
             "mixtral-tiny": moe.moe_tiny, "mixtral-8x7b": moe.mixtral_8x7b}
@@ -187,9 +183,9 @@ def train_loop(args, start: int, run, save, is_moe: bool = False) -> None:
         print(f"train: checkpoint at step {save()} -> {args.ckpt_dir}", flush=True)
 
 
-def train_on_mesh(args, device: torch.device, axes: dict[str, int]) -> int:
-    """The Llama family over ``axes`` (data x fsdp x tensor), this process
-    the group's leader: :func:`train_loop` through a
+def train_on_mesh(args, device: torch.device, axes: dict[str, int], is_moe: bool) -> int:
+    """Either family over ``axes`` (data x fsdp x expert x tensor), this
+    process the group's leader: :func:`train_loop` through a
     :class:`~kukeon_tpu_torch.training.mesh_trainer.MeshTrainer`. A rank
     that dies ends the run with exit 1."""
     from kukeon_tpu_torch.parallel import launch
@@ -198,10 +194,10 @@ def train_on_mesh(args, device: torch.device, axes: dict[str, int]) -> int:
     from kukeon_tpu_torch.training.mesh_trainer import MeshTrainer
 
     try:
-        mesh = make_mesh(axes["data"], axes["tensor"], device.type, fsdp=axes["fsdp"])
+        mesh = make_mesh(axes["data"], axes["tensor"], device.type, fsdp=axes["fsdp"],
+                         expert=axes["expert"])
     except ValueError as e:
-        raise SystemExit(f"--data {axes['data']} --fsdp {axes['fsdp']} --tensor "
-                         f"{axes['tensor']}: {e}") from e
+        raise SystemExit(" ".join(f"--{a} {n}" for a, n in axes.items()) + f": {e}") from e
 
     def _rank_failed(why: str):
         print(f"train: {why}; exiting 1", file=sys.stderr, flush=True)
@@ -224,7 +220,7 @@ def train_on_mesh(args, device: torch.device, axes: dict[str, int]) -> int:
             trainer.save(args.ckpt_dir)
             return trainer.state.step
 
-        train_loop(args, start, trainer.step, save)
+        train_loop(args, start, trainer.step, save, is_moe)
         trainer.close()
     finally:
         launch.shutdown()

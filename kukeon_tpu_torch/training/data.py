@@ -77,7 +77,9 @@ def rank_rows(batch_size: int, mesh) -> slice:
     """The rows of a ``batch_size`` batch that ``mesh``'s rank trains on:
     the reference's batch spec ``P((data, fsdp), seq)`` cuts them over
     data x fsdp, data-major, so block ``replica * fsdp + fsdp_rank`` of
-    ``data * fsdp`` equal blocks; tensor peers share their rows. A batch
+    ``data * fsdp`` equal blocks; expert and tensor peers share their rows
+    (the reference's batch is not cut over ``expert``: a MoE block's
+    dispatch stays on the rank, ``models/moe.py``). A batch
     those axes do not divide is a ``ValueError`` (the reference's
     ``device_put`` refuses it too)."""
     n = mesh.data * mesh.fsdp

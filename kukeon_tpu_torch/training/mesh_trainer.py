@@ -1,7 +1,8 @@
-"""The Llama family's training on a ``data`` x ``fsdp`` x ``tensor`` rank
-group: the port of what the reference's ``training/cli.py`` runs on a
-mesh (``create_train_state``, ``make_train_step`` and the checkpoints over
-``make_mesh(data=, fsdp=, tensor=)``).
+"""The Llama and MoE families' training on a ``data`` x ``fsdp`` x
+``expert`` x ``tensor`` rank group: the port of what the reference's
+``training/cli.py`` runs on a mesh (``create_train_state``,
+``make_train_step``, their MoE twins and the checkpoints over
+``make_mesh(data=, fsdp=, expert=, tensor=)``).
 
 The reference drives every device of its mesh from one controller. The
 port runs one process per device (``parallel/launch.py``): the leader's
@@ -17,37 +18,50 @@ of a checkpoint itself; a save sends the blocks to the leader through
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import torch
 
-from kukeon_tpu_torch.models import llama, orbax_ckpt
+from kukeon_tpu_torch.models import llama, moe, orbax_ckpt
+from kukeon_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR,
+                                            AXIS_WORLD)
 from kukeon_tpu_torch.parallel.sharding import Recipe, TrainLayout
 from kukeon_tpu_torch.training import checkpointing
 from kukeon_tpu_torch.training.data import TokenDataset, batches
-from kukeon_tpu_torch.training.train_step import (create_train_state, make_optimizer,
-                                                  make_train_step)
+from kukeon_tpu_torch.training.train_step import (
+    create_moe_train_state,
+    create_train_state,
+    make_moe_train_step,
+    make_optimizer,
+    make_train_step,
+    tree_items,
+)
 
 MODELS = {"tiny": llama.llama_tiny, "llama3-1b": llama.llama3_1b,
-          "llama3-8b": llama.llama3_8b}
+          "llama3-8b": llama.llama3_8b, "mixtral-tiny": moe.moe_tiny,
+          "mixtral-8x7b": moe.mixtral_8x7b}
 
 
 class MeshTrainer:
     """One rank's train state and step on ``mesh`` (a training
-    ``parallel.mesh.Mesh``): ``model`` one of :data:`MODELS`, batches of
-    ``batch`` rows of ``seq_len`` from ``dataset`` (``--seed``'s schedule),
-    the optimizer ``make_optimizer(lr, warmup_steps=, total_steps=)``, the
-    init drawn from ``seed`` on the mesh's device as one device draws it,
-    or an ``init`` recipe's full leaves (``sharding.Recipe``, ``"leaves"``).
+    ``parallel.mesh.Mesh``): ``model`` one of :data:`MODELS` (``cfg``, a
+    config that overrides its own: a depth cut), batches of ``batch`` rows
+    of ``seq_len`` from ``dataset`` (``--seed``'s schedule), the optimizer
+    ``make_optimizer(lr, warmup_steps=, total_steps=)``, the init drawn
+    from ``seed`` on the mesh's device as one device draws it, or an
+    ``init`` recipe's full leaves (``sharding.Recipe``, ``"leaves"``).
     The leader's calls post the same call to every follower."""
 
     def __init__(self, mesh, *, model: str, dataset: str, batch: int, seq_len: int,
                  seed: int = 0, lr: float = 3e-4, warmup_steps: int = 100,
-                 total_steps: int = 10_000, init: Recipe | None = None):
+                 total_steps: int = 10_000, init: Recipe | None = None, cfg=None):
         kwargs = dict(model=model, dataset=dataset, batch=batch, seq_len=seq_len, seed=seed,
-                      lr=lr, warmup_steps=warmup_steps, total_steps=total_steps, init=init)
+                      lr=lr, warmup_steps=warmup_steps, total_steps=total_steps, init=init,
+                      cfg=cfg)
         self.mesh = mesh
-        self.cfg = MODELS[model]()
+        self.cfg = cfg or MODELS[model]()
+        self.is_moe = isinstance(self.cfg, moe.MoEConfig)
         self.layout = TrainLayout.of(self.cfg, mesh)
         self.batch, self.seq_len, self.seed = batch, seq_len, seed
         self.ds = TokenDataset(dataset)
@@ -61,13 +75,16 @@ class MeshTrainer:
         optimizer = make_optimizer(lr, warmup_steps=warmup_steps, total_steps=total_steps)
         generator = torch.Generator(device=mesh.device).manual_seed(seed)
         leaves = None if init is None else init.resolve()(device=mesh.device, **init.kwargs)
-        self.state, self.optimizer = create_train_state(
+        create, make = ((create_moe_train_state, make_moe_train_step) if self.is_moe
+                        else (create_train_state, make_train_step))
+        self.state, self.optimizer = create(
             self.cfg, generator, mesh.device, optimizer, mesh=mesh, leaves=leaves)
-        self._step = make_train_step(self.cfg, optimizer, mesh=mesh)
+        self._step = make(self.cfg, optimizer, mesh=mesh)
 
-    def step(self, step: int) -> torch.Tensor:
+    def step(self, step: int):
         """One train step on step ``step``'s batch -> the global loss (a 0-d
-        tensor on the device, the same on every rank)."""
+        tensor on the device, the same on every rank); a MoE model's
+        metrics, ``{"loss", "ce", "load_balance", "router_z"}``."""
         return self._run("step", (step,))
 
     def restore(self, root: str, step: int | None = None) -> int:
@@ -94,6 +111,34 @@ class MeshTrainer:
         (the checkpoint's names), each leaf gathered as a save gathers it;
         None on the other ranks."""
         return self._run("gather", ())
+
+    def replica_mismatches(self) -> list[tuple[str, str]] | None:
+        """Every leaf of the state (params and both moments) against its
+        peers on each axis its spec does not cut (``data`` always;
+        ``fsdp``, ``expert``, ``tensor`` where it is replicated): the
+        ``(leaf, axis)`` pairs whose bits differ on some rank of the mesh
+        (one sha256 a block, gathered over each axis; the flags summed
+        over every rank), on the leader; None on the other ranks."""
+        return self._run("replicas", ())
+
+    def _replica_flags(self) -> tuple[list[tuple[str, str]], torch.Tensor]:
+        mesh, checks, flags = self.mesh, [], []
+        for prefix, tree in (("params", self.state.params),
+                             ("mu", self.state.opt_state["mu"]),
+                             ("nu", self.state.opt_state["nu"])):
+            for path, t in tree_items(tree):
+                raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                digest = torch.tensor(list(hashlib.sha256(raw.tobytes()).digest()),
+                                      dtype=torch.uint8, device=mesh.device)
+                spec = self.layout.spec(path)
+                for axis in (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_TENSOR):
+                    if axis in spec or mesh.axis_size(axis) == 1:
+                        continue
+                    every = mesh.gather(digest, 0, axis).view(-1, digest.numel())
+                    checks.append((".".join((prefix, *path)), axis))
+                    flags.append(float(not bool((every == digest).all())))
+        return checks, mesh.reduce(torch.tensor(flags or [0.0], device=mesh.device),
+                                   AXIS_WORLD)
 
     def _run(self, action: str, args: tuple):
         if self._group is None:
@@ -129,6 +174,10 @@ class MeshTrainer:
             got = {".".join(k for k, _ in keys): leaf()
                    for keys, leaf in orbax_ckpt.flatten(tree) if callable(leaf)}
             return got if self.mesh.leader else None
+        if action == "replicas":
+            checks, flags = self._replica_flags()
+            bad = [c for c, f in zip(checks, flags.tolist()) if f]
+            return bad if self.mesh.leader else None
         raise ValueError(f"unknown trainer action {action!r}")
 
     def close(self) -> None:

@@ -3,8 +3,8 @@
 
 The JAX step is a jitted, donated GSPMD program over a mesh; the port's is
 eager PyTorch on one device, or on each rank of a training mesh
-(``mesh=``: data x fsdp x tensor, one process per device,
-:func:`make_train_step`). What it computes is the same: next-token
+(``mesh=``: data x fsdp x expert x tensor, one process per device,
+:func:`make_train_step`, :func:`make_moe_train_step`). What it computes is the same: next-token
 cross entropy of ``llama.forward`` without a cache (attention through
 :func:`kukeon_tpu_torch.ops.attention.gqa_attention`, which takes the flash
 kernel on the GPU at S >= 1024), its gradients, and the optax chain of
@@ -17,8 +17,8 @@ numbers, and per-block remat bounds the memory).
 
 The MoE step (:func:`make_moe_train_step`) adds the Switch load-balance
 loss and the router z-loss of ``moe.forward_with_aux`` to the cross
-entropy, with the training capacity (the GShard drops). The pipeline step
-is not ported (ROADMAP A13d).
+entropy, with the training capacity (the GShard drops), on one device or
+on a mesh. The pipeline step is not ported (ROADMAP A13d).
 """
 
 from __future__ import annotations
@@ -186,19 +186,25 @@ def create_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
     blocks are the cut of the one-device state; the moments are zeros of
     the blocks' shapes."""
     optimizer = optimizer or make_optimizer()
-    if mesh is None:
-        params = llama.init_params(cfg, generator, device)
-    else:
-        from kukeon_tpu_torch.parallel.sharding import TrainLayout
-
-        layout = TrainLayout.of(cfg, mesh)
-        local = []
-        for path, full in (leaves if leaves is not None
-                           else llama.iter_params(cfg, generator, mesh.device)):
-            local.append((path, layout.cut(path, full).to(mesh.device)))
-            del full
-        params = llama.nest(local)
+    params = (llama.init_params(cfg, generator, device) if mesh is None
+              else _rank_params(cfg, llama.iter_params, generator, mesh, leaves))
     return TrainState(params=params, opt_state=optimizer.init(params), step=0), optimizer
+
+
+def _rank_params(cfg, iter_params, generator: torch.Generator, mesh, leaves) -> dict:
+    """A training mesh's rank's params: each full leaf of ``leaves``, or
+    drawn by ``iter_params(cfg, generator, mesh.device)`` as one device
+    draws it, cut to the rank's block (``sharding.TrainLayout``) and freed
+    before the next."""
+    from kukeon_tpu_torch.parallel.sharding import TrainLayout
+
+    layout = TrainLayout.of(cfg, mesh)
+    local = []
+    for path, full in (leaves if leaves is not None
+                       else iter_params(cfg, generator, mesh.device)):
+        local.append((path, layout.cut(path, full).to(mesh.device)))
+        del full
+    return llama.nest(local)
 
 
 def _make_step(optimizer: AdamW, loss_fn, reduce_grads=None, owned=None, total=None):
@@ -255,20 +261,42 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = T
 
         return _make_step(optimizer, loss_fn)
 
-    from kukeon_tpu_torch.parallel.mesh import (AXIS_BATCH, AXIS_DATA, AXIS_TENSOR,
-                                                AXIS_WORLD)
+    def loss_fn(params, tokens, targets, mask, positions):
+        logits = llama.forward_train(params, cfg, tokens, positions, mesh, remat=remat)
+        local = _mesh_ce(logits, targets, mask, mesh)
+        return local, _batch_sum(local.detach(), mesh)
+
+    return _mesh_step(cfg, optimizer, mesh, loss_fn)
+
+
+def _batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    from kukeon_tpu_torch.parallel.mesh import AXIS_BATCH
+
+    return mesh.reduce(x, AXIS_BATCH)
+
+
+def _mesh_ce(logits, targets, mask, mesh) -> torch.Tensor:
+    """This rank's share of the global masked mean: its rows' sum over
+    the mask count summed over the batch's ranks."""
+    return cross_entropy_loss(logits, targets, mask, count=lambda n: _batch_sum(n, mesh))
+
+
+def _mesh_step(cfg, optimizer: AdamW, mesh, loss_fn):
+    """:func:`_make_step` on a training mesh, either family: the gradients
+    of each rank's share summed where the reference's are (an fsdp-cut
+    leaf's reduce-scattered over ``fsdp`` in the backward, then summed
+    over ``data``; a leaf the fsdp axis does not cut summed over data x
+    fsdp; a ``wk``/``wv`` replicated over ``tensor``, partial on each
+    peer, summed over ``tensor`` first; nothing over ``expert``, where
+    every peer holds its whole gradient already), and the clip's global
+    norm counting each block once over every rank."""
+    from kukeon_tpu_torch.parallel.mesh import AXIS_BATCH, AXIS_DATA, AXIS_TENSOR, AXIS_WORLD
     from kukeon_tpu_torch.parallel.sharding import TrainLayout
 
     layout = TrainLayout.of(cfg, mesh)
-    paths = [p for p, _ in tree_items(llama.init_params(cfg, None, "meta"))]
+    paths = [p for p, _ in tree_items(layout.meta())]
     partial = {p for p in paths if p[-1] in ("wk", "wv") and not layout.kv_shard}
     owned = [layout.owned(p, mesh.replica) for p in paths]
-
-    def loss_fn(params, tokens, targets, mask, positions):
-        logits = llama.forward_train(params, cfg, tokens, positions, mesh, remat=remat)
-        local = cross_entropy_loss(logits, targets, mask,
-                                   count=lambda n: mesh.reduce(n, AXIS_BATCH))
-        return local, mesh.reduce(local.detach(), AXIS_BATCH)
 
     def reduce_grads(grads):
         out = []
@@ -284,27 +312,53 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = T
 
 def create_moe_train_state(cfg: moe.MoEConfig, generator: torch.Generator,
                            device: torch.device | str,
-                           optimizer: AdamW | None = None) -> tuple[TrainState, AdamW]:
-    """:func:`create_train_state` for the MoE tree (``moe.init_params``).
-    The router stays f32, and so do its moments."""
+                           optimizer: AdamW | None = None, *, mesh=None,
+                           leaves=None) -> tuple[TrainState, AdamW]:
+    """:func:`create_train_state` for the MoE tree (``moe.init_params``;
+    on a ``mesh``, each leaf drawn by ``moe.iter_params`` or taken from
+    ``leaves`` and cut to the rank's block, its experts' among them). The
+    router stays f32, and so do its moments."""
     optimizer = optimizer or make_optimizer()
-    params = moe.init_params(cfg, generator, device)
+    params = (moe.init_params(cfg, generator, device) if mesh is None
+              else _rank_params(cfg, moe.iter_params, generator, mesh, leaves))
     return TrainState(params=params, opt_state=optimizer.init(params), step=0), optimizer
 
 
-def make_moe_train_step(cfg: moe.MoEConfig, optimizer: AdamW, *, remat: bool = True):
+def make_moe_train_step(cfg: moe.MoEConfig, optimizer: AdamW, *, remat: bool = True,
+                        mesh=None):
     """``step(state, tokens, targets, mask) -> (state, metrics)``: the MoE
     step, ``loss = ce + load_balance_coef * load_balance + router_z_coef *
     router_z`` (the aux terms averaged over layers), with ``metrics``
-    {"loss", "ce", "load_balance", "router_z"} as detached scalars."""
+    {"loss", "ce", "load_balance", "router_z"} as detached scalars.
 
-    def loss_fn(params, tokens, targets, mask, positions):
-        logits, _, aux = moe.forward_with_aux(params, cfg, tokens, positions, remat=remat)
-        ce = cross_entropy_loss(logits, targets, mask)
-        loss = (ce + cfg.load_balance_coef * aux["load_balance"]
-                + cfg.router_z_coef * aux["router_z"])
-        metrics = {"loss": loss, "ce": ce, "load_balance": aux["load_balance"],
-                   "router_z": aux["router_z"]}
-        return loss, {k: v.detach() for k, v in metrics.items()}
+    On a training ``mesh`` (the reference's step over data x fsdp x expert
+    x tensor): the forward is ``moe.forward_train``, whose aux losses are
+    the global batch's on every rank, their gradients reaching only the
+    rank's tokens; each rank's loss is its share of the global cross
+    entropy plus the whole aux terms, so the sum of the gradients over
+    ``batch`` counts each term once (:func:`make_train_step`'s
+    reductions); the metrics are the global ones, the same on every rank.
+    At one rank it is the one-device step, bit for bit."""
+    if mesh is None:
+        def loss_fn(params, tokens, targets, mask, positions):
+            logits, _, aux = moe.forward_with_aux(params, cfg, tokens, positions, remat=remat)
+            ce = cross_entropy_loss(logits, targets, mask)
+            loss = (ce + cfg.load_balance_coef * aux["load_balance"]
+                    + cfg.router_z_coef * aux["router_z"])
+            metrics = {"loss": loss, "ce": ce, "load_balance": aux["load_balance"],
+                       "router_z": aux["router_z"]}
+            return loss, {k: v.detach() for k, v in metrics.items()}
 
-    return _make_step(optimizer, loss_fn)
+        return _make_step(optimizer, loss_fn)
+
+    def mesh_loss_fn(params, tokens, targets, mask, positions):
+        logits, aux = moe.forward_train(params, cfg, tokens, positions, mesh, remat=remat)
+        ce = _mesh_ce(logits, targets, mask, mesh)
+        local = (ce + cfg.load_balance_coef * aux["load_balance"]
+                 + cfg.router_z_coef * aux["router_z"])
+        lb, z = aux["load_balance"].detach(), aux["router_z"].detach()
+        ce = _batch_sum(ce.detach(), mesh)
+        loss = ce + cfg.load_balance_coef * lb + cfg.router_z_coef * z
+        return local, {"loss": loss, "ce": ce, "load_balance": lb, "router_z": z}
+
+    return _mesh_step(cfg, optimizer, mesh, mesh_loss_fn)

@@ -16,7 +16,9 @@ fresh state are the two-axis cut of the one-device state, at the
 reference's shard indices. Checkpoints cross meshes and packages bit for
 bit, and a resumed run continues with the uninterrupted run's loss. The
 CLI trains, saves and resumes on a mesh, lays out the reference's default,
-and refuses an over-grant before it starts a rank.
+refuses an over-grant before it starts a rank, and trains the MoE family
+and the expert axis (``tests/test_torch_moe_mesh_training.py`` holds
+those to the JAX package).
 
 One rank group at a time serves the file (:func:`_mesh`); its collectives
 and rendezvous time out after ``GROUP_TIMEOUT_S``, so no case can hang the
@@ -77,7 +79,8 @@ def _mesh(data=1, fsdp=1, tensor=1):
     """The leader's mesh of gloo ranks: the open group when it has this
     shape, else a new one (the other closed first)."""
     g = launch.current()
-    if g is not None and (g.world, g.fsdp, g.tensor) != (data * fsdp * tensor, fsdp, tensor):
+    if g is not None and (g.world, g.fsdp, g.expert, g.tensor) != (
+            data * fsdp * tensor, fsdp, 1, tensor):
         launch.shutdown()
     return make_mesh(data, tensor, "cpu", fsdp=fsdp)
 
@@ -224,8 +227,8 @@ def test_one_rank_mesh_step_is_the_one_device_step_bitwise(dataset):
 
 
 def _rank(f, F, t, T, d=0):
-    return SimpleNamespace(fsdp_rank=f, fsdp=F, rank=t, world=T, replica=d,
-                           device=torch.device("cpu"))
+    return SimpleNamespace(fsdp_rank=f, fsdp=F, expert_rank=0, expert=1, rank=t, world=T,
+                           replica=d, device=torch.device("cpu"))
 
 
 @pytest.mark.parametrize("axes", MESHES, ids=MESH_IDS)
@@ -446,7 +449,8 @@ def test_cli_trains_saves_and_resumes_on_a_mesh(dataset, tmp_path):
 def test_cli_default_layout_is_the_references(dataset, tmp_path, monkeypatch):
     """With no axis, both CLIs lay the run out as ``data = gcd(devices,
     batch)`` over the 8 CPU devices (gloo ranks for the port): the same
-    first line at ``--batch 4``, and the port's rule at other counts."""
+    first line at ``--batch 4``, and the port's rule at other counts, for
+    either family."""
     launch.shutdown()
     argv = ["--dataset", dataset, "--model", "tiny", "--batch", "4", "--seq-len", "32",
             "--steps", "1", "--log-every", "1"]
@@ -460,9 +464,12 @@ def test_cli_default_layout_is_the_references(dataset, tmp_path, monkeypatch):
 
     for n, batch in ((1, 8), (8, 2), (8, 12), (6, 4), (5, 3)):
         monkeypatch.setattr(tmesh, "visible_devices", lambda _t, n=n: n)
-        args = tcli.build_parser().parse_args(["--dataset", "x", "--batch", str(batch)])
-        got = tcli.mesh_axes(args, torch.device("cpu"))
-        assert got == {"data": math.gcd(n, batch) if n > 1 else 1, "fsdp": 1, "tensor": 1}
+        for model in ("tiny", "mixtral-tiny"):
+            args = tcli.build_parser().parse_args(["--dataset", "x", "--batch", str(batch),
+                                                   "--model", model])
+            got = tcli.mesh_axes(args, torch.device("cpu"))
+            assert got == {"data": math.gcd(n, batch) if n > 1 else 1, "fsdp": 1,
+                           "expert": 1, "tensor": 1}
 
 
 def test_cli_over_grant_exits_before_any_rank_starts(tmp_path):
@@ -474,21 +481,54 @@ def test_cli_over_grant_exits_before_any_rank_starts(tmp_path):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--seq", "2"], "A13d"), (["--pipe", "2"], "A13d"),
-    (["--model", "mixtral-tiny", "--data", "2"], "A13c2"),
-    (["--model", "mixtral-tiny", "--expert", "2"], "A13c2"),
-    (["--expert", "2"], "A13c2")])
+    (["--seq", "2"], "A13d"), (["--pipe", "2"], "A13d")])
 def test_cli_refuses_what_this_slice_does_not_port(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tcli.main(["--dataset", str(tmp_path / "x.bin"), "--device", "cpu"] + extra)
 
 
-def test_the_moe_forward_on_a_mesh_without_a_cache_names_a13c2():
+@pytest.mark.parametrize("extra, mesh", [
+    (["--model", "mixtral-tiny", "--data", "2"], "'data': 2, 'fsdp': 1, 'expert': 1"),
+    (["--model", "mixtral-tiny", "--expert", "2"], "'data': 1, 'fsdp': 1, 'expert': 2"),
+    (["--expert", "2"], "'data': 1, 'fsdp': 1, 'expert': 2")])
+def test_cli_trains_the_moe_family_and_the_expert_axis_on_a_mesh(dataset, extra, mesh):
+    """What the CLI once refused (ROADMAP A13c2) trains: the MoE family on
+    a data axis and on an expert axis, and the Llama family with its
+    leaves replicated over ``--expert``, one step a run."""
+    launch.shutdown()
+    out = _cli(["--dataset", dataset, "--device", "cpu", "--batch", "8", "--seq-len", "32",
+                "--steps", "1", "--log-every", "1"] + extra)
+    assert f"mesh={{'pipe': 1, {mesh}, 'seq': 1, 'tensor': 1}}" in out.splitlines()[0]
+    step = [ln.split() for ln in out.splitlines() if ln.startswith("step ")]
+    assert [r[1] for r in step] == ["1"] and np.isfinite(float(step[0][3]))
+    assert ("lb=" in step[0][4]) == ("mixtral-tiny" in extra)
+    assert launch.current() is None
+
+
+def test_the_moe_forward_on_a_mesh_without_a_cache_is_the_training_forward():
+    """``moe.forward_with_aux`` with a mesh and no cache runs the training
+    mesh's forward (``moe.forward_train``): on a one-rank mesh its logits
+    and aux losses are the one-device forward's, bit for bit, and so are
+    its last position's logits."""
     from kukeon_tpu_torch.models import moe as tm
 
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13c2"):
-        tm.forward_with_aux({}, tm.moe_tiny(), tokens, tokens, mesh=_rank(0, 1, 0, 2))
+    launch.shutdown()
+    cfg = tm.moe_tiny()
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(16)[None, :].expand(2, 16)
+    mesh = _mesh()
+    try:
+        with torch.no_grad():
+            want, _, want_aux = tm.forward_with_aux(params, cfg, tokens, pos)
+            got, cache, aux = tm.forward_with_aux(params, cfg, tokens, pos, mesh=mesh)
+            last, _, _ = tm.forward_with_aux(params, cfg, tokens, pos, mesh=mesh,
+                                             logit_positions=torch.tensor([15, 15]))
+        assert cache is None and torch.equal(got, want)
+        assert all(torch.equal(aux[k], want_aux[k]) for k in want_aux)
+        assert torch.equal(last, want[:, 15:])
+    finally:
+        launch.shutdown()
 
 
 def test_a_training_mesh_refuses_what_its_specs_cannot_cut():

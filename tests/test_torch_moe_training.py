@@ -249,7 +249,12 @@ def _cli(argv):
     return buf.getvalue()
 
 
-def test_cli_trains_mixtral_tiny_saves_and_resumes(tmp_path):
+def test_cli_trains_mixtral_tiny_saves_and_resumes(tmp_path, monkeypatch):
+    # One visible device: the CLI's one-device branch (with more, the
+    # reference's default lays the run out as data = gcd(devices, batch)).
+    from kukeon_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "visible_devices", lambda _t: 1)
     path = str(tmp_path / "tok.bin")
     tdata.TokenDataset.write(path, np.random.default_rng(6).integers(0, 512, 5000))
     ckpt = str(tmp_path / "ckpts")

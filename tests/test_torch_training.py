@@ -320,7 +320,7 @@ def test_cli_trains_saves_and_resumes(tmp_path):
     assert tckpt.latest_step(ckpt) == 5
 
 
-@pytest.mark.parametrize("extra", [["--model", "mixtral-tiny", "--expert", "2"],
+@pytest.mark.parametrize("extra", [["--model", "mixtral-tiny", "--seq", "2"],
                                    ["--seq", "2"], ["--pipe", "2"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
     argv = ["--dataset", str(tmp_path / "x.bin"), "--device", "cpu"] + extra

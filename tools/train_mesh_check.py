@@ -1,40 +1,54 @@
-"""Train the Llama family on meshes of this host's devices and hold each to
-one device: the port's training mesh (``training/mesh_trainer.py``) across
-real GPUs, where ``chip_smoke.py``'s ``train_tp`` has one.
+"""Train the Llama or MoE family on meshes of this host's devices and hold
+each to one device: the port's training mesh (``training/mesh_trainer.py``)
+across real GPUs, where ``chip_smoke.py``'s ``train_tp`` and
+``train_moe_tp`` have one.
 
 For ``--model`` (llama3-1b by default: ``chip_smoke.py``'s ``train``
-configuration, B 4, S 2048, lr 3e-4, warmup 1, seed 0, its Zipf dataset):
+configuration, B 4, S 2048, lr 3e-4, warmup 1, seed 0, its Zipf dataset;
+``mixtral-8x7b`` cut to ``--layers`` layers, the config handed to each
+rank's trainer):
 
 1. ``--steps`` steps on one device (``create_train_state``,
-   ``make_train_step`` on device 0): the losses to hold the meshes to;
+   ``make_train_step``, or their MoE twins, on device 0): the losses to
+   hold the meshes to;
 2. the same steps through ``MeshTrainer`` on each mesh of ``--meshes``
    (a rank group of one process per device, NCCL): the losses, each
    step's host-clock ms (ending in the loss's read), the leader's peak
    memory and each follower's (its allocator counters, reported to the
-   leader every second), flash launches a step on the leader; the first
-   mesh then saves its state (seconds, bytes) and the last restores it
-   and gathers it back, bit for bit against what the first gathered;
-3. ``--big-model`` (llama3-8b) on each mesh of ``--big-meshes``: steps,
-   ms and peaks, with no one-device run (its state and activations do
-   not fit one card); its meshes' losses held to each other.
+   leader every second), flash launches a step on the leader, a MoE
+   model's load-balance loss, and whether every leaf replicated over an
+   axis holds the same bits on each of its peers
+   (``MeshTrainer.replica_mismatches``); the first mesh then saves its
+   state (seconds, bytes) and the last restores it and gathers it back,
+   bit for bit against what the first gathered;
+3. ``--big-model`` (llama3-8b; ``--big-layers`` cuts a Mixtral) on each
+   mesh of ``--big-meshes``: steps, ms and peaks, with no one-device run
+   (its state and activations do not fit one card); its meshes' losses
+   held to each other.
 
 Losses are bf16 sums in another order than one device's (ROADMAP §C), so
 each mesh's first loss, before any update, must be within 1e-2 relative
 of one device's (the big model's: of its first mesh's, at every step),
-every loss finite, and ``--model``'s last below its first (at lr 3e-4
-and warmup 1, llama3-8b's third loss rises from random weights, on every
-mesh alike). Prints the ``nvidia-smi`` name and power limit, then one
-JSON line a run. An empty ``--meshes`` skips ``--model``.
+every loss finite, and a Llama ``--model``'s last below its first (at lr
+3e-4 and warmup 1, llama3-8b's third loss rises from random weights, and
+a MoE model's as its router collapses, ROADMAP C8, on every mesh alike).
+Prints the ``nvidia-smi`` name and power limit, then one JSON line a
+run. An empty ``--meshes`` skips ``--model``.
 
     python3 tools/train_mesh_check.py              # on a host with 4 GPUs
+    python3 tools/train_mesh_check.py --model mixtral-8x7b --layers 4 \
+        --meshes "expert=4;fsdp=4;expert=2,fsdp=2;expert=2,tensor=2" \
+        --big-model mixtral-8x7b --big-layers 16 --big-meshes "expert=4;fsdp=4"
 
 ``--device cpu --model tiny --big-model tiny --batch 8 --seq-len 32``
-checks the script on gloo ranks without a card.
+(or ``--model mixtral-tiny --big-model mixtral-tiny``) checks the script
+on gloo ranks without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -53,11 +67,13 @@ import torch  # noqa: E402
 from kukeon_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kukeon_tpu_torch.parallel import launch  # noqa: E402
 from kukeon_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from kukeon_tpu_torch.models import moe  # noqa: E402
 from kukeon_tpu_torch.training import (TokenDataset, batches,  # noqa: E402
-                                       create_train_state)
+                                       create_moe_train_state, create_train_state)
 from kukeon_tpu_torch.training.checkpointing import latest_step  # noqa: E402
 from kukeon_tpu_torch.training.mesh_trainer import MODELS, MeshTrainer  # noqa: E402
-from kukeon_tpu_torch.training.train_step import make_optimizer, make_train_step  # noqa: E402
+from kukeon_tpu_torch.training.train_step import (make_moe_train_step,  # noqa: E402
+                                                  make_optimizer, make_train_step)
 
 LR, WARMUP, TOTAL, SEED = 3e-4, 1, 8, 0
 
@@ -67,8 +83,9 @@ def emit(obj) -> None:
 
 
 def parse_mesh(text: str) -> dict[str, int]:
-    """``"fsdp=2,tensor=2"`` -> ``{"data": 1, "fsdp": 2, "tensor": 2}``."""
-    axes = {"data": 1, "fsdp": 1, "tensor": 1}
+    """``"fsdp=2,tensor=2"`` -> ``{"data": 1, "fsdp": 2, "expert": 1,
+    "tensor": 2}``."""
+    axes = {"data": 1, "fsdp": 1, "expert": 1, "tensor": 1}
     for part in text.split(","):
         k, v = part.split("=")
         axes[k] = int(v)
@@ -87,36 +104,59 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
-def one_device(model: str, data: str, args) -> dict:
+def config(model: str, layers: int):
+    """``model``'s config, cut to ``layers`` layers (0: its own depth)."""
     cfg = MODELS[model]()
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def loss_of(out) -> tuple[float, float | None]:
+    """(loss, load balance or None) of a step's output (a MoE step's
+    metrics, else the loss)."""
+    if isinstance(out, dict):
+        return float(out["loss"]), float(out["load_balance"])
+    return float(out), None
+
+
+def one_device(model: str, layers: int, data: str, args) -> dict:
+    cfg = config(model, layers)
     dev = "cuda" if args.device == "cuda" else "cpu"
+    is_moe = isinstance(cfg, moe.MoEConfig)
     opt = make_optimizer(LR, warmup_steps=WARMUP, total_steps=TOTAL)
-    state, opt = create_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
-                                    opt)
-    step = make_train_step(cfg, opt)
+    state, opt = (create_moe_train_state if is_moe else create_train_state)(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev, opt)
+    step = (make_moe_train_step if is_moe else make_train_step)(cfg, opt)
     losses, ms = [], []
     for _s, *batch in batches(TokenDataset(data), args.batch, args.seq_len,
                               num_steps=args.steps, seed=SEED, device=dev):
         t0 = time.monotonic()
-        state, loss = step(state, *batch)
-        losses.append(float(loss))
+        state, out = step(state, *batch)
+        losses.append(loss_of(out)[0])
         ms.append((time.monotonic() - t0) * 1e3)
     del state, step
-    return {"losses": losses, "step_ms": [round(x, 3) for x in ms]}
+    out = {"losses": losses, "step_ms": [round(x, 3) for x in ms]}
+    if args.device == "cuda":
+        out["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    return out
 
 
-def mesh_run(model: str, axes: dict, data: str, args, save_to: str | None = None,
+def mesh_run(model: str, layers: int, axes: dict, data: str, args,
+             save_to: str | None = None,
              restore_from: str | None = None) -> tuple[dict, dict | None]:
     """One mesh's run -> (its report, the state it gathered after a save
     or a restore, else None)."""
     if args.device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    mesh = make_mesh(axes["data"], axes["tensor"], args.device, fsdp=axes["fsdp"])
-    tr = MeshTrainer(mesh, model=model, dataset=data, batch=args.batch, seq_len=args.seq_len,
-                     seed=SEED, lr=LR, warmup_steps=WARMUP, total_steps=TOTAL)
+    mesh = make_mesh(axes["data"], axes["tensor"], args.device, fsdp=axes["fsdp"],
+                     expert=axes["expert"])
+    cfg = config(model, layers)
+    tr = MeshTrainer(mesh, model=model, cfg=cfg, dataset=data, batch=args.batch,
+                     seq_len=args.seq_len, seed=SEED, lr=LR, warmup_steps=WARMUP,
+                     total_steps=TOTAL)
     boot_s = time.monotonic() - t0
-    out = {"model": model, "mesh": mesh.axes, "ranks": mesh.size, "boot_s": round(boot_s, 3)}
+    out = {"model": model, "layers": cfg.num_layers, "mesh": mesh.axes, "ranks": mesh.size,
+           "boot_s": round(boot_s, 3)}
     gathered = None
     try:
         if restore_from:
@@ -126,16 +166,21 @@ def mesh_run(model: str, axes: dict, data: str, args, save_to: str | None = None
             gathered = tr.full_state()
         else:
             fa.flash_attention.launches = 0
-            losses, ms = [], []
+            losses, lbs, ms = [], [], []
             for i in range(args.steps):
                 t0 = time.monotonic()
-                losses.append(float(tr.step(i)))
+                loss, lb = loss_of(tr.step(i))
                 ms.append((time.monotonic() - t0) * 1e3)
+                losses.append(loss)
+                lbs.append(lb)
             out.update(losses=losses, step_ms=[round(x, 3) for x in ms],
                        step_ms_median_2_on=round(statistics.median(ms[1:] or ms), 3),
                        tokens_per_s=round(args.batch * args.seq_len
                                           / statistics.median(ms[1:] or ms) * 1e3, 1),
-                       flash_launches_per_step_rank0=fa.flash_attention.launches // args.steps)
+                       flash_launches_per_step_rank0=fa.flash_attention.launches // args.steps,
+                       replica_mismatches=tr.replica_mismatches())
+            if lbs[0] is not None:
+                out["load_balance"] = lbs
             if save_to:
                 t0 = time.monotonic()
                 tr.save(save_to)
@@ -168,10 +213,20 @@ def check_losses(label: str, got: list, want: list | None, falling: bool = True,
             raise AssertionError(f"{label}: losses {got} against {want}")
 
 
+def check_replicas(rep: dict) -> None:
+    if rep["replica_mismatches"]:
+        raise AssertionError(f"{rep['mesh']}: replicated leaves differ across peers: "
+                             f"{rep['replica_mismatches']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="llama3-1b", choices=sorted(MODELS))
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut --model to this many layers (0: its own depth)")
     ap.add_argument("--big-model", default="llama3-8b", choices=sorted(MODELS))
+    ap.add_argument("--big-layers", type=int, default=0,
+                    help="cut --big-model to this many layers (0: its own depth)")
     ap.add_argument("--meshes", default="fsdp=4;fsdp=2,tensor=2;data=2,tensor=2;tensor=4")
     ap.add_argument("--big-meshes", default="fsdp=4;fsdp=2,tensor=2")
     ap.add_argument("--steps", type=int, default=3)
@@ -191,14 +246,15 @@ def main(argv=None) -> int:
     try:
         data = os.path.join(tmp, "tokens.bin")
         zipf_dataset(data, 4_000_000 if args.device == "cuda" else 20_000,
-                     MODELS[args.model]().vocab_size)
+                     min(MODELS[args.model]().vocab_size, MODELS[args.big_model]().vocab_size))
         if args.meshes:
             small(data, tmp, args)
         big = None
         for axes in [parse_mesh(m) for m in args.big_meshes.split(";") if m]:
-            rep, _ = mesh_run(args.big_model, axes, data, args)
+            rep, _ = mesh_run(args.big_model, args.big_layers, axes, data, args)
             check_losses(f"{args.big_model} {axes}", rep["losses"], big, falling=False,
                          steps=args.steps)
+            check_replicas(rep)
             big = big or rep["losses"]
             emit({"run": "mesh", **rep})
     finally:
@@ -209,7 +265,7 @@ def main(argv=None) -> int:
 def small(data: str, tmp: str, args) -> None:
     """``--model`` on one device, then on each of ``--meshes``, the first
     saving its state under ``tmp`` and the last restoring it."""
-    ref = one_device(args.model, data, args)
+    ref = one_device(args.model, args.layers, data, args)
     emit({"run": "one_device", "model": args.model, **ref})
     if args.device == "cuda":
         torch.cuda.empty_cache()
@@ -217,14 +273,20 @@ def small(data: str, tmp: str, args) -> None:
     ckpt = os.path.join(tmp, "ckpt")
     saved = None
     for i, axes in enumerate(meshes):
-        rep, got = mesh_run(args.model, axes, data, args, save_to=ckpt if i == 0 else None)
-        check_losses(str(axes), rep["losses"], ref["losses"])
+        rep, got = mesh_run(args.model, args.layers, axes, data, args,
+                            save_to=ckpt if i == 0 else None)
+        # A MoE model's third loss rises at lr 3e-4 and warmup 1, on one
+        # device and every mesh alike: the router's collapse (ROADMAP C8).
+        check_losses(str(axes), rep["losses"], ref["losses"],
+                     falling=not isinstance(config(args.model, 0), moe.MoEConfig))
+        check_replicas(rep)
         rep["first_loss_rel_diff"] = abs(rep["losses"][0] - ref["losses"][0]) / abs(
             ref["losses"][0])
         saved = got if got is not None else saved
         emit({"run": "mesh", **rep})
     if saved is not None and latest_step(ckpt) == args.steps:
-        rep, got = mesh_run(args.model, meshes[-1], data, args, restore_from=ckpt)
+        rep, got = mesh_run(args.model, args.layers, meshes[-1], data, args,
+                            restore_from=ckpt)
         rep["restored_bitwise"] = sorted(got) == sorted(saved) and all(
             torch.equal(got[k], saved[k]) for k in saved)
         if not rep["restored_bitwise"]:
