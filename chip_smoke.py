@@ -13,7 +13,8 @@ writes and reads itself (HF, kukeon int8, and orbax, with the port's own
 zstd decoder), serve bge-base embeddings, also from orbax, serve
 Mixtral-8x7B and bge-base through the tensor-parallel code over a one-rank
 NCCL group and hold the kernels at every Mixtral shard shape of 2, 4 and 8
-ranks, and train Llama and Mixtral, saving and resuming through orbax.
+ranks, train Llama and Mixtral, saving and resuming through orbax, and run the
+sequence-parallel attention bodies and the pipeline step.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -316,7 +317,7 @@ time; any failure ends the run with a nonzero exit and no result line:
               bit; (d) both cells' main with --chips 2 on the one card
               (started beside (a)) exit 1 with the over-grant message; (e)
               an HF Mixtral-8x7B
-              directory at full width cut to 2 of 32 layers (bf16, ~6 GB,
+              directory at full width cut to 1 of 32 layers (bf16, ~3 GB,
               drawn on the card and written by the port's writer), read by
               the ranks of t = 8 at once, each in a process of its own, as
               serve_stream's (c), through hf_convert.moe_rank_leaves (int8:
@@ -366,6 +367,24 @@ time; any failure ends the run with a nonzero exit and no result line:
               fsdp 4 x expert 2 (counted, nothing allocated); (c) the CLI's
               --expert 2 on one card exits with the over-grant message
               before any byte is allocated. Nothing here spans two GPUs
+  train_sp_pp  sequence and pipeline parallelism: (a) the ring's body
+              (parallel/ring_attention.py's block update) at a llama3-1b
+              seq rank's shapes, S 8192 over 4 blocks of 2048, H 32, KV 8,
+              D 64, bf16: the 4 query blocks' updates over the kv blocks in
+              ring order against one whole causal attention in f32, within
+              one bf16 rounding; one block update and Ulysses' local
+              attention (S 8192, H 8, KV 2) timed forward and with their
+              backward, beside their bounds and SDPA; the flash kernel at
+              each shape a GPipe stage gives it (a microbatch's rows: B 2
+              and B 1 at H 32, KV 8, D 64, B 1 at H 16, KV 4, and at D
+              128) against its plain version; (b) llama3-1b through
+              MeshTrainer's GPipe step (2 microbatches) on a one-rank NCCL
+              group, train's data, seed and init, 3 steps: each loss within
+              1e-3 of train's, 32 flash launches a step (no remat), step ms
+              beside train's, peak memory, a llama3-8b stage's train-state
+              bytes at pipe 4; (c) the CLI's --seq 2 and --pipe 2 on one
+              card exit with the over-grant message before any byte is
+              allocated. Nothing here spans two GPUs
 
 Serving decodes through CUDA graph replays, where the kernels' Python
 launch counters move only while a graph is captured. So a serve phase
@@ -488,7 +507,7 @@ PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs"
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
           "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed",
           "serve_tp_cells", "train", "train_tp", "train_moe",
-          "train_moe_tp")   # in run order
+          "train_moe_tp", "train_sp_pp")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
 STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
                  "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
@@ -4056,57 +4075,65 @@ TRAIN_TP_STEPS = 3
 TRAIN_TP_WORLDS = (2, 4, 8)
 
 
-def train_tp_kernels(fa, bps: float, B: int = TRAIN_B, layers: int = 32) -> dict:
-    """(a): the flash kernel at a train rank's heads of a model with H 32,
-    KV 8, D 128 and ``layers`` layers (llama3-8b at train's B; Mixtral-8x7B
-    at train_moe's), S 2048, H 32/t and KV 8/t at each t of
-    TRAIN_TP_WORLDS, against its plain version; cold-L2 kernel, plain and
-    SDPA ms, the kernel's device ms, and its bound."""
+def flash_at_shape(fa, g: torch.Generator, flush: torch.Tensor, bps: float, B: int, S: int,
+                   H: int, KV: int, D: int, what: str) -> dict:
+    """The flash kernel on random bf16 q, k, v of [B, S, H or KV, D] at
+    positions 0..S-1, against its plain version (one launch, counted, and
+    :func:`flash_within_tol`; ``what`` names the shape in a failure);
+    cold-L2 kernel, plain and SDPA ms, the kernel's device ms, and its
+    bound."""
     import torch.nn.functional as F
 
     from kukeon_tpu_torch.ops.attention import repeat_kv
 
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :].expand(B, S).contiguous()
+    q, k, v = (torch.randn((B, S, n, D), generator=g, device="cuda").to(torch.bfloat16)
+               for n in (H, KV, KV))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, pos, pos)
+    launched = fa.flash_attention.launches - before
+    ref = fa.flash_attention_reference(q, k, v, pos, pos)
+    torch.cuda.synchronize()
+    ok, ea, rel = flash_within_tol(got, ref, v)
+    if not ok or launched != 1:
+        raise AssertionError(f"flash_attention at {what} (B {B}, S {S}, H {H}, KV {KV}, "
+                             f"D {D}): max abs {ea}, rel rms {rel}, {launched} launches")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, repeat_kv(k, H // KV), repeat_kv(v, H // KV)))
+    call = (lambda: fa.flash_attention(q, k, v, pos, pos))
+    t_bytes = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 / bps * 1e3
+    t_ops = flash_flops(B, S, H, D) / BF16_FLOPS * 1e3
+    return {
+        "shape": [B, S, H, KV, D], "max_abs_err": ea, "rel_rms_err": rel,
+        "ms": round(cold_median_ms(call, flush), 4),
+        "plain_ms": round(cold_median_ms(
+            lambda: fa.flash_attention_reference(q, k, v, pos, pos), flush), 4),
+        "library_ms": round(cold_median_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), flush), 4),
+        "device_ms": round(sum(kernel_device_ms(call, flush).values()), 4),
+        "bound_ms": round(max(t_ops, t_bytes), 4),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+FLASH_TOLERANCE = "bf16: |err| <= 2^-7 (|ref| + max|v|) and rms(err) <= 2^-7 rms(ref)"
+
+
+def train_tp_kernels(fa, bps: float, B: int = TRAIN_B, layers: int = 32) -> dict:
+    """(a): the flash kernel at a train rank's heads of a model with H 32,
+    KV 8, D 128 and ``layers`` layers (llama3-8b at train's B; Mixtral-8x7B
+    at train_moe's), S 2048, H 32/t and KV 8/t at each t of
+    TRAIN_TP_WORLDS, against its plain version (:func:`flash_at_shape`)."""
     g = torch.Generator(device="cuda").manual_seed(23)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    S, D = TRAIN_S, 128
-    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :].expand(B, S).contiguous()
-    out, worst = {}, 0.0
+    out = {}
     for t in TRAIN_TP_WORLDS:
-        H, KV = 32 // t, 8 // t
-        q, k, v = (torch.randn((B, S, n, D), generator=g, device="cuda").to(torch.bfloat16)
-                   for n in (H, KV, KV))
-        before = fa.flash_attention.launches
-        got = fa.flash_attention(q, k, v, pos, pos)
-        launched = fa.flash_attention.launches - before
-        ref = fa.flash_attention_reference(q, k, v, pos, pos)
-        torch.cuda.synchronize()
-        ok, ea, rel = flash_within_tol(got, ref, v)
-        if not ok or launched != 1:
-            raise AssertionError(f"flash_attention at the t={t} train shard (H {H}, KV {KV}): "
-                                 f"max abs {ea}, rel rms {rel}, {launched} launches")
-        worst = max(worst, ea)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, repeat_kv(k, H // KV),
-                                                  repeat_kv(v, H // KV)))
-        call = (lambda: fa.flash_attention(q, k, v, pos, pos))
-        t_bytes = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 / bps * 1e3
-        t_ops = flash_flops(B, S, H, D) / BF16_FLOPS * 1e3
-        out[f"t{t}"] = {
-            "shape": [B, S, H, KV, D], "max_abs_err": ea, "rel_rms_err": rel,
-            "ms": round(cold_median_ms(call, flush), 4),
-            "plain_ms": round(cold_median_ms(
-                lambda: fa.flash_attention_reference(q, k, v, pos, pos), flush), 4),
-            "library_ms": round(cold_median_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), flush), 4),
-            "device_ms": round(sum(kernel_device_ms(call, flush).values()), 4),
-            "bound_ms": round(max(t_ops, t_bytes), 4),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "launches_per_rank_step": 2 * layers}
-        del q, k, v, qt, kt, vt, got, ref
+        out[f"t{t}"] = {**flash_at_shape(fa, g, flush, bps, B, TRAIN_S, 32 // t, 8 // t, 128,
+                                         f"the t={t} train shard"),
+                        "launches_per_rank_step": 2 * layers}
     del flush
-    return {"worlds": out, "max_abs_err": worst,
+    return {"worlds": out, "max_abs_err": max(r["max_abs_err"] for r in out.values()),
             "library_call": "torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True) on expanded K/V",
-            "tolerance": "bf16: |err| <= 2^-7 (|ref| + max|v|) and rms(err) <= 2^-7 rms(ref)"}
+            "tolerance": FLASH_TOLERANCE}
 
 
 def one_device_losses(data: str, steps: int) -> list:
@@ -4493,6 +4520,293 @@ def phase_train_moe_tp(fa, bps: float, train_moe: dict | None) -> dict:
         out["b_mesh"]["train_moe_step_ms_median_3_6"] = train_moe["step_ms_median_3_6"]
         out["b_mesh"]["train_moe_step_ms_1_3"] = train_moe["step_ms"][:MOE_TP_STEPS]
         out["b_mesh"]["train_moe_peak_mem_gb"] = train_moe["peak_mem_gb"]
+    return out
+
+
+# train_sp_pp: (a) a llama3-1b seq rank's ring at S SP_S over SP_SEQ ranks
+# (blocks of SP_S / SP_SEQ queries and keys, H 32, KV 8, D 64) and
+# Ulysses' local attention (H 32 / SP_SEQ, KV 8 / SP_SEQ, the whole S);
+# (b) train's configuration through the GPipe step on one rank, PP_STEPS
+# steps at PP_MICROBATCHES microbatches.
+SP_S, SP_SEQ, SP_H, SP_KV, SP_D = 8192, 4, 32, 8, 64
+PP_STEPS, PP_MICROBATCHES = 3, 2
+# (b)'s losses against train's: the pipeline runs two microbatches of two
+# rows where train runs four rows at once, so bf16 products of other
+# shapes (other GEMM tilings) and the gradient summed over two backwards in
+# bf16. On an H100 the sound step reads 0, 7.7e-8 and 5.4e-5 relative at
+# steps 1-3; with the first microbatch's backward skipped, or counted
+# twice, step 3 reads 3.0e-2 or 2.0e-2 (tools/pp_loss_gate.py). The limit
+# sits about 20x from each.
+PP_LOSS_RTOL = 1e-3
+
+
+# The flash kernel's shapes in a GPipe stage, each a microbatch's rows at
+# S 2048: (key, what runs it, B, H, KV, D, launches a rank's step).
+PP_FLASH_SHAPES = (
+    ("b_llama3_1b_m2", "(b): llama3-1b, 2 microbatches of B 4, 16 layers", 2, 32, 8, 64, 32),
+    ("llama3_1b_m4", "llama3-1b at pipe 4 (4 layers a stage) or pipe 2 x data 2 (8 layers, "
+     "2 of the 4 microbatches a rank), M 4 of B 4", 1, 32, 8, 64, 16),
+    ("llama3_1b_m4_t2", "llama3-1b at pipe 2 x tensor 2, M 4 of B 4, 8 layers a stage", 1, 16,
+     4, 64, 32),
+    ("llama3_8b_m8", "llama3-8b at pipe 4, M 8 of B 8, 8 layers a stage", 1, 32, 8, 128, 64),
+)
+
+
+def pp_flash_kernels(fa, bps: float) -> dict:
+    """(a): the flash kernel at each shape a GPipe stage gives it
+    (PP_FLASH_SHAPES: a microbatch's rows, a rank's heads) against its
+    plain version (:func:`flash_at_shape`)."""
+    g = torch.Generator(device="cuda").manual_seed(26)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = {key: {**flash_at_shape(fa, g, flush, bps, B, TRAIN_S, H, KV, D, what),
+                 "runs_in": what, "launches_per_rank_step": n}
+           for key, what, B, H, KV, D, n in PP_FLASH_SHAPES}
+    del flush
+    return {"shapes": out, "max_abs_err": max(r["max_abs_err"] for r in out.values()),
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True) on expanded K/V",
+            "tolerance": FLASH_TOLERANCE}
+
+
+def ring_timings(fn_fwd, fn_both, flush: torch.Tensor, ops: float) -> dict:
+    """Cold ms and device ms of a forward and of a forward and backward,
+    beside their bounds at the bf16 rate (the backward's four products
+    twice the forward's two: 3x its operations in all)."""
+    out = {}
+    for name, fn, n in (("fwd", fn_fwd, ops), ("fwd_bwd", fn_both, 3 * ops)):
+        out[name] = {"ms": round(cold_median_ms(fn, flush, runs=10), 4),
+                     "device_ms": round(sum(kernel_device_ms(fn, flush, calls=3).values()), 4),
+                     "bound_ms": round(n / BF16_FLOPS * 1e3, 4), "bound_by": "operations"}
+    return out
+
+
+def ring_assembly() -> dict:
+    """(a): the ring body (``parallel/ring_attention.py``'s block update)
+    of a llama3-1b seq rank at S SP_S over SP_SEQ ranks, on one card: the
+    SP_SEQ query blocks' online-softmax updates over every kv block in
+    ring order (rank i holds block (i - j) mod SP_SEQ at step j), against
+    one whole causal attention over the S positions in f32 (the plain
+    reference attention of the upcast inputs, a query block at a time).
+    The ring computes in f32 and rounds its output to bf16 once, so every
+    element within half a bf16 ulp, 2^-8 of its magnitude, plus 1e-5 of
+    max|v| for the f32 sums' order. Then, ungated: one full block update
+    (2048 queries against 2048 earlier keys) forward and forward and
+    backward, beside SDPA on the same block (K/V expanded, no mask); and
+    Ulysses' local attention (``attention_reference`` over the whole S at
+    H 32 / SP_SEQ, KV 8 / SP_SEQ, causal) beside causal SDPA."""
+    import torch.nn.functional as F
+
+    from kukeon_tpu_torch.ops.attention import (NEG_INF, attention_mask,
+                                                attention_reference, repeat_kv)
+    from kukeon_tpu_torch.parallel.ring_attention import block_update, finish
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    S, n, H, KV, D = SP_S, SP_SEQ, SP_H, SP_KV, SP_D
+    blk, rep, scale = S // n, H // KV, 1.0 / math.sqrt(D)
+    q, k, v = (torch.randn((1, S, h, D), generator=g, device="cuda").to(torch.bfloat16)
+               for h in (H, KV, KV))
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :]
+
+    def fresh():
+        return (torch.zeros((1, blk, H, D), device="cuda"),
+                torch.full((1, H, blk), NEG_INF, device="cuda"),
+                torch.zeros((1, H, blk), device="cuda"))
+
+    ke, ve = repeat_kv(k, rep).float(), repeat_kv(v, rep).float()
+    worst, rel = 0.0, 0.0
+    ok = True
+    with torch.no_grad():
+        for i in range(n):
+            qs = slice(i * blk, (i + 1) * blk)
+            o, m, l = fresh()
+            for j in range(n):
+                b = (i - j) % n
+                ks = slice(b * blk, (b + 1) * blk)
+                o, m, l = block_update(o, m, l, q[:, qs], k[:, ks], v[:, ks], pos[:, qs],
+                                       pos[:, ks], scale)
+            got = finish(o, l, q.dtype).float()
+            ref = attention_reference(q[:, qs].float(), ke, ve,
+                                      attention_mask(pos[:, qs], pos))
+            err = (got - ref).abs()
+            ok = ok and bool(torch.all(err <= 2.0 ** -8 * ref.abs()
+                                       + 1e-5 * v.float().abs().max()))
+            ok = ok and bool(torch.isfinite(got).all())
+            worst = max(worst, float(err.max()))
+            rel = max(rel, float(err.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()))
+            del o, m, l, got, ref, err
+    del ke, ve
+    if not ok:
+        raise AssertionError(f"ring assembly at S {S} over {n} blocks: max abs {worst} "
+                             "past 2^-8 |ref| + 1e-5 max|v|")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    # One full block: queries of block 1 against the keys of block 0.
+    qb, kb, vb = q[:, blk:2 * blk], k[:, :blk], v[:, :blk]
+    pq, pk = pos[:, blk:2 * blk], pos[:, :blk]
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (qb, kb, vb))
+    go = torch.randn((1, blk, H, D), generator=g, device="cuda").to(torch.bfloat16)
+
+    def ring_fwd():
+        with torch.no_grad():
+            return block_update(*fresh(), qb, kb, vb, pq, pk, scale)
+
+    def ring_both():
+        o, _m, l = block_update(*fresh(), qg, kg, vg, pq, pk, scale)
+        finish(o, l, qg.dtype).backward(go)
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (qb, repeat_kv(kb, rep), repeat_kv(vb, rep)))
+    qtg, ktg, vtg = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
+    got = {"shape": [1, blk, H, KV, D], "blocks": n,
+           "ring_block": ring_timings(ring_fwd, ring_both, flush, 4.0 * blk * blk * D * H),
+           "ring_block_sdpa": ring_timings(
+               lambda: F.scaled_dot_product_attention(qt, kt, vt),
+               lambda: F.scaled_dot_product_attention(qtg, ktg, vtg).backward(
+                   go.transpose(1, 2)), flush, 4.0 * blk * blk * D * H)}
+    del qg, kg, vg, qtg, ktg, vtg
+    # Ulysses' local body: the whole sequence on H / n heads.
+    h, kvh = H // n, KV // n
+    qu, ku, vu = q[:, :, :h], k[:, :, :kvh], v[:, :, :kvh]
+    mask = attention_mask(pos, pos)
+    qug, kug, vug = (x.detach().clone().requires_grad_(True) for x in (qu, ku, vu))
+    gu = torch.randn((1, S, h, D), generator=g, device="cuda").to(torch.bfloat16)
+
+    def ulysses(a, b, c):
+        return attention_reference(a, repeat_kv(b, h // kvh), repeat_kv(c, h // kvh), mask)
+
+    def ulysses_fwd():
+        with torch.no_grad():
+            return ulysses(qu, ku, vu)
+
+    qs_, ks_, vs_ = (x.transpose(1, 2) for x in (qu, repeat_kv(ku, h // kvh),
+                                                 repeat_kv(vu, h // kvh)))
+    qsg, ksg, vsg = (x.detach().clone().requires_grad_(True) for x in (qs_, ks_, vs_))
+    got["ulysses_local"] = {"shape": [1, S, h, kvh, D], **ring_timings(
+        ulysses_fwd, lambda: ulysses(qug, kug, vug).backward(gu), flush,
+        flash_flops(1, S, h, D))}
+    got["ulysses_local_sdpa"] = ring_timings(
+        lambda: F.scaled_dot_product_attention(qs_, ks_, vs_, is_causal=True),
+        lambda: F.scaled_dot_product_attention(qsg, ksg, vsg, is_causal=True).backward(
+            gu.transpose(1, 2)), flush, flash_flops(1, S, h, D))
+    del flush
+    return {"max_abs_err": worst, "rel_rms_err": rel,
+            "tolerance": "|err| <= 2^-8 |ref| + 1e-5 max|v| (one bf16 rounding of an f32 "
+                         "result) against f32 causal attention", **got,
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"}
+
+
+def train_pp_mesh(fa, want: list | None) -> dict:
+    """(b): llama3-1b through MeshTrainer's GPipe step (``num_microbatches``
+    PP_MICROBATCHES) on a one-rank NCCL group, PP_STEPS steps of train's
+    configuration (seed 0, lr 3e-4, warmup 1, total TRAIN_STEPS, its Zipf
+    dataset): each loss's relative gap from ``want``'s (train's exact
+    losses; None: one_device_losses), which :func:`check_pp_losses` holds
+    to PP_LOSS_RTOL, K3 launches a step (no remat: one a
+    layer a microbatch; the counter set to 0 just before the steps), ms a
+    step and peak memory; the group shut down after."""
+    import torch.distributed as dist
+
+    from kukeon_tpu_torch.models import llama
+    from kukeon_tpu_torch.parallel import launch
+    from kukeon_tpu_torch.parallel.mesh import make_mesh
+    from kukeon_tpu_torch.parallel.sharding import TrainLayout
+    from kukeon_tpu_torch.training.mesh_trainer import MeshTrainer
+
+    cfg = llama.llama3_1b()
+    tmp = tempfile.mkdtemp(prefix="kukeon-train-pp-")
+    try:
+        data = os.path.join(tmp, "tokens.bin")
+        zipf_dataset(data, 4_000_000, seed=0)
+        if want is None:
+            want = one_device_losses(data, PP_STEPS)
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh(device="cuda")
+        backend = dist.get_backend()
+        if mesh.size != 1 or launch.current() is None or backend != "nccl":
+            raise AssertionError(f"make_mesh() on one card: {mesh}, backend {backend}")
+        t0 = time.monotonic()
+        tr = MeshTrainer(mesh, model="llama3-1b", dataset=data, batch=TRAIN_B,
+                         seq_len=TRAIN_S, seed=0, lr=3e-4, warmup_steps=1,
+                         total_steps=TRAIN_STEPS, num_microbatches=PP_MICROBATCHES)
+        if not tr.pipeline:
+            raise AssertionError("num_microbatches did not select the GPipe step")
+        init_s = time.monotonic() - t0
+        fa.flash_attention.launches = 0
+        losses, step_ms = [], []
+        for i in range(PP_STEPS):
+            t0 = time.monotonic()
+            losses.append(float(tr.step(i)))             # waits for the device
+            step_ms.append((time.monotonic() - t0) * 1e3)
+        launches = fa.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        tr.close()
+        del tr
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want[:PP_STEPS])]
+    per_step = cfg.num_layers * PP_MICROBATCHES
+    if launches != per_step * PP_STEPS:
+        raise AssertionError(f"pipeline step: {launches} flash launches, want {per_step} "
+                             "a step")
+    cfg8 = llama.llama3_8b()
+    state_gb = {f"pipe4_stage{p}": round(TrainLayout(cfg8, 0, 1, 0, 1, pipe_rank=p, pipe=4,
+                                                     pipeline=True).state_bytes() / 1e9, 3)
+                for p in (0, 3)}
+    return {"model": "llama3-1b", "batch": TRAIN_B, "seq_len": TRAIN_S,
+            "microbatches": PP_MICROBATCHES, "backend": backend, "losses": losses,
+            "train_losses": want[:PP_STEPS], "loss_rel_diff": rel,
+            "loss_rtol": PP_LOSS_RTOL, "init_s": round(init_s, 3),
+            "step_ms": [round(x, 3) for x in step_ms],
+            "step_ms_median_2_3": round(statistics.median(step_ms[1:]), 3),
+            "peak_mem_gb": round(peak / 1e9, 2), "flash_launches": launches,
+            "flash_launches_per_step": launches // PP_STEPS,
+            "llama3-8b_rank_state_gb": state_gb}
+
+
+def check_pp_losses(out: dict) -> None:
+    """(b)'s gate: each of the pipeline's PP_STEPS losses within
+    PP_LOSS_RTOL of train's."""
+    rel = out["loss_rel_diff"]
+    if len(rel) != PP_STEPS or max(rel) > PP_LOSS_RTOL:
+        raise AssertionError(f"pipeline losses {out['losses']} against train's "
+                             f"{out['train_losses']}: relative {rel} past {PP_LOSS_RTOL}")
+
+
+def train_sp_pp_overgrant() -> dict:
+    """(c): the CLI with --seq 2, and with --pipe 2, on one card exits with
+    the over-grant message, and no byte reaches the card."""
+    from kukeon_tpu_torch.training import cli
+
+    out = {}
+    for axis in ("seq", "pipe"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            cli.main(["--dataset", "unused.bin", "--model", "llama3-1b", f"--{axis}", "2"])
+            raise AssertionError(f"--{axis} 2 on one card did not exit")
+        except SystemExit as e:
+            message = str(e)
+        if ("wants 2 GPUs but only 1 visible" not in message
+                or torch.cuda.memory_allocated() != before):
+            raise AssertionError(f"over-grant: {message!r}, allocated {before} -> "
+                                 f"{torch.cuda.memory_allocated()}")
+        out[axis] = {"message": message, "bytes_allocated": 0}
+    return out
+
+
+def phase_train_sp_pp(fa, bps: float, train: dict | None) -> dict:
+    out = {"c_overgrant": train_sp_pp_overgrant(), "a_ring": ring_assembly(),
+           "a_stage_flash": pp_flash_kernels(fa, bps)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b_pipeline"] = train_pp_mesh(fa, train["exact_losses"] if train else None)
+    check_pp_losses(out["b_pipeline"])
+    if train:
+        out["b_pipeline"]["train_step_ms_median_3_8"] = train["step_ms_median_3_8"]
+        out["b_pipeline"]["train_peak_mem_gb"] = train["peak_mem_gb"]
     return out
 
 
@@ -4994,7 +5308,7 @@ def serve_tp_cells(k1, bps: float) -> dict:
 
 
 # serve_tp_cells (e): Mixtral-8x7B at full width, cut to this many layers.
-MIXTRAL_CUT_LAYERS = 2
+MIXTRAL_CUT_LAYERS = 1
 
 
 def write_mixtral_hf(path: str, cfg, seed: int, device: str = "cuda") -> dict:
@@ -5343,6 +5657,7 @@ def run_phases(phases: list) -> int:
 
     run("train_moe", train_moe)
     run("train_moe_tp", lambda: phase_train_moe_tp(fa, bps, res.get("train_moe")))
+    run("train_sp_pp", lambda: phase_train_sp_pp(fa, bps, res.get("train")))
     if set(phases) != set(PHASES):
         print("chip_smoke: ran a subset of the phases; no result line", file=sys.stderr)
         return 0
@@ -5351,7 +5666,7 @@ def run_phases(phases: list) -> int:
     serve8, serve1, serve_moe, train = (res["serve"], res["serve_tied"], res["serve_moe"],
                                         res["train"])
     train_moe, embed, ckpt = res["train_moe"], res["serve_embed"], res["serve_ckpt"]
-    ttp, tmtp = res["train_tp"], res["train_moe_tp"]
+    ttp, tmtp, tsp = res["train_tp"], res["train_moe_tp"], res["train_sp_pp"]
     stream, tune, orbax = res["serve_stream"], res["serve_tune"], res["serve_orbax"]
     tp, tpc = res["serve_tp"], res["serve_tp_cells"]
     ft, fm = flash["timing"], flash["timing_mixtral_train"]
@@ -5416,15 +5731,20 @@ def run_phases(phases: list) -> int:
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES,
          "launches": (train["flash_launches"] + train_moe["flash_launches"]
-                      + ttp["b_mesh"]["flash_launches"] + tmtp["b_mesh"]["flash_launches"]),
+                      + ttp["b_mesh"]["flash_launches"] + tmtp["b_mesh"]["flash_launches"]
+                      + tsp["b_pipeline"]["flash_launches"]),
          "launches_train": train["flash_launches"],
          "launches_train_moe": train_moe["flash_launches"],
          "launches_train_tp": ttp["b_mesh"]["flash_launches"],
          "launches_train_moe_tp": tmtp["b_mesh"]["flash_launches"],
+         "launches_train_sp_pp": tsp["b_pipeline"]["flash_launches"],
          **{f"{name}_shards": {w: {k: v[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "device_ms", "bound_ms", "bound_by",
              "max_abs_err")} for w, v in r["a_shards"]["worlds"].items()}
             for name, r in (("train_tp", ttp), ("train_moe_tp", tmtp))},
+         "train_sp_pp_stages": {w: {k: v[k] for k in (
+             "shape", "ms", "plain_ms", "library_ms", "device_ms", "bound_ms", "bound_by",
+             "max_abs_err")} for w, v in tsp["a_stage_flash"]["shapes"].items()},
          "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),
          **{f: round(ft[f], 4) for f in fields},
          "bound_by": ft["bound_by"], "library_ms_call": ft["library_call"],
@@ -5530,6 +5850,15 @@ def run_phases(phases: list) -> int:
             "a_flash_bound_ms": {w: v["bound_ms"] for w, v in
                                  tmtp["a_shards"]["worlds"].items()},
             "c_message": tmtp["c_overgrant"]["message"]},
+        "train_sp_pp_llama3-1b": {
+            "a_ring": {k: tsp["a_ring"][k] for k in (
+                "max_abs_err", "rel_rms_err", "ring_block", "ring_block_sdpa",
+                "ulysses_local", "ulysses_local_sdpa")},
+            "b_pipeline": {k: tsp["b_pipeline"][k] for k in (
+                "losses", "loss_rel_diff", "step_ms_median_2_3", "peak_mem_gb",
+                "flash_launches_per_step", "llama3-8b_rank_state_gb")},
+            "train_step_ms_median_3_8": train["step_ms_median_3_8"],
+            "c_messages": {a: v["message"] for a, v in tsp["c_overgrant"].items()}},
         "serve_stream_llama3-8b": {
             **{k: stream[k] for k in (
                 "tmp_free_gb", "save_s", "checkpoint_bytes", "construct_s", "ready_s",

@@ -606,12 +606,35 @@ def gather_layer(w: dict, dims: dict, mesh) -> dict:
             for name, t in w.items()}
 
 
+def seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                  attn_impl: str, mesh) -> torch.Tensor:
+    """A training rank's attention of its queries (its block of the
+    sequence on ``seq``, ``positions`` their absolute positions) over the
+    whole sequence: ``ring`` and ``ulysses`` through their collectives;
+    any other ``attn_impl`` over the keys, values and positions of every
+    seq peer gathered here (the keys' and values' gradients
+    reduce-scattered back), as the reference's GSPMD attends a seq-cut
+    batch without ring attention. On a mesh whose ``seq`` is 1 it is
+    ``gqa_attention`` over the rank's own keys."""
+    from kukeon_tpu_torch.parallel import autograd as pa
+    from kukeon_tpu_torch.parallel.mesh import AXIS_SEQ
+
+    kv_positions = positions
+    if attn_impl not in ("ring", "ulysses") and mesh.seq > 1:
+        k, v = pa.gather(k, 1, mesh, AXIS_SEQ), pa.gather(v, 1, mesh, AXIS_SEQ)
+        kv_positions = mesh.gather(positions, 1, AXIS_SEQ)
+    return gqa_attention(q, k, v, q_positions=positions, kv_positions=kv_positions,
+                         impl=attn_impl, mesh=mesh)
+
+
 def train_attention(x: torch.Tensor, w: dict, cfg, positions: torch.Tensor, attn_impl: str,
                     rope: tuple[torch.Tensor, torch.Tensor], mesh) -> torch.Tensor:
     """The attention half of a block on a training mesh, ``w`` one layer's
-    gathered weights: ``x`` plus the attention of the rank's heads, its
-    input copied to ``tensor`` and its row-parallel partial summed over
-    it. The trunk of both families' training blocks."""
+    gathered weights: ``x`` plus the attention of the rank's heads
+    (:func:`seq_attention`: over every seq peer's keys), its input
+    copied to ``tensor`` and its row-parallel partial summed over it. The
+    trunk of both families' training blocks; ``positions`` and ``rope``
+    are the rank's tokens' absolute positions and their tables."""
     from kukeon_tpu_torch.parallel import autograd as pa
 
     c = cfg
@@ -623,8 +646,7 @@ def train_attention(x: torch.Tensor, w: dict, cfg, positions: torch.Tensor, attn
     v = (h @ w["wv"]).reshape(B, S, nkv, c.head_dim)[:, :, sel]
     q = apply_rope(q, positions, c.rope_theta, rope)
     k = apply_rope(k, positions, c.rope_theta, rope)
-    attn = gqa_attention(q, k, v, q_positions=positions, kv_positions=positions,
-                         impl=attn_impl)
+    attn = seq_attention(q, k, v, positions, attn_impl, mesh)
     return x + pa.reduce_from_tensor(attn.reshape(B, S, nh * c.head_dim) @ w["wo"], mesh)
 
 
@@ -673,24 +695,30 @@ def train_logits(params: Params, cfg, x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def forward_train(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
-                  positions: torch.Tensor, mesh, *, remat: bool = True) -> torch.Tensor:
+                  positions: torch.Tensor, mesh, *, remat: bool = True,
+                  attn_impl: str = "auto") -> torch.Tensor:
     """The cacheless forward of a training mesh's rank (``mesh``, a
     ``parallel.mesh.Mesh``; ``params`` its local blocks,
-    ``parallel/sharding.py`` ``TrainLayout``; ``tokens`` its batch rows),
-    under autograd -> logits [B, S, V] f32, the whole vocabulary on every
-    tensor peer. The embedding is gathered over ``fsdp`` for the lookup
-    and again for a tied LM head; each block is :func:`train_block`, under
-    non-reentrant remat when ``remat``. At one rank it is :func:`forward`
-    without a cache, op for op."""
+    ``parallel/sharding.py`` ``TrainLayout``; ``tokens`` its batch rows,
+    and on a ``seq`` axis its block of their columns; ``positions`` their
+    absolute positions), under autograd -> logits [B, S, V] f32, the whole
+    vocabulary on every tensor peer. The embedding is gathered over
+    ``fsdp`` for the lookup and again for a tied LM head; each block is
+    :func:`train_block`, under non-reentrant remat when ``remat`` (the
+    backward recomputes a block's collectives, the ring's hops among them,
+    in the forward's order on every rank); ``attn_impl`` as
+    :func:`seq_attention` takes it (``ring`` the reference's step at
+    ``seq`` > 1). Each rank's rope reads its own absolute positions. At
+    one rank it is :func:`forward` without a cache, op for op."""
     c = cfg
     x = train_embed(params, c, tokens, mesh)
     rope = rope_tables(positions, c.head_dim, c.rope_theta)
     for w in layer_slices(params):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                train_block, x, w, c, positions, "auto", rope, mesh, use_reentrant=False)
+                train_block, x, w, c, positions, attn_impl, rope, mesh, use_reentrant=False)
         else:
-            x = train_block(x, w, c, positions, "auto", rope, mesh)
+            x = train_block(x, w, c, positions, attn_impl, rope, mesh)
     return train_logits(params, c, x, mesh)
 
 

@@ -11,8 +11,10 @@ operands, which gives the same exact products and an f32 sum.
 forward (:mod:`kukeon_tpu_torch.ops.flash_attention`, a CUDA kernel) for
 cacheless self-attention at S >= 1024 on the GPU, where the reference
 takes its Pallas kernel on the TPU, and the grouped einsum otherwise.
-Engine prefill always has a cache, so it never takes flash. The
-ring/ulysses sequence-parallel paths raise ``NotImplementedError``.
+Engine prefill always has a cache, so it never takes flash. ``ring`` and
+``ulysses`` are the sequence-parallel paths over a training mesh's
+``seq`` axis (``parallel/ring_attention.py``, ``parallel/ulysses.py``):
+where the reference reads its ambient mesh, the port takes ``mesh=``.
 """
 
 from __future__ import annotations
@@ -165,6 +167,7 @@ def gqa_attention(
     kv_positions: torch.Tensor,
     kv_length: torch.Tensor | None = None,
     impl: str = "auto",
+    mesh=None,
 ) -> torch.Tensor:
     """GQA attention entry point used by the model.
 
@@ -173,12 +176,31 @@ def gqa_attention(
     "auto" takes it when ``kv_length`` is None, Sq >= 1024, the shape is
     one :func:`flash_attention.supports` covers and q lies on the GPU (the
     reference's rule, with the GPU in the TPU's place); "reference" and
-    every other case take the grouped einsum.
+    every other case take the grouped einsum. "ring" and "ulysses" attend
+    this rank's block of the sequence over every ``seq`` peer's on a
+    training ``mesh`` (``parallel.mesh.Mesh``), full self-attention only;
+    without a mesh they are a ``ValueError``, as the reference's are
+    without an ambient one.
     """
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"impl={impl!r} (sequence parallelism) is not ported yet: "
-            "ROADMAP.md A13d, multi-GPU")
+        if kv_length is not None or q.shape[1] != k.shape[1]:
+            raise ValueError(
+                f"impl={impl!r} requires full self-attention (Sq == Skv, no "
+                f"kv_length); got Sq={q.shape[1]}, Skv={k.shape[1]}, "
+                f"kv_length={'set' if kv_length is not None else 'None'}. "
+                "Use 'reference' or 'auto' for cached decode."
+            )
+        if mesh is None:
+            raise ValueError(f"impl={impl!r} attends over a mesh's seq axis: pass mesh=")
+        if impl == "ulysses":
+            from kukeon_tpu_torch.parallel.ulysses import ulysses_attention
+
+            return ulysses_attention(q, k, v, q_positions=q_positions,
+                                     kv_positions=kv_positions, mesh=mesh)
+        from kukeon_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+                              mesh=mesh)
     if impl not in ("auto", "reference", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
 

@@ -19,16 +19,18 @@ applies, in order, the device actions the leader posts to them.
   follower when an action that meets a collective is posted: a decode
   chunk's host inputs and its program run go out together. An argument
   wrapped in :class:`PerRank` sends each follower its own element.
-- **Data x fsdp x expert x tensor**: a group of ``world`` ranks is laid
-  out as the reference's mesh orders its axes, ``tensor`` innermost:
-  global rank ``((d * fsdp + f) * expert + x) * tensor + t``. Serving has
-  no fsdp or expert axis, so its ranks ``d * tensor .. (d + 1) * tensor -
-  1`` are data replica ``d``. Every axis of more than one rank gets a
+- **Pipe x data x fsdp x expert x seq x tensor**: a group of ``world``
+  ranks is laid out as the reference's mesh orders its axes, ``pipe``
+  outermost and ``tensor`` innermost: global rank ``((((p * data + d) *
+  fsdp + f) * expert + x) * seq + s) * tensor + t``. Serving has only data
+  and tensor, so its ranks ``d * tensor .. (d + 1) * tensor - 1`` are data
+  replica ``d``. Every axis of more than one rank gets a
   ``torch.distributed`` subgroup per coordinate of the others
-  (:attr:`Group.pgs`: ``tensor``, ``fsdp``, ``expert``, ``data``,
-  ``batch`` (data x fsdp) and ``expert_tensor`` (expert x tensor)), made
-  at the rendezvous in one order on every rank, which the mesh's
-  collectives run over. The leader drives every follower with the same
+  (:attr:`Group.pgs`: ``tensor``, ``fsdp``, ``expert``, ``seq``,
+  ``pipe``, ``data``, ``batch`` (data x fsdp x seq), ``data_seq`` (data x
+  seq) and ``expert_tensor`` (expert x tensor)), made at the rendezvous
+  in one order on every rank, which the mesh's collectives and
+  point-to-point hops run over. The leader drives every follower with the same
   descriptors.
 - **Failures end the group**: a follower whose process exits, or whose
   action raises, marks the group failed and calls ``on_failure`` (a cell
@@ -57,6 +59,7 @@ import dataclasses
 import datetime
 import gc
 import importlib
+import itertools
 import os
 import pickle
 import shutil
@@ -73,6 +76,7 @@ import torch
 import torch.distributed as dist
 
 from kukeon_tpu_torch import faults
+from kukeon_tpu_torch.parallel.mesh import AXES
 
 TIMEOUT_ENV = "KUKEON_TP_TIMEOUT_S"
 _AUTHKEY_ENV = "KUKEON_TP_AUTHKEY"
@@ -112,33 +116,46 @@ def _device(device_type: str, rank: int) -> torch.device:
     return torch.device(f"cuda:{rank}") if device_type == "cuda" else torch.device("cpu")
 
 
-def _axis_groups(world: int, tensor: int, fsdp: int,
-                 expert: int = 1) -> dict[str, list[list[int]]]:
-    """Every axis group's ranks of a ``data`` x ``fsdp`` x ``expert`` x
-    ``tensor`` group (global rank ``((d * fsdp + f) * expert + x) * tensor
-    + t``), in one order: ``tensor`` (a data replica's block of one fsdp
-    and expert coordinate), ``fsdp``, ``expert``, ``data``, ``batch`` (data
-    x fsdp, the ranks of one expert and tensor coordinate) and
-    ``expert_tensor`` (the ranks of one data and fsdp coordinate). Axes of
-    one rank are absent, but for ``tensor`` on a group of more ranks: the
-    serving collectives run over a subgroup of each replica's own."""
-    data = world // (tensor * expert * fsdp)
-    D, F, X, T = range(data), range(fsdp), range(expert), range(tensor)
-    r = lambda d, f, x, t: ((d * fsdp + f) * expert + x) * tensor + t  # noqa: E731
-    groups = {
-        "tensor": [[r(d, f, x, t) for t in T] for d in D for f in F for x in X],
-        "fsdp": [[r(d, f, x, t) for f in F] for d in D for x in X for t in T],
-        "expert": [[r(d, f, x, t) for x in X] for d in D for f in F for t in T],
-        "data": [[r(d, f, x, t) for d in D] for f in F for x in X for t in T],
-        "batch": [[r(d, f, x, t) for d in D for f in F] for x in X for t in T],
-        "expert_tensor": [[r(d, f, x, t) for x in X for t in T] for d in D for f in F],
-    }
-    return {axis: g for axis, g in groups.items()
-            if len(g[0]) > 1 or (axis == "tensor" and world > 1)}
+# The axis groups beyond the six: each the ranks that differ on these axes.
+_PRODUCT_GROUPS = {"batch": ("data", "fsdp", "seq"), "data_seq": ("data", "seq"),
+                   "expert_tensor": ("expert", "tensor")}
+
+
+def _axis_groups(world: int, tensor: int, fsdp: int, expert: int = 1, seq: int = 1,
+                 pipe: int = 1) -> dict[str, list[list[int]]]:
+    """Every axis group's ranks of a ``pipe`` x ``data`` x ``fsdp`` x
+    ``expert`` x ``seq`` x ``tensor`` group (global rank ``((((p * data +
+    d) * fsdp + f) * expert + x) * seq + s) * tensor + t``), in one order:
+    ``tensor`` (a data replica's block of one coordinate on every other
+    axis), ``fsdp``, ``expert``, ``data``, ``batch`` (data x fsdp x seq),
+    ``expert_tensor``, ``seq``, ``pipe`` and ``data_seq``; each axis's
+    groups one a coordinate of the others, in the order of those
+    coordinates. Axes of one rank are absent, but for ``tensor`` on a
+    group of more ranks: the serving collectives run over a subgroup of
+    each replica's own."""
+    sizes = dict(zip(AXES, (pipe, world // (tensor * seq * expert * fsdp * pipe), fsdp,
+                             expert, seq, tensor)))
+    coords = list(itertools.product(*(range(sizes[a]) for a in AXES)))  # by global rank
+
+    def groups(axes: tuple) -> list[list[int]]:
+        by_rest: dict[tuple, list[int]] = {}
+        for r, c in enumerate(coords):
+            rest = tuple(v for a, v in zip(AXES, c) if a not in axes)
+            by_rest.setdefault(rest, []).append(r)
+        return list(by_rest.values())
+
+    out = {}
+    for axis in ("tensor", "fsdp", "expert", "data", "batch", "expert_tensor", "seq",
+                 "pipe", "data_seq"):
+        g = groups(_PRODUCT_GROUPS.get(axis, (axis,)))
+        if len(g[0]) > 1 or (axis == "tensor" and world > 1):
+            out[axis] = g
+    return out
 
 
 def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
-                      tensor: int, fsdp: int = 1, expert: int = 1) -> dict:
+                      tensor: int, fsdp: int = 1, expert: int = 1, seq: int = 1,
+                      pipe: int = 1) -> dict:
     """``init_process_group`` on the rendezvous store, then one eager
     ``all_reduce`` that must sum to ``world``: NCCL builds its communicator
     there, outside any graph capture, and a rank that cannot reach the
@@ -164,7 +181,7 @@ def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
         raise RankFailure(f"rendezvous all_reduce gave {one.item()}, want {world}")
     pgs: dict = {}
     made: dict[tuple, Any] = {tuple(range(world)): None}
-    for axis, groups in _axis_groups(world, tensor, fsdp, expert).items():
+    for axis, groups in _axis_groups(world, tensor, fsdp, expert, seq, pipe).items():
         for ranks in groups:
             key = tuple(ranks)
             if key not in made:
@@ -182,11 +199,12 @@ def _init_torch_group(device_type: str, store_path: str, rank: int, world: int,
 class Group:
     """This process's rank group. The leader's holds the followers'
     processes and channels; a follower's, its channel to the leader.
-    ``tensor``, ``fsdp`` and ``expert`` the sizes of those axes; ``pgs``
-    this rank's ``torch.distributed`` group of each axis of more than one
-    rank (``tensor``, ``fsdp``, ``expert``, ``data``, ``batch``,
-    ``expert_tensor``; None: the whole group), ``tensor_pg`` its tensor
-    subgroup (None: the whole group, or one rank).
+    ``tensor``, ``fsdp``, ``expert``, ``seq`` and ``pipe`` the sizes of
+    those axes; ``pgs`` this rank's ``torch.distributed`` group of each
+    axis of more than one rank (``tensor``, ``fsdp``, ``expert``, ``seq``,
+    ``pipe``, ``data``, ``batch``, ``data_seq``, ``expert_tensor``; None:
+    the whole group), ``tensor_pg`` its tensor subgroup (None: the whole
+    group, or one rank).
     ``peer_stats[r]``: the latest allocator counters follower r reported
     (``{"in_use", "limit", "peak", "index"}``), read by the leader's
     scrapes without any CUDA call."""
@@ -194,12 +212,14 @@ class Group:
     def __init__(self, rank: int, world: int, device_type: str, rdzv: str,
                  conns: list[Connection], procs: list[subprocess.Popen] | None = None,
                  tensor: int | None = None, pgs: dict | None = None, fsdp: int = 1,
-                 expert: int = 1):
+                 expert: int = 1, seq: int = 1, pipe: int = 1):
         self.rank = rank
         self.world = world
         self.tensor = tensor or world
         self.fsdp = fsdp
         self.expert = expert
+        self.seq = seq
+        self.pipe = pipe
         self.pgs = pgs or {}
         self.tensor_pg = self.pgs.get("tensor")
         self.device_type = device_type
@@ -409,26 +429,28 @@ def current() -> Group | None:
 
 
 def group(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1,
-          expert: int = 1) -> Group:
+          expert: int = 1, seq: int = 1, pipe: int = 1) -> Group:
     """This process's group of ``world`` ranks on ``device_type``, laid out
-    data x ``fsdp`` x ``expert`` x ``tensor`` (``tensor`` None: the whole
-    world, one replica): the open one when it matches, else a new one
-    (:func:`start`).
+    ``pipe`` x data x ``fsdp`` x ``expert`` x ``seq`` x ``tensor``
+    (``tensor`` None: the whole world, one replica): the open one when it
+    matches, else a new one (:func:`start`).
     A second group of another shape in one process is a ``ValueError``."""
     global _GROUP
     tensor = tensor or world
     with _GROUP_LOCK:
         if _GROUP is not None and _GROUP.failed is None:
-            if ((_GROUP.world, _GROUP.tensor, _GROUP.fsdp, _GROUP.expert, _GROUP.device_type)
-                    != (world, tensor, fsdp, expert, device_type)):
+            if ((_GROUP.world, _GROUP.tensor, _GROUP.fsdp, _GROUP.expert, _GROUP.seq,
+                 _GROUP.pipe, _GROUP.device_type)
+                    != (world, tensor, fsdp, expert, seq, pipe, device_type)):
                 raise ValueError(
                     f"this process already leads a group of {_GROUP.world} "
-                    f"{_GROUP.device_type} ranks (fsdp {_GROUP.fsdp}, expert "
-                    f"{_GROUP.expert}, tensor {_GROUP.tensor}); one group a process")
+                    f"{_GROUP.device_type} ranks (pipe {_GROUP.pipe}, fsdp {_GROUP.fsdp}, "
+                    f"expert {_GROUP.expert}, seq {_GROUP.seq}, tensor {_GROUP.tensor}); "
+                    "one group a process")
             return _GROUP
         if _GROUP is not None:
             _GROUP.close()
-        _GROUP = start(world, device_type, tensor, fsdp, expert)
+        _GROUP = start(world, device_type, tensor, fsdp, expert, seq, pipe)
         return _GROUP
 
 
@@ -456,16 +478,17 @@ def follower_env(key: bytes) -> dict[str, str]:
 
 
 def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1,
-          expert: int = 1) -> Group:
-    """Start ``world - 1`` followers and join them as rank 0, laid out data
-    x ``fsdp`` x ``expert`` x ``tensor`` (``tensor`` None: ``world``;
-    ``fsdp * expert * tensor`` must divide ``world``). A follower that
-    exits before it connects, or a rendezvous that outlasts the timeout,
-    kills the others and raises :class:`RankFailure`."""
+          expert: int = 1, seq: int = 1, pipe: int = 1) -> Group:
+    """Start ``world - 1`` followers and join them as rank 0, laid out
+    ``pipe`` x data x ``fsdp`` x ``expert`` x ``seq`` x ``tensor``
+    (``tensor`` None: ``world``; ``pipe * fsdp * expert * seq * tensor``
+    must divide ``world``). A follower that exits before it connects, or a
+    rendezvous that outlasts the timeout, kills the others and raises
+    :class:`RankFailure`."""
     tensor = tensor or world
-    if world % (tensor * expert * fsdp):
-        raise ValueError(f"fsdp {fsdp} x expert {expert} x tensor {tensor} does not divide "
-                         f"{world} ranks")
+    if world % (tensor * seq * expert * fsdp * pipe):
+        raise ValueError(f"pipe {pipe} x fsdp {fsdp} x expert {expert} x seq {seq} x tensor "
+                         f"{tensor} does not divide {world} ranks")
     rdzv = tempfile.mkdtemp(prefix="kukeon-tp-")
     key = os.urandom(16)
     listener = Listener(_control_address(rdzv), family="AF_UNIX", authkey=key)
@@ -473,7 +496,7 @@ def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1
     procs = [subprocess.Popen(
         [sys.executable, "-m", "kukeon_tpu_torch.parallel.launch", "--rank", str(r),
          "--world", str(world), "--tensor", str(tensor), "--fsdp", str(fsdp),
-         "--expert", str(expert), "--rdzv", rdzv,
+         "--expert", str(expert), "--seq", str(seq), "--pipe", str(pipe), "--rdzv", rdzv,
          "--device", device_type, "--leader-pid", str(os.getpid())], env=env)
         for r in range(1, world)]
     conns: dict[int, Connection] = {}
@@ -506,7 +529,7 @@ def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1
                 raise RankFailure("a follower connected but never said its rank")
             conns[int(pickle.loads(conn.recv_bytes()))] = conn
         pgs = _init_torch_group(device_type, os.path.join(rdzv, "store"), 0, world, tensor,
-                                fsdp, expert)
+                                fsdp, expert, seq, pipe)
     except BaseException:
         for p in procs:
             p.kill()
@@ -518,7 +541,7 @@ def start(world: int, device_type: str, tensor: int | None = None, fsdp: int = 1
     finally:
         listener.close()
     return Group(0, world, device_type, rdzv, [conns[r] for r in range(1, world)], procs,
-                 tensor, pgs, fsdp, expert)
+                 tensor, pgs, fsdp, expert, seq, pipe)
 
 
 # --- the follower process ---------------------------------------------------
@@ -560,6 +583,8 @@ def follower_main(argv=None) -> int:
     ap.add_argument("--tensor", type=int, default=None)
     ap.add_argument("--fsdp", type=int, default=1)
     ap.add_argument("--expert", type=int, default=1)
+    ap.add_argument("--seq", type=int, default=1)
+    ap.add_argument("--pipe", type=int, default=1)
     ap.add_argument("--rdzv", required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), required=True)
     ap.add_argument("--leader-pid", type=int, required=True)
@@ -573,9 +598,9 @@ def follower_main(argv=None) -> int:
     conn.send_bytes(pickle.dumps(args.rank))
     tensor = args.tensor or args.world
     pgs = _init_torch_group(args.device, os.path.join(args.rdzv, "store"), args.rank,
-                            args.world, tensor, args.fsdp, args.expert)
+                            args.world, tensor, args.fsdp, args.expert, args.seq, args.pipe)
     g = Group(args.rank, args.world, args.device, args.rdzv, [conn], tensor=tensor, pgs=pgs,
-              fsdp=args.fsdp, expert=args.expert)
+              fsdp=args.fsdp, expert=args.expert, seq=args.seq, pipe=args.pipe)
     from kukeon_tpu_torch.parallel.mesh import Mesh
 
     mesh = Mesh(g)

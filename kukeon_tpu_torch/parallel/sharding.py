@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import itertools
 import math
 from typing import Any
 
@@ -78,7 +79,8 @@ import torch
 
 from kukeon_tpu_torch.models import bert, llama, moe
 from kukeon_tpu_torch.models.llama import vocab_rows
-from kukeon_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR
+from kukeon_tpu_torch.parallel.mesh import (AXES, AXIS_DATA, AXIS_EXPERT, AXIS_FSDP,
+                                            AXIS_PIPE, AXIS_SEQ, AXIS_TENSOR)
 
 Spec = tuple
 
@@ -542,7 +544,7 @@ def shard_tree(params, rank: int, world: int, kv_shard: bool = True, *,
     return walk(params, specs, ())
 
 
-# --- training: a train state over data x fsdp x expert x tensor ----------------
+# --- training: a train state over pipe x data x fsdp x expert x seq x tensor ---
 
 
 def train_model(cfg):
@@ -551,24 +553,29 @@ def train_model(cfg):
     return moe if isinstance(cfg, moe.MoEConfig) else llama
 
 
-def check_train_mesh(cfg, fsdp: int, tensor: int, expert: int = 1) -> None:
+def check_train_mesh(cfg, fsdp: int, tensor: int, expert: int = 1, pipe: int = 1,
+                     pipeline: bool = False) -> None:
     """Refuse (``SystemExit``) a training mesh whose ``fsdp``, ``expert``
     or ``tensor`` axis does not divide what its specs cut: ``fsdp`` the
-    hidden width (every matrix's ``fsdp`` axis), ``expert`` a MoE model's
-    experts (the expert stacks' axis 1; a Llama model's leaves are
-    replicated over it), ``tensor`` the vocabulary, the kv width and the
-    intermediate size (the reference's ``device_put`` of the train state
-    raises there too), and the heads: the port's training step cuts whole
-    heads and pads none (zero-padded heads would take gradient steps in
-    ``wo``'s padded rows), where the reference's GSPMD would cut a head's
-    columns."""
+    hidden width (every matrix's ``fsdp`` axis; a ``pipeline`` layout cuts
+    none on it), ``expert`` a MoE model's experts (the expert stacks' axis
+    1; a Llama model's leaves are replicated over it), ``tensor`` the
+    vocabulary, the kv width and the intermediate size (the reference's
+    ``device_put`` of the train state raises there too), and the heads:
+    the port's training step cuts whole heads and pads none (zero-padded
+    heads would take gradient steps in ``wo``'s padded rows), where the
+    reference's GSPMD would cut a head's columns. A ``pipeline`` layout's
+    ``pipe`` must divide the layers: the reference's ``ValueError``, its
+    words."""
+    if pipeline and cfg.num_layers % pipe:
+        raise ValueError(f"num_layers {cfg.num_layers} % pipe {pipe} != 0")
     if isinstance(cfg, moe.MoEConfig) and cfg.num_experts % expert:
         raise SystemExit(
             f"training mesh: expert {expert} does not divide num_experts {cfg.num_experts}: "
             f"the global size of the expert stacks' dimension 1 should be divisible by "
             f"{expert}, but it is equal to {cfg.num_experts}; the reference's shardings "
             "cannot cut it either")
-    dims = ((AXIS_FSDP, fsdp, "hidden_size", cfg.hidden_size),
+    dims = ((AXIS_FSDP, 1 if pipeline else fsdp, "hidden_size", cfg.hidden_size),
             (AXIS_TENSOR, tensor, "vocab_size", cfg.vocab_size),
             (AXIS_TENSOR, tensor, "num_kv_heads*head_dim", cfg.kv_dim),
             (AXIS_TENSOR, tensor, "intermediate_size", cfg.intermediate_size),
@@ -581,53 +588,73 @@ def check_train_mesh(cfg, fsdp: int, tensor: int, expert: int = 1) -> None:
                    else "; the reference's shardings cannot cut it either"))
 
 
-def train_specs(cfg, tensor: int) -> dict:
+def train_specs(cfg, tensor: int, pipeline: bool = False) -> dict:
     """The spec of every leaf of ``cfg``'s train-state params (the
     reference's ``llama_param_specs(fsdp=True)``, or
     ``moe_specs_for_params(fsdp=True)`` for a ``MoEConfig``, pruned to the
-    tree), with ``wk``/``wv`` replicated over ``tensor`` when it does not
-    divide the kv heads (each rank then computes every kv head and attends
-    its q heads' own, as serving does)."""
-    specs = tree_specs(train_model(cfg).init_params(cfg, None, "meta"), fsdp=True)
+    tree; a ``pipeline``'s, the reference's ``pp_specs_for_params``:
+    ``llama_param_specs(fsdp=False)`` with the layer stacks' axis 0 on
+    ``pipe``), with ``wk``/``wv`` replicated over ``tensor`` when it does
+    not divide the kv heads (each rank then computes every kv head and
+    attends its q heads' own, as serving does)."""
+    specs = tree_specs(train_model(cfg).init_params(cfg, None, "meta"), fsdp=not pipeline)
+    if pipeline:
+        specs["layers"] = {k: (AXIS_PIPE, *v[1:]) for k, v in specs["layers"].items()}
     if cfg.num_kv_heads % tensor:
-        specs["layers"] = {**specs["layers"], "wk": (None, AXIS_FSDP, None),
-                           "wv": (None, AXIS_FSDP, None)}
+        specs["layers"] = {**specs["layers"],
+                           **{k: tuple(a if a != AXIS_TENSOR else None
+                                       for a in specs["layers"][k]) for k in ("wk", "wv")}}
     return specs
 
 
 class TrainLayout:
     """Where each leaf of a Llama or MoE train state lies on the rank at
     fsdp coordinate ``fsdp_rank`` of ``fsdp``, expert coordinate
-    ``expert_rank`` of ``expert`` and tensor coordinate ``rank`` of
-    ``world`` (:func:`train_specs`; every data replica holds the same
-    blocks): a block on each cut axis by :func:`rank_block`, in whole heads
-    on :data:`HEAD_LEAVES`' tensor axis, with no padding
+    ``expert_rank`` of ``expert``, tensor coordinate ``rank`` of ``world``
+    and, in a ``pipeline`` layout (the GPipe step's, ``parallel/
+    pipeline.py``), pipe coordinate ``pipe_rank`` of ``pipe``
+    (:func:`train_specs`; every data and seq coordinate holds the same
+    blocks): a block on each cut axis by :func:`rank_block`, in whole
+    heads on :data:`HEAD_LEAVES`' tensor axis, with no padding
     (:func:`check_train_mesh`). A leaf whose spec does not cut ``expert``
     (the whole Llama tree, a MoE model's trunk and router) is the same on
-    every expert peer. The moments mirror the params. A mesh's :meth:`of`
-    gives its rank's layout; the checkpoint readers and writers cut and
-    place by :meth:`regions`."""
+    every expert peer; one whose spec does not cut ``pipe`` (a pipeline's
+    embedding, final norm and LM head) on every stage. The moments mirror
+    the params. A mesh's :meth:`of` gives its rank's layout; the
+    checkpoint readers and writers cut and place by :meth:`regions`."""
 
     def __init__(self, cfg, fsdp_rank: int, fsdp: int, rank: int, world: int, *,
-                 expert_rank: int = 0, expert: int = 1):
-        check_train_mesh(cfg, fsdp, world, expert)
+                 expert_rank: int = 0, expert: int = 1, pipe_rank: int = 0, pipe: int = 1,
+                 pipeline: bool = False):
+        check_train_mesh(cfg, fsdp, world, expert, pipe, pipeline)
         self.cfg = cfg
         self.fsdp_rank, self.fsdp, self.rank, self.world = fsdp_rank, fsdp, rank, world
         self.expert_rank, self.expert = expert_rank, expert
-        self.specs = train_specs(cfg, world)
+        self.pipe_rank, self.pipe, self.pipeline = pipe_rank, pipe, pipeline
+        self.specs = train_specs(cfg, world, pipeline)
         self.kv_shard = cfg.num_kv_heads % world == 0
 
     @classmethod
-    def of(cls, cfg, mesh) -> "TrainLayout":
+    def of(cls, cfg, mesh, pipeline: bool = False) -> "TrainLayout":
+        """The layout of ``mesh``'s rank (``pipeline``: the GPipe step's,
+        its layers cut on ``pipe``; else ``pipe`` must be 1)."""
+        pipe = dict(pipe_rank=mesh.pipe_rank, pipe=mesh.pipe) if pipeline else {}
         return cls(cfg, mesh.fsdp_rank, mesh.fsdp, mesh.rank, mesh.world,
-                   expert_rank=mesh.expert_rank, expert=mesh.expert)
+                   expert_rank=mesh.expert_rank, expert=mesh.expert, pipeline=pipeline,
+                   **pipe)
 
-    def peers(self) -> list["TrainLayout"]:
-        """The layout of every rank of a data replica, in global rank order
-        (fsdp, then expert, then tensor coordinate)."""
-        return [TrainLayout(self.cfg, f, self.fsdp, t, self.world, expert_rank=x,
-                            expert=self.expert)
-                for f in range(self.fsdp) for x in range(self.expert) for t in range(self.world)]
+    def peers(self, data: int = 1, seq: int = 1) -> list[tuple["TrainLayout", int, int]]:
+        """``(layout, data coordinate, seq coordinate)`` of every rank of a
+        mesh whose other axes are this layout's and whose ``data`` and
+        ``seq`` have these sizes, by global rank (``mesh.AXES``' order)."""
+        sizes = {AXIS_PIPE: self.pipe, AXIS_DATA: data, AXIS_FSDP: self.fsdp,
+                 AXIS_EXPERT: self.expert, AXIS_SEQ: seq, AXIS_TENSOR: self.world}
+        out = []
+        for p, d, f, x, s, t in itertools.product(*(range(sizes[a]) for a in AXES)):
+            out.append((TrainLayout(self.cfg, f, self.fsdp, t, self.world, expert_rank=x,
+                                    expert=self.expert, pipe_rank=p, pipe=self.pipe,
+                                    pipeline=self.pipeline), d, s))
+        return out
 
     def meta(self) -> dict:
         """``cfg``'s params on the meta device (shapes and dtypes, no
@@ -640,14 +667,15 @@ class TrainLayout:
             spec = spec[k]
         return spec
 
-    def blocks(self, path: tuple[str, ...], shape) -> tuple[Block, Block, Block]:
-        """The leaf's (tensor, fsdp, expert) blocks (``axis`` None where its
-        spec does not cut that axis)."""
+    def blocks(self, path: tuple[str, ...], shape) -> tuple[Block, ...]:
+        """The leaf's (tensor, fsdp, expert, pipe) blocks (``axis`` None
+        where its spec does not cut that axis)."""
         spec, shape = self.spec(path), tuple(shape)
         return (rank_block(spec, shape, self.rank, self.world,
                            unit=head_unit(path, self.cfg.head_dim)),
                 rank_block(spec, shape, self.fsdp_rank, self.fsdp, axis_name=AXIS_FSDP),
-                rank_block(spec, shape, self.expert_rank, self.expert, axis_name=AXIS_EXPERT))
+                rank_block(spec, shape, self.expert_rank, self.expert, axis_name=AXIS_EXPERT),
+                rank_block(spec, shape, self.pipe_rank, self.pipe, axis_name=AXIS_PIPE))
 
     def regions(self, path: tuple[str, ...], shape) -> tuple[tuple[int, int, int], ...]:
         """``(axis, lo, hi)`` of each cut axis: this rank's block of a full
@@ -677,15 +705,18 @@ class TrainLayout:
         reduce-scattered back."""
         return AXIS_FSDP in self.spec(path)
 
-    def owned(self, path: tuple[str, ...], replica: int) -> bool:
-        """Whether the rank of data coordinate ``replica`` counts the
-        leaf's block once in a global sum over every rank: it is the first
-        of the ranks holding that block (coordinate 0 on every axis the
-        spec does not cut: ``data`` always, ``fsdp``, ``expert`` and
-        ``tensor`` where the leaf is replicated on them)."""
+    def owned(self, path: tuple[str, ...], replica: int, seq_rank: int = 0) -> bool:
+        """Whether the rank of data coordinate ``replica`` and seq
+        coordinate ``seq_rank`` counts the leaf's block once in a global
+        sum over every rank: it is the first of the ranks holding that
+        block (coordinate 0 on every axis the spec does not cut: ``data``
+        and ``seq`` always, ``fsdp``, ``expert``, ``pipe`` and ``tensor``
+        where the leaf is replicated on them)."""
         spec = self.spec(path)
-        return (replica == 0 and (AXIS_FSDP in spec or self.fsdp_rank == 0)
+        return (replica == 0 and seq_rank == 0
+                and (AXIS_FSDP in spec or self.fsdp_rank == 0)
                 and (AXIS_EXPERT in spec or self.expert_rank == 0)
+                and (AXIS_PIPE in spec or self.pipe_rank == 0)
                 and (AXIS_TENSOR in spec or self.rank == 0))
 
     def state_bytes(self) -> int:

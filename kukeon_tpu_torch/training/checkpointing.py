@@ -124,33 +124,34 @@ def gathered_tree(state: TrainState, mesh, layout) -> dict:
     and what every other rank walks in the same order
     (``orbax_ckpt.flatten``), calling each."""
     full = dict(tree_items(layout.meta()))
-    layouts = layout.peers()
+    peers = layout.peers(mesh.data, mesh.seq)
 
     def lazy(tree, path=()):
         if isinstance(tree, dict):
             return {k: lazy(v, path + (k,)) for k, v in tree.items()}
-        return lambda: gather_leaf(tree, path, full[path].shape, mesh, layouts)
+        return lambda: gather_leaf(tree, path, full[path].shape, mesh, peers)
 
     opt = {"count": state.opt_state["count"], "mu": lazy(state.opt_state["mu"]),
            "nu": lazy(state.opt_state["nu"])}
     return orbax_ckpt.train_state_tree(lazy(state.params), opt, int(state.step))
 
 
-def gather_leaf(x: torch.Tensor, path: tuple[str, ...], shape, mesh, layouts: list):
+def gather_leaf(x: torch.Tensor, path: tuple[str, ...], shape, mesh, peers: list):
     """The full leaf of shape ``shape`` whose block on this rank is ``x``,
-    on the leader's host (None on the other ranks): each block of data
-    replica 0 (rank ``(f * expert + e) * tensor + t``, cut by that index of
-    ``layouts``, ``TrainLayout.peers``) held by the first of its holders
-    (``TrainLayout.owned``) is sent to the leader, which places it in each
-    cut axis's region. Every rank calls it for the same leaves in the same
-    order."""
+    on the leader's host (None on the other ranks): each block, held by
+    the first of its holders (``TrainLayout.owned``; ``peers`` the layout
+    and data and seq coordinates of every global rank,
+    ``TrainLayout.peers``: a pipeline's stages each hold their layers'
+    blocks), is sent to the leader, which places it in each cut axis's
+    region. Every rank calls it for the same leaves in the same order."""
     if not mesh.leader:
-        if layouts[mesh.group.rank % len(layouts)].owned(path, mesh.replica):
+        lay, d, s = peers[mesh.group.rank]
+        if lay.owned(path, d, s):
             dist.send(x.detach().contiguous().view(-1).view(torch.uint8), dst=0)
         return None
     full = torch.empty(tuple(shape), dtype=x.dtype)
-    for src, lay in enumerate(layouts):
-        if not lay.owned(path, 0):
+    for src, (lay, d, s) in enumerate(peers):
+        if not lay.owned(path, d, s):
             continue
         block = x.detach()
         if src:

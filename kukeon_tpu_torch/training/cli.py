@@ -11,18 +11,21 @@ a mesh's ranks as gloo processes). Batches are memmapped and a pure
 function of (seed, step); the run resumes from the newest checkpoint in
 ``--ckpt-dir``.
 
-``--data``, ``--fsdp``, ``--expert`` and ``--tensor`` lay either family
-(``tiny``, ``llama3-1b``, ``llama3-8b``, ``mixtral-tiny``,
-``mixtral-8x7b``) over a rank group of one process per device
-(``training/mesh_trainer.py``); ``--expert`` cuts a MoE model's experts
-(a Llama model's leaves are replicated over it, as the reference's are).
-With no axis given and more than one visible device
-(``mesh.visible_devices``: the visible GPUs, 8 gloo ranks on the CPU),
-the default is the reference's, ``data = gcd(devices, batch)``, for every
-model. The first line prints the mesh as the reference prints it. More
-ranks than the host shows exits before any byte reaches a device.
-``--seq`` and ``--pipe`` (sequence and pipeline parallelism) are not ported
-yet and raise (ROADMAP A13d). ``mixtral-*`` trains through
+``--data``, ``--fsdp``, ``--expert``, ``--seq``, ``--pipe`` and
+``--tensor`` lay either family (``tiny``, ``llama3-1b``, ``llama3-8b``,
+``mixtral-tiny``, ``mixtral-8x7b``) over a rank group of one process per
+device (``training/mesh_trainer.py``); ``--expert`` cuts a MoE model's
+experts (a Llama model's leaves are replicated over it, as the
+reference's are); ``--seq`` cuts the sequence, attending through ring
+attention as the reference's step does; ``--pipe`` trains a Llama model
+through the GPipe step (``parallel/pipeline.py``). A MoE model at
+``--pipe`` > 1 exits 2 with the reference's message; at ``--seq`` > 1 it
+raises (ROADMAP.md A13d2). With no axis given and more than one visible
+device (``mesh.visible_devices``: the visible GPUs, 8 gloo ranks on the
+CPU), the default is the reference's, ``data = gcd(devices, batch)``, for
+every model. The first line prints the mesh as the reference prints it.
+More ranks than the host shows exits before any byte reaches a device.
+``mixtral-*`` trains through
 :func:`~kukeon_tpu_torch.training.train_step.make_moe_train_step` and
 prints the load-balance loss on each step line (``lb=``); at full depth,
 Mixtral-8x7B's training state (about 374 GB) does not fit one GPU and the
@@ -70,21 +73,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse(args) -> None:
     """What the port does not train yet raises ``NotImplementedError``
-    naming its ROADMAP item, before anything else runs."""
-    for axis in ("seq", "pipe"):
-        if getattr(args, axis) > 1:
-            raise NotImplementedError(
-                f"--{axis} {getattr(args, axis)}: sequence and pipeline parallelism are not "
-                "ported yet (ROADMAP.md A13d)")
+    naming its ROADMAP item, before anything else runs: a MoE model on a
+    ``seq`` axis (the reference's pipeline refusal, which it shares, comes
+    first)."""
+    if args.model.startswith("mixtral") and args.seq > 1 and args.pipe == 1:
+        raise NotImplementedError(
+            f"--seq {args.seq}: the MoE family on a seq axis is not ported yet "
+            "(ROADMAP.md A13d2)")
 
 
 def mesh_axes(args, device: torch.device) -> dict[str, int]:
-    """``{"data", "fsdp", "expert", "tensor"}`` of the run: the flags, or
-    with none above 1 the reference's default, ``data = gcd(devices,
-    batch)`` over the visible devices."""
+    """``{"data", "fsdp", "expert", "tensor", "seq", "pipe"}`` of the run:
+    the flags, or with none above 1 the reference's default, ``data =
+    gcd(devices, batch)`` over the visible devices."""
     from kukeon_tpu_torch.parallel.mesh import visible_devices
 
-    axes = {a: getattr(args, a) for a in ("data", "fsdp", "expert", "tensor")}
+    axes = {a: getattr(args, a) for a in ("data", "fsdp", "expert", "tensor", "seq", "pipe")}
     n = visible_devices(device.type)
     if math.prod(axes.values()) == 1 and n > 1:
         axes["data"] = math.gcd(n, args.batch)
@@ -94,9 +98,12 @@ def mesh_axes(args, device: torch.device) -> dict[str, int]:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     refuse(args)
+    is_moe = args.model.startswith("mixtral")
+    if is_moe and args.pipe > 1:
+        print("error: pipeline parallelism is llama-only for now", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     axes = mesh_axes(args, device)
-    is_moe = args.model.startswith("mixtral")
     if math.prod(axes.values()) > 1:
         return train_on_mesh(args, device, axes, is_moe)
 
@@ -184,8 +191,8 @@ def train_loop(args, start: int, run, save, is_moe: bool = False) -> None:
 
 
 def train_on_mesh(args, device: torch.device, axes: dict[str, int], is_moe: bool) -> int:
-    """Either family over ``axes`` (data x fsdp x expert x tensor), this
-    process the group's leader: :func:`train_loop` through a
+    """Either family over ``axes`` (pipe x data x fsdp x expert x seq x
+    tensor), this process the group's leader: :func:`train_loop` through a
     :class:`~kukeon_tpu_torch.training.mesh_trainer.MeshTrainer`. A rank
     that dies ends the run with exit 1."""
     from kukeon_tpu_torch.parallel import launch
@@ -195,7 +202,7 @@ def train_on_mesh(args, device: torch.device, axes: dict[str, int], is_moe: bool
 
     try:
         mesh = make_mesh(axes["data"], axes["tensor"], device.type, fsdp=axes["fsdp"],
-                         expert=axes["expert"])
+                         expert=axes["expert"], seq=axes["seq"], pipe=axes["pipe"])
     except ValueError as e:
         raise SystemExit(" ".join(f"--{a} {n}" for a, n in axes.items()) + f": {e}") from e
 

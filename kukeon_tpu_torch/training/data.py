@@ -5,7 +5,8 @@ they are (pure numpy): the same ``(seed, step)`` gives the same batch in
 both packages, so a job resumed from a checkpoint at step N continues on
 the exact data schedule. :func:`batches` moves each batch to a torch
 device where the JAX package places it on a mesh; on a training mesh each
-rank takes its own rows of it (:func:`rank_rows`).
+rank takes its own rows of it (:func:`rank_rows`) and, on a ``seq`` axis,
+its own block of their columns (:func:`rank_cols`).
 
 Format: a flat ``.bin`` of token ids (uint16 when vocab < 65536, else
 uint32) with a sibling ``<name>.meta.json`` {"dtype", "num_tokens"}.
@@ -91,18 +92,31 @@ def rank_rows(batch_size: int, mesh) -> slice:
     return slice(i * rows, (i + 1) * rows)
 
 
+def rank_cols(seq_len: int, mesh) -> slice:
+    """The columns of a ``seq_len`` batch that ``mesh``'s rank trains on:
+    the reference's batch spec ``P((data, fsdp), seq)`` cuts the sequence
+    over ``seq``, so block ``seq_rank`` of ``seq`` equal blocks (all of
+    them at ``seq`` 1). A length ``seq`` does not divide is a
+    ``ValueError`` (the reference's ``device_put`` refuses it too)."""
+    if seq_len % mesh.seq:
+        raise ValueError(f"seq_len {seq_len} does not divide over seq {mesh.seq}")
+    cols = seq_len // mesh.seq
+    return slice(mesh.seq_rank * cols, (mesh.seq_rank + 1) * cols)
+
+
 def batches(ds: TokenDataset, batch_size: int, seq_len: int, *,
             device: torch.device | str, start_step: int = 0,
             num_steps: int | None = None, seed: int = 0, mesh=None):
     """Yield (step, tokens, targets, mask) from ``start_step`` (resume
     point), as torch tensors on ``device``; with a training ``mesh``, only
-    its rank's rows (:func:`rank_rows`), which every rank computes from
-    ``(seed, step)`` on its own, as the reference's ``batches(...,
-    sharding=)`` places them."""
+    its rank's rows and columns (:func:`rank_rows`, :func:`rank_cols`),
+    which every rank computes from ``(seed, step)`` on its own, as the
+    reference's ``batches(..., sharding=)`` places them."""
     steps = (range(start_step, start_step + num_steps)
              if num_steps is not None else itertools.count(start_step))
-    rows = slice(None) if mesh is None else rank_rows(batch_size, mesh)
+    block = ((slice(None), slice(None)) if mesh is None
+             else (rank_rows(batch_size, mesh), rank_cols(seq_len, mesh)))
     for step in steps:
         batch = sample_batch(ds, step, batch_size, seq_len, seed=seed)
-        yield (step, *(torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)
+        yield (step, *(torch.from_numpy(np.ascontiguousarray(a[block])).to(device)
                        for a in batch))

@@ -1,8 +1,8 @@
-"""The Llama and MoE families' training on a ``data`` x ``fsdp`` x
-``expert`` x ``tensor`` rank group: the port of what the reference's
-``training/cli.py`` runs on a mesh (``create_train_state``,
-``make_train_step``, their MoE twins and the checkpoints over
-``make_mesh(data=, fsdp=, expert=, tensor=)``).
+"""The Llama and MoE families' training on a ``pipe`` x ``data`` x
+``fsdp`` x ``expert`` x ``seq`` x ``tensor`` rank group: the port of what
+the reference's ``training/cli.py`` runs on a mesh (``create_train_state``,
+``make_train_step``, their MoE twins, the pipeline's
+``make_pp_train_step`` and the checkpoints over ``make_mesh(...)``).
 
 The reference drives every device of its mesh from one controller. The
 port runs one process per device (``parallel/launch.py``): the leader's
@@ -11,7 +11,9 @@ port runs one process per device (``parallel/launch.py``): the leader's
 the same keyword arguments and apply the same actions in the same order.
 No tensor crosses the control socket: every rank draws its blocks of the
 init from the seed (or reads them from a recipe), computes its batch rows
-from ``(dataset, seed, step)`` (``data.rank_rows``), and reads its blocks
+from ``(dataset, seed, step)`` (``data.rank_rows`` and ``rank_cols``; the
+whole batch in a pipeline, whose step picks its microbatches), and reads
+its blocks
 of a checkpoint itself; a save sends the blocks to the leader through
 ``torch.distributed``. A rank that dies ends the group, as in serving.
 """
@@ -24,8 +26,8 @@ import os
 import torch
 
 from kukeon_tpu_torch.models import llama, moe, orbax_ckpt
-from kukeon_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR,
-                                            AXIS_WORLD)
+from kukeon_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_PIPE,
+                                            AXIS_SEQ, AXIS_TENSOR, AXIS_WORLD)
 from kukeon_tpu_torch.parallel.sharding import Recipe, TrainLayout
 from kukeon_tpu_torch.training import checkpointing
 from kukeon_tpu_torch.training.data import TokenDataset, batches
@@ -51,18 +53,27 @@ class MeshTrainer:
     ``make_optimizer(lr, warmup_steps=, total_steps=)``, the init drawn
     from ``seed`` on the mesh's device as one device draws it, or an
     ``init`` recipe's full leaves (``sharding.Recipe``, ``"leaves"``).
-    The leader's calls post the same call to every follower."""
+    A mesh with ``pipe`` > 1, or a ``num_microbatches`` given, trains
+    through the GPipe step (``parallel.pipeline.make_pp_train_step``, its
+    layout's layers cut on ``pipe``); otherwise ``use_ring_attention``
+    goes to ``make_train_step``. The leader's calls post
+    the same call to every follower."""
 
     def __init__(self, mesh, *, model: str, dataset: str, batch: int, seq_len: int,
                  seed: int = 0, lr: float = 3e-4, warmup_steps: int = 100,
-                 total_steps: int = 10_000, init: Recipe | None = None, cfg=None):
+                 total_steps: int = 10_000, init: Recipe | None = None, cfg=None,
+                 num_microbatches: int | None = None, use_ring_attention: bool | None = None):
         kwargs = dict(model=model, dataset=dataset, batch=batch, seq_len=seq_len, seed=seed,
                       lr=lr, warmup_steps=warmup_steps, total_steps=total_steps, init=init,
-                      cfg=cfg)
+                      cfg=cfg, num_microbatches=num_microbatches,
+                      use_ring_attention=use_ring_attention)
         self.mesh = mesh
         self.cfg = cfg or MODELS[model]()
         self.is_moe = isinstance(self.cfg, moe.MoEConfig)
-        self.layout = TrainLayout.of(self.cfg, mesh)
+        self.pipeline = mesh.pipe > 1 or num_microbatches is not None
+        if self.pipeline and self.is_moe:
+            raise ValueError("pipeline parallelism is llama-only for now")
+        self.layout = TrainLayout.of(self.cfg, mesh, pipeline=self.pipeline)
         self.batch, self.seq_len, self.seed = batch, seq_len, seed
         self.ds = TokenDataset(dataset)
         self._group = mesh.group if mesh.leader and mesh.size > 1 else None
@@ -75,11 +86,22 @@ class MeshTrainer:
         optimizer = make_optimizer(lr, warmup_steps=warmup_steps, total_steps=total_steps)
         generator = torch.Generator(device=mesh.device).manual_seed(seed)
         leaves = None if init is None else init.resolve()(device=mesh.device, **init.kwargs)
-        create, make = ((create_moe_train_state, make_moe_train_step) if self.is_moe
-                        else (create_train_state, make_train_step))
-        self.state, self.optimizer = create(
-            self.cfg, generator, mesh.device, optimizer, mesh=mesh, leaves=leaves)
-        self._step = make(self.cfg, optimizer, mesh=mesh)
+        if self.is_moe:
+            self.state, self.optimizer = create_moe_train_state(
+                self.cfg, generator, mesh.device, optimizer, mesh=mesh, leaves=leaves)
+            self._step = make_moe_train_step(self.cfg, optimizer, mesh=mesh)
+        else:
+            self.state, self.optimizer = create_train_state(
+                self.cfg, generator, mesh.device, optimizer, mesh=mesh, leaves=leaves,
+                layout=self.layout)
+            if self.pipeline:
+                from kukeon_tpu_torch.parallel.pipeline import make_pp_train_step
+
+                self._step = make_pp_train_step(self.cfg, optimizer, mesh=mesh,
+                                                num_microbatches=num_microbatches)
+            else:
+                self._step = make_train_step(self.cfg, optimizer, mesh=mesh,
+                                             use_ring_attention=use_ring_attention)
 
     def step(self, step: int):
         """One train step on step ``step``'s batch -> the global loss (a 0-d
@@ -114,8 +136,9 @@ class MeshTrainer:
 
     def replica_mismatches(self) -> list[tuple[str, str]] | None:
         """Every leaf of the state (params and both moments) against its
-        peers on each axis its spec does not cut (``data`` always;
-        ``fsdp``, ``expert``, ``tensor`` where it is replicated): the
+        peers on each axis its spec does not cut (``data`` and ``seq``
+        always; ``fsdp``, ``expert``, ``pipe``, ``tensor`` where it is
+        replicated): the
         ``(leaf, axis)`` pairs whose bits differ on some rank of the mesh
         (one sha256 a block, gathered over each axis; the flags summed
         over every rank), on the leader; None on the other ranks."""
@@ -131,7 +154,8 @@ class MeshTrainer:
                 digest = torch.tensor(list(hashlib.sha256(raw.tobytes()).digest()),
                                       dtype=torch.uint8, device=mesh.device)
                 spec = self.layout.spec(path)
-                for axis in (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_TENSOR):
+                for axis in (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQ, AXIS_PIPE,
+                             AXIS_TENSOR):
                     if axis in spec or mesh.axis_size(axis) == 1:
                         continue
                     every = mesh.gather(digest, 0, axis).view(-1, digest.numel())
@@ -157,7 +181,7 @@ class MeshTrainer:
             (step,) = args
             _s, tokens, targets, mask = next(batches(
                 self.ds, self.batch, self.seq_len, device=self.mesh.device, start_step=step,
-                num_steps=1, seed=self.seed, mesh=self.mesh))
+                num_steps=1, seed=self.seed, mesh=None if self.pipeline else self.mesh))
             self.state, loss = self._step(self.state, tokens, targets, mask)
             return loss
         if action == "restore":

@@ -3,9 +3,11 @@
 
 The JAX step is a jitted, donated GSPMD program over a mesh; the port's is
 eager PyTorch on one device, or on each rank of a training mesh
-(``mesh=``: data x fsdp x expert x tensor, one process per device,
-:func:`make_train_step`, :func:`make_moe_train_step`). What it computes is the same: next-token
-cross entropy of ``llama.forward`` without a cache (attention through
+(``mesh=``: data x fsdp x expert x seq x tensor, one process per device,
+:func:`make_train_step`, :func:`make_moe_train_step`; the GPipe step over
+``pipe`` is ``parallel/pipeline.py``'s :func:`make_pp_train_step`). What
+it computes is the same: next-token cross entropy of ``llama.forward``
+without a cache (attention through
 :func:`kukeon_tpu_torch.ops.attention.gqa_attention`, which takes the flash
 kernel on the GPU at S >= 1024), its gradients, and the optax chain of
 :func:`make_optimizer`, written out by hand. The update happens in place
@@ -18,7 +20,7 @@ numbers, and per-block remat bounds the memory).
 The MoE step (:func:`make_moe_train_step`) adds the Switch load-balance
 loss and the router z-loss of ``moe.forward_with_aux`` to the cross
 entropy, with the training capacity (the GShard drops), on one device or
-on a mesh. The pipeline step is not ported (ROADMAP A13d).
+on a mesh without a ``seq`` axis (ROADMAP.md A13d2).
 """
 
 from __future__ import annotations
@@ -175,30 +177,32 @@ def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,
 def create_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
                        device: torch.device | str,
                        optimizer: AdamW | None = None, *, mesh=None,
-                       leaves=None) -> tuple[TrainState, AdamW]:
+                       leaves=None, layout=None) -> tuple[TrainState, AdamW]:
     """Random parameters (``llama.init_params`` on ``device``) and fresh
     optimizer state. On a training ``mesh`` (``parallel.mesh.Mesh``) the
     state is this rank's: each full leaf drawn as one device draws it
     (``llama.iter_params`` on ``generator``, which lives on the mesh's
     device), or taken from ``leaves`` (``(path, tensor)`` pairs, e.g. a
     ``sharding.Recipe``'s), cut to the rank's block
-    (``sharding.TrainLayout``) and freed before the next is drawn, so its
+    (``sharding.TrainLayout``; ``layout`` another than the mesh's
+    default, a pipeline's) and freed before the next is drawn, so its
     blocks are the cut of the one-device state; the moments are zeros of
     the blocks' shapes."""
     optimizer = optimizer or make_optimizer()
     params = (llama.init_params(cfg, generator, device) if mesh is None
-              else _rank_params(cfg, llama.iter_params, generator, mesh, leaves))
+              else _rank_params(cfg, llama.iter_params, generator, mesh, leaves, layout))
     return TrainState(params=params, opt_state=optimizer.init(params), step=0), optimizer
 
 
-def _rank_params(cfg, iter_params, generator: torch.Generator, mesh, leaves) -> dict:
+def _rank_params(cfg, iter_params, generator: torch.Generator, mesh, leaves,
+                 layout=None) -> dict:
     """A training mesh's rank's params: each full leaf of ``leaves``, or
     drawn by ``iter_params(cfg, generator, mesh.device)`` as one device
-    draws it, cut to the rank's block (``sharding.TrainLayout``) and freed
-    before the next."""
+    draws it, cut to the rank's block (``layout``, by default the mesh's
+    ``sharding.TrainLayout``) and freed before the next."""
     from kukeon_tpu_torch.parallel.sharding import TrainLayout
 
-    layout = TrainLayout.of(cfg, mesh)
+    layout = layout or TrainLayout.of(cfg, mesh)
     local = []
     for path, full in (leaves if leaves is not None
                        else iter_params(cfg, generator, mesh.device)):
@@ -207,16 +211,20 @@ def _rank_params(cfg, iter_params, generator: torch.Generator, mesh, leaves) -> 
     return llama.nest(local)
 
 
-def _make_step(optimizer: AdamW, loss_fn, reduce_grads=None, owned=None, total=None):
+def _make_step(optimizer: AdamW, loss_fn, reduce_grads=None, owned=None, total=None,
+               seq_rank: int = 0):
     """``step(state, tokens, targets, mask) -> (state, out)``: ``loss_fn(params,
     tokens, targets, mask, positions) -> (loss, out)`` under autograd, its
     gradients (through ``reduce_grads`` on a mesh), and the optimizer's
     update in place of params and moments (``owned`` and ``total``: the
-    global norm's, :meth:`AdamW.update_`)."""
+    global norm's, :meth:`AdamW.update_`). ``positions`` are absolute: a
+    ``seq_rank``'s block of S columns starts at ``seq_rank * S``."""
 
     def train_step(state: TrainState, tokens, targets, mask):
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        if seq_rank:
+            positions = positions + seq_rank * S
         positions = positions[None, :].expand(B, S).contiguous()
         leaves = tree_leaves(state.params)
         for p in leaves:
@@ -234,20 +242,24 @@ def _make_step(optimizer: AdamW, loss_fn, reduce_grads=None, owned=None, total=N
 
 
 def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = True,
-                    mesh=None):
+                    mesh=None, use_ring_attention: bool | None = None):
     """``step(state, tokens, targets, mask) -> (state, loss)``: one forward,
     backward and update, with params and moments updated in place. ``remat``
     recomputes each block's activations in the backward.
 
     On a training ``mesh`` (the reference's GSPMD step over data x fsdp x
-    tensor): ``state`` is the rank's (:func:`create_train_state` with
-    ``mesh=``) and the batch its rows (``data.batches(mesh=)``); the
-    forward is ``llama.forward_train``; the loss is the global masked mean,
-    each rank's rows' sum over the mask count summed over the batch's
-    ranks, and the step returns the global loss. The gradients then hold
-    each rank's share: an fsdp-cut leaf's is reduce-scattered over
-    ``fsdp`` in the backward and summed here over ``data``, a leaf the
-    fsdp axis does not cut (the norms) summed over data x fsdp, and a
+    seq x tensor): ``state`` is the rank's (:func:`create_train_state` with
+    ``mesh=``) and the batch its rows and, on ``seq``, its block of their
+    columns (``data.batches(mesh=)``), at their absolute positions; the
+    forward is ``llama.forward_train``, attending through ring attention
+    when ``use_ring_attention`` (default: ``seq`` > 1, the reference's
+    rule), else ``auto`` over the whole sequence's keys; the loss is the global masked mean, each
+    rank's tokens' sum over the mask count summed over the batch's ranks
+    (data x fsdp x seq), and the step returns the global loss. The
+    gradients then hold each rank's share: an fsdp-cut leaf's is
+    reduce-scattered over ``fsdp`` in the backward and summed here over
+    data x seq, a leaf the fsdp axis does not cut (the norms) summed over
+    data x fsdp x seq (every weight is replicated over ``seq``), and a
     ``wk``/``wv`` replicated over ``tensor`` (partial on each peer, which
     attends only its q heads' kv heads) summed over ``tensor`` first. The
     clip's global norm counts each block once over every rank; the update
@@ -261,8 +273,13 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: AdamW, *, remat: bool = T
 
         return _make_step(optimizer, loss_fn)
 
+    if use_ring_attention is None:
+        use_ring_attention = mesh.seq > 1
+    attn_impl = "ring" if use_ring_attention else "auto"
+
     def loss_fn(params, tokens, targets, mask, positions):
-        logits = llama.forward_train(params, cfg, tokens, positions, mesh, remat=remat)
+        logits = llama.forward_train(params, cfg, tokens, positions, mesh, remat=remat,
+                                     attn_impl=attn_impl)
         local = _mesh_ce(logits, targets, mask, mesh)
         return local, _batch_sum(local.detach(), mesh)
 
@@ -276,8 +293,8 @@ def _batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _mesh_ce(logits, targets, mask, mesh) -> torch.Tensor:
-    """This rank's share of the global masked mean: its rows' sum over
-    the mask count summed over the batch's ranks."""
+    """This rank's share of the global masked mean: its tokens' sum over
+    the mask count summed over the batch's ranks (data x fsdp x seq)."""
     return cross_entropy_loss(logits, targets, mask, count=lambda n: _batch_sum(n, mesh))
 
 
@@ -285,29 +302,46 @@ def _mesh_step(cfg, optimizer: AdamW, mesh, loss_fn):
     """:func:`_make_step` on a training mesh, either family: the gradients
     of each rank's share summed where the reference's are (an fsdp-cut
     leaf's reduce-scattered over ``fsdp`` in the backward, then summed
-    over ``data``; a leaf the fsdp axis does not cut summed over data x
-    fsdp; a ``wk``/``wv`` replicated over ``tensor``, partial on each
-    peer, summed over ``tensor`` first; nothing over ``expert``, where
-    every peer holds its whole gradient already), and the clip's global
-    norm counting each block once over every rank."""
-    from kukeon_tpu_torch.parallel.mesh import AXIS_BATCH, AXIS_DATA, AXIS_TENSOR, AXIS_WORLD
+    over data x seq; a leaf the fsdp axis does not cut summed over data x
+    fsdp x seq; a ``wk``/``wv`` replicated over ``tensor``, partial on
+    each peer, summed over ``tensor`` first; nothing over ``expert``,
+    where every peer holds its whole gradient already), and the clip's
+    global norm counting each block once over every rank."""
+    from kukeon_tpu_torch.parallel.mesh import AXIS_WORLD
     from kukeon_tpu_torch.parallel.sharding import TrainLayout
 
     layout = TrainLayout.of(cfg, mesh)
     paths = [p for p, _ in tree_items(layout.meta())]
+    owned = [layout.owned(p, mesh.replica, mesh.seq_rank) for p in paths]
+    return _make_step(optimizer, loss_fn, grad_reducer(layout, mesh), owned,
+                      lambda sq: mesh.reduce(sq, AXIS_WORLD), seq_rank=mesh.seq_rank)
+
+
+def grad_reducer(layout, mesh):
+    """``reduce_grads(grads) -> grads``: each leaf's gradient (in
+    :func:`tree_leaves` order of ``layout``'s tree) summed over the ranks
+    whose shares of it it has not summed yet: over ``tensor`` first for a
+    ``wk``/``wv`` that ``tensor`` does not cut, then over data x seq for
+    an fsdp-cut leaf (its reduce-scatter over ``fsdp`` summed that axis),
+    over data x fsdp x seq for the others, and over ``pipe`` too for a
+    pipeline's leaves that stages share (embedding, final norm, LM head)."""
+    from kukeon_tpu_torch.parallel.mesh import (AXIS_BATCH, AXIS_DATA_SEQ, AXIS_PIPE,
+                                                AXIS_TENSOR)
+
+    paths = [p for p, _ in tree_items(layout.meta())]
     partial = {p for p in paths if p[-1] in ("wk", "wv") and not layout.kv_shard}
-    owned = [layout.owned(p, mesh.replica) for p in paths]
+    shared = {p for p in paths if layout.pipeline and AXIS_PIPE not in layout.spec(p)}
 
     def reduce_grads(grads):
         out = []
         for path, g in zip(paths, grads):
             if path in partial:
                 g = mesh.reduce(g, AXIS_TENSOR)
-            out.append(mesh.reduce(g, AXIS_DATA if layout.gathered(path) else AXIS_BATCH))
+            g = mesh.reduce(g, AXIS_DATA_SEQ if layout.gathered(path) else AXIS_BATCH)
+            out.append(mesh.reduce(g, AXIS_PIPE) if path in shared else g)
         return out
 
-    return _make_step(optimizer, loss_fn, reduce_grads, owned,
-                      lambda sq: mesh.reduce(sq, AXIS_WORLD))
+    return reduce_grads
 
 
 def create_moe_train_state(cfg: moe.MoEConfig, generator: torch.Generator,
@@ -338,7 +372,10 @@ def make_moe_train_step(cfg: moe.MoEConfig, optimizer: AdamW, *, remat: bool = T
     entropy plus the whole aux terms, so the sum of the gradients over
     ``batch`` counts each term once (:func:`make_train_step`'s
     reductions); the metrics are the global ones, the same on every rank.
-    At one rank it is the one-device step, bit for bit."""
+    At one rank it is the one-device step, bit for bit. A mesh with a
+    ``seq`` axis raises ``NotImplementedError``: the MoE block's global
+    capacity and slot order over a (row, position) cut are ROADMAP.md
+    A13d2."""
     if mesh is None:
         def loss_fn(params, tokens, targets, mask, positions):
             logits, _, aux = moe.forward_with_aux(params, cfg, tokens, positions, remat=remat)
@@ -350,6 +387,11 @@ def make_moe_train_step(cfg: moe.MoEConfig, optimizer: AdamW, *, remat: bool = T
             return loss, {k: v.detach() for k, v in metrics.items()}
 
         return _make_step(optimizer, loss_fn)
+
+    if mesh.seq > 1:
+        raise NotImplementedError(
+            f"seq {mesh.seq}: the MoE family on a seq axis is not ported yet (ROADMAP.md "
+            "A13d2)")
 
     def mesh_loss_fn(params, tokens, targets, mask, positions):
         logits, aux = moe.forward_train(params, cfg, tokens, positions, mesh, remat=remat)

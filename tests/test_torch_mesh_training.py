@@ -228,7 +228,7 @@ def test_one_rank_mesh_step_is_the_one_device_step_bitwise(dataset):
 
 def _rank(f, F, t, T, d=0):
     return SimpleNamespace(fsdp_rank=f, fsdp=F, expert_rank=0, expert=1, rank=t, world=T,
-                           replica=d, device=torch.device("cpu"))
+                           replica=d, seq_rank=0, seq=1, device=torch.device("cpu"))
 
 
 @pytest.mark.parametrize("axes", MESHES, ids=MESH_IDS)
@@ -469,7 +469,7 @@ def test_cli_default_layout_is_the_references(dataset, tmp_path, monkeypatch):
                                                    "--model", model])
             got = tcli.mesh_axes(args, torch.device("cpu"))
             assert got == {"data": math.gcd(n, batch) if n > 1 else 1, "fsdp": 1,
-                           "expert": 1, "tensor": 1}
+                           "expert": 1, "tensor": 1, "seq": 1, "pipe": 1}
 
 
 def test_cli_over_grant_exits_before_any_rank_starts(tmp_path):
@@ -480,8 +480,11 @@ def test_cli_over_grant_exits_before_any_rank_starts(tmp_path):
     assert launch.current() is None
 
 
+# --seq and --pipe train the Llama family (tests/test_torch_pipeline.py);
+# the MoE family on seq stays refused (ROADMAP.md A13d2).
 @pytest.mark.parametrize("extra, item", [
-    (["--seq", "2"], "A13d"), (["--pipe", "2"], "A13d")])
+    (["--model", "mixtral-tiny", "--seq", "2"], "A13d"),
+    (["--model", "mixtral-tiny", "--seq", "2", "--fsdp", "2"], "A13d")])
 def test_cli_refuses_what_this_slice_does_not_port(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tcli.main(["--dataset", str(tmp_path / "x.bin"), "--device", "cpu"] + extra)

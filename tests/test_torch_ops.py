@@ -224,14 +224,19 @@ def test_attention_grouped_and_reference_match_jax():
 
 @pytest.mark.parametrize("impl", ["flash", "ring", "ulysses"])
 def test_unported_attention_impls_raise(impl):
-    """ring/ulysses are not ported (ROADMAP A13). flash is, and refuses a
-    shape its kernel does not cover with the JAX package's ValueError."""
+    """flash refuses a shape its kernel does not cover with the JAX
+    package's ValueError; ring and ulysses (over a training mesh's seq
+    axis) refuse a call without a mesh, as the reference's do without an
+    ambient one, and cached attention with the reference's words."""
     x = torch.zeros(1, 4, 2, 8)
     pos = torch.zeros(1, 4, dtype=torch.long)
-    exc, match = ((ValueError, "requires full self-attention") if impl == "flash"
-                  else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(exc, match=match):
+    match = "requires full self-attention" if impl == "flash" else "pass mesh="
+    with pytest.raises(ValueError, match=match):
         tattn.gqa_attention(x, x, x, q_positions=pos, kv_positions=pos, impl=impl)
+    if impl != "flash":
+        with pytest.raises(ValueError, match="requires full self-attention"):
+            tattn.gqa_attention(x, x[:, :2], x[:, :2], q_positions=pos,
+                                kv_positions=pos[:, :2], impl=impl)
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -280,6 +285,7 @@ for mod in ("obs", "obs.registry", "obs.expo", "obs.trace", "obs.slo", "obs.devi
             "models.checkpoints", "models.hf_convert", "serving.tuning", "models.zstd",
             "models.ocdbt", "models.orbax_ckpt", "parallel", "parallel.mesh",
             "parallel.sharding", "parallel.launch", "parallel.forward", "parallel.autograd",
+            "parallel.ring_attention", "parallel.ulysses", "parallel.pipeline",
             "training.mesh_trainer"):
     assert "kukeon_tpu_torch." + mod in names, (mod, names)
 print("ok", len(names))

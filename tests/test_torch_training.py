@@ -320,8 +320,11 @@ def test_cli_trains_saves_and_resumes(tmp_path):
     assert tckpt.latest_step(ckpt) == 5
 
 
+# ``--seq`` and ``--pipe`` train the Llama family
+# (tests/test_torch_pipeline.py); the MoE family on ``seq`` is A13d2.
 @pytest.mark.parametrize("extra", [["--model", "mixtral-tiny", "--seq", "2"],
-                                   ["--seq", "2"], ["--pipe", "2"]])
+                                   ["--model", "mixtral-8x7b", "--seq", "2"],
+                                   ["--model", "mixtral-tiny", "--seq", "4", "--data", "2"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
     argv = ["--dataset", str(tmp_path / "x.bin"), "--device", "cpu"] + extra
     with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
