@@ -13,8 +13,10 @@ writes and reads itself (HF, kukeon int8, and orbax, with the port's own
 zstd decoder), serve bge-base embeddings, also from orbax, serve
 Mixtral-8x7B and bge-base through the tensor-parallel code over a one-rank
 NCCL group and hold the kernels at every Mixtral shard shape of 2, 4 and 8
-ranks, train Llama and Mixtral, saving and resuming through orbax, and run the
-sequence-parallel attention bodies and the pipeline step.
+ranks, train Llama and Mixtral, saving and resuming through orbax, run the
+sequence-parallel attention bodies and the pipeline step, hold a Mixtral
+MoE layer's dispatch on seq meshes to one device's, and grant a GPU
+through the port's device manager.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases card,moe_kernel   # a subset; no result line
@@ -385,6 +387,35 @@ time; any failure ends the run with a nonzero exit and no result line:
               bytes at pipe 4; (c) the CLI's --seq 2 and --pipe 2 on one
               card exit with the over-grant message before any byte is
               allocated. Nothing here spans two GPUs
+  train_moe_sp  the MoE family on a seq axis: one full-width Mixtral-8x7B
+              MoE layer's router (H 4096, E 8, K 2, drawn from a seed) over
+              train_moe's batch shape (B 2, S 2048): one device's dispatch
+              of the whole batch, then each rank's through
+              moe._row_offsets on a stand-in mesh whose gather returns
+              every rank's per-row counts, for the 4 ranks of seq=4 and of
+              data=2,seq=2; each rank's dispatch equals its block of the
+              whole bit for bit at capacity_factor 2.0 (the preset's) and
+              1.0, where something must drop (the dropped share printed);
+              (b) llama.seq_attention with "auto", a seq rank's attention
+              in both families, at a Mixtral seq rank's shapes (B 4, S
+              2048 over seq 2 and 4, H 32, KV 8, D 128, bf16) through a
+              stand-in mesh: one flash launch a rank, counted from 0, for
+              its block of queries against every key, each held against
+              its plain version; the last block timed beside its bound,
+              the plain version and masked SDPA
+  gpu_grants  GPU discovery and grants on the card's host
+              (runtime/devices.py): discover_gpus finds as many GPUs as
+              nvidia-smi -L lists; a GPUDeviceManager over a temporary
+              store grants 1 GPU, a second manager reads the grant back,
+              and a grant of more than is free raises FailedPrecondition; a
+              child process started with visibility_env(grant) sees one
+              device, whose UUID is nvidia-smi's for the GPU whose minor
+              number was granted (nvidia-smi -q's Minor Number gives its
+              index; where nvidia-smi hides UUIDs on a one-GPU host, this
+              process's); device_nodes(grant) all exist. Prints the
+              granted GPU's minor number, nvidia-smi index and CUDA
+              ordinal, and what a child under the minor number taken as a
+              CUDA ordinal sees
 
 Serving decodes through CUDA graph replays, where the kernels' Python
 launch counters move only while a graph is captured. So a serve phase
@@ -507,7 +538,7 @@ PHASES = ("card", "kernel", "flash", "moe_kernel", "model", "serve", "serve_obs"
           "serve_tiny", "moe_model", "graph_decode", "graph_prefill", "graph_paged",
           "serve_moe", "serve_prefix", "serve_paged", "serve_disagg", "serve_embed",
           "serve_tp_cells", "train", "train_tp", "train_moe",
-          "train_moe_tp", "train_sp_pp")   # in run order
+          "train_moe_tp", "train_sp_pp", "train_moe_sp", "gpu_grants")   # in run order
 # Kernels a decode step launches inside the graphs, by model: K1, K1t, K2.
 STEP_LAUNCHES = {"llama3-8b": {"k1": 225, "k1t": 0, "k2": 0},
                  "llama3-1b": {"k1": 112, "k1t": 1, "k2": 0},
@@ -4810,6 +4841,270 @@ def phase_train_sp_pp(fa, bps: float, train: dict | None) -> dict:
     return out
 
 
+# train_moe_sp: the (data, seq) meshes whose ranks' dispatch is held to
+# the whole batch's, and the seed of the router and the activations.
+MOE_SP_MESHES, MOE_SP_SEED = ((1, 4), (2, 2)), 5
+# train_moe_sp (b): a Mixtral-8x7B seq rank's rows and the seq sizes whose
+# ranks attend (seq 2 x expert 2 and seq 4 on four GPUs give a rank B 4).
+SEQ_FLASH_B, SEQ_FLASH_SEQS = 4, (2, 4)
+
+
+def seq_flash(fa, bps: float) -> dict:
+    """(b): ``llama.seq_attention`` with "auto", the attention of a
+    training rank on a ``seq`` axis in both families, at a Mixtral-8x7B
+    seq rank's shapes (B SEQ_FLASH_B, S MOE_TRAIN_S, H 32, KV 8, D 128,
+    bf16) for each rank of each seq in SEQ_FLASH_SEQS, through a stand-in
+    mesh whose gather checks that it is given the rank's block of keys,
+    values or positions and returns the whole sequence's. The flash
+    counter is set to 0 just before the ranks' calls and must read one
+    launch a rank after them (the rank's S / seq queries against all S
+    keys); each rank's output is held against the plain version (its
+    queries over every key) by :func:`flash_within_tol`. The last rank's
+    block, the heaviest, is timed: the kernel, the plain version and SDPA
+    with the boolean mask of its positions, beside the block's bound."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as F
+
+    from kukeon_tpu_torch.models import llama, moe
+    from kukeon_tpu_torch.ops.attention import attention_mask, repeat_kv
+    from kukeon_tpu_torch.parallel.mesh import AXIS_SEQ
+
+    cfg = moe.mixtral_8x7b()
+    B, S, H, KV, D = SEQ_FLASH_B, MOE_TRAIN_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(MOE_SP_SEED)
+    q, k, v = (torch.randn((B, S, n, D), generator=g, device="cuda").to(torch.bfloat16)
+               for n in (H, KV, KV))
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None, :].expand(B, S).contiguous()
+    out = {}
+    for seq in SEQ_FLASH_SEQS:
+        cols = S // seq
+        blocks = [slice(r * cols, (r + 1) * cols) for r in range(seq)]
+
+        def stand_in(rank):
+            def gather(x, dim, axis):
+                whole = {k.data_ptr(): k, v.data_ptr(): v, pos.data_ptr(): pos}[
+                    x.untyped_storage().data_ptr()]
+                if (dim, axis) != (1, AXIS_SEQ) or not torch.equal(x, whole[:, blocks[rank]]):
+                    raise AssertionError(f"seq {seq} rank {rank}: gather given another block")
+                return whole
+            return SimpleNamespace(seq=seq, axis_size=lambda axis: seq, gather=gather)
+
+        with torch.no_grad():
+            fa.flash_attention.launches = 0
+            got = [llama.seq_attention(q[:, c], k[:, c], v[:, c], pos[:, c], "auto",
+                                       stand_in(r)) for r, c in enumerate(blocks)]
+            launches = fa.flash_attention.launches
+            worst, rel = 0.0, 0.0
+            for r, c in enumerate(blocks):
+                ref = fa.flash_attention_reference(q[:, c], k, v, pos[:, c], pos)
+                ok, ea, er = flash_within_tol(got[r], ref, v)
+                if not ok:
+                    raise AssertionError(f"seq {seq} rank {r}: max abs {ea}, rel rms {er}")
+                worst, rel = max(worst, ea), max(rel, er)
+        if launches != seq:
+            raise AssertionError(f"seq {seq}: {launches} flash launches for {seq} ranks")
+        del got
+        out[f"seq={seq}"] = {"shape": [B, cols, S, H, KV, D], "launches": launches,
+                             "max_abs_err": worst, "rel_rms_err": rel}
+    # The heaviest block: the last rank's queries of the last seq.
+    c = blocks[-1]
+    qb, pb = q[:, c].contiguous(), pos[:, c].contiguous()
+    call = (lambda: fa.flash_attention(qb, k, v, pb, pos))
+    mask = attention_mask(pb, pos)
+    qt, kt, vt = (x.transpose(1, 2) for x in (qb, repeat_kv(k, H // KV), repeat_kv(v, H // KV)))
+    pairs = float(torch.clamp(pb[0].double() + 1, max=S).sum())   # keys a query sees
+    t_ops = 4.0 * B * H * D * pairs / BF16_FLOPS * 1e3
+    t_bytes = (2 * B * cols * H * D + 2 * B * S * KV * D) * 2 / bps * 1e3
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    with torch.no_grad():
+        before = fa.flash_attention.launches
+        timing = {
+            "shape": [B, cols, S, H, KV, D], "rows": [c.start, c.stop],
+            "ms": round(cold_median_ms(call, flush), 4),
+            "plain_ms": round(cold_median_ms(
+                lambda: fa.flash_attention_reference(qb, k, v, pb, pos), flush), 4),
+            "library_ms": round(cold_median_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), flush), 4),
+            "device_ms": round(sum(kernel_device_ms(call, flush).values()), 4),
+            "bound_ms": round(max(t_ops, t_bytes), 4),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        fa.flash_attention.launches = before
+    del flush
+    return {"ranks": out, "timing_last_block": timing, "tolerance": FLASH_TOLERANCE,
+            "library_call": "torch.nn.functional.scaled_dot_product_attention(attn_mask=the "
+                            "block's position mask) on expanded K/V"}
+
+
+def phase_train_moe_sp(fa, bps: float) -> dict:
+    """train_moe_sp: one full-width Mixtral-8x7B MoE layer's routing of
+    train_moe's batch (B MOE_TRAIN_B, S MOE_TRAIN_S; router and bf16
+    activations drawn from MOE_SP_SEED), dispatched by one device for the
+    whole batch and by each rank of MOE_SP_MESHES for its block of rows and
+    positions (moe._row_offsets over a stand-in mesh whose gather checks
+    that it is given the rank's own per-row counts and returns every
+    rank's, ranks in AXES order), at the preset's capacity_factor and at
+    1.0: every rank's dispatch its block of the whole, bit for bit, and
+    something dropped at 1.0; then (b), :func:`seq_flash`."""
+    from types import SimpleNamespace
+
+    from kukeon_tpu_torch.models import moe
+
+    cfg = moe.mixtral_8x7b()
+    B, S, H = MOE_TRAIN_B, MOE_TRAIN_S, cfg.hidden_size
+    E, K = cfg.num_experts, cfg.experts_per_token
+    g = torch.Generator(device="cuda").manual_seed(MOE_SP_SEED)
+    router = torch.randn((H, E), generator=g, device="cuda").mul_(H ** -0.5)
+    h = torch.randn((B * S, H), generator=g, device="cuda").to(torch.bfloat16)
+    mask = moe._route(h, {"router": router}, cfg)[3].reshape(K, B, S, E)
+    out = {"model": "mixtral-8x7b MoE layer", "batch": B, "seq_len": S,
+           "first_choice_tokens_by_expert": mask[0].sum(dim=(0, 1)).int().tolist()}
+    for cf in (cfg.capacity_factor, 1.0):
+        C = moe._capacity(dataclasses.replace(cfg, capacity_factor=cf), B * S)
+        whole = moe._dispatch(mask.reshape(K, B * S, E), C).reshape(B, S, E, C)
+        dropped = 1.0 - float(whole.sum()) / (K * B * S)
+        meshes = {}
+        for data, seq in MOE_SP_MESHES:
+            rows, cols = B // data, S // seq
+            blocks = [(d, s, slice(d * rows, (d + 1) * rows), slice(s * cols, (s + 1) * cols))
+                      for d in range(data) for s in range(seq)]
+            every = torch.stack([mask[:, r, c].sum(dim=2) for _d, _s, r, c in blocks])
+
+            def gather(i):
+                def fn(x, dim, axis):
+                    if (dim, axis) != (0, "batch") or not torch.equal(x[0], every[i]):
+                        raise AssertionError(f"data={data},seq={seq} rank {i}: gather given "
+                                             "other counts than the rank's own")
+                    return every
+                return fn
+
+            for i, (d, s, r, c) in enumerate(blocks):
+                mesh = SimpleNamespace(axis_size=lambda axis: len(blocks), seq=seq, seq_rank=s,
+                                       replica=d, fsdp=1, fsdp_rank=0, gather=gather(i))
+                part = mask[:, r, c].reshape(K, rows * cols, E)
+                got = moe._dispatch(part, C, moe._row_offsets(part, mesh, rows))
+                if not torch.equal(got, whole[r, c].reshape(rows * cols, E, C)):
+                    raise AssertionError(f"data={data},seq={seq} rank (data {d}, seq {s}) at "
+                                         f"capacity_factor {cf}: its dispatch is not its block "
+                                         "of the whole batch's")
+            meshes[f"data={data},seq={seq}"] = {"ranks": len(blocks), "rows": rows,
+                                                "positions": cols, "bitwise_equal": True}
+        if cf == 1.0 and not dropped > 0:
+            raise AssertionError("capacity_factor 1.0 dropped nothing: the check binds no slot")
+        out[f"capacity_factor_{cf}"] = {"capacity": C, "dropped_share": round(dropped, 6),
+                                        "meshes": meshes}
+    del router, h, mask, whole
+    out["b_seq_flash"] = seq_flash(fa, bps)
+    return out
+
+
+GRANT_OWNER = "chip_smoke/gpu_grants"
+# What a child process under a grant's env prints: its device count and
+# device 0's UUID.
+GRANT_CHILD = ("import torch\n"
+               "n = torch.cuda.device_count()\n"
+               "print(n, torch.cuda.get_device_properties(0).uuid if n else '-')\n")
+
+
+def smi_minors() -> list:
+    """Each GPU's minor number in nvidia-smi's index order, from
+    ``nvidia-smi -q`` (NVML's own view; None where it shows none)."""
+    out = []
+    text = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True).stdout
+    for line in text.splitlines():
+        if re.match(r"GPU\b", line):
+            out.append(None)
+        elif out and line.strip().startswith("Minor Number"):
+            minor = line.split(":", 1)[1].strip()
+            out[-1] = int(minor) if minor.isdigit() else None
+    return out
+
+
+def granted_child(env: dict) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-c", GRANT_CHILD], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env={**os.environ, **env})
+
+
+def phase_gpu_grants() -> dict:
+    """gpu_grants: runtime/devices.py on this host: discovery against
+    ``nvidia-smi -L``, a grant of 1 GPU persisted and read back by a second
+    manager, an over-grant refused, the grant's device nodes present, and a
+    child under the grant's visibility_env seeing exactly the granted GPU:
+    one device, whose UUID is nvidia-smi's for the GPU of the granted
+    minor number (nvidia-smi -q's Minor Number gives its index), or, where
+    nvidia-smi hides UUIDs and the host has one GPU, this process's. A
+    second child under the minor number taken as a CUDA ordinal, the env a
+    manager that assumed the numberings agree would give, is reported
+    beside it."""
+    from kukeon_tpu_torch.runtime import devices
+    from kukeon_tpu_torch.runtime.errors import FailedPrecondition
+    from kukeon_tpu_torch.runtime.metadata import MetadataStore
+
+    found = devices.discover_gpus()
+    listed = [ln for ln in subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                                          text=True).stdout.splitlines() if ln.startswith("GPU ")]
+    if not found or len(found) != len(listed):
+        raise AssertionError(f"discover_gpus() {found} against nvidia-smi -L's {len(listed)}")
+    uuids = [ln.split(",")[1].strip() for ln in subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,uuid", "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.splitlines()]
+    minors = smi_minors()
+    tmp = tempfile.mkdtemp(prefix="kukeon-grants-")
+    try:
+        mgr = devices.GPUDeviceManager(MetadataStore(tmp))
+        grant = mgr.allocate(GRANT_OWNER, 1)
+        kept = devices.GPUDeviceManager(MetadataStore(tmp)).allocated()
+        if len(grant) != 1 or kept != {grant[0]: GRANT_OWNER}:
+            raise AssertionError(f"grant {grant} read back by a second manager as {kept}")
+        try:
+            mgr.allocate("chip_smoke/too_many", len(found))
+            raise AssertionError(f"{len(found)} GPUs granted with one of them taken")
+        except FailedPrecondition as e:
+            refused = str(e)
+        env = mgr.visibility_env(grant)
+        nodes = mgr.device_nodes(grant)
+        if not nodes or not all(os.path.exists(n) for n in nodes):
+            raise AssertionError(f"device nodes {nodes} of grant {grant}")
+        t0 = time.monotonic()
+        naive_env = {"CUDA_VISIBLE_DEVICES": str(grant[0])}
+        child, naive = granted_child(env), granted_child(naive_env)
+        outs = [(p.communicate(timeout=300), p.returncode) for p in (child, naive)]
+        child_s = time.monotonic() - t0
+        mgr.release(GRANT_OWNER)
+        released = mgr.allocated()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (out, err), code = outs[0]
+    if code != 0:
+        raise AssertionError(f"the granted child exited {code}: {err[-600:]}")
+    count, seen = out.split()[-2:]
+    minor = grant[0]
+    index = minors.index(minor) if minor in minors else (0 if len(listed) == 1 else None)
+    hidden = index is not None and not re.fullmatch(r"GPU-[0-9a-fA-F-]{36}", uuids[index])
+    if hidden and len(listed) == 1:
+        want, source = str(torch.cuda.get_device_properties(0).uuid), "this process (one GPU)"
+    elif index is not None and not hidden:
+        want, source = uuids[index], "nvidia-smi"
+    else:
+        raise AssertionError(f"cannot tell the UUID of minor {minor}: nvidia-smi's minors "
+                             f"{minors}, UUIDs {uuids}")
+    norm = lambda u: u.lower().removeprefix("gpu-")  # noqa: E731
+    if int(count) != 1 or norm(seen) != norm(want) or released:
+        raise AssertionError(f"grant {grant} (env {env}): the child sees {count} device(s), "
+                             f"UUID {seen}, want {want} ({source}); after release {released}")
+    (naive_out, _e), naive_code = outs[1]
+    return {"gpu_nodes": sorted(n for n in os.listdir("/dev") if re.fullmatch(r"nvidia\d+", n)),
+            "discovered": found, "nvidia_smi_listed": len(listed), "grant": grant,
+            "persisted_and_read_back": True, "over_grant_refused": refused,
+            "visibility_env": env, "device_nodes": nodes, "child_device_count": int(count),
+            "child_uuid": seen, "uuid_from": source, "children_s": round(child_s, 3),
+            "numberings": {"minor": minor, "nvidia_smi_index": index,
+                           "cuda_ordinal_in_env": env["CUDA_VISIBLE_DEVICES"]},
+            "minor_as_cuda_ordinal": {"env": naive_env, "exit_code": naive_code,
+                                      "device_count": (naive_out.split() or ["-"])[0]},
+            "parent_cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
 TP_WORLDS = (2, 4, 8)
 
 
@@ -5658,6 +5953,8 @@ def run_phases(phases: list) -> int:
     run("train_moe", train_moe)
     run("train_moe_tp", lambda: phase_train_moe_tp(fa, bps, res.get("train_moe")))
     run("train_sp_pp", lambda: phase_train_sp_pp(fa, bps, res.get("train")))
+    run("train_moe_sp", lambda: phase_train_moe_sp(fa, bps))
+    run("gpu_grants", phase_gpu_grants)
     if set(phases) != set(PHASES):
         print("chip_smoke: ran a subset of the phases; no result line", file=sys.stderr)
         return 0
@@ -5859,6 +6156,16 @@ def run_phases(phases: list) -> int:
                 "flash_launches_per_step", "llama3-8b_rank_state_gb")},
             "train_step_ms_median_3_8": train["step_ms_median_3_8"],
             "c_messages": {a: v["message"] for a, v in tsp["c_overgrant"].items()}},
+        "train_moe_sp_mixtral-8x7b_layer": {
+            **{f"capacity_factor_{cf}": {k: res["train_moe_sp"][f"capacity_factor_{cf}"][k]
+                                         for k in ("capacity", "dropped_share")}
+               for cf in (2.0, 1.0)},
+            "b_seq_flash": {"launches": {s: r["launches"] for s, r in
+                                         res["train_moe_sp"]["b_seq_flash"]["ranks"].items()},
+                            "timing_last_block":
+                                res["train_moe_sp"]["b_seq_flash"]["timing_last_block"]}},
+        "gpu_grants": {k: res["gpu_grants"][k] for k in (
+            "discovered", "grant", "child_device_count", "numberings")},
         "serve_stream_llama3-8b": {
             **{k: stream[k] for k in (
                 "tmp_free_gb", "save_s", "checkpoint_bytes", "construct_s", "ready_s",

@@ -53,6 +53,9 @@
 //   through cudaGetDriverEntryPoint, so the library links no -lcuda.
 // - A ragged last tile needs no padding: TMA zero-fills rows past S, kv
 //   rows past S are masked, q rows past S are not stored.
+// - The queries may be a block of the sequence (Sq < Skv: one rank's part
+//   of a sequence cut over ranks) against all of its keys: q tiles run over
+//   Sq rows, kv tiles over Skv, and the positions alone decide the mask.
 // - The kv tiles a work tile visits follow the JAX predicate above, from
 //   the min and max position of every 64-row chunk (a first small launch,
 //   chunk_minmax_kernel); a tile whose every kv position is <= every q
@@ -97,11 +100,12 @@ struct Params {
   void* o;
   const int* q_pos;
   const int* kv_pos;
-  int S, H, KV;
+  int Sq, Skv, H, KV;   // query rows and kv rows of a batch row
   // Element strides (batch, seq, head) of q, k, v, o; D is contiguous.
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   float scale;
-  const int4* minmax;   // bf16: [B, n_c] (kv min, kv max, q min, q max) of 64-row chunks
+  const int4* minmax;   // bf16: [B, n_c] (kv min, kv max, q min, q max) of 64-row chunks,
+                        // n_c over the longer of Sq and Skv
   int* tile_list;       // bf16, n_kt > kSmemTiles: [grid][2][n_kt], the blocks' kv-tile lists
 };
 
@@ -342,7 +346,7 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // MUFU.EX2 an element. A masked score is set to -1e30 / sl2, which scales
 // to the JAX kernel's -1e30.
 __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2], bool visible, int k0,
-                                             const int* kvpos, int S, int qp0, int qp1,
+                                             const int* kvpos, int Skv, int qp0, int qp1,
                                              float sl2, int t, float& m0, float& m1,
                                              float& corr0, float& corr1, float& sum0,
                                              float& sum1) {
@@ -351,8 +355,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2], bool visible, 
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int col = k0 + 8 * j + 2 * t;
-      const int kp0 = col < S ? __ldg(kvpos + col) : kPosMax;
-      const int kp1 = col + 1 < S ? __ldg(kvpos + col + 1) : kPosMax;
+      const int kp0 = col < Skv ? __ldg(kvpos + col) : kPosMax;
+      const int kp1 = col + 1 < Skv ? __ldg(kvpos + col + 1) : kPosMax;
       if (kp0 > qp0) s[4 * j + 0] = masked;
       if (kp1 > qp0) s[4 * j + 1] = masked;
       if (kp0 > qp1) s[4 * j + 2] = masked;
@@ -427,21 +431,23 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[D / 2], uint32_t (&p
   }
 }
 
-// min and max of the q and kv positions of every 64-row chunk, rows past S
-// left out: out[b * n_c + c] = (kv min, kv max, q min, q max). One warp per
-// (chunk, batch row).
+// min and max of the q and kv positions of every 64-row chunk, q rows past
+// Sq and kv rows past Skv left out: out[b * n_c + c] = (kv min, kv max, q
+// min, q max). One warp per (chunk, batch row).
 __global__ void __launch_bounds__(32)
 chunk_minmax_kernel(const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
-                    int4* __restrict__ out, int S, int n_c) {
+                    int4* __restrict__ out, int Sq, int Skv, int n_c) {
   int4 v = make_int4(kPosMax, kPosMin, kPosMax, kPosMin);
 #pragma unroll
   for (int i = 0; i < kBox / 32; ++i) {
     const int r = blockIdx.x * kBox + threadIdx.x + 32 * i;
-    if (r < S) {
-      const long long at = static_cast<long long>(blockIdx.y) * S + r;
-      const int kp = kv_pos[at], qp = q_pos[at];
+    if (r < Skv) {
+      const int kp = kv_pos[static_cast<long long>(blockIdx.y) * Skv + r];
       v.x = min(v.x, kp);
       v.y = max(v.y, kp);
+    }
+    if (r < Sq) {
+      const int qp = q_pos[static_cast<long long>(blockIdx.y) * Sq + r];
       v.z = min(v.z, qp);
       v.w = max(v.w, qp);
     }
@@ -485,9 +491,9 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
   const auto q_full = [&](int qb) { return base + P::BAR_OFF + 8 * (2 * P::NS + qb); };
   const auto q_empty = [&](int qb) { return base + P::BAR_OFF + 8 * (2 * P::NS + 2 + qb); };
   volatile int* n_visit = reinterpret_cast<volatile int*>(smem + P::NV_OFF);
-  const int S = p.S;
-  const int n_kt = (S + kBN - 1) / kBN, n_qt = (S + P::BM - 1) / P::BM;
-  const int n_c = (S + kBox - 1) / kBox;
+  const int Sq = p.Sq, Skv = p.Skv;
+  const int n_kt = (Skv + kBN - 1) / kBN, n_qt = (Sq + P::BM - 1) / P::BM;
+  const int n_c = (max(Sq, Skv) + kBox - 1) / kBox;
   // [2][n_kt]; bit 30: no mask.
   int* const tiles = GLOBAL_LIST ? p.tile_list + static_cast<long long>(blockIdx.x) * 2 * n_kt
                                  : reinterpret_cast<int*>(smem + P::LIST_OFF);
@@ -521,7 +527,7 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
         // The kv tiles to visit, in order: skipped when every kv position
         // exceeds every q position of the q tile (the JAX predicate),
         // unmasked when every kv position is <= every q position and the
-        // tile lies inside S.
+        // tile lies inside Skv.
         const int4* mm = p.minmax + static_cast<long long>(b) * n_c;
         int q_min = kPosMax, q_max = kPosMin;
         for (int ci = qt * NC; ci < min(n_c, qt * NC + NC); ++ci) {
@@ -542,7 +548,7 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
               kmm.y = max(kmm.y, hi.y);
             }
             vis = kmm.x <= q_max;
-            entry = kt | (kmm.y <= q_min && (kt + 1) * kBN <= S ? 1 << 30 : 0);
+            entry = kt | (kmm.y <= q_min && (kt + 1) * kBN <= Skv ? 1 << 30 : 0);
           }
           const unsigned ball = __ballot_sync(0xffffffffu, vis);
           if (vis) list[n + __popc(ball & ((1u << lane) - 1))] = entry;
@@ -594,10 +600,10 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
       work_tile(w, n_qt, p.H, B, qt, h, b);
       const int qb = j & 1;
       const int row0 = qt * P::BM + c * kBox + w4 * 16 + g, row1 = row0 + 8;
-      const int* qpos = p.q_pos + static_cast<long long>(b) * S;
-      const int* kvpos = p.kv_pos + static_cast<long long>(b) * S;
-      const int qp0 = row0 < S ? qpos[row0] : kPosMin;
-      const int qp1 = row1 < S ? qpos[row1] : kPosMin;
+      const int* qpos = p.q_pos + static_cast<long long>(b) * Sq;
+      const int* kvpos = p.kv_pos + static_cast<long long>(b) * Skv;
+      const int qp0 = row0 < Sq ? qpos[row0] : kPosMin;
+      const int qp1 = row1 < Sq ? qpos[row1] : kPosMin;
       const uint32_t q_mine = q_s(qb) + c * kBox * P::RB;
       const int* list = tiles + qb * n_kt;
       mbar_wait(q_full(qb), (j >> 1) & 1);
@@ -624,7 +630,8 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
         named_arrive(next_turn);
         wgmma_wait<0>();
         fence_regs(s);
-        softmax_tile(s, (list[0] >> 30) & 1, (list[0] & ~(1 << 30)) * kBN, kvpos, S, qp0, qp1,
+        softmax_tile(s, (list[0] >> 30) & 1, (list[0] & ~(1 << 30)) * kBN, kvpos, Skv, qp0,
+                     qp1,
                      sl2, t, m0, m1, corr0, corr1, sum0, sum1);
         rescale_and_pack<D>(o, pf, s, corr0, corr1, sum0, sum1, l0, l1);
 
@@ -643,7 +650,7 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
           named_arrive(next_turn);
           wgmma_wait<1>();                           // S has landed
           fence_regs(s);
-          softmax_tile(s, (list[i] >> 30) & 1, (list[i] & ~(1 << 30)) * kBN, kvpos, S, qp0,
+          softmax_tile(s, (list[i] >> 30) & 1, (list[i] & ~(1 << 30)) * kBN, kvpos, Skv, qp0,
                        qp1, sl2, t, m0, m1, corr0, corr1, sum0, sum1);
           wgmma_wait<0>();                           // P V has landed
           fence_regs(o);
@@ -668,14 +675,14 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
 
       const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
       __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh + 2 * t;
-      if (row0 < S) {
+      if (row0 < Sq) {
 #pragma unroll
         for (int jj = 0; jj < D / 8; ++jj) {
           *reinterpret_cast<__nv_bfloat162*>(og + row0 * p.o_ss + 8 * jj) =
               __floats2bfloat162_rn(o[4 * jj] / d0, o[4 * jj + 1] / d0);
         }
       }
-      if (row1 < S) {
+      if (row1 < Sq) {
 #pragma unroll
         for (int jj = 0; jj < D / 8; ++jj) {
           *reinterpret_cast<__nv_bfloat162*>(og + row1 * p.o_ss + 8 * jj) =
@@ -689,8 +696,8 @@ flash_fwd_bf16_kernel(const Params p, int B, const __grid_constant__ CUtensorMap
 
 // f32: one block of 128 threads per (16-row q tile, head, batch row), kv
 // tiles of 16 rows, every product a plain FMA from shared memory. Rows past
-// S read as zero, their kv positions as the largest int (masked), and are
-// not stored.
+// Sq or Skv read as zero, kv positions past Skv as the largest int (masked),
+// and q rows past Sq are not stored.
 constexpr int kTile32 = 16;
 
 template <int D>
@@ -704,17 +711,17 @@ flash_fwd_f32_kernel(const Params p) {
   __shared__ float m_s[kTile32], l_s[kTile32], corr_s[kTile32];
   __shared__ int q_pos_s[kTile32], kv_pos_s[kTile32];
 
-  const int S = p.S;
+  const int Sq = p.Sq, Skv = p.Skv;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile32;
-  const int q_rows = min(kTile32, S - q0);
+  const int q_rows = min(kTile32, Sq - q0);
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
   const int tid = threadIdx.x;
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + q0 * p.q_ss + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  const int* qpos = p.q_pos + static_cast<long long>(b) * S;
-  const int* kvpos = p.kv_pos + static_cast<long long>(b) * S;
+  const int* qpos = p.q_pos + static_cast<long long>(b) * Sq;
+  const int* kvpos = p.kv_pos + static_cast<long long>(b) * Skv;
 
   for (int i = tid; i < kTile32 * D; i += kThreads) {
     const int r = i / D, c = i % D;
@@ -730,8 +737,8 @@ flash_fwd_f32_kernel(const Params p) {
   int q_max = q_pos_s[0];
   for (int i = 1; i < q_rows; ++i) q_max = max(q_max, q_pos_s[i]);
 
-  for (int k0 = 0; k0 < S; k0 += kTile32) {
-    const int kv_rows = min(kTile32, S - k0);
+  for (int k0 = 0; k0 < Skv; k0 += kTile32) {
+    const int kv_rows = min(kTile32, Skv - k0);
     if (tid < kTile32) kv_pos_s[tid] = tid < kv_rows ? kvpos[k0 + tid] : kPosMax;
     __syncthreads();
     int kv_min = kv_pos_s[0];
@@ -864,20 +871,21 @@ cudaError_t launch_bf16(const Params& p, int B, long long tile_list_len, cudaStr
     return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }();
   if (ready != cudaSuccess) return ready;
-  const long long work = static_cast<long long>((p.S + P::BM - 1) / P::BM) * p.H * B;
+  const long long work = static_cast<long long>((p.Sq + P::BM - 1) / P::BM) * p.H * B;
   const int grid = static_cast<int>(work < sms ? work : sms);
-  const int n_kt = (p.S + kBN - 1) / kBN;
+  const int n_kt = (p.Skv + kBN - 1) / kBN;
   if (GLOBAL_LIST && (p.tile_list == nullptr || tile_list_len < 2LL * grid * n_kt)) {
     return cudaErrorInvalidValue;
   }
   CUtensorMap maps[3];
-  cudaError_t e = encode_map<D>(&maps[0], p.q, p.H, p.S, B, p.q_sb, p.q_ss, p.q_sh);
-  if (e == cudaSuccess) e = encode_map<D>(&maps[1], p.k, p.KV, p.S, B, p.k_sb, p.k_ss, p.k_sh);
-  if (e == cudaSuccess) e = encode_map<D>(&maps[2], p.v, p.KV, p.S, B, p.v_sb, p.v_ss, p.v_sh);
+  cudaError_t e = encode_map<D>(&maps[0], p.q, p.H, p.Sq, B, p.q_sb, p.q_ss, p.q_sh);
+  if (e == cudaSuccess) e = encode_map<D>(&maps[1], p.k, p.KV, p.Skv, B, p.k_sb, p.k_ss, p.k_sh);
+  if (e == cudaSuccess) e = encode_map<D>(&maps[2], p.v, p.KV, p.Skv, B, p.v_sb, p.v_ss, p.v_sh);
   if (e != cudaSuccess) return e;
-  const int n_c = (p.S + kBox - 1) / kBox;
+  const int n_c = (max(p.Sq, p.Skv) + kBox - 1) / kBox;
   chunk_minmax_kernel<<<dim3(n_c, B), 32, 0, st>>>(p.q_pos, p.kv_pos,
-                                                   const_cast<int4*>(p.minmax), p.S, n_c);
+                                                   const_cast<int4*>(p.minmax), p.Sq, p.Skv,
+                                                   n_c);
   flash_fwd_bf16_kernel<D, GLOBAL_LIST><<<grid, P::THREADS,
                                          P::smem_bytes(GLOBAL_LIST ? 0 : n_kt), st>>>(
       p, B, maps[0], maps[1], maps[2]);
@@ -888,33 +896,35 @@ template <int D>
 cudaError_t launch(const Params& p, int B, bool is_bf16, long long tile_list_len,
                    cudaStream_t st) {
   if (is_bf16) {
-    return (p.S + kBN - 1) / kBN > kSmemTiles ? launch_bf16<D, true>(p, B, tile_list_len, st)
-                                              : launch_bf16<D, false>(p, B, tile_list_len, st);
+    return (p.Skv + kBN - 1) / kBN > kSmemTiles ? launch_bf16<D, true>(p, B, tile_list_len, st)
+                                                : launch_bf16<D, false>(p, B, tile_list_len, st);
   }
-  const dim3 grid((p.S + kTile32 - 1) / kTile32, p.H, B);
+  const dim3 grid((p.Sq + kTile32 - 1) / kTile32, p.H, B);
   flash_fwd_f32_kernel<D><<<grid, kThreads, 0, st>>>(p);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// q [B,S,H,D], k and v [B,S,KV,D], o [B,S,H,D], all bf16 (is_bf16) or all
-// f32, read and written through `strides`: 12 element strides, (batch, seq,
-// head) for q, k, v, o in that order; D is contiguous. q_pos and kv_pos are
-// int32 [B,S], contiguous. 1 <= S <= 2^30, H a multiple of KV, D in {32,
-// 64, 128}. For bf16, q, k and v are read through tensor maps built here
-// from these strides, so every stride but D's and every base address is a
-// multiple of 16 bytes, and `minmax` is an int32 workspace of B *
-// ceil(S / 64) * 4 (16-byte aligned), unused for f32. Past S 65536 (more
-// than 512 kv tiles of 128 rows) the bf16 kernel keeps its kv-tile lists
-// in `tile_list`, an int32 workspace of tile_list_len >= 2 * ceil(S / 128)
-// for each SM; it is not read otherwise and may be null.
+// q [B,Sq,H,D], k and v [B,Skv,KV,D], o [B,Sq,H,D], all bf16 (is_bf16) or
+// all f32, read and written through `strides`: 12 element strides, (batch,
+// seq, head) for q, k, v, o in that order; D is contiguous. q_pos [B,Sq] and
+// kv_pos [B,Skv] are int32, contiguous; Sq < Skv is a block of queries (one
+// rank's part of a sequence) against every key, masked by the positions.
+// 1 <= Sq, Skv <= 2^30, H a multiple of KV, D in {32, 64, 128}. For bf16,
+// q, k and v are read through tensor maps built here from these strides, so
+// every stride but D's and every base address is a multiple of 16 bytes,
+// and `minmax` is an int32 workspace of B * ceil(max(Sq, Skv) / 64) * 4
+// (16-byte aligned), unused for f32. Past Skv 65536 (more than 512 kv tiles
+// of 128 rows) the bf16 kernel keeps its kv-tile lists in `tile_list`, an
+// int32 workspace of tile_list_len >= 2 * ceil(Skv / 128) for each SM; it
+// is not read otherwise and may be null.
 extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* v, void* o,
                                       const void* q_pos, const void* kv_pos, void* minmax,
-                                      void* tile_list, long long tile_list_len, int B, int S,
-                                      int H, int KV, int D, const long long* strides,
+                                      void* tile_list, long long tile_list_len, int B, int Sq,
+                                      int Skv, int H, int KV, int D, const long long* strides,
                                       int is_bf16, void* stream) {
-  if (B < 1 || S < 1 || S > kMaxS || KV < 1 || H % KV) {
+  if (B < 1 || Sq < 1 || Sq > kMaxS || Skv < 1 || Skv > kMaxS || KV < 1 || H % KV) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -926,7 +936,8 @@ extern "C" int kukeon_flash_attention(const void* q, const void* k, const void* 
   p.kv_pos = static_cast<const int*>(kv_pos);
   p.minmax = static_cast<const int4*>(minmax);
   p.tile_list = static_cast<int*>(tile_list);
-  p.S = S;
+  p.Sq = Sq;
+  p.Skv = Skv;
   p.H = H;
   p.KV = KV;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];

@@ -614,17 +614,20 @@ def seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: 
     any other ``attn_impl`` over the keys, values and positions of every
     seq peer gathered here (the keys' and values' gradients
     reduce-scattered back), as the reference's GSPMD attends a seq-cut
-    batch without ring attention. On a mesh whose ``seq`` is 1 it is
-    ``gqa_attention`` over the rank's own keys."""
+    batch without ring attention: ``auto`` dispatches on the whole
+    sequence's length, so where the reference's global arrays reach the
+    flash kernel, the rank's block of queries does too. On a mesh whose
+    ``seq`` is 1 it is ``gqa_attention`` over the rank's own keys."""
     from kukeon_tpu_torch.parallel import autograd as pa
     from kukeon_tpu_torch.parallel.mesh import AXIS_SEQ
 
-    kv_positions = positions
+    kv_positions, whole_len = positions, None
     if attn_impl not in ("ring", "ulysses") and mesh.seq > 1:
         k, v = pa.gather(k, 1, mesh, AXIS_SEQ), pa.gather(v, 1, mesh, AXIS_SEQ)
         kv_positions = mesh.gather(positions, 1, AXIS_SEQ)
+        whole_len = k.shape[1]
     return gqa_attention(q, k, v, q_positions=positions, kv_positions=kv_positions,
-                         impl=attn_impl, mesh=mesh)
+                         impl=attn_impl, mesh=mesh, whole_len=whole_len)
 
 
 def train_attention(x: torch.Tensor, w: dict, cfg, positions: torch.Tensor, attn_impl: str,

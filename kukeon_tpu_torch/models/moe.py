@@ -37,18 +37,22 @@ runs the no-cache path, with ``remat=True`` each block under non-reentrant
 output, so their gradients reach the router through the recompute.
 
 **Training on a mesh** (:func:`forward_train`, a ``data`` x ``fsdp`` x
-``expert`` x ``tensor`` rank group; the reference's ``make_moe_train_step``
-on ``make_mesh(data=, fsdp=, expert=, tensor=)``): the reference's batch
-spec cuts the rows over data x fsdp only, so the expert peers of a batch
-rank see the same rows and compute the same trunk, and only the expert
-stacks ``[L, E, ...]`` are cut on ``expert``. The dispatch is therefore
-local and no all-to-all is needed: each rank runs its ``E / expert``
-experts over its rows, and the MoE block's partial ``[N, H]`` is summed
-once over expert x tensor (:func:`train_moe_block`). What the reference
-computes over the global batch stays global: the capacity counts the
-global tokens, each assignment's slot is its place in the global (K, N)
-order (one all-gather of every batch rank's ``[K, E]`` counts), and the
-load-balance ``f`` and ``p`` and the z-loss are global means.
+``expert`` x ``seq`` x ``tensor`` rank group; the reference's
+``make_moe_train_step`` on ``make_mesh(data=, fsdp=, expert=, seq=,
+tensor=)``): the reference's batch spec ``P((data, fsdp), seq)`` cuts the
+rows over data x fsdp and the positions over seq only, so the expert
+peers of a batch rank see the same tokens and compute the same trunk, and
+only the expert stacks ``[L, E, ...]`` are cut on ``expert``. The
+dispatch is therefore local and no all-to-all is needed: each rank runs
+its ``E / expert`` experts over its tokens, and the MoE block's partial
+``[N, H]`` is summed once over expert x tensor (:func:`train_moe_block`).
+What the reference computes over the global batch stays global: the
+capacity counts the global tokens, each assignment's slot is its place in
+the global (K, N) order (one all-gather of every batch rank's ``[K, B,
+E]`` counts, one a row: on a ``seq`` axis the ranks' tokens interleave row
+by row), and the load-balance ``f`` and ``p`` and the z-loss are global
+means. On ``seq`` the trunk attends over every key
+(``llama.train_attention``).
 """
 
 from __future__ import annotations
@@ -316,14 +320,19 @@ def _route(x: torch.Tensor, w: dict, cfg: MoEConfig):
 def _dispatch(mask: torch.Tensor, C: int, offset: torch.Tensor | None = None) -> torch.Tensor:
     """The one-hot dispatch [N, E, C] of the choices ``mask`` [K, N, E]:
     priority dispatch, choice 0 of every token before choice 1 (GShard),
-    through a cumulative count over the flattened (K, N) order; ``offset``
-    [K, E] adds the assignments that come before these tokens' in a
-    larger batch's order. A slot at or past ``C`` is dropped."""
+    through a cumulative count over the flattened (K, N) order. Where the
+    N tokens are a rank's part of a larger batch, filling B rows of it,
+    ``offset`` [K, B, E] holds for each row the assignments that the larger
+    batch's order puts before the row's choice-k ones
+    (:func:`_row_offsets`), and the cumulative count runs within each row.
+    A slot at or past ``C`` is dropped."""
     K, N, E = mask.shape
     flat = mask.reshape(K * N, E)
-    pos = torch.cumsum(flat, dim=0) - flat                           # tokens ahead
-    if offset is not None:
-        pos = (pos.reshape(K, N, E) + offset[:, None, :]).reshape(K * N, E)
+    if offset is None:
+        pos = torch.cumsum(flat, dim=0) - flat                       # tokens ahead
+    else:
+        rows = mask.reshape(K, offset.shape[1], -1, E)
+        pos = (torch.cumsum(rows, dim=2) - rows + offset[:, :, None, :]).reshape(K * N, E)
     keep = (pos < C).float() * flat                                  # drop overflow
     # One-hot of each slot; a position >= C (dropped) is an all-zero row,
     # as jax.nn.one_hot gives (F.one_hot would raise).
@@ -365,20 +374,37 @@ def moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, inference: bool = False,
     return y.reshape(B, S, H), {"load_balance": lb, "router_z": z}
 
 
-def _slot_offset(mask: torch.Tensor, mesh) -> torch.Tensor | None:
-    """[K, E]: the assignments to each expert that the global batch's
-    (K, N) order puts before this batch rank's choice-k ones, beyond those
-    its own cumulative count sees: every other batch rank's choices k' < k,
-    and the choice-k ones of the batch ranks before it (its rows follow
-    theirs, ``data.rank_rows``). One all-gather of each rank's ``[K, E]``
-    counts over ``batch``; None at one batch rank."""
+def _row_offsets(mask: torch.Tensor, mesh, rows: int) -> torch.Tensor | None:
+    """[K, B, E]: for each of this batch rank's ``rows`` rows, the
+    assignments to each expert that the global batch's (K, N) order puts
+    before its choice-k ones in that row: every choice k' < k of the
+    global batch, the choice-k ones of every earlier global row on all seq
+    peers, and those of the same row on the seq ranks before this one (on
+    a ``seq`` axis a rank's tokens are a block of positions of each of its
+    rows, and its seq peers' blocks interleave with its own row by row; at
+    ``seq`` 1 a rank's rows are whole). One all-gather of each rank's
+    per-row ``[K, B, E]`` counts over ``batch``, whose ranks come in
+    ``AXES`` order (data, fsdp, seq: a row block's seq ranks in turn); the
+    rank's row block is ``replica * fsdp + fsdp_rank`` of them
+    (``data.rank_rows``) and its place within it ``seq_rank``
+    (``data.rank_cols``). The rank's own earlier positions of a row are its
+    cumulative count's (:func:`_dispatch`). The counts are whole numbers
+    far below 2^24, so every sum is exact in f32 and the slots are the
+    one-device dispatch's. None at one batch rank."""
     if mesh.axis_size(AXIS_BATCH) == 1:
         return None
-    counts = mask.sum(dim=1)                                         # [K, E]
-    every = mesh.gather(counts[None], 0, AXIS_BATCH)                 # [ranks, K, E]
-    others = every.sum(dim=0) - counts
-    b = mesh.replica * mesh.fsdp + mesh.fsdp_rank
-    return torch.cumsum(others, dim=0) - others + every[:b].sum(dim=0)
+    K, N, E = mask.shape
+    seq = mesh.seq
+    counts = mask.reshape(K, rows, N // rows, E).sum(dim=2)          # [K, B, E]
+    every = mesh.gather(counts[None], 0, AXIS_BATCH)                 # [ranks, K, B, E]
+    every = every.reshape(-1, seq, K, rows, E)                       # [row blocks, seq, ...]
+    total = every.sum(dim=(0, 1, 3))                                 # [K, E]
+    by_row = every.sum(dim=1).permute(1, 0, 2, 3).reshape(K, -1, E)  # [K, global rows, E]
+    earlier_rows = torch.cumsum(by_row, dim=1) - by_row
+    block = mesh.replica * mesh.fsdp + mesh.fsdp_rank
+    return ((torch.cumsum(total, dim=0) - total)[:, None, :]
+            + earlier_rows[:, block * rows:(block + 1) * rows]
+            + every[block, :mesh.seq_rank].sum(dim=0))
 
 
 def _batch_mean(t: torch.Tensor, n: int, mesh) -> torch.Tensor:
@@ -394,15 +420,16 @@ def _batch_mean(t: torch.Tensor, n: int, mesh) -> torch.Tensor:
 
 def train_moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, mesh) -> tuple[torch.Tensor, dict]:
     """:func:`moe_block` of a training mesh's rank over its batch rows
-    ``h`` [B, S, H], under autograd, with the global batch's semantics (the
+    ``h`` [B, S, H] (on a ``seq`` axis, its block of S positions of each
+    row), under autograd, with the global batch's semantics (the
     reference's GSPMD over global arrays): the capacity of the global
     token count, each slot where the global (K, N) order puts it
-    (:func:`_slot_offset`), and ``f``, ``p`` and the z-loss as global means
-    (:func:`_batch_mean`). The router runs on the replicated activations;
-    the rank runs its ``E / expert`` experts ``w`` (their ``tensor``
-    columns) over every capacity slot, its own tokens' filled, and its
-    partial ``[N, H]`` is summed once over ``expert_tensor``. The expert
-    input and the gate weights enter through ``autograd.copy_to`` over
+    (:func:`_row_offsets`), and ``f``, ``p`` and the z-loss as global
+    means (:func:`_batch_mean`). The router runs on the replicated
+    activations; the rank runs its ``E / expert`` experts ``w`` (their
+    ``tensor`` columns) over every capacity slot, its own tokens' filled,
+    and its partial ``[N, H]`` is summed once over ``expert_tensor``. The
+    expert input and the gate weights enter through ``autograd.copy_to`` over
     that group, so every expert and tensor peer ends with the whole router
     and trunk gradient of its rows. At one rank it is :func:`moe_block`,
     op for op."""
@@ -415,7 +442,7 @@ def train_moe_block(h: torch.Tensor, w: dict, cfg: MoEConfig, mesh) -> tuple[tor
     C = _capacity(c, n)
     x = h.reshape(N, H)
     router_logits, probs, gate_vals, mask = _route(x, w, c)
-    dispatch = _dispatch(mask, C, _slot_offset(mask, mesh))          # [N, E, C]
+    dispatch = _dispatch(mask, C, _row_offsets(mask, mesh, B))      # [N, E, C]
     gates = pa.copy_to((mask * gate_vals.T[..., None]).sum(dim=0), mesh, AXIS_EXPERT_TENSOR)
     if mesh.expert > 1:
         local = c.num_experts // mesh.expert

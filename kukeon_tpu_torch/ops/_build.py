@@ -142,11 +142,11 @@ def load_flash_attention() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
     # q, k, v, o, q_pos, kv_pos, tile min/max workspace, kv-tile list
-    # workspace and its length, B, S, H, KV, D, strides (12 x int64),
+    # workspace and its length, B, Sq, Skv, H, KV, D, strides (12 x int64),
     # is_bf16, stream
     L = ctypes.POINTER(ctypes.c_longlong)
     lib.kukeon_flash_attention.argtypes = [P, P, P, P, P, P, P, P, ctypes.c_longlong,
-                                           I, I, I, I, I, L, I, P]
+                                           I, I, I, I, I, I, L, I, P]
     lib.kukeon_flash_attention.restype = ctypes.c_int
     return lib
 

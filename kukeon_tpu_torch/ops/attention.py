@@ -168,6 +168,7 @@ def gqa_attention(
     kv_length: torch.Tensor | None = None,
     impl: str = "auto",
     mesh=None,
+    whole_len: int | None = None,
 ) -> torch.Tensor:
     """GQA attention entry point used by the model.
 
@@ -180,7 +181,12 @@ def gqa_attention(
     this rank's block of the sequence over every ``seq`` peer's on a
     training ``mesh`` (``parallel.mesh.Mesh``), full self-attention only;
     without a mesh they are a ``ValueError``, as the reference's are
-    without an ambient one.
+    without an ambient one. ``whole_len``: q is one rank's block of a
+    sequence of this many positions, attending every key of it (Skv ==
+    whole_len, ``llama.seq_attention``); "auto" and "flash" then decide on
+    the whole sequence, Sq == Skv == whole_len, as the reference does on
+    its global arrays, and the flash kernel takes the block ("auto" where
+    the block has the kernel's ``MIN_S`` rows).
     """
     if impl in ("ring", "ulysses"):
         if kv_length is not None or q.shape[1] != k.shape[1]:
@@ -206,19 +212,21 @@ def gqa_attention(
 
     from kukeon_tpu_torch.ops import flash_attention as fa   # it imports this module
 
+    q_len = q.shape[1] if whole_len is None else whole_len
     if impl == "flash":
-        if kv_length is not None or not fa.supports(q.shape[1], k.shape[1]):
+        if kv_length is not None or not fa.supports(q_len, k.shape[1]):
             raise ValueError(
                 "impl='flash' requires full self-attention with Sq == Skv, "
                 "Sq >= 128, Sq a multiple of the 256 block, and no kv_length; "
-                f"got Sq={q.shape[1]}, Skv={k.shape[1]}, "
+                f"got Sq={q_len}, Skv={k.shape[1]}, "
                 f"kv_length={'set' if kv_length is not None else 'None'}. "
                 "Use 'reference' or 'auto'."
             )
         use_flash = True
     else:
-        use_flash = (impl == "auto" and kv_length is None and q.shape[1] >= 1024
-                     and fa.supports(q.shape[1], k.shape[1]) and q.device.type == "cuda")
+        use_flash = (impl == "auto" and kv_length is None and q_len >= 1024
+                     and fa.supports(q_len, k.shape[1]) and q.shape[1] >= fa.MIN_S
+                     and q.device.type == "cuda")
     if use_flash:
         return fa.flash_attention(q, k, v, q_positions, kv_positions)
     mask = attention_mask(q_positions, kv_positions, kv_length)

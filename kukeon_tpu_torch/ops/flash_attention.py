@@ -7,7 +7,13 @@ layout: q ``[B, S, H, D]``, k and v ``[B, S, KV, D]``, positions
 q_position``. Unlike the JAX function, k and v may carry fewer heads than
 q (``H % KV == 0``): the kernel maps query head ``h`` to kv head
 ``h // (H // KV)``, which is what ``repeat_kv`` followed by the JAX
-function computes, without the expanded copy.
+function computes, without the expanded copy. And q may be a block of
+the sequence, ``[B, Sq, H, D]`` with its ``[B, Sq]`` positions, against
+all ``Skv`` keys: a training rank's queries on a ``seq`` axis over the
+keys gathered from its peers (``llama.seq_attention``), where the
+reference attends the global arrays with Sq == Skv. The positions mask it
+as they mask the whole; :func:`supports` stays the JAX rule, which a
+caller applies to the whole sequence.
 
 Routes, by where the tensors lie:
 
@@ -23,9 +29,9 @@ Routes, by where the tensors lie:
   softmax hides behind the other's products. A first small launch takes
   the min and max position of every 64-row chunk, from which the tile
   lists follow. f32 runs a plain-FMA kernel, for the f32 models and
-  tests. D must be 32, 64 or 128 and S at least 128 and at most 2^30; a
-  ragged last tile is fine (TMA zero-fills, the kernel masks). Past S
-  65536 (512 kv tiles) the kernel's kv-tile lists no longer fit shared
+  tests. D must be 32, 64 or 128 and Sq and Skv at least 128 and at most
+  2^30; a ragged last tile is fine (TMA zero-fills, the kernel masks). Past
+  Skv 65536 (512 kv tiles) the kernel's kv-tile lists no longer fit shared
   memory and go to an int32 workspace allocated here, one part per SM.
   bf16 operands need every
   stride and base address a multiple of 16 bytes (:func:`check_tma_operand`):
@@ -83,14 +89,15 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check(q, k, v, q_positions, kv_positions) -> None:
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
-        raise ValueError(f"flash_attention wants q [B,S,H,D] and k, v [B,S,KV,D]; got "
+        raise ValueError(f"flash_attention wants q [B,Sq,H,D] and k, v [B,Skv,KV,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, H, D = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D or H % k.shape[2]:
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"flash_attention shape mismatch: q {tuple(q.shape)}, "
-                         f"k/v {tuple(k.shape)} (equal S, H a multiple of KV)")
-    if q_positions.shape != (B, S) or kv_positions.shape != (B, S):
-        raise ValueError(f"flash_attention wants [B,S] positions; got "
+                         f"k/v {tuple(k.shape)} (equal B and D, H a multiple of KV)")
+    if q_positions.shape != (B, Sq) or kv_positions.shape != (B, Skv):
+        raise ValueError(f"flash_attention wants [B,Sq] and [B,Skv] positions; got "
                          f"{tuple(q_positions.shape)}, {tuple(kv_positions.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention wants one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -115,15 +122,17 @@ def check_tma_operand(strides: tuple[int, ...], data_ptr: int) -> None:
 
 
 def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flash_attention kernel takes bfloat16 or float32; got {q.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes D in {HEAD_DIMS}; got {D}")
-    if S < MIN_S or S > MAX_S:
-        raise ValueError(f"flash_attention kernel takes S >= {MIN_S} and <= {MAX_S}; got {S}")
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    for name, S in (("Sq", Sq), ("Skv", Skv)):
+        if S < MIN_S or S > MAX_S:
+            raise ValueError(f"flash_attention kernel takes S >= {MIN_S} and <= {MAX_S} "
+                             f"({name}); got {S}")
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     strides = []
     for t in (q, k, v, out):
         if t.stride(3) != 1:
@@ -133,12 +142,12 @@ def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
         for t in (q, k, v):
             check_tma_operand(t.stride(), t.data_ptr())
     qp, kp = (p if p.dtype == torch.int32 and p.is_contiguous() else
-              torch.empty((B, S), dtype=torch.int32, device=q.device).copy_(p)
+              torch.empty(p.shape, dtype=torch.int32, device=q.device).copy_(p)
               for p in (q_positions, kv_positions))
     # Per 64-row chunk: min and max of the kv and q positions (the kernel's
     # first launch writes them, its second lists each q tile's kv tiles).
-    minmax = torch.empty((B, -(-S // BOX), 4), dtype=torch.int32, device=q.device)
-    n_kt = -(-S // 128)
+    minmax = torch.empty((B, -(-max(Sq, Skv) // BOX), 4), dtype=torch.int32, device=q.device)
+    n_kt = -(-Skv // 128)
     tile_list = None
     if q.dtype == torch.bfloat16 and n_kt > SMEM_TILES:
         # One pair of lists for each persistent block (at most one an SM).
@@ -148,12 +157,12 @@ def _launch(q, k, v, q_positions, kv_positions) -> torch.Tensor:
     err = lib.kukeon_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp.data_ptr(),
         kp.data_ptr(), minmax.data_ptr(), None if tile_list is None else tile_list.data_ptr(),
-        0 if tile_list is None else tile_list.numel(), B, S, H, KV, D,
+        0 if tile_list is None else tile_list.numel(), B, Sq, Skv, H, KV, D,
         (ctypes.c_longlong * 12)(*strides), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} "
-                           f"(B={B}, S={S}, H={H}, KV={KV}, D={D}, {q.dtype})")
+                           f"(B={B}, Sq={Sq}, Skv={Skv}, H={H}, KV={KV}, D={D}, {q.dtype})")
     flash_attention.launches += 1
     return out
 
@@ -181,8 +190,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
                     block_q: int = 256, block_k: int = 256) -> torch.Tensor:
-    """Position-masked flash attention. q [B, S, H, D]; k, v [B, S, KV, D]
-    with H % KV == 0; positions [B, S]. ``block_q``/``block_k`` are the JAX
+    """Position-masked flash attention. q [B, Sq, H, D]; k, v [B, Skv, KV, D]
+    with H % KV == 0; positions [B, Sq] and [B, Skv] (Sq < Skv: a block of
+    queries against every key). ``block_q``/``block_k`` are the JAX
     signature's and do not change the result (the kernel tiles by 128)."""
     del block_q, block_k
     _check(q, k, v, q_positions, kv_positions)

@@ -97,7 +97,8 @@ def auto_mesh_shape(n_devices: int) -> dict[str, int]:
 
 def visible_devices(device_type: str) -> int:
     """Devices a grant may take on this host: the visible GPUs on ``cuda``
-    (``CUDA_VISIBLE_DEVICES`` narrows them), :data:`CPU_RANKS` gloo ranks
+    (a cell's ``runtime.devices.GPUDeviceManager.visibility_env`` narrows
+    them to its grant), :data:`CPU_RANKS` gloo ranks
     on ``cpu``."""
     if device_type == "cuda":
         return torch.cuda.device_count()
@@ -111,10 +112,12 @@ def check_grant(n: int, device_type: str) -> int:
         raise ValueError(f"serving mesh needs >= 1 device, got {n}")
     visible = visible_devices(device_type)
     if n > visible:
+        cuda = device_type == "cuda"
+        grant = ("GPU grant, the env of runtime.devices.GPUDeviceManager.visibility_env"
+                 if cuda else "chip grant")
         raise ValueError(
-            f"serving mesh wants {n} {'GPUs' if device_type == 'cuda' else 'CPU ranks'} "
-            f"but only {visible} visible (check the cell's chip grant"
-            f"{' / CUDA_VISIBLE_DEVICES' if device_type == 'cuda' else ''})")
+            f"serving mesh wants {n} {'GPUs' if cuda else 'CPU ranks'} "
+            f"but only {visible} visible (check the cell's {grant})")
     return n
 
 

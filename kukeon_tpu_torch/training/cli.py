@@ -16,11 +16,11 @@ function of (seed, step); the run resumes from the newest checkpoint in
 ``mixtral-tiny``, ``mixtral-8x7b``) over a rank group of one process per
 device (``training/mesh_trainer.py``); ``--expert`` cuts a MoE model's
 experts (a Llama model's leaves are replicated over it, as the
-reference's are); ``--seq`` cuts the sequence, attending through ring
-attention as the reference's step does; ``--pipe`` trains a Llama model
-through the GPipe step (``parallel/pipeline.py``). A MoE model at
-``--pipe`` > 1 exits 2 with the reference's message; at ``--seq`` > 1 it
-raises (ROADMAP.md A13d2). With no axis given and more than one visible
+reference's are); ``--seq`` cuts the sequence, a Llama model attending
+through ring attention and a MoE model over every key gathered, as the
+reference's steps do; ``--pipe`` trains a Llama model through the GPipe
+step (``parallel/pipeline.py``). A MoE model at ``--pipe`` > 1 exits 2
+with the reference's message. With no axis given and more than one visible
 device (``mesh.visible_devices``: the visible GPUs, 8 gloo ranks on the
 CPU), the default is the reference's, ``data = gcd(devices, batch)``, for
 every model. The first line prints the mesh as the reference prints it.
@@ -71,17 +71,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def refuse(args) -> None:
-    """What the port does not train yet raises ``NotImplementedError``
-    naming its ROADMAP item, before anything else runs: a MoE model on a
-    ``seq`` axis (the reference's pipeline refusal, which it shares, comes
-    first)."""
-    if args.model.startswith("mixtral") and args.seq > 1 and args.pipe == 1:
-        raise NotImplementedError(
-            f"--seq {args.seq}: the MoE family on a seq axis is not ported yet "
-            "(ROADMAP.md A13d2)")
-
-
 def mesh_axes(args, device: torch.device) -> dict[str, int]:
     """``{"data", "fsdp", "expert", "tensor", "seq", "pipe"}`` of the run:
     the flags, or with none above 1 the reference's default, ``data =
@@ -97,7 +86,6 @@ def mesh_axes(args, device: torch.device) -> dict[str, int]:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse(args)
     is_moe = args.model.startswith("mixtral")
     if is_moe and args.pipe > 1:
         print("error: pipeline parallelism is llama-only for now", file=sys.stderr)

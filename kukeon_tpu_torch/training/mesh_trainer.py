@@ -56,8 +56,10 @@ class MeshTrainer:
     A mesh with ``pipe`` > 1, or a ``num_microbatches`` given, trains
     through the GPipe step (``parallel.pipeline.make_pp_train_step``, its
     layout's layers cut on ``pipe``); otherwise ``use_ring_attention``
-    goes to ``make_train_step``. The leader's calls post
-    the same call to every follower."""
+    goes to ``make_train_step``. A MoE model takes no pipeline and no
+    ``use_ring_attention`` (a ``ValueError``): the reference's MoE step
+    has neither, and attends a seq-cut batch over every key. The leader's
+    calls post the same call to every follower."""
 
     def __init__(self, mesh, *, model: str, dataset: str, batch: int, seq_len: int,
                  seed: int = 0, lr: float = 3e-4, warmup_steps: int = 100,
@@ -73,6 +75,9 @@ class MeshTrainer:
         self.pipeline = mesh.pipe > 1 or num_microbatches is not None
         if self.pipeline and self.is_moe:
             raise ValueError("pipeline parallelism is llama-only for now")
+        if use_ring_attention is not None and self.is_moe:
+            raise ValueError(f"use_ring_attention={use_ring_attention}: the MoE step has no "
+                             "ring option; on seq it attends over every key")
         self.layout = TrainLayout.of(self.cfg, mesh, pipeline=self.pipeline)
         self.batch, self.seq_len, self.seed = batch, seq_len, seed
         self.ds = TokenDataset(dataset)

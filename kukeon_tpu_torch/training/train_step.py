@@ -20,7 +20,7 @@ numbers, and per-block remat bounds the memory).
 The MoE step (:func:`make_moe_train_step`) adds the Switch load-balance
 loss and the router z-loss of ``moe.forward_with_aux`` to the cross
 entropy, with the training capacity (the GShard drops), on one device or
-on a mesh without a ``seq`` axis (ROADMAP.md A13d2).
+on a data x fsdp x expert x seq x tensor mesh.
 """
 
 from __future__ import annotations
@@ -366,16 +366,17 @@ def make_moe_train_step(cfg: moe.MoEConfig, optimizer: AdamW, *, remat: bool = T
     {"loss", "ce", "load_balance", "router_z"} as detached scalars.
 
     On a training ``mesh`` (the reference's step over data x fsdp x expert
-    x tensor): the forward is ``moe.forward_train``, whose aux losses are
-    the global batch's on every rank, their gradients reaching only the
-    rank's tokens; each rank's loss is its share of the global cross
-    entropy plus the whole aux terms, so the sum of the gradients over
-    ``batch`` counts each term once (:func:`make_train_step`'s
+    x seq x tensor): the forward is ``moe.forward_train``, whose aux
+    losses are the global batch's on every rank, their gradients reaching
+    only the rank's tokens; each rank's loss is its share of the global
+    cross entropy plus the whole aux terms, so the sum of the gradients
+    over ``batch`` counts each term once (:func:`make_train_step`'s
     reductions); the metrics are the global ones, the same on every rank.
-    At one rank it is the one-device step, bit for bit. A mesh with a
-    ``seq`` axis raises ``NotImplementedError``: the MoE block's global
-    capacity and slot order over a (row, position) cut are ROADMAP.md
-    A13d2."""
+    On ``seq`` the batch is the rank's block of positions at their
+    absolute places, attended over every key with ``auto`` (the
+    reference's MoE step has no ring option), and each slot is the one
+    the global batch's dispatch gives it (``moe._row_offsets``). At one
+    rank it is the one-device step, bit for bit."""
     if mesh is None:
         def loss_fn(params, tokens, targets, mask, positions):
             logits, _, aux = moe.forward_with_aux(params, cfg, tokens, positions, remat=remat)
@@ -387,11 +388,6 @@ def make_moe_train_step(cfg: moe.MoEConfig, optimizer: AdamW, *, remat: bool = T
             return loss, {k: v.detach() for k, v in metrics.items()}
 
         return _make_step(optimizer, loss_fn)
-
-    if mesh.seq > 1:
-        raise NotImplementedError(
-            f"seq {mesh.seq}: the MoE family on a seq axis is not ported yet (ROADMAP.md "
-            "A13d2)")
 
     def mesh_loss_fn(params, tokens, targets, mask, positions):
         logits, aux = moe.forward_train(params, cfg, tokens, positions, mesh, remat=remat)

@@ -255,3 +255,141 @@ def test_wrapper_refuses_s_past_max_s():
     pos = torch.zeros((1, 1), dtype=torch.int32).expand(1, S)
     with pytest.raises(ValueError, match="S >= 128 and <="):
         tfa._launch(x, x, x, pos, pos)
+
+
+def _block(seed, B, S, H, KV, D, seq, rank):
+    """A seq rank's view: its block of the queries and their positions,
+    and every key, value and position of the sequence."""
+    q, k, v = _qkv(seed, B, S, H, KV, D)
+    pos = np.array([[0], [9]][:B], np.int32) + np.arange(S, dtype=np.int32)[None, :]
+    rows = slice(rank * S // seq, (rank + 1) * S // seq)
+    return q, k, v, pos, rows
+
+
+@pytest.mark.parametrize("seq, rank", [(2, 0), (2, 1), (4, 2)])
+def test_flash_query_block_is_its_rows_of_the_whole(seq, rank):
+    """A block of queries (Sq = S / seq, a seq rank's) against every key
+    gives its rows of the whole sequence's attention: the Pallas kernel,
+    interpreted, over the whole S, sliced. The port's wrapper takes the
+    block on the CPU through its plain version; the CUDA kernel is held to
+    the same plain version at a Mixtral seq rank's shapes by chip_smoke.py."""
+    B, S, H, KV, D = 2, 512, 4, 2, 32
+    q, k, v, pos, rows = _block(20 + rank, B, S, H, KV, D, seq, rank)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    got = tfa.flash_attention(t(q[:, rows]), t(k), t(v), t(pos[:, rows]), t(pos)).numpy()
+    assert got.shape == (B, S // seq, H, D)
+    np.testing.assert_allclose(got, _jax_flash(q, k, v, pos, 128, 128)[:, rows], **TOL)
+
+
+def test_flash_query_block_gradients_match_jax_vjp():
+    """The backward of a block (the reference attention recomputed): dq of
+    the block, and dk, dv over every key, against ``jax.vjp`` of the JAX
+    reference attention of the block's queries over all keys."""
+    B, S, H, KV, D, seq, rank = 2, 256, 4, 2, 16, 2, 1
+    q, k, v, pos, rows = _block(30, B, S, H, KV, D, seq, rank)
+    qb, pb = np.ascontiguousarray(q[:, rows]), np.ascontiguousarray(pos[:, rows])
+    g = np.random.default_rng(98).standard_normal(qb.shape).astype(np.float32)
+
+    def ref(q, k, v):
+        return jattn.attention_reference(q, jattn.repeat_kv(k, H // KV),
+                                         jattn.repeat_kv(v, H // KV),
+                                         jattn.attention_mask(jnp.asarray(pb), jnp.asarray(pos)))
+
+    _, vjp = jax.vjp(ref, *map(jnp.asarray, (qb, k, v)))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (qb, k, v))
+    out = tfa.flash_attention(tq, tk, tv, torch.from_numpy(pb), torch.from_numpy(pos))
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_gqa_attention_decides_a_query_block_on_the_whole_length():
+    """``whole_len``: a rank's block of queries over every key dispatches
+    as the whole sequence would. "flash" takes the block (the plain version
+    on the CPU, its rows of the whole) where Sq == Skv == whole_len passes
+    the JAX rule, and refuses it without ``whole_len`` (Sq != Skv) or where
+    the whole fails the rule; "auto" takes the grouped path on the CPU."""
+    B, S, H, KV, D = 1, 1024, 4, 2, 16
+    q, k, v, pos, rows = _block(40, B, S, H, KV, D, 2, 1)
+    q, k, v, pos = map(torch.from_numpy, (q, k, v, pos))
+    qb, pb = q[:, rows], pos[:, rows]
+    whole = tattn.attention_grouped(q, k, v, tattn.attention_mask(pos, pos))[:, rows]
+    before = tfa.flash_attention.launches
+    for impl in ("flash", "auto"):
+        got = tattn.gqa_attention(qb, k, v, q_positions=pb, kv_positions=pos, impl=impl,
+                                  whole_len=S)
+        np.testing.assert_allclose(got.numpy(), whole.numpy(), **TOL)
+    assert tfa.flash_attention.launches == before
+    with pytest.raises(ValueError, match="requires full self-attention"):
+        tattn.gqa_attention(qb, k, v, q_positions=pb, kv_positions=pos, impl="flash")
+    x, p = torch.zeros(1, 100, 2, 8), torch.arange(100)[None, :]
+    with pytest.raises(ValueError, match="requires full self-attention"):
+        tattn.gqa_attention(x[:, 50:], x, x, q_positions=p[:, 50:], kv_positions=p,
+                            impl="flash", whole_len=100)
+
+
+def test_wrapper_passes_a_query_block_to_the_kernel(monkeypatch):
+    """Sq 1024 queries against Skv 2048 keys (a seq-2 rank of S 2048, H 32,
+    KV 8, D 128): the wrapper hands the kernel both lengths, an output of
+    the block's rows and a chunk workspace over the longer; mismatched
+    positions, and a block under 128 rows, raise before any launch."""
+    from types import SimpleNamespace
+
+    lib = _FakeFlashLib()
+    monkeypatch.setattr(tfa._build, "load_flash_attention", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tfa.flash_attention, "launches", 0)
+    B, Sq, Skv, H, KV, D = 2, 1024, 2048, 32, 8, 128
+    q = torch.zeros((B, Sq, H, D), dtype=torch.bfloat16)
+    kv = torch.zeros((B, Skv, KV, D), dtype=torch.bfloat16)
+    pos = torch.arange(Skv, dtype=torch.int32)[None, :].expand(B, Skv).contiguous()
+    out = tfa._launch(q, kv, kv, pos[:, Sq:].contiguous(), pos)
+    assert out.shape == q.shape and tfa.flash_attention.launches == 1
+    (args,) = lib.calls
+    assert args[9:14] == (B, Sq, Skv, H, KV) and args[14] == D
+    with pytest.raises(ValueError, match=r"\[B,Sq\] and \[B,Skv\] positions"):
+        tfa.flash_attention(q, kv, kv, pos, pos)
+    with pytest.raises(ValueError, match=r"S >= 128 and <= \d+ \(Sq\)"):
+        tfa._launch(q[:, :64], kv, kv, pos[:, :64].contiguous(), pos)
+    assert len(lib.calls) == 1
+
+
+@pytest.mark.parametrize("impl", ["flash", "auto"])
+def test_seq_attention_gives_the_flash_path_each_ranks_block(impl, monkeypatch):
+    """``llama.seq_attention`` on each rank of seq 2 (a stand-in mesh whose
+    gather checks it is given the rank's block and returns the whole):
+    "flash" hands the flash function the rank's S/2 queries and all S keys
+    and positions; "auto" on the CPU takes the grouped path; both give the
+    rank's rows of the whole sequence's attention."""
+    from types import SimpleNamespace
+
+    from kukeon_tpu_torch.models import llama as tl
+
+    B, S, H, KV, D, seq = 1, 1024, 4, 2, 16, 2
+    q, k, v, pos, _ = _block(50, B, S, H, KV, D, seq, 0)
+    q, k, v, pos = map(torch.from_numpy, (q, k, v, pos))
+    whole = tattn.attention_grouped(q, k, v, tattn.attention_mask(pos, pos))
+    calls = []
+    real = tfa.flash_attention
+
+    def spy(qb, kb, vb, qp, kp):
+        calls.append((tuple(qb.shape), tuple(kb.shape), tuple(qp.shape), tuple(kp.shape)))
+        return real(qb, kb, vb, qp, kp)
+
+    monkeypatch.setattr(tfa, "flash_attention", spy)
+    for r in range(seq):
+        c = slice(r * S // seq, (r + 1) * S // seq)
+        by_ptr = {t.untyped_storage().data_ptr(): t for t in (k, v, pos)}
+
+        def gather(x, dim, axis, c=c):
+            full = by_ptr[x.untyped_storage().data_ptr()]
+            assert (dim, axis) == (1, "seq") and torch.equal(x, full[:, c])
+            return full
+
+        mesh = SimpleNamespace(seq=seq, axis_size=lambda axis: seq, gather=gather)
+        got = tl.seq_attention(q[:, c], k[:, c], v[:, c], pos[:, c], impl, mesh)
+        np.testing.assert_allclose(got.numpy(), whole[:, c].numpy(), **TOL)
+    want = [((B, S // seq, H, D), (B, S, KV, D), (B, S // seq), (B, S))] * seq
+    assert calls == (want if impl == "flash" else [])

@@ -17,8 +17,9 @@ reference's shard indices. Checkpoints cross meshes and packages bit for
 bit, and a resumed run continues with the uninterrupted run's loss. The
 CLI trains, saves and resumes on a mesh, lays out the reference's default,
 refuses an over-grant before it starts a rank, and trains the MoE family
-and the expert axis (``tests/test_torch_moe_mesh_training.py`` holds
-those to the JAX package).
+on data, expert and seq axes and the Llama family on an expert axis
+(``tests/test_torch_moe_mesh_training.py`` and
+``tests/test_torch_moe_seq_training.py`` hold those to the JAX package).
 
 One rank group at a time serves the file (:func:`_mesh`); its collectives
 and rendezvous time out after ``GROUP_TIMEOUT_S``, so no case can hang the
@@ -480,28 +481,23 @@ def test_cli_over_grant_exits_before_any_rank_starts(tmp_path):
     assert launch.current() is None
 
 
-# --seq and --pipe train the Llama family (tests/test_torch_pipeline.py);
-# the MoE family on seq stays refused (ROADMAP.md A13d2).
-@pytest.mark.parametrize("extra, item", [
-    (["--model", "mixtral-tiny", "--seq", "2"], "A13d"),
-    (["--model", "mixtral-tiny", "--seq", "2", "--fsdp", "2"], "A13d")])
-def test_cli_refuses_what_this_slice_does_not_port(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        tcli.main(["--dataset", str(tmp_path / "x.bin"), "--device", "cpu"] + extra)
-
-
+# What the CLI once refused trains: the MoE family on data and expert axes
+# (ROADMAP A13c2) and on a seq axis (A13d2).
 @pytest.mark.parametrize("extra, mesh", [
-    (["--model", "mixtral-tiny", "--data", "2"], "'data': 2, 'fsdp': 1, 'expert': 1"),
-    (["--model", "mixtral-tiny", "--expert", "2"], "'data': 1, 'fsdp': 1, 'expert': 2"),
-    (["--expert", "2"], "'data': 1, 'fsdp': 1, 'expert': 2")])
+    (["--model", "mixtral-tiny", "--data", "2"], "'data': 2, 'fsdp': 1, 'expert': 1, 'seq': 1"),
+    (["--model", "mixtral-tiny", "--expert", "2"],
+     "'data': 1, 'fsdp': 1, 'expert': 2, 'seq': 1"),
+    (["--expert", "2"], "'data': 1, 'fsdp': 1, 'expert': 2, 'seq': 1"),
+    (["--model", "mixtral-tiny", "--seq", "2"], "'data': 1, 'fsdp': 1, 'expert': 1, 'seq': 2"),
+    (["--model", "mixtral-tiny", "--seq", "2", "--fsdp", "2"],
+     "'data': 1, 'fsdp': 2, 'expert': 1, 'seq': 2")])
 def test_cli_trains_the_moe_family_and_the_expert_axis_on_a_mesh(dataset, extra, mesh):
-    """What the CLI once refused (ROADMAP A13c2) trains: the MoE family on
-    a data axis and on an expert axis, and the Llama family with its
-    leaves replicated over ``--expert``, one step a run."""
+    """The MoE family on a data, an expert and a seq axis, and the Llama
+    family with its leaves replicated over ``--expert``, one step a run."""
     launch.shutdown()
     out = _cli(["--dataset", dataset, "--device", "cpu", "--batch", "8", "--seq-len", "32",
                 "--steps", "1", "--log-every", "1"] + extra)
-    assert f"mesh={{'pipe': 1, {mesh}, 'seq': 1, 'tensor': 1}}" in out.splitlines()[0]
+    assert f"mesh={{'pipe': 1, {mesh}, 'tensor': 1}}" in out.splitlines()[0]
     step = [ln.split() for ln in out.splitlines() if ln.startswith("step ")]
     assert [r[1] for r in step] == ["1"] and np.isfinite(float(step[0][3]))
     assert ("lb=" in step[0][4]) == ("mixtral-tiny" in extra)

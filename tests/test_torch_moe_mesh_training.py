@@ -246,26 +246,36 @@ def test_capacity_binding_steps_match_the_jax_step(dataset, tmp_path):
 
 
 def test_slot_offsets_give_each_batch_rank_the_global_dispatch():
-    """``moe._slot_offset`` on each of four batch ranks (a stand-in mesh
-    whose gather returns every rank's ``[K, E]`` counts): each rank's
-    dispatch at the global capacity is its rows of one device's dispatch
-    of the whole batch, drops included: choice 1 waits behind every rank's
-    choice 0, and a rank's choice 0 behind the earlier ranks'."""
+    """``moe._row_offsets`` at ``seq`` 1 on each of four batch ranks of two
+    whole rows each (a stand-in mesh whose gather checks that it is given
+    the rank's own per-row ``[K, rows, E]`` counts and returns every
+    rank's): each rank's dispatch at the global capacity is its rows of one
+    device's dispatch of the whole batch, drops included: choice 1 waits
+    behind every rank's choice 0, and a rank's choice 0 behind the earlier
+    ranks'."""
     cfg = _tcfg(1.0)
     g = torch.Generator().manual_seed(3)
-    K, E, ranks, N = cfg.experts_per_token, cfg.num_experts, 4, 64
+    K, E, ranks, rows, S = cfg.experts_per_token, cfg.num_experts, 4, 2, 32
+    N = rows * S
     idx = torch.stack([torch.randperm(E, generator=g)[:K] for _ in range(ranks * N)])
     mask = torch.nn.functional.one_hot(idx.T, E).float()            # [K, 4N, E]
     C = tm._capacity(cfg, ranks * N)
     whole = tm._dispatch(mask, C)
     parts = mask.reshape(K, ranks, N, E)
-    every = parts.sum(dim=2).permute(1, 0, 2)                       # [ranks, K, E]
+    every = parts.reshape(K, ranks, rows, S, E).sum(dim=3).permute(1, 0, 2, 3)
+
+    def gather(b):
+        def fn(x, dim, axis):
+            assert torch.equal(x[0], every[b]) and (dim, axis) == (0, "batch")
+            return every
+        return fn
+
     for b in range(ranks):
-        mesh = SimpleNamespace(axis_size=lambda axis: ranks, replica=0, fsdp=ranks,
-                               fsdp_rank=b, gather=lambda x, dim, axis: every)
-        offset = tm._slot_offset(parts[:, b], mesh)
+        mesh = SimpleNamespace(axis_size=lambda axis: ranks, seq=1, seq_rank=0, replica=0,
+                               fsdp=ranks, fsdp_rank=b, gather=gather(b))
+        offset = tm._row_offsets(parts[:, b], mesh, rows)
         assert torch.equal(tm._dispatch(parts[:, b], C, offset), whole[b * N:(b + 1) * N]), b
-        assert bool(offset[1].all()) and (b == 0) != bool(offset[0].any())
+        assert bool(offset[1].all()) and (b == 0) != bool(offset[0, 0].any())
     assert whole.sum() < K * ranks * N                              # something dropped
 
 

@@ -286,7 +286,7 @@ for mod in ("obs", "obs.registry", "obs.expo", "obs.trace", "obs.slo", "obs.devi
             "models.ocdbt", "models.orbax_ckpt", "parallel", "parallel.mesh",
             "parallel.sharding", "parallel.launch", "parallel.forward", "parallel.autograd",
             "parallel.ring_attention", "parallel.ulysses", "parallel.pipeline",
-            "training.mesh_trainer"):
+            "training.mesh_trainer", "runtime.errors", "runtime.metadata"):
     assert "kukeon_tpu_torch." + mod in names, (mod, names)
 print("ok", len(names))
 """

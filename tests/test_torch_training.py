@@ -11,7 +11,7 @@ optimizer alone, 1e-5 through the model.
 
 import io
 import os
-from contextlib import redirect_stdout
+from contextlib import redirect_stderr, redirect_stdout
 
 import jax
 import jax.numpy as jnp
@@ -320,15 +320,31 @@ def test_cli_trains_saves_and_resumes(tmp_path):
     assert tckpt.latest_step(ckpt) == 5
 
 
-# ``--seq`` and ``--pipe`` train the Llama family
-# (tests/test_torch_pipeline.py); the MoE family on ``seq`` is A13d2.
-@pytest.mark.parametrize("extra", [["--model", "mixtral-tiny", "--seq", "2"],
-                                   ["--model", "mixtral-8x7b", "--seq", "2"],
-                                   ["--model", "mixtral-tiny", "--seq", "4", "--data", "2"]])
-def test_cli_refuses_what_is_not_ported(tmp_path, extra):
-    argv = ["--dataset", str(tmp_path / "x.bin"), "--device", "cpu"] + extra
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        tcli.main(argv)
+# ``--seq`` trains both families on gloo ranks (the MoE family held to the
+# JAX step in tests/test_torch_moe_seq_training.py); ``--pipe`` stays
+# llama-only, as in the reference.
+@pytest.mark.parametrize("extra", [["--seq", "2"], ["--seq", "4", "--data", "2"]],
+                         ids=["seq2", "seq4_data2"])
+def test_cli_trains_mixtral_tiny_on_a_seq_axis(tmp_path, extra):
+    path = str(tmp_path / "tok.bin")
+    tdata.TokenDataset.write(path, np.random.default_rng(6).integers(0, 512, 5000))
+    out = _cli(["--dataset", path, "--model", "mixtral-tiny", "--device", "cpu", "--batch",
+                "8", "--seq-len", "32", "--steps", "2", "--warmup-steps", "1",
+                "--log-every", "1"] + extra)
+    assert f"'seq': {extra[1]}" in out.splitlines()[0]
+    rows = [ln.split() for ln in out.splitlines() if ln.startswith("step ")]
+    assert [r[1] for r in rows] == ["1", "2"]
+    assert all(np.isfinite(float(r[3])) and r[4].startswith("lb=") for r in rows)
+
+
+def test_cli_keeps_the_reference_moe_pipeline_refusal_beside_seq(tmp_path):
+    """``mixtral-8x7b --seq 2 --pipe 2``: exit 2 with the reference's
+    message, before anything is built."""
+    err = io.StringIO()
+    with redirect_stderr(err):
+        assert tcli.main(["--dataset", str(tmp_path / "x.bin"), "--device", "cpu", "--model",
+                          "mixtral-8x7b", "--seq", "2", "--pipe", "2"]) == 2
+    assert err.getvalue() == "error: pipeline parallelism is llama-only for now\n"
 
 
 def test_cli_without_device_raises_on_a_gpu_less_host(tmp_path):

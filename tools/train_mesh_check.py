@@ -33,7 +33,9 @@ rank's trainer):
    the child's group times out after ``KUKEON_TP_TIMEOUT_S``, 120 s
    here, and its exit marks the length as not fitting).
 
-A mesh may hold ``seq`` and ``pipe`` (the GPipe step, at
+A mesh may hold ``seq`` (either family: a Llama model attends through
+ring attention, a MoE model over every key gathered, as the reference's
+steps do) and ``pipe`` (the Llama family's GPipe step, at
 ``--microbatches`` microbatches, default 2 x pipe; each pipeline run
 reports its bubble share ``(P - 1) / (M + P - 1)``); every run reports a
 rank's counted state bytes (``TrainLayout.state_bytes``).
@@ -55,6 +57,8 @@ run. An empty ``--meshes`` skips ``--model``.
     python3 tools/train_mesh_check.py --model mixtral-8x7b --layers 4 \
         --meshes "expert=4;fsdp=4;expert=2,fsdp=2;expert=2,tensor=2" \
         --big-model mixtral-8x7b --big-layers 16 --big-meshes "expert=4;fsdp=4"
+    python3 tools/train_mesh_check.py --model mixtral-8x7b --layers 4 \
+        --meshes "seq=2,expert=2;data=2,seq=2;seq=4" --big-meshes ""
 
 ``--device cpu --model tiny --big-model tiny --batch 8 --seq-len 32``
 (or ``--model mixtral-tiny --big-model mixtral-tiny``) checks the script
